@@ -73,6 +73,14 @@ def distortion_closed_form(
     return dim * noise_power * v_g / tx_power * ratio.max()
 
 
+def noise_std(noise_power):
+    """σ_z from σ_z²: a Python number stays one, a tensor (the lattice's
+    per-cell σ_z²) stays a tensor on its device, so no value leaves it."""
+    if isinstance(noise_power, torch.Tensor):
+        return torch.sqrt(noise_power)
+    return math.sqrt(noise_power)
+
+
 def combine_given_stats(
     g: torch.Tensor,
     rho: torch.Tensor,
@@ -128,7 +136,7 @@ def aircomp_aggregate(
     dim = g.shape[-1]
     # the post-detection noise is a real Gaussian with variance σ_z² per
     # entry, which is what the Eq. 15 closed form assumes
-    z = z * math.sqrt(noise_power)
+    z = z * noise_std(noise_power)
     y_hat = combine_given_stats(
         g, rho, h, mask, z, m_g, v_g, a, simulate_physical=simulate_physical
     )

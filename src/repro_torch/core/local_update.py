@@ -8,10 +8,14 @@ item 5 ports them.
 
 The mini-batch rows come in as an index tensor (:func:`minibatch_indices`
 draws it from a ``torch.Generator`` in normal use), so the same draw can be
-fed to the reference.
+fed to the reference. :func:`local_update_stage_cells` is the same step for
+every cell of a lattice round at once: params with a leading cell axis, one
+row draw per cell, and an outer ``vmap`` over cells around the per-device
+``vmap(grad)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -43,7 +47,8 @@ def minibatch_indices(data, batch_size: int, generator: torch.Generator) -> torc
 
 
 def draw_minibatch(data, batch_idx: torch.Tensor):
-    """Gather each device's mini-batch rows → (feats, labels), each leading (N, B)."""
+    """Gather each device's mini-batch rows → (feats, labels), each leading
+    (N, B); a (C, N, B) row draw (one per cell) gives (C, N, B) leads."""
     rows = torch.arange(data.n_devices, device=batch_idx.device)[:, None]
     return data.features[rows, batch_idx], data.labels[rows, batch_idx]
 
@@ -60,14 +65,8 @@ def local_gradient_stage(loss_fn: Callable, data, cfg, params, batch_idx) -> tor
     return _device_gradients(loss_fn, params, feats, labels)
 
 
-def local_update_stage(loss_fn: Callable, data, cfg, params, batch_idx, t) -> torch.Tensor:
-    """Steps 2–2b: the per-device upload Δ_i (N, D).
-
-    At ``local_steps=1`` under a stateless algorithm Δ_i is the plain
-    mini-batch gradient; ``t`` (the round) only matters for multi-step
-    local learning rates, which are not ported yet.
-    """
-    del t
+def check_local_update(cfg) -> None:
+    """Raise unless ``cfg`` names the ported local update (one plain step)."""
     name = cfg.local_algorithm
     if name not in ALGORITHMS:
         raise ValueError(f"unknown local_algorithm {name!r}; choose from {ALGORITHMS}")
@@ -79,4 +78,30 @@ def local_update_stage(loss_fn: Callable, data, cfg, params, batch_idx, t) -> to
             "ported yet (ROADMAP queue A item 5: multi-step local updates, "
             "FedDyn and SCAFFOLD)"
         )
+
+
+def local_update_stage(loss_fn: Callable, data, cfg, params, batch_idx, t) -> torch.Tensor:
+    """Steps 2–2b: the per-device upload Δ_i (N, D).
+
+    At ``local_steps=1`` under a stateless algorithm Δ_i is the plain
+    mini-batch gradient; ``t`` (the round) only matters for multi-step
+    local learning rates, which are not ported yet.
+    """
+    del t
+    check_local_update(cfg)
     return local_gradient_stage(loss_fn, data, cfg, params, batch_idx)
+
+
+def local_update_stage_cells(
+    loss_fn: Callable, data, cfg, params_c, batch_idx_c, t
+) -> torch.Tensor:
+    """:func:`local_update_stage` for C cells at once → (C, N, D).
+
+    ``params_c`` has a leading cell axis on every leaf and ``batch_idx_c``
+    is (C, N, B): each cell's rows come from its own seed's draw. Each cell
+    computes exactly :func:`_device_gradients` (an outer ``vmap`` over cells).
+    """
+    del t
+    check_local_update(cfg)
+    feats, labels = draw_minibatch(data, batch_idx_c)
+    return vmap(functools.partial(_device_gradients, loss_fn))(params_c, feats, labels)

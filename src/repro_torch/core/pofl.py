@@ -11,6 +11,14 @@ vectors or uniforms, and the receiver noise ``z`` — which
 Every stage runs inside a ``torch.profiler.record_function`` range named
 ``pofl.<stage>``, which is how a profile of the real round is broken down.
 
+:func:`round_algorithm_cells` is the round of every cell of a lattice at
+once (ranges ``lattice.<stage>``): each stage runs the per-cell function of
+:func:`round_algorithm` under ``torch.func.vmap`` over cells, so a lattice
+cell and a ``run_pofl`` run share one code path, except that under
+``pallas_fused`` one launch of the trial-batched kernel aggregates all
+cells. The policy may be data there: an id of
+``scheduling.POLICY_IDS`` per cell (``policy_id``).
+
 ``backend`` selects the aggregation:
 
   * ``jnp``          — the reference arithmetic in plain PyTorch (Eq. 16, or
@@ -26,18 +34,22 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-import math
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.func import vmap
 from torch.profiler import record_function
 
 from repro_torch.core import aircomp, scheduling
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.local_update import local_update_stage
+from repro_torch.core.local_update import local_update_stage, local_update_stage_cells
 from repro_torch.core.metrics import RoundMetrics
 from repro_torch.flatten_util import ravel_pytree
-from repro_torch.kernels.aircomp import aircomp_aggregate_fused
+from repro_torch.kernels.aircomp import (
+    aircomp_aggregate_fused,
+    aircomp_aggregate_fused_batch,
+)
 
 
 class AggregationBackend(str, enum.Enum):
@@ -47,12 +59,19 @@ class AggregationBackend(str, enum.Enum):
     PALLAS_FUSED = "pallas_fused"  # fused kernel (physical semantics)
 
 
+# The cfg.policy of a POLICY-FUSED engine (``repro_torch.sim.lattice``):
+# each cell carries its policy as an id, so the policy string is
+# deliberately not a real policy.
+FUSED_POLICY = "__fused__"
+
+
 @dataclasses.dataclass(frozen=True)
 class POFLConfig:
     """Hyper-parameters for the PO-FL simulator (defaults = paper Sec. V-A).
 
     The reference's fields for features not ported yet (multi-step local
-    learning rates and regularizers, the non-finite quarantine) are left out.
+    learning rates and regularizers) are left out; ``on_nonfinite="skip"``
+    (the non-finite quarantine) is refused by the engine.
     """
 
     n_devices: int = 30
@@ -73,6 +92,7 @@ class POFLConfig:
     local_algorithm: str = "fedavg"  # core.local_update.ALGORITHMS name
     local_steps: int = 1             # K local SGD steps per device per round
     seed: int = 0
+    on_nonfinite: str = "propagate"  # "skip" (the quarantine) is not ported
 
     def lr(self, t: int) -> float:
         """Paper Sec. V-A: η^t = max(η0 · 0.95^t, 1e-5)."""
@@ -132,8 +152,17 @@ class History(NamedTuple):
 def sampler_draw(cfg: POFLConfig, generator: torch.Generator) -> torch.Tensor:
     """The random input :func:`scheduling_stage` takes for ``cfg``: (S, N)
     Gumbel vectors for the sequential sampler, one (N,) Gumbel vector for
-    top-k, (N,) uniforms for the Bernoulli variant."""
+    top-k, (N,) uniforms for the Bernoulli variant.
+
+    A policy-fused ``cfg`` (:data:`FUSED_POLICY`: the policy is a per-cell
+    id) with the Bernoulli sampler draws both inputs a cell may need, as one
+    (S+1, N) tensor: the S Gumbel vectors of the deterministic policy's
+    draw, then the uniforms.
+    """
     n, dev = cfg.n_devices, generator.device
+    if cfg.policy == FUSED_POLICY and cfg.sampler == "bernoulli":
+        gumbels = scheduling.gumbel((cfg.n_scheduled, n), generator)
+        return torch.cat([gumbels, torch.rand(1, n, generator=generator, device=dev)])
     if cfg.policy != "deterministic" and cfg.sampler == "bernoulli":
         return torch.rand(n, generator=generator, device=dev)
     if cfg.sampler == "topk":
@@ -150,12 +179,38 @@ def scheduling_stage(
     alpha,
     noise_power,
     sched_draw: torch.Tensor,
+    policy_id: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Step 4: p_i^t (Eq. 34/Remark 2) → draw S^t → weights ρ (Eq. 37/HT).
 
-    Returns ``(rho, mask)``. ``sched_draw`` is :func:`sampler_draw`'s tensor.
+    Returns ``(rho, mask)``. ``sched_draw`` is :func:`sampler_draw`'s tensor
+    (of a policy-fused ``cfg`` when ``policy_id`` is given).
+
+    ``policy_id`` (an integer tensor of ``scheduling.POLICY_IDS``) replaces
+    ``cfg.policy``: the probabilities come from
+    ``scheduling_probs_by_id`` and the deterministic weight rule is a value
+    select over values computed from the same draw, as the string dispatch
+    draws them.
     """
     method = "topk" if cfg.sampler == "topk" else "sequential"
+    if policy_id is not None:
+        probs = scheduling.scheduling_probs_by_id(
+            policy_id, stats.norm, stats.var, h_abs, data_frac, dim,
+            alpha, cfg.tx_power, noise_power,
+        )
+        is_det = policy_id == scheduling.DETERMINISTIC_ID
+        bernoulli = cfg.sampler == "bernoulli"
+        sched = scheduling.sample_without_replacement(
+            sched_draw[:-1] if bernoulli else sched_draw, probs, cfg.n_scheduled,
+            method=method,
+        )
+        rho_det = scheduling.deterministic_weights(sched, data_frac)
+        if bernoulli:
+            mask_b, pi = scheduling.sample_bernoulli(sched_draw[-1], probs, cfg.n_scheduled)
+            rho = torch.where(is_det, rho_det, scheduling.bernoulli_weights(pi, data_frac))
+            return rho, torch.where(is_det, sched.mask, mask_b)
+        rho_seq = scheduling.aggregation_weights(sched, probs, data_frac, cfg.n_scheduled)
+        return torch.where(is_det, rho_det, rho_seq), sched.mask
     probs = scheduling.scheduling_probs(
         cfg.policy, stats.norm, stats.var, h_abs, data_frac, dim,
         alpha, cfg.tx_power, noise_power,
@@ -173,6 +228,29 @@ def scheduling_stage(
     )
     rho = scheduling.aggregation_weights(sched, probs, data_frac, cfg.n_scheduled)
     return rho, sched.mask
+
+
+def fused_aggregation_inputs(
+    cfg: POFLConfig,
+    g: torch.Tensor,
+    rho: torch.Tensor,
+    h: torch.Tensor,
+    mask: torch.Tensor,
+    z: torch.Tensor,
+    noise_power,
+):
+    """The scalar prelude of the fused aggregation for one cell →
+    ``(coeff, m_g, v_g, a, scaled z, e_com)``: everything the kernel takes
+    beside ``g``, and the Eq. 15 closed form."""
+    stats = aircomp.local_stats(g)
+    m_g, v_g = aircomp.global_stats(stats, rho, mask)
+    h_abs = h.abs()
+    a = aircomp.denoise_scalar(rho, h_abs, mask, cfg.tx_power)
+    coeff = mask * rho  # b_i h_i = ρ_i a exactly (Lemma-1 channel inversion)
+    e_com = aircomp.distortion_closed_form(
+        v_g, rho, h_abs, mask, g.shape[-1], cfg.tx_power, noise_power
+    )
+    return coeff, m_g, v_g, a, z * aircomp.noise_std(noise_power), e_com
 
 
 def aggregation_stage(
@@ -194,25 +272,37 @@ def aggregation_stage(
             g, rho, h, mask, z, cfg.tx_power, noise_power,
             simulate_physical=cfg.simulate_physical,
         )
-    stats = aircomp.local_stats(g)
-    m_g, v_g = aircomp.global_stats(stats, rho, mask)
-    h_abs = h.abs()
-    a = aircomp.denoise_scalar(rho, h_abs, mask, cfg.tx_power)
-    dim = g.shape[-1]
-    coeff = mask * rho  # b_i h_i = ρ_i a exactly (Lemma-1 channel inversion)
-    y_hat = aircomp_aggregate_fused(
-        g, coeff, m_g, v_g, a, z * math.sqrt(noise_power)
+    coeff, m_g, v_g, a, z, e_com = fused_aggregation_inputs(
+        cfg, g, rho, h, mask, z, noise_power
     )
-    e_com = aircomp.distortion_closed_form(
-        v_g, rho, h_abs, mask, dim, cfg.tx_power, noise_power
-    )
-    return y_hat, e_com
+    return aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z), e_com
 
 
 def apply_update_stage(cfg: POFLConfig, params, y_hat: torch.Tensor, t: int):
     """Step 6: w^{t+1} = w^t − η^t ŷ^t (flat update, re-raveled)."""
     flat, unravel = ravel_pytree(params)
     return unravel(flat - cfg.lr(t) * y_hat)
+
+
+def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=None):
+    """Steps 3–4 of one cell: the uploaded statistics, then the schedule
+    → ``(rho, mask)``."""
+    stats = aircomp.local_stats(g)
+    return scheduling_stage(
+        cfg, stats, h.abs(), data_frac, g.shape[-1], alpha, noise_power, sched_draw,
+        policy_id=policy_id,
+    )
+
+
+def _metrics(cfg, data_frac, g, rho, mask, h, y_hat, e_com) -> RoundMetrics:
+    """One cell's :class:`RoundMetrics`."""
+    return RoundMetrics(
+        e_com=e_com,
+        e_var=scheduling.global_update_variance(g, rho, mask, data_frac, cfg.n_scheduled),
+        grad_norm=torch.linalg.vector_norm(y_hat),
+        n_scheduled=mask.sum(),
+        a_scalar=aircomp.denoise_scalar(rho, h.abs(), mask, cfg.tx_power),
+    )
 
 
 # --------------------------------------------------------------------------
@@ -247,14 +337,9 @@ def round_algorithm(
 
     with record_function("pofl.local_update"):
         g = local_update_stage(loss_fn, data, cfg, params, batch_idx, t)  # (N, D)
-    dim = g.shape[-1]
 
     with record_function("pofl.scheduling"):
-        stats = aircomp.local_stats(g)  # step 3: uploaded scalar statistics
-        h_abs = h.abs()
-        rho, mask = scheduling_stage(
-            cfg, stats, h_abs, data_frac, dim, alpha, noise_power, sched_draw
-        )
+        rho, mask = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power)
 
     with record_function("pofl.aggregation"):
         y_hat, e_com = aggregation_stage(cfg, g, rho, h, mask, z, agg_noise_power)
@@ -263,14 +348,69 @@ def round_algorithm(
         new_params = apply_update_stage(cfg, params, y_hat, t)
 
     with record_function("pofl.metrics"):
-        metrics = RoundMetrics(
-            e_com=e_com,
-            e_var=scheduling.global_update_variance(
-                g, rho, mask, data_frac, cfg.n_scheduled
-            ),
-            grad_norm=torch.linalg.vector_norm(y_hat),
-            n_scheduled=mask.sum(),
-            a_scalar=aircomp.denoise_scalar(rho, h_abs, mask, cfg.tx_power),
+        metrics = _metrics(cfg, data_frac, g, rho, mask, h, y_hat, e_com)
+    return new_params, metrics
+
+
+def round_algorithm_cells(
+    loss_fn: Callable,
+    data: DeviceData,
+    cfg: POFLConfig,
+    params_c,
+    h_c: torch.Tensor,
+    batch_idx_c: torch.Tensor,
+    sched_c: torch.Tensor,
+    z_c: torch.Tensor,
+    t: int,
+    noise_power_c: torch.Tensor,
+    alpha_c: torch.Tensor,
+    policy_id_c: torch.Tensor,
+) -> tuple[Any, RoundMetrics]:
+    """One round of C lattice cells at once → ``(params_c, metrics)``.
+
+    Every argument carries a leading cell axis: the params' leaves, the
+    draws ``h_c`` (C, N), ``batch_idx_c`` (C, N, B), ``sched_c`` (of a
+    policy-fused ``cfg``) and ``z_c`` (C, D), and the per-cell
+    ``noise_power_c``, ``alpha_c`` and ``policy_id_c`` (C,), the policy as
+    an id of ``scheduling.POLICY_IDS``. Cell c computes :func:`round_algorithm`
+    of its policy on its slice: each stage is the per-cell function under
+    ``vmap`` over cells, except that under ``pallas_fused`` the
+    aggregation's scalar prelude is vmapped and then ONE launch of the
+    trial-batched kernel aggregates the (C, N, D) gradients. σ_z² = 0 for
+    ``noisefree`` cells is a value select. The metrics are (C,) tensors;
+    nothing is read back to the host.
+    """
+    agg_noise_c = torch.where(policy_id_c == scheduling.NOISEFREE_ID, 0.0, noise_power_c)
+    data_frac = data.data_frac
+
+    with record_function("lattice.local_update"):
+        g = local_update_stage_cells(loss_fn, data, cfg, params_c, batch_idx_c, t)
+
+    with record_function("lattice.scheduling"):
+        rho, mask = vmap(functools.partial(_schedule, cfg, data_frac))(
+            g, h_c, sched_c, alpha_c, noise_power_c, policy_id_c
+        )
+
+    with record_function("lattice.aggregation"):
+        if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
+            y_hat, e_com = vmap(functools.partial(aggregation_stage, cfg))(
+                g, rho, h_c, mask, z_c, agg_noise_c
+            )
+        else:
+            coeff, m_g, v_g, a, z, e_com = vmap(
+                functools.partial(fused_aggregation_inputs, cfg)
+            )(g, rho, h_c, mask, z_c, agg_noise_c)
+            y_hat = aircomp_aggregate_fused_batch(
+                g, coeff.contiguous(), m_g.contiguous(), v_g.contiguous(),
+                a.contiguous(), z,
+            )
+
+    with record_function("lattice.update"):
+        new_params = vmap(lambda p, y: apply_update_stage(cfg, p, y, t))(params_c, y_hat)
+
+    with record_function("lattice.metrics"):
+        metrics = vmap(functools.partial(_metrics, cfg, data_frac))(
+            g, rho, mask, h_c, y_hat, e_com
         )
     return new_params, metrics
 

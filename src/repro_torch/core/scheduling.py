@@ -9,7 +9,12 @@ same values can be fed to the reference; :func:`gumbel` makes them from a
 
 Policies: ``pofl`` (Eq. 34/35), ``importance``, ``channel``, ``noisefree``
 (Eq. 34/35 with σ_z² = 0) and ``deterministic`` (uniform subset, direct
-biased aggregation).
+biased aggregation). The lattice carries the policy as data, an id of
+``POLICY_IDS`` per cell (:func:`scheduling_probs_by_id`).
+
+Every function here is written for one cell and stays correct under
+``torch.func.vmap`` over cells: no in-place write of a batched value into a
+fresh tensor, and no value read back to the host.
 """
 from __future__ import annotations
 
@@ -22,6 +27,17 @@ from repro_torch.core.numerics import EPS, eps_guard, safe_div
 
 # The reference's append-only id table: a policy's id is its index here.
 POLICIES = ("pofl", "importance", "channel", "noisefree", "deterministic")
+POLICY_IDS = {name: i for i, name in enumerate(POLICIES)}
+NOISEFREE_ID = POLICY_IDS["noisefree"]
+DETERMINISTIC_ID = POLICY_IDS["deterministic"]
+
+
+def policy_id(policy: str) -> int:
+    """The integer id of ``policy`` (its index in ``POLICIES``)."""
+    try:
+        return POLICY_IDS[policy]
+    except KeyError:
+        raise ValueError(f"unknown policy {policy!r}; choose from {POLICIES}") from None
 
 
 def gumbel(shape, generator: torch.Generator) -> torch.Tensor:
@@ -81,6 +97,42 @@ def scheduling_probs(
     return q / q.sum()
 
 
+def scheduling_probs_by_id(
+    policy_id: torch.Tensor,
+    grad_norms: torch.Tensor,
+    grad_vars: torch.Tensor,
+    h_abs: torch.Tensor,
+    data_frac: torch.Tensor,
+    dim: int,
+    alpha,
+    tx_power: float,
+    noise_power,
+) -> torch.Tensor:
+    """:func:`scheduling_probs` with the policy as data: an integer tensor
+    of ``POLICY_IDS``.
+
+    Every policy's score is computed, each exactly as the string version
+    computes it, and the id selects one by value (``torch.where``), so the
+    card never waits on the host to learn the policy. ``alpha`` and
+    ``noise_power`` may be tensors (per cell, under a ``vmap`` over cells).
+    The eps-guard and the normalization are the string version's.
+    """
+    scores = {
+        "pofl": pofl_q(grad_norms, grad_vars, h_abs, data_frac, dim, alpha, tx_power,
+                       noise_power),
+        "importance": data_frac * grad_norms,
+        "channel": h_abs**2,
+        "noisefree": pofl_q(grad_norms, grad_vars, h_abs, data_frac, dim, alpha,
+                            tx_power, 0.0),
+        "deterministic": torch.ones_like(h_abs),
+    }
+    q = scores[POLICIES[-1]]
+    for name in POLICIES[:-1]:
+        q = torch.where(policy_id == POLICY_IDS[name], scores[name], q)
+    q = eps_guard(q)
+    return q / q.sum()
+
+
 class Schedule(NamedTuple):
     """One round's draw: indices Y_{t,k}, their step-k renormalized probs q_k,
     and the 0/1 device mask.
@@ -126,7 +178,7 @@ def sample_without_replacement(
         p_sel = torch.where(real, probs[safe], 0.0)
         cum_prev = torch.cat([p_sel.new_zeros(1), torch.cumsum(p_sel, 0)[:-1]])
         step_probs = torch.where(real, safe_div(p_sel, 1.0 - cum_prev), math.inf)
-        mask = probs.new_zeros(n).index_add_(0, safe, real.to(probs.dtype))
+        mask = probs.new_zeros(n).index_add(0, safe, real.to(probs.dtype))
         return Schedule(indices=indices, step_probs=step_probs, mask=mask)
     if method != "sequential":
         raise ValueError(f"unknown sampling method {method!r}")
@@ -171,7 +223,7 @@ def aggregation_weights(
     w_k = torch.where(real, w_k, 0.0)
     n_drawn = real.to(w_k.dtype).sum()
     w_k = w_k / torch.clamp_min(n_drawn, 1.0)
-    return data_frac.new_zeros(n).index_add_(0, idx, w_k)
+    return data_frac.new_zeros(n).index_add(0, idx, w_k)
 
 
 def bernoulli_inclusion_probs(probs: torch.Tensor, n_scheduled: int) -> torch.Tensor:

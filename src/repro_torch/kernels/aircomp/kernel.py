@@ -1,15 +1,19 @@
 """Fused AirComp aggregation on Hopper: build, bind and launch the CUDA kernel.
 
-Replaces the TPU kernel ``src/repro/kernels/aircomp/kernel.py:132``
-``aircomp_fused``. The source is ``csrc/aircomp.cu`` (its header says what
-bounds the kernel and how the design meets it). It is compiled with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface at first use,
+Replaces the TPU kernels ``src/repro/kernels/aircomp/kernel.py:132``
+``aircomp_fused`` (one round) and ``:82`` ``aircomp_fused_batch`` (every
+cell of a lattice round at once). Both entries live in one source,
+``csrc/aircomp.cu`` (its header says what bounds the kernel and how the
+design meets it): the trial axis is the grid's second dimension and one
+round is the batch of one trial. It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface at first use,
 under ``build/`` beside this file, and bound with ``ctypes``. Importing this
 module builds nothing, so the CPU tests import it without ``nvcc``.
 
 Unlike the TPU kernel, nothing is padded: the TPU's 128-lane tile was a
-layout choice. The scalars M_g, V_g and a stay on the device as 0-d tensors,
-so a round never waits on the host to launch the kernel.
+layout choice. The scalars M_g, V_g and a stay on the device (0-d tensors
+for a round, (B,) for a batch), so a round never waits on the host to
+launch the kernel.
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launches of the kernel since the last reset; counted only in
-# :func:`aircomp_fused`, right where the launch succeeded.
+# Launches since the last reset, one counter per entry, each counted only
+# in its wrapper, right where the launch succeeded: ``launches`` for
+# :func:`aircomp_fused`, ``batch_launches`` for :func:`aircomp_fused_batch`.
 launches = 0
+batch_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,19 +89,34 @@ def _library() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.aircomp_fused_f32.argtypes = [p, ll, p, p, p, p, p, p, i, ll, i, p]
     lib.aircomp_fused_f32.restype = i
+    lib.aircomp_fused_batch_f32.argtypes = [p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, p]
+    lib.aircomp_fused_batch_f32.restype = i
     lib.aircomp_error_string.argtypes = [i]
     lib.aircomp_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _vector_width(d: int, ld: int, *tensors: torch.Tensor) -> int:
-    """Widest load (floats) that keeps every row and pointer aligned."""
+def _vector_width(d: int, strides, *tensors: torch.Tensor) -> int:
+    """Widest load (floats) that keeps every row, trial and pointer aligned."""
     for vec in (4, 2):
-        if d % vec == 0 and ld % vec == 0 and all(
+        if d % vec == 0 and all(s % vec == 0 for s in strides) and all(
             t.data_ptr() % (4 * vec) == 0 for t in tensors
         ):
             return vec
     return 1
+
+
+def _check_operands(name: str, g: torch.Tensor, operands) -> None:
+    for arg, t in operands:
+        if not isinstance(t, torch.Tensor) or t.device != g.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be a float32 tensor on {g.device}")
+    if g.device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors only")
+
+
+def _raise_on_error(name: str, lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.aircomp_error_string(err).decode()}")
 
 
 def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
@@ -106,16 +127,12 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     and ``a`` are 0-d float32 tensors on the same card.
     """
     global launches
+    _check_operands("aircomp_fused", g, (("g", g), ("coeff", coeff), ("z", z),
+                                         ("m_g", m_g), ("v_g", v_g), ("a", a)))
+    if g.dim() != 2:
+        raise ValueError(f"aircomp_fused: g must be (N, D), got {tuple(g.shape)}")
     n, d = g.shape
     scalars = (m_g, v_g, a)
-    for name, t in (("g", g), ("coeff", coeff), ("z", z), ("m_g", m_g),
-                    ("v_g", v_g), ("a", a)):
-        if not isinstance(t, torch.Tensor) or t.device != g.device or t.dtype != torch.float32:
-            raise ValueError(
-                f"aircomp_fused: {name} must be a float32 tensor on {g.device}"
-            )
-    if g.device.type != "cuda":
-        raise ValueError("aircomp_fused launches on CUDA tensors only")
     if g.stride(1) != 1 or not (coeff.is_contiguous() and z.is_contiguous()):
         raise ValueError("aircomp_fused: g needs unit stride along D, coeff and z contiguity")
     if coeff.shape != (n,) or z.shape != (d,) or any(s.dim() != 0 for s in scalars):
@@ -125,7 +142,7 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
         )
     out = torch.empty(d, dtype=torch.float32, device=g.device)
     ld = g.stride(0)
-    vec = _vector_width(d, ld, g, z, out)
+    vec = _vector_width(d, (ld,), g, z, out)
     lib = _library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -133,9 +150,56 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
             g.data_ptr(), ld, coeff.data_ptr(), z.data_ptr(), m_g.data_ptr(),
             v_g.data_ptr(), a.data_ptr(), out.data_ptr(), n, d, vec, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"aircomp_fused launch failed: {lib.aircomp_error_string(err).decode()}"
-        )
+    _raise_on_error("aircomp_fused", lib, err)
     launches += 1
+    return out
+
+
+def aircomp_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
+    """Launch the trial-batched fused Eq. 5→8 kernel → ŷ (B, D) float32.
+
+    ``g`` is (B, N, D) float32 with unit stride along D (any row and trial
+    stride: a strided view is read in place); ``z`` is (B, D) with unit
+    stride along D; ``coeff`` (B, N) and the scalars ``m_g``, ``v_g``, ``a``
+    (B,) are contiguous float32, each trial with its own values. One launch
+    serves every trial.
+    """
+    global batch_launches
+    _check_operands("aircomp_fused_batch", g, (
+        ("g", g), ("coeff", coeff), ("z", z), ("m_g", m_g), ("v_g", v_g), ("a", a)))
+    if g.dim() != 3:
+        raise ValueError(f"aircomp_fused_batch: g must be (B, N, D), got {tuple(g.shape)}")
+    bt, n, d = g.shape
+    scalars = (m_g, v_g, a)
+    if coeff.shape != (bt, n) or z.shape != (bt, d) or any(s.shape != (bt,) for s in scalars):
+        raise ValueError(
+            f"aircomp_fused_batch: shapes g {tuple(g.shape)}, coeff {tuple(coeff.shape)}, "
+            f"z {tuple(z.shape)}, scalars {[tuple(s.shape) for s in scalars]}; "
+            f"expected coeff ({bt}, {n}), z ({bt}, {d}) and ({bt},) scalars"
+        )
+    if bt == 0 or n == 0 or d == 0:
+        raise ValueError(f"aircomp_fused_batch: empty operand g {tuple(g.shape)}")
+    if g.stride(2) != 1 or z.stride(1) != 1 or not coeff.is_contiguous() or any(
+        not s.is_contiguous() for s in scalars
+    ):
+        raise ValueError(
+            "aircomp_fused_batch: g and z need unit stride along D; coeff and the "
+            "scalars must be contiguous"
+        )
+    out = torch.empty(bt, d, dtype=torch.float32, device=g.device)
+    # a stride over an axis of length 1 is never stepped: pass 0
+    g_trial = g.stride(0) if bt > 1 else 0
+    g_row = g.stride(1) if n > 1 else 0
+    z_trial = z.stride(0) if bt > 1 else 0
+    vec = _vector_width(d, (g_trial, g_row, z_trial), g, z, out)
+    lib = _library()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.aircomp_fused_batch_f32(
+            g.data_ptr(), g_trial, g_row, coeff.data_ptr(), z.data_ptr(), z_trial,
+            m_g.data_ptr(), v_g.data_ptr(), a.data_ptr(), out.data_ptr(), d, bt, n, d,
+            vec, stream,
+        )
+    _raise_on_error("aircomp_fused_batch", lib, err)
+    batch_launches += 1
     return out

@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.aircomp.kernel import aircomp_fused
-from repro_torch.kernels.aircomp.ref import aircomp_fused_ref
+from repro_torch.kernels.aircomp.kernel import aircomp_fused, aircomp_fused_batch
+from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
 
 
 def aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
@@ -19,3 +19,13 @@ def aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     if g.device.type == "cuda":
         return aircomp_fused(g, coeff, m_g, v_g, a, z)
     raise ValueError(f"aircomp_aggregate_fused: no path for device {g.device}")
+
+
+def aircomp_aggregate_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
+    """Trial-batched fused Eq. 5→8 over (B, N, D) gradients → ŷ (B, D), one
+    kernel launch for all B trials on a CUDA tensor."""
+    if g.device.type == "cpu":
+        return aircomp_fused_batch_ref(g, coeff, m_g, v_g, a, z)
+    if g.device.type == "cuda":
+        return aircomp_fused_batch(g, coeff, m_g, v_g, a, z)
+    raise ValueError(f"aircomp_aggregate_fused_batch: no path for device {g.device}")

@@ -31,3 +31,17 @@ def aircomp_fused_ref(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     acc = (coeff[:, None] * g).sum(dim=0)  # Eq. 7 signal, a cancelled
     w = coeff.sum()
     return acc - w * m_g + sqrt_vg / a * z + m_g  # Eq. 8
+
+
+def aircomp_fused_batch_ref(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
+    """Trial-batched plain version: a leading (B,) trial axis on every
+    argument (g (B, N, D), coeff (B, N), m_g/v_g/a (B,), z (B, D)) → (B, D).
+
+    Each trial is :func:`aircomp_fused_ref` with its own scalars, ``a``
+    cancelled the same way, so a trial with an empty schedule stays finite.
+    """
+    sqrt_vg = torch.sqrt(eps_guard(torch.as_tensor(v_g, dtype=torch.float32)))
+    acc = (coeff[:, :, None] * g).sum(dim=1)  # Eq. 7 signal, a cancelled
+    w = coeff.sum(dim=1)
+    return (acc - (w * m_g)[:, None] + (sqrt_vg / a)[:, None] * z
+            + m_g[:, None])  # Eq. 8

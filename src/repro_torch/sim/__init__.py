@@ -1,1 +1,27 @@
-"""Port of ``repro.sim``: channel processes, model tasks and the round engine."""
+"""Port of ``repro.sim``: channel processes, model tasks, the round engine
+and the scenario lattice. The exports are the reference's names that are
+ported so far (ROADMAP queue A lists the rest)."""
+from repro_torch.sim.engine import FUSED_POLICY, SimEngine
+from repro_torch.sim.lattice import LatticeRecords, LatticeSpec, run_lattice
+from repro_torch.sim.scenario import (
+    CHANNEL_SCENARIOS,
+    PARTITIONS,
+    make_channel_process,
+    make_partition,
+)
+from repro_torch.sim.tasks import TASKS, ModelTask, make_model_task
+
+__all__ = [
+    "CHANNEL_SCENARIOS",
+    "FUSED_POLICY",
+    "LatticeRecords",
+    "LatticeSpec",
+    "ModelTask",
+    "PARTITIONS",
+    "SimEngine",
+    "TASKS",
+    "make_channel_process",
+    "make_model_task",
+    "make_partition",
+    "run_lattice",
+]

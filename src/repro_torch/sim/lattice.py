@@ -1,0 +1,194 @@
+"""Experiment lattices (port of ``repro.sim.lattice``).
+
+A :class:`LatticeSpec` names the sweep axes
+
+    policies × noise_powers × alphas × seeds   (× n_rounds)
+
+and :func:`run_lattice` runs every cell of it at once: the cells are a
+leading batch axis of one round (``core.pofl.round_algorithm_cells``), the
+policy is an id per cell (``core.scheduling.POLICY_IDS``), and under
+``backend="pallas_fused"`` one launch of the trial-batched CUDA kernel
+aggregates all cells each round. The flat cell order is the reference's
+policy-major one, so the records reshape to the reference's
+``(A, P, Nn, Na, Ns, T|E)`` grid with A = 1. The records stay on the device
+for the whole run and come to the host once, at the end.
+
+What the reference's lattice does beyond that raises ``NotImplementedError``
+naming its ROADMAP item: a mesh, several local-update algorithms or
+multi-step local updates, ``fuse_policies=False``, ``obs`` diagnostics,
+``on_nonfinite="skip"``, a task-eval subtree and any channel scenario other
+than ``static_rayleigh``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import scheduling
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.local_update import check_local_update
+from repro_torch.core.pofl import DeviceData, POFLConfig
+from repro_torch.sim.engine import FUSED_POLICY, RECORD_SCALARS, SimEngine
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeSpec:
+    """Sweep axes + schedule for one experiment lattice (the reference's
+    fields; everything not named here comes from ``run_lattice``'s
+    ``base_cfg``)."""
+
+    policies: tuple[str, ...] = ("pofl",)
+    noise_powers: tuple[float, ...] = (1e-11,)
+    alphas: tuple[float, ...] = (0.1,)
+    seeds: tuple[int, ...] = (0,)
+    n_rounds: int = 100
+    eval_every: int = 5
+    algorithms: tuple[str, ...] = ("fedavg",)
+
+    @property
+    def n_cells(self) -> int:
+        return (
+            len(self.algorithms)
+            * len(self.policies)
+            * len(self.noise_powers)
+            * len(self.alphas)
+            * len(self.seeds)
+        )
+
+
+class LatticeRecords(NamedTuple):
+    """Per-cell records, axes (algorithm, policy, noise, alpha, seed, ...).
+
+    The algorithm axis leads and has size 1. ``loss``/``acc`` are taken at
+    ``eval_rounds`` (an empty E axis without an eval_fn). ``diag``, ``eval``
+    and ``health`` are the reference's optional subtrees, always ``None``
+    here.
+    """
+
+    axes: dict               # axis name -> coordinate list
+    e_com: np.ndarray        # (A, P, Nn, Na, Ns, T)
+    e_var: np.ndarray        # (A, P, Nn, Na, Ns, T)
+    grad_norm: np.ndarray    # (A, P, Nn, Na, Ns, T)
+    n_scheduled: np.ndarray  # (A, P, Nn, Na, Ns, T)
+    loss: np.ndarray         # (A, P, Nn, Na, Ns, E)
+    acc: np.ndarray          # (A, P, Nn, Na, Ns, E)
+    eval_rounds: np.ndarray  # (E,)
+    diag: Any = None
+    eval: Any = None
+    health: Any = None
+
+    def cell(self, **coords) -> dict:
+        """Select one sub-array per field by axis coordinates, e.g.
+        ``records.cell(policy="pofl", seed=0)``."""
+        idx: list[Any] = []
+        for name in ("algorithm", "policy", "noise_power", "alpha", "seed"):
+            if name in coords:
+                idx.append(self.axes[name].index(coords.pop(name)))
+            else:
+                idx.append(slice(None))
+        if coords:
+            raise ValueError(f"unknown axes {sorted(coords)}")
+        sel = tuple(idx)
+        return {f: getattr(self, f)[sel] for f in RECORD_SCALARS}
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
+
+
+def run_lattice(
+    loss_fn: Callable,
+    data: DeviceData,
+    params0,
+    spec: LatticeSpec,
+    base_cfg: POFLConfig | None = None,
+    eval_fn: Callable | None = None,
+    channel_cfg: ChannelConfig | None = None,
+    scenario: str = "static_rayleigh",
+    scenario_params: dict | None = None,
+    mesh=None,
+    fuse_policies: bool = True,
+    obs=None,
+    device=None,
+) -> LatticeRecords:
+    """Run every cell of ``spec`` → :class:`LatticeRecords` (numpy, on the host).
+
+    Args:
+      eval_fn: ``params -> (loss, acc)``, run on each cell's params after
+        round 0, every ``spec.eval_every`` rounds and the last round.
+      base_cfg: defaults for everything the spec doesn't sweep; its
+        ``policy``/``noise_power``/``alpha``/``seed``/``local_algorithm``
+        fields are overridden per cell. ``base_cfg.backend`` selects the
+        aggregation of every cell (``pallas_fused``: one batch-kernel launch
+        a round on the card).
+      device: where the lattice runs; the CUDA card by default (no card and
+        no ``device``: it raises).
+
+    ``mesh``, ``fuse_policies=False``, ``obs`` and a task-eval ``eval_fn``
+    (one with a ``record`` method) are the reference's options that are not
+    ported; they raise ``NotImplementedError`` naming their ROADMAP item.
+    """
+    base_cfg = base_cfg or POFLConfig(n_devices=data.n_devices)
+    if mesh is not None:
+        raise _unported("run_lattice over a mesh (cells or cells × model)", "12")
+    if len(spec.algorithms) != 1:
+        raise _unported("a lattice over several local-update algorithms", "5")
+    if not fuse_policies:
+        raise _unported("run_lattice(fuse_policies=False), the per-policy loop", "10")
+    if obs is not None:
+        raise _unported("run_lattice(obs=...), the diagnostics taps", "6")
+    if hasattr(eval_fn, "record"):
+        raise _unported("a TaskEval eval_fn (the lattice's eval subtree)", "9")
+    if scenario_params:
+        raise _unported(f"scenario parameters {sorted(scenario_params)}", "8")
+    cfg = dataclasses.replace(
+        base_cfg, policy=FUSED_POLICY, local_algorithm=spec.algorithms[0],
+        n_devices=data.n_devices,
+    )
+    check_local_update(cfg)
+
+    t_ints = np.arange(spec.n_rounds, dtype=np.int32)
+    if eval_fn is not None and spec.n_rounds:
+        do_eval = (t_ints % spec.eval_every == 0) | (t_ints == spec.n_rounds - 1)
+    else:
+        do_eval = np.zeros(spec.n_rounds, bool)
+
+    # the flat cell grid, policy-major then noise × alpha × seed (the
+    # reference's fused order)
+    pol_ids = np.asarray([scheduling.policy_id(p) for p in spec.policies], np.int64)
+    grid_p, grid_n, grid_a, grid_s = np.meshgrid(
+        pol_ids,
+        np.asarray(spec.noise_powers, np.float32),
+        np.asarray(spec.alphas, np.float32),
+        np.asarray(spec.seeds, np.int64),
+        indexing="ij",
+    )
+    engine = SimEngine(
+        loss_fn, data, cfg, channel_cfg=channel_cfg, scenario=scenario,
+        eval_fn=eval_fn, device=device,
+    )
+    recs = engine.run_lattice_cells(
+        params0, t_ints.tolist(), do_eval.tolist(), grid_n.ravel(), grid_a.ravel(),
+        grid_s.ravel(), grid_p.ravel(),
+    )
+    # the one device → host transfer of the run
+    host = torch.stack([getattr(recs, f) for f in RECORD_SCALARS]).cpu().numpy()
+    shape = (1, len(spec.policies), len(spec.noise_powers), len(spec.alphas),
+             len(spec.seeds), spec.n_rounds)
+    fields = {f: host[i].reshape(shape) for i, f in enumerate(RECORD_SCALARS)}
+    for f in ("loss", "acc"):
+        fields[f] = fields[f][..., do_eval]
+    return LatticeRecords(
+        axes={
+            "algorithm": list(spec.algorithms),
+            "policy": list(spec.policies),
+            "noise_power": list(spec.noise_powers),
+            "alpha": list(spec.alphas),
+            "seed": list(spec.seeds),
+        },
+        eval_rounds=t_ints[do_eval],
+        **fields,
+    )

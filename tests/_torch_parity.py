@@ -5,6 +5,12 @@ cross as numpy, and every random draw is made in JAX with the reference
 engine's key discipline (``repro/sim/engine.py:12-15``) and handed to both
 packages as values.
 
+A lattice is replayed per seed: every cell of seed s starts from
+``PRNGKey(s)`` in the reference, so the port's one draw stream per distinct
+seed (``SimEngine.draws``) is replaced by :func:`jax_engine_draws` of that
+seed, with the policy-fused sampler input (a ``cfg`` whose policy is
+``FUSED_POLICY``).
+
 Tolerance: float outputs agree to 1e-5 relative to the scale of the
 reference value (``atol = rtol · max|want|``), the cross-framework bound
 of ROADMAP ground rule 5; decisions (masks, indices, counts) match exactly.
@@ -19,8 +25,13 @@ import numpy as np
 import torch
 
 from repro.core import pofl as jpofl
+from repro.data.partition import partition_noniid_shards
+from repro.data.synthetic import make_classification_dataset
+from repro.models import small as jsmall
+from repro.sim.engine import FUSED_POLICY
 from repro.sim.scenario import make_channel_process
 from repro_torch.core import pofl as tpofl
+from repro_torch.models import small as tsmall
 from repro_torch.sim.engine import RoundDraws
 
 # The tier-1 suite runs six pytest workers on one host next to the JAX
@@ -76,14 +87,24 @@ def jax_batch_idx(data: jpofl.DeviceData, batch_size: int, k_batch) -> torch.Ten
 def jax_sched_draw(cfg: jpofl.POFLConfig, k_sched) -> torch.Tensor:
     """The sampler's input the reference consumes from k_sched: per-step
     Gumbel vectors of the sequential ``jax.random.categorical`` draws, the
-    top-k Gumbel vector, or the Bernoulli uniforms."""
+    top-k Gumbel vector, or the Bernoulli uniforms.
+
+    A policy-fused ``cfg`` (``FUSED_POLICY``: the policy is a per-cell id)
+    with the Bernoulli sampler gives both inputs the reference's fused ``scheduling_stage`` consumes from the
+    same k_sched — the sequential draw's Gumbel vectors, then the uniforms
+    (``repro/core/pofl.py:404-410``) — as the port's (S+1, N) tensor.
+    """
     n = cfg.n_devices
+    keys = jax.random.split(k_sched, cfg.n_scheduled)
+    gumbels = jnp.stack([jax.random.gumbel(k, (n,), jnp.float32) for k in keys])
+    if cfg.policy == FUSED_POLICY and cfg.sampler == "bernoulli":
+        uniforms = jax.random.uniform(k_sched, (n,))
+        return t(jnp.concatenate([gumbels, uniforms[None]]))
     if cfg.policy != "deterministic" and cfg.sampler == "bernoulli":
         return t(jax.random.uniform(k_sched, (n,)))
     if cfg.sampler == "topk":
         return t(jax.random.gumbel(k_sched, (n,)))
-    keys = jax.random.split(k_sched, cfg.n_scheduled)
-    return t(jnp.stack([jax.random.gumbel(k, (n,), jnp.float32) for k in keys]))
+    return t(gumbels)
 
 
 def jax_noise(k_noise, dim: int) -> torch.Tensor:
@@ -107,3 +128,19 @@ def jax_engine_draws(cfg, channel_cfg, data: jpofl.DeviceData, dim: int, seed: i
             sched=jax_sched_draw(cfg, k_sched),
             z=jax_noise(k_noise, dim),
         )
+
+
+def reference_task(kind: str, n_devices: int, per_device: int, seed: int = 0):
+    """A small task of the reference's model, drawn in JAX: ``(data,
+    params, jax loss, jax logits, port loss, port logits, x_test, y_test)``
+    (64 test rows)."""
+    k_tr, k_te, k_init = jax.random.split(jax.random.PRNGKey(seed), 3)
+    ds = "mnist_like" if kind == "logreg" else "cifar_like"
+    x, y = make_classification_dataset(ds, n_devices * per_device, k_tr)
+    x_te, y_te = make_classification_dataset(ds, 64, k_te)
+    data = partition_noniid_shards(np.asarray(x), np.asarray(y), n_devices, seed=seed)
+    if kind == "logreg":
+        return (data, jsmall.init_logreg(k_init), jsmall.logreg_loss, jsmall.logreg_logits,
+                tsmall.logreg_loss, tsmall.logreg_logits, x_te, y_te)
+    return (data, jsmall.init_cnn(k_init), jsmall.cnn_loss, jsmall.cnn_logits,
+            tsmall.cnn_loss, tsmall.cnn_logits, x_te, y_te)

@@ -1,5 +1,6 @@
-"""Card tests of the port: the CUDA kernel against its plain version, and
-the round on the card against the CPU. They need a CUDA card and no JAX:
+"""Card tests of the port: the CUDA kernel's two entries (one round, and
+trial-batched) against their plain versions, the round and the lattice round
+on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -14,9 +15,12 @@ import torch
 
 from repro_torch.core import pofl
 from repro_torch.flatten_util import ravel_pytree, tree_map
+from repro_torch.core import scheduling
 from repro_torch.kernels.aircomp import kernel, ops
-from repro_torch.kernels.aircomp.ref import aircomp_fused_ref
-from repro_torch.sim.engine import SimEngine
+from repro_torch.kernels.aircomp.cases import BATCH_CHECK_CASES, batch_inputs
+from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
+from repro_torch.sim.engine import FUSED_POLICY, SimEngine
+from repro_torch.sim.lattice import LatticeSpec, run_lattice
 from repro_torch.sim.tasks import make_model_task
 
 pytestmark = pytest.mark.cuda
@@ -145,3 +149,118 @@ def test_entry_points_default_to_the_card(card):
                                  eval_fn=task.eval, eval_every=2)
     assert kernel.launches == before + 4
     assert params["w"].device.type == "cuda" and len(hist.e_com) == 4
+
+
+@pytest.mark.parametrize("case", list(BATCH_CHECK_CASES))
+def test_batch_kernel_matches_plain_version(card, case):
+    b, n, d, empty_trial, strided = BATCH_CHECK_CASES[case]
+    args = batch_inputs(b, n, d, card, seed=100 + list(BATCH_CHECK_CASES).index(case),
+                        empty_trial=empty_trial, strided=strided)
+    got = kernel.aircomp_fused_batch(*args)
+    want = aircomp_fused_batch_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, d) and torch.isfinite(got).all()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= KERNEL_TOL * scale
+    # each trial used its own scalars: trial c is the one-round version of c
+    for c in range(b):
+        one = aircomp_fused_ref(*(x[c] for x in args))
+        assert (got[c] - one).abs().max().item() <= KERNEL_TOL * scale
+
+
+def test_each_batch_launch_counts_once_on_its_own_counter(card):
+    args = batch_inputs(4, 30, 7850, card)
+    before = (kernel.launches, kernel.batch_launches)
+    ops.aircomp_aggregate_fused_batch(*args)
+    assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 1)
+
+
+def test_batch_kernel_refuses_what_it_does_not_take(card):
+    g, coeff, m_g, v_g, a, z = batch_inputs(3, 4, 100, card)
+    before = kernel.batch_launches
+    refused = [
+        (g.cpu(), coeff.cpu(), m_g.cpu(), v_g.cpu(), a.cpu(), z.cpu()),  # CPU tensors
+        (g.double(), coeff, m_g, v_g, a, z),                             # wrong dtype
+        (g, coeff, m_g, v_g.half(), a, z),
+        (g.transpose(1, 2).contiguous().transpose(1, 2), coeff, m_g, v_g, a, z),  # D stride
+        (g, coeff, m_g, v_g, a, z.t().contiguous().t()),
+        (g, coeff, m_g[:1], v_g, a, z),                                  # scalar shapes
+        (g, coeff, m_g, v_g[:, None], a, z),
+        (g, coeff, m_g, v_g, a[0], z),
+        (g[0], coeff[0], m_g[0], v_g[0], a[0], z[0]),                    # not batched
+    ]
+    for args in refused:
+        with pytest.raises(ValueError):
+            kernel.aircomp_fused_batch(*args)
+    assert kernel.batch_launches == before
+
+
+def _lattice_engine(task, dev, n, **cfg_kw):
+    cfg = pofl.POFLConfig(n_devices=n, n_scheduled=3, batch_size=4, noise_power=1e-10,
+                          policy=FUSED_POLICY, **cfg_kw)
+    return SimEngine(task.loss_fn, task.data, cfg, eval_fn=task.eval, device=dev)
+
+
+# 2 policies × 2 seeds, as run_lattice flattens them
+LATTICE_CELLS = dict(noise_b=[1e-10] * 4, alpha_b=[0.1] * 4, seed_b=[0, 3, 0, 3],
+                     policy_b=[scheduling.policy_id(p) for p in ("pofl", "pofl",
+                                                                  "channel", "channel")])
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])
+def test_lattice_round_on_card_matches_cpu(card, backend):
+    task = make_model_task("cnn", n_devices=6, n_train=120, n_test=12, device="cpu")
+    outs = {}
+    for where in ("cpu", card):
+        engine = _lattice_engine(task, where, 6, backend=backend)
+        state = engine.lattice_start(task.params0, **LATTICE_CELLS)
+        draws_cpu = SimEngine(task.loss_fn, task.data, engine.cfg, device="cpu")
+        # one set of draws for both: the CPU engine's, moved to the card
+        state = state._replace(streams=[
+            (tuple(x.to(where) for x in d) for d in draws_cpu.draws(s, task.dim))
+            for s in (0, 3)])
+        state, rec = engine.lattice_round(state, 3, False)
+        outs[str(where)] = (state.params, rec)
+    (p_cpu, r_cpu), (p_card, r_card) = outs["cpu"], outs[str(card)]
+    w0 = ravel_pytree(task.params0)[0]
+    for c in range(4):
+        d_cpu = ravel_pytree(tree_map(lambda p: p[c], p_cpu))[0] - w0
+        d_card = ravel_pytree(tree_map(lambda p: p[c].cpu(), p_card))[0] - w0
+        err = torch.linalg.vector_norm(d_card - d_cpu) / torch.linalg.vector_norm(d_cpu)
+        assert err.item() <= ROUND_TOL
+    assert torch.equal(r_card[3].cpu(), r_cpu[3])  # n_scheduled
+    for got, want in zip(r_card[:3], r_cpu[:3]):  # e_com, e_var, grad_norm
+        assert ((got.cpu() - want).abs() <= ROUND_TOL * want.abs()).all()
+
+
+@pytest.mark.parametrize("kind", ["logreg", "cnn"])
+@pytest.mark.parametrize("sampler", ["without_replacement", "topk", "bernoulli"])
+def test_lattice_rounds_never_wait_on_the_host(card, kind, sampler):
+    """Any device→host sync inside a lattice round (eval included) raises
+    under this debug mode."""
+    task = make_model_task(kind, n_devices=8, n_train=160, n_test=16, device=card)
+    engine = _lattice_engine(task, card, 8, backend="pallas_fused", sampler=sampler)
+    state = engine.lattice_start(task.params0, **LATTICE_CELLS)
+    before = kernel.batch_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            state, _ = engine.lattice_round(state, t, t == 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert kernel.batch_launches == before + 2
+
+
+def test_run_lattice_defaults_to_the_card(card):
+    task = make_model_task("logreg", n_devices=8, n_train=160, n_test=16)
+    spec = LatticeSpec(policies=("pofl", "channel"), noise_powers=(1e-10,), seeds=(0, 1),
+                       n_rounds=3, eval_every=2)
+    before = (kernel.launches, kernel.batch_launches)
+    recs = run_lattice(task.loss_fn, task.data, task.params0, spec, eval_fn=task.eval,
+                       base_cfg=pofl.POFLConfig(n_devices=8, n_scheduled=3,
+                                                backend="pallas_fused"))
+    assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 3)
+    assert recs.e_com.shape == (1, 2, 1, 1, 2, 3) and recs.acc.shape == (1, 2, 1, 1, 2, 2)
+    assert all(getattr(recs, f).dtype.kind == "f" for f in ("e_com", "acc"))

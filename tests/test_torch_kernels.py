@@ -1,5 +1,6 @@
-"""The port's aircomp kernel module on the CPU: its plain version against the
-reference's Pallas kernel (interpret mode) and oracle, and the dispatch.
+"""The port's aircomp kernel module on the CPU: its plain versions (one
+round, and trial-batched) against the reference's Pallas kernels (interpret
+mode) and oracles, and the dispatch.
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 Tolerance: 1e-5 relative to the output's scale (``_torch_parity``).
@@ -13,10 +14,11 @@ import torch
 from _torch_parity import assert_close, t
 
 from repro.kernels.aircomp import ops as jops
+from repro.kernels.aircomp.ref import aircomp_fused_batch_ref as jax_batch_ref
 from repro.kernels.aircomp.ref import aircomp_fused_ref as jax_ref
 from repro_torch.kernels.aircomp import kernel as tkernel
 from repro_torch.kernels.aircomp import ops as tops
-from repro_torch.kernels.aircomp.ref import aircomp_fused_ref
+from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
 
 
 def _inputs(n, d, seed, empty=False):
@@ -68,3 +70,62 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_importing_the_kernel_module_builds_nothing():
     assert tkernel.build.cache_info().currsize == 0
     assert tkernel.NVCC_FLAGS[0] == "-gencode=arch=compute_90a,code=sm_90a"
+
+
+def _batch_inputs(b, n, d, seed, empty_trial=None):
+    """Every trial with its own g, coeff, z and scalars; ``empty_trial``
+    schedules nobody (a = inf, coeff = 0)."""
+    ks = jax.random.split(jax.random.PRNGKey(seed), 7)
+    g = jax.random.normal(ks[0], (b, n, d))
+    coeff = jax.random.uniform(ks[1], (b, n)) * (jax.random.uniform(ks[2], (b, n)) > 0.3)
+    z = jax.random.normal(ks[3], (b, d))
+    m_g = jax.random.uniform(ks[4], (b,)) - 0.5
+    v_g = jax.random.uniform(ks[5], (b,)) + 0.1
+    a = jax.random.uniform(ks[6], (b,)) * 3 + 0.5
+    if empty_trial is not None:
+        coeff = coeff.at[empty_trial].set(0.0)
+        m_g = m_g.at[empty_trial].set(0.0)
+        a = a.at[empty_trial].set(jnp.inf)
+    return g, coeff, m_g, v_g, a, z
+
+
+# D off the TPU's 512 tile, below one 128-lane row, one trial, a trial with
+# an empty schedule, and logreg's width
+@pytest.mark.parametrize(
+    "b,n,d,empty_trial",
+    [(3, 4, 700, None), (2, 5, 100, None), (1, 6, 512, None), (1, 3, 981, 0),
+     (4, 5, 2 * 512 + 17, 2), (3, 30, 7850, 1)],
+)
+def test_batch_plain_version_matches_reference_kernel(b, n, d, empty_trial):
+    args = _batch_inputs(b, n, d, seed=b * 100 + d, empty_trial=empty_trial)
+    want_kernel = jops.aircomp_aggregate_fused_batch(*args, use_pallas="interpret")
+    want_ref = jax_batch_ref(*args)
+    got = aircomp_fused_batch_ref(*(t(x) for x in args))
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    for c in range(b):  # each trial at its own scale
+        assert_close(got[c], want_kernel[c])
+        assert_close(got[c], want_ref[c])
+
+
+def test_batch_plain_version_is_the_single_one_per_trial():
+    """Trial c of the batch is the one-round plain version on trial c's
+    inputs, so no trial reads another's scalars."""
+    args = [t(x) for x in _batch_inputs(4, 6, 333, seed=5, empty_trial=3)]
+    got = aircomp_fused_batch_ref(*args)
+    for c in range(4):
+        assert torch.equal(got[c], aircomp_fused_ref(*(x[c] for x in args)))
+
+
+def test_cpu_tensors_dispatch_batch_to_plain_version():
+    args = [t(x) for x in _batch_inputs(3, 5, 300, seed=9)]
+    before = (tkernel.launches, tkernel.batch_launches)
+    got = tops.aircomp_aggregate_fused_batch(*args)
+    assert torch.equal(got, aircomp_fused_batch_ref(*args))
+    assert (tkernel.launches, tkernel.batch_launches) == before
+
+
+def test_batch_kernel_wrapper_refuses_cpu_tensors():
+    args = [t(x) for x in _batch_inputs(2, 5, 300, seed=10)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.aircomp_fused_batch(*args)

@@ -18,15 +18,13 @@ import pytest
 import torch
 from _torch_parity import (
     assert_close, cfg_to_torch, data_to_torch, jax_batch_idx, jax_engine_draws,
-    jax_noise, jax_sched_draw, t,
+    jax_noise, jax_sched_draw, reference_task, t,
 )
 from jax.flatten_util import ravel_pytree as jax_ravel
 
 from repro.core import aircomp as jair
 from repro.core import pofl as jpofl
 from repro.core.channel import ChannelConfig as JChannelConfig
-from repro.data.partition import partition_noniid_shards
-from repro.data.synthetic import make_classification_dataset
 from repro.models import small as jsmall
 from repro_torch.convert import params_from_jax
 from repro_torch.core import aircomp as tair
@@ -108,26 +106,13 @@ def test_apply_update_stage_matches_reference():
     assert_close(ravel_pytree(got)[0], jax_ravel(want)[0])
 
 
-def _task(kind, n_devices, per_device, seed=0):
-    k_tr, k_te, k_init = jax.random.split(jax.random.PRNGKey(seed), 3)
-    ds = "mnist_like" if kind == "logreg" else "cifar_like"
-    x, y = make_classification_dataset(ds, n_devices * per_device, k_tr)
-    x_te, y_te = make_classification_dataset(ds, 64, k_te)
-    data = partition_noniid_shards(np.asarray(x), np.asarray(y), n_devices, seed=seed)
-    if kind == "logreg":
-        return (data, jsmall.init_logreg(k_init), jsmall.logreg_loss, jsmall.logreg_logits,
-                tsmall.logreg_loss, tsmall.logreg_logits, x_te, y_te)
-    return (data, jsmall.init_cnn(k_init), jsmall.cnn_loss, jsmall.cnn_logits,
-            tsmall.cnn_loss, tsmall.cnn_logits, x_te, y_te)
-
-
 @pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])
 @pytest.mark.parametrize("kind,policy", [("logreg", "pofl"), ("cnn", "channel")])
 def test_one_round_matches_reference(backend, kind, policy, monkeypatch):
     """A whole round on both backends from one shared state and shared draws."""
     monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")  # the Pallas kernel, interpreted
     n = 4 if kind == "cnn" else N
-    data, jparams, jloss, _, tloss, *_ = _task(kind, n, per_device=8)
+    data, jparams, jloss, _, tloss, *_ = reference_task(kind, n, per_device=8)
     jcfg = jpofl.POFLConfig(n_devices=n, n_scheduled=2, batch_size=2, policy=policy,
                             backend=backend, noise_power=1e-10)
     dim = jax_ravel(jparams)[0].size
@@ -163,7 +148,7 @@ def test_run_pofl_trajectory_matches_reference(kind, backend, n_devices, per_dev
     """``run_pofl`` end to end: the port fed the reference engine's draws
     follows the reference's trajectory (the CNN at narrow batch)."""
     monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
-    data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = _task(
+    data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task(
         kind, n_devices, per_device
     )
     jcfg = jpofl.POFLConfig(n_devices=n_devices, n_scheduled=3, batch_size=2,
