@@ -7,10 +7,13 @@ Phases, one JSON line each; a phase that fails ends the run with a
 non-zero exit and no result line:
 
   device     the card, as torch and ``nvidia-smi`` name it
-  build      every kernel of both paths compiled from ``src/repro_torch``
-             (one library, two entries)
+  build      every kernel of the three paths compiled from ``src/repro_torch``,
+             one ``nvcc`` per source, started together (the aircomp library
+             with two entries, the flash-attention library)
   check      each kernel against its plain PyTorch version on the card
-             (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|))
+             (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash
+             kernel in bf16 against the plain version in fp32 on the same
+             inputs within 2^-8 · |plain| + 1e-5, element by element)
   times      each kernel, its plain version, one library call and the bound
              at its path's shapes (and, for the batch kernel, B launches of
              the one-round kernel it replaces)
@@ -38,11 +41,26 @@ non-zero exit and no result line:
              on the card against the port's CPU path (≤ 1e-4, as ``parity``)
   lattice_breakdown  ``torch.profiler`` over one CNN lattice round: host and
              device kernel ms per ``lattice.*`` range, the device's idle share
+  serve      qwen2-0.5b at full width through ``repro_torch.launch.serve``:
+             bf16 weights from the port's ``init_model``, batch 8, a 2,048-token
+             prompt, ``Server.prefill`` (``model_prefill``), ``pad_cache`` to
+             2,080, ``Server.decode`` of 32 greedy tokens; counts zeroed just
+             before and read just after: 24 flash launches (one a layer)
+  serve_no_sync  a prefill and 4 decode steps with device→host syncs as errors
+  serve_parity  all 24 layers in fp32, batch 2, prompt 256, 8 decode steps,
+             card against the port's CPU path on one set of weights and
+             tokens (logits and KV cache within 1e-4 relative L2; greedy
+             tokens equal wherever the CPU's top-2 margin exceeds 1e-4 of
+             the logits' scale)
+  serve_breakdown  ``torch.profiler`` over one prefill and 8 decode steps:
+             host and device ms per ``serve.*`` range and per ``lm.*`` range
+             inside it, the flash kernel's share of prefill device time, the
+             device's idle share
 
 then the ``kernels`` line, the card's name and power limit, and the result
-``{"ok": true, "device": {...}}``. Everything runs in fp32: TF32 is off for
-matmuls and for cuDNN's convolutions (with TF32 the CNN round misses the
-parity tolerance). Without a CUDA card, or without the repo's sources beside
+``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
+convolutions (with TF32 the CNN round misses the parity tolerance); the PO-FL
+paths run in fp32, the serving path in bf16 (its parity phase in fp32). Without a CUDA card, or without the repo's sources beside
 this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -54,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +83,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor-core rate
 KERNEL_TOL = 1e-5
 ROUND_TOL = 1e-4
 N_DEVICES, N_SCHEDULED = 30, 10
@@ -78,6 +98,14 @@ LATTICES = {"cnn": ((1e-10,), 10, 5), "logreg": ((1e-10, 1e-8), 30, 10)}
 # `run_pofl` on the card and through the port's CPU round on the card's
 # draws; every value of every other cell must be finite.
 DIVERGING_CELLS = (("cnn", "channel", 1e-10, 2),)
+# the serving path: qwen2-0.5b at full width
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 8
+BREAKDOWN_STEPS = 8
+# (b, s, h, kv, dh) of the flash kernel's times, bf16, causal: the serving
+# prefill and the prefill_32k sequence length
+ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 14, 2, 64), "prefill_32k": (1, 32768, 14, 2, 64)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -365,9 +393,23 @@ def parity(dev) -> None:
         raise AssertionError("card round disagrees with the CPU round")
 
 
-def profile_ranges(drive, rounds: int, prefix: str, n_ranges: int) -> dict:
+def busy_us(device_events) -> float:
+    """The union of the events' intervals (µs): the device's busy time."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in device_events):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def profile_ranges(drive, rounds: int, prefixes: tuple, n_ranges: int,
+                   busy_stage: str) -> dict:
     """Profile ``drive()`` (``rounds`` warm rounds); split host and device
-    time by the ``<prefix>*`` ranges.
+    time by the ``<prefixes[0]>*`` ranges and, when a second prefix is
+    given, by the ``<prefixes[1]>*`` ranges inside them (as ``outer/inner``).
 
     A device activity (kernel, copy, set) counts toward the range whose host
     interval holds the start of the host op that launched it — the autograd
@@ -375,9 +417,13 @@ def profile_ranges(drive, rounds: int, prefix: str, n_ranges: int) -> dict:
     main thread's local-update range. ``device_kernel_ms`` sums the
     activities' durations; they can run at once on several streams (cuDNN's
     weight gradients in the local update do), so the sums can exceed the
-    busy time. The idle share is the device's busy time per round (the union
-    of its activities) over the round's wall time measured without the
-    profiler.
+    busy time. The profiler links no host op to a kernel that a ctypes
+    library launches (the port's own kernels link the CUDA runtime
+    statically): such kernels are listed by name under
+    ``unlinked_kernels_ms`` and are in no range. The idle share is the
+    device's busy time per round (the union of its activities) over the
+    round's wall time measured without the profiler. Raises unless there
+    are ``n_ranges`` stages and ``busy_stage`` launched device work.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,47 +438,64 @@ def profile_ranges(drive, rounds: int, prefix: str, n_ranges: int) -> dict:
         torch.cuda.synchronize()
     events = prof.events()
 
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.device_type == DeviceType.CPU and e.name.startswith(prefix))
+    def ranges(prefix):  # non-overlapping, sorted by start
+        return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                      if e.device_type == DeviceType.CPU and e.name.startswith(prefix))
+
+    def holder(rs, at):  # the range of ``rs`` that holds time ``at``
+        i = bisect.bisect_right([r[0] for r in rs], at) - 1
+        return rs[i][2] if i >= 0 and at <= rs[i][1] else None
+
+    levels = [ranges(p) for p in prefixes]
     stages: dict = {}
-    for start, end, name in ranges:
-        st = stages.setdefault(name, {"host_ms": 0.0, "device_kernel_ms": 0.0, "ranges": 0})
-        st["host_ms"] += (end - start) / 1e3 / rounds
-        st["ranges"] += 1
-    starts = [r[0] for r in ranges]
-    outside = 0.0
+
+    def keys(at):  # the outer range that holds ``at``, then the nested one
+        outer = holder(levels[0], at)
+        if outer is None:
+            return []
+        inner = holder(levels[1], at) if len(levels) > 1 else None
+        return [outer] + ([f"{outer}/{inner}"] if inner is not None else [])
+
+    def stage(key):
+        return stages.setdefault(key, {"host_ms": 0.0, "device_kernel_ms": 0.0, "ranges": 0})
+
+    for depth, level in enumerate(levels):
+        for start, end, name in level:
+            st = stage(name if depth == 0 else f"{holder(levels[0], start)}/{name}")
+            st["host_ms"] += (end - start) / 1e3 / rounds
+            st["ranges"] += 1
+    outside, linked = 0.0, set()
     for e in events:  # every device activity once, by the op that launched it
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
-        dev_us = sum(k.duration for k in e.kernels)
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start <= ranges[i][1]:
-            stages[ranges[i][2]]["device_kernel_ms"] += dev_us / 1e3 / rounds
-        else:
-            outside += dev_us / 1e3 / rounds
+        linked.update(k.name for k in e.kernels)
+        ms = sum(k.duration for k in e.kernels) / 1e3 / rounds
+        hit = keys(e.time_range.start)
+        for key in hit:
+            stage(key)["device_kernel_ms"] += ms
+        outside += 0.0 if hit else ms
 
-    spans = sorted(  # device activity: kernels, copies, sets — not the ranges
-        (e.time_range.start, e.time_range.end) for e in events
-        if e.device_type == DeviceType.CUDA and not e.name.startswith(prefix)
-        and not getattr(e, "is_user_annotation", False))
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of the device's busy intervals
-        if cur_e is None or s > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += 0.0 if cur_e is None else cur_e - cur_s
-    busy_ms = busy / 1e3 / rounds
+    device = [e for e in events if e.device_type == DeviceType.CUDA  # not the ranges
+              and not e.name.startswith(prefixes)
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = busy_us(device) / 1e3 / rounds
+    unlinked: dict = {}
+    for e in device:
+        if e.name not in linked:
+            unlinked[e.name] = (unlinked.get(e.name, 0.0)
+                                + (e.time_range.end - e.time_range.start) / 1e3 / rounds)
     window_ms = (max(e.time_range.end for e in events)
                  - min(e.time_range.start for e in events)) / 1e3 / rounds
-    local = stages.get(f"{prefix}local_update", {}).get("device_kernel_ms", 0.0)
-    if busy_ms <= 0.0 or len(stages) != n_ranges or local <= 0:
+    busy_stage_ms = stages.get(busy_stage, {}).get("device_kernel_ms", 0.0)
+    if busy_ms <= 0.0 or len(stages) != n_ranges or busy_stage_ms <= 0:
         raise AssertionError(f"profiler saw no device time or missing ranges: {stages}")
     return {
         "rounds": rounds, "round_ms": wall_ms, "round_ms_profiled": window_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_kernel_ms_outside_ranges": outside, "stages": stages,
+        "device_kernel_ms": sum((e.time_range.end - e.time_range.start) for e in device)
+        / 1e3 / rounds,
+        "device_kernel_ms_outside_ranges": outside, "unlinked_kernels_ms": unlinked,
+        "stages": stages,
     }
 
 
@@ -451,7 +514,7 @@ def breakdown(dev) -> None:
         run_pofl(task.loss_fn, task.params0, task.data, cfg, 2)  # warm-up
         out[kind] = profile_ranges(
             lambda: run_pofl(task.loss_fn, task.params0, task.data, cfg, rounds),
-            rounds, "pofl.", 5)
+            rounds, ("pofl.",), 5, "pofl.local_update")
     emit("breakdown", per_round=True, **out)
 
 
@@ -679,8 +742,257 @@ def lattice_breakdown(dev) -> None:
         holder["state"], _ = engine.lattice_round(holder["state"], holder["t"], False)
         holder["t"] += 1
 
-    out = profile_ranges(one_round, 1, "lattice.", 5)
+    out = profile_ranges(one_round, 1, ("lattice.",), 5, "lattice.local_update")
     emit("lattice_breakdown", per_round=True, cells=len(axes["seed_b"]), cnn=out)
+
+
+# -- the flash-attention kernel --------------------------------------------------
+
+
+def check_attention(kernel, ref, dev) -> dict:
+    """The flash kernel against its plain version over ``cases.CHECK_CASES``."""
+    from repro_torch.kernels.attention.cases import CHECK_CASES, check_case
+
+    errs = {}
+    for i, name in enumerate(CHECK_CASES):
+        err, share = check_case(name, kernel.flash_attention, ref, dev, seed=i)
+        errs[name] = {"max_abs_err": err, "max_share_of_limit": share}
+    emit("check", kernel="flash_attention",
+         tolerance={"float32": "1e-5*max(1, max|ref|)",
+                    "bfloat16": "2^-8*|ref| + 1e-5 element by element"},
+         cases=errs)
+    return errs
+
+
+def attention_bound(b, s, h, kv, dh, itemsize) -> tuple[float, str]:
+    """The least time for one causal call at sq = sk = s: q, k, v read once
+    and the output written once; 4·dh flops for each of the b·h·s(s+1)/2
+    visible (query, key) pairs (q·k and p·v), at the bf16 dense rate."""
+    nbytes = itemsize * (2 * b * s * h * dh + 2 * b * s * kv * dh)
+    flops = 4 * dh * b * h * s * (s + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_attention(kernel, ref, dev) -> dict:
+    """The kernel, its bound, its plain version (not at 32k: the scores alone
+    would take 60 GB) and ``scaled_dot_product_attention`` (timed here
+    only, never called by the port) at the ATTN_TIME_SHAPES, bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.cases import attention_inputs
+
+    flush = torch.empty(256 * 2**20 // 4, device=dev)  # 256 MiB > the 50 MB L2
+    out = {}
+    for name, (b, s, h, kv, dh) in ATTN_TIME_SHAPES.items():
+        q, k, v = attention_inputs(b, s, s, h, kv, dh, torch.bfloat16, dev, seed=7)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (b, heads, s, dh)
+        bound_ms, bound_by = attention_bound(b, s, h, kv, dh, 2)
+        out[name] = {
+            "shape": [b, s, h, kv, dh], "dtype": "bfloat16", "causal": True,
+            "ms": time_ms(lambda: kernel.flash_attention(q, k, v, causal=True), flush),
+            "plain_ms": (time_ms(lambda: ref(q, k, v, causal=True), flush)
+                         if s <= 2048 else None),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        out[name]["ms_over_bound"] = out[name]["ms"] / bound_ms
+    emit("times", kernel="flash_attention", library="scaled_dot_product_attention", **out)
+    return out
+
+
+# -- the serving path ------------------------------------------------------------
+
+
+def serve_setup(dev):
+    """qwen2-0.5b at full width: its config, a server of the serving shape
+    on the card in bf16, the port's ``init_model`` weights cast once, and a
+    seeded prompt (SERVE_BATCH × SERVE_PROMPT tokens)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+
+    cfg = configs.get_config(SERVE_ARCH)
+    shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_NEW, global_batch=SERVE_BATCH,
+                       kind="decode")
+    server = Server(cfg, shape)  # the card, bf16: the defaults a user gets
+    params = server.load_params(api.model_init(cfg, seed=0))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)
+    return cfg, server, params, {"tokens": tokens}
+
+
+def serve_path(dev, setup) -> dict:
+    """Prefill, pad the cache, decode greedily; the counts are zeroed just
+    before and read just after."""
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.kernels.aircomp import kernel as aircomp
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.models.cache import pad_cache
+
+    cfg, server, params, batch = setup
+    total = SERVE_PROMPT + SERVE_NEW
+    first, _, cache = server.prefill(params, batch)  # warm-up: cuBLAS's choices, the allocator
+    server.decode(params, first, pad_cache(cache, total), SERVE_PROMPT, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    attn.launches = aircomp.launches = aircomp.batch_launches = 0  # zeroed just before
+    t0 = time.perf_counter()
+    first, logits, cache = server.prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = attn.launches
+    cache = pad_cache(cache, total)
+    t0 = time.perf_counter()
+    toks, cache = server.decode(params, first, cache, SERVE_PROMPT, SERVE_NEW)
+    toks = toks.cpu()
+    t_decode = time.perf_counter() - t0
+    launches = {"flash_attention": attn.launches, "aircomp_fused": aircomp.launches,
+                "aircomp_fused_batch": aircomp.batch_launches}  # read just after
+    steps = SERVE_NEW - 1
+    pos = torch.cat([torch.arange(total - 1), torch.tensor([-1])]).to(torch.int32)
+    ok = (prefill_launches == cfg.n_layers and launches["flash_attention"] == cfg.n_layers
+          and launches["aircomp_fused"] == launches["aircomp_fused_batch"] == 0
+          and logits.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+          and toks.shape == (SERVE_BATCH, SERVE_NEW) and int(toks.max()) < cfg.vocab_size
+          and bool(torch.isfinite(cache.k).all() and torch.isfinite(cache.v).all())
+          and torch.equal(cache.pos.cpu(), pos))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    emit("serve", arch=SERVE_ARCH, d_model=cfg.d_model, n_layers=cfg.n_layers,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], vocab_padded=cfg.vocab_padded,
+         dtype="bfloat16", batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+         params=n_params, param_count_of_config=cfg.param_count(),
+         param_bytes=sum(p.numel() * p.element_size() for p in tree_leaves(params)),
+         kv_cache_bytes=2 * cache.k.numel() * cache.k.element_size(),
+         prefill_s=t_prefill, prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
+         decode_s=t_decode, decode_steps=steps, decode_ms_per_step=1e3 * t_decode / steps,
+         decode_tokens_per_s=SERVE_BATCH * steps / t_decode,
+         launches=launches, prefill_launches={"flash_attention": prefill_launches},
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         tokens_row_0=toks[0].tolist())
+    if not ok:
+        raise AssertionError(f"serve: launches {launches} (prefill {prefill_launches}), "
+                             f"logits {tuple(logits.shape)}, tokens {tuple(toks.shape)}, "
+                             f"cache pos {cache.pos[:3].tolist()}…")
+    return launches
+
+
+def serve_no_sync(dev, setup) -> None:
+    """A prefill and 4 decode steps at the serving shape with every
+    device→host sync made an error."""
+    from repro_torch.models.cache import pad_cache
+
+    cfg, server, params, batch = setup
+    tokens = batch["tokens"].to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _, cache = server.prefill(params, {"tokens": tokens})
+        server.decode(params, first, pad_cache(cache, SERVE_PROMPT + 4), SERVE_PROMPT, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit("serve_no_sync", prefills=1, decode_steps=4, sync_debug_mode="error")
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def serve_parity(dev) -> None:
+    """All 24 layers in fp32 (TF32 off), card against the port's CPU path on
+    one set of weights and tokens: the prefill's last-position logits and KV
+    cache, then PARITY_NEW decode steps, both sides fed the CPU's greedy
+    token, so a near-tie cannot send them down different paths."""
+    from repro_torch import configs
+    from repro_torch.flatten_util import tree_map
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.models.cache import pad_cache
+    from repro_torch.models.config import InputShape
+
+    cfg = configs.get_config(SERVE_ARCH)
+    total = PARITY_PROMPT + PARITY_NEW
+    shape = InputShape("parity", seq_len=total, global_batch=PARITY_BATCH, kind="decode")
+    params = api.model_init(cfg, seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
+                                     generator=gen)}
+    out, seconds = {}, {}
+    for where in ("cpu", dev):
+        server = Server(cfg, shape, where, dtype=torch.float32)
+        p = params if where == "cpu" else tree_map(lambda x: x.to(dev), params)
+        t0 = time.perf_counter()
+        first, logits, cache = server.prefill(p, batch)
+        out[str(where)] = (p, first.cpu(), logits.cpu(), pad_cache(cache, total))
+        seconds[str(where)] = time.perf_counter() - t0
+    (p_c, first_c, l_c, cache_c), (p_g, first_g, l_g, cache_g) = out["cpu"], out[str(dev)]
+    vocab = cfg.vocab_size  # the pad columns (-1e30 on both sides) would swamp the norm
+    errs = {"prefill_logits": rel_l2(l_g[..., :vocab], l_c[..., :vocab]),
+            "cache_k": rel_l2(cache_g.k, cache_c.k), "cache_v": rel_l2(cache_g.v, cache_c.v)}
+
+    def margin(logits):  # the CPU's top-2 margin and its threshold
+        top2 = logits[:, -1, :cfg.vocab_size].double().topk(2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]).min().item(), ROUND_TOL * top2.abs().max().item()
+
+    steps = [{"margin": margin(l_c)[0], "tokens_equal": torch.equal(first_g, first_c)}]
+    checked = [margin(l_c)[0] <= margin(l_c)[1] or steps[0]["tokens_equal"]]
+    tok = first_c
+    step_errs = []
+    for i in range(PARITY_NEW):
+        l_c, cache_c = api.model_decode(p_c, cfg, tok, cache_c, PARITY_PROMPT + i)
+        l_g, cache_g = api.model_decode(p_g, cfg, tok.to(dev), cache_g, PARITY_PROMPT + i)
+        l_g = l_g.cpu()
+        step_errs.append(rel_l2(l_g[..., :vocab], l_c[..., :vocab]))
+        m, threshold = margin(l_c)
+        tok = l_c[:, -1].argmax(dim=-1, keepdim=True)
+        equal = torch.equal(l_g[:, -1].argmax(dim=-1, keepdim=True), tok)
+        steps.append({"margin": m, "tokens_equal": equal})
+        checked.append(m <= threshold or equal)
+    errs["decode_logits_max"] = max(step_errs)
+    errs["cache_k_after_decode"] = rel_l2(cache_g.k, cache_c.k)
+    emit("serve_parity", arch=SERVE_ARCH, dtype="float32", batch=PARITY_BATCH,
+         prompt=PARITY_PROMPT, decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
+         decode_logits_rel_l2_err=step_errs, steps=steps,
+         min_margin=min(s["margin"] for s in steps), prefill_seconds=seconds)
+    if max(errs.values()) > ROUND_TOL or not all(checked):
+        raise AssertionError(f"serve_parity: card and CPU disagree: {errs}, steps {steps}")
+
+
+def serve_breakdown(dev, setup) -> None:
+    """One prefill and BREAKDOWN_STEPS decode steps at the serving shape,
+    each timed without the profiler, then traced; host and device ms per
+    ``serve.*`` range and per ``lm.*`` range inside it, and the flash
+    kernel's share of the prefill's device time."""
+    from repro_torch.models.cache import pad_cache
+
+    cfg, server, params, batch = setup
+    holder = {}
+
+    def prefill():
+        holder["first"], _, cache = server.prefill(params, batch)
+        holder["cache"] = pad_cache(cache, SERVE_PROMPT + BREAKDOWN_STEPS)
+
+    def decode():  # rewrites the same slots with the same values each time
+        server.decode(params, holder["first"], holder["cache"], SERVE_PROMPT,
+                      BREAKDOWN_STEPS + 1)
+
+    out = {}
+    for name, drive in (("prefill", prefill), ("decode", decode)):
+        out[name] = profile_ranges(drive, 1, ("serve.", "lm."), 4, f"serve.{name}")
+    pre = out["prefill"]  # the flash kernel is a ctypes launch: listed, not linked
+    pre["flash_kernel_ms"] = sum(ms for k, ms in pre["unlinked_kernels_ms"].items()
+                                 if "flash_fwd_kernel" in k)
+    pre["flash_share_of_device_kernel_ms"] = pre["flash_kernel_ms"] / pre["device_kernel_ms"]
+    if pre["flash_kernel_ms"] <= 0.0:
+        raise AssertionError("serve_breakdown: the profiler saw no flash kernel in the prefill")
+    emit("serve_breakdown", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+         decode_steps=BREAKDOWN_STEPS, **out)
 
 
 def kernel_entry(name, replaces, launches, max_err, times) -> dict:
@@ -705,12 +1017,40 @@ def kernel_entry(name, replaces, launches, max_err, times) -> dict:
     }
 
 
+def flash_entry(launches, errs, times) -> dict:
+    """The ``kernels`` line's flash-attention entry: the times at the serving
+    prefill's shape, the prefill_32k shape's beside them."""
+    from repro_torch.kernels.attention.cases import CHECK_CASES
+
+    big = times["prefill_2k"]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:103",
+        "launches": launches,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "max_abs_err_float32": max(e["max_abs_err"] for name, e in errs.items()
+                                   if CHECK_CASES[name][6] == torch.float32),
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": big["library_ms"],
+        "shape": big["shape"],
+        "dtype": big["dtype"],
+        "prefill_32k": times["prefill_32k"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.kernels.aircomp import kernel
     from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ref import flash_attention_ref
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -721,14 +1061,22 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          tf32={"matmul": False, "cudnn": False})
 
-    built = kernel.build()
-    emit("build", kernels=["aircomp_fused", "aircomp_fused_batch"], seconds=built.seconds,
-         library=str(built.path.relative_to(ROOT)), ptxas=list(built.ptxas))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        jobs = {"aircomp": pool.submit(kernel.build),
+                "flash_attention": pool.submit(attn_kernel.build)}
+        built = {name: job.result() for name, job in jobs.items()}
+    emit("build", kernels=["aircomp_fused", "aircomp_fused_batch", "flash_attention"],
+         seconds=time.perf_counter() - t0,
+         libraries={name: {"seconds": b.seconds, "library": str(b.path.relative_to(ROOT)),
+                           "ptxas": list(b.ptxas)} for name, b in built.items()})
 
     max_err = check_aircomp(kernel, aircomp_fused_ref, dev)
     batch_err = check_aircomp_batch(kernel, aircomp_fused_batch_ref, aircomp_fused_ref, dev)
     times = time_aircomp(kernel, aircomp_fused_ref, dev)
     batch_times = time_aircomp_batch(kernel, aircomp_fused_batch_ref, dev)
+    attn_errs = check_attention(attn_kernel, flash_attention_ref, dev)
+    attn_times = time_attention(attn_kernel, flash_attention_ref, dev)
     launches = main_path(dev)
     no_sync(dev)
     parity(dev)
@@ -738,6 +1086,13 @@ def main() -> int:
     lattice_no_sync(dev)
     lattice_parity(dev)
     lattice_breakdown(dev)
+    setup = serve_setup(dev)
+    serve_launches = serve_path(dev, setup)
+    serve_no_sync(dev, setup)
+    serve_breakdown(dev, setup)
+    del setup
+    torch.cuda.empty_cache()
+    serve_parity(dev)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
@@ -745,6 +1100,7 @@ def main() -> int:
                      launches["aircomp_fused"], max_err, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
                      lattice_launches["aircomp_fused_batch"], batch_err, batch_times),
+        flash_entry(serve_launches["flash_attention"], attn_errs, attn_times),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,135 @@
+"""Architecture registry: the 10 assigned architectures × 4 input shapes.
+
+The port's own copy of ``repro.configs`` (all ten configurations are data).
+``input_specs``, which builds JAX ``ShapeDtypeStruct`` stand-ins, has no
+counterpart here.
+
+Public API:
+  ARCH_IDS                      — the assigned architecture identifiers
+  get_config(arch_id, shape)    — full-size config (shape-aware: long_500k
+                                  swaps in the sliding-window variant)
+  reduced_config(arch_id)       — CPU-smoke-sized variant of the same family
+  supports_shape(arch_id, shape)— long_500k/decode applicability
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
+
+ARCH_IDS = (
+    "zamba2-2.7b",
+    "olmoe-1b-7b",
+    "internvl2-76b",
+    "qwen2-0.5b",
+    "mistral-large-123b",
+    "llama4-scout-17b-a16e",
+    "seamless-m4t-large-v2",
+    "qwen2.5-14b",
+    "phi4-mini-3.8b",
+    "mamba2-370m",
+)
+
+_MODULES = {
+    "zamba2-2.7b": "zamba2_2p7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "internvl2-76b": "internvl2_76b",
+    "qwen2-0.5b": "qwen2_0p5b",
+    "mistral-large-123b": "mistral_large_123b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "qwen2.5-14b": "qwen2p5_14b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "mamba2-370m": "mamba2_370m",
+}
+
+# Archs whose long_500k decode runs via a sliding-window variant (W=8192
+# ring-buffer cache). Pure full-attention archs with no variant are skipped
+# for long_500k.
+LONG_CONTEXT_WINDOW = 8192
+LONG_CONTEXT_VIA_WINDOW = (
+    "olmoe-1b-7b",
+    "qwen2-0.5b",
+    "llama4-scout-17b-a16e",
+    "phi4-mini-3.8b",
+)
+LONG_CONTEXT_SKIP = (
+    "internvl2-76b",
+    "mistral-large-123b",
+    "qwen2.5-14b",
+    "seamless-m4t-large-v2",
+)
+
+
+def base_config(arch_id: str) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.config()
+
+
+def get_config(arch_id: str, shape: InputShape | str | None = None) -> ModelConfig:
+    """Full-size config for ``arch_id``; long_500k selects the sliding-window
+    variant for the dense/MoE archs that support it."""
+    cfg = base_config(arch_id)
+    if shape is None:
+        return cfg
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    if shape.name == "long_500k":
+        if arch_id in LONG_CONTEXT_SKIP:
+            raise ValueError(
+                f"{arch_id} is pure full-attention — long_500k is skipped "
+                "(DESIGN.md §4 Arch-applicability)"
+            )
+        if arch_id in LONG_CONTEXT_VIA_WINDOW:
+            cfg = dataclasses.replace(cfg, sliding_window=LONG_CONTEXT_WINDOW)
+    return cfg
+
+
+def supports_shape(arch_id: str, shape: InputShape | str) -> bool:
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    if shape.name == "long_500k":
+        return arch_id not in LONG_CONTEXT_SKIP
+    return True
+
+
+def reduced_config(arch_id: str) -> ModelConfig:
+    """Smoke variant of the same family: ≤2 layers, d_model ≤ 512, ≤4 experts."""
+    cfg = base_config(arch_id)
+    updates = dict(
+        n_layers=2,
+        d_model=256,
+        n_heads=4,
+        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
+        d_ff=512 if cfg.d_ff else 0,
+        vocab_size=512,
+    )
+    if cfg.moe is not None:
+        updates["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2), d_ff_expert=128
+        )
+    if cfg.ssm is not None:
+        updates["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=16, head_dim=32, chunk_size=16
+        )
+    if cfg.hybrid is not None:
+        updates["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=2)
+    if cfg.encdec is not None:
+        updates["encdec"] = dataclasses.replace(
+            cfg.encdec, n_enc_layers=2, n_enc_frames=16
+        )
+    if cfg.vlm is not None:
+        updates["vlm"] = dataclasses.replace(cfg.vlm, n_patches=8)
+    return dataclasses.replace(cfg, **updates)
+
+
+__all__ = [
+    "ARCH_IDS",
+    "LONG_CONTEXT_SKIP",
+    "LONG_CONTEXT_VIA_WINDOW",
+    "base_config",
+    "get_config",
+    "reduced_config",
+    "supports_shape",
+]

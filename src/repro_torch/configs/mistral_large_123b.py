@@ -1,0 +1,17 @@
+"""mistral-large-123b — dense GQA [hf:mistralai/Mistral-Large-Instruct-2407]."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-123b",
+        arch_type="dense",
+        n_layers=88,
+        d_model=12288,
+        n_heads=96,
+        n_kv_heads=8,
+        d_ff=28672,
+        vocab_size=32768,
+        rope_theta=1000000.0,
+        source="hf:mistralai/Mistral-Large-Instruct-2407",
+    )

@@ -1,0 +1,16 @@
+"""phi4-mini-3.8b — dense RoPE/SwiGLU/GQA [arXiv:2412.08905]."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi4-mini-3.8b",
+        arch_type="dense",
+        n_layers=32,
+        d_model=3072,
+        n_heads=24,
+        n_kv_heads=8,
+        d_ff=8192,
+        vocab_size=200064,
+        source="arXiv:2412.08905",
+    )

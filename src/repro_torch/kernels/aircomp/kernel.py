@@ -8,7 +8,8 @@ design meets it): the trial axis is the grid's second dimension and one
 round is the batch of one trial. It is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface at first use,
 under ``build/`` beside this file, and bound with ``ctypes``. Importing this
-module builds nothing, so the CPU tests import it without ``nvcc``.
+module builds nothing, so the CPU tests import it without ``nvcc``
+(``repro_torch.kernels.build`` holds the build, shared by every kernel).
 
 Unlike the TPU kernel, nothing is padded: the TPU's 128-lane tile was a
 layout choice. The scalars M_g, V_g and a stay on the device (0-d tensors
@@ -18,23 +19,14 @@ launch the kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import NVCC_FLAGS, BuildInfo, build_library, load_library
+
 _SOURCE = Path(__file__).parent / "csrc" / "aircomp.cu"
-_BUILD_ROOT = Path(__file__).parent / "build"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 # Launches since the last reset, one counter per entry, each counted only
 # in its wrapper, right where the launch succeeded: ``launches`` for
@@ -43,57 +35,20 @@ launches = 0
 batch_launches = 0
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    path: Path            # the shared library
-    seconds: float        # nvcc wall time (0.0 when an earlier build was reused)
-    ptxas: tuple          # the "ptxas info" lines nvcc printed
-
-
 @functools.cache
 def build() -> BuildInfo:
     """Compile ``csrc/aircomp.cu`` (once per source and flags) and return it."""
-    from torch.utils.cpp_extension import CUDA_HOME  # needs no card to import
-
-    source = _SOURCE.read_bytes()
-    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_ROOT / tag / "libaircomp.so"
-    if lib.exists():
-        return BuildInfo(path=lib, seconds=0.0, ptxas=())
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
-    ptxas = tuple(
-        line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-        if "ptxas info" in line
-    )
-    return BuildInfo(path=lib, seconds=seconds, ptxas=ptxas)
+    return build_library(_SOURCE, NVCC_FLAGS)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.aircomp_fused_f32.argtypes = [p, ll, p, p, p, p, p, p, i, ll, i, p]
-    lib.aircomp_fused_f32.restype = i
-    lib.aircomp_fused_batch_f32.argtypes = [p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, p]
-    lib.aircomp_fused_batch_f32.restype = i
-    lib.aircomp_error_string.argtypes = [i]
-    lib.aircomp_error_string.restype = ctypes.c_char_p
-    return lib
+    return load_library(build(), {
+        "aircomp_fused_f32": ([p, ll, p, p, p, p, p, p, i, ll, i, p], i),
+        "aircomp_fused_batch_f32": ([p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, p], i),
+        "aircomp_error_string": ([i], ctypes.c_char_p),
+    })
 
 
 def _vector_width(d: int, strides, *tensors: torch.Tensor) -> int:

@@ -1,0 +1,27 @@
+"""Public op: attention, dispatched by the device of ``q``.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
+to the hand-written kernel, or the call raises. The reference's
+``use_pallas="auto"`` has no counterpart: nothing can quietly choose the
+plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.attention.kernel import flash_attention
+from repro_torch.kernels.attention.ref import flash_attention_ref
+
+
+def attention(q, k, v, *, causal: bool = True, sliding_window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """softmax(q kᵀ/√dh) v over the visible keys → (b, sq, h, dh) in q's type."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, sliding_window=sliding_window,
+                                   q_offset=q_offset)
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, sliding_window=sliding_window,
+                               q_offset=q_offset)
+    raise ValueError(f"attention: no path for device {q.device}")

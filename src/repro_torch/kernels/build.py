@@ -1,0 +1,73 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` → shared library → ``ctypes``.
+
+Every kernel source (``kernels/<name>/csrc/<name>.cu``) has a plain C
+interface and becomes one shared library, compiled for ``sm_90a`` at first
+use under ``build/`` beside its kernel module (ignored by git) and cached
+there by a hash of the source and the flags. Nothing here runs at import,
+so the CPU tests import every kernel module without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path            # the shared library
+    seconds: float        # nvcc wall time (0.0 when an earlier build was reused)
+    ptxas: tuple          # the "ptxas info" lines nvcc printed
+
+
+def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
+    """Compile ``source`` into ``<kernel dir>/build/<hash>/lib<stem>.so``
+    (once per source and flags) and return it."""
+    from torch.utils.cpp_extension import CUDA_HOME  # needs no card to import
+
+    source = Path(source)
+    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = source.parent.parent / "build" / tag / f"lib{source.stem}.so"
+    if lib.exists():
+        return BuildInfo(path=lib, seconds=0.0, ptxas=())
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *flags, "-o", tmp, str(source)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
+    ptxas = tuple(
+        line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+        if "ptxas info" in line
+    )
+    return BuildInfo(path=lib, seconds=seconds, ptxas=ptxas)
+
+
+def load_library(info: BuildInfo, signatures: dict) -> ctypes.CDLL:
+    """Load a built library and declare its C functions:
+    ``{name: (argtypes, restype)}``. Pointers and the stream are
+    ``ctypes.c_void_p``, so a 64-bit address is never cut to an int."""
+    lib = ctypes.CDLL(str(info.path))
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return lib

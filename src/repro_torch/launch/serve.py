@@ -1,0 +1,114 @@
+"""Batched serving: prefill once, decode greedily.
+
+Port of ``repro.launch.serve`` for one card: the mesh becomes a device and
+the sharded, donated serve step a Python loop over
+:func:`repro_torch.models.api.model_decode`, which writes the KV cache in
+place. ``load_params`` casts the fp32 parameters to the serving type once
+(the reference casts them inside every step: the same values).
+
+The decode loop never waits on the host: each greedy token is an ``argmax``
+on the card fed to the next step, and the caller reads all of them at once
+(the reference reads every token to the host as it goes; the tokens are the
+same). The prefill runs in the ``serve.prefill`` range, the decode loop in
+``serve.decode``.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.device import resolve_device
+from repro_torch.flatten_util import tree_map
+from repro_torch.models import api
+from repro_torch.models.cache import AttnCache
+from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.models.layers import check_dense
+
+
+class Server:
+    """Serves ``cfg`` on one device in ``dtype``; ``shape`` is the capacity it
+    is built for (at most ``shape.global_batch`` sequences, positions below
+    ``shape.seq_len``)."""
+
+    def __init__(self, cfg: ModelConfig, shape: InputShape, device=None,
+                 dtype=torch.bfloat16):
+        check_dense(cfg)
+        self.cfg, self.shape, self.dtype = cfg, shape, dtype
+        self.device = resolve_device(device)
+
+    def load_params(self, params):
+        """The parameters on the device, fp32 leaves cast to ``dtype`` once."""
+        return tree_map(
+            lambda x: x.to(self.device, self.dtype if x.dtype == torch.float32 else x.dtype),
+            params)
+
+    def _check_capacity(self, batch: int, last_t: int) -> None:
+        if batch > self.shape.global_batch or last_t >= self.shape.seq_len:
+            raise ValueError(
+                f"batch {batch} / position {last_t} beyond the server's shape "
+                f"{self.shape.name} ({self.shape.global_batch} × {self.shape.seq_len})")
+
+    def prefill(self, params, batch: dict):
+        """Run the prompt: → (first greedy token (B, 1), last-position
+        logits (B, 1, vocab_padded), cache)."""
+        tokens = batch["tokens"].to(self.device)
+        self._check_capacity(tokens.shape[0], tokens.shape[1] - 1)
+        with record_function("serve.prefill"):
+            logits, cache = api.model_prefill(params, self.cfg, {"tokens": tokens}, self.dtype)
+            first = logits[:, -1].argmax(dim=-1, keepdim=True)
+        return first, logits, cache
+
+    def decode(self, params, first_token, cache: AttnCache, start_t: int, n_tokens: int):
+        """Greedy decode ``n_tokens`` tokens from a prefilled cache → (tokens
+        (B, n_tokens) on the device, cache). The first token is
+        ``first_token``; step i feeds token i at position ``start_t + i``.
+        The cache is updated in place once it is on the device."""
+        tok = first_token.to(self.device)
+        self._check_capacity(tok.shape[0], start_t + n_tokens - 2)
+        cache = AttnCache(*(c.to(self.device) for c in cache))
+        toks = [tok]
+        with record_function("serve.decode"):
+            for i in range(n_tokens - 1):
+                logits, cache = api.model_decode(params, self.cfg, tok, cache, start_t + i,
+                                                 self.dtype)
+                tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+                toks.append(tok)
+        return torch.cat(toks, dim=1), cache
+
+
+def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
+               dtype=torch.bfloat16, seed: int = 0, device=None,
+               shape_name: str = "decode_32k"):
+    """End-to-end: init params → prefill → batched greedy decode.
+
+    As in the reference, the decode continues from the *unpadded* prefill
+    cache, so from the first new token on slot ``t % S`` overwrites the
+    oldest prompt slot: the decode attends over a sliding window of the
+    prompt's length (``pad_cache`` first, as ``examples/serve_decode.py``
+    does, for full attention). Returns (tokens (B, n_tokens) on the CPU,
+    timings in seconds).
+    """
+    dev = resolve_device(device)
+    server = Server(cfg, INPUT_SHAPES[shape_name], dev, dtype)
+    params = api.model_init(cfg, seed, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    first, _, cache = server.prefill(params, batch)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    params = server.load_params(params)
+    t0 = time.perf_counter()
+    toks, _ = server.decode(params, first, cache, start_t=batch["tokens"].shape[1],
+                            n_tokens=n_tokens)
+    toks = toks.cpu()
+    t_decode = time.perf_counter() - t0
+    return toks, {"prefill_s": t_prefill, "decode_s": t_decode,
+                  "tok_per_s": n_tokens * toks.shape[0] / max(t_decode, 1e-9)}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

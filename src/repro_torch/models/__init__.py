@@ -1,1 +1,2 @@
-"""Port of ``repro.models`` (the paper-scale models only, so far)."""
+"""Port of ``repro.models``: the paper-scale models and the dense decoder
+family of the LM stack (config, layers, cache, transformer, api)."""

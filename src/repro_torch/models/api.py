@@ -1,0 +1,38 @@
+"""Unified model API dispatching on architecture family.
+
+Port of ``repro.models.api`` for the dense family. The batch dict holds
+"tokens" (B, S) int64. ``model_loss`` is training and waits for ROADMAP
+queue A 14.6; the other families raise naming their item.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.cache import init_cache
+from repro_torch.models.config import ModelConfig
+
+
+def model_init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random fp32 parameters from a ``torch.Generator`` seeded with
+    ``seed``, on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return transformer.init_model(cfg, gen, device=dev)
+
+
+def model_loss(params, cfg: ModelConfig, batch: dict, *args, **kwargs):
+    raise NotImplementedError(
+        "model_loss is training: ROADMAP queue A 14.6 (LM PO-FL training)")
+
+
+def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32):
+    return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype)
+
+
+def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32):
+    return transformer.decode_step(params, cfg, token, cache, t, dtype)
+
+
+__all__ = ["model_init", "model_loss", "model_prefill", "model_decode", "init_cache"]

@@ -1,0 +1,222 @@
+"""Layer primitives of the dense decoder: norms, RoPE, GQA attention, SwiGLU.
+
+Port of the dense subset of ``repro.models.layers``. Every layer is an
+(``init_<layer>``, ``<layer>_fwd``) pair of plain functions over dicts of
+tensors in the reference's layouts (``x @ w`` with ``w`` as (d_in, d_out)).
+Matmul-heavy ops take a ``dtype`` for the compute precision; parameters may
+be fp32 and are cast at use, as in the reference.
+
+Full-sequence attention (:func:`attention_fwd`) goes through
+:func:`repro_torch.kernels.attention.ops.attention`: on a CUDA tensor that
+is the hand-written flash kernel, on a CPU tensor its plain version. Where
+the reference computes prefill attention in jnp (``_attention_core``), the
+two agree on every row it produces: causal self-attention always lets a
+query see key 0 and a window always holds the diagonal, so no row is fully
+masked. The kernel keeps the probabilities in fp32 for the PV product,
+where ``_attention_core`` rounds them to ``dtype`` first. Single-token
+decode attention (:func:`attention_decode`) stays plain torch, as it stays
+outside any Pallas kernel in the reference.
+
+Not ported here: the activation-sharding registry (``constrain``,
+``constrain_tree``; it has no counterpart on one card), and the MoE and
+Mamba2 layers, which raise naming their ROADMAP item when a model function
+meets them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.attention.ops import attention
+from repro_torch.kernels.attention.ref import (  # noqa: F401  (the reference has the mask here)
+    NEG_INF,
+    attention_scores_mask,
+)
+from repro_torch.models.config import ModelConfig
+
+# the ROADMAP queue A slices (item 14) that port the families other than dense
+UNPORTED_ARCH = {
+    "ssm": "ROADMAP queue A 14.2 (Mamba2-370M serving)",
+    "hybrid": "ROADMAP queue A 14.3 (Zamba2-2.7B hybrid serving)",
+    "moe": "ROADMAP queue A 14.4 (MoE serving)",
+    "encdec": "ROADMAP queue A 14.5 (enc-dec and VLM)",
+    "vlm": "ROADMAP queue A 14.5 (enc-dec and VLM)",
+}
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of a family the
+    port does not run yet."""
+    if cfg.arch_type != "dense":
+        item = UNPORTED_ARCH.get(cfg.arch_type, "ROADMAP queue A 14")
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet ({item})")
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               device=None) -> torch.Tensor:
+    """Normal(0, scale²) fp32, scale 1/√fan_in by default (``fan_in`` is
+    ``shape[-2]``, as in the reference)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, lead: tuple = (), device=None):
+    return {"scale": torch.ones((*lead, d), device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """fp32 inside, cast back to x's type."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE (split halves, not interleaved)
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].float() * freqs   # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]          # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, optional bias / sliding window)
+# --------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None):
+    """``lead`` prefixes every leaf's shape: (L,) gives the stacked layers."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (*lead, d, h * dh), device=device),
+        "wk": dense_init(gen, (*lead, d, kv * dh), device=device),
+        "wv": dense_init(gen, (*lead, d, kv * dh), device=device),
+        "wo": dense_init(gen, (*lead, h * dh, d), device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, h * dh), device=device)
+        p["bk"] = torch.zeros((*lead, kv * dh), device=device)
+        p["bv"] = torch.zeros((*lead, kv * dh), device=device)
+    return p
+
+
+def _qkv(params, x, cfg: ModelConfig, dtype):
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ params["wq"].to(dtype)
+    k = x @ params["wk"].to(dtype)
+    v = x @ params["wv"].to(dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dtype)
+        k = k + params["bk"].to(dtype)
+        v = v + params["bv"].to(dtype)
+    return q.reshape(b, s, h, dh), k.reshape(b, s, kv, dh), v.reshape(b, s, kv, dh)
+
+
+def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
+                  return_kv: bool = False, dtype=torch.float32):
+    """Full-sequence self-attention (prefill) at positions 0..S-1.
+
+    The core is :func:`~repro_torch.kernels.attention.ops.attention` with
+    ``causal``, ``cfg.sliding_window`` and ``q_offset=0``. ``return_kv``
+    also returns the (roped) k and v, (B, S, KV, dh), for the cache.
+    """
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(params, x, cfg, dtype)
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = attention(q, k, v, causal=causal, sliding_window=cfg.sliding_window, q_offset=0)
+    out = out.reshape(b, s, h * dh) @ params["wo"].to(dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cache_pos: torch.Tensor, t: int, *,
+                     dtype=torch.float32):
+    """Single-token decode against a (possibly ring-buffer) KV cache.
+
+    x is (B, 1, D); cache_k and cache_v are (B, S_max, KV, dh); cache_pos is
+    (S_max,), the absolute position stored in each slot (-1 empty); ``t`` is
+    the new token's absolute position. The new k, v and position are
+    written into slot ``t % S_max`` **in place** (the reference returns
+    updated copies; in place saves copying the cache each step). Returns
+    ``(out, (cache_k, cache_v, cache_pos))``.
+    """
+    b = x.shape[0]
+    h, kv_heads, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = h // kv_heads
+    s_max = cache_k.shape[1]
+    q, k_new, v_new = _qkv(params, x, cfg, dtype)
+    pos = torch.full((1, 1), t, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+
+    slot = t % s_max  # ring buffer (= t when S_max > t)
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+    cache_pos[slot].fill_(t)  # a fill kernel: assigning a Python int would sync on a host copy
+
+    # validity: slot written, causal, within window
+    valid = (cache_pos >= 0) & (cache_pos <= t)
+    if cfg.sliding_window is not None:
+        valid = valid & (cache_pos > t - cfg.sliding_window)
+
+    q = q.reshape(b, 1, kv_heads, rep, dh)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q, cache_k) / math.sqrt(dh)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v).reshape(b, 1, h * dh)
+    out = out @ params["wo"].to(dtype)
+    return out, (cache_k, cache_v, cache_pos)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, lead: tuple = (), device=None):
+    return {
+        "w_gate": dense_init(gen, (*lead, d, d_ff), device=device),
+        "w_in": dense_init(gen, (*lead, d, d_ff), device=device),
+        "w_out": dense_init(gen, (*lead, d_ff, d), device=device),
+    }
+
+
+def mlp_fwd(params, x, dtype=torch.float32):
+    g = F.silu(x @ params["w_gate"].to(dtype))
+    u = x @ params["w_in"].to(dtype)
+    return (g * u) @ params["w_out"].to(dtype)

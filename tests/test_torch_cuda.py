@@ -1,6 +1,7 @@
-"""Card tests of the port: the CUDA kernel's two entries (one round, and
-trial-batched) against their plain versions, the round and the lattice round
-on the card against the CPU. They need a CUDA card and no JAX:
+"""Card tests of the port: the aircomp kernel's two entries (one round, and
+trial-batched) and the flash-attention kernel against their plain versions,
+the round, the lattice round and the dense LM's prefill and decode on the
+card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -9,6 +10,8 @@ on the card against the CPU. They need a CUDA card and no JAX:
 reason. TF32 is off in these tests: the comparisons are fp32.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import pytest
 import torch
@@ -19,6 +22,16 @@ from repro_torch.core import scheduling
 from repro_torch.kernels.aircomp import kernel, ops
 from repro_torch.kernels.aircomp.cases import BATCH_CHECK_CASES, batch_inputs
 from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
+from repro_torch.kernels.attention import kernel as attn_kernel
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.cases import CHECK_CASES as ATTN_CASES
+from repro_torch.kernels.attention.cases import attention_inputs, check_case
+from repro_torch.kernels.attention.ref import flash_attention_ref
+from repro_torch.launch.serve import Server, serve_demo
+from repro_torch import configs
+from repro_torch.models import api as lm_api
+from repro_torch.models.cache import pad_cache
+from repro_torch.models.config import InputShape
 from repro_torch.sim.engine import FUSED_POLICY, SimEngine
 from repro_torch.sim.lattice import LatticeSpec, run_lattice
 from repro_torch.sim.tasks import make_model_task
@@ -264,3 +277,106 @@ def test_run_lattice_defaults_to_the_card(card):
     assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 3)
     assert recs.e_com.shape == (1, 2, 1, 1, 2, 3) and recs.acc.shape == (1, 2, 1, 1, 2, 2)
     assert all(getattr(recs, f).dtype.kind == "f" for f in ("e_com", "acc"))
+
+
+# -- the flash-attention kernel and the dense LM ------------------------------
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_flash_kernel_matches_plain_version(card, case):
+    """fp32 within 1e-5·max(1, max|ref|); bf16 against the plain version in
+    fp32 on the same inputs within 2^-8·|ref| + 1e-5 element by element
+    (``cases.py``)."""
+    _, share = check_case(case, attn_kernel.flash_attention, flash_attention_ref, card,
+                          seed=list(ATTN_CASES).index(case))
+    assert share <= 1.0
+
+
+def test_each_flash_launch_counts_once(card):
+    q, k, v = attention_inputs(2, 100, 100, 14, 2, 64, torch.bfloat16, card)
+    before = attn_kernel.launches
+    attn_ops.attention(q, k, v, causal=True)
+    assert attn_kernel.launches == before + 1
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = attention_inputs(1, 16, 16, 4, 2, 64, torch.float32, card)
+    q256, k256, v256 = attention_inputs(1, 16, 16, 4, 2, 256, torch.float32, card)
+    before = attn_kernel.launches
+    refused = [
+        (q.cpu(), k.cpu(), v.cpu()),                               # CPU tensors
+        (q.half(), k.half(), v.half()),                            # fp16
+        (q256, k256, v256),                                        # dh 256
+        (q.transpose(1, 3).contiguous().transpose(1, 3), k, v),   # dh stride ≠ 1
+        (q, k.double(), v),                                        # mixed types
+        (q, k[:, :, :1].expand(-1, -1, 3, -1), v[:, :, :1].expand(-1, -1, 3, -1)),  # h % kv
+    ]
+    for args in refused:
+        with pytest.raises(ValueError):
+            attn_kernel.flash_attention(*args)
+    assert attn_kernel.launches == before
+
+
+def _lm_cfg(layers=3):
+    return dataclasses.replace(configs.reduced_config("qwen2-0.5b"), n_layers=layers)
+
+
+def test_reduced_prefill_and_decode_on_card_match_cpu(card):
+    """reduced qwen2-0.5b (3 layers), fp32: the card's prefill (one kernel
+    launch a layer) and 4 greedy decode steps against the CPU path on the
+    same weights and tokens, logits within 1e-4 relative L2, tokens equal."""
+    cfg = _lm_cfg()
+    params = lm_api.model_init(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 50), generator=torch.Generator().manual_seed(1))
+    shape = InputShape("serve", seq_len=60, global_batch=2, kind="decode")
+    out = {}
+    for where in ("cpu", card):
+        srv = Server(cfg, shape, where, dtype=torch.float32)
+        p = srv.load_params(params)
+        before = attn_kernel.launches
+        first, logits, cache = srv.prefill(p, {"tokens": tokens})
+        launched = attn_kernel.launches - before
+        toks, cache = srv.decode(p, first, pad_cache(cache, 60), 50, 5)
+        out[str(where)] = (logits.cpu(), toks.cpu(), cache.k.cpu(), launched)
+    (l_cpu, t_cpu, k_cpu, n_cpu), (l_card, t_card, k_card, n_card) = out["cpu"], out[str(card)]
+    assert (n_cpu, n_card) == (0, cfg.n_layers)
+    rel = (torch.linalg.vector_norm(l_card - l_cpu) / torch.linalg.vector_norm(l_cpu)).item()
+    assert rel <= ROUND_TOL
+    rel_k = (torch.linalg.vector_norm(k_card - k_cpu) / torch.linalg.vector_norm(k_cpu)).item()
+    assert rel_k <= ROUND_TOL
+    assert torch.equal(t_card, t_cpu)
+
+
+def test_server_and_model_init_default_to_the_card(card):
+    cfg = _lm_cfg(layers=2)
+    params = lm_api.model_init(cfg)
+    assert params["embed"].device.type == "cuda"
+    assert lm_api.init_cache(cfg, 2, 40).k.device.type == "cuda"
+    srv = Server(cfg, InputShape("serve", seq_len=40, global_batch=2, kind="decode"))
+    assert srv.device.type == "cuda" and srv.dtype == torch.bfloat16
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(2))
+    before = attn_kernel.launches
+    toks, stats = serve_demo(cfg, {"tokens": tokens}, n_tokens=4)
+    assert attn_kernel.launches == before + cfg.n_layers
+    assert toks.shape == (2, 4) and int(toks.max()) < cfg.vocab_size
+    assert stats["decode_s"] > 0
+
+
+def test_prefill_and_decode_never_wait_on_the_host(card):
+    """Any device→host sync in a prefill or a decode loop raises under this
+    debug mode: the greedy tokens stay on the card until the caller reads
+    them."""
+    cfg = _lm_cfg(layers=2)
+    srv = Server(cfg, InputShape("serve", seq_len=40, global_batch=2, kind="decode"), card)
+    params = srv.load_params(lm_api.model_init(cfg, device=card))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30), generator=torch.Generator().manual_seed(3))
+    tokens = tokens.to(card)  # a copy from pageable host memory syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _, cache = srv.prefill(params, {"tokens": tokens})
+        toks, _ = srv.decode(params, first, pad_cache(cache, 40), 30, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 6)
