@@ -7,13 +7,14 @@ Phases, one JSON line each; a phase that fails ends the run with a
 non-zero exit and no result line:
 
   device     the card, as torch and ``nvidia-smi`` name it
-  build      every kernel of the three paths compiled from ``src/repro_torch``,
+  build      every kernel of the four paths compiled from ``src/repro_torch``,
              one ``nvcc`` per source, started together (the aircomp library
-             with two entries, the flash-attention library)
+             with two entries, the flash-attention library, the SSD library)
   check      each kernel against its plain PyTorch version on the card
              (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash
-             kernel in bf16 against the plain version in fp32 on the same
-             inputs within 2^-8 · |plain| + 1e-5, element by element)
+             and SSD kernels in bf16 against the plain version in fp32 on
+             the same inputs within 2^-8 · |plain| + 1e-5 (the SSD kernel:
+             + 1e-5 · max(1, max|plain|)), element by element)
   times      each kernel, its plain version, one library call and the bound
              at its path's shapes (and, for the batch kernel, B launches of
              the one-round kernel it replaces)
@@ -56,16 +57,30 @@ non-zero exit and no result line:
              host and device ms per ``serve.*`` range and per ``lm.*`` range
              inside it, the flash kernel's share of prefill device time, the
              device's idle share
+  ssm_serve  mamba2-370m at full width (48 layers, d 1024, d_state 128, 32
+             heads of 64, chunk 256, vocab 50,432 padded, untied head), the
+             same way: batch 8, a 2,048-token prompt, 32 greedy tokens, bf16;
+             48 SSD launches (one a layer of the prefill), none in decode
+  ssm_serve_no_sync, ssm_serve_breakdown  as for qwen2 (``lm.mamba``,
+             ``lm.logits``; the SSD kernel's share of prefill device time)
+  ssm_serve_parity  all 48 layers in fp32, batch 2, prompt 512 (two chunks),
+             8 decode steps, card against CPU: logits, SSM state and conv
+             window within 1e-4 relative L2, greedy tokens as for qwen2;
+             dt_bias drawn as Mamba2 initialises it
+  ssm_depth_drift  at the reference's zero dt_bias: the prefill logits' card
+             vs CPU relative L2 at 1, 12 and 48 layers, through the kernel
+             and through the plain version on the card (reported)
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
 convolutions (with TF32 the CNN round misses the parity tolerance); the PO-FL
-paths run in fp32, the serving path in bf16 (its parity phase in fp32). Without a CUDA card, or without the repo's sources beside
+paths run in fp32, the serving paths in bf16 (their parity phases in fp32). Without a CUDA card, or without the repo's sources beside
 this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import json
 import math
 import statistics
@@ -106,6 +121,15 @@ BREAKDOWN_STEPS = 8
 # (b, s, h, kv, dh) of the flash kernel's times, bf16, causal: the serving
 # prefill and the prefill_32k sequence length
 ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 14, 2, 64), "prefill_32k": (1, 32768, 14, 2, 64)}
+# the second serving path: mamba2-370m at full width, the same batch, prompt
+# and new tokens; its parity at two chunks
+SSM_ARCH = "mamba2-370m"
+SSM_PARITY_BATCH, SSM_PARITY_PROMPT = 2, 512
+SSM_DRIFT_DEPTHS = (1, 12, 48)
+# (b, s, h, p, n, chunk) of the SSD kernel's times, bf16: one layer of the
+# serving prefill and the prefill_32k sequence length
+SSD_TIME_SHAPES = {"prefill_2k": (8, 2048, 32, 64, 128, 256),
+                   "prefill_32k": (1, 32768, 32, 64, 128, 256)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -803,19 +827,102 @@ def time_attention(kernel, ref, dev) -> dict:
     return out
 
 
-# -- the serving path ------------------------------------------------------------
+# -- the SSD scan kernel ---------------------------------------------------------
 
 
-def serve_setup(dev):
-    """qwen2-0.5b at full width: its config, a server of the serving shape
-    on the card in bf16, the port's ``init_model`` weights cast once, and a
+def check_ssd(kernel, ref, dev) -> dict:
+    """The SSD kernel against its plain version over ``cases.CHECK_CASES``."""
+    from repro_torch.kernels.ssd.cases import CHECK_CASES, check_case
+
+    errs = {}
+    for i, name in enumerate(CHECK_CASES):
+        err, share = check_case(name, kernel.ssd_scan, ref, dev, seed=i)
+        errs[name] = {"max_abs_err": err, "max_share_of_limit": share}
+    emit("check", kernel="ssd_scan",
+         tolerance={"float32": "1e-5*max(1, max|ref|)",
+                    "bfloat16": "2^-8*|ref| + 1e-5*max(1, max|ref|) element by element"},
+         cases=errs)
+    return errs
+
+
+def ssd_bound(b, s, h, p, n, chunk, itemsize) -> tuple[float, str]:
+    """The least time for one call: xdt, la, B, C read once and y written
+    once; C Bᵀ once a chunk over its causal half, the masked decay product
+    (a multiply and a p-long product a visible pair), the carried state's
+    term and the state update (2·n·p each a row and head), at the dense
+    rate of the inputs' type."""
+    nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h
+    pairs = (s // chunk) * chunk * (chunk + 1) // 2
+    flops = 2 * b * pairs * n + b * h * pairs * (2 * p + 1) + 4 * b * s * h * n * p
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_ssd(kernel, ref, dev) -> dict:
+    """The kernel, its bound and its plain version on the same bf16 inputs
+    (the CPU path's function) at the SSD_TIME_SHAPES. No PyTorch call
+    computes the SSD scan: no library time."""
+    from repro_torch.kernels.ssd.cases import ssd_inputs
+
+    flush = torch.empty(256 * 2**20 // 4, device=dev)  # 256 MiB > the 50 MB L2
+    out = {}
+    for name, (b, s, h, p, n, chunk) in SSD_TIME_SHAPES.items():
+        xdt, la, B, C = ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, seed=7, strided=True)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, 2)
+        out[name] = {
+            "shape": [b, s, h, p, n, chunk], "dtype": "bfloat16",
+            "ms": time_ms(lambda: kernel.ssd_scan(xdt, la, B, C, chunk=chunk), flush),
+            "plain_ms": time_ms(lambda: ref(xdt, la, B, C, chunk), flush),
+            "library_ms": None,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        out[name]["ms_over_bound"] = out[name]["ms"] / bound_ms
+    emit("times", kernel="ssd_scan", library=None, **out)
+    return out
+
+
+# -- the serving paths -----------------------------------------------------------
+
+
+def kernel_counters():
+    """Every kernel's launch counter: ``{name: (module, attribute)}``."""
+    from repro_torch.kernels.aircomp import kernel as aircomp
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.ssd import kernel as ssd
+
+    return {"aircomp_fused": (aircomp, "launches"),
+            "aircomp_fused_batch": (aircomp, "batch_launches"),
+            "flash_attention": (attn, "launches"), "ssd_scan": (ssd, "launches")}
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernel_counters().items()}
+
+
+def zero_counts() -> None:
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
+
+
+# per serving family: the kernel its prefill launches once a layer, the
+# stages its breakdown sees (serve.* and serve.*/lm.*), and the kernel's name
+# in the profiler
+SERVE_KERNEL = {"dense": ("flash_attention", 4, "flash_fwd_kernel"),
+                "ssm": ("ssd_scan", 3, "ssd_fwd_kernel")}
+
+
+def serve_setup(dev, arch):
+    """``arch`` at full width: its config, a server of the serving shape on
+    the card in bf16, the port's ``init_model`` weights cast once, and a
     seeded prompt (SERVE_BATCH × SERVE_PROMPT tokens)."""
     from repro_torch import configs
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
 
-    cfg = configs.get_config(SERVE_ARCH)
+    cfg = configs.get_config(arch)
     shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_NEW, global_batch=SERVE_BATCH,
                        kind="decode")
     server = Server(cfg, shape)  # the card, bf16: the defaults a user gets
@@ -825,63 +932,70 @@ def serve_setup(dev):
     return cfg, server, params, {"tokens": tokens}
 
 
-def serve_path(dev, setup) -> dict:
-    """Prefill, pad the cache, decode greedily; the counts are zeroed just
-    before and read just after."""
+def arch_fields(cfg) -> dict:
+    if cfg.arch_type == "ssm":
+        s = cfg.ssm
+        return {"ssm": {"d_state": s.d_state, "heads": s.n_heads(cfg.d_model),
+                        "head_dim": s.head_dim, "conv": s.conv_kernel, "chunk": s.chunk_size}}
+    return {"heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]}
+
+
+def serve_path(dev, setup, phase) -> dict:
+    """Prefill, pad the cache (an SSM state stays as it is), decode
+    greedily; the counts are zeroed just before and read just after."""
     from repro_torch.flatten_util import tree_leaves
-    from repro_torch.kernels.aircomp import kernel as aircomp
-    from repro_torch.kernels.attention import kernel as attn
     from repro_torch.models.cache import pad_cache
 
     cfg, server, params, batch = setup
+    kname = SERVE_KERNEL[cfg.arch_type][0]
     total = SERVE_PROMPT + SERVE_NEW
     first, _, cache = server.prefill(params, batch)  # warm-up: cuBLAS's choices, the allocator
     server.decode(params, first, pad_cache(cache, total), SERVE_PROMPT, 3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    attn.launches = aircomp.launches = aircomp.batch_launches = 0  # zeroed just before
+    zero_counts()  # zeroed just before
     t0 = time.perf_counter()
     first, logits, cache = server.prefill(params, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    prefill_launches = attn.launches
+    prefill_launches = read_counts()
     cache = pad_cache(cache, total)
     t0 = time.perf_counter()
     toks, cache = server.decode(params, first, cache, SERVE_PROMPT, SERVE_NEW)
     toks = toks.cpu()
     t_decode = time.perf_counter() - t0
-    launches = {"flash_attention": attn.launches, "aircomp_fused": aircomp.launches,
-                "aircomp_fused_batch": aircomp.batch_launches}  # read just after
+    launches = read_counts()  # read just after
     steps = SERVE_NEW - 1
-    pos = torch.cat([torch.arange(total - 1), torch.tensor([-1])]).to(torch.int32)
-    ok = (prefill_launches == cfg.n_layers and launches["flash_attention"] == cfg.n_layers
-          and launches["aircomp_fused"] == launches["aircomp_fused_batch"] == 0
+    expect = {name: cfg.n_layers if name == kname else 0 for name in launches}
+    ok = (prefill_launches == expect and launches == expect
           and logits.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
           and toks.shape == (SERVE_BATCH, SERVE_NEW) and int(toks.max()) < cfg.vocab_size
-          and bool(torch.isfinite(cache.k).all() and torch.isfinite(cache.v).all())
-          and torch.equal(cache.pos.cpu(), pos))
+          and all(bool(torch.isfinite(c).all()) for c in cache if c.is_floating_point()))
+    if cfg.arch_type == "dense":
+        pos = torch.cat([torch.arange(total - 1), torch.tensor([-1])]).to(torch.int32)
+        ok = ok and torch.equal(cache.pos.cpu(), pos)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    emit("serve", arch=SERVE_ARCH, d_model=cfg.d_model, n_layers=cfg.n_layers,
-         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], vocab_padded=cfg.vocab_padded,
-         dtype="bfloat16", batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+    emit(phase, arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers, **arch_fields(cfg),
+         vocab_padded=cfg.vocab_padded, dtype="bfloat16", batch=SERVE_BATCH,
+         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
          params=n_params, param_count_of_config=cfg.param_count(),
          param_bytes=sum(p.numel() * p.element_size() for p in tree_leaves(params)),
-         kv_cache_bytes=2 * cache.k.numel() * cache.k.element_size(),
+         cache_bytes=sum(c.numel() * c.element_size() for c in cache),
          prefill_s=t_prefill, prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
          decode_s=t_decode, decode_steps=steps, decode_ms_per_step=1e3 * t_decode / steps,
          decode_tokens_per_s=SERVE_BATCH * steps / t_decode,
-         launches=launches, prefill_launches={"flash_attention": prefill_launches},
+         launches=launches, prefill_launches=prefill_launches,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          tokens_row_0=toks[0].tolist())
     if not ok:
-        raise AssertionError(f"serve: launches {launches} (prefill {prefill_launches}), "
-                             f"logits {tuple(logits.shape)}, tokens {tuple(toks.shape)}, "
-                             f"cache pos {cache.pos[:3].tolist()}…")
+        raise AssertionError(f"{phase}: launches {launches} (prefill {prefill_launches}, "
+                             f"expected {expect}), logits {tuple(logits.shape)}, tokens "
+                             f"{tuple(toks.shape)}, or a non-finite cache")
     return launches
 
 
-def serve_no_sync(dev, setup) -> None:
+def serve_no_sync(dev, setup, phase) -> None:
     """A prefill and 4 decode steps at the serving shape with every
     device→host sync made an error."""
     from repro_torch.models.cache import pad_cache
@@ -896,7 +1010,7 @@ def serve_no_sync(dev, setup) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    emit("serve_no_sync", prefills=1, decode_steps=4, sync_debug_mode="error")
+    emit(phase, arch=cfg.name, prefills=1, decode_steps=4, sync_debug_mode="error")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -904,11 +1018,26 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
 
-def serve_parity(dev) -> None:
-    """All 24 layers in fp32 (TF32 off), card against the port's CPU path on
-    one set of weights and tokens: the prefill's last-position logits and KV
-    cache, then PARITY_NEW decode steps, both sides fed the CPU's greedy
-    token, so a near-tie cannot send them down different paths."""
+def mamba2_dt_bias(params, cfg, seed=0):
+    """``params`` with every layer's dt_bias drawn as Mamba2 initialises it
+    (arXiv:2405.21060's code: dt log-uniform in [1e-3, 1e-1], dt_bias its
+    inverse softplus) in place of the reference's zeros."""
+    rng = np.random.default_rng(seed)
+    dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1),
+                            (cfg.n_layers, cfg.ssm.n_heads(cfg.d_model))))
+    params["layers"]["mamba"]["dt_bias"] = torch.tensor(dt + np.log(-np.expm1(-dt)),
+                                                        dtype=torch.float32)
+    return params
+
+
+def serve_parity(dev, arch, batch_size, prompt, phase) -> None:
+    """All layers of ``arch`` in fp32 (TF32 off), card against the port's
+    CPU path on one set of weights and tokens: the prefill's last-position
+    logits and every float field of the cache (k and v, or the SSM state and
+    conv window), then PARITY_NEW decode steps, both sides fed the CPU's
+    greedy token, so a near-tie cannot send them down different paths. An
+    ssm model's dt_bias is Mamba2's (:func:`mamba2_dt_bias`): at the
+    reference's zeros the fp32 model itself drifts (``ssm_depth_drift``)."""
     from repro_torch import configs
     from repro_torch.flatten_util import tree_map
     from repro_torch.launch.serve import Server
@@ -916,13 +1045,14 @@ def serve_parity(dev) -> None:
     from repro_torch.models.cache import pad_cache
     from repro_torch.models.config import InputShape
 
-    cfg = configs.get_config(SERVE_ARCH)
-    total = PARITY_PROMPT + PARITY_NEW
-    shape = InputShape("parity", seq_len=total, global_batch=PARITY_BATCH, kind="decode")
+    cfg = configs.get_config(arch)
+    total = prompt + PARITY_NEW
+    shape = InputShape("parity", seq_len=total, global_batch=batch_size, kind="decode")
     params = api.model_init(cfg, seed=2, device="cpu")
+    if cfg.arch_type == "ssm":
+        params = mamba2_dt_bias(params, cfg)
     gen = torch.Generator().manual_seed(3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
-                                     generator=gen)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, prompt), generator=gen)}
     out, seconds = {}, {}
     for where in ("cpu", dev):
         server = Server(cfg, shape, where, dtype=torch.float32)
@@ -933,8 +1063,9 @@ def serve_parity(dev) -> None:
         seconds[str(where)] = time.perf_counter() - t0
     (p_c, first_c, l_c, cache_c), (p_g, first_g, l_g, cache_g) = out["cpu"], out[str(dev)]
     vocab = cfg.vocab_size  # the pad columns (-1e30 on both sides) would swamp the norm
+    fields = [f for f in cache_c._fields if getattr(cache_c, f).is_floating_point()]
     errs = {"prefill_logits": rel_l2(l_g[..., :vocab], l_c[..., :vocab]),
-            "cache_k": rel_l2(cache_g.k, cache_c.k), "cache_v": rel_l2(cache_g.v, cache_c.v)}
+            **{f"cache_{f}": rel_l2(getattr(cache_g, f), getattr(cache_c, f)) for f in fields}}
 
     def margin(logits):  # the CPU's top-2 margin and its threshold
         top2 = logits[:, -1, :cfg.vocab_size].double().topk(2, dim=-1).values
@@ -945,8 +1076,8 @@ def serve_parity(dev) -> None:
     tok = first_c
     step_errs = []
     for i in range(PARITY_NEW):
-        l_c, cache_c = api.model_decode(p_c, cfg, tok, cache_c, PARITY_PROMPT + i)
-        l_g, cache_g = api.model_decode(p_g, cfg, tok.to(dev), cache_g, PARITY_PROMPT + i)
+        l_c, cache_c = api.model_decode(p_c, cfg, tok, cache_c, prompt + i)
+        l_g, cache_g = api.model_decode(p_g, cfg, tok.to(dev), cache_g, prompt + i)
         l_g = l_g.cpu()
         step_errs.append(rel_l2(l_g[..., :vocab], l_c[..., :vocab]))
         m, threshold = margin(l_c)
@@ -955,44 +1086,99 @@ def serve_parity(dev) -> None:
         steps.append({"margin": m, "tokens_equal": equal})
         checked.append(m <= threshold or equal)
     errs["decode_logits_max"] = max(step_errs)
-    errs["cache_k_after_decode"] = rel_l2(cache_g.k, cache_c.k)
-    emit("serve_parity", arch=SERVE_ARCH, dtype="float32", batch=PARITY_BATCH,
-         prompt=PARITY_PROMPT, decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
+    for f in fields:
+        errs[f"cache_{f}_after_decode"] = rel_l2(getattr(cache_g, f), getattr(cache_c, f))
+    emit(phase, arch=arch, dtype="float32", batch=batch_size, prompt=prompt,
+         decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
          decode_logits_rel_l2_err=step_errs, steps=steps,
          min_margin=min(s["margin"] for s in steps), prefill_seconds=seconds)
     if max(errs.values()) > ROUND_TOL or not all(checked):
-        raise AssertionError(f"serve_parity: card and CPU disagree: {errs}, steps {steps}")
+        raise AssertionError(f"{phase}: card and CPU disagree: {errs}, steps {steps}")
 
 
-def serve_breakdown(dev, setup) -> None:
+def ssm_depth_drift(dev, batch_size, prompt) -> None:
+    """How far the fp32 prefill's logits on the card drift from the CPU's
+    with depth at the reference's init (dt_bias 0: decays to -54 a token,
+    where La's rounding amplifies other sum orders), through the kernel and,
+    as a yardstick, through the plain version on the card (its launches are
+    not the main path's). Reported, not checked: ``ssm_serve_parity`` holds
+    the model at Mamba2's dt init."""
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.flatten_util import tree_map
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    from repro_torch.models import api, transformer
+
+    def plain(xdt, la, B, C, *, chunk):
+        return ssd_chunked_ref(xdt, la, B, C, chunk)
+
+    full = configs.get_config(SSM_ARCH)
+    params = api.model_init(full, seed=2, device="cpu")
+    on_card = tree_map(lambda x: x.to(dev), params)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, full.vocab_size, (batch_size, prompt), generator=gen)
+    vocab, out = full.vocab_size, {}
+    for depth in SSM_DRIFT_DEPTHS:
+        cfg = dataclasses.replace(full, n_layers=depth)
+        cpu = transformer.prefill(params, cfg, tokens)[0][..., :vocab]
+        kernel = transformer.prefill(on_card, cfg, tokens.to(dev))[0][..., :vocab]
+        with mock.patch.object(transformer, "ssd", plain):
+            plain_card = transformer.prefill(on_card, cfg, tokens.to(dev))[0][..., :vocab]
+        out[depth] = {"kernel_vs_cpu": rel_l2(kernel, cpu),
+                      "plain_on_card_vs_cpu": rel_l2(plain_card, cpu),
+                      "kernel_vs_plain_on_card": rel_l2(kernel, plain_card)}
+    emit("ssm_depth_drift", arch=SSM_ARCH, dtype="float32", batch=batch_size, prompt=prompt,
+         dt_bias="reference init (zeros)", prefill_logits_rel_l2_err_by_depth=out)
+
+
+def serve_breakdown(dev, setup, phase) -> None:
     """One prefill and BREAKDOWN_STEPS decode steps at the serving shape,
     each timed without the profiler, then traced; host and device ms per
-    ``serve.*`` range and per ``lm.*`` range inside it, and the flash
+    ``serve.*`` range and per ``lm.*`` range inside it, and the prefill
     kernel's share of the prefill's device time."""
     from repro_torch.models.cache import pad_cache
 
     cfg, server, params, batch = setup
+    kname, n_stages, traced_name = SERVE_KERNEL[cfg.arch_type]
     holder = {}
 
     def prefill():
         holder["first"], _, cache = server.prefill(params, batch)
         holder["cache"] = pad_cache(cache, SERVE_PROMPT + BREAKDOWN_STEPS)
 
-    def decode():  # rewrites the same slots with the same values each time
+    def decode():  # rewrites the same slots (or the state) from the same start each time
         server.decode(params, holder["first"], holder["cache"], SERVE_PROMPT,
                       BREAKDOWN_STEPS + 1)
 
     out = {}
     for name, drive in (("prefill", prefill), ("decode", decode)):
-        out[name] = profile_ranges(drive, 1, ("serve.", "lm."), 4, f"serve.{name}")
-    pre = out["prefill"]  # the flash kernel is a ctypes launch: listed, not linked
-    pre["flash_kernel_ms"] = sum(ms for k, ms in pre["unlinked_kernels_ms"].items()
-                                 if "flash_fwd_kernel" in k)
-    pre["flash_share_of_device_kernel_ms"] = pre["flash_kernel_ms"] / pre["device_kernel_ms"]
-    if pre["flash_kernel_ms"] <= 0.0:
-        raise AssertionError("serve_breakdown: the profiler saw no flash kernel in the prefill")
-    emit("serve_breakdown", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        out[name] = profile_ranges(drive, 1, ("serve.", "lm."), n_stages, f"serve.{name}")
+    pre = out["prefill"]  # the kernel is a ctypes launch: listed, not linked
+    pre["kernel"] = kname
+    pre["kernel_ms"] = sum(ms for k, ms in pre["unlinked_kernels_ms"].items()
+                           if traced_name in k)
+    pre["kernel_share_of_device_kernel_ms"] = pre["kernel_ms"] / pre["device_kernel_ms"]
+    if pre["kernel_ms"] <= 0.0:
+        raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the prefill")
+    emit(phase, arch=cfg.name, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
          decode_steps=BREAKDOWN_STEPS, **out)
+
+
+def serving(dev, arch, prefix, parity_batch, parity_prompt) -> dict:
+    """The serving phases of one architecture: ``<prefix>``, ``_no_sync``,
+    ``_breakdown`` at the serving shape, then ``_parity``; → the main
+    path's launch counts."""
+    setup = serve_setup(dev, arch)
+    launches = serve_path(dev, setup, prefix)
+    serve_no_sync(dev, setup, f"{prefix}_no_sync")
+    serve_breakdown(dev, setup, f"{prefix}_breakdown")
+    del setup
+    torch.cuda.empty_cache()
+    serve_parity(dev, arch, parity_batch, parity_prompt, f"{prefix}_parity")
+    if arch == SSM_ARCH:
+        ssm_depth_drift(dev, parity_batch, parity_prompt)
+    return launches
 
 
 def kernel_entry(name, replaces, launches, max_err, times) -> dict:
@@ -1017,21 +1203,20 @@ def kernel_entry(name, replaces, launches, max_err, times) -> dict:
     }
 
 
-def flash_entry(launches, errs, times) -> dict:
-    """The ``kernels`` line's flash-attention entry: the times at the serving
-    prefill's shape, the prefill_32k shape's beside them."""
-    from repro_torch.kernels.attention.cases import CHECK_CASES
-
+def lm_kernel_entry(name, source, replaces, launches, errs, times, cases) -> dict:
+    """The ``kernels`` line's entry of a serving kernel: the times at the
+    serving prefill's shape, the prefill_32k shape's beside them; ``cases``
+    are its check cases (the dtype is the 7th field)."""
     big = times["prefill_2k"]
     return {
-        "name": "flash_attention",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/attention/kernel.py:103",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "max_abs_err_float32": max(e["max_abs_err"] for name, e in errs.items()
-                                   if CHECK_CASES[name][6] == torch.float32),
+                                   if cases[name][6] == torch.float32),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
@@ -1050,7 +1235,11 @@ def main() -> int:
     from repro_torch.kernels.aircomp import kernel
     from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
     from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.cases import CHECK_CASES as ATTN_CASES
     from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.cases import CHECK_CASES as SSD_CASES
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1062,11 +1251,12 @@ def main() -> int:
          tf32={"matmul": False, "cudnn": False})
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
         jobs = {"aircomp": pool.submit(kernel.build),
-                "flash_attention": pool.submit(attn_kernel.build)}
+                "flash_attention": pool.submit(attn_kernel.build),
+                "ssd": pool.submit(ssd_kernel.build)}
         built = {name: job.result() for name, job in jobs.items()}
-    emit("build", kernels=["aircomp_fused", "aircomp_fused_batch", "flash_attention"],
+    emit("build", kernels=["aircomp_fused", "aircomp_fused_batch", "flash_attention", "ssd_scan"],
          seconds=time.perf_counter() - t0,
          libraries={name: {"seconds": b.seconds, "library": str(b.path.relative_to(ROOT)),
                            "ptxas": list(b.ptxas)} for name, b in built.items()})
@@ -1077,6 +1267,8 @@ def main() -> int:
     batch_times = time_aircomp_batch(kernel, aircomp_fused_batch_ref, dev)
     attn_errs = check_attention(attn_kernel, flash_attention_ref, dev)
     attn_times = time_attention(attn_kernel, flash_attention_ref, dev)
+    ssd_errs = check_ssd(ssd_kernel, ssd_chunked_ref, dev)
+    ssd_times = time_ssd(ssd_kernel, ssd_chunked_ref, dev)
     launches = main_path(dev)
     no_sync(dev)
     parity(dev)
@@ -1086,13 +1278,8 @@ def main() -> int:
     lattice_no_sync(dev)
     lattice_parity(dev)
     lattice_breakdown(dev)
-    setup = serve_setup(dev)
-    serve_launches = serve_path(dev, setup)
-    serve_no_sync(dev, setup)
-    serve_breakdown(dev, setup)
-    del setup
-    torch.cuda.empty_cache()
-    serve_parity(dev)
+    serve_launches = serving(dev, SERVE_ARCH, "serve", PARITY_BATCH, PARITY_PROMPT)
+    ssm_launches = serving(dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH, SSM_PARITY_PROMPT)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
@@ -1100,7 +1287,13 @@ def main() -> int:
                      launches["aircomp_fused"], max_err, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
                      lattice_launches["aircomp_fused_batch"], batch_err, batch_times),
-        flash_entry(serve_launches["flash_attention"], attn_errs, attn_times),
+        lm_kernel_entry("flash_attention",
+                        "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/kernel.py:103",
+                        serve_launches["flash_attention"], attn_errs, attn_times, ATTN_CASES),
+        lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                        "src/repro/kernels/ssd/kernel.py:65", ssm_launches["ssd_scan"],
+                        ssd_errs, ssd_times, SSD_CASES),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

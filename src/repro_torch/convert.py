@@ -23,21 +23,30 @@ def params_from_jax(tree, device=None):
 
 
 def lm_params_from_jax(tree, cfg, device=None):
-    """The reference's ``model_init`` tree of a dense config (numpy arrays,
-    or anything ``np.asarray`` reads) → float32 port params on ``device``.
+    """The reference's ``model_init`` tree of a dense or ssm config (numpy
+    arrays, or anything ``np.asarray`` reads) → float32 port params on
+    ``device``.
 
     The port keeps the reference's LM layout: ``embed`` (vocab_padded, d),
     every ``layers`` leaf stacked over the L layers as ``lax.scan`` reads it,
     ``x @ w`` with ``w`` as (d_in, d_out). So this, too, is a copy, with the
-    shapes checked against ``cfg``.
+    family's shapes checked against ``cfg``.
     """
     params = params_from_jax(tree, device)
-    d, lyr = cfg.d_model, params["layers"]
-    want = {
-        "embed": (params["embed"], (cfg.vocab_padded, d)),
-        "wq": (lyr["attn"]["wq"], (cfg.n_layers, d, cfg.n_heads * cfg.head_dim)),
-        "w_out": (lyr["mlp"]["w_out"], (cfg.n_layers, cfg.d_ff, d)),
-    }
+    d, lyr, n_l = cfg.d_model, params["layers"], cfg.n_layers
+    if cfg.arch_type == "ssm":
+        s = cfg.ssm
+        di = s.d_inner(d)
+        want = {
+            "in_proj": (lyr["mamba"]["in_proj"], (n_l, d, 2 * di + 2 * s.d_state + s.n_heads(d))),
+            "out_proj": (lyr["mamba"]["out_proj"], (n_l, di, d)),
+        }
+    else:
+        want = {
+            "wq": (lyr["attn"]["wq"], (n_l, d, cfg.n_heads * cfg.head_dim)),
+            "w_out": (lyr["mlp"]["w_out"], (n_l, cfg.d_ff, d)),
+        }
+    want["embed"] = (params["embed"], (cfg.vocab_padded, d))
     for name, (leaf, shape) in want.items():
         if tuple(leaf.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)}, expected {shape} for {cfg.name}")

@@ -1,0 +1,22 @@
+"""Public op: the chunked SSD scan, dispatched by the device of ``xdt``.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
+to the hand-written kernel, or the call raises. The reference's
+``use_pallas="auto"`` has no counterpart: nothing can quietly choose the
+plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd.kernel import ssd_scan
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+
+def ssd(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
+    """y = SSD(xdt, la, B, C) → (b, s, h, p) in xdt's type; ``s % chunk == 0``."""
+    if xdt.device.type == "cpu":
+        return ssd_chunked_ref(xdt, la, B, C, chunk)
+    if xdt.device.type == "cuda":
+        return ssd_scan(xdt, la, B, C, chunk=chunk)
+    raise ValueError(f"ssd: no path for device {xdt.device}")

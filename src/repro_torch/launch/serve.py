@@ -1,10 +1,12 @@
 """Batched serving: prefill once, decode greedily.
 
-Port of ``repro.launch.serve`` for one card: the mesh becomes a device and
-the sharded, donated serve step a Python loop over
-:func:`repro_torch.models.api.model_decode`, which writes the KV cache in
-place. ``load_params`` casts the fp32 parameters to the serving type once
-(the reference casts them inside every step: the same values).
+Port of ``repro.launch.serve`` for one card (dense and ssm families): the
+mesh becomes a device and the sharded, donated serve step a Python loop over
+:func:`repro_torch.models.api.model_decode`, which updates the cache (KV or
+SSM state) in place. ``load_params`` casts the fp32 parameters to the
+serving type once, except the leaves the reference reads in fp32
+(``FP32_LEAVES``); the reference casts the others inside every step: the
+same values.
 
 The decode loop never waits on the host: each greedy token is an ``argmax``
 on the card fed to the next step, and the caller reads all of them at once
@@ -20,11 +22,14 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
-from repro_torch.flatten_util import tree_map
 from repro_torch.models import api
-from repro_torch.models.cache import AttnCache
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
-from repro_torch.models.layers import check_dense
+from repro_torch.models.layers import check_ported
+
+# leaves the reference uses in fp32 whatever the serving type: the norm
+# scales (``rmsnorm`` multiplies in fp32) and Mamba2's dt bias and A_log
+# (dt and the log decay are fp32)
+FP32_LEAVES = ("scale", "dt_bias", "A_log")
 
 
 class Server:
@@ -34,15 +39,19 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, shape: InputShape, device=None,
                  dtype=torch.bfloat16):
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg, self.shape, self.dtype = cfg, shape, dtype
         self.device = resolve_device(device)
 
     def load_params(self, params):
-        """The parameters on the device, fp32 leaves cast to ``dtype`` once."""
-        return tree_map(
-            lambda x: x.to(self.device, self.dtype if x.dtype == torch.float32 else x.dtype),
-            params)
+        """The parameters on the device, fp32 leaves cast to ``dtype`` once
+        (but ``FP32_LEAVES``)."""
+        def load(node, key=""):
+            if isinstance(node, dict):
+                return {k: load(v, k) for k, v in node.items()}
+            cast = node.dtype == torch.float32 and key not in FP32_LEAVES
+            return node.to(self.device, self.dtype if cast else node.dtype)
+        return load(params)
 
     def _check_capacity(self, batch: int, last_t: int) -> None:
         if batch > self.shape.global_batch or last_t >= self.shape.seq_len:
@@ -60,14 +69,14 @@ class Server:
             first = logits[:, -1].argmax(dim=-1, keepdim=True)
         return first, logits, cache
 
-    def decode(self, params, first_token, cache: AttnCache, start_t: int, n_tokens: int):
+    def decode(self, params, first_token, cache, start_t: int, n_tokens: int):
         """Greedy decode ``n_tokens`` tokens from a prefilled cache → (tokens
         (B, n_tokens) on the device, cache). The first token is
         ``first_token``; step i feeds token i at position ``start_t + i``.
         The cache is updated in place once it is on the device."""
         tok = first_token.to(self.device)
         self._check_capacity(tok.shape[0], start_t + n_tokens - 2)
-        cache = AttnCache(*(c.to(self.device) for c in cache))
+        cache = type(cache)(*(c.to(self.device) for c in cache))
         toks = [tok]
         with record_function("serve.decode"):
             for i in range(n_tokens - 1):
@@ -84,10 +93,11 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     """End-to-end: init params → prefill → batched greedy decode.
 
     As in the reference, the decode continues from the *unpadded* prefill
-    cache, so from the first new token on slot ``t % S`` overwrites the
-    oldest prompt slot: the decode attends over a sliding window of the
-    prompt's length (``pad_cache`` first, as ``examples/serve_decode.py``
-    does, for full attention). Returns (tokens (B, n_tokens) on the CPU,
+    cache, so in a dense model from the first new token on slot ``t % S``
+    overwrites the oldest prompt slot: the decode attends over a sliding
+    window of the prompt's length (``pad_cache`` first, as
+    ``examples/serve_decode.py`` does, for full attention). An SSM state
+    needs no padding. Returns (tokens (B, n_tokens) on the CPU,
     timings in seconds).
     """
     dev = resolve_device(device)

@@ -1,8 +1,10 @@
 """Unified model API dispatching on architecture family.
 
-Port of ``repro.models.api`` for the dense family. The batch dict holds
-"tokens" (B, S) int64. ``model_loss`` is training and waits for ROADMAP
-queue A 14.6; the other families raise naming their item.
+Port of ``repro.models.api`` for the dense and ssm families. The batch dict
+holds "tokens" (B, S) int64. ``init_cache`` gives a dense model an
+``AttnCache`` and an ssm model an ``SSMCache``. ``model_loss`` is training
+and waits for ROADMAP queue A 14.6; the other families raise naming their
+item.
 """
 from __future__ import annotations
 

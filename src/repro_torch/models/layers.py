@@ -1,10 +1,11 @@
-"""Layer primitives of the dense decoder: norms, RoPE, GQA attention, SwiGLU.
+"""Layer primitives of the dense and SSM decoders: norms, RoPE, GQA
+attention, SwiGLU, Mamba2.
 
-Port of the dense subset of ``repro.models.layers``. Every layer is an
-(``init_<layer>``, ``<layer>_fwd``) pair of plain functions over dicts of
-tensors in the reference's layouts (``x @ w`` with ``w`` as (d_in, d_out)).
-Matmul-heavy ops take a ``dtype`` for the compute precision; parameters may
-be fp32 and are cast at use, as in the reference.
+Port of the dense and Mamba2 subsets of ``repro.models.layers``. Every layer
+is an (``init_<layer>``, ``<layer>_fwd``) pair of plain functions over dicts
+of tensors in the reference's layouts (``x @ w`` with ``w`` as (d_in,
+d_out)). Matmul-heavy ops take a ``dtype`` for the compute precision;
+parameters may be fp32 and are cast at use, as in the reference.
 
 Full-sequence attention (:func:`attention_fwd`) goes through
 :func:`repro_torch.kernels.attention.ops.attention`: on a CUDA tensor that
@@ -17,10 +18,16 @@ where ``_attention_core`` rounds them to ``dtype`` first. Single-token
 decode attention (:func:`attention_decode`) stays plain torch, as it stays
 outside any Pallas kernel in the reference.
 
+The full-sequence Mamba2 scan (:func:`mamba2_fwd`) goes through
+:func:`repro_torch.kernels.ssd.ops.ssd` the same way, where the reference
+calls its jnp ``ssd_chunked`` (which is :func:`ssd_chunked`, the kernel's
+plain version). The single-token step (:func:`mamba2_decode`) stays plain
+torch, op for op: it rounds the state to ``dtype`` every step, as the
+reference does.
+
 Not ported here: the activation-sharding registry (``constrain``,
-``constrain_tree``; it has no counterpart on one card), and the MoE and
-Mamba2 layers, which raise naming their ROADMAP item when a model function
-meets them.
+``constrain_tree``; it has no counterpart on one card), and the MoE layer,
+which raises naming its ROADMAP item when a model function meets it.
 """
 from __future__ import annotations
 
@@ -35,11 +42,13 @@ from repro_torch.kernels.attention.ref import (  # noqa: F401  (the reference ha
     NEG_INF,
     attention_scores_mask,
 )
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref as ssd_chunked  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
-# the ROADMAP queue A slices (item 14) that port the families other than dense
+PORTED_ARCH = ("dense", "ssm")
+# the ROADMAP queue A slices (item 14) that port the other families
 UNPORTED_ARCH = {
-    "ssm": "ROADMAP queue A 14.2 (Mamba2-370M serving)",
     "hybrid": "ROADMAP queue A 14.3 (Zamba2-2.7B hybrid serving)",
     "moe": "ROADMAP queue A 14.4 (MoE serving)",
     "encdec": "ROADMAP queue A 14.5 (enc-dec and VLM)",
@@ -47,10 +56,10 @@ UNPORTED_ARCH = {
 }
 
 
-def check_dense(cfg: ModelConfig) -> None:
+def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a family the
-    port does not run yet."""
-    if cfg.arch_type != "dense":
+    port does not run yet (all but ``PORTED_ARCH``)."""
+    if cfg.arch_type not in PORTED_ARCH:
         item = UNPORTED_ARCH.get(cfg.arch_type, "ROADMAP queue A 14")
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet ({item})")
@@ -220,3 +229,108 @@ def mlp_fwd(params, x, dtype=torch.float32):
     g = F.silu(x @ params["w_gate"].to(dtype))
     u = x @ params["w_in"].to(dtype)
     return (g * u) @ params["w_out"].to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD: state-space duality, arXiv:2405.21060)
+# --------------------------------------------------------------------------
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None):
+    """in_proj → [z (di), x (di), B (n), C (n), dt (nh)]: one B/C group."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh, n = s.d_inner(d), s.n_heads(d), s.d_state
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=device))
+    return {
+        "in_proj": dense_init(gen, (*lead, d, 2 * di + 2 * n + nh), device=device),
+        "conv_w": dense_init(gen, (*lead, s.conv_kernel, di + 2 * n), scale=0.5, device=device),
+        "conv_b": torch.zeros((*lead, di + 2 * n), device=device),
+        "A_log": a_log.expand(*lead, nh).clone(),
+        "dt_bias": torch.zeros((*lead, nh), device=device),
+        "D": torch.ones((*lead, nh), device=device),
+        "norm": init_rmsnorm(di, lead, device=device),
+        "out_proj": dense_init(gen, (*lead, di, d), device=device),
+    }
+
+
+def _split_mamba_proj(zxbcdt, di: int, n: int, nh: int):
+    return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:]
+
+
+def causal_conv1d(xbc, w, b):
+    """Depthwise causal conv over the sequence dim, xbc (B, S, C), w (K, C):
+    ``Σ_i pad[:, i:i+S] · w[i]`` over the left-padded input (no flip)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + b
+
+
+def mamba_inputs(params, xbc, dt, cfg: ModelConfig, dtype):
+    """The scan's inputs from the conv's input xbc and the raw dt:
+    ``(xh (B, S, nh, P), xdt, la (B, S, nh) fp32, B, C)``. dt is
+    ``softplus(dt + dt_bias)`` in fp32, la = −exp(A_log)·dt in fp32, and
+    ``xdt = xh · dt`` in ``dtype`` (``layers.py:548-556``)."""
+    s_cfg = cfg.ssm
+    di, n = s_cfg.d_inner(cfg.d_model), s_cfg.d_state
+    xbc = F.silu(causal_conv1d(xbc, params["conv_w"].to(dtype), params["conv_b"].to(dtype)))
+    xin, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    la = -torch.exp(params["A_log"])[None, None, :] * dt
+    xh = xin.reshape(*xin.shape[:-1], s_cfg.n_heads(cfg.d_model), s_cfg.head_dim)
+    xdt = xh * dt[..., None].to(dtype)
+    return xh, xdt, la.float(), B, C
+
+
+def mamba_out(params, y, xh, z, cfg: ModelConfig, dtype):
+    """``rmsnorm(y + D·xh) · silu(z) @ out_proj``: the reference's gated norm
+    order (norm first, then the gate)."""
+    y = y + params["D"].to(dtype)[..., :, None] * xh
+    y = y.reshape(*y.shape[:-2], cfg.ssm.d_inner(cfg.d_model))
+    y = rmsnorm(params["norm"], y, cfg.norm_eps) * F.silu(z)
+    return y @ params["out_proj"].to(dtype)
+
+
+def mamba2_fwd(params, x, cfg: ModelConfig, dtype=torch.float32, chunk: Optional[int] = None):
+    """Full-sequence Mamba2 block (prefill). x: (B, S, D); the scan runs in
+    chunks of ``chunk`` (``cfg.ssm.chunk_size`` by default), which must
+    divide S."""
+    s_cfg = cfg.ssm
+    di, nh, n = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model), s_cfg.d_state
+    z, xbc, dt = _split_mamba_proj(x @ params["in_proj"].to(dtype), di, n, nh)
+    xh, xdt, la, B, C = mamba_inputs(params, xbc, dt, cfg, dtype)
+    y = ssd(xdt, la, B, C, chunk=chunk or s_cfg.chunk_size)
+    return mamba_out(params, y, xh, z, cfg, dtype)
+
+
+def mamba2_decode(params, x, cfg: ModelConfig, ssm_state, conv_state, dtype=torch.float32):
+    """Single-token recurrent step. x: (B, 1, D); ssm_state (B, H, N, P);
+    conv_state (B, K-1, di+2n). Returns (out, new_state, new_conv_state),
+    new tensors; the state is updated in ``dtype`` (with the decay cast to
+    it first), as in the reference."""
+    s_cfg = cfg.ssm
+    di, nh, n = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model), s_cfg.d_state
+    z, xbc, dt = _split_mamba_proj(x @ params["in_proj"].to(dtype), di, n, nh)  # (B,1,·)
+
+    window = torch.cat([conv_state, xbc], dim=1)  # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"].to(dtype)) + params[
+        "conv_b"].to(dtype)
+    xbc1 = F.silu(conv_out)[:, None, :]
+    new_conv_state = window[:, 1:, :]
+
+    xin = xbc1[..., :di]
+    B = xbc1[:, 0, di:di + n]  # (B, n)
+    C = xbc1[:, 0, di + n:]
+
+    dt = F.softplus(dt[:, 0].float() + params["dt_bias"])  # (B, nh)
+    a = torch.exp(-torch.exp(params["A_log"])[None] * dt)  # (B, nh)
+    xh = xin[:, 0].reshape(-1, nh, s_cfg.head_dim)
+    xdt = xh * dt[..., None].to(dtype)
+
+    new_state = a[..., None, None].to(dtype) * ssm_state + torch.einsum("bn,bhp->bhnp", B, xdt)
+    y = torch.einsum("bn,bhnp->bhp", C, new_state)
+    out = mamba_out(params, y[:, None], xh[:, None], z, cfg, dtype)
+    return out, new_state, new_conv_state

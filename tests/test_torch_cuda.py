@@ -1,7 +1,7 @@
 """Card tests of the port: the aircomp kernel's two entries (one round, and
-trial-batched) and the flash-attention kernel against their plain versions,
-the round, the lattice round and the dense LM's prefill and decode on the
-card against the CPU. They need a CUDA card and no JAX:
+trial-batched), the flash-attention kernel and the SSD scan kernel against
+their plain versions, the round, the lattice round and the dense and Mamba2
+LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -27,6 +27,12 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.cases import CHECK_CASES as ATTN_CASES
 from repro_torch.kernels.attention.cases import attention_inputs, check_case
 from repro_torch.kernels.attention.ref import flash_attention_ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.cases import CHECK_CASES as SSD_CASES
+from repro_torch.kernels.ssd.cases import check_case as ssd_check_case
+from repro_torch.kernels.ssd.cases import ssd_inputs
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.launch.serve import Server, serve_demo
 from repro_torch import configs
 from repro_torch.models import api as lm_api
@@ -380,3 +386,103 @@ def test_prefill_and_decode_never_wait_on_the_host(card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert toks.shape == (2, 6)
+
+
+# -- the SSD scan kernel and the Mamba2 LM --------------------------------------
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_kernel_matches_plain_version(card, case):
+    """fp32 within 1e-5·max(1, max|ref|); bf16 against the plain version in
+    fp32 on the same inputs within 2^-8·|ref| + 1e-5·max(1, max|ref|)
+    element by element (``kernels/ssd/cases.py``)."""
+    _, share = ssd_check_case(case, ssd_kernel.ssd_scan, ssd_chunked_ref, card,
+                              seed=list(SSD_CASES).index(case))
+    assert share <= 1.0
+
+
+def test_each_ssd_launch_counts_once(card):
+    xdt, la, B, C = ssd_inputs(2, 64, 3, 32, 16, torch.bfloat16, card)
+    before = ssd_kernel.launches
+    ssd_ops.ssd(xdt, la, B, C, chunk=16)
+    assert ssd_kernel.launches == before + 1
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(card):
+    xdt, la, B, C = ssd_inputs(1, 64, 2, 32, 16, torch.float32, card)
+    wide = ssd_inputs(1, 64, 2, 128, 16, torch.float32, card)
+    big_n = ssd_inputs(1, 64, 2, 32, 256, torch.float32, card)
+    before = ssd_kernel.launches
+    refused = [
+        ((xdt.cpu(), la.cpu(), B.cpu(), C.cpu()), 16),                  # CPU tensors
+        ((xdt, la.bfloat16(), B, C), 16),                                # la not fp32
+        ((xdt.half(), la, B.half(), C.half()), 16),                      # fp16
+        ((xdt.bfloat16(), la, B, C), 16),                                # mixed types
+        ((xdt, la, B, C), 24),                                           # s % chunk != 0
+        ((*ssd_inputs(1, 512, 2, 32, 16, torch.float32, card),), 512),   # chunk > 256
+        (wide, 16),                                                      # p 128
+        (big_n, 16),                                                     # n 256
+        ((xdt.transpose(2, 3).contiguous().transpose(2, 3), la, B, C), 16),  # p stride ≠ 1
+        ((xdt, la[:, :32], B, C), 16),                                   # shapes
+    ]
+    for args, chunk in refused:
+        with pytest.raises(ValueError):
+            ssd_kernel.ssd_scan(*args, chunk=chunk)
+    assert ssd_kernel.launches == before
+
+
+def _ssm_cfg(layers=2):
+    return dataclasses.replace(configs.reduced_config("mamba2-370m"), n_layers=layers)
+
+
+def test_reduced_mamba2_prefill_and_decode_on_card_match_cpu(card):
+    """reduced mamba2 (2 layers, chunk 16), fp32: the card's prefill of a
+    48-token prompt (three chunks; one kernel launch a layer, none in
+    decode) and 5 greedy decode steps against the CPU path on the same
+    weights and tokens: logits, SSM state and conv window within 1e-4
+    relative L2, tokens equal."""
+    cfg = _ssm_cfg()
+    params = lm_api.model_init(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(1))
+    shape = InputShape("serve", seq_len=60, global_batch=2, kind="decode")
+    out = {}
+    for where in ("cpu", card):
+        srv = Server(cfg, shape, where, dtype=torch.float32)
+        p = srv.load_params(params)
+        before = ssd_kernel.launches
+        first, logits, cache = srv.prefill(p, {"tokens": tokens})
+        prefill_launches = ssd_kernel.launches - before
+        toks, cache = srv.decode(p, first, cache, 48, 6)
+        out[str(where)] = (logits.cpu(), toks.cpu(), [c.cpu() for c in cache],
+                           prefill_launches, ssd_kernel.launches - before)
+    (l_cpu, t_cpu, c_cpu, *n_cpu), (l_card, t_card, c_card, *n_card) = out["cpu"], out[str(card)]
+    assert n_cpu == [0, 0] and n_card == [cfg.n_layers, cfg.n_layers]
+    for a, b in [(l_card, l_cpu), *zip(c_card, c_cpu)]:
+        rel = (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+        assert rel <= ROUND_TOL
+    assert torch.equal(t_card, t_cpu)
+
+
+def test_mamba2_serve_demo_defaults_to_the_card_and_never_waits_on_the_host(card):
+    """``serve_demo`` and ``init_cache`` run on the card by default, L launches
+    a prefill; then a bf16 prefill and decode with every device→host sync
+    made an error."""
+    cfg = _ssm_cfg()
+    assert lm_api.init_cache(cfg, 2, 40).state.device.type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(2))
+    before = ssd_kernel.launches
+    toks, stats = serve_demo(cfg, {"tokens": tokens}, n_tokens=4)
+    assert ssd_kernel.launches == before + cfg.n_layers
+    assert toks.shape == (2, 4) and int(toks.max()) < cfg.vocab_size and stats["decode_s"] > 0
+    srv = Server(cfg, InputShape("serve", seq_len=40, global_batch=2, kind="decode"), card)
+    params = srv.load_params(lm_api.model_init(cfg, device=card))
+    tokens = tokens.to(card)  # a copy from pageable host memory syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _, cache = srv.prefill(params, {"tokens": tokens})
+        toks, cache = srv.decode(params, first, cache, 32, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 6) and cache.state.dtype == torch.bfloat16

@@ -435,7 +435,7 @@ def test_lm_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).arch_type != "dense"])
+                                  if jconfigs.get_config(a).arch_type not in ("dense", "ssm")])
 def test_unported_families_raise_naming_their_roadmap_item(arch):
     cfg = tconfigs.reduced_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
