@@ -14,10 +14,15 @@ non-zero exit and no result line:
              (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash
              and SSD kernels in bf16 against the plain version in fp32 on
              the same inputs within 2^-8 · |plain| + 1e-5 (the SSD kernel:
-             + 1e-5 · max(1, max|plain|)), element by element)
+             + 1e-5 · max(1, max|plain|)), element by element; the flash
+             kernel's bf16 path (tensor cores) and fp32 path (CUDA cores)
+             over the same features, with each case's largest share of its
+             limit)
   times      each kernel, its plain version, one library call and the bound
              at its path's shapes (and, for the batch kernel, B launches of
-             the one-round kernel it replaces)
+             the one-round kernel it replaces; for the flash kernel its
+             useful TFLOP/s, its time over the library call's and its 3
+             tensor-core passes)
   main       ``run_pofl`` through the user's entry points: logreg (pofl and
              channel, 30 rounds) and the full-width CNN (D=258,634, N=30
              devices, 10 scheduled), ``backend="pallas_fused"``; launch
@@ -788,20 +793,26 @@ def check_attention(kernel, ref, dev) -> dict:
     return errs
 
 
+def attention_flops(b, s, h, dh) -> int:
+    """The useful flops of one causal call at sq = sk = s: 4·dh for each of
+    the b·h·s(s+1)/2 visible (query, key) pairs (q·k and p·v)."""
+    return 4 * dh * b * h * s * (s + 1) // 2
+
+
 def attention_bound(b, s, h, kv, dh, itemsize) -> tuple[float, str]:
     """The least time for one causal call at sq = sk = s: q, k, v read once
-    and the output written once; 4·dh flops for each of the b·h·s(s+1)/2
-    visible (query, key) pairs (q·k and p·v), at the bf16 dense rate."""
+    and the output written once; its useful flops at the bf16 dense rate."""
     nbytes = itemsize * (2 * b * s * h * dh + 2 * b * s * kv * dh)
-    flops = 4 * dh * b * h * s * (s + 1) // 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, attention_flops(b, s, h, dh) / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_attention(kernel, ref, dev) -> dict:
     """The kernel, its bound, its plain version (not at 32k: the scores alone
     would take 60 GB) and ``scaled_dot_product_attention`` (timed here
-    only, never called by the port) at the ATTN_TIME_SHAPES, bf16."""
+    only, never called by the port) at the ATTN_TIME_SHAPES, bf16; the
+    kernel's useful TFLOP/s, its time over the library's and its tensor-core
+    passes (q·kᵀ once, P·V twice: P split into bf16 hi and lo)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.cases import attention_inputs
@@ -823,7 +834,12 @@ def time_attention(kernel, ref, dev) -> dict:
             "bound_by": bound_by,
         }
         out[name]["ms_over_bound"] = out[name]["ms"] / bound_ms
-    emit("times", kernel="flash_attention", library="scaled_dot_product_attention", **out)
+        out[name]["ms_over_library"] = out[name]["ms"] / out[name]["library_ms"]
+        out[name]["tflops"] = attention_flops(b, s, h, dh) / (out[name]["ms"] * 1e9)
+    # mma_passes is the design's count, not a measurement: it stays out of
+    # ``out``, which feeds the ``kernels`` line
+    emit("times", kernel="flash_attention", library="scaled_dot_product_attention",
+         mma_passes=3, **out)
     return out
 
 
@@ -909,7 +925,7 @@ def zero_counts() -> None:
 # per serving family: the kernel its prefill launches once a layer, the
 # stages its breakdown sees (serve.* and serve.*/lm.*), and the kernel's name
 # in the profiler
-SERVE_KERNEL = {"dense": ("flash_attention", 4, "flash_fwd_kernel"),
+SERVE_KERNEL = {"dense": ("flash_attention", 4, "flash_fwd_kernel_bf16"),
                 "ssm": ("ssd_scan", 3, "ssd_fwd_kernel")}
 
 

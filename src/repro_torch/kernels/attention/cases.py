@@ -23,7 +23,10 @@ BF16_ABS = 1e-5  # the bf16 limit's absolute part: the fp32 difference
 # 1:1, dh 32, 80 (Zamba2's shared block) and 128 (phi4-mini, qwen2.5), a
 # sliding window, non-causal, a q_offset tail with sq < sk, rows that see no
 # key (a negative offset: they must give 0), and q, k, v as strided views of
-# one fused projection.
+# one fused projection. bf16 runs another kernel (tensor cores) than fp32
+# (CUDA cores), so each feature has a bf16 twin (``*_bf16``); there dh is
+# padded with zeros to 64, 80 or 128, so dh 32 and 40 pad into the 64 tile
+# and dh 112 into the 128 one.
 CHECK_CASES = {
     "prefill_bf16": (8, 2048, 2048, 14, 2, 64, torch.bfloat16, True, None, 0, False),
     "prefill_fp32": (8, 2048, 2048, 14, 2, 64, torch.float32, True, None, 0, False),
@@ -39,6 +42,16 @@ CHECK_CASES = {
     "q_offset_tail": (2, 100, 1000, 14, 2, 64, torch.float32, True, None, 900, False),
     "rows_see_no_key": (2, 200, 200, 14, 2, 64, torch.float32, True, None, -50, False),
     "strided_views": (2, 300, 300, 14, 2, 64, torch.float32, True, None, 0, True),
+    "gqa_1_1_bf16": (2, 256, 256, 8, 8, 64, torch.bfloat16, True, None, 0, False),
+    "dh_32_bf16": (1, 130, 130, 4, 2, 32, torch.bfloat16, True, None, 0, False),
+    "dh_40_bf16": (2, 200, 200, 8, 2, 40, torch.bfloat16, True, None, 0, False),
+    "dh_80_bf16": (2, 300, 300, 32, 32, 80, torch.bfloat16, True, None, 0, False),
+    "window_bf16": (2, 1024, 1024, 14, 2, 64, torch.bfloat16, True, 200, 0, False),
+    "non_causal_bf16": (2, 200, 333, 14, 2, 64, torch.bfloat16, False, None, 0, False),
+    "q_offset_tail_bf16": (2, 100, 1000, 14, 2, 64, torch.bfloat16, True, None, 900, False),
+    "rows_see_no_key_bf16": (2, 200, 200, 14, 2, 64, torch.bfloat16, True, None, -50, False),
+    "strided_views_bf16": (2, 300, 300, 14, 2, 64, torch.bfloat16, True, None, 0, True),
+    "dh_112_bf16": (1, 150, 150, 4, 4, 112, torch.bfloat16, True, None, 0, False),
 }
 
 

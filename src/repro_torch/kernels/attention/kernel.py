@@ -4,15 +4,22 @@ Replaces the TPU kernel ``src/repro/kernels/attention/kernel.py:103``
 ``flash_attention`` (body ``_flash_kernel``, ``:33``). The source,
 ``csrc/flash_attention.cu``, says what bounds the kernel and how its design
 meets it: one block per (batch, head, 64-row q tile) walks the kv tiles the
-causal and window limits leave, with the online softmax in fp32. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use (``repro_torch.kernels.build``) and bound with
-``ctypes``. Importing this module builds nothing.
+causal and window limits leave, with the online softmax in fp32. bfloat16
+runs on the tensor cores (``mma.sync``, P split into two bf16 halves so the
+bf16 check holds), float32 on the CUDA cores; the dtype picks the kernel and
+neither stands in for the other. It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface at first use
+(``repro_torch.kernels.build``) and bound with ``ctypes``. Importing this
+module builds nothing.
 
 Unlike the TPU kernel it takes any ``sq`` and ``sk`` (the ragged edge is
 masked in the kernel; the TPU's divisibility asserts were a tiling choice),
 any ``dh`` that is a multiple of 8 up to 128, a runtime ``q_offset``, and
-strided views with unit stride along ``dh``.
+strided views with unit stride along ``dh``. In bfloat16 each operand must
+start on a 16-byte boundary, with batch, sequence and head strides that are
+multiples of 8 elements: the kernel copies 16 bytes at a time
+(``cp.async``). The wrapper refuses anything else; it never copies to
+realign.
 """
 from __future__ import annotations
 
@@ -50,6 +57,13 @@ def _library() -> ctypes.CDLL:
     })
 
 
+def cp_async_aligned(x: torch.Tensor) -> bool:
+    """Whether the bf16 kernel can copy ``x`` 16 bytes at a time: its start
+    on a 16-byte boundary, its batch, sequence and head strides multiples of
+    8 elements."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
+
+
 def _check(q, k, v, sliding_window) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
@@ -60,6 +74,13 @@ def _check(q, k, v, sliding_window) -> None:
             raise ValueError(f"flash_attention: {name} must be 4-d with unit stride along dh")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention takes float32 and bfloat16, not {q.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if not cp_async_aligned(x):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} must start on a 16-byte boundary with "
+                    f"batch, sequence and head strides that are multiples of 8 elements; "
+                    f"it starts {x.data_ptr() % 16} bytes past one, strides {x.stride()[:3]}")
     b, sq, h, dh = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 class BuildInfo:
     path: Path            # the shared library
     seconds: float        # nvcc wall time (0.0 when an earlier build was reused)
-    ptxas: tuple          # the "ptxas info" lines nvcc printed
+    ptxas: tuple          # the "ptxas info" and spill lines nvcc printed
 
 
 def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
@@ -56,7 +56,7 @@ def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
     ptxas = tuple(
         line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-        if "ptxas info" in line
+        if "ptxas info" in line or "spill" in line
     )
     return BuildInfo(path=lib, seconds=seconds, ptxas=ptxas)
 

@@ -308,6 +308,10 @@ def test_each_flash_launch_counts_once(card):
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     q, k, v = attention_inputs(1, 16, 16, 4, 2, 64, torch.float32, card)
     q256, k256, v256 = attention_inputs(1, 16, 16, 4, 2, 256, torch.float32, card)
+    qb, kb, vb = attention_inputs(1, 16, 16, 4, 2, 64, torch.bfloat16, card)
+    flat = torch.zeros(qb.numel() + 8, dtype=torch.bfloat16, device=card)
+    q_odd = flat[1:qb.numel() + 1].view(qb.shape)  # starts 2 bytes past a 16-byte boundary
+    q_stride = torch.zeros(1, 16, 4, 68, dtype=torch.bfloat16, device=card)[..., :64]
     before = attn_kernel.launches
     refused = [
         (q.cpu(), k.cpu(), v.cpu()),                               # CPU tensors
@@ -316,6 +320,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
         (q.transpose(1, 3).contiguous().transpose(1, 3), k, v),   # dh stride ≠ 1
         (q, k.double(), v),                                        # mixed types
         (q, k[:, :, :1].expand(-1, -1, 3, -1), v[:, :, :1].expand(-1, -1, 3, -1)),  # h % kv
+        (q_odd, kb, vb),                                           # bf16 at an odd offset
+        (q_stride, kb, vb),                                        # bf16 head stride 68
     ]
     for args in refused:
         with pytest.raises(ValueError):
