@@ -15,9 +15,9 @@ non-zero exit and no result line:
              and SSD kernels in bf16 against the plain version in fp32 on
              the same inputs within 2^-8 · |plain| + 1e-5 (the SSD kernel:
              + 1e-5 · max(1, max|plain|)), element by element; the flash
-             kernel's bf16 path (tensor cores) and fp32 path (CUDA cores)
-             over the same features, with each case's largest share of its
-             limit)
+             and SSD kernels' bf16 paths (tensor cores) and fp32 paths (CUDA
+             cores) over the same features, with each case's largest share
+             of its limit)
   times      each kernel, its plain version, one library call and the bound
              at its path's shapes (and, for the batch kernel, B launches of
              the one-round kernel it replaces; for the flash kernel its
@@ -67,7 +67,9 @@ non-zero exit and no result line:
              same way: batch 8, a 2,048-token prompt, 32 greedy tokens, bf16;
              48 SSD launches (one a layer of the prefill), none in decode
   ssm_serve_no_sync, ssm_serve_breakdown  as for qwen2 (``lm.mamba``,
-             ``lm.logits``; the SSD kernel's share of prefill device time)
+             ``lm.logits``; the share of prefill device time of every SSD
+             kernel, the ``ssd_fwd_*`` names: in bf16 the three stages of
+             one ``ssd_scan`` call, each listed with its ms)
   ssm_serve_parity  all 48 layers in fp32, batch 2, prompt 512 (two chunks),
              8 decode steps, card against CPU: logits, SSM state and conv
              window within 1e-4 relative L2, greedy tokens as for qwen2;
@@ -923,10 +925,10 @@ def zero_counts() -> None:
 
 
 # per serving family: the kernel its prefill launches once a layer, the
-# stages its breakdown sees (serve.* and serve.*/lm.*), and the kernel's name
-# in the profiler
+# stages its breakdown sees (serve.* and serve.*/lm.*), and what the names of
+# its kernels hold in the profiler (one call of ssd_scan runs three in bf16)
 SERVE_KERNEL = {"dense": ("flash_attention", 4, "flash_fwd_kernel_bf16"),
-                "ssm": ("ssd_scan", 3, "ssd_fwd_kernel")}
+                "ssm": ("ssd_scan", 3, "ssd_fwd_")}
 
 
 def serve_setup(dev, arch):
@@ -1172,8 +1174,9 @@ def serve_breakdown(dev, setup, phase) -> None:
         out[name] = profile_ranges(drive, 1, ("serve.", "lm."), n_stages, f"serve.{name}")
     pre = out["prefill"]  # the kernel is a ctypes launch: listed, not linked
     pre["kernel"] = kname
-    pre["kernel_ms"] = sum(ms for k, ms in pre["unlinked_kernels_ms"].items()
-                           if traced_name in k)
+    pre["kernel_ms_by_name"] = {k: ms for k, ms in pre["unlinked_kernels_ms"].items()
+                                if traced_name in k}
+    pre["kernel_ms"] = sum(pre["kernel_ms_by_name"].values())
     pre["kernel_share_of_device_kernel_ms"] = pre["kernel_ms"] / pre["device_kernel_ms"]
     if pre["kernel_ms"] <= 0.0:
         raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the prefill")

@@ -31,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import NVCC_FLAGS, BuildInfo, build_library, load_library
+from repro_torch.kernels.build import (NVCC_FLAGS, BuildInfo, build_library, cp_async_aligned,
+                                       load_library)
 
 _SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,13 +56,6 @@ def _library() -> ctypes.CDLL:
             [p, p, p, p, i, ll, ll, ll, i, i, i, *([ll] * 12), i, ll, ll, ctypes.c_float, p], i),
         "flash_attention_error_string": ([i], ctypes.c_char_p),
     })
-
-
-def cp_async_aligned(x: torch.Tensor) -> bool:
-    """Whether the bf16 kernel can copy ``x`` 16 bytes at a time: its start
-    on a 16-byte boundary, its batch, sequence and head strides multiples of
-    8 elements."""
-    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
 
 
 def _check(q, k, v, sliding_window) -> None:

@@ -61,6 +61,13 @@ def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
     return BuildInfo(path=lib, seconds=seconds, ptxas=ptxas)
 
 
+def cp_async_aligned(x) -> bool:
+    """Whether a kernel can copy tensor ``x`` 16 bytes at a time
+    (``cp.async``): its start on a 16-byte boundary, every stride but the
+    last (unit) one a multiple of 8 elements."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1])
+
+
 def load_library(info: BuildInfo, signatures: dict) -> ctypes.CDLL:
     """Load a built library and declare its C functions:
     ``{name: (argtypes, restype)}``. Pointers and the stream are

@@ -8,8 +8,9 @@ both sides accumulate in fp32 and the kernel rounds y to bf16 once, and one
 rounding to bf16's 8 significant bits moves a value by at most 2^-8 of
 itself. The fp32 limit needs both sides to form La = cumsum(la) bitwise
 alike: one ulp of |La| ≈ 400 (a chunk of 256 at the reference test's
-decays) is 3e-5 of a decay weight. The kernel adds in the order torch's
-cumsum does on the card (``csrc/ssd.cu``).
+decays) is 3e-5 of a decay weight. The kernels add in the plain version's
+order, the reference's (``ref.py::cumsum``: XLA's blocks of 16;
+``csrc/ssd.cu``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ DECAYS = {"ref": (0.01, 3.0), "near_0": (0.0, 0.01), "strong": (19.0, 21.0)}
 # and many, h 1, 3 and 32, n 16 and 128, p 32 and 64 (and 48, padded), a
 # chunk that is no multiple of the 64-row tile, the three decay ranges, and
 # B and C as strided slices of one fused projection, as the model passes them.
+# The bf16 twins of the fp32 feature cases (appended, so every earlier case
+# keeps its seed, its index here) hold the tensor-core path to the same
+# features, plus batch 1 over 16 chunks and the full width at two chunks.
 CHECK_CASES = {
     "serving_bf16": (8, 2048, 32, 64, 128, 256, torch.bfloat16, "ref", True),
     "serving_fp32": (8, 2048, 32, 64, 128, 256, torch.float32, "ref", True),
@@ -40,6 +44,14 @@ CHECK_CASES = {
     "near_0": (2, 1024, 4, 64, 128, 256, torch.float32, "near_0", False),
     "strong_decay": (2, 512, 4, 64, 128, 256, torch.float32, "strong", False),
     "small_bf16": (2, 256, 3, 32, 16, 64, torch.bfloat16, "ref", False),
+    "chunk_16_bf16": (2, 128, 3, 32, 16, 16, torch.bfloat16, "ref", False),
+    "chunk_64_bf16": (2, 512, 32, 64, 128, 64, torch.bfloat16, "ref", False),
+    "p_48_chunk_100_bf16": (2, 400, 3, 48, 128, 100, torch.bfloat16, "ref", True),
+    "h_1_bf16": (2, 768, 1, 64, 128, 256, torch.bfloat16, "ref", False),
+    "near_0_bf16": (2, 1024, 4, 64, 128, 256, torch.bfloat16, "near_0", False),
+    "strong_decay_bf16": (2, 512, 4, 64, 128, 256, torch.bfloat16, "strong", False),
+    "batch_1_16_chunks_bf16": (1, 4096, 2, 64, 128, 256, torch.bfloat16, "ref", False),
+    "full_width_bf16": (1, 512, 32, 64, 128, 256, torch.bfloat16, "ref", True),
 }
 
 

@@ -2,17 +2,27 @@
 
 Replaces the TPU kernel ``src/repro/kernels/ssd/kernel.py:65``
 ``ssd_pallas`` (body ``_ssd_kernel``, ``:28``). The source,
-``csrc/ssd.cu``, says what bounds the kernel and how its design meets it:
-one block per (batch, head) walks the chunks in order with that head's
-(n, p) state in shared memory, in fp32. It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface at first use
-(``repro_torch.kernels.build``) and bound with ``ctypes``. Importing this
-module builds nothing.
+``csrc/ssd.cu``, says what bounds the call and how its designs meet it.
+bfloat16 runs on the tensor cores (``mma.sync``) as the state-passing
+split, three kernels that one C call issues: the chunk states into an fp32
+workspace that this wrapper allocates, a pass over the chunks that turns
+them into the states entering each chunk, and the outputs, with C Bᵀ
+formed once per (batch, chunk, q tile, group of 8 heads); each fp32
+operand goes in as bf16 hi + lo so the bf16 check holds. float32 runs on
+the CUDA cores, one block per (batch, head) walking the chunks in order.
+The dtype picks the design and neither stands in for the other. It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface at first use (``repro_torch.kernels.build``) and bound with
+``ctypes``. Importing this module builds nothing.
 
 It takes what the TPU kernel takes (``s % chunk == 0``, la in fp32, xdt,
 B and C in one type: fp32 or bf16), with chunk up to 256, p up to 64,
 n up to 128, and strided views with unit stride along p and n (B and C
-are slices of the model's fused projection).
+are slices of the model's fused projection). In bfloat16 xdt, B and C
+must start on a 16-byte boundary, with batch, sequence (and head) strides
+that are multiples of 8 elements: the kernels copy 16 bytes at a time
+(``cp.async``). The wrapper refuses anything else; it never copies to
+realign.
 """
 from __future__ import annotations
 
@@ -22,7 +32,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import NVCC_FLAGS, BuildInfo, build_library, load_library
+from repro_torch.kernels.build import (NVCC_FLAGS, BuildInfo, build_library, cp_async_aligned,
+                                       load_library)
 
 _SOURCE = Path(__file__).parent / "csrc" / "ssd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,9 +54,15 @@ def build() -> BuildInfo:
 def _library() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return load_library(build(), {
-        "ssd_fwd": ([p, p, p, p, p, i, ll, ll, i, i, i, i, *([ll] * 13), p], i),
+        "ssd_fwd": ([p, p, p, p, p, p, p, ll, i, ll, ll, i, i, i, i, *([ll] * 13), p], i),
         "ssd_error_string": ([i], ctypes.c_char_p),
     })
+
+
+def workspace_numel(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """fp32 elements of the bf16 path's workspace: one (np, PP) state per
+    (batch, chunk, head), n rounded up to a multiple of 16 and p to 32 or 64."""
+    return b * (s // chunk) * h * (-(-n // 16) * 16) * (32 if p <= 32 else 64)
 
 
 def _check(xdt, la, B, C, chunk) -> None:
@@ -74,24 +91,42 @@ def _check(xdt, la, B, C, chunk) -> None:
     if not 1 <= chunk <= MAX_CHUNK or s % chunk != 0:
         raise ValueError(f"ssd_scan: chunk {chunk} must divide the sequence length {s} "
                          f"and be at most {MAX_CHUNK}")
+    if xdt.dtype == torch.bfloat16:
+        for name, x in (("xdt", xdt), ("B", B), ("C", C)):
+            if not cp_async_aligned(x):
+                raise ValueError(
+                    f"ssd_scan: bf16 {name} must start on a 16-byte boundary with strides "
+                    f"that are multiples of 8 elements; it starts {x.data_ptr() % 16} bytes "
+                    f"past one, strides {x.stride()}")
+        if h > 65535:
+            raise ValueError(f"ssd_scan: {h} heads above the grid's 65,535")
 
 
 def ssd_scan(xdt, la, B, C, *, chunk: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors → y (b, s, h, p) in xdt's type.
 
     xdt is (b, s, h, p), la (b, s, h) fp32, B and C (b, s, n), xdt, B and C
-    all float32 or all bfloat16 on one card; ``s % chunk == 0``.
+    all float32 or all bfloat16 on one card; ``s % chunk == 0``. In bf16
+    the call also holds a transient fp32 workspace of
+    :func:`workspace_numel` elements (67 MB at the mamba2-370m prefill).
     """
     global launches
     _check(xdt, la, B, C, chunk)
     b, s, h, p = xdt.shape
     n = B.shape[2]
     y = torch.empty((b, s, h, p), dtype=xdt.dtype, device=xdt.device)
+    ws = la_last = None
+    if xdt.dtype == torch.bfloat16:
+        ws = torch.empty(workspace_numel(b, s, h, p, n, chunk), dtype=torch.float32,
+                         device=xdt.device)
+        la_last = torch.empty((b, s // chunk, h), dtype=torch.float32, device=xdt.device)
     lib = _library()
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = lib.ssd_fwd(
             xdt.data_ptr(), la.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if la_last is None else la_last.data_ptr(), 0 if ws is None else ws.numel(),
             _DTYPES[xdt.dtype], b, s, h, p, n, chunk, *xdt.stride()[:3], *la.stride(),
             *B.stride()[:2], *C.stride()[:2], *y.stride()[:3], stream,
         )

@@ -437,6 +437,26 @@ def test_ssd_kernel_refuses_what_it_does_not_take(card):
     assert ssd_kernel.launches == before
 
 
+def test_ssd_bf16_path_refuses_misaligned_views_and_counts_no_launch(card):
+    """The bf16 kernels copy 16 bytes at a time (cp.async): xdt, B and C must
+    start on a 16-byte boundary with strides in multiples of 8 elements."""
+    xdt, la, B, C = ssd_inputs(1, 64, 2, 32, 16, torch.bfloat16, card)
+    flat = torch.zeros(xdt.numel() + 8, dtype=torch.bfloat16, device=card)
+    x_odd = flat[1:xdt.numel() + 1].view(xdt.shape)  # starts 2 bytes past a 16-byte boundary
+    x_stride = torch.zeros(1, 64, 2, 36, dtype=torch.bfloat16, device=card)[..., :32]
+    fused = torch.zeros(1, 64, 64 + 2 * 16 + 4, dtype=torch.bfloat16, device=card)  # row 100
+    b_rows, c_rows = fused[..., 64:80], fused[..., 80:96]
+    b_odd = torch.zeros(1, 64, 16 + 4, dtype=torch.bfloat16, device=card)[..., 4:]  # 8 bytes in
+    before = ssd_kernel.launches
+    for args in [(x_odd, la, B, C), (x_stride, la, B, C), (xdt, la, b_rows, C),
+                 (xdt, la, B, c_rows), (xdt, la, b_odd, C)]:
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ssd_kernel.ssd_scan(*args, chunk=16)
+    assert ssd_kernel.launches == before
+    assert ssd_kernel.ssd_scan(xdt, la, B, C, chunk=16).shape == xdt.shape  # aligned: launches
+    assert ssd_kernel.launches == before + 1
+
+
 def _ssm_cfg(layers=2):
     return dataclasses.replace(configs.reduced_config("mamba2-370m"), n_layers=layers)
 
