@@ -9,7 +9,10 @@ non-zero exit and no result line:
   device     the card, as torch and ``nvidia-smi`` name it
   build      every kernel of the four paths compiled from ``src/repro_torch``,
              one ``nvcc`` per source, started together (the aircomp library
-             with two entries, the flash-attention library, the SSD library)
+             with two entries, the flash-attention library, the SSD library),
+             with each kernel's registers (ptxas) and the aircomp kernel's
+             loads in flight a thread (the most ``LDG`` its SASS issues
+             before an ``FFMA``)
   check      each kernel against its plain PyTorch version on the card
              (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash
              and SSD kernels in bf16 against the plain version in fp32 on
@@ -19,10 +22,11 @@ non-zero exit and no result line:
              cores) over the same features, with each case's largest share
              of its limit)
   times      each kernel, its plain version, one library call and the bound
-             at its path's shapes (and, for the batch kernel, B launches of
-             the one-round kernel it replaces; for the flash kernel its
-             useful TFLOP/s, its time over the library call's and its 3
-             tensor-core passes)
+             at its path's shapes (and, for the one-round aircomp kernel, the
+             launch floor, its time with g warm in L2 and with L2 flushed
+             clean; for the batch kernel, B launches of the one-round kernel
+             it replaces; for the flash kernel its useful TFLOP/s, its time
+             over the library call's and its 3 tensor-core passes)
   main       ``run_pofl`` through the user's entry points: logreg (pofl and
              channel, 30 rounds) and the full-width CNN (D=258,634, N=30
              devices, 10 scheduled), ``backend="pallas_fused"``; launch
@@ -154,39 +158,14 @@ def nvidia_smi() -> str:
 # -- kernel inputs, check and timing -----------------------------------------
 
 
-def aircomp_inputs(n, d, dev, seed=0, empty=False, row_stride=None):
-    """Gradient-like g (n, d), coeff = mask·ρ, z and the 0-d scalars."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.randn(n, row_stride or d, generator=gen, device=dev) * 0.05 + 0.01
-    g = rows[:, :d]
-    coeff = torch.rand(n, generator=gen, device=dev)
-    coeff = coeff * (torch.rand(n, generator=gen, device=dev) > 0.3)
-    z = torch.randn(d, generator=gen, device=dev)
-    m_g, v_g, a = (torch.rand((), generator=gen, device=dev) + 0.1 for _ in range(3))
-    if empty:  # nothing scheduled: a = min over the empty set = inf, coeff = 0
-        coeff = torch.zeros_like(coeff)
-        m_g, a = torch.zeros((), device=dev), torch.full((), math.inf, device=dev)
-    return g, coeff, m_g, v_g, a, z
-
-
-CHECK_CASES = {  # name: (n, d, empty, row_stride)
-    "cnn": (N_DEVICES, CNN_DIM, False, None),
-    "logreg": (N_DEVICES, LOGREG_DIM, False, None),
-    "d_off_block": (5, 1000, False, None),
-    "d_below_block": (3, 100, False, None),
-    "n_1": (1, 4096, False, None),
-    "d_odd": (7, 1001, False, None),
-    "d_mult_4": (N_DEVICES, 8192, False, None),
-    "strided_rows": (4, 1000, False, 1200),
-    "empty_schedule": (N_DEVICES, CNN_DIM, True, None),
-}
-
-
 def check_aircomp(kernel, ref, dev) -> float:
+    """The one-round kernel against its plain version over ``cases.CHECK_CASES``."""
+    from repro_torch.kernels.aircomp.cases import CHECK_CASES, round_inputs
+
     worst = 0.0
     errs = {}
     for i, (name, (n, d, empty, stride)) in enumerate(CHECK_CASES.items()):
-        args = aircomp_inputs(n, d, dev, seed=i, empty=empty, row_stride=stride)
+        args = round_inputs(n, d, dev, seed=i, empty=empty, row_stride=stride)
         got, want = kernel.aircomp_fused(*args), ref(*args)
         torch.cuda.synchronize()
         if got.shape != (d,) or not bool(torch.isfinite(got).all()):
@@ -201,15 +180,19 @@ def check_aircomp(kernel, ref, dev) -> float:
     return worst
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 50) -> float:
-    """Median device time of one call, L2 flushed before each (cold, as g
-    comes from HBM), by CUDA events around the call alone."""
+def time_ms(fn, flush: torch.Tensor, reps: int = 50, before=None) -> float:
+    """Median device time of one call, by CUDA events around the call
+    alone. Before each, L2 is flushed by writing ``flush`` (cold, as g comes
+    from HBM), or ``before()`` runs in its place."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     for start, end in events:
-        flush.zero_()
+        if before is None:
+            flush.zero_()
+        else:
+            before()
         start.record()
         fn()
         end.record()
@@ -226,10 +209,19 @@ def aircomp_bound(n: int, d: int) -> tuple[float, str]:
 
 
 def time_aircomp(kernel, ref, dev) -> dict:
+    """Kernel 1's times at both main shapes; beside them the launch floor
+    (one trivial op on a one-element tensor, timed the same way) and, at the
+    CNN shape, ``warm_ms`` (g read once just before the call, as in
+    ``run_pofl``, where g comes fresh from the local update and fits L2) and
+    ``clean_ms`` (L2 flushed by reading, so it holds no dirty lines whose
+    write-back the call would pay)."""
+    from repro_torch.kernels.aircomp.cases import round_inputs
+
     flush = torch.empty(256 * 2**20 // 4, device=dev)  # 256 MiB > the 50 MB L2
-    out = {}
+    one = torch.zeros(1, device=dev)
+    out = {"launch_floor_ms": time_ms(lambda: one.add_(1.0), flush)}
     for name, d in (("cnn", CNN_DIM), ("logreg", LOGREG_DIM)):
-        g, coeff, m_g, v_g, a, z = aircomp_inputs(N_DEVICES, d, dev, seed=7)
+        g, coeff, m_g, v_g, a, z = round_inputs(N_DEVICES, d, dev, seed=7)
         beta = (math.sqrt(max(v_g.item(), 1e-30)) / a.item())
         bound_ms, bound_by = aircomp_bound(N_DEVICES, d)
         out[name] = {
@@ -242,6 +234,13 @@ def time_aircomp(kernel, ref, dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+        if name == "cnn":
+            out[name]["warm_ms"] = time_ms(
+                lambda: kernel.aircomp_fused(g, coeff, m_g, v_g, a, z), flush,
+                before=lambda: (flush.zero_(), g.sum()))
+            out[name]["clean_ms"] = time_ms(
+                lambda: kernel.aircomp_fused(g, coeff, m_g, v_g, a, z), flush,
+                before=flush.sum)
     emit("times", kernel="aircomp_fused", **out)
     return out
 
@@ -1217,7 +1216,8 @@ def kernel_entry(name, replaces, launches, max_err, times) -> dict:
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
         "shape": big["shape"],
-        **{k: v for k, v in big.items() if k.startswith("b_launches")},
+        **{k: v for k, v in big.items() if k.startswith(("b_launches", "warm", "clean"))},
+        **{k: v for k, v in times.items() if k == "launch_floor_ms"},
         "logreg": small,
     }
 
@@ -1256,6 +1256,7 @@ def main() -> int:
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.attention.cases import CHECK_CASES as ATTN_CASES
     from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.build import ptxas_registers, sass_load_runs
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd.cases import CHECK_CASES as SSD_CASES
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
@@ -1278,7 +1279,10 @@ def main() -> int:
     emit("build", kernels=["aircomp_fused", "aircomp_fused_batch", "flash_attention", "ssd_scan"],
          seconds=time.perf_counter() - t0,
          libraries={name: {"seconds": b.seconds, "library": str(b.path.relative_to(ROOT)),
-                           "ptxas": list(b.ptxas)} for name, b in built.items()})
+                           "registers": ptxas_registers(b), "ptxas": list(b.ptxas)}
+                    for name, b in built.items()},
+         # the aircomp kernel's loads in flight a thread, from its SASS
+         aircomp_loads_before_ffma=sass_load_runs(built["aircomp"].path))
 
     max_err = check_aircomp(kernel, aircomp_fused_ref, dev)
     batch_err = check_aircomp_batch(kernel, aircomp_fused_batch_ref, aircomp_fused_ref, dev)

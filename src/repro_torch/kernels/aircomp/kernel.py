@@ -5,10 +5,12 @@ Replaces the TPU kernels ``src/repro/kernels/aircomp/kernel.py:132``
 cell of a lattice round at once). Both entries live in one source,
 ``csrc/aircomp.cu`` (its header says what bounds the kernel and how the
 design meets it): the trial axis is the grid's second dimension and one
-round is the batch of one trial. It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface at first use,
-under ``build/`` beside this file, and bound with ``ctypes``. Importing this
-module builds nothing, so the CPU tests import it without ``nvcc``
+round is the batch of one trial. The launch geometry and the rows a thread
+loads at once are chosen here, by :func:`launch_geometry`, so the CPU tests
+check them. The source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface at first use, under ``build/``
+beside this file, and bound with ``ctypes``. Importing this module builds
+nothing, so the CPU tests import it without ``nvcc``
 (``repro_torch.kernels.build`` holds the build, shared by every kernel).
 
 Unlike the TPU kernel, nothing is padded: the TPU's 128-lane tile was a
@@ -28,6 +30,10 @@ from repro_torch.kernels.build import NVCC_FLAGS, BuildInfo, build_library, load
 
 _SOURCE = Path(__file__).parent / "csrc" / "aircomp.cu"
 
+SMS = 132            # streaming multiprocessors of the H100
+MAX_THREADS = 256    # a block's threads at most: the kernel's kMaxThreads
+MAX_GRID_Y = 65_535  # trials beyond it loop inside a block
+
 # Launches since the last reset, one counter per entry, each counted only
 # in its wrapper, right where the launch succeeded: ``launches`` for
 # :func:`aircomp_fused`, ``batch_launches`` for :func:`aircomp_fused_batch`.
@@ -45,8 +51,9 @@ def build() -> BuildInfo:
 def _library() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return load_library(build(), {
-        "aircomp_fused_f32": ([p, ll, p, p, p, p, p, p, i, ll, i, p], i),
-        "aircomp_fused_batch_f32": ([p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, p], i),
+        "aircomp_fused_f32": ([p, ll, p, p, p, p, p, p, i, ll, i, i, i, i, p], i),
+        "aircomp_fused_batch_f32": (
+            [p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, i, i, i, i, p], i),
         "aircomp_error_string": ([i], ctypes.c_char_p),
     })
 
@@ -59,6 +66,27 @@ def _vector_width(d: int, strides, *tensors: torch.Tensor) -> int:
         ):
             return vec
     return 1
+
+
+def launch_geometry(trials: int, d: int, vec: int) -> tuple[int, int, int, int]:
+    """``(threads, rows, blocks_x, blocks_y)`` of one launch over ``trials`` × D.
+
+    A thread owns ``vec`` consecutive elements of D (``d % vec == 0``), so
+    blocks_x × threads threads cover the D / vec column groups; grid y holds
+    the trials, at most 65,535 (a block loops over the rest). A block has
+    256 threads unless the grid would then hold fewer than two blocks an SM:
+    then 128, then 64. A thread loads its device rows in groups of ``rows``,
+    8, or 16 where even 64-thread blocks leave the grid short of two blocks
+    an SM: registers are then plentiful, and a group of 16 (two in flight)
+    puts every row of up to 32 devices in flight at once.
+    """
+    groups = d // vec
+    blocks_y = min(trials, MAX_GRID_Y)
+    for threads in (MAX_THREADS, 128, 64):
+        blocks_x = -(-groups // threads)
+        if blocks_x * blocks_y >= 2 * SMS:
+            return threads, 8, blocks_x, blocks_y
+    return threads, 16, blocks_x, blocks_y
 
 
 def _check_operands(name: str, g: torch.Tensor, operands) -> None:
@@ -98,12 +126,14 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     out = torch.empty(d, dtype=torch.float32, device=g.device)
     ld = g.stride(0)
     vec = _vector_width(d, (ld,), g, z, out)
+    threads, rows, blocks_x, _ = launch_geometry(1, d, vec)
     lib = _library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.aircomp_fused_f32(
             g.data_ptr(), ld, coeff.data_ptr(), z.data_ptr(), m_g.data_ptr(),
-            v_g.data_ptr(), a.data_ptr(), out.data_ptr(), n, d, vec, stream,
+            v_g.data_ptr(), a.data_ptr(), out.data_ptr(), n, d, vec, rows, threads,
+            blocks_x, stream,
         )
     _raise_on_error("aircomp_fused", lib, err)
     launches += 1
@@ -147,13 +177,14 @@ def aircomp_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     g_row = g.stride(1) if n > 1 else 0
     z_trial = z.stride(0) if bt > 1 else 0
     vec = _vector_width(d, (g_trial, g_row, z_trial), g, z, out)
+    threads, rows, blocks_x, blocks_y = launch_geometry(bt, d, vec)
     lib = _library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.aircomp_fused_batch_f32(
             g.data_ptr(), g_trial, g_row, coeff.data_ptr(), z.data_ptr(), z_trial,
             m_g.data_ptr(), v_g.data_ptr(), a.data_ptr(), out.data_ptr(), d, bt, n, d,
-            vec, stream,
+            vec, rows, threads, blocks_x, blocks_y, stream,
         )
     _raise_on_error("aircomp_fused_batch", lib, err)
     batch_launches += 1

@@ -12,6 +12,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -59,6 +60,75 @@ def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
         if "ptxas info" in line or "spill" in line
     )
     return BuildInfo(path=lib, seconds=seconds, ptxas=ptxas)
+
+
+def _demangle(names) -> list:
+    """C++ names as ``cu++filt`` prints them, cut before the argument list
+    (the mangled names where the toolkit has no ``cu++filt``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    names = list(names)
+    tool = os.path.join(CUDA_HOME or "", "bin", "cu++filt")
+    if not names or not os.path.exists(tool):
+        return names
+    out = subprocess.run([tool, *names], capture_output=True, text=True).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    cut = []
+    for name in out:  # the argument list is the first "(" outside a template's <...>
+        depth = 0
+        for i, ch in enumerate(name):
+            depth += {"<": 1, ">": -1}.get(ch, 0)
+            if ch == "(" and depth == 0:
+                name = name[:i]
+                break
+        cut.append(name)
+    return cut
+
+
+def ptxas_registers(info: BuildInfo) -> dict:
+    """``{kernel: registers a thread}`` of each kernel (each template
+    instance) that ptxas compiled, from its ``-v`` lines."""
+    names, regs, current = [], [], None
+    for line in info.ptxas:
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if entry:
+            current = entry.group(1)
+        elif used and current is not None:
+            names.append(current)
+            regs.append(int(used.group(1)))
+            current = None
+    return dict(zip(_demangle(names), regs))
+
+
+def sass_load_runs(library: Path) -> dict | None:
+    """For each kernel of a built library, the most global loads of each
+    kind (``LDG.E.64``, ...) that its SASS issues with no ``FFMA`` between
+    them: how many loads a thread has in flight before it must consume one.
+    None where the toolkit has no ``cuobjdump``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    runs, name, run = {}, None, {}
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn:
+            name, run = fn.group(1), {}
+            runs[name] = {}
+        elif name is not None and op:
+            opcode = op.group(1)
+            if opcode.startswith("FFMA"):
+                run = {}
+            elif opcode.startswith("LDG"):
+                run[opcode] = run.get(opcode, 0) + 1
+                runs[name][opcode] = max(runs[name].get(opcode, 0), run[opcode])
+    return dict(zip(_demangle(runs), runs.values()))
 
 
 def cp_async_aligned(x) -> bool:

@@ -20,7 +20,8 @@ from repro_torch.core import pofl
 from repro_torch.flatten_util import ravel_pytree, tree_map
 from repro_torch.core import scheduling
 from repro_torch.kernels.aircomp import kernel, ops
-from repro_torch.kernels.aircomp.cases import BATCH_CHECK_CASES, batch_inputs
+from repro_torch.kernels.aircomp.cases import (BATCH_CHECK_CASES, CHECK_CASES, batch_inputs,
+                                               round_inputs)
 from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
 from repro_torch.kernels.attention import kernel as attn_kernel
 from repro_torch.kernels.attention import ops as attn_ops
@@ -59,31 +60,11 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(n, d, dev, seed=0, empty=False, row_stride=None):
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.randn(n, row_stride or d, generator=gen, device=dev) * 0.05 + 0.01
-    g = rows[:, :d]
-    coeff = torch.rand(n, generator=gen, device=dev)
-    coeff = coeff * (torch.rand(n, generator=gen, device=dev) > 0.3)
-    z = torch.randn(d, generator=gen, device=dev)
-    m_g, v_g, a = (torch.rand((), generator=gen, device=dev) + 0.1 for _ in range(3))
-    if empty:  # nothing scheduled: a = min over the empty set = inf, coeff = 0
-        coeff = torch.zeros_like(coeff)
-        m_g, a = torch.zeros((), device=dev), torch.full((), float("inf"), device=dev)
-    return g, coeff, m_g, v_g, a, z
-
-
-# the two main-path shapes, D off any block multiple and below one block,
-# N=1, each load width (D % 4 == 0, D % 2 == 0, odd D), a strided g, and the
-# empty schedule
-@pytest.mark.parametrize(
-    "n,d,empty,row_stride",
-    [(30, 258_634, False, None), (30, 7850, False, None), (5, 1000, False, None),
-     (3, 100, False, None), (1, 4096, False, None), (7, 1001, False, None),
-     (30, 8192, False, None), (4, 1000, False, 1200), (30, 258_634, True, None)],
-)
-def test_kernel_matches_plain_version(card, n, d, empty, row_stride):
-    args = _inputs(n, d, card, seed=n + d, empty=empty, row_stride=row_stride)
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+def test_kernel_matches_plain_version(card, case):
+    n, d, empty, row_stride = CHECK_CASES[case]
+    args = round_inputs(n, d, card, seed=list(CHECK_CASES).index(case), empty=empty,
+                        row_stride=row_stride)
     got = kernel.aircomp_fused(*args)
     want = aircomp_fused_ref(*args)
     torch.cuda.synchronize()
@@ -93,14 +74,14 @@ def test_kernel_matches_plain_version(card, n, d, empty, row_stride):
 
 
 def test_each_launch_counts_once(card):
-    args = _inputs(30, 7850, card)
+    args = round_inputs(30, 7850, card)
     before = kernel.launches
     ops.aircomp_aggregate_fused(*args)
     assert kernel.launches == before + 1
 
 
 def test_kernel_refuses_what_it_does_not_take(card):
-    g, coeff, m_g, v_g, a, z = _inputs(4, 100, card)
+    g, coeff, m_g, v_g, a, z = round_inputs(4, 100, card)
     with pytest.raises(ValueError):
         kernel.aircomp_fused(g.double(), coeff, m_g, v_g, a, z)
     with pytest.raises(ValueError):

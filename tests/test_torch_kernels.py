@@ -1,14 +1,17 @@
 """The port's aircomp kernel module on the CPU: its plain versions (one
 round, and trial-batched) against the reference's Pallas kernels (interpret
-mode) and oracles, and the dispatch.
+mode) and oracles, the dispatch, and the CUDA kernel's launch geometry.
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 Tolerance: 1e-5 relative to the output's scale (``_torch_parity``).
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from _torch_parity import assert_close, t
@@ -129,3 +132,54 @@ def test_batch_kernel_wrapper_refuses_cpu_tensors():
     args = [t(x) for x in _batch_inputs(2, 5, 300, seed=10)]
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.aircomp_fused_batch(*args)
+
+
+# (trials, D, vec): both main shapes of each entry (one CNN or logreg round,
+# the CNN lattice's 15 cells and logreg's 30), D below one block, odd D,
+# each load width, trials past grid y, and the smallest launch
+GEOMETRY_SHAPES = [
+    (1, 258_634, 2), (1, 7850, 2), (15, 258_634, 2), (30, 7850, 2),
+    (3, 100, 4), (1, 100, 1), (4, 1001, 1), (1, 1001, 1), (3, 8192, 4), (1, 4096, 4),
+    (70_000, 1000, 2), (1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("trials,d,vec", GEOMETRY_SHAPES)
+def test_launch_geometry_owns_every_column_group_once(trials, d, vec):
+    """Model the kernel's indexing: thread x of block (bx, by) owns elements
+    [c·vec, c·vec + vec) of D, c = bx·threads + x, if c·vec < D, for trials
+    by, by + grid y, ... below ``trials``."""
+    threads, rows, blocks_x, blocks_y = tkernel.launch_geometry(trials, d, vec)
+    assert threads % 32 == 0 and 32 <= threads <= min(1024, tkernel.MAX_THREADS)
+    assert rows in (8, 16)  # the kernel's instances
+    assert 1 <= blocks_y <= min(trials, 65_535)
+    col = np.arange(blocks_x * threads)
+    live = col[col * vec < d]
+    owned = (live[:, None] * vec + np.arange(vec)).ravel()
+    assert np.array_equal(np.sort(owned), np.arange(d))  # each once, none past D
+    assert blocks_x * threads - live.size < threads  # no block lies wholly past D
+    trial_owned = np.concatenate([np.arange(y, trials, blocks_y) for y in range(blocks_y)])
+    assert np.array_equal(np.sort(trial_owned), np.arange(trials))
+
+
+def test_launch_geometry_fills_the_card_at_the_round_shapes():
+    """A single CNN trial launches at least two blocks an SM, 8 rows a group
+    (the register budget of four 256-thread blocks an SM); a single logreg
+    trial (3,925 column pairs) at least 60 blocks, not 256-thread blocks'
+    16, with all 30 rows in flight (groups of 16); the lattices' grids are
+    full with 256 threads."""
+    threads, rows, blocks_x, _ = tkernel.launch_geometry(1, 258_634, 2)
+    assert (threads, rows, blocks_x >= 2 * tkernel.SMS) == (256, 8, True)
+    threads, rows, blocks_x, _ = tkernel.launch_geometry(1, 7850, 2)
+    assert (threads, rows) == (64, 16) and blocks_x >= 60
+    assert tkernel.launch_geometry(30, 7850, 2) == (256, 8, 16, 30)
+    assert tkernel.launch_geometry(15, 258_634, 2) == (256, 8, 506, 15)
+
+
+def test_launch_geometry_stays_within_the_kernel_launch_bounds():
+    src = (Path(tkernel.__file__).parent / "csrc" / "aircomp.cu").read_text()
+    assert f"constexpr int kMaxThreads = {tkernel.MAX_THREADS};" in src
+    assert f"constexpr long long kMaxGridY = {tkernel.MAX_GRID_Y};" in src
+    for vec in (1, 2, 4):
+        for rows in (8, 16):
+            assert f"case {vec * 100 + rows}: launch<{vec}, {rows}>" in src
