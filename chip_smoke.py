@@ -43,14 +43,44 @@ non-zero exit and no result line:
              seeds, 30 rounds); counts zeroed just before and read just
              after: one batch-kernel launch a round, no one-round launch;
              every record finite but in the cells named in DIVERGING_CELLS
-  diverging  each named diverging cell again through ``run_pofl`` on the
-             card and through the port's CPU round on the card's draws:
-             both must diverge too, within one round of the lattice cell
+  diverging  each named diverging cell again through ``run_pofl``'s
+             ``SimEngine.run_with_history`` on the card and through the
+             port's CPU round on the card's draws: both must diverge too,
+             within one round of the lattice cell
   lattice_no_sync  two CNN lattice rounds with device→host syncs as errors
   lattice_parity   one full-width CNN lattice round (2 policies × 2 seeds)
              on the card against the port's CPU path (≤ 1e-4, as ``parity``)
   lattice_breakdown  ``torch.profiler`` over one CNN lattice round: host and
              device kernel ms per ``lattice.*`` range, the device's idle share
+  scenario_lattice  the lattice's scenario axes through ``run_lattice``: the
+             full-width CNN on Dirichlet(0.4)-sized shards, 4 algorithms ×
+             3 policies × 2 seeds, 2 local steps, 6 rounds, a ``TaskEval``
+             every 3, ``dropout`` (p 0.1) over ``gauss_markov`` (ρ 0.9);
+             ``examples/sim_lattice.py``'s logreg setting (20 devices, 8
+             scheduled, Dirichlet(0.3) labels, 3 policies × 2 noise levels ×
+             4 seeds, 30 rounds, eval every 10, the same scenario); then a
+             FedDyn CNN run of ``SimEngine.run_with_history`` (what
+             ``run_pofl`` runs) under ``churn``, 2 local steps. Counts zeroed
+             just before each run and read just after: one batch launch a
+             lattice round and no one-round launch, one one-round launch a
+             ``run_with_history`` round; ``acc == n_correct / n_valid`` in
+             every eval cell; every record finite but in the cells named in
+             SCENARIO_DIVERGING_CELLS; cell-rounds/s (diverged cells
+             included), peak memory, and the mean |S| and the share of
+             cell-rounds with no device scheduled, over the finite cells and
+             the diverged ones apart
+  scenario_diverging  each named diverging scenario cell again through
+             ``run_with_history`` on the card and through the port's CPU
+             rounds on the card's draws, as ``diverging`` does
+  scenario_parity  one K = 2 CNN lattice round of the 4 algorithms (one a
+             cell, from a non-zero FedDyn/SCAFFOLD state) with an ``avail``
+             that drops devices, and one with every device dropped, on the
+             card against the port's CPU path from one state and one set of
+             draws (≤ 1e-4, as ``parity``; the all-dropped round leaves the
+             params unchanged and finite on both); the new FedDyn h and
+             SCAFFOLD c against the CPU's float64 state from the same
+             inputs, ≤ ``repro_torch.sim.precision.STATE_TOL`` (the fp32
+             state carries w_K − w0, a difference of near-equal weights)
   serve      qwen2-0.5b at full width through ``repro_torch.launch.serve``:
              bf16 weights from the port's ``init_model``, batch 8, a 2,048-token
              prompt, ``Server.prefill`` (``model_prefill``), ``pad_cache`` to
@@ -124,6 +154,29 @@ LATTICES = {"cnn": ((1e-10,), 10, 5), "logreg": ((1e-10, 1e-8), 30, 10)}
 # `run_pofl` on the card and through the port's CPU round on the card's
 # draws; every value of every other cell must be finite.
 DIVERGING_CELLS = (("cnn", "channel", 1e-10, 2),)
+# the scenario axes (phase scenario_lattice): the full-width CNN lattice and
+# examples/sim_lattice.py's logreg lattice, both under dropout over
+# Gauss-Markov fading; a run_with_history CNN run under churn
+SCENARIO = ("dropout", {"base": "gauss_markov", "corr": 0.9, "p_drop": 0.1})
+SCENARIO_ALGORITHMS = ("fedavg", "fedprox", "feddyn", "scaffold")
+SCENARIO_POLICIES = ("pofl", "importance", "channel")
+SCENARIO_SEEDS = (0, 1)
+SCENARIO_K, SCENARIO_ROUNDS, SCENARIO_EVAL_EVERY = 2, 6, 3
+SCENARIO_FEDPROX_MU = 0.1  # the reference's default μ = 0 would make FedProx FedAvg
+EXAMPLE_DEVICES, EXAMPLE_SCHEDULED, EXAMPLE_BETA = 20, 8, 0.3
+EXAMPLE_NOISES, EXAMPLE_SEEDS = (1e-11, 1e-9), (0, 1000, 2000, 3000)
+EXAMPLE_ROUNDS, EXAMPLE_EVAL_EVERY = 30, 10
+CHURN_ROUNDS = 6
+SCENARIO_N_TEST = 1000  # test rows of both scenario lattices: acc = n_correct / this
+# The scenario-lattice cells whose records may go non-finite, by name:
+# (run, algorithm, policy, σ_z², seed), each with its cause.
+SCENARIO_DIVERGING_CELLS = tuple(
+    # the reference's own SCAFFOLD diverges at this setting (its engine on the
+    # CPU at the (pofl, seed 0) cell: e_var 6.7, 12.5, 2.1e3, 3.1e33, NaN over
+    # rounds 0-4; ROADMAP queue C): every device refreshes c_i from its round's
+    # heterogeneous deltas and the Eq. 37 weights amplify the stale corrections
+    ("cnn", "scaffold", policy, 1e-10, seed)
+    for policy in ("pofl", "importance", "channel") for seed in (0, 1))
 # the serving path: qwen2-0.5b at full width
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -377,8 +430,8 @@ def no_sync(dev) -> None:
         try:
             for t in range(3):
                 d = next(draws)
-                params, _ = round_algorithm(task.loss_fn, engine.data, cfg, params,
-                                            d.h, d.batch_idx, d.sched, d.z, t)
+                params, _, _ = round_algorithm(task.loss_fn, engine.data, cfg, params,
+                                               d.h, d.batch_idx, d.sched, d.z, t)
                 rounds += 1
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -390,7 +443,7 @@ def parity(dev) -> None:
     """One full-width CNN round, card against the port's CPU path."""
     from repro_torch.core.pofl import POFLConfig, round_algorithm
     from repro_torch.flatten_util import ravel_pytree, tree_map
-    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.engine import RoundDraws, SimEngine
     from repro_torch.sim.tasks import make_model_task
 
     task = make_model_task("cnn", n_devices=N_DEVICES, n_train=600, n_test=10,
@@ -403,8 +456,9 @@ def parity(dev) -> None:
     for where in ("cpu", dev):
         params = tree_map(lambda p: p.to(where), task.params0)
         t0 = time.perf_counter()
-        new, m = round_algorithm(task.loss_fn, task.data.to(where), cfg, params,
-                                 *(x.to(where) for x in draws), 3)
+        d = RoundDraws(*(x.to(where) for x in draws))
+        new, _, m = round_algorithm(task.loss_fn, task.data.to(where), cfg, params,
+                                    d.h, d.batch_idx, d.sched, d.z, 3)
         out[str(where)] = (ravel_pytree(new)[0].cpu() - w0, m)
         seconds[str(where)] = time.perf_counter() - t0
     (d_cpu, m_cpu), (d_card, m_card) = out["cpu"], out[str(dev)]
@@ -641,53 +695,63 @@ def first_nonfinite(series: dict) -> int | None:
     return int(np.argmax(bad)) if bad.any() else None
 
 
-def diverging(dev, records) -> None:
-    """Each cell of DIVERGING_CELLS run again two other ways on the same
-    draws: ``run_pofl`` on the card (the single-run path, which draws the
-    seed's stream as the lattice cell does), and the port's CPU round on the
-    card's draws moved to the CPU. All three must go non-finite, their first
-    non-finite rounds at most one round apart. Reported: the first
-    non-finite round of each, the per-round series, and the largest
+def diverges_on_every_path(dev, phase, name, cell, task, cfg, n_rounds, **engine_kw):
+    """A lattice cell that went non-finite, run again two other ways on the
+    same draws: its configuration alone through ``SimEngine.run_with_history``
+    on the card (what ``run_pofl`` runs; it draws the seed's stream as the
+    lattice cell does), and the port's CPU rounds on the card's draws moved
+    to the CPU. All three must go non-finite, their first non-finite rounds
+    at most one round apart. Reported: the first non-finite round of each,
+    the per-round series, and for the `channel` policy the largest
     aggregation weight ρ_i = m_i/(M·|S|·q_i) (Eq. 37) drawn each round,
-    which for the `channel` policy follows from h and the draw."""
-    from repro_torch.core import scheduling
-    from repro_torch.core.pofl import round_algorithm, run_pofl
+    which follows from h, the availability and the draw."""
+    from repro_torch.core.aircomp import GradStats
+    from repro_torch.core.local_update import init_state
+    from repro_torch.core.pofl import round_algorithm, scheduling_stage
     from repro_torch.flatten_util import tree_map
-    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.engine import RoundDraws, SimEngine
 
+    lattice = {f: cell[f].ravel().tolist() for f in ("e_com", "e_var", "grad_norm")}
+    engine = SimEngine(task.loss_fn, task.data, cfg, device=dev, **engine_kw)
+    _, hist = engine.run_with_history(task.params0, n_rounds)
+    card = {"e_com": hist.e_com, "e_var": hist.e_var}
+    data = task.data.to("cpu")
+    params = tree_map(lambda p: p.to("cpu", copy=True), task.params0)
+    alg_state = init_state(cfg.local_algorithm, cfg.n_devices, task.dim)
+    draws = engine.draws(cfg.seed, task.dim)
+    cpu = {"e_com": [], "e_var": [], "grad_norm": []}
+    rho_max = []
+    for t in range(n_rounds):
+        d = RoundDraws(*(x.to("cpu") for x in next(draws)))
+        avail = d.avail if engine.process.can_drop else None
+        params, alg_state, m = round_algorithm(task.loss_fn, data, cfg, params, d.h,
+                                               d.batch_idx, d.sched, d.z, t, avail=avail,
+                                               alg_state=alg_state)
+        for f, v in cpu.items():
+            v.append(float(getattr(m, f)))
+        if cfg.policy == "channel":  # its probabilities ignore the statistics
+            zeros = torch.zeros(cfg.n_devices)
+            rho, _ = scheduling_stage(cfg, GradStats(zeros, zeros, zeros), d.h.abs(),
+                                      data.data_frac, task.dim, cfg.alpha, cfg.noise_power,
+                                      d.sched, avail=avail)
+            rho_max.append(float(rho.max()))
+    rounds = {"lattice": first_nonfinite(lattice), "single_run_card": first_nonfinite(card),
+              "cpu_on_card_draws": first_nonfinite(cpu)}
+    emit(phase, cell=name, rounds=n_rounds, first_nonfinite_round=rounds, lattice=lattice,
+         single_run_card=card, cpu_on_card_draws=cpu, rho_max=rho_max)
+    if None in rounds.values() or max(rounds.values()) - min(rounds.values()) > 1:
+        raise AssertionError(f"{name} does not diverge on every path within one round: "
+                             f"first non-finite rounds {rounds}")
+
+
+def diverging(dev, records) -> None:
+    """Each cell of DIVERGING_CELLS through :func:`diverges_on_every_path`."""
     for kind, policy, noise, seed in DIVERGING_CELLS:
         recs, task, n_rounds = records[kind]
-        cell = recs.cell(policy=policy, noise_power=noise, seed=seed)
-        lattice = {f: cell[f].ravel().tolist() for f in ("e_com", "e_var", "grad_norm")}
-        cfg = lattice_cfg(policy=policy, noise_power=noise, alpha=0.1, seed=seed)
-        _, hist = run_pofl(task.loss_fn, task.params0, task.data, cfg, n_rounds, device=dev)
-        card = {"e_com": hist.e_com, "e_var": hist.e_var}
-        data = task.data.to("cpu")
-        params = tree_map(lambda p: p.to("cpu", copy=True), task.params0)
-        draws = SimEngine(task.loss_fn, task.data, cfg, device=dev).draws(seed, task.dim)
-        cpu = {"e_com": [], "e_var": [], "grad_norm": []}
-        rho_max = []
-        for t in range(n_rounds):
-            d = [x.to("cpu") for x in next(draws)]
-            params, m = round_algorithm(task.loss_fn, data, cfg, params, *d, t)
-            for f, v in cpu.items():
-                v.append(float(getattr(m, f)))
-            if policy == "channel":
-                zeros = torch.zeros(N_DEVICES)
-                probs = scheduling.scheduling_probs(policy, zeros, zeros, d[0].abs(),
-                                                    data.data_frac, task.dim, 0.1, 1.0, noise)
-                sched = scheduling.sample_without_replacement(d[2], probs, N_SCHEDULED)
-                rho = scheduling.aggregation_weights(sched, probs, data.data_frac, N_SCHEDULED)
-                rho_max.append(float(rho.max()))
-        rounds = {"lattice": first_nonfinite(lattice), "run_pofl_card": first_nonfinite(card),
-                  "cpu_on_card_draws": first_nonfinite(cpu)}
-        emit("diverging", cell=[kind, policy, noise, seed], rounds=n_rounds,
-             first_nonfinite_round=rounds, lattice=lattice, run_pofl_card=card,
-             cpu_on_card_draws=cpu, rho_max=rho_max)
-        if None in rounds.values() or max(rounds.values()) - min(rounds.values()) > 1:
-            raise AssertionError(f"{kind}/{policy}/{noise}/seed {seed} does not diverge on "
-                                 f"every path within one round: first non-finite rounds "
-                                 f"{rounds}")
+        diverges_on_every_path(
+            dev, "diverging", [kind, policy, noise, seed],
+            recs.cell(policy=policy, noise_power=noise, seed=seed), task,
+            lattice_cfg(policy=policy, noise_power=noise, alpha=0.1, seed=seed), n_rounds)
 
 
 def fused_lattice_engine(task, dev, small=False):
@@ -743,7 +807,7 @@ def lattice_parity(dev) -> None:
         t0 = time.perf_counter()
         state, rec = engine.lattice_round(state, 3, False)
         out[str(where)] = ([ravel_pytree(tree_map(lambda p, c=c: p[c].cpu(), state.params))[0]
-                            - w0 for c in range(4)], [r.cpu() for r in rec])
+                            - w0 for c in range(4)], [r.cpu() for r in rec[:4]])
         seconds[str(where)] = time.perf_counter() - t0
     (d_cpu, r_cpu), (d_card, r_card) = out["cpu"], out[str(dev)]
     rel = max((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
@@ -774,6 +838,224 @@ def lattice_breakdown(dev) -> None:
 
     out = profile_ranges(one_round, 1, ("lattice.",), 5, "lattice.local_update")
     emit("lattice_breakdown", per_round=True, cells=len(axes["seed_b"]), cnn=out)
+
+
+# -- the scenario axes ------------------------------------------------------------
+
+
+def check_scenario_records(run, recs, spec, n_valid) -> tuple[np.ndarray, list, bool]:
+    """The scenario lattice's checks → (each cell finite, the non-finite
+    cells, the checks passed): records finite in every cell that
+    SCENARIO_DIVERGING_CELLS does not name, and acc == n_correct / n_valid
+    in every eval cell (``n_valid`` the test rows the phase made)."""
+    fields = [getattr(recs, f) for f in ("e_com", "e_var", "grad_norm", "n_scheduled",
+                                         "loss", "acc")] + list(recs.eval)
+    finite = np.stack([np.isfinite(f).all(axis=-1) for f in fields]).all(axis=0)
+    bad = [[spec.algorithms[i[0]], spec.policies[i[1]], spec.noise_powers[i[2]],
+            spec.seeds[i[4]]] for i in zip(*np.nonzero(~finite))]
+    unnamed = [c for c in bad if (run, *c) not in SCENARIO_DIVERGING_CELLS]
+    acc_exact = bool(np.array_equal(recs.eval.acc,
+                                    recs.eval.n_correct / np.float32(n_valid)))
+    return finite, bad, not unnamed and acc_exact
+
+
+def scheduled_stats(n_scheduled: np.ndarray) -> dict:
+    """The mean |S| and the share of cell-rounds that scheduled nobody."""
+    if n_scheduled.size == 0:
+        return {"mean_n_scheduled": None, "share_rounds_none_scheduled": None}
+    return {"mean_n_scheduled": float(n_scheduled.mean()),
+            "share_rounds_none_scheduled": float((n_scheduled == 0).mean())}
+
+
+def scenario_lattice(dev) -> tuple[dict, dict]:
+    """``run_lattice`` over the scenario axes (the CNN at full width and
+    ``examples/sim_lattice.py``'s logreg setting), then a CNN
+    ``run_with_history`` under churn → (their launch counts, {run:
+    (records, task, cfg)})."""
+    from repro_torch.kernels.aircomp import kernel
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.lattice import LatticeSpec, run_lattice
+    from repro_torch.sim.tasks import make_model_task
+
+    scenario, params = SCENARIO
+    runs = {
+        "cnn": (make_model_task("cnn", n_devices=N_DEVICES, partition="dirichlet_sized",
+                                beta=0.4, n_train=3000, n_test=SCENARIO_N_TEST, seed=0,
+                                channel_bias=1.0, device=dev),
+                LatticeSpec(algorithms=SCENARIO_ALGORITHMS, policies=SCENARIO_POLICIES,
+                            noise_powers=(1e-10,), seeds=SCENARIO_SEEDS,
+                            n_rounds=SCENARIO_ROUNDS, eval_every=SCENARIO_EVAL_EVERY),
+                lattice_cfg(local_steps=SCENARIO_K, noise_power=1e-10,
+                            fedprox_mu=SCENARIO_FEDPROX_MU)),
+        "logreg_example": (
+            make_model_task("logreg", n_devices=EXAMPLE_DEVICES, partition="dirichlet",
+                            beta=EXAMPLE_BETA, n_train=3000, n_test=SCENARIO_N_TEST, seed=0,
+                            device=dev),
+            LatticeSpec(policies=SCENARIO_POLICIES, noise_powers=EXAMPLE_NOISES,
+                        seeds=EXAMPLE_SEEDS, n_rounds=EXAMPLE_ROUNDS,
+                        eval_every=EXAMPLE_EVAL_EVERY),
+            dataclasses.replace(lattice_cfg(), n_devices=EXAMPLE_DEVICES,
+                                n_scheduled=EXAMPLE_SCHEDULED)),
+    }
+    for task, spec, cfg in runs.values():  # first calls (cuDNN, allocator) off the clock
+        run_lattice(task.loss_fn, task.data, task.params0,
+                    dataclasses.replace(spec, n_rounds=1), base_cfg=cfg,
+                    scenario=scenario, scenario_params=params)
+    launches = {"aircomp_fused_batch": 0, "aircomp_fused": 0}
+    records = {}
+    for run, (task, spec, cfg) in runs.items():
+        torch.cuda.synchronize()
+        zero_counts()  # zeroed just before the run
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        recs = run_lattice(task.loss_fn, task.data, task.params0, spec, base_cfg=cfg,
+                           eval_fn=task.eval, scenario=scenario, scenario_params=params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()  # read just after
+        grid = (len(spec.algorithms), len(spec.policies), len(spec.noise_powers), 1,
+                len(spec.seeds))
+        shapes_ok = all(getattr(recs, f).shape == grid + (spec.n_rounds,)
+                        for f in ("e_com", "e_var", "grad_norm", "n_scheduled")) and all(
+            f.shape == grid + (len(recs.eval_rounds),) for f in recs.eval)
+        finite, bad, ok = check_scenario_records(run, recs, spec, SCENARIO_N_TEST)
+        emit("scenario_lattice", run=run, d=task.dim, n=cfg.n_devices,
+             scheduled=cfg.n_scheduled, local_steps=cfg.local_steps,
+             scenario=[scenario, params], cells=spec.n_cells, rounds=spec.n_rounds,
+             seconds=seconds, cell_rounds_per_s=spec.n_cells * spec.n_rounds / seconds,
+             launches={k: counts[k] for k in launches},
+             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+             finite_cells=scheduled_stats(recs.n_scheduled[finite]),
+             diverged_cells={"cells": len(bad), **scheduled_stats(recs.n_scheduled[~finite])},
+             eval_rounds=recs.eval_rounds.tolist(), n_valid=SCENARIO_N_TEST,
+             final_acc_by_algorithm_policy={
+                 f"{a}/{p}": float(recs.eval.acc[i, j, ..., -1].mean())
+                 for i, a in enumerate(spec.algorithms)
+                 for j, p in enumerate(spec.policies)},
+             nonfinite_cells=bad)
+        if counts["aircomp_fused_batch"] != spec.n_rounds or counts["aircomp_fused"] != 0 \
+                or not shapes_ok or not ok:
+            raise AssertionError(f"scenario lattice {run}: launches {counts}, shapes "
+                                 f"{shapes_ok}, non-finite cells {bad}, checks {ok}")
+        for k in launches:
+            launches[k] += counts[k]
+        records[run] = (recs, task, cfg)
+
+    task = runs["cnn"][0]
+    cfg = lattice_cfg(local_algorithm="feddyn", local_steps=SCENARIO_K, noise_power=1e-10)
+    engine = SimEngine(task.loss_fn, task.data, cfg, scenario="churn", device=dev)
+    engine.run_with_history(task.params0, 1)  # first calls off the clock
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, hist = engine.run_with_history(task.params0, CHURN_ROUNDS, eval_fn=task.eval,
+                                           eval_every=SCENARIO_EVAL_EVERY)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    finite = all(math.isfinite(v) for v in hist.e_com + hist.e_var + hist.test_acc) and \
+        bool(torch.isfinite(task.ravel(params)).all())
+    emit("scenario_lattice", run="cnn_run_with_history_churn", d=task.dim, n=N_DEVICES,
+         algorithm="feddyn", local_steps=SCENARIO_K, rounds=CHURN_ROUNDS, seconds=seconds,
+         rounds_per_s=CHURN_ROUNDS / seconds, launches={k: counts[k] for k in launches},
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         test_round=hist.test_round, test_acc=hist.test_acc)
+    if counts["aircomp_fused"] != CHURN_ROUNDS or counts["aircomp_fused_batch"] != 0 \
+            or not finite:
+        raise AssertionError(f"run_with_history under churn: launches {counts}, "
+                             f"finite {finite}")
+    for k in launches:
+        launches[k] += counts[k]
+    return launches, records
+
+
+def scenario_diverging(dev, records) -> None:
+    """Each cell of SCENARIO_DIVERGING_CELLS through
+    :func:`diverges_on_every_path`, its algorithm alone and the scenario's
+    channel process on both other paths."""
+    scenario, params = SCENARIO
+    for run, alg, policy, noise, seed in SCENARIO_DIVERGING_CELLS:
+        recs, task, base = records[run]
+        cfg = dataclasses.replace(base, policy=policy, noise_power=noise, local_algorithm=alg,
+                                  seed=seed)
+        diverges_on_every_path(
+            dev, "scenario_diverging", [run, alg, policy, noise, seed],
+            recs.cell(algorithm=alg, policy=policy, noise_power=noise, seed=seed), task, cfg,
+            recs.e_com.shape[-1], scenario=scenario, scenario_params=params)
+
+
+def scenario_parity(dev) -> None:
+    """One K = 2 CNN lattice round of the 4 algorithms, with devices dropped
+    and with every device dropped, card against the CPU; the new FedDyn and
+    SCAFFOLD state also against the CPU's float64 state (``STATE_TOL``)."""
+    from repro_torch.core.local_update import ALGORITHM_IDS, AlgState
+    from repro_torch.core.scheduling import policy_id
+    from repro_torch.flatten_util import ravel_pytree, tree_map
+    from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine
+    from repro_torch.sim.precision import STATE_TOL, k_step_state, rel_l2, state_errors
+    from repro_torch.sim.tasks import make_model_task
+
+    task = make_model_task("cnn", n_devices=N_DEVICES, partition="dirichlet_sized", beta=0.4,
+                           n_train=600, n_test=10, channel_bias=1.0, device="cpu")
+    cfg = lattice_cfg(policy=FUSED_POLICY, local_algorithm=FUSED_ALGORITHM,
+                      local_steps=SCENARIO_K, noise_power=1e-10,
+                      fedprox_mu=SCENARIO_FEDPROX_MU)
+    scenario = dict(scenario="dropout", scenario_params={"base": "gauss_markov", "p_drop": 0.5})
+    cells = dict(noise_b=[1e-10] * 4, alpha_b=[0.1] * 4, seed_b=[0] * 4,
+                 policy_b=[policy_id("pofl")] * 4, algorithm_b=list(ALGORITHM_IDS.values()))
+    engine_cpu = SimEngine(task.loss_fn, task.data, cfg, device="cpu", **scenario)
+    draws = next(engine_cpu.draws(0, task.dim))
+    gen = torch.Generator().manual_seed(3)
+    alg0 = AlgState(*(1e-3 * torch.randn(4, N_DEVICES, task.dim, generator=gen)
+                      for _ in AlgState._fields))
+    state_f64 = k_step_state(task, cfg, draws.batch_idx, 1, alg0, torch.float64, "cpu")
+    w0 = task.ravel(task.params0)
+    names = ("e_com", "e_var", "grad_norm", "n_scheduled")
+    for case, avail in (("drops", draws.avail), ("all_dropped", torch.zeros(N_DEVICES))):
+        out, seconds = {}, {}
+        for where in ("cpu", dev):
+            engine = SimEngine(task.loss_fn, task.data, cfg, device=where, **scenario)
+            state = engine.lattice_start(task.params0, **cells)
+            d = draws._replace(avail=avail)
+            state = state._replace(alg=AlgState(*(f.to(where) for f in alg0)),
+                                   streams=[iter([tuple(x.to(where) for x in d)])])
+            t0 = time.perf_counter()
+            state, rec = engine.lattice_round(state, 1, False)
+            updates = [ravel_pytree(tree_map(lambda p, c=c: p[c].cpu(), state.params))[0]
+                       - w0 for c in range(4)]
+            out[str(where)] = (updates, AlgState(*(f.cpu() for f in state.alg)),
+                               [r.cpu() for r in rec[:4]])
+            seconds[str(where)] = time.perf_counter() - t0
+        (u_cpu, a_cpu, r_cpu), (u_card, a_card, r_card) = out["cpu"], out[str(dev)]
+
+        def rel(a, b):
+            return rel_l2(a, b) if torch.linalg.vector_norm(b) > 0 else \
+                float(torch.linalg.vector_norm(a))
+        update_err = max(rel(a, b) for a, b in zip(u_card, u_cpu))
+        state_err = state_errors(a_card, state_f64)
+        metric_err = max(((r_card[i] - r_cpu[i]).abs()
+                          / r_cpu[i].abs().clamp_min(1e-30)).max().item() for i in range(3))
+        finite = all(bool(torch.isfinite(x).all()) for x in u_card + list(a_card) + r_card)
+        unchanged = all(not u.any() for u in u_card + u_cpu)
+        emit("scenario_parity", case=case, d=task.dim, n=N_DEVICES, local_steps=SCENARIO_K,
+             algorithms=list(ALGORITHM_IDS), available=int(avail.sum()),
+             update_rel_l2_err_worst_cell=update_err, tolerance=ROUND_TOL,
+             state_rel_l2_err_card_f64=state_err,
+             state_rel_l2_err_cpu_f64=state_errors(a_cpu, state_f64),
+             state_rel_l2_err_card_cpu=state_errors(a_card, a_cpu), state_tolerance=STATE_TOL,
+             metric_rel_err_worst=metric_err, finite=finite, params_unchanged=unchanged,
+             metrics_card_cpu={f: [r_card[i].tolist(), r_cpu[i].tolist()]
+                               for i, f in enumerate(names)}, seconds=seconds)
+        bad = update_err > ROUND_TOL or max(state_err.values()) > STATE_TOL \
+            or metric_err > ROUND_TOL or not torch.equal(r_card[3], r_cpu[3]) or not finite
+        if case == "all_dropped":
+            bad = bad or not unchanged or bool(r_card[3].any())
+        elif not 0 < int(avail.sum()) < N_DEVICES:
+            bad = True
+        if bad:
+            raise AssertionError(f"scenario_parity {case}: card round disagrees with the CPU "
+                                 f"round or breaks its case")
 
 
 # -- the flash-attention kernel --------------------------------------------------
@@ -1199,16 +1481,18 @@ def serving(dev, arch, prefix, parity_batch, parity_prompt) -> dict:
     return launches
 
 
-def kernel_entry(name, replaces, launches, max_err, times) -> dict:
+def kernel_entry(name, replaces, launches_by_phase, max_err, times) -> dict:
     """One entry of the ``kernels`` line: the times at the path's larger
-    shape, the other shape's beside them."""
+    shape, the other shape's beside them; ``launches`` sums the counts of
+    the phases that drive the kernel's paths, each read on its own."""
     big, small = times["cnn"], times["logreg"]
     return {
         "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/aircomp/csrc/aircomp.cu",
         "replaces": replaces,
-        "launches": launches,
+        "launches": sum(launches_by_phase.values()),
+        "launches_by_phase": launches_by_phase,
         "max_abs_err": max_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -1301,15 +1585,22 @@ def main() -> int:
     lattice_no_sync(dev)
     lattice_parity(dev)
     lattice_breakdown(dev)
+    scenario_launches, scenario_records = scenario_lattice(dev)
+    scenario_diverging(dev, scenario_records)
+    scenario_parity(dev)
     serve_launches = serving(dev, SERVE_ARCH, "serve", PARITY_BATCH, PARITY_PROMPT)
     ssm_launches = serving(dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH, SSM_PARITY_PROMPT)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
         kernel_entry("aircomp_fused", "src/repro/kernels/aircomp/kernel.py:132",
-                     launches["aircomp_fused"], max_err, times),
+                     {"main": launches["aircomp_fused"],
+                      "scenario_lattice": scenario_launches["aircomp_fused"]},
+                     max_err, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
-                     lattice_launches["aircomp_fused_batch"], batch_err, batch_times),
+                     {"lattice": lattice_launches["aircomp_fused_batch"],
+                      "scenario_lattice": scenario_launches["aircomp_fused_batch"]},
+                     batch_err, batch_times),
         lm_kernel_entry("flash_attention",
                         "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:103",

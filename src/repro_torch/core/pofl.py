@@ -7,7 +7,12 @@ The round is the reference's pipeline of stages
 composed by :func:`round_algorithm`. Each stage takes its random draws as
 tensors — the channel ``h``, the mini-batch rows, the sampler's Gumbel
 vectors or uniforms, and the receiver noise ``z`` — which
-:class:`repro_torch.sim.engine.SimEngine` makes from a ``torch.Generator``.
+:class:`repro_torch.sim.engine.SimEngine` makes from a ``torch.Generator``,
+with the channel process's availability ``avail`` (dropout, churn), which
+masks the scheduling probabilities. The local stage runs ``cfg.local_steps``
+SGD steps under ``cfg.local_algorithm`` (``core.local_update``), whose
+per-device state (:class:`~repro_torch.core.local_update.AlgState`) the
+round takes and returns.
 Every stage runs inside a ``torch.profiler.record_function`` range named
 ``pofl.<stage>``, which is how a profile of the real round is broken down.
 
@@ -16,8 +21,9 @@ once (ranges ``lattice.<stage>``): each stage runs the per-cell function of
 :func:`round_algorithm` under ``torch.func.vmap`` over cells, so a lattice
 cell and a ``run_pofl`` run share one code path, except that under
 ``pallas_fused`` one launch of the trial-batched kernel aggregates all
-cells. The policy may be data there: an id of
-``scheduling.POLICY_IDS`` per cell (``policy_id``).
+cells. The policy may be data there, an id of ``scheduling.POLICY_IDS``
+per cell (``policy_id``), and so may the local-update algorithm
+(``algorithm_id``, ``local_update.ALGORITHM_IDS``).
 
 ``backend`` selects the aggregation:
 
@@ -43,8 +49,11 @@ from torch.profiler import record_function
 
 from repro_torch.core import aircomp, scheduling
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.local_update import local_update_stage, local_update_stage_cells
+from repro_torch.core.local_update import (
+    AlgState, local_update_stage, local_update_stage_cells,
+)
 from repro_torch.core.metrics import RoundMetrics
+from repro_torch.core.numerics import safe_div
 from repro_torch.flatten_util import ravel_pytree
 from repro_torch.kernels.aircomp import (
     aircomp_aggregate_fused,
@@ -69,9 +78,8 @@ FUSED_POLICY = "__fused__"
 class POFLConfig:
     """Hyper-parameters for the PO-FL simulator (defaults = paper Sec. V-A).
 
-    The reference's fields for features not ported yet (multi-step local
-    learning rates and regularizers) are left out; ``on_nonfinite="skip"``
-    (the non-finite quarantine) is refused by the engine.
+    ``on_nonfinite="skip"`` (the reference's non-finite quarantine) is
+    refused by the engine.
     """
 
     n_devices: int = 30
@@ -91,6 +99,9 @@ class POFLConfig:
     backend: str = "jnp"             # AggregationBackend of the aggregation stage
     local_algorithm: str = "fedavg"  # core.local_update.ALGORITHMS name
     local_steps: int = 1             # K local SGD steps per device per round
+    local_lr: float | None = None    # local step size η_l; None → cfg.lr(t)
+    fedprox_mu: float = 0.0          # FedProx proximal coefficient μ
+    feddyn_alpha: float = 0.1        # FedDyn dynamic-regularizer coefficient
     seed: int = 0
     on_nonfinite: str = "propagate"  # "skip" (the quarantine) is not ported
 
@@ -179,12 +190,17 @@ def scheduling_stage(
     alpha,
     noise_power,
     sched_draw: torch.Tensor,
+    avail: torch.Tensor | None = None,
     policy_id: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Step 4: p_i^t (Eq. 34/Remark 2) → draw S^t → weights ρ (Eq. 37/HT).
 
     Returns ``(rho, mask)``. ``sched_draw`` is :func:`sampler_draw`'s tensor
-    (of a policy-fused ``cfg`` when ``policy_id`` is given).
+    (of a policy-fused ``cfg`` when ``policy_id`` is given). ``avail`` (an
+    (N,) 0/1 mask of a process that drops devices) zeroes the unavailable
+    devices' probabilities and renormalises before any draw; ``None`` skips
+    the masking. With no device available the probabilities are all zero
+    and the draw schedules none.
 
     ``policy_id`` (an integer tensor of ``scheduling.POLICY_IDS``) replaces
     ``cfg.policy``: the probabilities come from
@@ -198,6 +214,15 @@ def scheduling_stage(
             policy_id, stats.norm, stats.var, h_abs, data_frac, dim,
             alpha, cfg.tx_power, noise_power,
         )
+    else:
+        probs = scheduling.scheduling_probs(
+            cfg.policy, stats.norm, stats.var, h_abs, data_frac, dim,
+            alpha, cfg.tx_power, noise_power,
+        )
+    if avail is not None:
+        masked = probs * avail
+        probs = safe_div(masked, masked.sum())
+    if policy_id is not None:
         is_det = policy_id == scheduling.DETERMINISTIC_ID
         bernoulli = cfg.sampler == "bernoulli"
         sched = scheduling.sample_without_replacement(
@@ -211,10 +236,6 @@ def scheduling_stage(
             return rho, torch.where(is_det, sched.mask, mask_b)
         rho_seq = scheduling.aggregation_weights(sched, probs, data_frac, cfg.n_scheduled)
         return torch.where(is_det, rho_det, rho_seq), sched.mask
-    probs = scheduling.scheduling_probs(
-        cfg.policy, stats.norm, stats.var, h_abs, data_frac, dim,
-        alpha, cfg.tx_power, noise_power,
-    )
     if cfg.policy == "deterministic":
         sched = scheduling.sample_without_replacement(
             sched_draw, probs, cfg.n_scheduled, method=method
@@ -284,13 +305,14 @@ def apply_update_stage(cfg: POFLConfig, params, y_hat: torch.Tensor, t: int):
     return unravel(flat - cfg.lr(t) * y_hat)
 
 
-def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=None):
+def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=None,
+              avail=None):
     """Steps 3–4 of one cell: the uploaded statistics, then the schedule
     → ``(rho, mask)``."""
     stats = aircomp.local_stats(g)
     return scheduling_stage(
         cfg, stats, h.abs(), data_frac, g.shape[-1], alpha, noise_power, sched_draw,
-        policy_id=policy_id,
+        avail=avail, policy_id=policy_id,
     )
 
 
@@ -322,13 +344,21 @@ def round_algorithm(
     t: int,
     noise_power: float | None = None,
     alpha: float | None = None,
-) -> tuple[Any, RoundMetrics]:
-    """Steps 2–6 of Algorithm 1 for one round → ``(new_params, metrics)``.
+    avail: torch.Tensor | None = None,
+    alg_state: AlgState | None = None,
+    algorithm_id: torch.Tensor | None = None,
+) -> tuple[Any, AlgState | None, RoundMetrics]:
+    """Steps 2–6 of Algorithm 1 for one round → ``(new_params, alg_state, metrics)``.
 
-    ``h`` is this round's channel, ``batch_idx`` the mini-batch rows (N, B),
-    ``sched_draw`` the sampler's input (:func:`sampler_draw`) and ``z`` the
-    standard-normal receiver noise (D,). Nothing here reads a value back to
-    the host, so the card runs the round without waiting on Python.
+    ``h`` is this round's channel, ``batch_idx`` the mini-batch rows ((N, B),
+    or (K, N, B) for K = ``cfg.local_steps`` > 1), ``sched_draw`` the
+    sampler's input (:func:`sampler_draw`) and ``z`` the standard-normal
+    receiver noise (D,). ``avail`` is the (N,) availability of a process
+    that drops devices (``None``: no mask). ``alg_state`` is the per-device
+    local-algorithm state (``None`` for a stateless algorithm) and
+    ``algorithm_id`` an optional id that replaces ``cfg.local_algorithm``.
+    Nothing here reads a value back to the host, so the card runs the round
+    without waiting on Python.
     """
     noise_power = cfg.noise_power if noise_power is None else noise_power
     alpha = cfg.alpha if alpha is None else alpha
@@ -336,10 +366,14 @@ def round_algorithm(
     data_frac = data.data_frac
 
     with record_function("pofl.local_update"):
-        g = local_update_stage(loss_fn, data, cfg, params, batch_idx, t)  # (N, D)
+        g, alg_state = local_update_stage(
+            loss_fn, data, cfg, params, batch_idx, t,
+            alg_state=alg_state, algorithm_id=algorithm_id,
+        )  # (N, D)
 
     with record_function("pofl.scheduling"):
-        rho, mask = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power)
+        rho, mask = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power,
+                              avail=avail)
 
     with record_function("pofl.aggregation"):
         y_hat, e_com = aggregation_stage(cfg, g, rho, h, mask, z, agg_noise_power)
@@ -349,7 +383,7 @@ def round_algorithm(
 
     with record_function("pofl.metrics"):
         metrics = _metrics(cfg, data_frac, g, rho, mask, h, y_hat, e_com)
-    return new_params, metrics
+    return new_params, alg_state, metrics
 
 
 def round_algorithm_cells(
@@ -365,31 +399,43 @@ def round_algorithm_cells(
     noise_power_c: torch.Tensor,
     alpha_c: torch.Tensor,
     policy_id_c: torch.Tensor,
-) -> tuple[Any, RoundMetrics]:
-    """One round of C lattice cells at once → ``(params_c, metrics)``.
+    avail_c: torch.Tensor | None = None,
+    alg_state_c: AlgState | None = None,
+    algorithm_id_c: torch.Tensor | None = None,
+) -> tuple[Any, AlgState | None, RoundMetrics]:
+    """One round of C lattice cells at once → ``(params_c, alg_state_c, metrics)``.
 
     Every argument carries a leading cell axis: the params' leaves, the
-    draws ``h_c`` (C, N), ``batch_idx_c`` (C, N, B), ``sched_c`` (of a
-    policy-fused ``cfg``) and ``z_c`` (C, D), and the per-cell
-    ``noise_power_c``, ``alpha_c`` and ``policy_id_c`` (C,), the policy as
-    an id of ``scheduling.POLICY_IDS``. Cell c computes :func:`round_algorithm`
-    of its policy on its slice: each stage is the per-cell function under
-    ``vmap`` over cells, except that under ``pallas_fused`` the
-    aggregation's scalar prelude is vmapped and then ONE launch of the
-    trial-batched kernel aggregates the (C, N, D) gradients. σ_z² = 0 for
-    ``noisefree`` cells is a value select. The metrics are (C,) tensors;
-    nothing is read back to the host.
+    draws ``h_c`` (C, N), ``batch_idx_c`` (C, N, B) or (C, K, N, B),
+    ``sched_c`` (of a policy-fused ``cfg``), ``z_c`` (C, D) and ``avail_c``
+    (C, N) (``None``: no mask), the per-cell ``noise_power_c``, ``alpha_c``
+    and ``policy_id_c`` (C,), the policy as an id of ``scheduling.POLICY_IDS``,
+    and the optional per-cell ``alg_state_c`` ((C, N, D) fields) and
+    ``algorithm_id_c`` (C,). Cell c computes :func:`round_algorithm` of its
+    policy and algorithm on its slice: each stage is the per-cell function
+    under ``vmap`` over cells (the local update batches its gradients the
+    same way), except that under ``pallas_fused`` the aggregation's scalar
+    prelude is vmapped and then ONE launch of the trial-batched kernel
+    aggregates the (C, N, D) updates. σ_z² = 0 for ``noisefree`` cells is a
+    value select. The metrics are (C,) tensors; nothing is read back to the
+    host.
     """
     agg_noise_c = torch.where(policy_id_c == scheduling.NOISEFREE_ID, 0.0, noise_power_c)
     data_frac = data.data_frac
 
     with record_function("lattice.local_update"):
-        g = local_update_stage_cells(loss_fn, data, cfg, params_c, batch_idx_c, t)
+        g, alg_state_c = local_update_stage_cells(
+            loss_fn, data, cfg, params_c, batch_idx_c, t,
+            alg_state_c=alg_state_c, algorithm_id_c=algorithm_id_c,
+        )
 
     with record_function("lattice.scheduling"):
-        rho, mask = vmap(functools.partial(_schedule, cfg, data_frac))(
-            g, h_c, sched_c, alpha_c, noise_power_c, policy_id_c
-        )
+        schedule = functools.partial(_schedule, cfg, data_frac)
+        cell_args = (g, h_c, sched_c, alpha_c, noise_power_c, policy_id_c)
+        if avail_c is None:
+            rho, mask = vmap(schedule)(*cell_args)
+        else:
+            rho, mask = vmap(schedule)(*cell_args, avail_c)
 
     with record_function("lattice.aggregation"):
         if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
@@ -412,7 +458,7 @@ def round_algorithm_cells(
         metrics = vmap(functools.partial(_metrics, cfg, data_frac))(
             g, rho, mask, h_c, y_hat, e_com
         )
-    return new_params, metrics
+    return new_params, alg_state_c, metrics
 
 
 def run_pofl(

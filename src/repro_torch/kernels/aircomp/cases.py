@@ -49,7 +49,9 @@ def round_inputs(n, d, dev, seed=0, empty=False, row_stride=None):
 # name: (B, N, D, empty_trial, strided). The CNN lattice's shape (15 cells of
 # D=258,634), logreg's lattice (30 cells), odd D, D below one block, one
 # trial, D % 4 == 0, a trial-strided view, an empty schedule in one trial,
-# and N = 31, 100 and 257 as above; every trial has its own scalars.
+# N = 31, 100 and 257 as above, and the scenario lattices' shapes: the CNN's
+# 24 cells and the example's logreg at N = 20 (a masked last row group);
+# every trial has its own scalars.
 BATCH_CHECK_CASES = {
     "cnn_lattice": (15, 30, 258_634, None, False),
     "logreg_lattice": (30, 30, 7850, None, False),
@@ -62,6 +64,8 @@ BATCH_CHECK_CASES = {
     "n_31": (3, 31, 7850, None, False),
     "n_100": (2, 100, 1001, None, False),
     "n_257": (2, 257, 4096, None, False),
+    "cnn_scenario_lattice": (24, 30, 258_634, None, False),
+    "logreg_example_lattice": (24, 20, 7850, None, False),
 }
 
 

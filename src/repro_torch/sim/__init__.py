@@ -1,7 +1,7 @@
 """Port of ``repro.sim``: channel processes, model tasks, the round engine
 and the scenario lattice. The exports are the reference's names that are
 ported so far (ROADMAP queue A lists the rest)."""
-from repro_torch.sim.engine import FUSED_POLICY, SimEngine
+from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine
 from repro_torch.sim.lattice import LatticeRecords, LatticeSpec, run_lattice
 from repro_torch.sim.scenario import (
     CHANNEL_SCENARIOS,
@@ -9,10 +9,12 @@ from repro_torch.sim.scenario import (
     make_channel_process,
     make_partition,
 )
-from repro_torch.sim.tasks import TASKS, ModelTask, make_model_task
+from repro_torch.sim.tasks import TASKS, EvalRecord, ModelTask, TaskEval, make_model_task
 
 __all__ = [
     "CHANNEL_SCENARIOS",
+    "EvalRecord",
+    "FUSED_ALGORITHM",
     "FUSED_POLICY",
     "LatticeRecords",
     "LatticeSpec",
@@ -20,6 +22,7 @@ __all__ = [
     "PARTITIONS",
     "SimEngine",
     "TASKS",
+    "TaskEval",
     "make_channel_process",
     "make_model_task",
     "make_partition",

@@ -13,9 +13,11 @@ The reference's key discipline
 
 becomes one ``torch.Generator`` on the run's device, seeded with the seed:
 the channel process draws its initial state from it, then every round draws,
-in order, the channel ``h``, the mini-batch rows, the sampler's input and
-the receiver noise ``z`` (:meth:`SimEngine.draws`). The numbers differ from
-the reference's threefry streams; the law is the same.
+in order, the channel process's step (``h`` and the availability
+``avail``), the mini-batch rows (K of them for ``cfg.local_steps`` = K),
+the sampler's input and the receiver noise ``z`` (:meth:`SimEngine.draws`).
+The numbers differ from the reference's threefry streams; the law is the
+same.
 
 In a lattice every cell of seed s starts from ``PRNGKey(s)`` in the
 reference, so all the policies, noise levels and alphas at one seed see the
@@ -23,6 +25,16 @@ same channel, mini-batches, sampler draws and noise (common random numbers,
 which the policy comparison rests on). The port keeps that with one
 :meth:`SimEngine.draws` stream per distinct seed: each round the per-seed
 draws are stacked and gathered to the cells by seed index.
+
+Each run carries its per-device local-algorithm state
+(:class:`~repro_torch.core.local_update.AlgState`) from round to round. A
+lattice over several algorithms is ALGORITHM-fused: the engine's
+``cfg.local_algorithm`` is :data:`FUSED_ALGORITHM`, each cell carries its
+algorithm as an id and the full state (``h`` and ``c``).
+
+A :class:`~repro_torch.sim.tasks.TaskEval` ``eval_fn`` fills the records'
+``eval`` subtree (:class:`~repro_torch.sim.tasks.EvalRecord`, zeros on the
+rounds that do not evaluate); any other ``eval_fn`` leaves it ``None``.
 
 Nothing reads a value back to the host inside a round. ``run_with_history``
 keeps the per-round metrics on the device until an eval boundary (or the
@@ -36,7 +48,9 @@ from typing import Any, Callable, Iterator, NamedTuple
 import torch
 
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.local_update import ALGORITHMS, minibatch_indices
+from repro_torch.core.local_update import (
+    ALGORITHMS, AlgState, init_state, minibatch_indices,
+)
 from repro_torch.core.pofl import (
     FUSED_POLICY, DeviceData, History, POFLConfig, round_algorithm,
     round_algorithm_cells, sampler_draw,
@@ -44,14 +58,21 @@ from repro_torch.core.pofl import (
 from repro_torch.device import resolve_device
 from repro_torch.flatten_util import tree_leaves, tree_map
 from repro_torch.sim.scenario import make_channel_process
+from repro_torch.sim.tasks import EvalRecord, TaskEval, zero_eval_record
+
+# The cfg.local_algorithm of an ALGORITHM-FUSED engine (a lattice over
+# several algorithms): each cell carries its algorithm as an id, so the
+# string is deliberately not a real algorithm.
+FUSED_ALGORITHM = "__fused__"
 
 
 class RoundRecord(NamedTuple):
     """Per-round metric record; in a lattice every field is (cells, rounds).
 
-    ``diag``, ``eval`` and ``health`` are the reference's optional subtrees
-    (diagnostics taps, task-eval curves, quarantine counters); the port
-    does not fill them yet, so they are always ``None``.
+    ``eval`` is the :class:`~repro_torch.sim.tasks.EvalRecord` subtree
+    when the engine's ``eval_fn`` is a ``TaskEval``, else ``None``. ``diag``
+    and ``health`` are the reference's diagnostics taps and quarantine
+    counters, not ported: always ``None``.
     """
 
     e_com: torch.Tensor        # Eq. 15 closed-form communication distortion
@@ -78,15 +99,19 @@ class LatticeState(NamedTuple):
     noise: torch.Tensor          # (B,) σ_z² per cell
     alpha: torch.Tensor          # (B,) α per cell
     policy: torch.Tensor         # (B,) POLICY_IDS per cell
+    alg: Any = None              # AlgState with (B, N, D) fields, or None
+    algorithm: Any = None        # (B,) ALGORITHM_IDS per cell, or None (static)
 
 
 class RoundDraws(NamedTuple):
-    """One round's random inputs, in the order the generator makes them."""
+    """One round's random inputs, in the order the generator makes them
+    (the channel process's step gives ``h`` and ``avail``)."""
 
     h: torch.Tensor          # (N,) complex64 channel
-    batch_idx: torch.Tensor  # (N, B) int64 mini-batch rows
+    batch_idx: torch.Tensor  # (N, B) int64 mini-batch rows; (K, N, B) at K > 1
     sched: torch.Tensor      # the sampler's input (pofl.sampler_draw)
     z: torch.Tensor          # (D,) standard-normal receiver noise
+    avail: torch.Tensor      # (N,) 0/1 availability (all ones if it cannot drop)
 
 
 def _default_channel_cfg(cfg: POFLConfig) -> ChannelConfig:
@@ -105,9 +130,12 @@ class SimEngine:
       channel_cfg: physical-layer constants; defaults to the ones
         ``run_pofl`` builds from ``cfg``.
       scenario: channel-process name (``sim.scenario.CHANNEL_SCENARIOS``).
+      scenario_params: the scenario's parameters (e.g. ``corr=0.95``, or
+        ``base="gauss_markov"`` under ``dropout``).
       eval_fn: ``params -> (loss, acc)`` that :meth:`run_lattice_cells`
         runs on each cell's params after a round flagged by ``do_eval``
-        (``run_with_history`` takes its own).
+        (``run_with_history`` takes its own); a ``TaskEval`` also fills
+        the records' ``eval`` subtree.
       device:  where the run lives; the CUDA card by default, and with no
         card and no ``device`` given the engine raises.
     """
@@ -119,11 +147,12 @@ class SimEngine:
         cfg: POFLConfig,
         channel_cfg: ChannelConfig | None = None,
         scenario: str = "static_rayleigh",
+        scenario_params: dict | None = None,
         eval_fn: Callable | None = None,
         device=None,
     ):
         self.device = resolve_device(device)
-        if cfg.local_algorithm not in ALGORITHMS:
+        if cfg.local_algorithm not in ALGORITHMS + (FUSED_ALGORITHM,):
             raise ValueError(
                 f"unknown local_algorithm {cfg.local_algorithm!r}; choose from {ALGORITHMS}"
             )
@@ -147,34 +176,82 @@ class SimEngine:
         self.data = data.to(self.device)
         self.cfg = cfg
         self.channel_cfg = channel_cfg or _default_channel_cfg(cfg)
-        self.process = make_channel_process(scenario, self.channel_cfg)
+        self.process = make_channel_process(
+            scenario, self.channel_cfg, **(scenario_params or {}))
         self.eval_fn = eval_fn
+        self.task_eval = eval_fn if isinstance(eval_fn, TaskEval) else None
 
     def draws(self, seed: int, dim: int) -> Iterator[RoundDraws]:
         """The run's random inputs, round after round (the key discipline)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         chan = self.process.init(gen)
+        k_steps = self.cfg.local_steps
         while True:
-            chan, h = self.process.step(chan, gen)
+            chan, h, avail = self.process.step(chan, self.process.draw(gen))
+            rows = [minibatch_indices(self.data, self.cfg.batch_size, gen)
+                    for _ in range(k_steps)]
             yield RoundDraws(
                 h=h,
-                batch_idx=minibatch_indices(self.data, self.cfg.batch_size, gen),
+                batch_idx=rows[0] if k_steps == 1 else torch.stack(rows),
                 sched=sampler_draw(self.cfg, gen),
                 z=torch.randn(dim, generator=gen, device=self.device),
+                avail=avail,
             )
 
-    def lattice_start(self, params0, noise_b, alpha_b, seed_b, policy_b) -> LatticeState:
+    def _avail(self, d: RoundDraws):
+        """The round's availability mask, or ``None`` where the process
+        never drops a device (the round then skips the masking)."""
+        return d.avail if self.process.can_drop else None
+
+    def _alg_state(self, dim: int, cells: int | None = None) -> AlgState | None:
+        """The zero local-algorithm state of a run (``cells``: of a lattice,
+        each field (cells, N, D)); ``None`` for a stateless algorithm."""
+        fused = self.cfg.local_algorithm == FUSED_ALGORITHM
+        state = init_state(self.cfg.local_algorithm, self.cfg.n_devices, dim, full=fused,
+                           device=self.device)
+        if state is None or cells is None:
+            return state
+        return AlgState(*(None if f is None else f.new_zeros((cells,) + f.shape)
+                          for f in state))
+
+    def _eval(self, params, cells: int, do_eval: bool):
+        """Each cell's eval after a round → ``(loss, acc, eval record)``,
+        (B,) tensors (zeros when not ``do_eval``); the record is ``None``
+        unless ``eval_fn`` is a ``TaskEval``."""
+        zeros = torch.zeros(cells, device=self.device)
+        if not do_eval or self.eval_fn is None:
+            rec = None if self.task_eval is None else zero_eval_record((cells,), self.device)
+            return zeros, zeros, rec
+        per_cell = [tree_map(lambda p, c=c: p[c], params) for c in range(cells)]
+        if self.task_eval is not None:
+            rec = EvalRecord(*(torch.stack(f) for f in zip(
+                *(self.task_eval.record(p) for p in per_cell))))
+            return rec.loss, rec.acc, rec
+        loss, acc = (torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in vals])
+                     for vals in zip(*(self.eval_fn(p) for p in per_cell)))
+        return loss, acc, None
+
+    def lattice_start(self, params0, noise_b, alpha_b, seed_b, policy_b,
+                      algorithm_b=None) -> LatticeState:
         """The state of a lattice run before its first round: each cell's
-        params (a copy of ``params0``), one draw stream per distinct seed,
-        and the per-cell axes on the device. All host → device copies of a
-        run happen here. The engine must be policy-fused (``cfg.policy`` is
-        :data:`FUSED_POLICY`): each cell's policy is its id in ``policy_b``."""
+        params (a copy of ``params0``) and zero local-algorithm state, one
+        draw stream per distinct seed, and the per-cell axes on the device.
+        All host → device copies of a run happen here. The engine must be
+        policy-fused (``cfg.policy`` is :data:`FUSED_POLICY`): each cell's
+        policy is its id in ``policy_b``; an algorithm-fused engine
+        (``cfg.local_algorithm`` is :data:`FUSED_ALGORITHM`) takes each
+        cell's algorithm id in ``algorithm_b``."""
         dev = self.device
         if self.cfg.policy != FUSED_POLICY:
             raise ValueError(
                 f"a lattice engine is policy-fused: cfg.policy must be FUSED_POLICY, "
                 f"got {self.cfg.policy!r}"
+            )
+        if (algorithm_b is None) != (self.cfg.local_algorithm != FUSED_ALGORITHM):
+            raise ValueError(
+                "algorithm_b goes with an algorithm-fused engine (cfg.local_algorithm "
+                "FUSED_ALGORITHM) and only with one"
             )
         seeds = [int(s) for s in seed_b]
         distinct = sorted(set(seeds))
@@ -191,56 +268,62 @@ class SimEngine:
             noise=torch.as_tensor(noise_b, dtype=torch.float32).to(dev),
             alpha=torch.as_tensor(alpha_b, dtype=torch.float32).to(dev),
             policy=torch.as_tensor(policy_b, dtype=torch.int64).to(dev),
+            alg=self._alg_state(dim, cells=len(seeds)),
+            algorithm=None if algorithm_b is None
+            else torch.as_tensor(algorithm_b, dtype=torch.int64).to(dev),
         )
 
     def lattice_round(self, state: LatticeState, t: int, do_eval: bool):
         """Round ``t`` of every cell → ``(state', record)``, ``record`` the
-        (B,) tensors of :data:`RECORD_SCALARS`. The cells of one seed share
-        that seed's draws. ``eval_fn`` runs on each cell's new params when
-        ``do_eval``; ``loss``/``acc`` are 0 otherwise. Under ``pallas_fused``
-        one launch of the batch kernel aggregates the round. Nothing is read
-        back to the host."""
+        (B,) tensors of :data:`RECORD_SCALARS` and the ``eval`` record
+        (``None`` unless ``eval_fn`` is a ``TaskEval``). The cells of one
+        seed share that seed's draws. ``eval_fn`` runs on each cell's new
+        params when ``do_eval``; ``loss``/``acc`` are 0 otherwise. Under
+        ``pallas_fused`` one launch of the batch kernel aggregates the round.
+        Nothing is read back to the host."""
         per_seed = [next(it) for it in state.streams]
         d = RoundDraws(*(
             torch.stack(x).index_select(0, state.seed_idx) for x in zip(*per_seed)
         ))
-        params, m = round_algorithm_cells(
+        params, alg, m = round_algorithm_cells(
             self.loss_fn, self.data, self.cfg, state.params, d.h, d.batch_idx, d.sched,
-            d.z, t, state.noise, state.alpha, state.policy,
+            d.z, t, state.noise, state.alpha, state.policy, avail_c=self._avail(d),
+            alg_state_c=state.alg, algorithm_id_c=state.algorithm,
         )
-        loss = acc = torch.zeros_like(state.noise)
-        if do_eval and self.eval_fn is not None:
-            evals = [
-                self.eval_fn(tree_map(lambda p, c=c: p[c], params))
-                for c in range(state.noise.shape[0])
-            ]
-            loss, acc = (
-                torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in vals])
-                for vals in zip(*evals)
-            )
-        record = (m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc)
-        return state._replace(params=params), record
+        loss, acc, ev = self._eval(params, state.noise.shape[0], do_eval)
+        record = (m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc, ev)
+        return state._replace(params=params, alg=alg), record
 
     def run_lattice_cells(
         self, params0, t_ints, do_eval, noise_b, alpha_b, seed_b, policy_b,
+        algorithm_b=None,
     ) -> RoundRecord:
         """Every cell of a lattice, round by round → a :class:`RoundRecord`
-        of (B, T) tensors on the engine's device.
+        of (B, T) tensors on the engine's device (its ``eval`` an
+        ``EvalRecord`` of them under a ``TaskEval``).
 
-        ``noise_b``, ``alpha_b``, ``seed_b`` and ``policy_b`` (ids of
-        ``scheduling.POLICY_IDS``) are the flattened (B,) cell axes of a
-        policy-fused engine. Every cell starts from ``params0``; ``do_eval``
-        flags the rounds after which ``eval_fn`` runs (:meth:`lattice_round`).
+        ``noise_b``, ``alpha_b``, ``seed_b``, ``policy_b`` (ids of
+        ``scheduling.POLICY_IDS``) and, for an algorithm-fused engine,
+        ``algorithm_b`` (ids of ``local_update.ALGORITHM_IDS``) are the
+        flattened (B,) cell axes of a policy-fused engine. Every cell starts
+        from ``params0``; ``do_eval`` flags the rounds after which
+        ``eval_fn`` runs (:meth:`lattice_round`).
         """
-        state = self.lattice_start(params0, noise_b, alpha_b, seed_b, policy_b)
+        state = self.lattice_start(params0, noise_b, alpha_b, seed_b, policy_b,
+                                   algorithm_b)
         rounds = []
         for t, ev in zip(t_ints, do_eval):
             state, record = self.lattice_round(state, int(t), bool(ev))
             rounds.append(record)
+        cells = len(state.seed_idx)
         if not rounds:
-            empty = torch.zeros(len(state.seed_idx), 0, device=self.device)
-            return RoundRecord(*(empty for _ in RECORD_SCALARS))
-        return RoundRecord(*(torch.stack(f, dim=1) for f in zip(*rounds)))
+            empty = torch.zeros(cells, 0, device=self.device)
+            ev = None if self.task_eval is None else zero_eval_record((cells, 0), self.device)
+            return RoundRecord(*(empty for _ in RECORD_SCALARS), eval=ev)
+        *scalars, evals = zip(*rounds)
+        ev = None if self.task_eval is None else EvalRecord(
+            *(torch.stack(f, dim=1) for f in zip(*evals)))
+        return RoundRecord(*(torch.stack(f, dim=1) for f in scalars), eval=ev)
 
     def run_with_history(
         self,
@@ -254,8 +337,12 @@ class SimEngine:
 
         ``eval_fn(params) -> (loss, acc)`` runs after round 0, every
         ``eval_every`` rounds and after the last round; those are the only
-        points where values come back to the host.
+        points where values come back to the host. The local-algorithm
+        state starts at zero and is carried from round to round.
         """
+        if self.cfg.local_algorithm == FUSED_ALGORITHM:
+            raise ValueError("run_with_history runs one algorithm: cfg.local_algorithm "
+                             "must name one, not FUSED_ALGORITHM")
         params = tree_map(
             lambda p: torch.as_tensor(p).to(self.device, torch.float32, copy=True),
             params0,
@@ -269,11 +356,12 @@ class SimEngine:
         hist = History(loss=[], e_com=[], e_var=[], test_acc=[], test_round=[])
         e_com, e_var = [], []
         draws = self.draws(seed, dim)
+        alg = self._alg_state(dim)
         for t in range(n_rounds):
             d = next(draws)
-            params, m = round_algorithm(
+            params, alg, m = round_algorithm(
                 self.loss_fn, self.data, self.cfg, params,
-                d.h, d.batch_idx, d.sched, d.z, t,
+                d.h, d.batch_idx, d.sched, d.z, t, avail=self._avail(d), alg_state=alg,
             )
             e_com.append(m.e_com)
             e_var.append(m.e_var)

@@ -2,22 +2,25 @@
 
 A :class:`LatticeSpec` names the sweep axes
 
-    policies × noise_powers × alphas × seeds   (× n_rounds)
+    algorithms × policies × noise_powers × alphas × seeds   (× n_rounds)
 
 and :func:`run_lattice` runs every cell of it at once: the cells are a
 leading batch axis of one round (``core.pofl.round_algorithm_cells``), the
-policy is an id per cell (``core.scheduling.POLICY_IDS``), and under
-``backend="pallas_fused"`` one launch of the trial-batched CUDA kernel
-aggregates all cells each round. The flat cell order is the reference's
-policy-major one, so the records reshape to the reference's
-``(A, P, Nn, Na, Ns, T|E)`` grid with A = 1. The records stay on the device
-for the whole run and come to the host once, at the end.
+policy is an id per cell (``core.scheduling.POLICY_IDS``), and so is the
+local-update algorithm when the spec names several
+(``core.local_update.ALGORITHM_IDS``; one algorithm keeps its static
+dispatch). Under ``backend="pallas_fused"`` one launch of the trial-batched
+CUDA kernel aggregates all cells each round. Any channel scenario of
+``sim.scenario.CHANNEL_SCENARIOS`` with its parameters, any
+``base_cfg.local_steps`` and a ``TaskEval`` (whose curves fill
+``LatticeRecords.eval``) are accepted. The flat cell order is the
+reference's: the algorithm axis leads, then policy-major, so the records
+reshape to the reference's ``(A, P, Nn, Na, Ns, T|E)`` grid. The records
+stay on the device for the whole run and come to the host once, at the end.
 
 What the reference's lattice does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: a mesh, several local-update algorithms or
-multi-step local updates, ``fuse_policies=False``, ``obs`` diagnostics,
-``on_nonfinite="skip"``, a task-eval subtree and any channel scenario other
-than ``static_rayleigh``.
+naming its ROADMAP item: a mesh, ``fuse_policies=False``, ``obs``
+diagnostics and ``on_nonfinite="skip"``.
 """
 from __future__ import annotations
 
@@ -27,11 +30,12 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import scheduling
+from repro_torch.core import local_update, scheduling
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.local_update import check_local_update
 from repro_torch.core.pofl import DeviceData, POFLConfig
-from repro_torch.sim.engine import FUSED_POLICY, RECORD_SCALARS, SimEngine
+from repro_torch.sim.engine import (
+    FUSED_ALGORITHM, FUSED_POLICY, RECORD_SCALARS, SimEngine,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +66,12 @@ class LatticeSpec:
 class LatticeRecords(NamedTuple):
     """Per-cell records, axes (algorithm, policy, noise, alpha, seed, ...).
 
-    The algorithm axis leads and has size 1. ``loss``/``acc`` are taken at
-    ``eval_rounds`` (an empty E axis without an eval_fn). ``diag``, ``eval``
-    and ``health`` are the reference's optional subtrees, always ``None``
-    here.
+    The algorithm axis leads (size 1 for one algorithm). ``loss``/``acc``
+    are taken at ``eval_rounds`` (an empty E axis without an eval_fn).
+    ``eval`` is an :class:`~repro_torch.sim.tasks.EvalRecord` of
+    ``(A, P, Nn, Na, Ns, E)`` arrays when the eval_fn is a ``TaskEval``,
+    else ``None``; ``diag`` and ``health`` are the reference's optional
+    subtrees that are not ported, always ``None``.
     """
 
     axes: dict               # axis name -> coordinate list
@@ -77,7 +83,7 @@ class LatticeRecords(NamedTuple):
     acc: np.ndarray          # (A, P, Nn, Na, Ns, E)
     eval_rounds: np.ndarray  # (E,)
     diag: Any = None
-    eval: Any = None
+    eval: Any = None         # tasks.EvalRecord of (A, P, Nn, Na, Ns, E), or None
     health: Any = None
 
     def cell(self, **coords) -> dict:
@@ -118,37 +124,39 @@ def run_lattice(
 
     Args:
       eval_fn: ``params -> (loss, acc)``, run on each cell's params after
-        round 0, every ``spec.eval_every`` rounds and the last round.
+        round 0, every ``spec.eval_every`` rounds and the last round; a
+        ``TaskEval`` also fills ``LatticeRecords.eval``.
       base_cfg: defaults for everything the spec doesn't sweep; its
         ``policy``/``noise_power``/``alpha``/``seed``/``local_algorithm``
         fields are overridden per cell. ``base_cfg.backend`` selects the
         aggregation of every cell (``pallas_fused``: one batch-kernel launch
-        a round on the card).
+        a round on the card) and ``base_cfg.local_steps`` the local SGD
+        steps of every cell.
+      scenario, scenario_params: the channel process
+        (``sim.scenario.make_channel_process``) every cell runs under.
       device: where the lattice runs; the CUDA card by default (no card and
         no ``device``: it raises).
 
-    ``mesh``, ``fuse_policies=False``, ``obs`` and a task-eval ``eval_fn``
-    (one with a ``record`` method) are the reference's options that are not
-    ported; they raise ``NotImplementedError`` naming their ROADMAP item.
+    ``mesh``, ``fuse_policies=False`` and ``obs`` are the reference's
+    options that are not ported; they, and ``base_cfg.on_nonfinite="skip"``,
+    raise ``NotImplementedError`` naming their ROADMAP item.
     """
     base_cfg = base_cfg or POFLConfig(n_devices=data.n_devices)
     if mesh is not None:
         raise _unported("run_lattice over a mesh (cells or cells × model)", "12")
-    if len(spec.algorithms) != 1:
-        raise _unported("a lattice over several local-update algorithms", "5")
     if not fuse_policies:
         raise _unported("run_lattice(fuse_policies=False), the per-policy loop", "10")
     if obs is not None:
         raise _unported("run_lattice(obs=...), the diagnostics taps", "6")
-    if hasattr(eval_fn, "record"):
-        raise _unported("a TaskEval eval_fn (the lattice's eval subtree)", "9")
-    if scenario_params:
-        raise _unported(f"scenario parameters {sorted(scenario_params)}", "8")
+    algs = tuple(spec.algorithms)
+    if not algs:
+        raise ValueError("spec.algorithms must name at least one algorithm")
+    alg_ids = np.asarray([local_update.algorithm_id(a) for a in algs], np.int64)
+    fused_algs = len(algs) > 1
     cfg = dataclasses.replace(
-        base_cfg, policy=FUSED_POLICY, local_algorithm=spec.algorithms[0],
-        n_devices=data.n_devices,
+        base_cfg, policy=FUSED_POLICY, n_devices=data.n_devices,
+        local_algorithm=FUSED_ALGORITHM if fused_algs else algs[0],
     )
-    check_local_update(cfg)
 
     t_ints = np.arange(spec.n_rounds, dtype=np.int32)
     if eval_fn is not None and spec.n_rounds:
@@ -156,10 +164,11 @@ def run_lattice(
     else:
         do_eval = np.zeros(spec.n_rounds, bool)
 
-    # the flat cell grid, policy-major then noise × alpha × seed (the
-    # reference's fused order)
+    # the flat cell grid: algorithm, then policy-major noise × alpha × seed
+    # (the reference's fused order)
     pol_ids = np.asarray([scheduling.policy_id(p) for p in spec.policies], np.int64)
-    grid_p, grid_n, grid_a, grid_s = np.meshgrid(
+    grid_al, grid_p, grid_n, grid_a, grid_s = np.meshgrid(
+        alg_ids,
         pol_ids,
         np.asarray(spec.noise_powers, np.float32),
         np.asarray(spec.alphas, np.float32),
@@ -168,27 +177,34 @@ def run_lattice(
     )
     engine = SimEngine(
         loss_fn, data, cfg, channel_cfg=channel_cfg, scenario=scenario,
-        eval_fn=eval_fn, device=device,
+        scenario_params=scenario_params, eval_fn=eval_fn, device=device,
     )
     recs = engine.run_lattice_cells(
         params0, t_ints.tolist(), do_eval.tolist(), grid_n.ravel(), grid_a.ravel(),
-        grid_s.ravel(), grid_p.ravel(),
+        grid_s.ravel(), grid_p.ravel(), grid_al.ravel() if fused_algs else None,
     )
     # the one device → host transfer of the run
-    host = torch.stack([getattr(recs, f) for f in RECORD_SCALARS]).cpu().numpy()
-    shape = (1, len(spec.policies), len(spec.noise_powers), len(spec.alphas),
+    ev_fields = () if recs.eval is None else tuple(recs.eval)
+    host = torch.stack([getattr(recs, f) for f in RECORD_SCALARS] + list(ev_fields))
+    host = host.cpu().numpy()
+    shape = (len(algs), len(spec.policies), len(spec.noise_powers), len(spec.alphas),
              len(spec.seeds), spec.n_rounds)
     fields = {f: host[i].reshape(shape) for i, f in enumerate(RECORD_SCALARS)}
     for f in ("loss", "acc"):
         fields[f] = fields[f][..., do_eval]
+    ev = None
+    if recs.eval is not None:
+        ev = type(recs.eval)(*(a.reshape(shape)[..., do_eval]
+                               for a in host[len(RECORD_SCALARS):]))
     return LatticeRecords(
         axes={
-            "algorithm": list(spec.algorithms),
+            "algorithm": list(algs),
             "policy": list(spec.policies),
             "noise_power": list(spec.noise_powers),
             "alpha": list(spec.alphas),
             "seed": list(spec.seeds),
         },
         eval_rounds=t_ints[do_eval],
+        eval=ev,
         **fields,
     )

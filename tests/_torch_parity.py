@@ -9,7 +9,12 @@ A lattice is replayed per seed: every cell of seed s starts from
 ``PRNGKey(s)`` in the reference, so the port's one draw stream per distinct
 seed (``SimEngine.draws``) is replaced by :func:`jax_engine_draws` of that
 seed, with the policy-fused sampler input (a ``cfg`` whose policy is
-``FUSED_POLICY``).
+``FUSED_POLICY``), under any channel scenario: the reference process's
+``h`` and ``avail``, and the K-way split of the mini-batch key.
+
+A channel process of the port computes its step from random primitives
+given as tensors; :func:`jax_step_prims` gives the ones the reference's
+``step`` consumes from its key, so both sides step on the same values.
 
 Tolerance: float outputs agree to 1e-5 relative to the scale of the
 reference value (``atol = rtol · max|want|``), the cross-framework bound
@@ -28,6 +33,7 @@ from repro.core import pofl as jpofl
 from repro.data.partition import partition_noniid_shards
 from repro.data.synthetic import make_classification_dataset
 from repro.models import small as jsmall
+from repro.sim import scenario as jscen
 from repro.sim.engine import FUSED_POLICY
 from repro.sim.scenario import make_channel_process
 from repro_torch.core import pofl as tpofl
@@ -111,23 +117,64 @@ def jax_noise(k_noise, dim: int) -> torch.Tensor:
     return t(jax.random.normal(k_noise, (dim,)))
 
 
-def jax_engine_draws(cfg, channel_cfg, data: jpofl.DeviceData, dim: int, seed: int):
+def jax_batch_rows(cfg, data: jpofl.DeviceData, k_batch) -> torch.Tensor:
+    """The rows of a round's K local steps: (N, B) from k_batch at K = 1,
+    else (K, N, B) from its K-way split (``repro/core/local_update.py:289``)."""
+    if cfg.local_steps == 1:
+        return jax_batch_idx(data, cfg.batch_size, k_batch)
+    return torch.stack([jax_batch_idx(data, cfg.batch_size, k)
+                        for k in jax.random.split(k_batch, cfg.local_steps)])
+
+
+def jax_engine_draws(cfg, channel_cfg, data: jpofl.DeviceData, dim: int, seed: int,
+                     scenario: str = "static_rayleigh", scenario_params: dict | None = None):
     """The reference engine's draws for a run, round after round, as the
     port's :class:`RoundDraws` (``repro/sim/engine.py:12-15, 376-377``)."""
-    proc = make_channel_process("static_rayleigh", channel_cfg)
+    proc = make_channel_process(scenario, channel_cfg, **dict(scenario_params or {}))
     key = jax.random.PRNGKey(seed)
     k_chan_init, key = jax.random.split(key)
     chan = proc.init(k_chan_init)
     while True:
         key, k_round = jax.random.split(key)
         k_batch, k_chan, k_sched, k_noise = jax.random.split(k_round, 4)
-        chan, h, _ = proc.step(chan, k_chan)
+        chan, h, avail = proc.step(chan, k_chan)
         yield RoundDraws(
             h=t(h),
-            batch_idx=jax_batch_idx(data, cfg.batch_size, k_batch),
+            batch_idx=jax_batch_rows(cfg, data, k_batch),
             sched=jax_sched_draw(cfg, k_sched),
             z=jax_noise(k_noise, dim),
+            avail=t(avail),
         )
+
+
+def _fading_prims(key, n: int) -> tuple:
+    """``repro.core.channel.sample_channels``'s normals (re, im) from ``key``."""
+    k_re, k_im = jax.random.split(key)
+    return t(jax.random.normal(k_re, (n,))), t(jax.random.normal(k_im, (n,)))
+
+
+def jax_step_prims(proc, key) -> tuple:
+    """The random primitives the reference process ``proc``'s ``step``
+    draws from ``key``, in the form the port's ``step`` takes them
+    (``repro/sim/scenario.py:95-210``); a Bernoulli draw is its uniforms."""
+    if isinstance(proc, (jscen.StaticRayleigh, jscen.GaussMarkov)):
+        return _fading_prims(key, proc.cfg.n_devices)
+    if isinstance(proc, jscen.Mobility):
+        k_walk, k_fade = jax.random.split(key)
+        n = proc.cfg.n_devices
+        return (t(jax.random.normal(k_walk, (n,))),) + _fading_prims(k_fade, n)
+    if isinstance(proc, (jscen.Dropout, jscen.Churn)):
+        k_base, k_u = jax.random.split(key)
+        n = proc.base.cfg.n_devices
+        return jax_step_prims(proc.base, k_base), t(jax.random.uniform(k_u, (n,)))
+    raise TypeError(f"no primitives for {type(proc).__name__}")
+
+
+def to_torch_tree(tree):
+    """A reference state (nested tuples of arrays) as the port's."""
+    if isinstance(tree, tuple):
+        return tuple(to_torch_tree(x) for x in tree)
+    return t(tree)
 
 
 def reference_task(kind: str, n_devices: int, per_device: int, seed: int = 0):

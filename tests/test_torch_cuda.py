@@ -1,6 +1,7 @@
 """Card tests of the port: the aircomp kernel's two entries (one round, and
 trial-batched), the flash-attention kernel and the SSD scan kernel against
-their plain versions, the round, the lattice round and the dense and Mamba2
+their plain versions, the round, the lattice round (also under each channel
+process with K local steps and the four algorithms) and the dense and Mamba2
 LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -39,9 +40,13 @@ from repro_torch import configs
 from repro_torch.models import api as lm_api
 from repro_torch.models.cache import pad_cache
 from repro_torch.models.config import InputShape
-from repro_torch.sim.engine import FUSED_POLICY, SimEngine
+from repro_torch.core.local_update import (ALGORITHMS, AlgState, local_update_stage_cells,
+                                           minibatch_indices)
+from repro_torch.sim import precision
+from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, RoundDraws, SimEngine
 from repro_torch.sim.lattice import LatticeSpec, run_lattice
-from repro_torch.sim.tasks import make_model_task
+from repro_torch.sim.scenario import CHANNEL_SCENARIOS
+from repro_torch.sim.tasks import EvalRecord, TaskEval, make_model_task
 
 pytestmark = pytest.mark.cuda
 
@@ -93,8 +98,10 @@ def test_kernel_refuses_what_it_does_not_take(card):
 def _round(task, cfg, draws, dev):
     data = task.data.to(dev)
     params = tree_map(lambda p: p.to(dev), task.params0)
-    d = [x.to(dev) for x in draws]
-    return pofl.round_algorithm(task.loss_fn, data, cfg, params, *d, 3)
+    d = RoundDraws(*(x.to(dev) for x in draws))
+    params, _, metrics = pofl.round_algorithm(task.loss_fn, data, cfg, params, d.h,
+                                              d.batch_idx, d.sched, d.z, 3)
+    return params, metrics
 
 
 @pytest.mark.parametrize("kind", ["logreg", "cnn"])
@@ -132,7 +139,7 @@ def test_rounds_never_wait_on_the_host(card, kind, sampler):
     try:
         for t in range(3):
             d = next(draws)
-            params, _ = pofl.round_algorithm(
+            params, _, _ = pofl.round_algorithm(
                 task.loss_fn, engine.data, cfg, params, d.h, d.batch_idx, d.sched, d.z, t
             )
     finally:
@@ -264,6 +271,148 @@ def test_run_lattice_defaults_to_the_card(card):
     assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 3)
     assert recs.e_com.shape == (1, 2, 1, 1, 2, 3) and recs.acc.shape == (1, 2, 1, 1, 2, 2)
     assert all(getattr(recs, f).dtype.kind == "f" for f in ("e_com", "acc"))
+
+
+# the scenario lattice: one cell an algorithm, K = 2, each channel process
+SCENARIO_PARAMS = {"static_rayleigh": {}, "gauss_markov": dict(corr=0.9),
+                   "mobility": dict(speed=5.0),
+                   "dropout": dict(base="gauss_markov", corr=0.9, p_drop=0.4),
+                   "churn": dict(p_depart=0.3, p_arrive=0.3)}
+ALG_CELLS = dict(noise_b=[1e-10] * 4, alpha_b=[0.1] * 4, seed_b=[0, 0, 3, 3],
+                 policy_b=[scheduling.policy_id("pofl")] * 4,
+                 algorithm_b=list(range(len(ALGORITHMS))))
+
+
+def _scenario_engine(task, dev, scenario, **cfg_kw):
+    n = task.data.n_devices
+    cfg = pofl.POFLConfig(n_devices=n, n_scheduled=min(n // 2, 10), batch_size=4,
+                          noise_power=1e-10, policy=FUSED_POLICY,
+                          local_algorithm=FUSED_ALGORITHM, local_steps=2,
+                          backend="pallas_fused", fedprox_mu=0.1, **cfg_kw)
+    task_eval = TaskEval(task.logits_fn, task.eval.x_test.to(dev), task.eval.y_test.to(dev))
+    return SimEngine(task.loss_fn, task.data, cfg, scenario=scenario,
+                     scenario_params=SCENARIO_PARAMS[scenario], eval_fn=task_eval, device=dev)
+
+
+@pytest.mark.parametrize("scenario", CHANNEL_SCENARIOS)
+def test_scenario_lattice_round_on_card_matches_cpu(card, scenario):
+    """One K = 2 lattice round of the four algorithms (one a cell, from a
+    non-zero state) under each channel process, the CNN at full width on
+    Dirichlet-sized shards (as phase ``scenario_parity``): card against CPU
+    on one set of draws, each cell's update and the metrics within 1e-4.
+    The new FedDyn h and SCAFFOLD c are held to the CPU's float64 state from
+    the same inputs, at ``STATE_TOL``: they carry each device's K-step
+    w_K − w0 unweighted, a difference of near-equal fp32 weights (and the
+    whole stage in float64, card against CPU, at 1e-10:
+    :func:`test_k_step_state_on_card_matches_cpu_in_float64`)."""
+    task = make_model_task("cnn", n_devices=30, partition="dirichlet_sized", beta=0.4,
+                           n_train=600, n_test=12, channel_bias=1.0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    alg0 = AlgState(*(1e-3 * torch.randn(4, 30, task.dim, generator=gen) for _ in range(2)))
+    draws_cpu = _scenario_engine(task, "cpu", scenario)
+    outs = {}
+    for where in ("cpu", card):
+        engine = _scenario_engine(task, where, scenario)
+        state = engine.lattice_start(task.params0, **ALG_CELLS)
+        state = state._replace(
+            alg=AlgState(*(f.to(where) for f in alg0)),
+            streams=[(tuple(x.to(where) for x in d) for d in draws_cpu.draws(s, task.dim))
+                     for s in (0, 3)])
+        state, rec = engine.lattice_round(state, 1, True)
+        outs[str(where)] = (state, rec)
+    (s_cpu, r_cpu), (s_card, r_card) = outs["cpu"], outs[str(card)]
+    w0 = ravel_pytree(task.params0)[0]
+    for c in range(4):
+        d_cpu = ravel_pytree(tree_map(lambda p: p[c], s_cpu.params))[0] - w0
+        d_card = ravel_pytree(tree_map(lambda p: p[c].cpu(), s_card.params))[0] - w0
+        if torch.linalg.vector_norm(d_cpu) == 0:  # nothing scheduled: unchanged
+            assert torch.equal(d_card, d_cpu)
+            continue
+        err = torch.linalg.vector_norm(d_card - d_cpu) / torch.linalg.vector_norm(d_cpu)
+        assert err.item() <= ROUND_TOL
+    assert torch.equal(r_card[3].cpu(), r_cpu[3])  # n_scheduled
+    for got, want in zip(r_card[:3], r_cpu[:3]):
+        assert ((got.cpu() - want).abs() <= ROUND_TOL * want.abs()).all()
+    assert torch.equal(r_card[6].n_correct.cpu(), r_cpu[6].n_correct)
+    rows = {s: next(draws_cpu.draws(s, task.dim)).batch_idx for s in (0, 3)}
+    state_f64 = precision.k_step_state(
+        task, draws_cpu.cfg, torch.stack([rows[s] for s in ALG_CELLS["seed_b"]]), 1, alg0,
+        torch.float64, "cpu")
+    errs = precision.state_errors(AlgState(*(f.cpu() for f in s_card.alg)), state_f64)
+    assert max(errs.values()) <= precision.STATE_TOL, errs
+
+
+def test_k_step_state_on_card_matches_cpu_in_float64(card):
+    """The K = 2 local-update stage of the four algorithms (one a cell, each
+    from its own params and a non-zero state) in float64, card against CPU:
+    Δ and the new h and c within 1e-10."""
+    task = make_model_task("cnn", n_devices=6, partition="dirichlet_sized", n_train=120,
+                           n_test=12, device="cpu")
+    cfg = pofl.POFLConfig(n_devices=6, batch_size=4, local_steps=2, fedprox_mu=0.1)
+    gen = torch.Generator().manual_seed(2)
+    rows = torch.stack([torch.stack([minibatch_indices(task.data, 4, gen) for _ in range(2)])
+                        for _ in range(4)])
+    state0 = AlgState(*(1e-3 * torch.randn(4, 6, task.dim, generator=gen, dtype=torch.float64)
+                        for _ in range(2)))
+    scale = 1.0 + 0.1 * torch.arange(4, dtype=torch.float64)
+    params = tree_map(lambda p: scale.view(4, *[1] * p.dim()) * p.double(), task.params0)
+    outs = {}
+    for where in ("cpu", card):
+        data = task.data.to(where)
+        data = data._replace(features=data.features.double())
+        delta, state = local_update_stage_cells(
+            task.loss_fn, data, cfg, tree_map(lambda p: p.to(where), params), rows.to(where), 1,
+            alg_state_c=AlgState(*(f.to(where) for f in state0)),
+            algorithm_id_c=torch.arange(len(ALGORITHMS), device=where))
+        outs[str(where)] = [delta.cpu(), state.h.cpu(), state.c.cpu()]
+    for got, want in zip(outs[str(card)], outs["cpu"]):
+        assert got.dtype == torch.float64
+        err = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+        assert err.item() <= 1e-10
+
+
+def test_k_step_dropout_rounds_never_wait_on_the_host(card):
+    """A K = 2 dropout lattice round of the four algorithms (TaskEval
+    included) and a K = 2 SCAFFOLD round raise on any device→host sync."""
+    task = make_model_task("cnn", n_devices=6, partition="dirichlet_mixed", n_train=120,
+                           n_test=12, device=card)
+    engine = _scenario_engine(task, card, "dropout")
+    state = engine.lattice_start(task.params0, **ALG_CELLS)
+    cfg = pofl.POFLConfig(n_devices=6, n_scheduled=3, batch_size=4, local_steps=2,
+                          local_algorithm="scaffold", backend="pallas_fused")
+    single = SimEngine(task.loss_fn, task.data, cfg, scenario="dropout", device=card)
+    draws, params = single.draws(0, task.dim), task.params0
+    alg = AlgState(c=torch.zeros(6, task.dim, device=card))
+    before = (kernel.launches, kernel.batch_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            state, _ = engine.lattice_round(state, t, t == 1)
+            d = next(draws)
+            params, alg, _ = pofl.round_algorithm(
+                task.loss_fn, single.data, cfg, params, d.h, d.batch_idx, d.sched, d.z, t,
+                avail=d.avail, alg_state=alg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.batch_launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_run_lattice_with_a_task_eval_defaults_to_the_card(card):
+    task = make_model_task("logreg", n_devices=8, partition="dirichlet", n_train=160,
+                           n_test=16)
+    assert isinstance(task.eval, TaskEval) and task.data.features.device.type == "cuda"
+    spec = LatticeSpec(algorithms=("fedavg", "scaffold"), policies=("pofl", "channel"),
+                       noise_powers=(1e-10,), seeds=(0, 1), n_rounds=3, eval_every=2)
+    before = (kernel.launches, kernel.batch_launches)
+    recs = run_lattice(task.loss_fn, task.data, task.params0, spec, eval_fn=task.eval,
+                       base_cfg=pofl.POFLConfig(n_devices=8, n_scheduled=3, local_steps=2,
+                                                backend="pallas_fused"),
+                       scenario="churn", scenario_params=dict(base="mobility"))
+    assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 3)
+    assert isinstance(recs.eval, EvalRecord) and recs.eval.acc.shape == (2, 2, 1, 1, 2, 2)
+    assert (recs.eval.acc == recs.eval.n_correct / task.eval.n_valid).all()
 
 
 # -- the flash-attention kernel and the dense LM ------------------------------

@@ -4,10 +4,12 @@ live reference on identical inputs and draws (CPU).
 Per stage (the policy-id dispatch), per round (one cell-batched round from a
 shared state against the reference's ``round_algorithm(policy_id=...)`` of
 each cell) and per run (``run_lattice`` against the reference's
-``run_lattice``, the reference's draws replayed per seed). ``pallas_fused``
-runs the reference's Pallas kernels in interpret mode. Tolerance: floats
-within 1e-5 of the reference relative to its scale (per cell), accuracy to
-1e-6, masks and |S| exactly equal.
+``run_lattice``, the reference's draws replayed per seed: under any channel
+scenario, with the algorithm axis, K local steps and a ``TaskEval`` whose
+``eval`` subtree is compared too). ``pallas_fused`` runs the reference's
+Pallas kernels in interpret mode. Tolerance: floats within 1e-5 of the
+reference relative to its scale (per cell), accuracy to 1e-6, masks, |S|
+and correct counts exactly equal.
 """
 from __future__ import annotations
 
@@ -34,10 +36,12 @@ from repro.core import aircomp as jair
 from repro.core import pofl as jpofl
 from repro.core import scheduling as jsched
 from repro.core.channel import ChannelConfig as JChannelConfig
+from repro.data import partition as jpart
 from repro.models import small as jsmall
 from repro.sim import engine as jengine
 from repro.sim import lattice as jlattice
 from repro.sim.scenario import make_channel_process
+from repro.sim.tasks import TaskEval as JTaskEval
 from repro_torch.convert import params_from_jax
 from repro_torch.core import aircomp as tair
 from repro_torch.core import pofl as tpofl
@@ -47,7 +51,8 @@ from repro_torch.flatten_util import ravel_pytree, tree_map
 from repro_torch.models import small as tsmall
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import lattice as tlattice
-from repro_torch.sim.tasks import make_model_task
+from repro_torch.sim.tasks import EvalRecord, make_model_task
+from repro_torch.sim.tasks import TaskEval as TTaskEval
 
 N, S = 8, 3
 ALL_POLICIES = jsched.POLICIES
@@ -169,7 +174,7 @@ def test_cell_batched_round_matches_reference_per_cell(kind, backend, monkeypatc
         draws.append((h, jax_batch_idx(data, jcfg.batch_size, k_batch),
                       jax_sched_draw(jcfg, k_sched), jax_noise(k_noise, dim)))
     stack = [torch.stack(x) for x in zip(*draws)]
-    got_params, got_m = tpofl.round_algorithm_cells(
+    got_params, _, got_m = tpofl.round_algorithm_cells(
         tloss, data_to_torch(data), cfg_to_torch(jcfg), _stack_tree(jstates), *stack, 2,
         torch.tensor([c[1] for c in ROUND_CELLS]), torch.tensor([c[2] for c in ROUND_CELLS]),
         torch.tensor([jsched.policy_id(c[0]) for c in ROUND_CELLS]),
@@ -195,20 +200,28 @@ def _stack_tree(trees):
     return stack(ported)
 
 
-def _replay_per_seed(monkeypatch, jcfg, jccfg, data):
+def _replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario="static_rayleigh",
+                     scenario_params=None):
     """The port engine's per-seed draw streams become the reference's."""
-
     fused = dataclasses.replace(jcfg, policy=jengine.FUSED_POLICY)
 
     def replay(self, seed, dim):
-        return jax_engine_draws(fused, jccfg, data, dim, seed)
+        return jax_engine_draws(fused, jccfg, data, dim, seed, scenario, scenario_params)
 
     monkeypatch.setattr(tengine.SimEngine, "draws", replay)
 
 
 def _assert_records_match(got, want):
-    assert got.axes["policy"] == list(want.axes["policy"])
+    assert got.axes == {k: list(v) for k, v in want.axes.items()}
     np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
+    assert (got.eval is None) == (want.eval is None)
+    if want.eval is not None:
+        assert got.eval._fields == want.eval._fields
+        np.testing.assert_array_equal(got.eval.n_correct, np.asarray(want.eval.n_correct))
+        np.testing.assert_allclose(got.eval.acc, np.asarray(want.eval.acc), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got.eval.loss, got.loss)
+        for idx in np.ndindex(want.eval.loss.shape[:-1]):
+            assert_close(got.eval.loss[idx], np.asarray(want.eval.loss)[idx])
     np.testing.assert_array_equal(got.n_scheduled, np.asarray(want.n_scheduled))
     np.testing.assert_allclose(got.acc, np.asarray(want.acc), rtol=0, atol=1e-6)
     for f in ("e_com", "e_var", "grad_norm", "loss"):
@@ -403,7 +416,11 @@ def test_record_schema_and_cell():
         assert getattr(recs, f).shape == (1, 3, 2, 1, 3, 5)
         assert getattr(recs, f).dtype == np.float32
     assert recs.loss.shape == recs.acc.shape == (1, 3, 2, 1, 3, 3)
-    assert recs.diag is None and recs.eval is None and recs.health is None
+    assert recs.diag is None and recs.health is None
+    assert isinstance(recs.eval, EvalRecord) and recs.eval.acc.shape == recs.acc.shape
+    np.testing.assert_array_equal(recs.eval.acc, recs.acc)
+    np.testing.assert_array_equal(recs.eval.n_correct / np.float32(task.eval.n_valid),
+                                  recs.acc)
     assert np.isfinite(recs.e_var).all() and (recs.n_scheduled == 2).all()
     assert (recs.e_com[:, 2] == 0).all()  # noisefree aggregates without noise
     cell = recs.cell(policy="channel", noise_power=1e-9, seed=2)
@@ -422,43 +439,111 @@ def test_run_lattice_without_eval_has_empty_eval_axis():
     assert recs.eval_rounds.shape == (0,) and recs.acc.shape == (1, 1, 1, 1, 2, 0)
 
 
-class _TaskEvalLike:
-    """Stands in for the reference's TaskEval: an eval with a ``record``."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    def __call__(self, params):
-        return self.fn(params)
-
-    def record(self, params):
-        return self.fn(params)
-
-
 UNPORTED = {
-    "mesh": (dict(mesh=2), {}, "item 12"),
-    "algorithms": (dict(), dict(algorithms=("fedavg", "fedprox")), "item 5"),
-    "local_steps": (dict(base_cfg=dict(local_steps=2)), {}, "item 5"),
-    "fuse_policies": (dict(fuse_policies=False), {}, "item 10"),
-    "obs": (dict(obs=object()), {}, "item 6"),
-    "on_nonfinite": (dict(base_cfg=dict(on_nonfinite="skip")), {}, "item 11"),
-    "task_eval": (dict(eval_fn="task_eval"), {}, "item 9"),
-    "scenario": (dict(scenario="gauss_markov"), {}, "item 8"),
+    "mesh": (dict(mesh=2), "item 12"),
+    "fuse_policies": (dict(fuse_policies=False), "item 10"),
+    "obs": (dict(obs=object()), "item 6"),
+    "on_nonfinite": (dict(base_cfg=dict(on_nonfinite="skip")), "item 11"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise_naming_their_roadmap_item(option):
-    kw, spec_kw, item = UNPORTED[option]
+    kw, item = UNPORTED[option]
     task = make_model_task("logreg", n_devices=4, n_train=40, n_test=8, device="cpu")
     kw = dict(kw)
     kw["base_cfg"] = tpofl.POFLConfig(n_devices=4, n_scheduled=2, **kw.get("base_cfg", {}))
-    if kw.get("eval_fn") == "task_eval":
-        kw["eval_fn"] = _TaskEvalLike(task.eval)
-    spec = tlattice.LatticeSpec(n_rounds=1, **spec_kw)
+    spec = tlattice.LatticeSpec(n_rounds=1)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
         tlattice.run_lattice(task.loss_fn, task.data, task.params0, spec, device="cpu",
                              **kw)
+
+
+def _reference_and_port_lattice(monkeypatch, spec_kw, cfg_kw, n=8, per_device=10,
+                                scenario="static_rayleigh", scenario_params=None,
+                                task_eval=False, sized=False, seeds=(0, 5), n_rounds=3):
+    """``run_lattice`` of the reference and of the port (its draws replayed
+    per seed) on one logreg task → (port records, reference records)."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task(
+        "logreg", n, per_device)
+    if sized:  # Dirichlet-sized shards of the same samples: padded, n_samples
+        x = np.asarray(data.features).reshape(n * per_device, -1)
+        y = np.asarray(data.labels).reshape(-1)
+        data = jpart.partition_dirichlet_sized(x, y, n, beta=0.4, seed=2)
+    jcfg = jpofl.POFLConfig(n_devices=n, n_scheduled=3, batch_size=2, **cfg_kw)
+    jccfg = JChannelConfig(n_devices=n)
+    spec = dict(noise_powers=(1e-10,), alphas=(0.1,), seeds=seeds, n_rounds=n_rounds,
+                eval_every=2, **spec_kw)
+    if task_eval:
+        jeval = JTaskEval(jlogits, x_te, y_te, n_valid=50)
+        teval = TTaskEval(tlogits, t(x_te), t(y_te, torch.int64), n_valid=50)
+    else:
+        jeval = jsmall.make_eval_fn(jlogits, jloss, x_te, y_te)
+        teval = tsmall.make_eval_fn(tlogits, tloss, t(x_te), t(y_te, torch.int64))
+    want = jlattice.run_lattice(
+        jloss, data, jparams, jlattice.LatticeSpec(**spec), base_cfg=jcfg, eval_fn=jeval,
+        channel_cfg=jccfg, scenario=scenario, scenario_params=dict(scenario_params or {}),
+    )
+    _replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario, scenario_params)
+    got = tlattice.run_lattice(
+        tloss, data_to_torch(data), params_from_jax(jparams, device="cpu"),
+        tlattice.LatticeSpec(**spec), base_cfg=cfg_to_torch(jcfg), eval_fn=teval,
+        channel_cfg=ChannelConfig(n_devices=n), scenario=scenario,
+        scenario_params=scenario_params, device="cpu",
+    )
+    return got, want
+
+
+# what raised before the scenario slice, each alone: (spec, cfg, run_lattice kw)
+FORMERLY_UNPORTED = {
+    "algorithms": (dict(algorithms=("fedavg", "fedprox")), dict(fedprox_mu=0.5), {}),
+    "local_steps": ({}, dict(local_steps=2), {}),
+    "task_eval": ({}, {}, dict(task_eval=True)),
+    "scenario": ({}, {}, dict(scenario="gauss_markov", scenario_params=dict(corr=0.8))),
+}
+
+
+@pytest.mark.parametrize("option", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_options_run_and_match_reference(option, monkeypatch):
+    spec_kw, cfg_kw, kw = FORMERLY_UNPORTED[option]
+    got, want = _reference_and_port_lattice(
+        monkeypatch, dict(policies=("pofl", "channel"), **spec_kw),
+        dict(backend="pallas_fused", **cfg_kw), **kw)
+    _assert_records_match(got, want)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])
+def test_run_lattice_scenario_axes_match_reference(backend, monkeypatch):
+    """2 algorithms × 3 policies × 2 seeds, K = 2, ``dropout`` over
+    ``gauss_markov``, a Dirichlet-sized logreg task and a ``TaskEval``:
+    every record field and the ``eval`` subtree."""
+    got, want = _reference_and_port_lattice(
+        monkeypatch,
+        dict(algorithms=("feddyn", "scaffold"), policies=("pofl", "importance", "channel")),
+        dict(backend=backend, local_steps=2, feddyn_alpha=0.2),
+        scenario="dropout", scenario_params=dict(base="gauss_markov", corr=0.9, p_drop=0.6),
+        task_eval=True, sized=True, n_rounds=4)
+    _assert_records_match(got, want)
+    assert got.eval.acc.shape == (2, 3, 1, 1, 2, 3)
+    assert (got.n_scheduled < 3).any()  # rounds with fewer than |S| available
+
+
+@pytest.mark.parametrize(
+    "alg,scenario,params",
+    [("feddyn", "churn", dict(p_depart=0.3, p_arrive=0.3)),
+     ("scaffold", "mobility", dict(speed=10.0)),
+     ("fedprox", "dropout", dict(p_drop=0.9))],
+)
+def test_one_algorithm_lattice_under_each_scenario_matches_reference(alg, scenario, params,
+                                                                     monkeypatch):
+    """One algorithm: static dispatch, its own state only, K = 3, the
+    Bernoulli sampler; under heavy dropout whole rounds go unscheduled."""
+    got, want = _reference_and_port_lattice(
+        monkeypatch, dict(algorithms=(alg,), policies=("pofl", "deterministic")),
+        dict(backend="pallas_fused", local_steps=3, fedprox_mu=0.3, sampler="bernoulli"),
+        scenario=scenario, scenario_params=params, task_eval=True, n_rounds=4)
+    _assert_records_match(got, want)
 
 
 def test_run_lattice_cells_needs_a_policy_fused_engine():
@@ -490,4 +575,4 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(src)}, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 50  # the LM serving modules count (52 in all)
+    assert int(out.stdout.strip()) >= 59  # every module of the port is imported (59 in all)

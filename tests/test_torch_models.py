@@ -13,7 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_parity import assert_close, data_to_torch, jax_batch_idx, t
+from _torch_parity import assert_close, data_to_torch, jax_batch_idx, jax_batch_rows, t
 from jax.flatten_util import ravel_pytree as jax_ravel
 
 from repro.core import local_update as jlu
@@ -93,8 +93,8 @@ def test_local_gradient_stage_matches_reference(kind, hetero):
     want = jlu.local_gradient_stage(jloss, jdata, jcfg, jparams, k_batch)
     idx = jax_batch_idx(jdata, jcfg.batch_size, k_batch)
     tcfg = tpofl.POFLConfig(n_devices=3, batch_size=2)
-    got = tlu.local_update_stage(tloss, data_to_torch(jdata), tcfg, tparams, idx, 0)
-    assert got.shape == want.shape
+    got, state = tlu.local_update_stage(tloss, data_to_torch(jdata), tcfg, tparams, idx, 0)
+    assert got.shape == want.shape and state is None
     assert_close(got, want)
 
 
@@ -109,12 +109,31 @@ def test_minibatch_indices_stay_in_the_valid_prefix():
 @pytest.mark.parametrize(
     "algorithm,steps", [("feddyn", 1), ("scaffold", 1), ("fedavg", 2), ("fedprox", 3)]
 )
-def test_unported_local_algorithms_raise(algorithm, steps):
-    cfg = tpofl.POFLConfig(n_devices=3, local_algorithm=algorithm, local_steps=steps)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
-        tlu.local_update_stage(None, None, cfg, None, None, 0)
+def test_local_algorithms_run_and_match_reference(algorithm, steps):
+    """The configurations that raised before the K-step port now run their
+    K steps from zero state and match the reference (the CNN; the full
+    battery is ``tests/test_torch_local_update.py``)."""
+    jparams, tparams, jloss, _, tloss, _, shape = _model("cnn")
+    jdata = _device_data(shape, n_samples=np.array([6, 2, 4], np.int32))
+    jcfg = jpofl.POFLConfig(n_devices=3, batch_size=2, local_algorithm=algorithm,
+                            local_steps=steps, fedprox_mu=0.2, local_lr=0.05)
+    k_batch = jax.random.PRNGKey(6)
+    want, want_state = jlu.local_update_stage(
+        jloss, jdata, jcfg, jparams, k_batch, 0.0,
+        alg_state=jlu.init_state(algorithm, 3, 258_634))
+    tcfg = tpofl.POFLConfig(n_devices=3, batch_size=2, local_algorithm=algorithm,
+                            local_steps=steps, fedprox_mu=0.2, local_lr=0.05)
+    got, got_state = tlu.local_update_stage(
+        tloss, data_to_torch(jdata), tcfg, tparams, jax_batch_rows(jcfg, jdata, k_batch), 0,
+        alg_state=tlu.init_state(algorithm, 3, 258_634))
+    assert_close(got, want)
+    for g_, w_ in zip(got_state or (), want_state or ()):
+        assert (g_ is None) == (w_ is None)
+        if w_ is not None:
+            assert_close(g_, w_)
     with pytest.raises(ValueError, match="unknown local_algorithm"):
-        tlu.local_update_stage(None, None, dataclasses.replace(cfg, local_algorithm="sgd"), None, None, 0)
+        tlu.local_update_stage(None, None, dataclasses.replace(tcfg, local_algorithm="sgd"),
+                               None, torch.zeros((2, 2) if steps == 1 else (steps, 2, 2)), 0)
 
 
 @pytest.mark.parametrize("name", ["shards", "iid"])

@@ -17,22 +17,29 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (
-    assert_close, cfg_to_torch, data_to_torch, jax_batch_idx, jax_engine_draws,
-    jax_noise, jax_sched_draw, reference_task, t,
+    assert_close, cfg_to_torch, data_to_torch, jax_batch_idx, jax_batch_rows,
+    jax_engine_draws, jax_noise, jax_sched_draw, reference_task, t,
 )
 from jax.flatten_util import ravel_pytree as jax_ravel
 
 from repro.core import aircomp as jair
 from repro.core import pofl as jpofl
 from repro.core.channel import ChannelConfig as JChannelConfig
+from repro.core.local_update import AlgState as JAlgState
+from repro.data.partition import partition_dirichlet_sized
+from repro.data.synthetic import make_classification_dataset
 from repro.models import small as jsmall
+from repro.sim import engine as jengine
+from repro.sim.tasks import TaskEval as JTaskEval
 from repro_torch.convert import params_from_jax
 from repro_torch.core import aircomp as tair
 from repro_torch.core import pofl as tpofl
 from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.local_update import AlgState as TAlgState
 from repro_torch.flatten_util import ravel_pytree
 from repro_torch.models import small as tsmall
 from repro_torch.sim import engine as tengine
+from repro_torch.sim.tasks import TaskEval as TTaskEval
 from repro_torch.sim.tasks import make_model_task
 
 N, S = 8, 3
@@ -126,16 +133,123 @@ def test_one_round_matches_reference(backend, kind, policy, monkeypatch):
         jloss, data, jcfg, jparams, h, k_batch, k_sched, k_noise, jnp.float32(2),
         noise_power=3e-10, alpha=0.2,
     )
-    got_params, got_m = tpofl.round_algorithm(
+    got_params, got_state, got_m = tpofl.round_algorithm(
         tloss, data_to_torch(data), cfg_to_torch(jcfg),
         params_from_jax(jparams, device="cpu"), draws.h,
         jax_batch_idx(data, jcfg.batch_size, k_batch), jax_sched_draw(jcfg, k_sched),
         jax_noise(k_noise, dim), 2, noise_power=3e-10, alpha=0.2,
     )
     assert_close(ravel_pytree(got_params)[0], jax_ravel(want_params)[0])
+    assert got_state is None
     assert float(got_m.n_scheduled) == float(want_m.n_scheduled)
     for f in ("e_com", "e_var", "grad_norm", "a_scalar"):
         assert_close(getattr(got_m, f), getattr(want_m, f))
+
+
+AVAILS = {"drops": np.array([1, 0, 1, 1, 0, 0, 1, 0], np.float32),
+          "one_left": np.eye(N, dtype=np.float32)[5], "none": np.zeros(N, np.float32)}
+
+
+@pytest.mark.parametrize("avail", sorted(AVAILS))
+@pytest.mark.parametrize("policy,sampler", SCHED_CASES)
+def test_scheduling_stage_with_avail_matches_reference(policy, sampler, avail):
+    """Unavailable devices get probability 0 and are never scheduled; with
+    none available nothing is (the sentinels, zero weights)."""
+    g, h, k_sched, _ = _stage_inputs(seed=4)
+    jcfg = jpofl.POFLConfig(n_devices=N, n_scheduled=S, policy=policy, sampler=sampler)
+    frac = jnp.full((N,), 1.0 / N)
+    av = AVAILS[avail]
+    want_rho, want_mask = jpofl.scheduling_stage(
+        jcfg, jair.local_stats(g), jnp.abs(h), frac, g.shape[1], 0.1, 1e-10, k_sched,
+        avail=jnp.asarray(av),
+    )
+    got_rho, got_mask = tpofl.scheduling_stage(
+        cfg_to_torch(jcfg), tair.local_stats(t(g)), t(h).abs(), t(frac), g.shape[1],
+        0.1, 1e-10, jax_sched_draw(jcfg, k_sched), avail=t(av),
+    )
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    assert_close(got_rho, want_rho)
+    assert not bool((got_mask * (1 - t(av))).any())
+
+
+@pytest.mark.parametrize("backend,physical", [("jnp", False), ("jnp", True),
+                                              ("pallas_fused", False)])
+def test_round_with_every_device_dropped_matches_reference(backend, physical, monkeypatch):
+    """No device available: nothing is scheduled, the fused path gets a zero
+    ``coeff`` and ``a = inf``, ŷ = 0 and the params stay where they were,
+    finite on both sides, from a non-zero K-step state."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    data, jparams, jloss, _, tloss, *_ = reference_task("logreg", N, per_device=8)
+    jcfg = jpofl.POFLConfig(n_devices=N, n_scheduled=S, batch_size=2, backend=backend,
+                            simulate_physical=physical, local_steps=2,
+                            local_algorithm="scaffold", noise_power=1e-10)
+    dim = jax_ravel(jparams)[0].size
+    jccfg = JChannelConfig(n_devices=N, noise_power=1e-10)
+    d = next(jax_engine_draws(jcfg, jccfg, data, dim, seed=1))
+    k_batch, k_sched, k_noise = jax.random.split(jax.random.PRNGKey(2), 3)
+    c0 = 0.01 * jax.random.normal(jax.random.PRNGKey(3), (N, dim))
+    want_params, want_state, want_m = jpofl.round_algorithm(
+        jloss, data, jcfg, jparams, jnp.asarray(d.h.numpy()), k_batch, k_sched, k_noise,
+        jnp.float32(1), avail=jnp.zeros(N), alg_state=JAlgState(c=c0),
+    )
+    got_params, got_state, got_m = tpofl.round_algorithm(
+        tloss, data_to_torch(data), cfg_to_torch(jcfg), params_from_jax(jparams, device="cpu"),
+        d.h, jax_batch_rows(jcfg, data, k_batch), jax_sched_draw(jcfg, k_sched),
+        jax_noise(k_noise, dim), 1, avail=torch.zeros(N), alg_state=TAlgState(c=t(c0)),
+    )
+    flat = ravel_pytree(got_params)[0]
+    assert bool(torch.isfinite(flat).all())
+    assert torch.equal(flat, ravel_pytree(params_from_jax(jparams, device="cpu"))[0])
+    assert_close(flat, jax_ravel(want_params)[0])
+    assert_close(got_state.c, want_state.c)  # the state moves on: availability gates scheduling only
+    assert float(got_m.n_scheduled) == float(want_m.n_scheduled) == 0
+    assert float(got_m.grad_norm) == float(want_m.grad_norm) == 0
+    assert float(got_m.e_com) == float(want_m.e_com) == 0
+    assert float(got_m.a_scalar) == float(want_m.a_scalar) == float("inf")
+    assert_close(got_m.e_var, want_m.e_var)
+
+
+@pytest.mark.parametrize(
+    "scenario,params,alg,k_steps",
+    [("churn", dict(p_depart=0.3, p_arrive=0.3), "feddyn", 2),
+     ("dropout", dict(p_drop=0.4, base="gauss_markov", corr=0.9), "scaffold", 3),
+     ("mobility", dict(speed=5.0), "fedprox", 2),
+     ("gauss_markov", dict(corr=0.7), "fedavg", 1)],
+)
+def test_run_with_history_under_scenarios_matches_reference(scenario, params, alg, k_steps,
+                                                             monkeypatch):
+    """``SimEngine.run_with_history`` under a channel scenario and K local
+    steps, fed the reference engine's draws (``h``, ``avail``, the K-way
+    rows), follows the reference engine's run, logreg on Dirichlet-sized
+    shards, ``pallas_fused``."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    _, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task("logreg", 8, 20)
+    x, y = make_classification_dataset("mnist_like", 160, jax.random.PRNGKey(8))
+    data = partition_dirichlet_sized(np.asarray(x), np.asarray(y), 8, beta=0.5, seed=3)
+    jcfg = jpofl.POFLConfig(n_devices=8, n_scheduled=3, batch_size=2, noise_power=1e-10,
+                            backend="pallas_fused", local_algorithm=alg, local_steps=k_steps,
+                            fedprox_mu=0.2, feddyn_alpha=0.3, seed=6)
+    jccfg = JChannelConfig(n_devices=8, noise_power=1e-10)
+    want_params, want = jengine.SimEngine(
+        jloss, data, jcfg, channel_cfg=jccfg, scenario=scenario, scenario_params=dict(params),
+    ).run_with_history(jparams, 5, eval_fn=JTaskEval(jlogits, x_te, y_te, n_valid=50),
+                       eval_every=2)
+
+    def replay(self, seed, dim):
+        return jax_engine_draws(jcfg, jccfg, data, dim, seed, scenario, params)
+
+    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+    engine = tengine.SimEngine(tloss, data_to_torch(data), cfg_to_torch(jcfg),
+                               channel_cfg=ChannelConfig(n_devices=8, noise_power=1e-10),
+                               scenario=scenario, scenario_params=params, device="cpu")
+    got_params, got = engine.run_with_history(
+        params_from_jax(jparams, device="cpu"), 5, eval_every=2,
+        eval_fn=TTaskEval(tlogits, t(x_te), t(y_te, torch.int64), n_valid=50))
+    assert got.test_round == want.test_round
+    assert got.test_acc == pytest.approx(want.test_acc, abs=1e-6)
+    for f in ("loss", "e_com", "e_var"):
+        assert_close(np.array(getattr(got, f)), np.array(getattr(want, f)))
+    assert_close(ravel_pytree(got_params)[0], jax_ravel(want_params)[0])
 
 
 @pytest.mark.parametrize(
@@ -185,6 +299,7 @@ def test_engine_draws_follow_the_key_discipline_shapes():
         assert d0.h.dtype == torch.complex64 and d0.h.shape == (6,)
         assert d0.batch_idx.shape == (6, 3) and d0.sched.shape == shape
         assert d0.z.shape == (task.dim,) and not torch.equal(d0.z, d1.z)
+        assert d0.avail.shape == (6,) and bool((d0.avail == 1).all())
         again = next(engine.draws(0, task.dim))
         assert torch.equal(again.z, d0.z) and torch.equal(again.h, d0.h)
 
