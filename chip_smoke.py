@@ -81,6 +81,33 @@ non-zero exit and no result line:
              SCAFFOLD c against the CPU's float64 state from the same
              inputs, ≤ ``repro_torch.sim.precision.STATE_TOL`` (the fp32
              state carries w_K − w0, a difference of near-equal weights)
+  quarantine  the CNN scenario lattice of ``scenario_lattice`` again (24
+             cells, K = 2, 6 rounds) under ``on_nonfinite="skip"``: each cell
+             of SCENARIO_DIVERGING_CELLS flagged, first at or after the round
+             its "propagate" record went non-finite; no other cell flagged;
+             every round after a cell's first flagged round that is not
+             flagged itself finite in every record; each cell's final params
+             finite; one batch launch a round. Then a "propagate" and a
+             "skip" run with cuDNN's deterministic algorithms (with its
+             default ones two runs of one CNN lattice differ): the same
+             flags, and every cell that stays finite within 1e-4 of its
+             "propagate" records, |S| equal. Then the (``channel``, seed 2)
+             CNN cell of DIVERGING_CELLS through ``run_with_history`` under
+             "skip": final params finite, one one-round launch a round
+  lattice_loops  ``run_lattice(fuse_policies=False)`` over the CNN lattice
+             (15 cells) and ``run_lattice(fuse_algorithms=False)`` over the
+             CNN scenario lattice (24 cells), both cut to 3 rounds, each
+             timed beside the fused run of the same spec (one batch launch a
+             sub-lattice a round: 5 × 3, 4 × 3). Then, with cuDNN's
+             deterministic algorithms, every round of the loop's
+             sub-lattices from the fused grid's state of the round before,
+             on the same draws, against the fused round: every record value
+             within 1e-4 relative, |S| equal (the cells of
+             SCENARIO_DIVERGING_CELLS, ill-conditioned in the round before
+             they go non-finite, are reported); and both whole runs again:
+             every cell finite, |S| equal, the differences reported by round
+             (the scenario lattice amplifies a rounding difference about
+             100× a round, so its trajectories part beyond 1e-4 by round 2)
   serve      qwen2-0.5b at full width through ``repro_torch.launch.serve``:
              bf16 weights from the port's ``init_model``, batch 8, a 2,048-token
              prompt, ``Server.prefill`` (``model_prefill``), ``pad_cache`` to
@@ -121,6 +148,7 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import json
 import math
@@ -177,6 +205,10 @@ SCENARIO_DIVERGING_CELLS = tuple(
     # heterogeneous deltas and the Eq. 37 weights amplify the stale corrections
     ("cnn", "scaffold", policy, 1e-10, seed)
     for policy in ("pofl", "importance", "channel") for seed in (0, 1))
+# the lattice loops (phase lattice_loops): both CNN lattices cut to 3 rounds;
+# they and the quarantine are held to their fused / "propagate" runs at
+# ROUND_TOL, the card's card-vs-CPU limit
+LOOP_ROUNDS = 3
 # the serving path: qwen2-0.5b at full width
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -867,6 +899,31 @@ def scheduled_stats(n_scheduled: np.ndarray) -> dict:
             "share_rounds_none_scheduled": float((n_scheduled == 0).mean())}
 
 
+def scenario_cnn_task(dev):
+    """The CNN scenario lattice's task (phase scenario_lattice): the full-width
+    CNN on Dirichlet(0.4)-sized shards."""
+    from repro_torch.sim.tasks import make_model_task
+
+    return make_model_task("cnn", n_devices=N_DEVICES, partition="dirichlet_sized", beta=0.4,
+                           n_train=3000, n_test=SCENARIO_N_TEST, seed=0, channel_bias=1.0,
+                           device=dev)
+
+
+def scenario_cnn_spec():
+    """The CNN scenario lattice's axes and rounds."""
+    from repro_torch.sim.lattice import LatticeSpec
+
+    return LatticeSpec(algorithms=SCENARIO_ALGORITHMS, policies=SCENARIO_POLICIES,
+                       noise_powers=(1e-10,), seeds=SCENARIO_SEEDS, n_rounds=SCENARIO_ROUNDS,
+                       eval_every=SCENARIO_EVAL_EVERY)
+
+
+def scenario_cnn_cfg():
+    """The CNN scenario lattice's base config: K = 2, FedProx μ 0.1."""
+    return lattice_cfg(local_steps=SCENARIO_K, noise_power=1e-10,
+                       fedprox_mu=SCENARIO_FEDPROX_MU)
+
+
 def scenario_lattice(dev) -> tuple[dict, dict]:
     """``run_lattice`` over the scenario axes (the CNN at full width and
     ``examples/sim_lattice.py``'s logreg setting), then a CNN
@@ -879,14 +936,7 @@ def scenario_lattice(dev) -> tuple[dict, dict]:
 
     scenario, params = SCENARIO
     runs = {
-        "cnn": (make_model_task("cnn", n_devices=N_DEVICES, partition="dirichlet_sized",
-                                beta=0.4, n_train=3000, n_test=SCENARIO_N_TEST, seed=0,
-                                channel_bias=1.0, device=dev),
-                LatticeSpec(algorithms=SCENARIO_ALGORITHMS, policies=SCENARIO_POLICIES,
-                            noise_powers=(1e-10,), seeds=SCENARIO_SEEDS,
-                            n_rounds=SCENARIO_ROUNDS, eval_every=SCENARIO_EVAL_EVERY),
-                lattice_cfg(local_steps=SCENARIO_K, noise_power=1e-10,
-                            fedprox_mu=SCENARIO_FEDPROX_MU)),
+        "cnn": (scenario_cnn_task(dev), scenario_cnn_spec(), scenario_cnn_cfg()),
         "logreg_example": (
             make_model_task("logreg", n_devices=EXAMPLE_DEVICES, partition="dirichlet",
                             beta=EXAMPLE_BETA, n_train=3000, n_test=SCENARIO_N_TEST, seed=0,
@@ -1056,6 +1106,367 @@ def scenario_parity(dev) -> None:
         if bad:
             raise AssertionError(f"scenario_parity {case}: card round disagrees with the CPU "
                                  f"round or breaks its case")
+
+
+# -- the non-finite quarantine and the lattice loops --------------------------------
+
+
+@contextlib.contextmanager
+def final_lattice_state():
+    """Inside the block, ``held["state"]`` is the state the last lattice
+    round left: each cell's params and AlgState, which ``run_lattice``'s
+    records leave out."""
+    from repro_torch.sim.engine import SimEngine
+
+    held, lattice_round = {}, SimEngine.lattice_round
+
+    def keep(engine, state, t, do_eval):
+        held["state"], record = lattice_round(engine, state, t, do_eval)
+        return held["state"], record
+
+    SimEngine.lattice_round = keep
+    try:
+        yield held
+    finally:
+        SimEngine.lattice_round = lattice_round
+
+
+def record_rounds(recs) -> dict:
+    """Each record field of a ``LatticeRecords`` by round: ``{field: (array
+    of (A, P, Nn, Na, Ns, T'), the rounds of its last axis)}``."""
+    rounds = np.arange(recs.e_com.shape[-1])
+    fields = {f: (getattr(recs, f), rounds) for f in ("e_com", "e_var", "grad_norm",
+                                                       "n_scheduled")}
+    evals = {"loss": recs.loss, "acc": recs.acc}
+    evals.update({f"eval.{f}": v for f, v in ([] if recs.eval is None else
+                                               recs.eval._asdict().items())})
+    fields.update({f: (v, recs.eval_rounds) for f, v in evals.items()})
+    return fields
+
+
+def nonfinite_rounds(fields: dict, cell) -> list:
+    """The rounds at which any record field of ``cell`` is non-finite."""
+    return sorted({int(r) for v, rounds in fields.values()
+                   for r in rounds[~np.isfinite(v[cell])]})
+
+
+def max_rel_diff(got: dict, want: dict, cells) -> tuple[float, dict]:
+    """The largest |got − want| over ``cells``, each field of each cell
+    relative to its largest |want| → (that error, {field: its error})."""
+    by_field = {}
+    for f, (w, _) in want.items():
+        errs = [float(np.abs(got[f][0][c] - w[c]).max() / max(np.abs(w[c]).max(), 1e-30))
+                for c in cells]
+        by_field[f] = max(errs, default=0.0)
+    return max(by_field.values(), default=0.0), by_field
+
+
+def cell_name(spec, cell) -> str:
+    a, p, n, _, s = cell
+    return f"{spec.algorithms[a]}/{spec.policies[p]}/{spec.noise_powers[n]}/{spec.seeds[s]}"
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block. With its default
+    ones two runs of one CNN lattice on the card part from the first rounds
+    on, by percents after 6 rounds of the scenario lattice (measured by
+    ``chip_repeatability.py``), so a comparison of two runs is made in this
+    mode."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def timed_lattice(task, spec, cfg, **kw):
+    """``run_lattice`` on the card → (records, seconds)."""
+    from repro_torch.sim.lattice import run_lattice
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = run_lattice(task.loss_fn, task.data, task.params0, spec, base_cfg=cfg,
+                       eval_fn=task.eval, **kw)
+    torch.cuda.synchronize()
+    return recs, time.perf_counter() - t0
+
+
+def quarantine(dev, lattice_records, scenario_records) -> dict:
+    """The CNN scenario lattice of phase ``scenario_lattice`` again under
+    ``on_nonfinite="skip"`` (timed, its launches counted), held to that
+    phase's "propagate" records; then a "propagate" and a "skip" run of it
+    with cuDNN's deterministic algorithms, held to each other; then the
+    diverging (``channel``, seed 2) CNN cell of ``DIVERGING_CELLS`` through
+    ``run_with_history`` under "skip" → the launch counts, each zeroed just
+    before its run and read just after."""
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.sim.engine import SimEngine
+
+    scenario = dict(zip(("scenario", "scenario_params"), SCENARIO))
+    prop, task, cfg = scenario_records["cnn"]
+    spec = scenario_cnn_spec()
+    skip_cfg = dataclasses.replace(cfg, on_nonfinite="skip")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with final_lattice_state() as held:
+        recs, seconds = timed_lattice(task, spec, skip_cfg, **scenario)
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("aircomp_fused", "aircomp_fused_batch")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    with cudnn_deterministic():
+        det_prop, det_prop_s = timed_lattice(task, spec, cfg, **scenario)
+        det_skip, det_skip_s = timed_lattice(task, spec, skip_cfg, **scenario)
+
+    final = held["state"].params
+    final_finite = torch.stack([torch.isfinite(p.reshape(p.shape[0], -1)).all(dim=1)
+                                for p in tree_leaves(final)]).all(dim=0).cpu().numpy()
+    cells = list(np.ndindex(recs.health.nonfinite.shape[:-1]))
+    named = {c for c in cells if ("cnn", spec.algorithms[c[0]], spec.policies[c[1]],
+                                  spec.noise_powers[c[2]], spec.seeds[c[4]])
+             in SCENARIO_DIVERGING_CELLS}
+    faults = []
+    report = {}
+    for run, skip, propagate in (("default", recs, prop), ("deterministic", det_skip,
+                                                           det_prop)):
+        skip_f, prop_f = record_rounds(skip), record_rounds(propagate)
+        flagged = {c: [int(t) for t in np.nonzero(skip.health.nonfinite[c])[0]]
+                   for c in cells}
+        first_bad = {c: nonfinite_rounds(prop_f, c)[:1] for c in cells}
+        finite_cells = [c for c in cells if not first_bad[c]]
+        diff, by_field = max_rel_diff(skip_f, prop_f, finite_cells)
+        for c in cells:
+            name = f"{run} {cell_name(spec, c)}"
+            if c in named and not (flagged[c] and first_bad[c]
+                                   and flagged[c][0] >= first_bad[c][0]):
+                faults.append(f"{name}: flagged {flagged[c]}, first non-finite under "
+                              f"propagate {first_bad[c]}")
+            if c not in named and (flagged[c] or first_bad[c]):
+                faults.append(f"{name}: flagged {flagged[c]} (not a named diverging cell)")
+            # every round after the first flagged one that is not flagged
+            # itself is finite in every record field
+            late = set(nonfinite_rounds(skip_f, c)) - set(flagged[c])
+            if flagged[c] and any(t > flagged[c][0] for t in late):
+                faults.append(f"{name}: unflagged rounds {sorted(late)} non-finite")
+        if run == "deterministic":  # the comparison: one program, run twice
+            if diff > ROUND_TOL:
+                faults.append(f"finite cells {diff:.3g} from the propagate run")
+            if not all(np.array_equal(skip.n_scheduled[c], propagate.n_scheduled[c])
+                       for c in finite_cells):
+                faults.append("|S| differs from the propagate run")
+        report[run] = {
+            "flagged_rounds_by_cell": {cell_name(spec, c): flagged[c]
+                                       for c in cells if flagged[c]},
+            "first_nonfinite_round_propagate": {cell_name(spec, c): first_bad[c][0]
+                                                for c in cells if first_bad[c]},
+            "nonfinite_fields_in_flagged_rounds": {
+                cell_name(spec, c): sorted({f for f, (v, rounds) in skip_f.items()
+                                            for r in flagged[c] if r in rounds and
+                                            not np.isfinite(v[c][list(rounds).index(r)])})
+                for c in cells if flagged[c]},
+            "finite_cells": len(finite_cells),
+            "finite_cells_max_rel_diff_from_propagate": diff,
+            "finite_cells_max_rel_diff_by_field": by_field}
+    faults += [f"default {cell_name(spec, c)}: final params non-finite"
+               for i, c in enumerate(cells) if not final_finite[i]]
+    if launches != {"aircomp_fused": 0, "aircomp_fused_batch": spec.n_rounds}:
+        faults.append(f"launches {launches}")
+    emit("quarantine", run="cnn_scenario_lattice_skip", d=task.dim, cells=spec.n_cells,
+         rounds=spec.n_rounds, local_steps=cfg.local_steps, scenario=list(SCENARIO),
+         seconds=seconds, cell_rounds_per_s=spec.n_cells * spec.n_rounds / seconds,
+         max_memory_allocated=peak, launches=launches, tolerance=ROUND_TOL,
+         final_params_finite=bool(final_finite.all()),
+         deterministic_cell_rounds_per_s={
+             "propagate": spec.n_cells * spec.n_rounds / det_prop_s,
+             "skip": spec.n_cells * spec.n_rounds / det_skip_s},
+         cudnn_default=report["default"], cudnn_deterministic=report["deterministic"],
+         faults=faults)
+    if faults:
+        raise AssertionError(f"quarantine of the CNN scenario lattice: {faults}")
+
+    _, policy, noise, seed = next(c for c in DIVERGING_CELLS if c[1:] == ("channel", 1e-10, 2))
+    _, cnn, n_rounds = lattice_records["cnn"]
+    cfg = lattice_cfg(policy=policy, noise_power=noise, alpha=0.1, seed=seed,
+                      on_nonfinite="skip")
+    engine = SimEngine(cnn.loss_fn, cnn.data, cfg, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    params, hist = engine.run_with_history(cnn.params0, n_rounds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    single = {k: counts[k] for k in ("aircomp_fused", "aircomp_fused_batch")}
+    finite = bool(torch.isfinite(cnn.ravel(params)).all())
+    series = {"e_com": hist.e_com, "e_var": hist.e_var}
+    emit("quarantine", run="cnn_run_with_history_skip", cell=["cnn", policy, noise, seed],
+         d=cnn.dim, rounds=n_rounds, seconds=seconds, rounds_per_s=n_rounds / seconds,
+         launches=single, final_params_finite=finite,
+         first_nonfinite_round=first_nonfinite(series), **series)
+    if not finite or single != {"aircomp_fused": n_rounds, "aircomp_fused_batch": 0}:
+        raise AssertionError(f"run_with_history under skip: launches {single}, final "
+                             f"params finite {finite}")
+    return {k: launches[k] + single[k] for k in launches}
+
+
+def loop_rounds_from_fused_state(task, spec, cfg, scen_kw, loop_kw) -> tuple[np.ndarray, bool]:
+    """Each round of a loop's sub-lattices started from the fused grid's state
+    of the round before and fed the same draws, against the fused grid's
+    round (what the loop changes, apart from the trajectory's amplification
+    of it) → (the largest relative difference of any record value, (B, T)
+    by flat cell and round; whether |S| is equal everywhere)."""
+    from repro_torch.core.local_update import AlgState, algorithm_id
+    from repro_torch.core.scheduling import policy_id
+    from repro_torch.flatten_util import tree_map
+    from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine
+    from repro_torch.sim.lattice import cell_axes
+
+    algs = [algorithm_id(a) for a in spec.algorithms]
+    pols = [policy_id(p) for p in spec.policies]
+    traced = len(algs) > 1
+    dev = task.data.features.device
+    engine = SimEngine(task.loss_fn, task.data, dataclasses.replace(
+        cfg, policy=FUSED_POLICY,
+        local_algorithm=FUSED_ALGORITHM if traced else spec.algorithms[0]),
+        eval_fn=task.eval, device=dev, **scen_kw)
+    flat = np.arange(spec.n_cells).reshape(len(algs), len(pols), -1)
+    if "fuse_policies" in loop_kw:
+        groups = [(algs, [p], flat[:, i].ravel()) for i, p in enumerate(pols)]
+    else:
+        groups = [([a], pols, flat[i].ravel()) for i, a in enumerate(algs)]
+
+    def start(alg_ids, pol_ids):
+        axes = cell_axes(spec, alg_ids, pol_ids)
+        if not traced:
+            axes["algorithm_b"] = None
+        return engine.lattice_start(task.params0, **axes)
+
+    def values(rec):  # the record's fields, each (B,)
+        return list(rec[:6]) + ([] if rec[6] is None else list(rec[6]))
+
+    fused = start(algs, pols)
+    subs = [(idx, start(a, p)) for a, p, idx in groups]
+    worst = np.zeros((spec.n_cells, spec.n_rounds))
+    same_s = True
+    for t in range(spec.n_rounds):
+        ev = t % spec.eval_every == 0 or t == spec.n_rounds - 1
+        prev = fused
+        fused, rec = engine.lattice_round(fused, t, ev)
+        want = values(rec)
+        for k, (idx, sub) in enumerate(subs):
+            at = torch.as_tensor(idx, device=dev)
+            sub = sub._replace(
+                params=tree_map(lambda p: p[at], prev.params),
+                alg=None if prev.alg is None else AlgState(
+                    *(None if f is None else f[at] for f in prev.alg)))
+            sub, sub_rec = engine.lattice_round(sub, t, ev)
+            subs[k] = (idx, sub)
+            got = values(sub_rec)
+            same_s = same_s and bool(torch.equal(got[3], want[3][at]))
+            for g, w in zip(got, want):
+                w = w[at]
+                rel = torch.where(torch.isfinite(w),
+                                  (g - w).abs() / w.abs().clamp_min(1e-30), 0.0)
+                worst[idx, t] = np.maximum(worst[idx, t], rel.cpu().numpy())
+    return worst, same_s
+
+
+def lattice_loops(dev, lattice_records, scenario_records) -> dict:
+    """``run_lattice(fuse_policies=False)`` over the CNN lattice and
+    ``run_lattice(fuse_algorithms=False)`` over the CNN scenario lattice,
+    both cut to ``LOOP_ROUNDS``: each loop timed beside the fused run of the
+    same spec (the loop's launches zeroed just before it and read just
+    after); then, with cuDNN's deterministic algorithms, every round of the
+    loop's sub-lattices from the fused grid's state against the fused round
+    (held to ``ROUND_TOL``, |S| equal; the cells of SCENARIO_DIVERGING_CELLS
+    reported), and the loop's whole run against the
+    fused run (|S| equal and every cell finite; the differences reported by
+    round, since the trajectory amplifies a rounding difference) → the
+    loops' launch counts."""
+    from repro_torch.sim.lattice import LatticeSpec
+
+    scenario = dict(zip(("scenario", "scenario_params"), SCENARIO))
+    _, cnn, _ = lattice_records["cnn"]
+    _, scen_task, scen_cfg = scenario_records["cnn"]
+    noises, _, every = LATTICES["cnn"]
+    runs = {
+        "cnn_lattice_per_policy": (
+            cnn, LatticeSpec(policies=POLICIES, noise_powers=noises, alphas=(0.1,),
+                             seeds=LATTICE_SEEDS, n_rounds=LOOP_ROUNDS, eval_every=every),
+            lattice_cfg(), {}, {"fuse_policies": False}, len(POLICIES)),
+        "cnn_scenario_lattice_per_algorithm": (
+            scen_task, dataclasses.replace(scenario_cnn_spec(), n_rounds=LOOP_ROUNDS),
+            scen_cfg, scenario, {"fuse_algorithms": False}, len(SCENARIO_ALGORITHMS)),
+    }
+    launches = {"aircomp_fused": 0, "aircomp_fused_batch": 0}
+    for run, (task, spec, cfg, scen_kw, loop_kw, subs) in runs.items():
+        fused, fused_s = timed_lattice(task, spec, cfg, **scen_kw)
+        zero_counts()
+        loop, loop_s = timed_lattice(task, spec, cfg, **scen_kw, **loop_kw)
+        counts = read_counts()
+        with cudnn_deterministic():
+            worst, same_s = loop_rounds_from_fused_state(task, spec, cfg, scen_kw, loop_kw)
+            det_fused, det_fused_s = timed_lattice(task, spec, cfg, **scen_kw)
+            det_loop, det_loop_s = timed_lattice(task, spec, cfg, **scen_kw, **loop_kw)
+        # every cell is held to ROUND_TOL in every round but the cells named as
+        # diverging, which are reported
+        grid = (len(spec.algorithms), len(spec.policies), len(spec.noise_powers),
+                len(spec.alphas), len(spec.seeds))
+        names = [cell_name(spec, c) for c in np.ndindex(grid)]
+        named = [i for i, c in enumerate(np.ndindex(grid)) if (
+            "cnn", spec.algorithms[c[0]], spec.policies[c[1]], spec.noise_powers[c[2]],
+            spec.seeds[c[4]]) in SCENARIO_DIVERGING_CELLS and run.startswith("cnn_scenario")]
+        held = np.delete(worst, named, axis=0)
+        per_round = {
+            "held_cells": len(held), "max_rel_diff": float(held.max()),
+            "by_round": held.max(axis=0).tolist(), "n_scheduled_equal": same_s,
+            "cells_outside_tolerance": {names[i]: worst[i].tolist() for i in range(len(names))
+                                        if i not in named and worst[i].max() > ROUND_TOL},
+            "named_diverging_cells": {names[i]: worst[i].tolist() for i in named}}
+        runs_diff = {}
+        for mode, got, want in (("default", loop, fused), ("deterministic", det_loop,
+                                                           det_fused)):
+            got_f, want_f = record_rounds(got), record_rounds(want)
+            cells = list(np.ndindex(want.e_com.shape[:-1]))
+            finite = [c for c in cells if not nonfinite_rounds(want_f, c)]
+            diff, by_field = max_rel_diff(got_f, want_f, finite)
+            scale = {f: np.abs(getattr(want, f)).max(axis=-1, keepdims=True)
+                     for f in ("e_com", "e_var", "grad_norm")}
+            by_round = np.max([np.abs(getattr(got, f) - getattr(want, f)) /
+                               np.maximum(scale[f], 1e-30) for f in scale], axis=0)
+            per_cell = {cell_name(spec, c): max_rel_diff(got_f, want_f, [c])[0]
+                        for c in finite}
+            runs_diff[mode] = {
+                "finite_cells": len(finite), "cells": len(cells),
+                "n_scheduled_equal": all(np.array_equal(got.n_scheduled[c],
+                                                        want.n_scheduled[c])
+                                         for c in finite),
+                "max_rel_diff_from_fused": diff, "max_rel_diff_by_field": by_field,
+                "max_rel_diff_by_round": by_round.reshape(-1, spec.n_rounds)
+                .max(axis=0).tolist(),
+                "cells_outside_tolerance": {k: v for k, v in per_cell.items()
+                                            if v > ROUND_TOL}}
+        run_launches = {k: counts[k] for k in launches}
+        emit("lattice_loops", run=run, loop=loop_kw, d=task.dim, cells=spec.n_cells,
+             sub_lattices=subs, rounds=spec.n_rounds, seconds=loop_s,
+             cell_rounds_per_s=spec.n_cells * spec.n_rounds / loop_s, fused_seconds=fused_s,
+             fused_cell_rounds_per_s=spec.n_cells * spec.n_rounds / fused_s,
+             deterministic_cell_rounds_per_s={
+                 "fused": spec.n_cells * spec.n_rounds / det_fused_s,
+                 "loop": spec.n_cells * spec.n_rounds / det_loop_s},
+             launches=run_launches, tolerance=ROUND_TOL,
+             rounds_from_fused_state=per_round, runs_cudnn_default=runs_diff["default"],
+             runs_cudnn_deterministic=runs_diff["deterministic"])
+        det = runs_diff["deterministic"]
+        if run_launches != {"aircomp_fused": 0, "aircomp_fused_batch": subs * spec.n_rounds} \
+                or per_round["cells_outside_tolerance"] or not same_s \
+                or not det["n_scheduled_equal"] or det["finite_cells"] != det["cells"]:
+            raise AssertionError(f"lattice loop {run}: launches {run_launches}, rounds "
+                                 f"from the fused state {per_round}, whole runs {det}")
+        for k in launches:
+            launches[k] += run_launches[k]
+    return launches
 
 
 # -- the flash-attention kernel --------------------------------------------------
@@ -1588,6 +1999,8 @@ def main() -> int:
     scenario_launches, scenario_records = scenario_lattice(dev)
     scenario_diverging(dev, scenario_records)
     scenario_parity(dev)
+    quarantine_launches = quarantine(dev, lattice_records, scenario_records)
+    loop_launches = lattice_loops(dev, lattice_records, scenario_records)
     serve_launches = serving(dev, SERVE_ARCH, "serve", PARITY_BATCH, PARITY_PROMPT)
     ssm_launches = serving(dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH, SSM_PARITY_PROMPT)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -1595,11 +2008,15 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("aircomp_fused", "src/repro/kernels/aircomp/kernel.py:132",
                      {"main": launches["aircomp_fused"],
-                      "scenario_lattice": scenario_launches["aircomp_fused"]},
+                      "scenario_lattice": scenario_launches["aircomp_fused"],
+                      "quarantine": quarantine_launches["aircomp_fused"],
+                      "lattice_loops": loop_launches["aircomp_fused"]},
                      max_err, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
                      {"lattice": lattice_launches["aircomp_fused_batch"],
-                      "scenario_lattice": scenario_launches["aircomp_fused_batch"]},
+                      "scenario_lattice": scenario_launches["aircomp_fused_batch"],
+                      "quarantine": quarantine_launches["aircomp_fused_batch"],
+                      "lattice_loops": loop_launches["aircomp_fused_batch"]},
                      batch_err, batch_times),
         lm_kernel_entry("flash_attention",
                         "src/repro_torch/kernels/attention/csrc/flash_attention.cu",

@@ -59,6 +59,13 @@ def transmit_scalars(rho: torch.Tensor, h: torch.Tensor, a: torch.Tensor) -> tor
     return rho.to(h.dtype) * a.to(h.dtype) / h
 
 
+def power_check(
+    rho: torch.Tensor, h: torch.Tensor, a: torch.Tensor, tx_power: float
+) -> torch.Tensor:
+    """|b_i|² ≤ P for all devices (Eq. 6) — holds by construction of Lemma 1."""
+    return transmit_scalars(rho, h, a).abs() ** 2 <= tx_power * (1.0 + 1e-5)
+
+
 def distortion_closed_form(
     v_g: torch.Tensor,
     rho: torch.Tensor,

@@ -25,6 +25,12 @@ cells. The policy may be data there, an id of ``scheduling.POLICY_IDS``
 per cell (``policy_id``), and so may the local-update algorithm
 (``algorithm_id``, ``local_update.ALGORITHM_IDS``).
 
+``cfg.on_nonfinite="skip"`` is the reference's non-finite quarantine: a
+round whose aggregate ŷ holds a non-finite entry keeps its params and
+AlgState (a value select per cell, never a branch on the host) and is
+flagged on ``metrics.health``; the draws advance as usual. ``fault_round``
+poisons ŷ with NaN at one round, the reference's fault-injection hook.
+
 ``backend`` selects the aggregation:
 
   * ``jnp``          — the reference arithmetic in plain PyTorch (Eq. 16, or
@@ -41,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -48,17 +55,13 @@ from torch.func import vmap
 from torch.profiler import record_function
 
 from repro_torch.core import aircomp, scheduling
-from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.local_update import (
-    AlgState, local_update_stage, local_update_stage_cells,
+from repro_torch.core.channel import ChannelConfig, ChannelState  # noqa: F401  (re-exported)
+from repro_torch.core.local_update import (  # noqa: F401  (re-exported API)
+    AlgState, local_gradient_stage, local_update_stage, local_update_stage_cells,
 )
-from repro_torch.core.metrics import RoundMetrics
+from repro_torch.core.metrics import RoundHealth, RoundMetrics
 from repro_torch.core.numerics import safe_div
 from repro_torch.flatten_util import ravel_pytree
-from repro_torch.kernels.aircomp import (
-    aircomp_aggregate_fused,
-    aircomp_aggregate_fused_batch,
-)
 
 
 class AggregationBackend(str, enum.Enum):
@@ -68,6 +71,8 @@ class AggregationBackend(str, enum.Enum):
     PALLAS_FUSED = "pallas_fused"  # fused kernel (physical semantics)
 
 
+BACKENDS = tuple(b.value for b in AggregationBackend)
+
 # The cfg.policy of a POLICY-FUSED engine (``repro_torch.sim.lattice``):
 # each cell carries its policy as an id, so the policy string is
 # deliberately not a real policy.
@@ -76,11 +81,7 @@ FUSED_POLICY = "__fused__"
 
 @dataclasses.dataclass(frozen=True)
 class POFLConfig:
-    """Hyper-parameters for the PO-FL simulator (defaults = paper Sec. V-A).
-
-    ``on_nonfinite="skip"`` (the reference's non-finite quarantine) is
-    refused by the engine.
-    """
+    """Hyper-parameters for the PO-FL simulator (defaults = paper Sec. V-A)."""
 
     n_devices: int = 30
     n_scheduled: int = 10
@@ -102,8 +103,9 @@ class POFLConfig:
     local_lr: float | None = None    # local step size η_l; None → cfg.lr(t)
     fedprox_mu: float = 0.0          # FedProx proximal coefficient μ
     feddyn_alpha: float = 0.1        # FedDyn dynamic-regularizer coefficient
+    # "propagate": a non-finite ŷ flows on; "skip": the round is quarantined
+    on_nonfinite: str = "propagate"
     seed: int = 0
-    on_nonfinite: str = "propagate"  # "skip" (the quarantine) is not ported
 
     def lr(self, t: int) -> float:
         """Paper Sec. V-A: η^t = max(η0 · 0.95^t, 1e-5)."""
@@ -293,6 +295,8 @@ def aggregation_stage(
             g, rho, h, mask, z, cfg.tx_power, noise_power,
             simulate_physical=cfg.simulate_physical,
         )
+    from repro_torch.kernels.aircomp import aircomp_aggregate_fused  # late: kernels↔core
+
     coeff, m_g, v_g, a, z, e_com = fused_aggregation_inputs(
         cfg, g, rho, h, mask, z, noise_power
     )
@@ -316,15 +320,51 @@ def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=No
     )
 
 
-def _metrics(cfg, data_frac, g, rho, mask, h, y_hat, e_com) -> RoundMetrics:
-    """One cell's :class:`RoundMetrics`."""
-    return RoundMetrics(
-        e_com=e_com,
-        e_var=scheduling.global_update_variance(g, rho, mask, data_frac, cfg.n_scheduled),
-        grad_norm=torch.linalg.vector_norm(y_hat),
-        n_scheduled=mask.sum(),
-        a_scalar=aircomp.denoise_scalar(rho, h.abs(), mask, cfg.tx_power),
+def _metric_values(cfg, data_frac, g, rho, mask, h, y_hat, e_com) -> tuple:
+    """One cell's ``(e_com, e_var, grad_norm, n_scheduled, a_scalar)``: only
+    tensors, so the lattice can ``vmap`` it (``torch.func.vmap`` refuses a
+    ``None`` output)."""
+    return (
+        e_com,
+        scheduling.global_update_variance(g, rho, mask, data_frac, cfg.n_scheduled),
+        torch.linalg.vector_norm(y_hat),
+        mask.sum(),
+        aircomp.denoise_scalar(rho, h.abs(), mask, cfg.tx_power),
     )
+
+
+def _check_on_nonfinite(cfg: POFLConfig) -> None:
+    if cfg.on_nonfinite not in ("propagate", "skip"):
+        raise ValueError(
+            f"POFLConfig.on_nonfinite must be 'propagate' or 'skip', got {cfg.on_nonfinite!r}"
+        )
+
+
+def _poison(y_hat: torch.Tensor, t: int, fault_round) -> torch.Tensor:
+    """ŷ with every row whose ``fault_round`` equals ``t`` set to NaN, as a
+    value select (``fault_round`` a tensor of ŷ's leading shape; -1 never
+    fires)."""
+    fire = torch.as_tensor(fault_round, device=y_hat.device) == t
+    return torch.where(fire[..., None], torch.full_like(y_hat, math.nan), y_hat)
+
+
+def _hold(finite: torch.Tensor, new, old):
+    """The quarantine's select over a params tree: ``new`` where ``finite``
+    (one flag, or one a cell along the leading axis), else ``old``."""
+    if isinstance(new, dict):
+        return {k: _hold(finite, v, old[k]) for k, v in new.items()}
+    return torch.where(finite.reshape(finite.shape + (1,) * (new.dim() - finite.dim())),
+                       new, old)
+
+
+def _quarantine(finite: torch.Tensor, new_params, params, alg_state, alg_state_in):
+    """Hold the params and the AlgState where the round's ŷ is not finite →
+    ``(params, alg_state, RoundHealth)``."""
+    if alg_state is not None:
+        alg_state = AlgState(*(None if n is None else _hold(finite, n, o)
+                               for n, o in zip(alg_state, alg_state_in)))
+    return (_hold(finite, new_params, params), alg_state,
+            RoundHealth(nonfinite=(~finite).float()))
 
 
 # --------------------------------------------------------------------------
@@ -347,6 +387,7 @@ def round_algorithm(
     avail: torch.Tensor | None = None,
     alg_state: AlgState | None = None,
     algorithm_id: torch.Tensor | None = None,
+    fault_round=None,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """Steps 2–6 of Algorithm 1 for one round → ``(new_params, alg_state, metrics)``.
 
@@ -357,13 +398,20 @@ def round_algorithm(
     that drops devices (``None``: no mask). ``alg_state`` is the per-device
     local-algorithm state (``None`` for a stateless algorithm) and
     ``algorithm_id`` an optional id that replaces ``cfg.local_algorithm``.
-    Nothing here reads a value back to the host, so the card runs the round
-    without waiting on Python.
+
+    ``fault_round`` (an int or 0-d tensor; ``None`` adds no op) sets ŷ to
+    NaN when it equals ``t``. Under ``cfg.on_nonfinite="skip"`` a non-finite
+    ŷ, injected or not, leaves ``params`` and ``alg_state`` as they came in
+    and sets ``metrics.health.nonfinite`` to 1; under ``"propagate"``
+    ``metrics.health`` is ``None``. Nothing here reads a value back to the
+    host, so the card runs the round without waiting on Python.
     """
+    _check_on_nonfinite(cfg)
     noise_power = cfg.noise_power if noise_power is None else noise_power
     alpha = cfg.alpha if alpha is None else alpha
     agg_noise_power = 0.0 if cfg.policy == "noisefree" else noise_power
     data_frac = data.data_frac
+    alg_state_in = alg_state  # what the quarantine holds
 
     with record_function("pofl.local_update"):
         g, alg_state = local_update_stage(
@@ -377,12 +425,19 @@ def round_algorithm(
 
     with record_function("pofl.aggregation"):
         y_hat, e_com = aggregation_stage(cfg, g, rho, h, mask, z, agg_noise_power)
+        if fault_round is not None:
+            y_hat = _poison(y_hat, t, fault_round)
 
     with record_function("pofl.update"):
         new_params = apply_update_stage(cfg, params, y_hat, t)
+        health = None
+        if cfg.on_nonfinite == "skip":
+            new_params, alg_state, health = _quarantine(
+                torch.isfinite(y_hat).all(), new_params, params, alg_state, alg_state_in)
 
     with record_function("pofl.metrics"):
-        metrics = _metrics(cfg, data_frac, g, rho, mask, h, y_hat, e_com)
+        values = _metric_values(cfg, data_frac, g, rho, mask, h, y_hat, e_com)
+        metrics = RoundMetrics(y_hat.new_zeros(()), *values, health=health)
     return new_params, alg_state, metrics
 
 
@@ -402,6 +457,7 @@ def round_algorithm_cells(
     avail_c: torch.Tensor | None = None,
     alg_state_c: AlgState | None = None,
     algorithm_id_c: torch.Tensor | None = None,
+    fault_round_c: torch.Tensor | None = None,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """One round of C lattice cells at once → ``(params_c, alg_state_c, metrics)``.
 
@@ -417,11 +473,16 @@ def round_algorithm_cells(
     same way), except that under ``pallas_fused`` the aggregation's scalar
     prelude is vmapped and then ONE launch of the trial-batched kernel
     aggregates the (C, N, D) updates. σ_z² = 0 for ``noisefree`` cells is a
-    value select. The metrics are (C,) tensors; nothing is read back to the
-    host.
+    value select. ``fault_round_c`` (C,) poisons a cell's ŷ at its round
+    (-1 never fires). Under ``cfg.on_nonfinite="skip"`` each cell whose ŷ
+    row is not finite keeps its params and AlgState, selected per cell
+    after the aggregation, and is flagged on ``metrics.health`` (C,). The
+    metrics are (C,) tensors; nothing is read back to the host.
     """
+    _check_on_nonfinite(cfg)
     agg_noise_c = torch.where(policy_id_c == scheduling.NOISEFREE_ID, 0.0, noise_power_c)
     data_frac = data.data_frac
+    alg_state_in = alg_state_c
 
     with record_function("lattice.local_update"):
         g, alg_state_c = local_update_stage_cells(
@@ -443,6 +504,8 @@ def round_algorithm_cells(
                 g, rho, h_c, mask, z_c, agg_noise_c
             )
         else:
+            from repro_torch.kernels.aircomp import aircomp_aggregate_fused_batch  # late
+
             coeff, m_g, v_g, a, z, e_com = vmap(
                 functools.partial(fused_aggregation_inputs, cfg)
             )(g, rho, h_c, mask, z_c, agg_noise_c)
@@ -450,15 +513,45 @@ def round_algorithm_cells(
                 g, coeff.contiguous(), m_g.contiguous(), v_g.contiguous(),
                 a.contiguous(), z,
             )
+        if fault_round_c is not None:
+            y_hat = _poison(y_hat, t, fault_round_c)
 
     with record_function("lattice.update"):
         new_params = vmap(lambda p, y: apply_update_stage(cfg, p, y, t))(params_c, y_hat)
+        health = None
+        if cfg.on_nonfinite == "skip":
+            new_params, alg_state_c, health = _quarantine(
+                torch.isfinite(y_hat).all(dim=-1), new_params, params_c, alg_state_c,
+                alg_state_in)
 
     with record_function("lattice.metrics"):
-        metrics = vmap(functools.partial(_metrics, cfg, data_frac))(
+        values = vmap(functools.partial(_metric_values, cfg, data_frac))(
             g, rho, mask, h_c, y_hat, e_com
         )
+        metrics = RoundMetrics(y_hat.new_zeros(y_hat.shape[0]), *values, health=health)
     return new_params, alg_state_c, metrics
+
+
+def make_round_step(loss_fn: Callable, data: DeviceData, channel: ChannelState,
+                    cfg: POFLConfig):
+    """The single-round step of Algorithm 1: ``round_step(params, draws, t)
+    → (params, metrics)``.
+
+    Where the reference's step takes a PRNG key and samples the round's
+    fading from ``channel``, this one takes the round's draws as tensors
+    (a :class:`repro_torch.sim.engine.RoundDraws`, e.g. from
+    ``SimEngine.draws``): ``draws.h`` is the realization ``channel.sample``
+    gives, and the mini-batch rows, sampler input and noise come with it.
+    The channel is static, so no device is ever unavailable.
+    """
+
+    def round_step(params, draws, t):
+        new_params, _, m = round_algorithm(
+            loss_fn, data, cfg, params, draws.h, draws.batch_idx, draws.sched, draws.z, t
+        )
+        return new_params, m
+
+    return round_step
 
 
 def run_pofl(

@@ -54,3 +54,17 @@ def make_classification_dataset(
         bias = torch.randn(n_classes, shape[-1], generator=proto_gen)
         feats = feats + channel_bias * bias[labels][:, None, None, :]
     return feats, labels
+
+
+def pad_with_wrong_labels(features, labels, n_pad: int, n_classes: int = 10):
+    """Append ``n_pad`` pad rows whose labels are deliberately wrong.
+
+    The pad rows cycle the real features but carry labels shifted by +1 mod
+    ``n_classes``, so a model that predicts the true class gets every pad
+    row wrong: an eval that counts pad rows shifts measurably, one that
+    honours the valid prefix (``n_valid = len(labels)``) does not.
+    """
+    feats, labs = torch.as_tensor(features), torch.as_tensor(labels)
+    idx = torch.arange(n_pad, device=feats.device) % feats.shape[0]
+    return (torch.cat([feats, feats[idx]], dim=0),
+            torch.cat([labs, (labs[idx] + 1) % n_classes], dim=0))

@@ -51,7 +51,9 @@ def round_inputs(n, d, dev, seed=0, empty=False, row_stride=None):
 # trial, D % 4 == 0, a trial-strided view, an empty schedule in one trial,
 # N = 31, 100 and 257 as above, and the scenario lattices' shapes: the CNN's
 # 24 cells and the example's logreg at N = 20 (a masked last row group);
-# every trial has its own scalars.
+# then the lattice loops' sub-lattices: the CNN lattice one policy at a time
+# (3 cells) and the CNN scenario lattice one algorithm at a time (6 cells).
+# Every trial has its own scalars.
 BATCH_CHECK_CASES = {
     "cnn_lattice": (15, 30, 258_634, None, False),
     "logreg_lattice": (30, 30, 7850, None, False),
@@ -66,6 +68,8 @@ BATCH_CHECK_CASES = {
     "n_257": (2, 257, 4096, None, False),
     "cnn_scenario_lattice": (24, 30, 258_634, None, False),
     "logreg_example_lattice": (24, 20, 7850, None, False),
+    "cnn_lattice_per_policy": (3, 30, 258_634, None, False),
+    "cnn_scenario_lattice_per_algorithm": (6, 30, 258_634, None, False),
 }
 
 

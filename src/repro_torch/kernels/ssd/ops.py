@@ -20,3 +20,9 @@ def ssd(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
     if xdt.device.type == "cuda":
         return ssd_scan(xdt, la, B, C, chunk=chunk)
     raise ValueError(f"ssd: no path for device {xdt.device}")
+
+
+def ssd_pallas(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
+    """The reference's name for the kernel entry: :func:`ssd_scan` on a
+    CUDA tensor, its plain version on a CPU one (as :func:`ssd`)."""
+    return ssd(xdt, la, B, C, chunk=chunk)

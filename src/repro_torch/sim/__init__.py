@@ -1,7 +1,8 @@
 """Port of ``repro.sim``: channel processes, model tasks, the round engine
 and the scenario lattice. The exports are the reference's names that are
-ported so far (ROADMAP queue A lists the rest)."""
-from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine
+ported so far (ROADMAP queue A lists the rest: the resilience, multi-host
+and compile-cache modules)."""
+from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine, SimState
 from repro_torch.sim.lattice import LatticeRecords, LatticeSpec, run_lattice
 from repro_torch.sim.scenario import (
     CHANNEL_SCENARIOS,
@@ -21,6 +22,7 @@ __all__ = [
     "ModelTask",
     "PARTITIONS",
     "SimEngine",
+    "SimState",
     "TASKS",
     "TaskEval",
     "make_channel_process",

@@ -35,6 +35,9 @@ algorithm as an id and the full state (``h`` and ``c``).
 A :class:`~repro_torch.sim.tasks.TaskEval` ``eval_fn`` fills the records'
 ``eval`` subtree (:class:`~repro_torch.sim.tasks.EvalRecord`, zeros on the
 rounds that do not evaluate); any other ``eval_fn`` leaves it ``None``.
+Under ``cfg.on_nonfinite="skip"`` a round whose ŷ is not finite keeps the
+params and AlgState it started from (per cell in a lattice) and the records'
+``health`` subtree flags it; the draws advance as usual.
 
 Nothing reads a value back to the host inside a round. ``run_with_history``
 keeps the per-round metrics on the device until an eval boundary (or the
@@ -51,6 +54,7 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.local_update import (
     ALGORITHMS, AlgState, init_state, minibatch_indices,
 )
+from repro_torch.core.metrics import RoundHealth
 from repro_torch.core.pofl import (
     FUSED_POLICY, DeviceData, History, POFLConfig, round_algorithm,
     round_algorithm_cells, sampler_draw,
@@ -66,13 +70,32 @@ from repro_torch.sim.tasks import EvalRecord, TaskEval, zero_eval_record
 FUSED_ALGORITHM = "__fused__"
 
 
+class SimState(NamedTuple):
+    """What a run carries from round to round (the reference's scan carry).
+
+    ``key`` is the port's counterpart of the reference's PRNG chain: the
+    seed's draw stream (:meth:`SimEngine.draws`), which makes every round's
+    random inputs and steps the channel process on them, so it holds the
+    process state as well; ``chan`` is ``None``. ``alg`` is the per-device
+    local-algorithm state (:class:`~repro_torch.core.local_update.AlgState`),
+    ``None`` for a stateless algorithm.
+    """
+
+    params: Any       # model tree
+    key: Any          # the seed's draw stream
+    chan: Any         # None: the draw stream holds the channel-process state
+    alg: Any = None   # AlgState, or None (stateless)
+
+
 class RoundRecord(NamedTuple):
     """Per-round metric record; in a lattice every field is (cells, rounds).
 
     ``eval`` is the :class:`~repro_torch.sim.tasks.EvalRecord` subtree
-    when the engine's ``eval_fn`` is a ``TaskEval``, else ``None``. ``diag``
-    and ``health`` are the reference's diagnostics taps and quarantine
-    counters, not ported: always ``None``.
+    when the engine's ``eval_fn`` is a ``TaskEval``, else ``None``.
+    ``health`` is the quarantine's
+    :class:`~repro_torch.core.metrics.RoundHealth` under
+    ``cfg.on_nonfinite="skip"``, else ``None``. ``diag`` (the reference's
+    diagnostics taps, ROADMAP queue A item 16) is always ``None``.
     """
 
     e_com: torch.Tensor        # Eq. 15 closed-form communication distortion
@@ -156,12 +179,7 @@ class SimEngine:
             raise ValueError(
                 f"unknown local_algorithm {cfg.local_algorithm!r}; choose from {ALGORITHMS}"
             )
-        if cfg.on_nonfinite == "skip":
-            raise NotImplementedError(
-                "on_nonfinite='skip' (the non-finite quarantine) is not ported yet "
-                "(ROADMAP queue A item 11)"
-            )
-        if cfg.on_nonfinite != "propagate":
+        if cfg.on_nonfinite not in ("propagate", "skip"):
             raise ValueError(
                 f"POFLConfig.on_nonfinite must be 'propagate' or 'skip', got "
                 f"{cfg.on_nonfinite!r}"
@@ -275,8 +293,9 @@ class SimEngine:
 
     def lattice_round(self, state: LatticeState, t: int, do_eval: bool):
         """Round ``t`` of every cell → ``(state', record)``, ``record`` the
-        (B,) tensors of :data:`RECORD_SCALARS` and the ``eval`` record
-        (``None`` unless ``eval_fn`` is a ``TaskEval``). The cells of one
+        (B,) tensors of :data:`RECORD_SCALARS`, the ``eval`` record
+        (``None`` unless ``eval_fn`` is a ``TaskEval``) and the ``health``
+        record (``None`` unless ``cfg.on_nonfinite`` is ``"skip"``). The cells of one
         seed share that seed's draws. ``eval_fn`` runs on each cell's new
         params when ``do_eval``; ``loss``/``acc`` are 0 otherwise. Under
         ``pallas_fused`` one launch of the batch kernel aggregates the round.
@@ -291,7 +310,7 @@ class SimEngine:
             alg_state_c=state.alg, algorithm_id_c=state.algorithm,
         )
         loss, acc, ev = self._eval(params, state.noise.shape[0], do_eval)
-        record = (m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc, ev)
+        record = (m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc, ev, m.health)
         return state._replace(params=params, alg=alg), record
 
     def run_lattice_cells(
@@ -307,7 +326,9 @@ class SimEngine:
         ``algorithm_b`` (ids of ``local_update.ALGORITHM_IDS``) are the
         flattened (B,) cell axes of a policy-fused engine. Every cell starts
         from ``params0``; ``do_eval`` flags the rounds after which
-        ``eval_fn`` runs (:meth:`lattice_round`).
+        ``eval_fn`` runs (:meth:`lattice_round`). Under
+        ``cfg.on_nonfinite="skip"`` the record's ``health`` is a
+        ``RoundHealth`` of (B, T) flags.
         """
         state = self.lattice_start(params0, noise_b, alpha_b, seed_b, policy_b,
                                    algorithm_b)
@@ -316,14 +337,19 @@ class SimEngine:
             state, record = self.lattice_round(state, int(t), bool(ev))
             rounds.append(record)
         cells = len(state.seed_idx)
+        skip = self.cfg.on_nonfinite == "skip"
         if not rounds:
             empty = torch.zeros(cells, 0, device=self.device)
             ev = None if self.task_eval is None else zero_eval_record((cells, 0), self.device)
-            return RoundRecord(*(empty for _ in RECORD_SCALARS), eval=ev)
-        *scalars, evals = zip(*rounds)
+            return RoundRecord(*(empty for _ in RECORD_SCALARS), eval=ev,
+                               health=RoundHealth(empty) if skip else None)
+        *scalars, evals, healths = zip(*rounds)
         ev = None if self.task_eval is None else EvalRecord(
             *(torch.stack(f, dim=1) for f in zip(*evals)))
-        return RoundRecord(*(torch.stack(f, dim=1) for f in scalars), eval=ev)
+        health = RoundHealth(*(torch.stack(f, dim=1) for f in zip(*healths))) if skip \
+            else None
+        return RoundRecord(*(torch.stack(f, dim=1) for f in scalars), eval=ev,
+                           health=health)
 
     def run_with_history(
         self,
@@ -337,8 +363,12 @@ class SimEngine:
 
         ``eval_fn(params) -> (loss, acc)`` runs after round 0, every
         ``eval_every`` rounds and after the last round; those are the only
-        points where values come back to the host. The local-algorithm
-        state starts at zero and is carried from round to round.
+        points where values come back to the host. The run carries a
+        :class:`SimState`: the params, the seed's draw stream and the
+        local-algorithm state, which starts at zero. Under
+        ``cfg.on_nonfinite="skip"`` a round whose ŷ is not finite leaves
+        the params and the state as they were, and its ``e_com``/``e_var``
+        are recorded as computed.
         """
         if self.cfg.local_algorithm == FUSED_ALGORITHM:
             raise ValueError("run_with_history runs one algorithm: cfg.local_algorithm "
@@ -355,14 +385,15 @@ class SimEngine:
 
         hist = History(loss=[], e_com=[], e_var=[], test_acc=[], test_round=[])
         e_com, e_var = [], []
-        draws = self.draws(seed, dim)
-        alg = self._alg_state(dim)
+        state = SimState(params=params, key=self.draws(seed, dim), chan=None,
+                         alg=self._alg_state(dim))
         for t in range(n_rounds):
-            d = next(draws)
+            d = next(state.key)
             params, alg, m = round_algorithm(
-                self.loss_fn, self.data, self.cfg, params,
-                d.h, d.batch_idx, d.sched, d.z, t, avail=self._avail(d), alg_state=alg,
+                self.loss_fn, self.data, self.cfg, state.params,
+                d.h, d.batch_idx, d.sched, d.z, t, avail=self._avail(d), alg_state=state.alg,
             )
+            state = state._replace(params=params, alg=alg)
             e_com.append(m.e_com)
             e_var.append(m.e_var)
             if t in eval_ts or t == n_rounds - 1:
@@ -370,8 +401,8 @@ class SimEngine:
                 hist.e_var.extend(torch.stack(e_var).tolist())
                 e_com, e_var = [], []
             if t in eval_ts:
-                loss, acc = eval_fn(params)
+                loss, acc = eval_fn(state.params)
                 hist.loss.append(float(loss))
                 hist.test_acc.append(float(acc))
                 hist.test_round.append(t)
-        return params, hist
+        return state.params, hist

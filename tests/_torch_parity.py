@@ -16,6 +16,10 @@ A channel process of the port computes its step from random primitives
 given as tensors; :func:`jax_step_prims` gives the ones the reference's
 ``step`` consumes from its key, so both sides step on the same values.
 
+:func:`lattice_case` builds one small logreg lattice for both packages,
+the port's draws replayed per seed (:func:`replay_per_seed`), and
+:func:`assert_records_match` holds two ``LatticeRecords`` to each other.
+
 Tolerance: float outputs agree to 1e-5 relative to the scale of the
 reference value (``atol = rtol · max|want|``), the cross-framework bound
 of ROADMAP ground rule 5; decisions (masks, indices, counts) match exactly.
@@ -23,6 +27,8 @@ of ROADMAP ground rule 5; decisions (masks, indices, counts) match exactly.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -30,15 +36,23 @@ import numpy as np
 import torch
 
 from repro.core import pofl as jpofl
-from repro.data.partition import partition_noniid_shards
+from repro.core.channel import ChannelConfig as JChannelConfig
+from repro.data.partition import partition_dirichlet_sized, partition_noniid_shards
 from repro.data.synthetic import make_classification_dataset
 from repro.models import small as jsmall
+from repro.sim import lattice as jlattice
 from repro.sim import scenario as jscen
 from repro.sim.engine import FUSED_POLICY
 from repro.sim.scenario import make_channel_process
+from repro.sim.tasks import TaskEval as JTaskEval
+from repro_torch.convert import params_from_jax
 from repro_torch.core import pofl as tpofl
+from repro_torch.core.channel import ChannelConfig
 from repro_torch.models import small as tsmall
+from repro_torch.sim import engine as tengine
+from repro_torch.sim import lattice as tlattice
 from repro_torch.sim.engine import RoundDraws
+from repro_torch.sim.tasks import TaskEval as TTaskEval
 
 # The tier-1 suite runs six pytest workers on one host next to the JAX
 # tests, some of them timing-bound; torch's default intra-op pool (one
@@ -191,3 +205,83 @@ def reference_task(kind: str, n_devices: int, per_device: int, seed: int = 0):
                 tsmall.logreg_loss, tsmall.logreg_logits, x_te, y_te)
     return (data, jsmall.init_cnn(k_init), jsmall.cnn_loss, jsmall.cnn_logits,
             tsmall.cnn_loss, tsmall.cnn_logits, x_te, y_te)
+
+
+def replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario="static_rayleigh",
+                    scenario_params=None):
+    """The port engine's per-seed draw streams become the reference's."""
+    fused = dataclasses.replace(jcfg, policy=FUSED_POLICY)
+
+    def replay(self, seed, dim):
+        return jax_engine_draws(fused, jccfg, data, dim, seed, scenario, scenario_params)
+
+    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+
+
+def assert_records_match(got, want, rtol: float = RTOL):
+    """Two ``LatticeRecords`` agree: axes, eval rounds, |S|, correct counts
+    and health flags exactly, accuracy to 1e-6, every float field per cell
+    within ``rtol`` of its scale."""
+    assert got.axes == {k: list(v) for k, v in want.axes.items()}
+    np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
+    assert (got.eval is None) == (want.eval is None)
+    if want.eval is not None:
+        assert got.eval._fields == want.eval._fields
+        np.testing.assert_array_equal(got.eval.n_correct, np.asarray(want.eval.n_correct))
+        np.testing.assert_allclose(got.eval.acc, np.asarray(want.eval.acc), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got.eval.loss, got.loss)
+        for idx in np.ndindex(want.eval.loss.shape[:-1]):
+            assert_close(got.eval.loss[idx], np.asarray(want.eval.loss)[idx], rtol)
+    assert (got.health is None) == (want.health is None)
+    if want.health is not None:
+        np.testing.assert_array_equal(got.health.nonfinite, np.asarray(want.health.nonfinite))
+    np.testing.assert_array_equal(got.n_scheduled, np.asarray(want.n_scheduled))
+    np.testing.assert_allclose(got.acc, np.asarray(want.acc), rtol=0, atol=1e-6)
+    for f in ("e_com", "e_var", "grad_norm", "loss"):
+        g_, w_ = getattr(got, f), np.asarray(getattr(want, f))
+        assert g_.shape == w_.shape, f
+        for idx in np.ndindex(w_.shape[:-1]):  # each cell at its own scale
+            assert_close(g_[idx], w_[idx], rtol)
+
+
+def lattice_case(monkeypatch, spec_kw, cfg_kw, n=8, per_device=10,
+                 scenario="static_rayleigh", scenario_params=None, task_eval=False,
+                 sized=False, seeds=(0, 5), n_rounds=3) -> SimpleNamespace:
+    """One logreg lattice for both packages → ``reference(**kw)`` and
+    ``port(**kw)``, each ``run_lattice`` with ``kw`` added; the port's draws
+    are the reference's, replayed per seed."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task(
+        "logreg", n, per_device)
+    if sized:  # Dirichlet-sized shards of the same samples: padded, n_samples
+        x = np.asarray(data.features).reshape(n * per_device, -1)
+        y = np.asarray(data.labels).reshape(-1)
+        data = partition_dirichlet_sized(x, y, n, beta=0.4, seed=2)
+    jcfg = jpofl.POFLConfig(n_devices=n, n_scheduled=3, batch_size=2, **cfg_kw)
+    jccfg = JChannelConfig(n_devices=n)
+    spec = dict(noise_powers=(1e-10,), alphas=(0.1,), seeds=seeds, n_rounds=n_rounds,
+                eval_every=2, **spec_kw)
+    if task_eval:
+        jeval = JTaskEval(jlogits, x_te, y_te, n_valid=50)
+        teval = TTaskEval(tlogits, t(x_te), t(y_te, torch.int64), n_valid=50)
+    else:
+        jeval = jsmall.make_eval_fn(jlogits, jloss, x_te, y_te)
+        teval = tsmall.make_eval_fn(tlogits, tloss, t(x_te), t(y_te, torch.int64))
+    replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario, scenario_params)
+    reference = functools.partial(
+        jlattice.run_lattice, jloss, data, jparams, jlattice.LatticeSpec(**spec),
+        base_cfg=jcfg, eval_fn=jeval, channel_cfg=jccfg, scenario=scenario,
+        scenario_params=dict(scenario_params or {}))
+    port = functools.partial(
+        tlattice.run_lattice, tloss, data_to_torch(data),
+        params_from_jax(jparams, device="cpu"), tlattice.LatticeSpec(**spec),
+        base_cfg=cfg_to_torch(jcfg), eval_fn=teval, channel_cfg=ChannelConfig(n_devices=n),
+        scenario=scenario, scenario_params=scenario_params, device="cpu")
+    return SimpleNamespace(reference=reference, port=port)
+
+
+def reference_and_port_lattice(monkeypatch, spec_kw, cfg_kw, **case_kw):
+    """:func:`lattice_case`'s two runs → (port records, reference records)."""
+    case = lattice_case(monkeypatch, spec_kw, cfg_kw, **case_kw)
+    want = case.reference()
+    return case.port(), want

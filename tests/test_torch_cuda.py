@@ -1,8 +1,9 @@
 """Card tests of the port: the aircomp kernel's two entries (one round, and
 trial-batched), the flash-attention kernel and the SSD scan kernel against
 their plain versions, the round, the lattice round (also under each channel
-process with K local steps and the four algorithms) and the dense and Mamba2
-LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
+process with K local steps and the four algorithms, and under the non-finite
+quarantine with a poisoned cell), the lattice loops against the fused grid,
+and the dense and Mamba2 LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -271,6 +272,105 @@ def test_run_lattice_defaults_to_the_card(card):
     assert (kernel.launches, kernel.batch_launches) == (before[0], before[1] + 3)
     assert recs.e_com.shape == (1, 2, 1, 1, 2, 3) and recs.acc.shape == (1, 2, 1, 1, 2, 2)
     assert all(getattr(recs, f).dtype.kind == "f" for f in ("e_com", "acc"))
+
+
+def test_poisoned_lattice_round_on_card_matches_cpu(card):
+    """The quarantine on the card: one K = 2 CNN lattice round of the four
+    algorithms (one a cell, from a non-zero state) under "skip" with cell
+    1's ŷ poisoned, on the card and on the CPU from one state and one set
+    of draws. Cell 1 keeps its params and state bitwise on both, only it is
+    flagged, and the other cells agree within 1e-4."""
+    task = make_model_task("cnn", n_devices=6, n_train=120, n_test=12, device="cpu")
+    cfg = pofl.POFLConfig(n_devices=6, n_scheduled=3, batch_size=4, noise_power=1e-10,
+                          policy=FUSED_POLICY, local_algorithm=FUSED_ALGORITHM,
+                          local_steps=2, backend="pallas_fused", on_nonfinite="skip")
+    d = next(SimEngine(task.loss_fn, task.data, cfg, device="cpu").draws(0, task.dim))
+    cells = len(ALGORITHMS)
+    params = tree_map(lambda p: p.expand(cells, *p.shape).clone(), task.params0)
+    gen = torch.Generator().manual_seed(2)
+    state0 = AlgState(*(1e-3 * torch.randn(cells, 6, task.dim, generator=gen)
+                        for _ in AlgState._fields))
+    outs = {}
+    for where in ("cpu", card):
+        before = kernel.batch_launches
+        new_p, new_s, m = pofl.round_algorithm_cells(
+            task.loss_fn, task.data.to(where), cfg, tree_map(lambda p: p.to(where), params),
+            *(x.to(where).expand(cells, *x.shape) for x in d[:4]), 2,
+            torch.full((cells,), 1e-10, device=where), torch.full((cells,), 0.1, device=where),
+            torch.zeros(cells, dtype=torch.int64, device=where),
+            alg_state_c=AlgState(*(f.to(where) for f in state0)),
+            algorithm_id_c=torch.arange(cells, device=where),
+            fault_round_c=torch.tensor([-1, 2, -1, -1], device=where))
+        outs[str(where)] = (
+            [ravel_pytree(tree_map(lambda p, c=c: p[c].cpu(), new_p))[0] for c in range(cells)],
+            AlgState(*(f.cpu() for f in new_s)), m.health.nonfinite.cpu(), m.n_scheduled.cpu())
+        if where == card:
+            assert kernel.batch_launches == before + 1
+    (p_cpu, s_cpu, h_cpu, n_cpu), (p_card, s_card, h_card, n_card) = (
+        outs["cpu"], outs[str(card)])
+    assert torch.equal(h_card, torch.tensor([0.0, 1.0, 0.0, 0.0])) and torch.equal(h_cpu, h_card)
+    assert torch.equal(n_card, n_cpu)
+    w0 = ravel_pytree(task.params0)[0]
+    assert torch.equal(p_card[1], w0) and torch.equal(p_cpu[1], w0)
+    for f in AlgState._fields:
+        assert torch.equal(getattr(s_card, f)[1], getattr(state0, f)[1])
+    for c in (0, 2, 3):
+        err = torch.linalg.vector_norm(p_card[c] - p_cpu[c]) / torch.linalg.vector_norm(
+            p_cpu[c] - w0)
+        assert err.item() <= ROUND_TOL
+
+
+def test_quarantined_rounds_never_wait_on_the_host(card):
+    """Under ``on_nonfinite="skip"`` the hold is a value select: rounds with a
+    poisoned ŷ (``run_pofl``'s round) and lattice rounds read nothing back
+    to the host under this debug mode, and the poisoned round is held."""
+    task = make_model_task("logreg", n_devices=8, n_train=160, n_test=16, device=card)
+    cfg = pofl.POFLConfig(n_devices=8, n_scheduled=3, batch_size=4, backend="pallas_fused",
+                          on_nonfinite="skip")
+    engine = SimEngine(task.loss_fn, task.data, cfg, device=card)
+    draws = engine.draws(0, task.dim)
+    lattice = _lattice_engine(task, card, 8, backend="pallas_fused", on_nonfinite="skip")
+    state = lattice.lattice_start(task.params0, **LATTICE_CELLS)
+    params, fault, flags = task.params0, torch.tensor(1, device=card), []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(3):
+            d = next(draws)
+            params, _, m = pofl.round_algorithm(
+                task.loss_fn, engine.data, cfg, params, d.h, d.batch_idx, d.sched, d.z, t,
+                fault_round=fault)
+            flags.append(m.health.nonfinite)
+        for t in range(2):
+            state, _ = lattice.lattice_round(state, t, t == 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.stack(flags).tolist() == [0.0, 1.0, 0.0]
+    assert torch.isfinite(ravel_pytree(params)[0]).all()
+
+
+@pytest.mark.parametrize("loop", ["fuse_policies", "fuse_algorithms"])
+def test_lattice_loop_on_card_matches_the_fused_grid(card, loop):
+    """``run_lattice`` with one loop on the card: the records of the fused
+    grid within 1e-4 (the sub-lattices batch fewer cells), |S| equal, and
+    one batch-kernel launch a sub-lattice a round."""
+    task = make_model_task("logreg", n_devices=8, n_train=160, n_test=16)
+    spec = LatticeSpec(algorithms=("fedavg", "scaffold"), policies=("pofl", "channel"),
+                       noise_powers=(1e-10,), seeds=(0, 1), n_rounds=3, eval_every=2)
+    base = pofl.POFLConfig(n_devices=8, n_scheduled=3, local_steps=2, backend="pallas_fused")
+    recs = {}
+    for kw in ({}, {loop: False}):
+        before = (kernel.launches, kernel.batch_launches)
+        recs[bool(kw)] = run_lattice(task.loss_fn, task.data, task.params0, spec,
+                                     eval_fn=task.eval, base_cfg=base, **kw)
+        launches = (kernel.launches - before[0], kernel.batch_launches - before[1])
+        assert launches == (0, 3 * (2 if kw else 1))
+    fused, looped = recs[False], recs[True]
+    assert (looped.n_scheduled == fused.n_scheduled).all()
+    for f in ("e_com", "e_var", "grad_norm", "loss", "acc"):
+        got, want = getattr(looped, f), getattr(fused, f)
+        assert abs(got - want).max() <= ROUND_TOL * abs(want).max(), f
 
 
 # the scenario lattice: one cell an algorithm, K = 2, each channel process

@@ -26,8 +26,9 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (
-    RTOL, assert_close, cfg_to_torch, data_to_torch, jax_batch_idx, jax_engine_draws,
-    jax_noise, jax_sched_draw, reference_task, t,
+    RTOL, assert_close, assert_records_match, cfg_to_torch, data_to_torch, jax_batch_idx,
+    jax_engine_draws, jax_noise, jax_sched_draw, reference_and_port_lattice, reference_task,
+    replay_per_seed, t,
 )
 from jax.flatten_util import ravel_pytree as jax_ravel
 from torch.func import vmap
@@ -36,12 +37,10 @@ from repro.core import aircomp as jair
 from repro.core import pofl as jpofl
 from repro.core import scheduling as jsched
 from repro.core.channel import ChannelConfig as JChannelConfig
-from repro.data import partition as jpart
 from repro.models import small as jsmall
 from repro.sim import engine as jengine
 from repro.sim import lattice as jlattice
 from repro.sim.scenario import make_channel_process
-from repro.sim.tasks import TaskEval as JTaskEval
 from repro_torch.convert import params_from_jax
 from repro_torch.core import aircomp as tair
 from repro_torch.core import pofl as tpofl
@@ -52,7 +51,6 @@ from repro_torch.models import small as tsmall
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import lattice as tlattice
 from repro_torch.sim.tasks import EvalRecord, make_model_task
-from repro_torch.sim.tasks import TaskEval as TTaskEval
 
 N, S = 8, 3
 ALL_POLICIES = jsched.POLICIES
@@ -200,37 +198,6 @@ def _stack_tree(trees):
     return stack(ported)
 
 
-def _replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario="static_rayleigh",
-                     scenario_params=None):
-    """The port engine's per-seed draw streams become the reference's."""
-    fused = dataclasses.replace(jcfg, policy=jengine.FUSED_POLICY)
-
-    def replay(self, seed, dim):
-        return jax_engine_draws(fused, jccfg, data, dim, seed, scenario, scenario_params)
-
-    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
-
-
-def _assert_records_match(got, want):
-    assert got.axes == {k: list(v) for k, v in want.axes.items()}
-    np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
-    assert (got.eval is None) == (want.eval is None)
-    if want.eval is not None:
-        assert got.eval._fields == want.eval._fields
-        np.testing.assert_array_equal(got.eval.n_correct, np.asarray(want.eval.n_correct))
-        np.testing.assert_allclose(got.eval.acc, np.asarray(want.eval.acc), rtol=0, atol=1e-6)
-        np.testing.assert_array_equal(got.eval.loss, got.loss)
-        for idx in np.ndindex(want.eval.loss.shape[:-1]):
-            assert_close(got.eval.loss[idx], np.asarray(want.eval.loss)[idx])
-    np.testing.assert_array_equal(got.n_scheduled, np.asarray(want.n_scheduled))
-    np.testing.assert_allclose(got.acc, np.asarray(want.acc), rtol=0, atol=1e-6)
-    for f in ("e_com", "e_var", "grad_norm", "loss"):
-        g_, w_ = getattr(got, f), np.asarray(getattr(want, f))
-        assert g_.shape == w_.shape, f
-        for idx in np.ndindex(w_.shape[:-1]):  # each cell at its own scale
-            assert_close(g_[idx], w_[idx])
-
-
 LOGREG_SPEC = dict(policies=ALL_POLICIES, noise_powers=(1e-10, 1e-8), alphas=(0.1, 0.3),
                    seeds=(0, 5), n_rounds=4, eval_every=2)
 
@@ -250,14 +217,14 @@ def test_run_lattice_logreg_matches_reference(backend, sampler, monkeypatch):
         jloss, data, jparams, jlattice.LatticeSpec(**LOGREG_SPEC), base_cfg=jcfg,
         eval_fn=jsmall.make_eval_fn(jlogits, jloss, x_te, y_te), channel_cfg=jccfg,
     )
-    _replay_per_seed(monkeypatch, jcfg, jccfg, data)
+    replay_per_seed(monkeypatch, jcfg, jccfg, data)
     got = tlattice.run_lattice(
         tloss, data_to_torch(data), params_from_jax(jparams, device="cpu"),
         tlattice.LatticeSpec(**LOGREG_SPEC), base_cfg=cfg_to_torch(jcfg),
         eval_fn=tsmall.make_eval_fn(tlogits, tloss, t(x_te), t(y_te, torch.int64)),
         channel_cfg=ChannelConfig(n_devices=10), device="cpu",
     )
-    _assert_records_match(got, want)
+    assert_records_match(got, want)
 
 
 def test_run_lattice_narrow_cnn_matches_reference(monkeypatch):
@@ -283,14 +250,14 @@ def test_run_lattice_narrow_cnn_matches_reference(monkeypatch):
         jloss, data, jparams, jlattice.LatticeSpec(**spec), base_cfg=jcfg,
         eval_fn=jsmall.make_eval_fn(jlogits, jloss, x_te, y_te), channel_cfg=jccfg,
     )
-    _replay_per_seed(monkeypatch, jcfg, jccfg, data)
+    replay_per_seed(monkeypatch, jcfg, jccfg, data)
     got = tlattice.run_lattice(
         tloss, data_to_torch(data), params_from_jax(jparams, device="cpu"),
         tlattice.LatticeSpec(**spec), base_cfg=cfg_to_torch(jcfg),
         eval_fn=tsmall.make_eval_fn(tlogits, tloss, t(x_te), t(y_te, torch.int64)),
         channel_cfg=ChannelConfig(n_devices=3), device="cpu",
     )
-    _assert_records_match(got, want)
+    assert_records_match(got, want)
 
 
 NARROW_CNN_CFG = dict(n_devices=3, n_scheduled=2, batch_size=2, backend="pallas_fused")
@@ -358,7 +325,7 @@ def test_narrow_cnn_seed_4_follows_the_reference_round_by_round(monkeypatch):
     want = _reference_eager_pofl_chain(4, data, jparams, jloss)
     jcfg = jpofl.POFLConfig(policy="pofl", noise_power=1e-10, **NARROW_CNN_CFG)
     jccfg = JChannelConfig(n_devices=3)
-    _replay_per_seed(monkeypatch, jcfg, jccfg, data)
+    replay_per_seed(monkeypatch, jcfg, jccfg, data)
     got = tlattice.run_lattice(
         tloss, data_to_torch(data), params_from_jax(jparams, device="cpu"),
         tlattice.LatticeSpec(policies=("pofl",), noise_powers=(1e-10,), seeds=(4,),
@@ -441,9 +408,7 @@ def test_run_lattice_without_eval_has_empty_eval_axis():
 
 UNPORTED = {
     "mesh": (dict(mesh=2), "item 12"),
-    "fuse_policies": (dict(fuse_policies=False), "item 10"),
     "obs": (dict(obs=object()), "item 6"),
-    "on_nonfinite": (dict(base_cfg=dict(on_nonfinite="skip")), "item 11"),
 }
 
 
@@ -459,42 +424,6 @@ def test_unported_options_raise_naming_their_roadmap_item(option):
                              **kw)
 
 
-def _reference_and_port_lattice(monkeypatch, spec_kw, cfg_kw, n=8, per_device=10,
-                                scenario="static_rayleigh", scenario_params=None,
-                                task_eval=False, sized=False, seeds=(0, 5), n_rounds=3):
-    """``run_lattice`` of the reference and of the port (its draws replayed
-    per seed) on one logreg task → (port records, reference records)."""
-    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
-    data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task(
-        "logreg", n, per_device)
-    if sized:  # Dirichlet-sized shards of the same samples: padded, n_samples
-        x = np.asarray(data.features).reshape(n * per_device, -1)
-        y = np.asarray(data.labels).reshape(-1)
-        data = jpart.partition_dirichlet_sized(x, y, n, beta=0.4, seed=2)
-    jcfg = jpofl.POFLConfig(n_devices=n, n_scheduled=3, batch_size=2, **cfg_kw)
-    jccfg = JChannelConfig(n_devices=n)
-    spec = dict(noise_powers=(1e-10,), alphas=(0.1,), seeds=seeds, n_rounds=n_rounds,
-                eval_every=2, **spec_kw)
-    if task_eval:
-        jeval = JTaskEval(jlogits, x_te, y_te, n_valid=50)
-        teval = TTaskEval(tlogits, t(x_te), t(y_te, torch.int64), n_valid=50)
-    else:
-        jeval = jsmall.make_eval_fn(jlogits, jloss, x_te, y_te)
-        teval = tsmall.make_eval_fn(tlogits, tloss, t(x_te), t(y_te, torch.int64))
-    want = jlattice.run_lattice(
-        jloss, data, jparams, jlattice.LatticeSpec(**spec), base_cfg=jcfg, eval_fn=jeval,
-        channel_cfg=jccfg, scenario=scenario, scenario_params=dict(scenario_params or {}),
-    )
-    _replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario, scenario_params)
-    got = tlattice.run_lattice(
-        tloss, data_to_torch(data), params_from_jax(jparams, device="cpu"),
-        tlattice.LatticeSpec(**spec), base_cfg=cfg_to_torch(jcfg), eval_fn=teval,
-        channel_cfg=ChannelConfig(n_devices=n), scenario=scenario,
-        scenario_params=scenario_params, device="cpu",
-    )
-    return got, want
-
-
 # what raised before the scenario slice, each alone: (spec, cfg, run_lattice kw)
 FORMERLY_UNPORTED = {
     "algorithms": (dict(algorithms=("fedavg", "fedprox")), dict(fedprox_mu=0.5), {}),
@@ -507,10 +436,10 @@ FORMERLY_UNPORTED = {
 @pytest.mark.parametrize("option", sorted(FORMERLY_UNPORTED))
 def test_formerly_unported_options_run_and_match_reference(option, monkeypatch):
     spec_kw, cfg_kw, kw = FORMERLY_UNPORTED[option]
-    got, want = _reference_and_port_lattice(
+    got, want = reference_and_port_lattice(
         monkeypatch, dict(policies=("pofl", "channel"), **spec_kw),
         dict(backend="pallas_fused", **cfg_kw), **kw)
-    _assert_records_match(got, want)
+    assert_records_match(got, want)
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])
@@ -518,13 +447,13 @@ def test_run_lattice_scenario_axes_match_reference(backend, monkeypatch):
     """2 algorithms × 3 policies × 2 seeds, K = 2, ``dropout`` over
     ``gauss_markov``, a Dirichlet-sized logreg task and a ``TaskEval``:
     every record field and the ``eval`` subtree."""
-    got, want = _reference_and_port_lattice(
+    got, want = reference_and_port_lattice(
         monkeypatch,
         dict(algorithms=("feddyn", "scaffold"), policies=("pofl", "importance", "channel")),
         dict(backend=backend, local_steps=2, feddyn_alpha=0.2),
         scenario="dropout", scenario_params=dict(base="gauss_markov", corr=0.9, p_drop=0.6),
         task_eval=True, sized=True, n_rounds=4)
-    _assert_records_match(got, want)
+    assert_records_match(got, want)
     assert got.eval.acc.shape == (2, 3, 1, 1, 2, 3)
     assert (got.n_scheduled < 3).any()  # rounds with fewer than |S| available
 
@@ -539,11 +468,11 @@ def test_one_algorithm_lattice_under_each_scenario_matches_reference(alg, scenar
                                                                      monkeypatch):
     """One algorithm: static dispatch, its own state only, K = 3, the
     Bernoulli sampler; under heavy dropout whole rounds go unscheduled."""
-    got, want = _reference_and_port_lattice(
+    got, want = reference_and_port_lattice(
         monkeypatch, dict(algorithms=(alg,), policies=("pofl", "deterministic")),
         dict(backend="pallas_fused", local_steps=3, fedprox_mu=0.3, sampler="bernoulli"),
         scenario=scenario, scenario_params=params, task_eval=True, n_rounds=4)
-    _assert_records_match(got, want)
+    assert_records_match(got, want)
 
 
 def test_run_lattice_cells_needs_a_policy_fused_engine():
