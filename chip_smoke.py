@@ -14,10 +14,11 @@ non-zero exit and no result line:
              loads in flight a thread (the most ``LDG`` its SASS issues
              before an ``FFMA``)
   check      each kernel against its plain PyTorch version on the card
-             (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash
-             and SSD kernels in bf16 against the plain version in fp32 on
-             the same inputs within 2^-8 · |plain| + 1e-5 (the SSD kernel:
-             + 1e-5 · max(1, max|plain|)), element by element; the flash
+             (fp32, |kernel - plain| ≤ 1e-5 · max(1, max|plain|); the flash,
+             SSD and aircomp kernels in bf16 against the plain version in
+             fp32 on the same inputs within 2^-8 · |plain| + 1e-5 (the SSD
+             and aircomp kernels: + 1e-5 · max(1, max|plain|)), element by
+             element; the flash
              and SSD kernels' bf16 paths (tensor cores) and fp32 paths (CUDA
              cores) over the same features, with each case's largest share
              of its limit)
@@ -108,6 +109,27 @@ non-zero exit and no result line:
              every cell finite, |S| equal, the differences reported by round
              (the scenario lattice amplifies a rounding difference about
              100× a round, so its trajectories part beyond 1e-4 by round 2)
+  obs        the CNN lattice of ``lattice`` with ``ObsConfig(diagnostics=True)``
+             and ``REPRO_OBS_DIR`` set, and again without the taps, both
+             with cuDNN's deterministic algorithms: the base records bitwise
+             equal, every tap finite (but in the cells of DIVERGING_CELLS),
+             the scheduling entropy in [0, log N]; one ``lattice.run`` and
+             one ``lattice.diagnostics`` event, ``gate_warm_lattice``
+             passing on a warm repeat; a ``REPRO_OBS_PROFILE=1`` run whose
+             ``torch.profiler`` trace names the batch kernel; one CNN
+             lattice round's taps card vs CPU (≤ 1e-4, ``eps_clamps``
+             equal); cell-rounds/s with and without the taps (CNN and
+             logreg lattices, cuDNN's default algorithms); a CNN
+             ``run_with_history`` with the taps (one one-round launch a round)
+  checkpoint ``run_lattice_checkpointed`` (chunks under cuDNN's deterministic
+             algorithms): the CNN lattice every 3 rounds, stopped after
+             round 4 and resumed, bitwise the uninterrupted run, timed beside
+             ``run_lattice``; the same with ``REPRO_FAULT_NAN`` on one cell
+             under "skip" (only that flag new, every other cell bitwise); a
+             logreg scenario lattice (4 algorithms × 3 policies × 2 seeds,
+             K = 2, churn over Gauss-Markov) resumed bitwise; one npz write
+             and read of the full-width CNN scenario lattice's carry (FedDyn
+             h and SCAFFOLD c, 1.49 GB), timed, bitwise; the flag restored
   serve      qwen2-0.5b at full width through ``repro_torch.launch.serve``:
              bf16 weights from the port's ``init_model``, batch 8, a 2,048-token
              prompt, ``Server.prefill`` (``model_prefill``), ``pad_cache`` to
@@ -243,26 +265,31 @@ def nvidia_smi() -> str:
 # -- kernel inputs, check and timing -----------------------------------------
 
 
-def check_aircomp(kernel, ref, dev) -> float:
-    """The one-round kernel against its plain version over ``cases.CHECK_CASES``."""
-    from repro_torch.kernels.aircomp.cases import CHECK_CASES, round_inputs
+def check_aircomp(kernel, ref, dev) -> dict:
+    """The one-round kernel against its plain version over
+    ``cases.CHECK_CASES`` (bf16 cases against the plain version in fp32 on
+    the same inputs, element by element: ``cases.limit``) → {case: (max
+    error, its share of the limit, dtype)}."""
+    from repro_torch.kernels.aircomp.cases import CHECK_CASES, limit, round_inputs
 
-    worst = 0.0
     errs = {}
-    for i, (name, (n, d, empty, stride)) in enumerate(CHECK_CASES.items()):
-        args = round_inputs(n, d, dev, seed=i, empty=empty, row_stride=stride)
-        got, want = kernel.aircomp_fused(*args), ref(*args)
+    for i, (name, (n, d, empty, stride, dtype)) in enumerate(CHECK_CASES.items()):
+        args = round_inputs(n, d, dev, seed=i, empty=empty, row_stride=stride, dtype=dtype)
+        got = kernel.aircomp_fused(*args)
+        want = ref(args[0].float(), *args[1:5], args[5].float())
         torch.cuda.synchronize()
-        if got.shape != (d,) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"aircomp_fused {name}: bad shape or non-finite output")
-        err = (got - want).abs().max().item()
-        limit = KERNEL_TOL * max(1.0, want.abs().max().item())
-        if err > limit:
-            raise AssertionError(f"aircomp_fused {name}: max error {err} > {limit}")
-        errs[name] = err
-        worst = max(worst, err)
-    emit("check", kernel="aircomp_fused", tolerance=KERNEL_TOL, max_abs_err=errs)
-    return worst
+        if got.shape != (d,) or got.dtype != dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"aircomp_fused {name}: bad shape, type or non-finite output")
+        err = (got.float() - want).abs()
+        share = (err / limit(want, dtype)).max().item()
+        if share > 1.0:
+            raise AssertionError(f"aircomp_fused {name}: {share:.3g} of its limit")
+        errs[name] = (err.max().item(), share, str(dtype))
+    emit("check", kernel="aircomp_fused", tolerance={"float32": KERNEL_TOL,
+         "bfloat16": "2^-8·|ref| + 1e-5·max(1, max|ref|)"},
+         max_abs_err={k: v[0] for k, v in errs.items()},
+         share_of_limit={k: v[1] for k, v in errs.items()})
+    return errs
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 50, before=None) -> float:
@@ -285,9 +312,10 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 50, before=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def aircomp_bound(n: int, d: int) -> tuple[float, str]:
-    """The least time for the work: each input read once, the output written once."""
-    nbytes = n * d * 4 + 2 * d * 4 + n * 4
+def aircomp_bound(n: int, d: int, itemsize: int = 4) -> tuple[float, str]:
+    """The least time for the work: each input read once, the output written
+    once (g, z and ŷ of ``itemsize`` bytes an element, coeff float32)."""
+    nbytes = n * d * itemsize + 2 * d * itemsize + n * 4
     flops = 2 * n * d + 4 * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -320,6 +348,17 @@ def time_aircomp(kernel, ref, dev) -> dict:
             "bound_by": bound_by,
         }
         if name == "cnn":
+            bf16 = (g.bfloat16(), coeff, m_g, v_g, a, z.bfloat16())
+            g16, z16, coeff16 = bf16[0], bf16[5], coeff.bfloat16()
+            bound_ms, bound_by = aircomp_bound(N_DEVICES, d, itemsize=2)
+            out["cnn_bf16"] = {  # g and z in bf16: half the bytes
+                "shape": [N_DEVICES, d], "dtype": "bfloat16",
+                "ms": time_ms(lambda: kernel.aircomp_fused(*bf16), flush),
+                "plain_ms": time_ms(lambda: ref(*bf16), flush),
+                # the fp32 row's library call on bf16 operands
+                "library_ms": time_ms(lambda: torch.addmv(z16, g16.t(), coeff16, beta=beta),
+                                      flush),
+                "bound_ms": bound_ms, "bound_by": bound_by}
             out[name]["warm_ms"] = time_ms(
                 lambda: kernel.aircomp_fused(g, coeff, m_g, v_g, a, z), flush,
                 before=lambda: (flush.zero_(), g.sum()))
@@ -330,36 +369,42 @@ def time_aircomp(kernel, ref, dev) -> dict:
     return out
 
 
-def check_aircomp_batch(kernel, ref, single_ref, dev) -> float:
+def check_aircomp_batch(kernel, ref, single_ref, dev) -> dict:
     """The batch kernel against its plain version, and each trial against
     the one-round plain version on that trial's inputs (so a kernel that
-    read another trial's scalars fails)."""
-    from repro_torch.kernels.aircomp.cases import BATCH_CHECK_CASES, batch_inputs
+    read another trial's scalars fails); limits as in :func:`check_aircomp`."""
+    from repro_torch.kernels.aircomp.cases import BATCH_CHECK_CASES, batch_inputs, limit
 
-    worst, errs = 0.0, {}
-    for i, (name, (b, n, d, empty, strided)) in enumerate(BATCH_CHECK_CASES.items()):
-        args = batch_inputs(b, n, d, dev, seed=100 + i, empty_trial=empty, strided=strided)
-        got, want = kernel.aircomp_fused_batch(*args), ref(*args)
+    errs = {}
+    for i, (name, (b, n, d, empty, strided, dtype)) in enumerate(BATCH_CHECK_CASES.items()):
+        args = batch_inputs(b, n, d, dev, seed=100 + i, empty_trial=empty, strided=strided,
+                            dtype=dtype)
+        f32 = (args[0].float(), *args[1:5], args[5].float())
+        got, want = kernel.aircomp_fused_batch(*args), ref(*f32)
         torch.cuda.synchronize()
-        if got.shape != (b, d) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"aircomp_fused_batch {name}: bad shape or non-finite")
-        limit = KERNEL_TOL * max(1.0, want.abs().max().item())
-        err = (got - want).abs().max().item()
-        per_trial = max((got[c] - single_ref(*(x[c] for x in args))).abs().max().item()
-                        for c in range(b))
-        if err > limit or per_trial > limit:
-            raise AssertionError(
-                f"aircomp_fused_batch {name}: max error {err} (per trial {per_trial}) > {limit}")
-        errs[name] = err
-        worst = max(worst, err)
-    emit("check", kernel="aircomp_fused_batch", tolerance=KERNEL_TOL, max_abs_err=errs)
-    return worst
+        if got.shape != (b, d) or got.dtype != dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"aircomp_fused_batch {name}: bad shape, type or non-finite")
+        bound = limit(want, dtype)
+        err = (got.float() - want).abs()
+        share = (err / bound).max().item()
+        per_trial = max(((got[c].float() - single_ref(*(x[c] for x in f32))).abs()
+                         / bound[c]).max().item() for c in range(b))
+        if share > 1.0 or per_trial > 1.0:
+            raise AssertionError(f"aircomp_fused_batch {name}: {share:.3g} of its limit "
+                                 f"(per trial {per_trial:.3g})")
+        errs[name] = (err.max().item(), share, str(dtype))
+    emit("check", kernel="aircomp_fused_batch", tolerance={"float32": KERNEL_TOL,
+         "bfloat16": "2^-8·|ref| + 1e-5·max(1, max|ref|)"},
+         max_abs_err={k: v[0] for k, v in errs.items()},
+         share_of_limit={k: v[1] for k, v in errs.items()})
+    return errs
 
 
-def aircomp_batch_bound(b: int, n: int, d: int) -> tuple[float, str]:
+def aircomp_batch_bound(b: int, n: int, d: int, itemsize: int = 4) -> tuple[float, str]:
     """The least time for one batch call: g, z, coeff and the scalars read
-    once, ŷ written once; 2·B·N·D + 4·B·D flops."""
-    nbytes = b * n * d * 4 + 2 * b * d * 4 + b * n * 4 + 3 * b * 4
+    once, ŷ written once (g, z and ŷ of ``itemsize`` bytes an element, the
+    rest float32); 2·B·N·D + 4·B·D flops."""
+    nbytes = b * n * d * itemsize + 2 * b * d * itemsize + b * n * 4 + 3 * b * 4
     flops = 2 * b * n * d + 4 * b * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -389,6 +434,17 @@ def time_aircomp_batch(kernel, ref, dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+        if name == "cnn":
+            g16, z16, coeff16 = g.bfloat16(), z.bfloat16(), coeff.bfloat16()
+            bound_ms, bound_by = aircomp_batch_bound(b, N_DEVICES, d, itemsize=2)
+            out["cnn_bf16"] = {  # g and z in bf16: half the bytes
+                "shape": [b, N_DEVICES, d], "dtype": "bfloat16",
+                "ms": time_ms(lambda: kernel.aircomp_fused_batch(g16, coeff, m_g, v_g, a, z16),
+                              flush),
+                "plain_ms": time_ms(lambda: ref(g16, coeff, m_g, v_g, a, z16), flush),
+                # the fp32 row's library call on bf16 operands
+                "library_ms": time_ms(lambda: torch.bmm(coeff16[:, None, :], g16), flush),
+                "bound_ms": bound_ms, "bound_by": bound_by}
     emit("times", kernel="aircomp_fused_batch", **out)
     return out
 
@@ -652,6 +708,16 @@ def lattice_tasks(dev) -> dict:
             for kind, kw in (("cnn", {"channel_bias": 1.0}), ("logreg", {}))}
 
 
+def lattice_spec(kind: str, **kw):
+    """The ``lattice`` phase's spec of ``kind`` (cnn, logreg), ``kw`` replaced."""
+    from repro_torch.sim.lattice import LatticeSpec
+
+    noises, rounds, every = LATTICES[kind]
+    return LatticeSpec(**{**dict(policies=POLICIES, noise_powers=noises, alphas=(0.1,),
+                                 seeds=LATTICE_SEEDS, n_rounds=rounds, eval_every=every),
+                          **kw})
+
+
 def lattice_path(dev) -> tuple[dict, dict]:
     """``run_lattice`` of both lattices → (launch counts, {task: (records,
     task, rounds)}); the counts are zeroed just before the two runs and read
@@ -660,9 +726,7 @@ def lattice_path(dev) -> tuple[dict, dict]:
     from repro_torch.sim.lattice import LatticeSpec, run_lattice
 
     tasks = lattice_tasks(dev)
-    specs = {kind: LatticeSpec(policies=POLICIES, noise_powers=noises, alphas=(0.1,),
-                               seeds=LATTICE_SEEDS, n_rounds=rounds, eval_every=every)
-             for kind, (noises, rounds, every) in LATTICES.items()}
+    specs = {kind: lattice_spec(kind) for kind in LATTICES}
     for kind, task in tasks.items():  # first calls (cuBLAS, cuDNN, allocator) off the clock
         run_lattice(task.loss_fn, task.data, task.params0,
                     LatticeSpec(policies=POLICIES, seeds=LATTICE_SEEDS, n_rounds=1),
@@ -786,10 +850,17 @@ def diverging(dev, records) -> None:
             lattice_cfg(policy=policy, noise_power=noise, alpha=0.1, seed=seed), n_rounds)
 
 
-def fused_lattice_engine(task, dev, small=False):
+def given_draws(engine, draws) -> None:
+    """The engine's next round takes ``draws``, one ``RoundDraws`` a stream
+    in the streams' order, and leaves each stream where it is."""
+    it = iter(draws)
+    engine.next_draws = lambda stream, dim: (stream, next(it))
+
+
+def fused_lattice_engine(task, dev, small=False, obs=None):
     """An engine of the policy-fused lattice and its (B,) cell axes: the
     five policies × the seeds (or two policies × two seeds), as
-    ``run_lattice`` flattens them."""
+    ``run_lattice`` flattens them; ``obs`` as ``SimEngine`` takes it."""
     from repro_torch.core.scheduling import policy_id
     from repro_torch.sim.engine import FUSED_POLICY, SimEngine
 
@@ -797,7 +868,7 @@ def fused_lattice_engine(task, dev, small=False):
     cells = [(policy_id(p), s) for p in policies for s in seeds]
     engine = SimEngine(task.loss_fn, task.data,
                        lattice_cfg(policy=FUSED_POLICY, noise_power=1e-10),
-                       eval_fn=task.eval, device=dev)
+                       eval_fn=task.eval, device=dev, obs=obs)
     axes = dict(noise_b=[1e-10] * len(cells), alpha_b=[0.1] * len(cells),
                 seed_b=[s for _, s in cells], policy_b=[p for p, _ in cells])
     return engine, axes
@@ -834,9 +905,8 @@ def lattice_parity(dev) -> None:
     for where in ("cpu", dev):
         engine, _ = fused_lattice_engine(task, where, small=True)
         state = engine.lattice_start(task.params0, **axes)
-        state = state._replace(streams=[iter([tuple(x.to(where) for x in d)])
-                                        for d in draws])
         t0 = time.perf_counter()
+        given_draws(engine, [tuple(x.to(where) for x in d) for d in draws])
         state, rec = engine.lattice_round(state, 3, False)
         out[str(where)] = ([ravel_pytree(tree_map(lambda p, c=c: p[c].cpu(), state.params))[0]
                             - w0 for c in range(4)], [r.cpu() for r in rec[:4]])
@@ -1068,9 +1138,9 @@ def scenario_parity(dev) -> None:
             engine = SimEngine(task.loss_fn, task.data, cfg, device=where, **scenario)
             state = engine.lattice_start(task.params0, **cells)
             d = draws._replace(avail=avail)
-            state = state._replace(alg=AlgState(*(f.to(where) for f in alg0)),
-                                   streams=[iter([tuple(x.to(where) for x in d)])])
+            state = state._replace(alg=AlgState(*(f.to(where) for f in alg0)))
             t0 = time.perf_counter()
+            given_draws(engine, [tuple(x.to(where) for x in d)])
             state, rec = engine.lattice_round(state, 1, False)
             updates = [ravel_pytree(tree_map(lambda p, c=c: p[c].cpu(), state.params))[0]
                        - w0 for c in range(4)]
@@ -1120,8 +1190,8 @@ def final_lattice_state():
 
     held, lattice_round = {}, SimEngine.lattice_round
 
-    def keep(engine, state, t, do_eval):
-        held["state"], record = lattice_round(engine, state, t, do_eval)
+    def keep(engine, state, t, do_eval, **kw):
+        held["state"], record = lattice_round(engine, state, t, do_eval, **kw)
         return held["state"], record
 
     SimEngine.lattice_round = keep
@@ -1166,19 +1236,16 @@ def cell_name(spec, cell) -> str:
     return f"{spec.algorithms[a]}/{spec.policies[p]}/{spec.noise_powers[n]}/{spec.seeds[s]}"
 
 
-@contextlib.contextmanager
 def cudnn_deterministic():
-    """cuDNN's deterministic algorithms inside the block. With its default
-    ones two runs of one CNN lattice on the card part from the first rounds
-    on, by percents after 6 rounds of the scenario lattice (measured by
-    ``chip_repeatability.py``), so a comparison of two runs is made in this
-    mode."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
+    """cuDNN's deterministic algorithms inside the block (the port's scoped
+    switch, which ``run_lattice_checkpointed`` runs its chunks under). With
+    its default ones two runs of one CNN lattice on the card part from the
+    first rounds on, by percents after 6 rounds of the scenario lattice
+    (measured by ``chip_repeatability.py``), so a comparison of two runs is
+    made in this mode."""
+    from repro_torch.sim.resilience import cudnn_deterministic as scoped
+
+    return scoped("cuda")
 
 
 def timed_lattice(task, spec, cfg, **kw):
@@ -1343,7 +1410,7 @@ def loop_rounds_from_fused_state(task, spec, cfg, scen_kw, loop_kw) -> tuple[np.
         return engine.lattice_start(task.params0, **axes)
 
     def values(rec):  # the record's fields, each (B,)
-        return list(rec[:6]) + ([] if rec[6] is None else list(rec[6]))
+        return list(rec[:6]) + ([] if rec.eval is None else list(rec.eval))
 
     fused = start(algs, pols)
     subs = [(idx, start(a, p)) for a, p, idx in groups]
@@ -1384,16 +1451,12 @@ def lattice_loops(dev, lattice_records, scenario_records) -> dict:
     fused run (|S| equal and every cell finite; the differences reported by
     round, since the trajectory amplifies a rounding difference) → the
     loops' launch counts."""
-    from repro_torch.sim.lattice import LatticeSpec
-
     scenario = dict(zip(("scenario", "scenario_params"), SCENARIO))
     _, cnn, _ = lattice_records["cnn"]
     _, scen_task, scen_cfg = scenario_records["cnn"]
-    noises, _, every = LATTICES["cnn"]
     runs = {
         "cnn_lattice_per_policy": (
-            cnn, LatticeSpec(policies=POLICIES, noise_powers=noises, alphas=(0.1,),
-                             seeds=LATTICE_SEEDS, n_rounds=LOOP_ROUNDS, eval_every=every),
+            cnn, lattice_spec("cnn", n_rounds=LOOP_ROUNDS),
             lattice_cfg(), {}, {"fuse_policies": False}, len(POLICIES)),
         "cnn_scenario_lattice_per_algorithm": (
             scen_task, dataclasses.replace(scenario_cnn_spec(), n_rounds=LOOP_ROUNDS),
@@ -1467,6 +1530,306 @@ def lattice_loops(dev, lattice_records, scenario_records) -> dict:
         for k in launches:
             launches[k] += run_launches[k]
     return launches
+
+
+# -- the flight recorder and checkpointed sweeps ---------------------------------
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """The process environment with ``values`` set inside the block."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def named_cells(spec, kind: str) -> list:
+    """The flat cells of ``spec`` that ``DIVERGING_CELLS`` names."""
+    grid = (len(spec.algorithms), len(spec.policies), len(spec.noise_powers),
+            len(spec.alphas), len(spec.seeds))
+    return [i for i, c in enumerate(np.ndindex(grid)) if (
+        kind, spec.policies[c[1]], spec.noise_powers[c[2]], spec.seeds[c[4]]) in DIVERGING_CELLS]
+
+
+def taps_parity(dev) -> dict:
+    """One full-width CNN lattice round (4 cells) with the taps, card
+    against the port's CPU path from one state and one set of draws → the
+    largest relative difference of each tap (``eps_clamps`` must be equal)."""
+    from repro_torch.obs import ObsConfig
+    from repro_torch.sim.tasks import make_model_task
+
+    task = make_model_task("cnn", n_devices=N_DEVICES, n_train=600, n_test=10,
+                           channel_bias=1.0, device="cpu")
+    engine_cpu, axes = fused_lattice_engine(task, "cpu", small=True)
+    draws = [next(engine_cpu.draws(s, task.dim)) for s in (0, 1)]
+    taps = {}
+    for where in ("cpu", dev):
+        engine, _ = fused_lattice_engine(task, where, small=True,
+                                         obs=ObsConfig(diagnostics=True))
+        state = engine.lattice_start(task.params0, **axes)
+        given_draws(engine, [tuple(x.to(where) for x in d) for d in draws])
+        _, rec = engine.lattice_round(state, 3, False)
+        taps[str(where)] = {f: v.cpu() for f, v in rec.diag._asdict().items()}
+    card, cpu = taps[str(dev)], taps["cpu"]
+    errs = {f: ((card[f] - cpu[f]).abs() / cpu[f].abs().clamp_min(1e-30)).max().item()
+            for f in ("noise_eff", "sched_entropy", "grad_norm_spread")}
+    errs["eps_clamps_equal"] = torch.equal(card["eps_clamps"], cpu["eps_clamps"])
+    return errs
+
+
+def obs_phase(dev, lattice_records) -> dict:
+    """The flight recorder on the card: the CNN lattice of phase ``lattice``
+    with ``ObsConfig(diagnostics=True)`` and ``REPRO_OBS_DIR`` set, against
+    the same call's run without the taps, both with cuDNN's deterministic
+    algorithms; its events and the warm gate; one profiled run; the taps
+    card vs CPU; the taps' cost on both lattices; a ``run_with_history``
+    with the taps → the launch counts, zeroed at the start and read at the
+    end."""
+    import tempfile
+
+    from repro_torch.obs import ObsConfig, close_sink, read_events
+    from repro_torch.obs.report import collect, gate_warm_lattice
+    from repro_torch.sim.engine import SimEngine
+
+    tasks = {kind: lattice_records[kind][1] for kind in ("cnn", "logreg")}
+    spec = lattice_spec("cnn")
+    diag = ObsConfig(diagnostics=True)
+    faults, expected = [], {"aircomp_fused": 0, "aircomp_fused_batch": 0}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as sink, environ(REPRO_OBS_DIR=sink):
+        with cudnn_deterministic():
+            on, on_s = timed_lattice(tasks["cnn"], spec, lattice_cfg(), obs=diag)
+            close_sink()
+            first = collect(read_events(sink))
+            off, off_s = timed_lattice(tasks["cnn"], spec, lattice_cfg())
+            timed_lattice(tasks["cnn"], spec, lattice_cfg(), obs=diag)  # a warm repeat
+        expected["aircomp_fused_batch"] += 3 * spec.n_rounds
+        close_sink()
+        summary = collect(read_events(sink))
+        gate = gate_warm_lattice(summary)
+        with environ(REPRO_OBS_PROFILE="1"):
+            profiled, _ = timed_lattice(tasks["cnn"], lattice_spec("cnn", n_rounds=2),
+                                        lattice_cfg())
+        expected["aircomp_fused_batch"] += 2
+        close_sink()
+        (prof,) = [e for e in read_events(sink) if e["kind"] == "profile"]
+        with open(prof["trace"]) as f:
+            kernels = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                              if e.get("cat") == "kernel" and "aircomp" in e.get("name", "")})
+    close_sink()
+
+    base_equal = all(np.array_equal(getattr(on, f), getattr(off, f), equal_nan=True)
+                     for f in ("e_com", "e_var", "grad_norm", "n_scheduled", "loss", "acc"))
+    held = np.delete(np.arange(spec.n_cells), named_cells(spec, "cnn"))
+    tap = {f: np.asarray(v).reshape(spec.n_cells, -1)[held] for f, v in on.diag._asdict().items()}
+    finite = all(np.isfinite(v).all() for v in tap.values())
+    entropy_ok = bool(((tap["sched_entropy"] >= 0)
+                       & (tap["sched_entropy"] <= math.log(N_DEVICES) + 1e-5)).all())
+    events = {k: [e for e in first[k] if e["name"] == n]
+              for k, n in (("lattice", "lattice.run"), ("diag", "lattice.diagnostics"))}
+    parity = taps_parity(dev)
+    expected["aircomp_fused_batch"] += 1  # the card's round of the parity
+    if not base_equal:
+        faults.append("base records with the taps differ from those without")
+    if not finite or not entropy_ok:
+        faults.append(f"taps finite {finite}, sched_entropy in [0, log N] {entropy_ok}")
+    if len(events["lattice"]) != 1 or len(events["diag"]) != 1:
+        faults.append(f"events of the taps run: {[len(v) for v in events.values()]}")
+    if gate:
+        faults.append(f"warm gate: {gate}")
+    if not any("aircomp_fused_kernel" in k for k in kernels):
+        faults.append(f"profile names no batch kernel: {kernels}")
+    if max(parity[f] for f in ("noise_eff", "sched_entropy", "grad_norm_spread")) > ROUND_TOL \
+            or not parity["eps_clamps_equal"]:
+        faults.append(f"taps card vs CPU {parity}")
+
+    rates = {}
+    for kind in ("cnn", "logreg"):  # cuDNN's default algorithms, as users run
+        kspec = lattice_spec(kind)
+        runs = {}
+        for name, obs in (("off", None), ("on", diag), ("on_2", diag), ("off_2", None)):
+            _, seconds = timed_lattice(tasks[kind], kspec, lattice_cfg(), obs=obs)
+            runs[name] = kspec.n_cells * kspec.n_rounds / seconds
+        expected["aircomp_fused_batch"] += 4 * kspec.n_rounds
+        rates[kind] = runs
+
+    cnn = tasks["cnn"]
+    engine = SimEngine(cnn.loss_fn, cnn.data, lattice_cfg(noise_power=1e-10), device=dev,
+                       obs=diag)
+    params, hist = engine.run_with_history(cnn.params0, 5)
+    expected["aircomp_fused"] += 5
+    torch.cuda.synchronize()
+    history_finite = all(math.isfinite(v) for v in hist.e_com + hist.e_var)
+    counts = {k: read_counts()[k] for k in expected}
+    if counts != expected or not history_finite:
+        faults.append(f"launches {counts} (expected {expected}), run_with_history finite "
+                      f"{history_finite}")
+    emit("obs", run="cnn_lattice_diagnostics", d=cnn.dim, cells=spec.n_cells,
+         rounds=spec.n_rounds, deterministic_seconds={"taps": on_s, "no_taps": off_s},
+         base_records_bitwise_equal=base_equal, taps_finite_outside_named_cells=finite,
+         named_cells=named_cells(spec, "cnn"),
+         sched_entropy_range=[float(tap["sched_entropy"].min()),
+                              float(tap["sched_entropy"].max())],
+         eps_clamps_total=float(tap["eps_clamps"].sum()),
+         tap_means_by_round=events["diag"][0]["taps"] if events["diag"] else None,
+         lattice_run_event={k: events["lattice"][0].get(k) for k in
+                            ("warm", "trace_delta", "compile_delta", "engine_compiles")}
+         if events["lattice"] else None,
+         gate_warm_lattice=gate or "ok", profile_trace_kernels=kernels,
+         taps_card_vs_cpu=parity, tolerance=ROUND_TOL,
+         cell_rounds_per_s_default_cudnn=rates, launches=counts, faults=faults)
+    if faults:
+        raise AssertionError(f"obs: {faults}")
+    return counts
+
+
+def checkpoint_phase(dev, lattice_records, scenario_records) -> dict:
+    """``run_lattice_checkpointed`` on the card: (a) the CNN lattice
+    checkpointed every 3 rounds, stopped after round 4 and resumed, bitwise
+    the uninterrupted checkpointed run, and timed beside plain
+    ``run_lattice``; (b) the same with ``REPRO_FAULT_NAN`` on one cell under
+    "skip": only that cell's fault round flagged beyond (a)'s flags, every
+    other cell bitwise (a)'s; (c) a logreg scenario lattice (4 algorithms ×
+    3 policies × 2 seeds, K = 2, churn over Gauss-Markov) resumed bitwise;
+    (d) one write and read of the full-width CNN scenario lattice's carry
+    (its FedDyn h and SCAFFOLD c 1.49 GB), timed → the launch counts,
+    zeroed at the start and read at the end."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.checkpoint.npz import leaves_with_paths
+    from repro_torch.core.local_update import algorithm_id
+    from repro_torch.core.scheduling import policy_id
+    from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine
+    from repro_torch.sim.lattice import LatticeSpec, cell_axes
+    from repro_torch.sim.resilience import CheckpointConfig, run_lattice_checkpointed
+    from repro_torch.sim.tasks import make_model_task
+
+    def checkpointed(task, spec, cfg, where, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = run_lattice_checkpointed(task.loss_fn, task.data, task.params0, spec,
+                                        base_cfg=cfg, eval_fn=task.eval,
+                                        checkpoint=CheckpointConfig(where, 3), **kw)
+        torch.cuda.synchronize()
+        return recs, time.perf_counter() - t0
+
+    def bitwise(a, b, cells=None) -> bool:
+        fields = [(getattr(a, f), getattr(b, f)) for f in
+                  ("e_com", "e_var", "grad_norm", "n_scheduled", "loss", "acc")]
+        for sub in ("eval", "health"):
+            if getattr(a, sub) is not None:
+                fields += list(zip(getattr(a, sub), getattr(b, sub)))
+        n = a.e_com[..., 0].size
+        keep = np.arange(n) if cells is None else np.asarray(cells)
+        return all(np.array_equal(np.asarray(x).reshape(n, -1)[keep],
+                                  np.asarray(y).reshape(n, -1)[keep], equal_nan=True)
+                   for x, y in fields)
+
+    faults, expected, report = [], {"aircomp_fused": 0, "aircomp_fused_batch": 0}, {}
+    cnn = lattice_records["cnn"][1]
+    spec = lattice_spec("cnn")
+    skip = lattice_cfg(on_nonfinite="skip")
+    zero_counts()
+    with tempfile.TemporaryDirectory() as d:
+        plain, plain_s = timed_lattice(cnn, spec, skip)
+        full, full_s = checkpointed(cnn, spec, skip, f"{d}/a_full")
+        stopped, _ = checkpointed(cnn, spec, skip, f"{d}/a_stop", _stop_after_round=4)
+        resumed, resumed_s = checkpointed(cnn, spec, skip, f"{d}/a_stop")
+        # plain, full, stopped at the first boundary past round 4 (6), resumed
+        expected["aircomp_fused_batch"] += 3 * spec.n_rounds
+        fault_cell, fault_round = 0, 2
+        with environ(REPRO_FAULT_NAN=f"{fault_cell}:{fault_round}"):
+            faulted, _ = checkpointed(cnn, spec, skip, f"{d}/b")
+        expected["aircomp_fused_batch"] += spec.n_rounds
+        flags = faulted.health.nonfinite.reshape(spec.n_cells, -1) - \
+            full.health.nonfinite.reshape(spec.n_cells, -1)
+        others = [c for c in range(spec.n_cells) if c != fault_cell]
+        report["a"] = {"resumed_bitwise": stopped is None and bitwise(full, resumed),
+                       "flagged_cells": int((full.health.nonfinite.reshape(
+                           spec.n_cells, -1).sum(axis=1) > 0).sum()),
+                       "cell_rounds_per_s": {
+                           "run_lattice": spec.n_cells * spec.n_rounds / plain_s,
+                           "checkpointed": spec.n_cells * spec.n_rounds / full_s,
+                           "resumed_run": spec.n_cells * (spec.n_rounds - 6) / resumed_s}}
+        report["b"] = {"new_flags": [[int(c), int(r)] for c, r in zip(*np.nonzero(flags))],
+                       "other_cells_bitwise": bitwise(faulted, full, others)}
+        if not report["a"]["resumed_bitwise"]:
+            faults.append("(a) the resumed CNN lattice is not bitwise the uninterrupted one")
+        if report["b"]["new_flags"] != [[fault_cell, fault_round]] or \
+                not report["b"]["other_cells_bitwise"]:
+            faults.append(f"(b) NaN fault: {report['b']}")
+
+        logreg = make_model_task("logreg", n_devices=N_DEVICES, partition="dirichlet",
+                                 beta=0.4, n_train=3000, n_test=SCENARIO_N_TEST, seed=0,
+                                 device=dev)
+        lspec = LatticeSpec(algorithms=SCENARIO_ALGORITHMS, policies=SCENARIO_POLICIES,
+                            noise_powers=(1e-10,), seeds=SCENARIO_SEEDS, n_rounds=8,
+                            eval_every=4)
+        lcfg = lattice_cfg(local_steps=SCENARIO_K, noise_power=1e-10,
+                           fedprox_mu=SCENARIO_FEDPROX_MU)
+        churn = dict(scenario="churn", scenario_params={"base": "gauss_markov", "corr": 0.9})
+        lfull, lfull_s = checkpointed(logreg, lspec, lcfg, f"{d}/c_full", **churn)
+        lstop, _ = checkpointed(logreg, lspec, lcfg, f"{d}/c_stop", _stop_after_round=4,
+                                **churn)
+        lresumed, _ = checkpointed(logreg, lspec, lcfg, f"{d}/c_stop", **churn)
+        expected["aircomp_fused_batch"] += 2 * lspec.n_rounds
+        report["c"] = {"cells": lspec.n_cells, "rounds": lspec.n_rounds,
+                       "resumed_bitwise": lstop is None and bitwise(lfull, lresumed),
+                       "finite": bool(np.isfinite(lfull.e_var).all()),
+                       "cell_rounds_per_s": lspec.n_cells * lspec.n_rounds / lfull_s}
+        if not report["c"]["resumed_bitwise"]:
+            faults.append("(c) the resumed logreg scenario lattice is not bitwise")
+
+        _, scen_task, scen_cfg = scenario_records["cnn"]
+        sspec = scenario_cnn_spec()
+        algs = [algorithm_id(a) for a in sspec.algorithms]
+        engine = SimEngine(scen_task.loss_fn, scen_task.data, dataclasses.replace(
+            scen_cfg, policy=FUSED_POLICY, local_algorithm=FUSED_ALGORITHM), device=dev,
+            scenario=SCENARIO[0], scenario_params=SCENARIO[1])
+        axes = cell_axes(sspec, algs, [policy_id(p) for p in sspec.policies])
+        state = engine.lattice_start(scen_task.params0, **axes)
+        state = state._replace(alg=type(state.alg)(*(torch.randn_like(f) for f in state.alg)))
+        nbytes = sum(x.numel() * x.element_size() for _, x in leaves_with_paths(state)
+                     if isinstance(x, torch.Tensor))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(f"{d}/d/carry", {"state": state}, metadata={"t_next": 0})
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(f"{d}/d/carry.npz")
+        t0 = time.perf_counter()
+        back = load_pytree(f"{d}/d/carry", {"state": engine.lattice_start(
+            scen_task.params0, **axes)})["state"]
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(leaves_with_paths(state), leaves_with_paths(back)))
+        report["d"] = {"cells": sspec.n_cells, "carry_bytes": nbytes, "npz_bytes": file_bytes,
+                       "write_seconds": write_s, "read_seconds": read_s,
+                       "write_gb_per_s": file_bytes / write_s / 1e9,
+                       "read_gb_per_s": file_bytes / read_s / 1e9, "bitwise": same}
+        if not same:
+            faults.append("(d) the CNN scenario lattice's carry did not come back bitwise")
+        del state, back
+    counts = {k: read_counts()[k] for k in expected}
+    if counts != expected:
+        faults.append(f"launches {counts}, expected {expected}")
+    emit("checkpoint", d=cnn.dim, cells=spec.n_cells, rounds=spec.n_rounds, every=3,
+         stop_after_round=4, fault=[fault_cell, fault_round], launches=counts, parts=report,
+         deterministic_restored=torch.backends.cudnn.deterministic is False, faults=faults)
+    if faults or torch.backends.cudnn.deterministic:
+        raise AssertionError(f"checkpoint: {faults}")
+    return counts
 
 
 # -- the flash-attention kernel --------------------------------------------------
@@ -1892,10 +2255,12 @@ def serving(dev, arch, prefix, parity_batch, parity_prompt) -> dict:
     return launches
 
 
-def kernel_entry(name, replaces, launches_by_phase, max_err, times) -> dict:
+def kernel_entry(name, replaces, launches_by_phase, errs, times) -> dict:
     """One entry of the ``kernels`` line: the times at the path's larger
     shape, the other shape's beside them; ``launches`` sums the counts of
-    the phases that drive the kernel's paths, each read on its own."""
+    the phases that drive the kernel's paths, each read on its own;
+    ``max_abs_err`` over every check case, the float32 ones apart, and the
+    bf16 cases' largest share of their limit."""
     big, small = times["cnn"], times["logreg"]
     return {
         "name": name,
@@ -1904,7 +2269,10 @@ def kernel_entry(name, replaces, launches_by_phase, max_err, times) -> dict:
         "replaces": replaces,
         "launches": sum(launches_by_phase.values()),
         "launches_by_phase": launches_by_phase,
-        "max_abs_err": max_err,
+        "max_abs_err": max(e[0] for e in errs.values()),
+        "max_abs_err_float32": max(e[0] for e in errs.values() if e[2] == "torch.float32"),
+        "bf16_max_share_of_limit": max(e[1] for e in errs.values()
+                                       if e[2] == "torch.bfloat16"),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
@@ -1912,7 +2280,7 @@ def kernel_entry(name, replaces, launches_by_phase, max_err, times) -> dict:
         "library_ms": big["library_ms"],
         "shape": big["shape"],
         **{k: v for k, v in big.items() if k.startswith(("b_launches", "warm", "clean"))},
-        **{k: v for k, v in times.items() if k == "launch_floor_ms"},
+        **{k: v for k, v in times.items() if k in ("launch_floor_ms", "cnn_bf16")},
         "logreg": small,
     }
 
@@ -1979,8 +2347,8 @@ def main() -> int:
          # the aircomp kernel's loads in flight a thread, from its SASS
          aircomp_loads_before_ffma=sass_load_runs(built["aircomp"].path))
 
-    max_err = check_aircomp(kernel, aircomp_fused_ref, dev)
-    batch_err = check_aircomp_batch(kernel, aircomp_fused_batch_ref, aircomp_fused_ref, dev)
+    errs = check_aircomp(kernel, aircomp_fused_ref, dev)
+    batch_errs = check_aircomp_batch(kernel, aircomp_fused_batch_ref, aircomp_fused_ref, dev)
     times = time_aircomp(kernel, aircomp_fused_ref, dev)
     batch_times = time_aircomp_batch(kernel, aircomp_fused_batch_ref, dev)
     attn_errs = check_attention(attn_kernel, flash_attention_ref, dev)
@@ -2001,6 +2369,8 @@ def main() -> int:
     scenario_parity(dev)
     quarantine_launches = quarantine(dev, lattice_records, scenario_records)
     loop_launches = lattice_loops(dev, lattice_records, scenario_records)
+    obs_launches = obs_phase(dev, lattice_records)
+    checkpoint_launches = checkpoint_phase(dev, lattice_records, scenario_records)
     serve_launches = serving(dev, SERVE_ARCH, "serve", PARITY_BATCH, PARITY_PROMPT)
     ssm_launches = serving(dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH, SSM_PARITY_PROMPT)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -2010,14 +2380,18 @@ def main() -> int:
                      {"main": launches["aircomp_fused"],
                       "scenario_lattice": scenario_launches["aircomp_fused"],
                       "quarantine": quarantine_launches["aircomp_fused"],
-                      "lattice_loops": loop_launches["aircomp_fused"]},
-                     max_err, times),
+                      "lattice_loops": loop_launches["aircomp_fused"],
+                      "obs": obs_launches["aircomp_fused"],
+                      "checkpoint": checkpoint_launches["aircomp_fused"]},
+                     errs, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
                      {"lattice": lattice_launches["aircomp_fused_batch"],
                       "scenario_lattice": scenario_launches["aircomp_fused_batch"],
                       "quarantine": quarantine_launches["aircomp_fused_batch"],
-                      "lattice_loops": loop_launches["aircomp_fused_batch"]},
-                     batch_err, batch_times),
+                      "lattice_loops": loop_launches["aircomp_fused_batch"],
+                      "obs": obs_launches["aircomp_fused_batch"],
+                      "checkpoint": checkpoint_launches["aircomp_fused_batch"]},
+                     batch_errs, batch_times),
         lm_kernel_entry("flash_attention",
                         "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:103",

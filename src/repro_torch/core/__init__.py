@@ -1,5 +1,6 @@
 """Port of ``repro.core``: the PO-FL round (Algorithm 1) on tensors, with
-the reference's exports."""
+the reference's exports and the diagnostics taps (``RoundDiagnostics``,
+``diagnostics_taps``)."""
 from repro_torch.core.channel import ChannelConfig, ChannelState
 from repro_torch.core.local_update import (
     ALGORITHM_IDS,
@@ -9,6 +10,7 @@ from repro_torch.core.local_update import (
     init_state,
     local_update_stage,
 )
+from repro_torch.core.metrics import RoundDiagnostics, diagnostics_taps
 from repro_torch.core.numerics import EPS, eps_guard, safe_div
 from repro_torch.core.pofl import (
     BACKENDS,
@@ -39,10 +41,12 @@ __all__ = [
     "History",
     "POFLConfig",
     "POLICIES",
+    "RoundDiagnostics",
     "Schedule",
     "aggregation_stage",
     "algorithm_id",
     "apply_update_stage",
+    "diagnostics_taps",
     "eps_guard",
     "init_state",
     "local_gradient_stage",

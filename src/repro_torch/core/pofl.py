@@ -25,6 +25,11 @@ cells. The policy may be data there, an id of ``scheduling.POLICY_IDS``
 per cell (``policy_id``), and so may the local-update algorithm
 (``algorithm_id``, ``local_update.ALGORITHM_IDS``).
 
+``diagnostics=True`` adds the reference's per-round taps
+(:class:`~repro_torch.core.metrics.RoundDiagnostics`) to the metrics,
+computed beside the round from values it already has; off (the default),
+the round issues no extra op and ``metrics.diag`` is ``None``.
+
 ``cfg.on_nonfinite="skip"`` is the reference's non-finite quarantine: a
 round whose aggregate ŷ holds a non-finite entry keeps its params and
 AlgState (a value select per cell, never a branch on the host) and is
@@ -59,7 +64,9 @@ from repro_torch.core.channel import ChannelConfig, ChannelState  # noqa: F401  
 from repro_torch.core.local_update import (  # noqa: F401  (re-exported API)
     AlgState, local_gradient_stage, local_update_stage, local_update_stage_cells,
 )
-from repro_torch.core.metrics import RoundHealth, RoundMetrics
+from repro_torch.core.metrics import (
+    RoundDiagnostics, RoundHealth, RoundMetrics, diagnostics_taps,
+)
 from repro_torch.core.numerics import safe_div
 from repro_torch.flatten_util import ravel_pytree
 
@@ -194,10 +201,13 @@ def scheduling_stage(
     sched_draw: torch.Tensor,
     avail: torch.Tensor | None = None,
     policy_id: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_probs: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Step 4: p_i^t (Eq. 34/Remark 2) → draw S^t → weights ρ (Eq. 37/HT).
 
-    Returns ``(rho, mask)``. ``sched_draw`` is :func:`sampler_draw`'s tensor
+    Returns ``(rho, mask)``, or ``(rho, mask, probs)`` when ``return_probs``
+    (the diagnostics taps need the scheduling distribution; the extra output
+    changes no arithmetic). ``sched_draw`` is :func:`sampler_draw`'s tensor
     (of a policy-fused ``cfg`` when ``policy_id`` is given). ``avail`` (an
     (N,) 0/1 mask of a process that drops devices) zeroes the unavailable
     devices' probabilities and renormalises before any draw; ``None`` skips
@@ -224,6 +234,13 @@ def scheduling_stage(
     if avail is not None:
         masked = probs * avail
         probs = safe_div(masked, masked.sum())
+    rho, mask = _draw(cfg, probs, data_frac, sched_draw, method, policy_id)
+    return (rho, mask, probs) if return_probs else (rho, mask)
+
+
+def _draw(cfg, probs, data_frac, sched_draw, method, policy_id):
+    """Steps 4b–c of :func:`scheduling_stage`: draw S^t from ``probs`` and
+    weight it → ``(rho, mask)``."""
     if policy_id is not None:
         is_det = policy_id == scheduling.DETERMINISTIC_ID
         bernoulli = cfg.sampler == "bernoulli"
@@ -289,18 +306,25 @@ def aggregation_stage(
 
     ``z`` is the standard-normal receiver noise draw (D,).
     """
-    backend = AggregationBackend(cfg.backend)
-    if backend is AggregationBackend.JNP:
-        return aircomp.aircomp_aggregate(
-            g, rho, h, mask, z, cfg.tx_power, noise_power,
-            simulate_physical=cfg.simulate_physical,
-        )
-    from repro_torch.kernels.aircomp import aircomp_aggregate_fused  # late: kernels↔core
+    return _aggregate(cfg, g, rho, h, mask, z, noise_power)[:2]
 
+
+def _aggregate(cfg, g, rho, h, mask, z, noise_power) -> tuple:
+    """:func:`aggregation_stage` → ``(ŷ, e_com, V_g, a)``: the prelude's
+    V_g and a beside ŷ, so the round's metrics and taps reuse them. The
+    ``jnp`` backend gives ``aircomp.aircomp_aggregate``'s values bitwise."""
     coeff, m_g, v_g, a, z, e_com = fused_aggregation_inputs(
         cfg, g, rho, h, mask, z, noise_power
     )
-    return aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z), e_com
+    if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
+        y_hat = aircomp.combine_given_stats(
+            g, rho, h, mask, z, m_g, v_g, a, simulate_physical=cfg.simulate_physical
+        )
+    else:
+        from repro_torch.kernels.aircomp import aircomp_aggregate_fused  # late: kernels↔core
+
+        y_hat = aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z)
+    return y_hat, e_com, v_g, a
 
 
 def apply_update_stage(cfg: POFLConfig, params, y_hat: torch.Tensor, t: int):
@@ -310,17 +334,28 @@ def apply_update_stage(cfg: POFLConfig, params, y_hat: torch.Tensor, t: int):
 
 
 def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=None,
-              avail=None):
+              avail=None, diagnostics=False):
     """Steps 3–4 of one cell: the uploaded statistics, then the schedule
-    → ``(rho, mask)``."""
+    → ``(rho, mask)``; with ``diagnostics`` also what the taps read there,
+    ``(rho, mask, probs, norms)``."""
     stats = aircomp.local_stats(g)
-    return scheduling_stage(
+    out = scheduling_stage(
         cfg, stats, h.abs(), data_frac, g.shape[-1], alpha, noise_power, sched_draw,
-        avail=avail, policy_id=policy_id,
+        avail=avail, policy_id=policy_id, return_probs=diagnostics,
     )
+    return (*out, stats.norm) if diagnostics else out
 
 
-def _metric_values(cfg, data_frac, g, rho, mask, h, y_hat, e_com) -> tuple:
+def _diag_values(cfg, h, probs, norm, v_g, a, agg_noise_power) -> tuple:
+    """One cell's :class:`RoundDiagnostics` as a tuple of tensors (so the
+    lattice can ``vmap`` it): the taps of ``diagnostics_taps`` from the
+    schedule's probabilities and norms, the aggregation's V_g and a, and
+    the σ_z² it used (0 for ``noisefree``)."""
+    return tuple(diagnostics_taps(probs, norm, v_g, a, h.abs(), cfg.tx_power,
+                                  agg_noise_power))
+
+
+def _metric_values(cfg, data_frac, g, rho, mask, y_hat, e_com, a) -> tuple:
     """One cell's ``(e_com, e_var, grad_norm, n_scheduled, a_scalar)``: only
     tensors, so the lattice can ``vmap`` it (``torch.func.vmap`` refuses a
     ``None`` output)."""
@@ -329,7 +364,7 @@ def _metric_values(cfg, data_frac, g, rho, mask, h, y_hat, e_com) -> tuple:
         scheduling.global_update_variance(g, rho, mask, data_frac, cfg.n_scheduled),
         torch.linalg.vector_norm(y_hat),
         mask.sum(),
-        aircomp.denoise_scalar(rho, h.abs(), mask, cfg.tx_power),
+        a,
     )
 
 
@@ -388,6 +423,7 @@ def round_algorithm(
     alg_state: AlgState | None = None,
     algorithm_id: torch.Tensor | None = None,
     fault_round=None,
+    diagnostics: bool = False,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """Steps 2–6 of Algorithm 1 for one round → ``(new_params, alg_state, metrics)``.
 
@@ -403,8 +439,10 @@ def round_algorithm(
     NaN when it equals ``t``. Under ``cfg.on_nonfinite="skip"`` a non-finite
     ŷ, injected or not, leaves ``params`` and ``alg_state`` as they came in
     and sets ``metrics.health.nonfinite`` to 1; under ``"propagate"``
-    ``metrics.health`` is ``None``. Nothing here reads a value back to the
-    host, so the card runs the round without waiting on Python.
+    ``metrics.health`` is ``None``. ``diagnostics`` fills ``metrics.diag``
+    with the :class:`RoundDiagnostics` taps (``None`` when off: no extra
+    op). Nothing here reads a value back to the host, so the card runs the
+    round without waiting on Python.
     """
     _check_on_nonfinite(cfg)
     noise_power = cfg.noise_power if noise_power is None else noise_power
@@ -420,11 +458,11 @@ def round_algorithm(
         )  # (N, D)
 
     with record_function("pofl.scheduling"):
-        rho, mask = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power,
-                              avail=avail)
+        rho, mask, *taps_in = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power,
+                                        avail=avail, diagnostics=diagnostics)
 
     with record_function("pofl.aggregation"):
-        y_hat, e_com = aggregation_stage(cfg, g, rho, h, mask, z, agg_noise_power)
+        y_hat, e_com, v_g, a = _aggregate(cfg, g, rho, h, mask, z, agg_noise_power)
         if fault_round is not None:
             y_hat = _poison(y_hat, t, fault_round)
 
@@ -436,8 +474,10 @@ def round_algorithm(
                 torch.isfinite(y_hat).all(), new_params, params, alg_state, alg_state_in)
 
     with record_function("pofl.metrics"):
-        values = _metric_values(cfg, data_frac, g, rho, mask, h, y_hat, e_com)
-        metrics = RoundMetrics(y_hat.new_zeros(()), *values, health=health)
+        values = _metric_values(cfg, data_frac, g, rho, mask, y_hat, e_com, a)
+        diag = RoundDiagnostics(*_diag_values(cfg, h, *taps_in, v_g, a, agg_noise_power)) \
+            if diagnostics else None
+        metrics = RoundMetrics(y_hat.new_zeros(()), *values, diag=diag, health=health)
     return new_params, alg_state, metrics
 
 
@@ -458,6 +498,7 @@ def round_algorithm_cells(
     alg_state_c: AlgState | None = None,
     algorithm_id_c: torch.Tensor | None = None,
     fault_round_c: torch.Tensor | None = None,
+    diagnostics: bool = False,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """One round of C lattice cells at once → ``(params_c, alg_state_c, metrics)``.
 
@@ -476,8 +517,10 @@ def round_algorithm_cells(
     value select. ``fault_round_c`` (C,) poisons a cell's ŷ at its round
     (-1 never fires). Under ``cfg.on_nonfinite="skip"`` each cell whose ŷ
     row is not finite keeps its params and AlgState, selected per cell
-    after the aggregation, and is flagged on ``metrics.health`` (C,). The
-    metrics are (C,) tensors; nothing is read back to the host.
+    after the aggregation, and is flagged on ``metrics.health`` (C,).
+    ``diagnostics`` fills ``metrics.diag`` with each cell's taps (vmapped as
+    tensors, the :class:`RoundDiagnostics` built outside). The metrics are
+    (C,) tensors; nothing is read back to the host.
     """
     _check_on_nonfinite(cfg)
     agg_noise_c = torch.where(policy_id_c == scheduling.NOISEFREE_ID, 0.0, noise_power_c)
@@ -491,16 +534,16 @@ def round_algorithm_cells(
         )
 
     with record_function("lattice.scheduling"):
-        schedule = functools.partial(_schedule, cfg, data_frac)
+        schedule = functools.partial(_schedule, cfg, data_frac, diagnostics=diagnostics)
         cell_args = (g, h_c, sched_c, alpha_c, noise_power_c, policy_id_c)
         if avail_c is None:
-            rho, mask = vmap(schedule)(*cell_args)
+            rho, mask, *taps_in = vmap(schedule)(*cell_args)
         else:
-            rho, mask = vmap(schedule)(*cell_args, avail_c)
+            rho, mask, *taps_in = vmap(schedule)(*cell_args, avail_c)
 
     with record_function("lattice.aggregation"):
         if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
-            y_hat, e_com = vmap(functools.partial(aggregation_stage, cfg))(
+            y_hat, e_com, v_g, a = vmap(functools.partial(_aggregate, cfg))(
                 g, rho, h_c, mask, z_c, agg_noise_c
             )
         else:
@@ -526,9 +569,12 @@ def round_algorithm_cells(
 
     with record_function("lattice.metrics"):
         values = vmap(functools.partial(_metric_values, cfg, data_frac))(
-            g, rho, mask, h_c, y_hat, e_com
+            g, rho, mask, y_hat, e_com, a
         )
-        metrics = RoundMetrics(y_hat.new_zeros(y_hat.shape[0]), *values, health=health)
+        diag = RoundDiagnostics(*vmap(functools.partial(_diag_values, cfg))(
+            h_c, *taps_in, v_g, a, agg_noise_c)) if diagnostics else None
+        metrics = RoundMetrics(y_hat.new_zeros(y_hat.shape[0]), *values, diag=diag,
+                               health=health)
     return new_params, alg_state_c, metrics
 
 

@@ -48,6 +48,14 @@
 // place. The scalars M_g, V_g and a are (B,) device arrays read at the
 // block's trial, so the caller never syncs to pass them, and each thread
 // sums W from its trial's coeff row itself (loads that hit L1).
+//
+// Types: g, z and yhat are float32 (entries *_f32) or bfloat16 (entries
+// *_bf16), as the TPU kernel takes g and z in either and stores yhat in g's
+// type; coeff and the scalars are float32. One body serves both: a bf16
+// element is widened to float32 as it is loaded, the sums and the epilogue
+// run in float32, and yhat is rounded to bf16 once, as it is stored. A bf16
+// call moves half the bytes of g, z and yhat (VEC 4 is then an 8-byte load).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,19 +64,33 @@ constexpr float kEps = 1e-30f;  // repro_torch.core.numerics.EPS
 constexpr int kMaxThreads = 256;  // kernel.py MAX_THREADS
 constexpr long long kMaxGridY = 65535;  // trials beyond it loop in the block
 
-template <int VEC> struct VecType;
-template <> struct VecType<1> { using T = float; };
-template <> struct VecType<2> { using T = float2; };
-template <> struct VecType<4> { using T = float4; };
+struct alignas(8) bf16x4 { __nv_bfloat16 v[4]; };
+
+// VEC consecutive elements of type T, loaded and stored as one access.
+template <typename T, int VEC> struct VecType;
+template <> struct VecType<float, 1> { using T = float; };
+template <> struct VecType<float, 2> { using T = float2; };
+template <> struct VecType<float, 4> { using T = float4; };
+template <> struct VecType<__nv_bfloat16, 1> { using T = __nv_bfloat16; };
+template <> struct VecType<__nv_bfloat16, 2> { using T = __nv_bfloat162; };
+template <> struct VecType<__nv_bfloat16, 4> { using T = bf16x4; };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // Issue the loads of rows i0 .. i0+ROWS-1 (those below n) of one thread's
 // columns and their coefficients; the rest are zero and never summed.
-template <int VEC, int ROWS>
-__device__ __forceinline__ void load_group(const float* __restrict__ gb, long long g_row,
+template <typename T, int VEC, int ROWS>
+__device__ __forceinline__ void load_group(const T* __restrict__ gb, long long g_row,
                                            const float* __restrict__ cb, int i0, int n,
-                                           typename VecType<VEC>::T (&rows)[ROWS],
+                                           typename VecType<T, VEC>::T (&rows)[ROWS],
                                            float (&c)[ROWS]) {
-  using V = typename VecType<VEC>::T;
+  using V = typename VecType<T, VEC>::T;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int i = i0 + r;
@@ -82,24 +104,24 @@ __device__ __forceinline__ void load_group(const float* __restrict__ gb, long lo
   }
 }
 
-template <int VEC, int ROWS>
+template <typename T, int VEC, int ROWS>
 __global__ void __launch_bounds__(kMaxThreads) aircomp_fused_kernel(
-    const float* __restrict__ g, long long g_trial, long long g_row,
-    const float* __restrict__ coeff, const float* __restrict__ z, long long z_trial,
+    const T* __restrict__ g, long long g_trial, long long g_row,
+    const float* __restrict__ coeff, const T* __restrict__ z, long long z_trial,
     const float* __restrict__ m_g_ptr, const float* __restrict__ v_g_ptr,
-    const float* __restrict__ a_ptr, float* __restrict__ out, long long out_trial,
+    const float* __restrict__ a_ptr, T* __restrict__ out, long long out_trial,
     long long trials, int n, long long d) {
-  using V = typename VecType<VEC>::T;
+  using V = typename VecType<T, VEC>::T;
   const long long base =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
   if (base >= d) return;  // D % VEC == 0, so a live thread owns VEC elements
 
   for (long long b = blockIdx.y; b < trials; b += gridDim.y) {
-    const float* gb = g + b * g_trial + base;
+    const T* gb = g + b * g_trial + base;
     const float* cb = coeff + b * n;
     V cur[ROWS], nxt[ROWS];
     float c_cur[ROWS], c_nxt[ROWS];
-    load_group<VEC, ROWS>(gb, g_row, cb, 0, n, cur, c_cur);
+    load_group<T, VEC, ROWS>(gb, g_row, cb, 0, n, cur, c_cur);
     const V zv = *reinterpret_cast<const V*>(z + b * z_trial + base);
     const float m_g = m_g_ptr[b], v_g = v_g_ptr[b], a = a_ptr[b];
 
@@ -109,14 +131,14 @@ __global__ void __launch_bounds__(kMaxThreads) aircomp_fused_kernel(
     float w = 0.f;
     for (int i0 = 0; i0 < n; i0 += ROWS) {
       // the next group's loads are in flight while this group is summed
-      load_group<VEC, ROWS>(gb, g_row, cb, i0 + ROWS, n, nxt, c_nxt);
+      load_group<T, VEC, ROWS>(gb, g_row, cb, i0 + ROWS, n, nxt, c_nxt);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         if (i0 + r < n) {  // the masked tail adds nothing, not even a zero
-          const float* gf = reinterpret_cast<const float*>(&cur[r]);
+          const T* gf = reinterpret_cast<const T*>(&cur[r]);
           w += c_cur[r];
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) acc[j] += c_cur[r] * gf[j];
+          for (int j = 0; j < VEC; ++j) acc[j] += c_cur[r] * to_f32(gf[j]);
         }
       }
 #pragma unroll
@@ -127,30 +149,64 @@ __global__ void __launch_bounds__(kMaxThreads) aircomp_fused_kernel(
     }
 
     const float noise_scale = sqrtf(fmaxf(v_g, kEps)) / a;
-    const float* zf = reinterpret_cast<const float*>(&zv);
+    const T* zf = reinterpret_cast<const T*>(&zv);
     V ov;
-    float* of = reinterpret_cast<float*>(&ov);
+    T* of = reinterpret_cast<T*>(&ov);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) of[j] = acc[j] - w * m_g + noise_scale * zf[j] + m_g;
+    for (int j = 0; j < VEC; ++j) {
+      of[j] = from_f32<T>(acc[j] - w * m_g + noise_scale * to_f32(zf[j]) + m_g);
+    }
     *reinterpret_cast<V*>(out + b * out_trial + base) = ov;
   }
 }
 
 // The operands of one launch, as the C entries below describe them.
-struct Operands {
-  const float* g; long long g_trial, g_row;
+template <typename T> struct Operands {
+  const T* g; long long g_trial, g_row;
   const float* coeff;
-  const float* z; long long z_trial;
+  const T* z; long long z_trial;
   const float *m_g, *v_g, *a;
-  float* out; long long out_trial;
+  T* out; long long out_trial;
   long long trials; int n; long long d;
 };
 
-template <int VEC, int ROWS>
-void launch(const Operands& p, dim3 grid, int threads, cudaStream_t stream) {
-  aircomp_fused_kernel<VEC, ROWS><<<grid, threads, 0, stream>>>(
+template <typename T, int VEC, int ROWS>
+void launch(const Operands<T>& p, dim3 grid, int threads, cudaStream_t stream) {
+  aircomp_fused_kernel<T, VEC, ROWS><<<grid, threads, 0, stream>>>(
       p.g, p.g_trial, p.g_row, p.coeff, p.z, p.z_trial, p.m_g, p.v_g, p.a, p.out,
       p.out_trial, p.trials, p.n, p.d);
+}
+
+// Check the operands, pick the instance and launch; returns the
+// cudaError_t of the launch (0 on success).
+template <typename T>
+int launch_batch(const T* g, long long g_trial, long long g_row, const float* coeff,
+                 const T* z, long long z_trial, const float* m_g, const float* v_g,
+                 const float* a, T* out, long long out_trial, long long trials, int n,
+                 long long d, int vec, int rows, int threads, int blocks_x, int blocks_y,
+                 void* stream) {
+  if (trials < 1 || n < 1 || d < 1 || g_row < 0 || g_trial < 0 || z_trial < 0 ||
+      out_trial < d || vec < 1 || d % vec != 0 || g_row % vec != 0 ||
+      g_trial % vec != 0 || z_trial % vec != 0 || out_trial % vec != 0 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || blocks_x < 1 ||
+      static_cast<long long>(blocks_x) * threads * vec < d || blocks_y < 1 ||
+      blocks_y > trials || blocks_y > kMaxGridY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Operands<T> p{g, g_trial, g_row, coeff, z, z_trial, m_g, v_g, a, out, out_trial,
+                      trials, n, d};
+  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(blocks_y));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec * 100 + rows) {
+    case 408: launch<T, 4, 8>(p, grid, threads, s); break;
+    case 416: launch<T, 4, 16>(p, grid, threads, s); break;
+    case 208: launch<T, 2, 8>(p, grid, threads, s); break;
+    case 216: launch<T, 2, 16>(p, grid, threads, s); break;
+    case 108: launch<T, 1, 8>(p, grid, threads, s); break;
+    case 116: launch<T, 1, 16>(p, grid, threads, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -163,35 +219,28 @@ void launch(const Operands& p, dim3 grid, int threads, cudaStream_t stream) {
 // thread loads its rows in groups of `rows` (8 or 16). The grid is
 // blocks_x x blocks_y blocks of `threads` (a warp multiple, at most
 // kMaxThreads); it must cover d / vec column groups and at most `trials`
-// (and 65,535) trials at once.
+// (and 65,535) trials at once. g, z and out are float32 here and bfloat16
+// in the *_bf16 entries.
 extern "C" int aircomp_fused_batch_f32(
     const float* g, long long g_trial, long long g_row, const float* coeff,
     const float* z, long long z_trial, const float* m_g, const float* v_g,
     const float* a, float* out, long long out_trial, long long trials, int n,
     long long d, int vec, int rows, int threads, int blocks_x, int blocks_y,
     void* stream) {
-  if (trials < 1 || n < 1 || d < 1 || g_row < 0 || g_trial < 0 || z_trial < 0 ||
-      out_trial < d || vec < 1 || d % vec != 0 || g_row % vec != 0 ||
-      g_trial % vec != 0 || z_trial % vec != 0 || out_trial % vec != 0 ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || blocks_x < 1 ||
-      static_cast<long long>(blocks_x) * threads * vec < d || blocks_y < 1 ||
-      blocks_y > trials || blocks_y > kMaxGridY) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Operands p{g, g_trial, g_row, coeff, z, z_trial, m_g, v_g, a, out, out_trial,
-                   trials, n, d};
-  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(blocks_y));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec * 100 + rows) {
-    case 408: launch<4, 8>(p, grid, threads, s); break;
-    case 416: launch<4, 16>(p, grid, threads, s); break;
-    case 208: launch<2, 8>(p, grid, threads, s); break;
-    case 216: launch<2, 16>(p, grid, threads, s); break;
-    case 108: launch<1, 8>(p, grid, threads, s); break;
-    case 116: launch<1, 16>(p, grid, threads, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_batch<float>(g, g_trial, g_row, coeff, z, z_trial, m_g, v_g, a, out,
+                             out_trial, trials, n, d, vec, rows, threads, blocks_x,
+                             blocks_y, stream);
+}
+
+extern "C" int aircomp_fused_batch_bf16(
+    const __nv_bfloat16* g, long long g_trial, long long g_row, const float* coeff,
+    const __nv_bfloat16* z, long long z_trial, const float* m_g, const float* v_g,
+    const float* a, __nv_bfloat16* out, long long out_trial, long long trials, int n,
+    long long d, int vec, int rows, int threads, int blocks_x, int blocks_y,
+    void* stream) {
+  return launch_batch<__nv_bfloat16>(g, g_trial, g_row, coeff, z, z_trial, m_g, v_g, a,
+                                     out, out_trial, trials, n, d, vec, rows, threads,
+                                     blocks_x, blocks_y, stream);
 }
 
 // One round: the batch of one trial. g is (n, d) with row stride ld.
@@ -201,8 +250,18 @@ extern "C" int aircomp_fused_f32(const float* g, long long ld, const float* coef
                                  int vec, int rows, int threads, int blocks_x,
                                  void* stream) {
   if (ld < d) return static_cast<int>(cudaErrorInvalidValue);
-  return aircomp_fused_batch_f32(g, 0, ld, coeff, z, 0, m_g, v_g, a, out, d, 1, n, d,
-                                 vec, rows, threads, blocks_x, 1, stream);
+  return launch_batch<float>(g, 0, ld, coeff, z, 0, m_g, v_g, a, out, d, 1, n, d, vec,
+                             rows, threads, blocks_x, 1, stream);
+}
+
+extern "C" int aircomp_fused_bf16(const __nv_bfloat16* g, long long ld, const float* coeff,
+                                  const __nv_bfloat16* z, const float* m_g,
+                                  const float* v_g, const float* a, __nv_bfloat16* out,
+                                  int n, long long d, int vec, int rows, int threads,
+                                  int blocks_x, void* stream) {
+  if (ld < d) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_batch<__nv_bfloat16>(g, 0, ld, coeff, z, 0, m_g, v_g, a, out, d, 1, n, d,
+                                     vec, rows, threads, blocks_x, 1, stream);
 }
 
 extern "C" const char* aircomp_error_string(int code) {

@@ -13,7 +13,10 @@ beside this file, and bound with ``ctypes``. Importing this module builds
 nothing, so the CPU tests import it without ``nvcc``
 (``repro_torch.kernels.build`` holds the build, shared by every kernel).
 
-Unlike the TPU kernel, nothing is padded: the TPU's 128-lane tile was a
+``g`` and ``z`` may be float32 or bfloat16 (both the same), as the TPU
+kernel takes them: the kernel sums in float32 and stores ŷ in g's type
+(entries ``*_f32`` and ``*_bf16``, one body). Unlike the TPU kernel,
+nothing is padded: the TPU's 128-lane tile was a
 layout choice. The scalars M_g, V_g and a stay on the device (0-d tensors
 for a round, (B,) for a batch), so a round never waits on the host to
 launch the kernel.
@@ -40,6 +43,9 @@ MAX_GRID_Y = 65_535  # trials beyond it loop inside a block
 launches = 0
 batch_launches = 0
 
+# the entries' suffix for each type g, z and ŷ may have
+_ENTRY_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 
 @functools.cache
 def build() -> BuildInfo:
@@ -50,19 +56,20 @@ def build() -> BuildInfo:
 @functools.cache
 def _library() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    one = [p, ll, p, p, p, p, p, p, i, ll, i, i, i, i, p]
+    batch = [p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, i, i, i, i, p]
     return load_library(build(), {
-        "aircomp_fused_f32": ([p, ll, p, p, p, p, p, p, i, ll, i, i, i, i, p], i),
-        "aircomp_fused_batch_f32": (
-            [p, ll, ll, p, p, ll, p, p, p, p, ll, ll, i, ll, i, i, i, i, i, p], i),
+        **{f"aircomp_fused_{t}": (one, i) for t in _ENTRY_TYPE.values()},
+        **{f"aircomp_fused_batch_{t}": (batch, i) for t in _ENTRY_TYPE.values()},
         "aircomp_error_string": ([i], ctypes.c_char_p),
     })
 
 
 def _vector_width(d: int, strides, *tensors: torch.Tensor) -> int:
-    """Widest load (floats) that keeps every row, trial and pointer aligned."""
+    """Widest load (elements) that keeps every row, trial and pointer aligned."""
     for vec in (4, 2):
         if d % vec == 0 and all(s % vec == 0 for s in strides) and all(
-            t.data_ptr() % (4 * vec) == 0 for t in tensors
+            t.data_ptr() % (t.element_size() * vec) == 0 for t in tensors
         ):
             return vec
     return 1
@@ -90,9 +97,14 @@ def launch_geometry(trials: int, d: int, vec: int) -> tuple[int, int, int, int]:
 
 
 def _check_operands(name: str, g: torch.Tensor, operands) -> None:
+    """``g`` and ``z`` float32 or bfloat16, both the same; ``coeff`` and the
+    scalars float32; all on ``g``'s card."""
+    if g.dtype not in _ENTRY_TYPE:
+        raise ValueError(f"{name}: g and z must be float32 or bfloat16, got {g.dtype}")
     for arg, t in operands:
-        if not isinstance(t, torch.Tensor) or t.device != g.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be a float32 tensor on {g.device}")
+        dtype = g.dtype if arg in ("g", "z") else torch.float32
+        if not isinstance(t, torch.Tensor) or t.device != g.device or t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} must be a {dtype} tensor on {g.device}")
     if g.device.type != "cuda":
         raise ValueError(f"{name} launches on CUDA tensors only")
 
@@ -103,11 +115,12 @@ def _raise_on_error(name: str, lib: ctypes.CDLL, err: int) -> None:
 
 
 def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
-    """Launch the fused Eq. 5→8 kernel on CUDA tensors → ŷ (D,) float32.
+    """Launch the fused Eq. 5→8 kernel on CUDA tensors → ŷ (D,) in g's type.
 
-    ``g`` is (N, D) float32 with unit stride along D (any row stride);
-    ``coeff`` (N,) and ``z`` (D,) are contiguous float32; ``m_g``, ``v_g``
-    and ``a`` are 0-d float32 tensors on the same card.
+    ``g`` is (N, D) float32 or bfloat16 with unit stride along D (any row
+    stride); ``z`` (D,) is contiguous and of g's type; ``coeff`` (N,) is
+    contiguous float32; ``m_g``, ``v_g`` and ``a`` are 0-d float32 tensors
+    on the same card.
     """
     global launches
     _check_operands("aircomp_fused", g, (("g", g), ("coeff", coeff), ("z", z),
@@ -123,14 +136,14 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
             f"aircomp_fused: shapes g {tuple(g.shape)}, coeff {tuple(coeff.shape)}, "
             f"z {tuple(z.shape)} and 0-d scalars expected"
         )
-    out = torch.empty(d, dtype=torch.float32, device=g.device)
+    out = torch.empty(d, dtype=g.dtype, device=g.device)
     ld = g.stride(0)
     vec = _vector_width(d, (ld,), g, z, out)
     threads, rows, blocks_x, _ = launch_geometry(1, d, vec)
     lib = _library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.aircomp_fused_f32(
+        err = getattr(lib, f"aircomp_fused_{_ENTRY_TYPE[g.dtype]}")(
             g.data_ptr(), ld, coeff.data_ptr(), z.data_ptr(), m_g.data_ptr(),
             v_g.data_ptr(), a.data_ptr(), out.data_ptr(), n, d, vec, rows, threads,
             blocks_x, stream,
@@ -141,13 +154,13 @@ def aircomp_fused(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
 
 
 def aircomp_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
-    """Launch the trial-batched fused Eq. 5→8 kernel → ŷ (B, D) float32.
+    """Launch the trial-batched fused Eq. 5→8 kernel → ŷ (B, D) in g's type.
 
-    ``g`` is (B, N, D) float32 with unit stride along D (any row and trial
-    stride: a strided view is read in place); ``z`` is (B, D) with unit
-    stride along D; ``coeff`` (B, N) and the scalars ``m_g``, ``v_g``, ``a``
-    (B,) are contiguous float32, each trial with its own values. One launch
-    serves every trial.
+    ``g`` is (B, N, D) float32 or bfloat16 with unit stride along D (any row
+    and trial stride: a strided view is read in place); ``z`` is (B, D) of
+    g's type with unit stride along D; ``coeff`` (B, N) and the scalars
+    ``m_g``, ``v_g``, ``a`` (B,) are contiguous float32, each trial with its
+    own values. One launch serves every trial.
     """
     global batch_launches
     _check_operands("aircomp_fused_batch", g, (
@@ -171,7 +184,7 @@ def aircomp_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
             "aircomp_fused_batch: g and z need unit stride along D; coeff and the "
             "scalars must be contiguous"
         )
-    out = torch.empty(bt, d, dtype=torch.float32, device=g.device)
+    out = torch.empty(bt, d, dtype=g.dtype, device=g.device)
     # a stride over an axis of length 1 is never stepped: pass 0
     g_trial = g.stride(0) if bt > 1 else 0
     g_row = g.stride(1) if n > 1 else 0
@@ -181,7 +194,7 @@ def aircomp_fused_batch(g, coeff, m_g, v_g, a, z) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.aircomp_fused_batch_f32(
+        err = getattr(lib, f"aircomp_fused_batch_{_ENTRY_TYPE[g.dtype]}")(
             g.data_ptr(), g_trial, g_row, coeff.data_ptr(), z.data_ptr(), z_trial,
             m_g.data_ptr(), v_g.data_ptr(), a.data_ptr(), out.data_ptr(), d, bt, n, d,
             vec, rows, threads, blocks_x, blocks_y, stream,

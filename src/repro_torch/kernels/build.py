@@ -4,7 +4,10 @@ Every kernel source (``kernels/<name>/csrc/<name>.cu``) has a plain C
 interface and becomes one shared library, compiled for ``sm_90a`` at first
 use under ``build/`` beside its kernel module (ignored by git) and cached
 there by a hash of the source and the flags. Nothing here runs at import,
-so the CPU tests import every kernel module without ``nvcc``.
+so the CPU tests import every kernel module without ``nvcc``. Each ``nvcc``
+run is a ``kernels.nvcc`` span (``repro_torch.obs``): its registry count,
+``span.kernels.nvcc.count``, is what a lattice run reports as its
+``compile_delta``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from repro_torch.obs.spans import span
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -48,8 +53,9 @@ def build_library(source: Path, flags: tuple = NVCC_FLAGS) -> BuildInfo:
     os.close(fd)
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *flags, "-o", tmp, str(source)],
-                          capture_output=True, text=True)
+    with span("kernels.nvcc", source=source.name):
+        proc = subprocess.run([nvcc, *flags, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)

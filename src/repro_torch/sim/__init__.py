@@ -1,9 +1,18 @@
-"""Port of ``repro.sim``: channel processes, model tasks, the round engine
-and the scenario lattice. The exports are the reference's names that are
-ported so far (ROADMAP queue A lists the rest: the resilience, multi-host
-and compile-cache modules)."""
+"""Port of ``repro.sim``: channel processes, model tasks, the round engine,
+the scenario lattice and its checkpointed, sharded sweeps. The exports are
+the reference's names that are ported so far (ROADMAP queue A lists the
+rest: the multi-host, mesh and compile-cache modules), and
+``shard_bounds``."""
 from repro_torch.sim.engine import FUSED_ALGORITHM, FUSED_POLICY, SimEngine, SimState
 from repro_torch.sim.lattice import LatticeRecords, LatticeSpec, run_lattice
+from repro_torch.sim.resilience import (
+    CheckpointConfig,
+    latest_checkpoint,
+    merge_shards,
+    run_lattice_checkpointed,
+    run_worker_shard,
+    shard_bounds,
+)
 from repro_torch.sim.scenario import (
     CHANNEL_SCENARIOS,
     PARTITIONS,
@@ -14,6 +23,7 @@ from repro_torch.sim.tasks import TASKS, EvalRecord, ModelTask, TaskEval, make_m
 
 __all__ = [
     "CHANNEL_SCENARIOS",
+    "CheckpointConfig",
     "EvalRecord",
     "FUSED_ALGORITHM",
     "FUSED_POLICY",
@@ -25,8 +35,13 @@ __all__ = [
     "SimState",
     "TASKS",
     "TaskEval",
+    "latest_checkpoint",
     "make_channel_process",
     "make_model_task",
     "make_partition",
+    "merge_shards",
     "run_lattice",
+    "run_lattice_checkpointed",
+    "run_worker_shard",
+    "shard_bounds",
 ]

@@ -15,16 +15,24 @@ becomes one ``torch.Generator`` on the run's device, seeded with the seed:
 the channel process draws its initial state from it, then every round draws,
 in order, the channel process's step (``h`` and the availability
 ``avail``), the mini-batch rows (K of them for ``cfg.local_steps`` = K),
-the sampler's input and the receiver noise ``z`` (:meth:`SimEngine.draws`).
-The numbers differ from the reference's threefry streams; the law is the
-same.
+the sampler's input and the receiver noise ``z``. The numbers differ from
+the reference's threefry streams; the law is the same.
+
+A seed's stream is a value, as the reference's key chain is: a
+:class:`DrawStream` holds the generator's state (``get_state()``) and the
+channel process's state tensors, :meth:`SimEngine.draw_stream` makes it and
+:meth:`SimEngine.next_draws` advances it one round, returning the round's
+:class:`RoundDraws` and the stream after them. So a run's carry
+(:class:`SimState`, :class:`LatticeState`) is tensors only and can be
+written to an npz and read back (``repro_torch.sim.resilience``);
+:meth:`SimEngine.draws` iterates one stream.
 
 In a lattice every cell of seed s starts from ``PRNGKey(s)`` in the
 reference, so all the policies, noise levels and alphas at one seed see the
 same channel, mini-batches, sampler draws and noise (common random numbers,
 which the policy comparison rests on). The port keeps that with one
-:meth:`SimEngine.draws` stream per distinct seed: each round the per-seed
-draws are stacked and gathered to the cells by seed index.
+:class:`DrawStream` per distinct seed: each round the per-seed draws are
+stacked and gathered to the cells by seed index.
 
 Each run carries its per-device local-algorithm state
 (:class:`~repro_torch.core.local_update.AlgState`) from round to round. A
@@ -37,7 +45,20 @@ A :class:`~repro_torch.sim.tasks.TaskEval` ``eval_fn`` fills the records'
 rounds that do not evaluate); any other ``eval_fn`` leaves it ``None``.
 Under ``cfg.on_nonfinite="skip"`` a round whose ŷ is not finite keeps the
 params and AlgState it started from (per cell in a lattice) and the records'
-``health`` subtree flags it; the draws advance as usual.
+``health`` subtree flags it; the draws advance as usual. With
+``obs=ObsConfig(diagnostics=True)`` every round also computes the
+:class:`~repro_torch.core.metrics.RoundDiagnostics` taps, which fill the
+records' ``diag`` subtree (``None`` when off, and then no round issues an
+extra op).
+
+Observability (``repro_torch.obs``): a lattice run is a ``lattice.dispatch``
+span, wrapped in ``maybe_profile("lattice")`` (a ``torch.profiler`` capture
+under ``REPRO_OBS_PROFILE=1``), and counts ``engine.lattice_runs`` in the
+registry. The port traces and compiles no program, so where the
+reference's ``lattice.run`` events report re-traces and compiles,
+``trace_delta`` and ``engine_compiles`` are 0 and ``compile_delta`` counts
+the ``nvcc`` builds of kernels (``span.kernels.nvcc.count``) made during
+the call, 0 on a warm call.
 
 Nothing reads a value back to the host inside a round. ``run_with_history``
 keeps the per-round metrics on the device until an eval boundary (or the
@@ -54,13 +75,17 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.local_update import (
     ALGORITHMS, AlgState, init_state, minibatch_indices,
 )
-from repro_torch.core.metrics import RoundHealth
+from repro_torch.core.metrics import RoundDiagnostics, RoundHealth
 from repro_torch.core.pofl import (
     FUSED_POLICY, DeviceData, History, POFLConfig, round_algorithm,
     round_algorithm_cells, sampler_draw,
 )
 from repro_torch.device import resolve_device
 from repro_torch.flatten_util import tree_leaves, tree_map
+from repro_torch.obs.config import DEFAULT_OBS, ObsConfig
+from repro_torch.obs.profile import maybe_profile
+from repro_torch.obs.registry import counter_add
+from repro_torch.obs.spans import span
 from repro_torch.sim.scenario import make_channel_process
 from repro_torch.sim.tasks import EvalRecord, TaskEval, zero_eval_record
 
@@ -70,20 +95,28 @@ from repro_torch.sim.tasks import EvalRecord, TaskEval, zero_eval_record
 FUSED_ALGORITHM = "__fused__"
 
 
+class DrawStream(NamedTuple):
+    """One seed's draws as a value (:meth:`SimEngine.draw_stream`,
+    :meth:`SimEngine.next_draws`): the generator's state and the channel
+    process's state, the reference's key chain and ``chan`` carry."""
+
+    rng: torch.Tensor  # torch.Generator.get_state(): uint8, on the CPU
+    chan: Any          # the channel process's state: a tuple of tensors
+
+
 class SimState(NamedTuple):
     """What a run carries from round to round (the reference's scan carry).
 
     ``key`` is the port's counterpart of the reference's PRNG chain: the
-    seed's draw stream (:meth:`SimEngine.draws`), which makes every round's
-    random inputs and steps the channel process on them, so it holds the
-    process state as well; ``chan`` is ``None``. ``alg`` is the per-device
-    local-algorithm state (:class:`~repro_torch.core.local_update.AlgState`),
-    ``None`` for a stateless algorithm.
+    seed's :class:`DrawStream`, which holds the channel process's state as
+    well; ``chan`` is ``None``. ``alg`` is the per-device local-algorithm
+    state (:class:`~repro_torch.core.local_update.AlgState`), ``None`` for a
+    stateless algorithm.
     """
 
     params: Any       # model tree
-    key: Any          # the seed's draw stream
-    chan: Any         # None: the draw stream holds the channel-process state
+    key: Any          # the seed's DrawStream
+    chan: Any         # None: the DrawStream holds the channel-process state
     alg: Any = None   # AlgState, or None (stateless)
 
 
@@ -94,8 +127,9 @@ class RoundRecord(NamedTuple):
     when the engine's ``eval_fn`` is a ``TaskEval``, else ``None``.
     ``health`` is the quarantine's
     :class:`~repro_torch.core.metrics.RoundHealth` under
-    ``cfg.on_nonfinite="skip"``, else ``None``. ``diag`` (the reference's
-    diagnostics taps, ROADMAP queue A item 16) is always ``None``.
+    ``cfg.on_nonfinite="skip"``, else ``None``. ``diag`` is the
+    :class:`~repro_torch.core.metrics.RoundDiagnostics` taps under
+    ``ObsConfig(diagnostics=True)``, else ``None``.
     """
 
     e_com: torch.Tensor        # Eq. 15 closed-form communication distortion
@@ -114,10 +148,12 @@ RECORD_SCALARS = ("e_com", "e_var", "grad_norm", "n_scheduled", "loss", "acc")
 
 
 class LatticeState(NamedTuple):
-    """What a lattice run carries from round to round (:meth:`SimEngine.lattice_round`)."""
+    """What a lattice run carries from round to round
+    (:meth:`SimEngine.lattice_round`): tensors only, so it can be written
+    to an npz and read back (``repro_torch.sim.resilience``)."""
 
     params: Any                  # each leaf with a leading (B,) cell axis
-    streams: list                # one SimEngine.draws iterator per distinct seed
+    streams: list                # one DrawStream per distinct seed
     seed_idx: torch.Tensor       # (B,) each cell's index into the streams
     noise: torch.Tensor          # (B,) σ_z² per cell
     alpha: torch.Tensor          # (B,) α per cell
@@ -161,6 +197,10 @@ class SimEngine:
         the records' ``eval`` subtree.
       device:  where the run lives; the CUDA card by default, and with no
         card and no ``device`` given the engine raises.
+      obs:     :class:`~repro_torch.obs.config.ObsConfig`;
+        ``diagnostics=True`` computes the taps every round and fills the
+        records' ``diag``. ``run_with_history`` computes them too and, as
+        in the reference, its ``History`` does not carry them.
     """
 
     def __init__(
@@ -173,8 +213,10 @@ class SimEngine:
         scenario_params: dict | None = None,
         eval_fn: Callable | None = None,
         device=None,
+        obs: ObsConfig | None = None,
     ):
         self.device = resolve_device(device)
+        self.obs = obs or DEFAULT_OBS
         if cfg.local_algorithm not in ALGORITHMS + (FUSED_ALGORITHM,):
             raise ValueError(
                 f"unknown local_algorithm {cfg.local_algorithm!r}; choose from {ALGORITHMS}"
@@ -198,24 +240,43 @@ class SimEngine:
             scenario, self.channel_cfg, **(scenario_params or {}))
         self.eval_fn = eval_fn
         self.task_eval = eval_fn if isinstance(eval_fn, TaskEval) else None
+        # the generator every stream's round runs on, its state set from the
+        # stream first (a stream's state is a value, never this object)
+        self._gen = torch.Generator(device=self.device)
 
-    def draws(self, seed: int, dim: int) -> Iterator[RoundDraws]:
-        """The run's random inputs, round after round (the key discipline)."""
+    def draw_stream(self, seed: int) -> DrawStream:
+        """Seed ``seed``'s stream before its first round: the generator
+        seeded with it, after the channel process drew its initial state."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         chan = self.process.init(gen)
+        return DrawStream(rng=gen.get_state(), chan=chan)
+
+    def next_draws(self, stream: DrawStream, dim: int) -> tuple[DrawStream, RoundDraws]:
+        """One round of ``stream`` (the key discipline) → ``(stream after
+        it, the round's draws)``; ``dim`` is the size of the noise ``z``."""
+        gen = self._gen
+        gen.set_state(stream.rng)
+        chan, h, avail = self.process.step(stream.chan, self.process.draw(gen))
         k_steps = self.cfg.local_steps
+        rows = [minibatch_indices(self.data, self.cfg.batch_size, gen)
+                for _ in range(k_steps)]
+        draws = RoundDraws(
+            h=h,
+            batch_idx=rows[0] if k_steps == 1 else torch.stack(rows),
+            sched=sampler_draw(self.cfg, gen),
+            z=torch.randn(dim, generator=gen, device=self.device),
+            avail=avail,
+        )
+        return DrawStream(rng=gen.get_state(), chan=chan), draws
+
+    def draws(self, seed: int, dim: int) -> Iterator[RoundDraws]:
+        """The run's random inputs, round after round: seed ``seed``'s
+        stream advanced by :meth:`next_draws`."""
+        stream = self.draw_stream(seed)
         while True:
-            chan, h, avail = self.process.step(chan, self.process.draw(gen))
-            rows = [minibatch_indices(self.data, self.cfg.batch_size, gen)
-                    for _ in range(k_steps)]
-            yield RoundDraws(
-                h=h,
-                batch_idx=rows[0] if k_steps == 1 else torch.stack(rows),
-                sched=sampler_draw(self.cfg, gen),
-                z=torch.randn(dim, generator=gen, device=self.device),
-                avail=avail,
-            )
+            stream, d = self.next_draws(stream, dim)
+            yield d
 
     def _avail(self, d: RoundDraws):
         """The round's availability mask, or ``None`` where the process
@@ -281,7 +342,7 @@ class SimEngine:
         dim = sum(p[0].numel() for p in tree_leaves(params))
         return LatticeState(
             params=params,
-            streams=[self.draws(s, dim) for s in distinct],
+            streams=[self.draw_stream(s) for s in distinct],
             seed_idx=torch.tensor([distinct.index(s) for s in seeds], device=dev),
             noise=torch.as_tensor(noise_b, dtype=torch.float32).to(dev),
             alpha=torch.as_tensor(alpha_b, dtype=torch.float32).to(dev),
@@ -291,26 +352,35 @@ class SimEngine:
             else torch.as_tensor(algorithm_b, dtype=torch.int64).to(dev),
         )
 
-    def lattice_round(self, state: LatticeState, t: int, do_eval: bool):
-        """Round ``t`` of every cell → ``(state', record)``, ``record`` the
-        (B,) tensors of :data:`RECORD_SCALARS`, the ``eval`` record
-        (``None`` unless ``eval_fn`` is a ``TaskEval``) and the ``health``
-        record (``None`` unless ``cfg.on_nonfinite`` is ``"skip"``). The cells of one
-        seed share that seed's draws. ``eval_fn`` runs on each cell's new
-        params when ``do_eval``; ``loss``/``acc`` are 0 otherwise. Under
-        ``pallas_fused`` one launch of the batch kernel aggregates the round.
-        Nothing is read back to the host."""
-        per_seed = [next(it) for it in state.streams]
+    def lattice_round(self, state: LatticeState, t: int, do_eval: bool,
+                      fault_b=None) -> tuple[LatticeState, RoundRecord]:
+        """Round ``t`` of every cell → ``(state', record)``, ``record`` a
+        :class:`RoundRecord` of (B,) tensors: its ``diag`` the taps under
+        ``ObsConfig(diagnostics=True)``, its ``eval`` an ``EvalRecord``
+        under a ``TaskEval`` and its ``health`` the quarantine's flags under
+        ``cfg.on_nonfinite="skip"`` (each ``None`` otherwise). The cells of
+        one seed share that seed's draws: each stream of ``state.streams``
+        advances one round (:meth:`next_draws`).
+        ``fault_b`` (B,) poisons a cell's ŷ at its round (-1 never fires).
+        ``eval_fn`` runs on each cell's new params when ``do_eval``;
+        ``loss``/``acc`` are 0 otherwise. Under ``pallas_fused`` one launch
+        of the batch kernel aggregates the round. Nothing is read back to
+        the host."""
+        dim = sum(p[0].numel() for p in tree_leaves(state.params))
+        streams, draws = zip(*(self.next_draws(s, dim) for s in state.streams))
+        state = state._replace(streams=list(streams))
         d = RoundDraws(*(
-            torch.stack(x).index_select(0, state.seed_idx) for x in zip(*per_seed)
+            torch.stack(x).index_select(0, state.seed_idx) for x in zip(*draws)
         ))
         params, alg, m = round_algorithm_cells(
             self.loss_fn, self.data, self.cfg, state.params, d.h, d.batch_idx, d.sched,
             d.z, t, state.noise, state.alpha, state.policy, avail_c=self._avail(d),
-            alg_state_c=state.alg, algorithm_id_c=state.algorithm,
+            alg_state_c=state.alg, algorithm_id_c=state.algorithm, fault_round_c=fault_b,
+            diagnostics=self.obs.diagnostics,
         )
         loss, acc, ev = self._eval(params, state.noise.shape[0], do_eval)
-        record = (m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc, ev, m.health)
+        record = RoundRecord(m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc,
+                             diag=m.diag, eval=ev, health=m.health)
         return state._replace(params=params, alg=alg), record
 
     def run_lattice_cells(
@@ -318,38 +388,53 @@ class SimEngine:
         algorithm_b=None,
     ) -> RoundRecord:
         """Every cell of a lattice, round by round → a :class:`RoundRecord`
-        of (B, T) tensors on the engine's device (its ``eval`` an
-        ``EvalRecord`` of them under a ``TaskEval``).
+        of (B, T) tensors on the engine's device (its ``diag``, ``eval`` and
+        ``health`` subtrees of them where :meth:`lattice_round` fills them).
 
         ``noise_b``, ``alpha_b``, ``seed_b``, ``policy_b`` (ids of
         ``scheduling.POLICY_IDS``) and, for an algorithm-fused engine,
         ``algorithm_b`` (ids of ``local_update.ALGORITHM_IDS``) are the
         flattened (B,) cell axes of a policy-fused engine. Every cell starts
         from ``params0``; ``do_eval`` flags the rounds after which
-        ``eval_fn`` runs (:meth:`lattice_round`). Under
-        ``cfg.on_nonfinite="skip"`` the record's ``health`` is a
-        ``RoundHealth`` of (B, T) flags.
+        ``eval_fn`` runs (:meth:`lattice_round`), all of them one
+        :meth:`run_lattice_chunk`.
         """
         state = self.lattice_start(params0, noise_b, alpha_b, seed_b, policy_b,
                                    algorithm_b)
-        rounds = []
-        for t, ev in zip(t_ints, do_eval):
-            state, record = self.lattice_round(state, int(t), bool(ev))
-            rounds.append(record)
+        counter_add("engine.lattice_runs")
+        return self.run_lattice_chunk(state, t_ints, do_eval)[1]
+
+    def run_lattice_chunk(self, state: LatticeState, t_ints, do_eval, fault_b=None,
+                          **span_fields) -> tuple[LatticeState, RoundRecord]:
+        """Rounds ``t_ints`` of every cell from ``state`` → ``(state after
+        them, RoundRecord of (B, len(t_ints)) tensors)``: the carry comes in
+        and goes out, so ``repro_torch.sim.resilience`` can persist it
+        between chunks. ``do_eval`` flags the rounds after which ``eval_fn``
+        runs, ``fault_b`` is :meth:`lattice_round`'s. The rounds run in a
+        ``lattice.dispatch`` span (host time: the rounds are issued, not
+        waited for; ``span_fields`` join its event) inside
+        ``maybe_profile("lattice")``."""
         cells = len(state.seed_idx)
-        skip = self.cfg.on_nonfinite == "skip"
-        if not rounds:
-            empty = torch.zeros(cells, 0, device=self.device)
-            ev = None if self.task_eval is None else zero_eval_record((cells, 0), self.device)
-            return RoundRecord(*(empty for _ in RECORD_SCALARS), eval=ev,
-                               health=RoundHealth(empty) if skip else None)
-        *scalars, evals, healths = zip(*rounds)
-        ev = None if self.task_eval is None else EvalRecord(
-            *(torch.stack(f, dim=1) for f in zip(*evals)))
-        health = RoundHealth(*(torch.stack(f, dim=1) for f in zip(*healths))) if skip \
-            else None
-        return RoundRecord(*(torch.stack(f, dim=1) for f in scalars), eval=ev,
-                           health=health)
+        rounds = []
+        with maybe_profile("lattice", self.device), span(
+            "lattice.dispatch", fused=True, cells=cells, **span_fields
+        ):
+            for t, ev in zip(t_ints, do_eval):
+                state, record = self.lattice_round(state, int(t), bool(ev), fault_b=fault_b)
+                rounds.append(record)
+        return state, stack_rounds(rounds) if rounds else self.empty_records(cells)
+
+    def empty_records(self, cells: int) -> RoundRecord:
+        """The (B, 0) records of a run of no round, with this engine's
+        subtrees."""
+        empty = torch.zeros(cells, 0, device=self.device)
+        return RoundRecord(
+            *(empty for _ in RECORD_SCALARS),
+            diag=RoundDiagnostics(*(empty for _ in RoundDiagnostics._fields))
+            if self.obs.diagnostics else None,
+            eval=None if self.task_eval is None
+            else zero_eval_record((cells, 0), self.device),
+            health=RoundHealth(empty) if self.cfg.on_nonfinite == "skip" else None)
 
     def run_with_history(
         self,
@@ -364,8 +449,8 @@ class SimEngine:
         ``eval_fn(params) -> (loss, acc)`` runs after round 0, every
         ``eval_every`` rounds and after the last round; those are the only
         points where values come back to the host. The run carries a
-        :class:`SimState`: the params, the seed's draw stream and the
-        local-algorithm state, which starts at zero. Under
+        :class:`SimState`: the params, the seed's :class:`DrawStream` and
+        the local-algorithm state, which starts at zero. Under
         ``cfg.on_nonfinite="skip"`` a round whose ŷ is not finite leaves
         the params and the state as they were, and its ``e_com``/``e_var``
         are recorded as computed.
@@ -385,15 +470,16 @@ class SimEngine:
 
         hist = History(loss=[], e_com=[], e_var=[], test_acc=[], test_round=[])
         e_com, e_var = [], []
-        state = SimState(params=params, key=self.draws(seed, dim), chan=None,
+        state = SimState(params=params, key=self.draw_stream(seed), chan=None,
                          alg=self._alg_state(dim))
         for t in range(n_rounds):
-            d = next(state.key)
+            key, d = self.next_draws(state.key, dim)
             params, alg, m = round_algorithm(
                 self.loss_fn, self.data, self.cfg, state.params,
                 d.h, d.batch_idx, d.sched, d.z, t, avail=self._avail(d), alg_state=state.alg,
+                diagnostics=self.obs.diagnostics,
             )
-            state = state._replace(params=params, alg=alg)
+            state = SimState(params=params, key=key, chan=None, alg=alg)
             e_com.append(m.e_com)
             e_var.append(m.e_var)
             if t in eval_ts or t == n_rounds - 1:
@@ -406,3 +492,20 @@ class SimEngine:
                 hist.test_acc.append(float(acc))
                 hist.test_round.append(t)
         return state.params, hist
+
+
+def zip_records(fn: Callable, *trees):
+    """``fn`` over the matching leaves of record trees of one structure (a
+    ``RoundRecord`` and its optional subtrees)."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(zip_records(fn, *f) for f in zip(*trees)))
+    return fn(*trees)
+
+
+def stack_rounds(rounds: list[RoundRecord]) -> RoundRecord:
+    """Per-round records of (B,) tensors → one record of (B, T) tensors,
+    its subtrees (``diag``, ``eval``, ``health``) stacked field by field."""
+    return zip_records(lambda *xs: torch.stack(xs, dim=1), *rounds)

@@ -21,9 +21,15 @@ reshape to the reference's ``(A, P, Nn, Na, Ns, T|E)`` grid.
 loops: one sub-lattice a policy (or an algorithm) on the same cell program,
 each from the same seeds' draw streams, stacked on its axis. The records
 stay on the device for the whole run and come to the host once, at the end.
+``obs=ObsConfig(diagnostics=True)`` adds the per-round taps
+(``LatticeRecords.diag``, a ``RoundDiagnostics`` of (A, P, Nn, Na, Ns, T)
+arrays); every run is a ``lattice.sweep`` span and emits one ``lattice.run``
+event per engine dispatch, and a run with the taps one
+``lattice.diagnostics`` event of their per-round means, as the reference's
+do (``repro_torch.obs``; what the events' fields mean in the port:
+``repro_torch.sim.engine``).
 
-A mesh and ``obs`` diagnostics raise ``NotImplementedError`` naming their
-ROADMAP item.
+A mesh raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,12 +41,14 @@ import torch
 
 from repro_torch.core import local_update, scheduling
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.metrics import RoundHealth
 from repro_torch.core.pofl import DeviceData, POFLConfig
+from repro_torch.obs.config import ObsConfig
+from repro_torch.obs.registry import metric_value
+from repro_torch.obs.sink import emit
+from repro_torch.obs.spans import span
 from repro_torch.sim.engine import (
-    FUSED_ALGORITHM, FUSED_POLICY, RECORD_SCALARS, SimEngine,
+    FUSED_ALGORITHM, FUSED_POLICY, RECORD_SCALARS, RoundRecord, SimEngine, zip_records,
 )
-from repro_torch.sim.tasks import EvalRecord
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +85,9 @@ class LatticeRecords(NamedTuple):
     ``(A, P, Nn, Na, Ns, E)`` arrays when the eval_fn is a ``TaskEval``,
     else ``None``; ``health`` a :class:`~repro_torch.core.metrics.RoundHealth`
     of ``(A, P, Nn, Na, Ns, T)`` flags under ``on_nonfinite="skip"``, else
-    ``None``; ``diag`` (ROADMAP queue A item 16) is always ``None``.
+    ``None``; ``diag`` a :class:`~repro_torch.core.metrics.RoundDiagnostics`
+    of ``(A, P, Nn, Na, Ns, T)`` taps under ``ObsConfig(diagnostics=True)``,
+    else ``None``.
     """
 
     axes: dict               # axis name -> coordinate list
@@ -88,7 +98,7 @@ class LatticeRecords(NamedTuple):
     loss: np.ndarray         # (A, P, Nn, Na, Ns, E)
     acc: np.ndarray          # (A, P, Nn, Na, Ns, E)
     eval_rounds: np.ndarray  # (E,)
-    diag: Any = None
+    diag: Any = None         # core.metrics.RoundDiagnostics of (A, P, Nn, Na, Ns, T), or None
     eval: Any = None         # tasks.EvalRecord of (A, P, Nn, Na, Ns, E), or None
     health: Any = None       # RoundHealth of (A, P, Nn, Na, Ns, T), or None
 
@@ -140,7 +150,7 @@ def run_lattice(
     mesh=None,
     fuse_policies: bool = True,
     fuse_algorithms: bool = True,
-    obs=None,
+    obs: ObsConfig | None = None,
     device=None,
 ) -> LatticeRecords:
     """Run every cell of ``spec`` → :class:`LatticeRecords` (numpy, on the host).
@@ -165,19 +175,24 @@ def run_lattice(
         False runs one sub-lattice an algorithm, each on the per-cell id
         dispatch of the fused batch (a constant algorithm id, the full
         AlgState). A one-algorithm spec keeps its static dispatch either way.
+      obs: ``ObsConfig(diagnostics=True)`` computes the per-round taps
+        (:class:`~repro_torch.core.metrics.RoundDiagnostics`) in every cell
+        and returns them as ``LatticeRecords.diag``; ``None``/default: the
+        rounds issue the ops and give the records they did before obs
+        existed. Every sweep also times itself (``span("lattice.sweep")``)
+        and emits one ``lattice.run`` event per engine dispatch when
+        ``REPRO_OBS_DIR`` is set.
       device: where the lattice runs; the CUDA card by default (no card and
         no ``device``: it raises).
 
     Each sub-lattice draws from the same seeds' streams as the fused batch,
-    so every cell consumes the same draws. ``mesh`` and ``obs`` are the
-    reference's options that are not ported; they raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    so every cell consumes the same draws. ``mesh`` is the reference's
+    option that is not ported; it raises ``NotImplementedError`` naming its
+    ROADMAP item.
     """
     base_cfg = base_cfg or POFLConfig(n_devices=data.n_devices)
     if mesh is not None:
         raise _unported("run_lattice over a mesh (cells or cells × model)", "12")
-    if obs is not None:
-        raise _unported("run_lattice(obs=...), the diagnostics taps", "6")
     algs = tuple(spec.algorithms)
     if not algs:
         raise ValueError("spec.algorithms must name at least one algorithm")
@@ -187,57 +202,138 @@ def run_lattice(
         base_cfg, policy=FUSED_POLICY, n_devices=data.n_devices,
         local_algorithm=FUSED_ALGORITHM if traced_algs else algs[0],
     )
-
+    do_eval, eval_rounds = eval_schedule(spec, eval_fn is not None)
     t_ints = np.arange(spec.n_rounds, dtype=np.int32)
-    if eval_fn is not None and spec.n_rounds:
-        do_eval = (t_ints % spec.eval_every == 0) | (t_ints == spec.n_rounds - 1)
-    else:
-        do_eval = np.zeros(spec.n_rounds, bool)
 
     engine = SimEngine(
         loss_fn, data, cfg, channel_cfg=channel_cfg, scenario=scenario,
-        scenario_params=scenario_params, eval_fn=eval_fn, device=device,
+        scenario_params=scenario_params, eval_fn=eval_fn, device=device, obs=obs,
     )
     pol_ids = [scheduling.policy_id(p) for p in spec.policies]
     alg_groups = [alg_ids] if fuse_algorithms or not traced_algs else [[a] for a in alg_ids]
     pol_groups = [pol_ids] if fuse_policies else [[p] for p in pol_ids]
     grid_tail = (len(spec.noise_powers), len(spec.alphas), len(spec.seeds), spec.n_rounds)
 
-    def sub_lattice(alg_group, pol_group) -> list[torch.Tensor]:
-        """One cell batch → its record fields, each (a, p, Nn, Na, Ns, T)."""
+    def sub_lattice(alg_group, pol_group) -> RoundRecord:
+        """One cell batch → its records, each leaf (a, p, Nn, Na, Ns, T),
+        and its ``lattice.run`` event."""
         axes = cell_axes(spec, alg_group, pol_group)
         if not traced_algs:
             axes["algorithm_b"] = None
+        warm, builds0 = metric_value("engine.lattice_runs") > 0, _nvcc_builds()
         recs = engine.run_lattice_cells(params0, t_ints.tolist(), do_eval.tolist(), **axes)
-        fields = [getattr(recs, f) for f in RECORD_SCALARS]
-        fields += [] if recs.eval is None else list(recs.eval)
-        fields += [] if recs.health is None else list(recs.health)
-        return [f.reshape(len(alg_group), len(pol_group), *grid_tail) for f in fields]
+        which = {}
+        if len(pol_groups) > 1:
+            which["policy"] = spec.policies[pol_ids.index(pol_group[0])]
+        if len(alg_groups) > 1:
+            which["algorithm"] = algs[alg_ids.index(alg_group[0])]
+        emit_run(spec, len(alg_group) * len(pol_group) * int(np.prod(grid_tail[:3])),
+                 len(alg_group), warm, _nvcc_builds() - builds0, fused=fuse_policies,
+                 **which)
+        return zip_records(lambda f: f.reshape(len(alg_group), len(pol_group), *grid_tail),
+                           recs)
 
-    blocks = [[sub_lattice(ag, pg) for pg in pol_groups] for ag in alg_groups]
-    # the sub-lattices stacked on their axes, then the one device → host
-    # transfer of the run
-    by_alg = [[torch.cat(f, dim=1) for f in zip(*row)] for row in blocks]
-    host = torch.stack([torch.cat(f, dim=0) for f in zip(*by_alg)]).cpu().numpy()
-    fields = dict(zip(RECORD_SCALARS, host))
+    with span("lattice.sweep", cells=spec.n_cells, fused=fuse_policies,
+              policies=len(spec.policies), algorithms=len(algs), multihost=False):
+        blocks = [[sub_lattice(ag, pg) for pg in pol_groups] for ag in alg_groups]
+        # the sub-lattices stacked on their axes, then the one device → host
+        # transfer of the run
+        by_alg = [zip_records(lambda *f: torch.cat(f, dim=1), *row) for row in blocks]
+        grid = records_to_host(zip_records(lambda *f: torch.cat(f, dim=0), *by_alg))
+    if grid.diag is not None:
+        emit_diagnostics(spec, grid.diag)
+    return assemble_records(spec, grid, do_eval, eval_rounds)
+
+
+def eval_schedule(spec: LatticeSpec, has_eval: bool) -> tuple[np.ndarray, np.ndarray]:
+    """``run_lattice``'s eval schedule → ``(do_eval (T,) bool, eval_rounds)``:
+    round 0, every ``eval_every`` rounds and the last (none without an
+    eval_fn)."""
+    t_ints = np.arange(spec.n_rounds, dtype=np.int32)
+    if has_eval and spec.n_rounds:
+        do_eval = (t_ints % spec.eval_every == 0) | (t_ints == spec.n_rounds - 1)
+    else:
+        do_eval = np.zeros(spec.n_rounds, bool)
+    return do_eval, t_ints[do_eval]
+
+
+def _nvcc_builds() -> int:
+    """The ``nvcc`` builds of kernels this process has made
+    (``repro_torch.kernels.build``)."""
+    return metric_value("span.kernels.nvcc.count")
+
+
+def emit_run(spec: LatticeSpec, cells: int, algorithms: int, warm: bool, builds: int,
+             **fields) -> None:
+    """One ``lattice.run`` event, the reference's fields: the port traces
+    and compiles no program (``trace_delta`` and ``engine_compiles`` 0),
+    and ``compile_delta`` is the kernels' ``nvcc`` builds during the call."""
+    emit("lattice", "lattice.run", cells=cells, n_rounds=spec.n_rounds, multihost=False,
+         algorithms=algorithms, warm=warm, trace_delta=0, compile_delta=builds,
+         engine_compiles=0, **fields)
+
+
+def records_to_host(recs: RoundRecord) -> RoundRecord:
+    """A record tree of device tensors of one shape → the same tree of
+    numpy arrays, in one device → host transfer."""
+    leaves: list = []
+    zip_records(leaves.append, recs)
+    host = iter(torch.stack(leaves).cpu().numpy())
+    return zip_records(lambda _: next(host), recs)
+
+
+def emit_diagnostics(spec: LatticeSpec, diag) -> None:
+    """The ``lattice.diagnostics`` event: each tap's mean over the cells of
+    a (…, T) ``RoundDiagnostics``, by round."""
+    emit("diag", "lattice.diagnostics", cells=spec.n_cells, n_rounds=spec.n_rounds,
+         taps={f: np.mean(a, axis=tuple(range(a.ndim - 1))).tolist()
+               for f, a in diag._asdict().items()})
+
+
+def assemble_records(spec: LatticeSpec, grid, do_eval: np.ndarray,
+                     eval_rounds: np.ndarray) -> LatticeRecords:
+    """A host ``RoundRecord`` whose leaves are (A, P, Nn, Na, Ns, T) arrays →
+    :class:`LatticeRecords`: ``loss``/``acc`` and the ``eval`` subtree
+    taken at the eval rounds."""
+    fields = {f: getattr(grid, f) for f in RECORD_SCALARS}
     for f in ("loss", "acc"):
         fields[f] = fields[f][..., do_eval]
-    rest = list(host[len(RECORD_SCALARS):])
-    ev = None
-    if engine.task_eval is not None:
-        ev = EvalRecord(*(a[..., do_eval] for a in rest[:len(EvalRecord._fields)]))
-        rest = rest[len(EvalRecord._fields):]
-    health = RoundHealth(*rest) if cfg.on_nonfinite == "skip" else None
+    ev = None if grid.eval is None else type(grid.eval)(*(a[..., do_eval] for a in grid.eval))
     return LatticeRecords(
         axes={
-            "algorithm": list(algs),
+            "algorithm": list(spec.algorithms),
             "policy": list(spec.policies),
             "noise_power": list(spec.noise_powers),
             "alpha": list(spec.alphas),
             "seed": list(spec.seeds),
         },
-        eval_rounds=t_ints[do_eval],
+        eval_rounds=eval_rounds,
+        diag=grid.diag,
         eval=ev,
-        health=health,
+        health=grid.health,
         **fields,
     )
+
+
+def fused_flat_grid(spec: LatticeSpec) -> tuple:
+    """The policy-fused flat cell grid of ``spec`` as ``(noise, alpha, seed,
+    policy_id, algorithm_id-or-None)`` (B,) arrays, in the order
+    ``run_lattice`` runs the cells (algorithm-major, then policy-major,
+    then noise × alpha × seed), so a flat index reshapes to the (A, P, Nn,
+    Na, Ns) grid; ``algorithm_id`` is ``None`` for a one-algorithm spec
+    (the static dispatch). ``sim.resilience`` shards THIS order."""
+    axes = cell_axes(spec, [local_update.algorithm_id(a) for a in spec.algorithms],
+                     [scheduling.policy_id(p) for p in spec.policies])
+    return (axes["noise_b"], axes["alpha_b"], axes["seed_b"], axes["policy_b"],
+            axes["algorithm_b"] if len(spec.algorithms) > 1 else None)
+
+
+def assemble_flat_fused(spec: LatticeSpec, flat_records, do_eval: np.ndarray,
+                        eval_rounds: np.ndarray) -> LatticeRecords:
+    """A host ``RoundRecord`` of (B, T) arrays in :func:`fused_flat_grid`
+    order (B = ``spec.n_cells``) → :class:`LatticeRecords`, as
+    ``run_lattice``'s fused path assembles them."""
+    shape = (len(spec.algorithms), len(spec.policies), len(spec.noise_powers),
+             len(spec.alphas), len(spec.seeds), spec.n_rounds)
+    return assemble_records(spec, zip_records(lambda a: np.asarray(a).reshape(shape),
+                                              flat_records), do_eval, eval_rounds)

@@ -7,8 +7,10 @@ packages as values.
 
 A lattice is replayed per seed: every cell of seed s starts from
 ``PRNGKey(s)`` in the reference, so the port's one draw stream per distinct
-seed (``SimEngine.draws``) is replaced by :func:`jax_engine_draws` of that
-seed, with the policy-fused sampler input (a ``cfg`` whose policy is
+seed (``SimEngine.draw_stream`` / ``SimEngine.next_draws``) is replaced by
+:func:`jax_engine_draws` of that seed (a stream is then the pair (seed,
+round) as a tensor, so a replayed run's carry is still tensors only and goes
+through a checkpoint), with the policy-fused sampler input (a ``cfg`` whose policy is
 ``FUSED_POLICY``), under any channel scenario: the reference process's
 ``h`` and ``avail``, and the K-way split of the mini-batch key.
 
@@ -40,6 +42,7 @@ from repro.core.channel import ChannelConfig as JChannelConfig
 from repro.data.partition import partition_dirichlet_sized, partition_noniid_shards
 from repro.data.synthetic import make_classification_dataset
 from repro.models import small as jsmall
+from repro.obs.config import ObsConfig as JObsConfig
 from repro.sim import lattice as jlattice
 from repro.sim import scenario as jscen
 from repro.sim.engine import FUSED_POLICY
@@ -49,6 +52,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import pofl as tpofl
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.models import small as tsmall
+from repro_torch.obs.config import ObsConfig
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import lattice as tlattice
 from repro_torch.sim.engine import RoundDraws
@@ -207,21 +211,40 @@ def reference_task(kind: str, n_devices: int, per_device: int, seed: int = 0):
             tsmall.cnn_loss, tsmall.cnn_logits, x_te, y_te)
 
 
+def replay_draws(monkeypatch, draws_of) -> None:
+    """The port engine's draw streams become the iterators ``draws_of(seed,
+    dim)`` gives: a stream is ``DrawStream(rng=tensor([seed, round]),
+    chan=())`` and each round's draws are the iterator's for that seed and
+    round (so a replayed carry is still tensors only)."""
+    runs: dict = {}  # (seed, dim) -> (the draws so far, their iterator)
+
+    def start(self, seed):
+        return tengine.DrawStream(rng=torch.tensor([seed, 0]), chan=())
+
+    def advance(self, stream, dim):
+        seed, rnd = (int(x) for x in stream.rng)
+        drawn, it = runs.setdefault((seed, dim), ([], draws_of(seed, dim)))
+        while len(drawn) <= rnd:
+            drawn.append(next(it))
+        return tengine.DrawStream(rng=torch.tensor([seed, rnd + 1]), chan=()), drawn[rnd]
+
+    monkeypatch.setattr(tengine.SimEngine, "draw_stream", start)
+    monkeypatch.setattr(tengine.SimEngine, "next_draws", advance)
+
+
 def replay_per_seed(monkeypatch, jcfg, jccfg, data, scenario="static_rayleigh",
                     scenario_params=None):
-    """The port engine's per-seed draw streams become the reference's."""
+    """The port engine's per-seed draw streams become the reference's (the
+    policy-fused sampler input)."""
     fused = dataclasses.replace(jcfg, policy=FUSED_POLICY)
-
-    def replay(self, seed, dim):
-        return jax_engine_draws(fused, jccfg, data, dim, seed, scenario, scenario_params)
-
-    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+    replay_draws(monkeypatch, lambda seed, dim: jax_engine_draws(
+        fused, jccfg, data, dim, seed, scenario, scenario_params))
 
 
 def assert_records_match(got, want, rtol: float = RTOL):
-    """Two ``LatticeRecords`` agree: axes, eval rounds, |S|, correct counts
-    and health flags exactly, accuracy to 1e-6, every float field per cell
-    within ``rtol`` of its scale."""
+    """Two ``LatticeRecords`` agree: axes, eval rounds, |S|, correct counts,
+    health flags and the diagnostics' eps clamps exactly, accuracy to 1e-6,
+    every float field (and tap) per cell within ``rtol`` of its scale."""
     assert got.axes == {k: list(v) for k, v in want.axes.items()}
     np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
     assert (got.eval is None) == (want.eval is None)
@@ -237,19 +260,29 @@ def assert_records_match(got, want, rtol: float = RTOL):
         np.testing.assert_array_equal(got.health.nonfinite, np.asarray(want.health.nonfinite))
     np.testing.assert_array_equal(got.n_scheduled, np.asarray(want.n_scheduled))
     np.testing.assert_allclose(got.acc, np.asarray(want.acc), rtol=0, atol=1e-6)
-    for f in ("e_com", "e_var", "grad_norm", "loss"):
-        g_, w_ = getattr(got, f), np.asarray(getattr(want, f))
-        assert g_.shape == w_.shape, f
+    floats = [(getattr(got, f), getattr(want, f)) for f in ("e_com", "e_var", "grad_norm",
+                                                             "loss")]
+    assert (got.diag is None) == (want.diag is None)
+    if want.diag is not None:
+        assert got.diag._fields == want.diag._fields
+        np.testing.assert_array_equal(got.diag.eps_clamps, np.asarray(want.diag.eps_clamps))
+        floats += [(getattr(got.diag, f), getattr(want.diag, f))
+                   for f in ("noise_eff", "sched_entropy", "grad_norm_spread")]
+    for g_, w_ in floats:
+        w_ = np.asarray(w_)
+        assert g_.shape == w_.shape
         for idx in np.ndindex(w_.shape[:-1]):  # each cell at its own scale
             assert_close(g_[idx], w_[idx], rtol)
 
 
 def lattice_case(monkeypatch, spec_kw, cfg_kw, n=8, per_device=10,
                  scenario="static_rayleigh", scenario_params=None, task_eval=False,
-                 sized=False, seeds=(0, 5), n_rounds=3) -> SimpleNamespace:
+                 sized=False, seeds=(0, 5), n_rounds=3, diagnostics=False) -> SimpleNamespace:
     """One logreg lattice for both packages → ``reference(**kw)`` and
-    ``port(**kw)``, each ``run_lattice`` with ``kw`` added; the port's draws
-    are the reference's, replayed per seed."""
+    ``port(**kw)``, each ``run_lattice`` with ``kw`` added (``diagnostics``:
+    both with ``ObsConfig(diagnostics=True)``); the port's draws are the
+    reference's, replayed per seed. ``spec``, ``cfg`` and ``data`` are the
+    port's."""
     monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
     data, jparams, jloss, jlogits, tloss, tlogits, x_te, y_te = reference_task(
         "logreg", n, per_device)
@@ -271,13 +304,17 @@ def lattice_case(monkeypatch, spec_kw, cfg_kw, n=8, per_device=10,
     reference = functools.partial(
         jlattice.run_lattice, jloss, data, jparams, jlattice.LatticeSpec(**spec),
         base_cfg=jcfg, eval_fn=jeval, channel_cfg=jccfg, scenario=scenario,
-        scenario_params=dict(scenario_params or {}))
+        scenario_params=dict(scenario_params or {}),
+        **({"obs": JObsConfig(diagnostics=True)} if diagnostics else {}))
+    port_kw = dict(
+        loss_fn=tloss, data=data_to_torch(data), params0=params_from_jax(jparams, device="cpu"),
+        spec=tlattice.LatticeSpec(**spec), base_cfg=cfg_to_torch(jcfg), eval_fn=teval,
+        channel_cfg=ChannelConfig(n_devices=n), scenario=scenario,
+        scenario_params=scenario_params)
     port = functools.partial(
-        tlattice.run_lattice, tloss, data_to_torch(data),
-        params_from_jax(jparams, device="cpu"), tlattice.LatticeSpec(**spec),
-        base_cfg=cfg_to_torch(jcfg), eval_fn=teval, channel_cfg=ChannelConfig(n_devices=n),
-        scenario=scenario, scenario_params=scenario_params, device="cpu")
-    return SimpleNamespace(reference=reference, port=port)
+        tlattice.run_lattice, **port_kw, device="cpu",
+        **({"obs": ObsConfig(diagnostics=True)} if diagnostics else {}))
+    return SimpleNamespace(reference=reference, port=port, port_kw=port_kw)
 
 
 def reference_and_port_lattice(monkeypatch, spec_kw, cfg_kw, **case_kw):

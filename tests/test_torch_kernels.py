@@ -21,6 +21,7 @@ from repro.kernels.aircomp.ref import aircomp_fused_batch_ref as jax_batch_ref
 from repro.kernels.aircomp.ref import aircomp_fused_ref as jax_ref
 from repro_torch.kernels.aircomp import kernel as tkernel
 from repro_torch.kernels.aircomp import ops as tops
+from repro_torch.kernels.aircomp.cases import BF16_REL, limit
 from repro_torch.kernels.aircomp.ref import aircomp_fused_batch_ref, aircomp_fused_ref
 
 
@@ -182,4 +183,78 @@ def test_launch_geometry_stays_within_the_kernel_launch_bounds():
     assert f"constexpr long long kMaxGridY = {tkernel.MAX_GRID_Y};" in src
     for vec in (1, 2, 4):
         for rows in (8, 16):
-            assert f"case {vec * 100 + rows}: launch<{vec}, {rows}>" in src
+            assert f"case {vec * 100 + rows}: launch<T, {vec}, {rows}>" in src
+
+
+# -- bfloat16 g and z (the reference kernels' other dtype) --------------------
+
+
+def _within(got: torch.Tensor, want, times: float = 1.0) -> None:
+    """``got`` (bf16) within ``times`` the bf16 limit of ``cases.limit``
+    of ``want`` (float32), element by element."""
+    want = t(want, torch.float32)
+    err = (got.float() - want).abs()
+    assert bool((err <= times * limit(want, torch.bfloat16)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("n,d,empty", [(4, 512, False), (30, 1024, False), (7, 700, False),
+                                       (1, 512, False), (30, 7850, False), (30, 7850, True)])
+def test_bf16_plain_version_matches_reference(n, d, empty):
+    """bf16 g and z: the port's plain version sums in float32 and stores ŷ
+    in bf16, as the reference's kernel does (``kernel.py:56-62``): within
+    one bf16 rounding (2^-8·|ref| + 1e-5·max(1, max|ref|)) of the
+    reference's oracle in float32 on the same bf16 inputs, and within two
+    of the reference's Pallas kernel (interpret mode), which rounds once
+    from its own float32 sum."""
+    g, coeff, m_g, v_g, a, z = _inputs(n, d, seed=n * 1000 + d + 1, empty=empty)
+    g, z = g.astype(jnp.bfloat16), z.astype(jnp.bfloat16)
+    want_kernel = jops.aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z,
+                                               use_pallas="interpret")
+    want_ref = jax_ref(g.astype(jnp.float32), coeff, m_g, v_g, a, z.astype(jnp.float32))
+    got = aircomp_fused_ref(t(g.astype(jnp.float32)).bfloat16(), t(coeff), t(m_g), t(v_g),
+                            t(a), t(z.astype(jnp.float32)).bfloat16())
+    assert got.dtype == torch.bfloat16 and want_kernel.dtype == jnp.bfloat16
+    assert torch.isfinite(got.float()).all()
+    _within(got, want_ref)
+    _within(got, np.asarray(want_kernel, np.float32), times=2.0)
+
+
+@pytest.mark.parametrize("b,n,d,empty_trial", [(3, 4, 700, None), (2, 30, 7850, 1),
+                                               (4, 5, 2 * 512 + 17, 2)])
+def test_bf16_batch_plain_version_matches_reference(b, n, d, empty_trial):
+    g, coeff, m_g, v_g, a, z = _batch_inputs(b, n, d, seed=b * 100 + d + 1,
+                                             empty_trial=empty_trial)
+    g, z = g.astype(jnp.bfloat16), z.astype(jnp.bfloat16)
+    want_kernel = jops.aircomp_aggregate_fused_batch(g, coeff, m_g, v_g, a, z,
+                                                     use_pallas="interpret")
+    want_ref = jax_batch_ref(g.astype(jnp.float32), coeff, m_g, v_g, a,
+                             z.astype(jnp.float32))
+    got = aircomp_fused_batch_ref(t(g.astype(jnp.float32)).bfloat16(), t(coeff), t(m_g),
+                                  t(v_g), t(a), t(z.astype(jnp.float32)).bfloat16())
+    assert got.shape == (b, d) and got.dtype == torch.bfloat16
+    for c in range(b):  # each trial at its own scale
+        _within(got[c], np.asarray(want_ref)[c])
+        _within(got[c], np.asarray(want_kernel, np.float32)[c], times=2.0)
+
+
+def test_bf16_limit_is_one_output_rounding():
+    """The bf16 limit holds a float32 value against itself rounded to bf16
+    once, with no room for a second rounding at the bottom of a binade."""
+    x = torch.tensor([1.0 + 2.0**-8 + 2.0**-10, 3.0, -1.5 - 2.0**-9, 1e-3], dtype=torch.float32)
+    rounded = x.bfloat16().float()
+    assert bool(((rounded - x).abs() <= limit(x, torch.bfloat16)).all())
+    assert BF16_REL * 1.0 < 2.0**-7  # one bf16 step at 1.0 exceeds the limit
+
+
+def test_kernel_wrappers_refuse_other_types():
+    """The wrappers take g and z in float32 or bfloat16, both the same, and
+    coeff and the scalars in float32; the check runs before any launch."""
+    g, coeff, m_g, v_g, a, z = (t(x) for x in _inputs(5, 300, seed=11))
+    for args in [(g.half(), coeff, m_g, v_g, a, z.half()),
+                 (g.bfloat16(), coeff, m_g, v_g, a, z),
+                 (g.bfloat16(), coeff.bfloat16(), m_g, v_g, a, z.bfloat16()),
+                 (g.double(), coeff, m_g, v_g, a, z.double())]:
+        with pytest.raises(ValueError, match="must be"):
+            tkernel.aircomp_fused(*args)
+        with pytest.raises(ValueError, match="must be"):
+            tkernel.aircomp_fused_batch(*(x[None] for x in args))

@@ -408,7 +408,6 @@ def test_run_lattice_without_eval_has_empty_eval_axis():
 
 UNPORTED = {
     "mesh": (dict(mesh=2), "item 12"),
-    "obs": (dict(obs=object()), "item 6"),
 }
 
 
@@ -430,6 +429,7 @@ FORMERLY_UNPORTED = {
     "local_steps": ({}, dict(local_steps=2), {}),
     "task_eval": ({}, {}, dict(task_eval=True)),
     "scenario": ({}, {}, dict(scenario="gauss_markov", scenario_params=dict(corr=0.8))),
+    "obs": ({}, {}, dict(diagnostics=True)),
 }
 
 
@@ -499,9 +499,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "new = {'repro_torch.obs.report', 'repro_torch.obs.profile',\n"
+        "       'repro_torch.checkpoint.npz', 'repro_torch.sim.resilience'}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(src)}, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59  # every module of the port is imported (59 in all)
+    assert int(out.stdout.strip()) >= 69  # every module of the port is imported (69 in all)

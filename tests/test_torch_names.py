@@ -44,10 +44,21 @@ from repro_torch.flatten_util import ravel_pytree
 from repro_torch.kernels.ssd import ssd_pallas
 from repro_torch.sim.engine import RoundDraws
 
+# the reference's repro.sim exports that come with the multi-host, mesh and
+# compile-cache modules (ROADMAP queue A12, A17)
+SIM_LATER = ("DistributedConfig", "cached_engine", "distributed_env", "enable_compile_cache",
+             "engine_cache_stats", "initialize_distributed", "lattice_compile_stats",
+             "lattice_memory_stats", "make_cell_mesh", "make_cell_model_mesh",
+             "make_global_cell_mesh", "make_global_cell_model_mesh", "mesh_spans_processes",
+             "persistent_cache_counters", "reset_engine_cache")
+
 # (reference package, port package, names the port does not have yet)
 PACKAGES = [("repro.core", "repro_torch.core", ()),
             ("repro.data", "repro_torch.data", ("make_token_dataset",)),
-            ("repro.kernels.ssd", "repro_torch.kernels.ssd", ())]
+            ("repro.kernels.ssd", "repro_torch.kernels.ssd", ()),
+            ("repro.obs", "repro_torch.obs", ()),
+            ("repro.checkpoint", "repro_torch.checkpoint", ()),
+            ("repro.sim", "repro_torch.sim", SIM_LATER)]
 
 
 @pytest.mark.parametrize("ref,port,later", PACKAGES)
@@ -56,6 +67,26 @@ def test_every_reference_export_imports_from_the_port(ref, port, later):
     names = [n for n in ref_mod.__all__ if n not in later]
     missing = [n for n in names if n not in port_mod.__all__ or not hasattr(port_mod, n)]
     assert not missing, missing
+
+
+def test_the_port_exports_the_slice_names():
+    """``repro_torch.core`` exports the diagnostics taps and
+    ``repro_torch.sim`` the checkpointed sweep's names, ``shard_bounds``
+    with them; the taps' and the records' schemas are the reference's."""
+    from repro.sim import resilience as jres
+    from repro_torch import core, sim
+    from repro_torch.obs import ObsConfig
+
+    assert core.RoundDiagnostics is tmetrics.RoundDiagnostics
+    assert core.diagnostics_taps is tmetrics.diagnostics_taps
+    assert tmetrics.RoundDiagnostics._fields == jmetrics.RoundDiagnostics._fields
+    assert {"run_lattice_checkpointed", "run_worker_shard", "merge_shards",
+            "shard_bounds", "CheckpointConfig", "latest_checkpoint"} <= set(sim.__all__)
+    assert sim.shard_bounds(7, 2, 3) == jres.shard_bounds(7, 2, 3)
+    assert [f.name for f in dataclasses.fields(sim.CheckpointConfig)] == [
+        f.name for f in dataclasses.fields(jres.CheckpointConfig)]
+    assert jengine.RoundRecord._fields == sim.engine.RoundRecord._fields
+    assert ObsConfig() == ObsConfig(diagnostics=False)
 
 
 def test_named_imports_and_schemas_match_the_reference():

@@ -18,7 +18,7 @@ import pytest
 import torch
 from _torch_parity import (
     assert_close, cfg_to_torch, data_to_torch, jax_batch_idx, jax_batch_rows,
-    jax_engine_draws, jax_noise, jax_sched_draw, reference_task, t,
+    jax_engine_draws, jax_noise, jax_sched_draw, reference_task, replay_draws, t,
 )
 from jax.flatten_util import ravel_pytree as jax_ravel
 
@@ -235,10 +235,8 @@ def test_run_with_history_under_scenarios_matches_reference(scenario, params, al
     ).run_with_history(jparams, 5, eval_fn=JTaskEval(jlogits, x_te, y_te, n_valid=50),
                        eval_every=2)
 
-    def replay(self, seed, dim):
-        return jax_engine_draws(jcfg, jccfg, data, dim, seed, scenario, params)
-
-    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+    replay_draws(monkeypatch, lambda seed, dim: jax_engine_draws(
+        jcfg, jccfg, data, dim, seed, scenario, params))
     engine = tengine.SimEngine(tloss, data_to_torch(data), cfg_to_torch(jcfg),
                                channel_cfg=ChannelConfig(n_devices=8, noise_power=1e-10),
                                scenario=scenario, scenario_params=params, device="cpu")
@@ -273,10 +271,7 @@ def test_run_pofl_trajectory_matches_reference(kind, backend, n_devices, per_dev
         eval_fn=jsmall.make_eval_fn(jlogits, jloss, x_te, y_te),
     )
 
-    def replay(self, seed, dim):
-        return jax_engine_draws(jcfg, jccfg, data, dim, seed)
-
-    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+    replay_draws(monkeypatch, lambda seed, dim: jax_engine_draws(jcfg, jccfg, data, dim, seed))
     got_params, got = tpofl.run_pofl(
         tloss, params_from_jax(jparams, device="cpu"), data_to_torch(data),
         cfg_to_torch(jcfg), rounds, eval_every=2,

@@ -39,7 +39,8 @@ def test_k_step_state_is_the_state_a_lattice_round_stores(kind):
     state = engine.lattice_start(
         task.params0, noise_b=[1e-10] * 4, alpha_b=[0.1] * 4, seed_b=[0] * 4,
         policy_b=[policy_id("pofl")] * 4, algorithm_b=list(ALGORITHM_IDS.values()))
-    state = state._replace(alg=alg0, streams=[iter([tuple(draws)])])
+    state = state._replace(alg=alg0)
+    engine.next_draws = lambda stream, dim: (stream, draws)  # the draws above, once more
     state, _ = engine.lattice_round(state, 1, False)
     got = precision.k_step_state(task, cfg, draws.batch_idx, 1, alg0, torch.float32, "cpu")
     for f_round, f_helper in zip(state.alg, got):

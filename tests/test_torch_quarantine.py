@@ -24,7 +24,7 @@ import pytest
 import torch
 from _torch_parity import (
     assert_close, cfg_to_torch, data_to_torch, jax_batch_rows, jax_engine_draws, jax_noise,
-    jax_sched_draw, reference_task, replay_per_seed, t,
+    jax_sched_draw, reference_task, replay_draws, replay_per_seed, t,
 )
 from jax.flatten_util import ravel_pytree as jax_ravel
 
@@ -265,10 +265,7 @@ def test_run_with_history_skip_matches_reference(alg, k_steps, monkeypatch):
     want_params, want = jengine.SimEngine(jloss, data, jcfg, channel_cfg=jccfg) \
         .run_with_history(jparams, 6)
 
-    def replay(self, seed, dim):
-        return jax_engine_draws(jcfg, jccfg, data, dim, seed)
-
-    monkeypatch.setattr(tengine.SimEngine, "draws", replay)
+    replay_draws(monkeypatch, lambda seed, dim: jax_engine_draws(jcfg, jccfg, data, dim, seed))
     engine = tengine.SimEngine(tloss, data_to_torch(data), cfg_to_torch(jcfg),
                                channel_cfg=ChannelConfig(n_devices=N, noise_power=1e-6),
                                device="cpu")
