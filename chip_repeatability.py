@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
 """How far two runs of the port's CNN lattices repeat on one CUDA card.
 
-    python3 chip_repeatability.py
+    python3 chip_repeatability.py [scopes]
 
 With TF32 off, as in ``chip_smoke.py``:
 
   repeat     the CNN scenario lattice (``chip_smoke.py``'s
              ``scenario_lattice``: 24 cells, K = 2, 6 rounds) and the CNN
              lattice (phase ``lattice``: 15 cells, 10 rounds), each run twice
-             with cuDNN's default algorithms and twice with its
-             deterministic ones (``torch.backends.cudnn.deterministic``),
-             and the scenario lattice once more under
-             ``on_nonfinite="skip"`` in each mode
+             as the port runs by default (its local update's gradients under
+             cuDNN's deterministic algorithms) and twice with the
+             deterministic algorithms for the whole run
+             (``torch.backends.cudnn.deterministic``), and the scenario
+             lattice once more under ``on_nonfinite="skip"`` in each mode
   loop       the scenario lattice's per-algorithm loop
              (``fuse_algorithms=False``) against the fused grid, 3 rounds, in
              deterministic mode, and FedAvg alone (its static dispatch)
              against the fused grid's FedAvg cells
+
+  scopes     (alone with ``scopes``) which operation makes two runs differ:
+             the ops ``torch.use_deterministic_algorithms(True,
+             warn_only=True)`` warns of over one round of each CNN lattice,
+             then two 3-round runs of each CNN lattice with cuDNN's
+             deterministic algorithms on in one scope only (the convolution's
+             forward, its data gradient, its weight gradient, its whole
+             backward, the local update's gradients: the port's default, the
+             whole run), and the cost of the port's default, the backward
+             alone and the whole run against cuDNN's default algorithms
+             everywhere, in alternating turns: the CNN lattice, the CNN
+             scenario lattice and ``run_pofl`` CNN
 
 Each line gives the cell-rounds/s of its runs and, between two runs, over
 the cells finite in both: the largest relative difference (each field of
@@ -28,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import sys
+import time
 
 import numpy as np
 import torch
@@ -55,6 +69,124 @@ def compare(got, want, spec) -> dict:
             "by_round": per_round.tolist(), "first_round_that_differs": first}
 
 
+def scoped_conv(where: frozenset):
+    """The CNN's 3×3 convolution + ReLU with cuDNN's deterministic
+    algorithms on only in the passes named in ``where`` (``forward``,
+    ``data``: the input gradient, ``weight``: the weight gradient)."""
+    import torch.nn.functional as F
+
+    def det(name):
+        return smoke.cudnn_deterministic() if name in where else contextlib.nullcontext()
+
+    class Conv(torch.autograd.Function):
+        generate_vmap_rule = True
+
+        @staticmethod
+        def forward(x, w):
+            with det("forward"):
+                return F.conv2d(x, w, padding=1)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+
+        @staticmethod
+        def backward(ctx, gy):
+            x, w = ctx.saved_tensors
+            args = (gy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1)
+            with det("data"):
+                gx = torch.ops.aten.convolution_backward(*args, (True, False, False))[0]
+            with det("weight"):
+                gw = torch.ops.aten.convolution_backward(*args, (False, True, False))[1]
+            return gx, gw
+
+    def conv(x, p):
+        return F.relu(Conv.apply(x, p["w"].permute(3, 2, 0, 1)) + p["b"][:, None, None])
+
+    return conv
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """cuDNN's deterministic algorithms in the scope ``name`` only:
+    ``local_update`` is the port as it is (its local update's gradients in
+    that mode); every other scope turns that off first, so ``default`` is
+    cuDNN's default algorithms everywhere and ``split`` the same with the
+    backward as the two calls the pass scopes make it."""
+    from repro_torch.core import local_update
+    from repro_torch.models import small
+
+    passes = {"split": (), "forward": ("forward",), "data_grad": ("data",),
+              "weight_grad": ("weight",), "backward": ("data", "weight")}
+    conv, scoped = small._conv, local_update.cudnn_deterministic
+    if name != "local_update":
+        local_update.cudnn_deterministic = lambda device: contextlib.nullcontext()
+    if name in passes:
+        small._conv = scoped_conv(frozenset(passes[name]))
+    try:
+        with smoke.cudnn_deterministic() if name == "run" else contextlib.nullcontext():
+            yield
+    finally:
+        small._conv, local_update.cudnn_deterministic = conv, scoped
+
+
+def scopes(lattices, dev) -> None:
+    """The ``scopes`` lines (module docstring)."""
+    import warnings
+
+    from repro_torch.core.pofl import POFLConfig, run_pofl
+
+    for name, (task, spec, cfg, kw) in lattices.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                smoke.timed_lattice(task, dataclasses.replace(spec, n_rounds=1), cfg, **kw)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        smoke.emit("scopes_warnings", lattice=name,
+                   warnings=sorted({str(w.message).split("\n")[0] for w in caught}))
+    three = {name: (task, dataclasses.replace(spec, n_rounds=3), cfg, kw)
+             for name, (task, spec, cfg, kw) in lattices.items()}
+    for where in ("default", "split", "forward", "data_grad", "weight_grad", "backward",
+                  "local_update", "run"):
+        out = {}
+        for name, (task, spec, cfg, kw) in three.items():
+            with scope(where):
+                a, _ = smoke.timed_lattice(task, spec, cfg, **kw)
+                b, _ = smoke.timed_lattice(task, spec, cfg, **kw)
+            out[name] = compare(b, a, spec)
+        smoke.emit("scopes_repeat", scope=where, rounds=3,
+                   bitwise={k: v["max_rel_diff"] == 0.0 for k, v in out.items()}, **out)
+
+    cnn = lattices["cnn_lattice"][0]
+    pofl_cfg = POFLConfig(n_devices=smoke.N_DEVICES, n_scheduled=smoke.N_SCHEDULED,
+                          noise_power=1e-10, backend="pallas_fused")
+
+    def pofl_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pofl(cnn.loss_fn, cnn.params0, cnn.data, pofl_cfg, smoke.CNN_ROUNDS)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    modes = ("default", "local_update", "backward", "run")
+    rates = {m: {"cnn_lattice": [], "cnn_scenario_lattice": [], "run_pofl_cnn": []}
+             for m in modes}
+    for turn in range(4):
+        for m in modes if turn % 2 == 0 else modes[::-1]:
+            with scope(m):
+                for name, (task, spec, cfg, kw) in lattices.items():
+                    _, sec = smoke.timed_lattice(task, spec, cfg, **kw)
+                    rates[m][name].append(spec.n_cells * spec.n_rounds / sec)
+                rates[m]["run_pofl_cnn"].append(smoke.CNN_ROUNDS / pofl_run())
+    smoke.emit("scopes_cost", turns=4, order="alternating", units={
+        "cnn_lattice": "cell-rounds/s", "cnn_scenario_lattice": "cell-rounds/s",
+        "run_pofl_cnn": "rounds/s"}, rates=rates,
+        median_vs_default={m: {k: float(np.median(v) / np.median(rates["default"][k]))
+                               for k, v in r.items()} for m, r in rates.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_repeatability: no CUDA device is available", file=sys.stderr)
@@ -80,9 +212,12 @@ def main() -> int:
     }
     for task, spec, cfg, kw in lattices.values():  # first calls off the clock
         smoke.timed_lattice(task, dataclasses.replace(spec, n_rounds=1), cfg, **kw)
+    if sys.argv[1:] == ["scopes"]:
+        scopes(lattices, dev)
+        return 0
     for name, (task, spec, cfg, kw) in lattices.items():
         skip = name == "cnn_scenario_lattice"
-        for mode in ("default", "deterministic"):
+        for mode in ("port_default", "deterministic"):
             with smoke.cudnn_deterministic() if mode == "deterministic" else \
                     contextlib.nullcontext():
                 a, a_s = smoke.timed_lattice(task, spec, cfg, **kw)

@@ -89,9 +89,10 @@ non-zero exit and no result line:
              every round after a cell's first flagged round that is not
              flagged itself finite in every record; each cell's final params
              finite; one batch launch a round. Then a "propagate" and a
-             "skip" run with cuDNN's deterministic algorithms (with its
-             default ones two runs of one CNN lattice differ): the same
-             flags, and every cell that stays finite within 1e-4 of its
+             "skip" run with cuDNN's deterministic algorithms for the whole
+             run (the port's local update runs its gradients in that mode in
+             any case; with cuDNN's default ones two runs of one CNN lattice
+             differ): the same flags, and every cell that stays finite within 1e-4 of its
              "propagate" records, |S| equal. Then the (``channel``, seed 2)
              CNN cell of DIVERGING_CELLS through ``run_with_history`` under
              "skip": final params finite, one one-round launch a round
@@ -119,10 +120,9 @@ non-zero exit and no result line:
              ``torch.profiler`` trace names the batch kernel; one CNN
              lattice round's taps card vs CPU (≤ 1e-4, ``eps_clamps``
              equal); cell-rounds/s with and without the taps (CNN and
-             logreg lattices, cuDNN's default algorithms); a CNN
+             logreg lattices, as users run them); a CNN
              ``run_with_history`` with the taps (one one-round launch a round)
-  checkpoint ``run_lattice_checkpointed`` (chunks under cuDNN's deterministic
-             algorithms): the CNN lattice every 3 rounds, stopped after
+  checkpoint ``run_lattice_checkpointed``: the CNN lattice every 3 rounds, stopped after
              round 4 and resumed, bitwise the uninterrupted run, timed beside
              ``run_lattice``; the same with ``REPRO_FAULT_NAN`` on one cell
              under "skip" (only that flag new, every other cell bitwise); a
@@ -130,6 +130,26 @@ non-zero exit and no result line:
              K = 2, churn over Gauss-Markov) resumed bitwise; one npz write
              and read of the full-width CNN scenario lattice's carry (FedDyn
              h and SCAFFOLD c, 1.49 GB), timed, bitwise; the flag restored
+  mesh       the lattice over many ranks (one line a sub-run): (a) the CNN
+             lattice (15 cells, 3 rounds) with ``run_lattice(mesh=1)`` and
+             ``mesh=(1, 1)`` on a one-rank NCCL group, bitwise ``mesh=None``;
+             (b) ``python -m repro_torch.launch.distributed --procs 2
+             --workload parity --device cuda``: two ranks sharing the card
+             over gloo, the full-width CNN lattice as cells 8 + 7 (padded
+             to 16) held round by round from the unsharded run's state (≤
+             1e-5 relative, decisions exact), the launcher's logreg lattice
+             over the whole run against this process's unsharded run (≤
+             1e-5); (c) the same ranks as a (1, 2) model mesh: the CNN
+             lattice and ``round_algorithm``'s model-sharded rounds held the
+             same way, each rank's peak memory beside the unsharded run's;
+             (d) the supervised ``resilient`` workload killed at
+             ``REPRO_FAULT_KILL=1:2``: the merged npz bitwise a clean run
+             of the same shards (in this process), one
+             ``resilience.fault_kill``, ``supervisor.restart`` and
+             ``resilience.resume`` event each; (e) cell-rounds/s of one rank
+             against two ranks sharing the card. Counts zeroed after the
+             unsharded run of (a); each rank counts around its sharded calls
+             only; one launch a sharded round, or the phase fails
   serve      qwen2-0.5b at full width through ``repro_torch.launch.serve``:
              bf16 weights from the port's ``init_model``, batch 8, a 2,048-token
              prompt, ``Server.prefill`` (``model_prefill``), ``pad_cache`` to
@@ -231,6 +251,14 @@ SCENARIO_DIVERGING_CELLS = tuple(
 # they and the quarantine are held to their fused / "propagate" runs at
 # ROUND_TOL, the card's card-vs-CPU limit
 LOOP_ROUNDS = 3
+# the mesh phase: the CNN lattice cut to 3 rounds (in-process and on the
+# spawned ranks, round by round), the launcher's logreg parity lattice 4;
+# spawned ranks pay for a torch import and a CUDA context, so the phase is
+# cut in rounds, not in width
+MESH_ROUNDS, MESH_LOGREG_ROUNDS = 3, 4
+RESILIENT_ROUNDS = 6  # the supervised resilient sweep's rounds (checkpoints every 2)
+MESH_TOL = 1e-5  # a sharded round against the unsharded one (ROADMAP C7's rule)
+MESH_TIMEOUT = 300  # seconds a launcher's ranks get before they are killed
 # the serving path: qwen2-0.5b at full width
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
@@ -1237,13 +1265,10 @@ def cell_name(spec, cell) -> str:
 
 
 def cudnn_deterministic():
-    """cuDNN's deterministic algorithms inside the block (the port's scoped
-    switch, which ``run_lattice_checkpointed`` runs its chunks under). With
-    its default ones two runs of one CNN lattice on the card part from the
-    first rounds on, by percents after 6 rounds of the scenario lattice
-    (measured by ``chip_repeatability.py``), so a comparison of two runs is
-    made in this mode."""
-    from repro_torch.sim.resilience import cudnn_deterministic as scoped
+    """cuDNN's deterministic algorithms in the whole block (the port's
+    scope, ``repro_torch.device.cudnn_deterministic``, which its local
+    update runs every gradient under; so a run repeats without it too)."""
+    from repro_torch.device import cudnn_deterministic as scoped
 
     return scoped("cuda")
 
@@ -1653,7 +1678,7 @@ def obs_phase(dev, lattice_records) -> dict:
         faults.append(f"taps card vs CPU {parity}")
 
     rates = {}
-    for kind in ("cnn", "logreg"):  # cuDNN's default algorithms, as users run
+    for kind in ("cnn", "logreg"):  # as users run them (the port's deterministic gradients)
         kspec = lattice_spec(kind)
         runs = {}
         for name, obs in (("off", None), ("on", diag), ("on_2", diag), ("off_2", None)):
@@ -1830,6 +1855,193 @@ def checkpoint_phase(dev, lattice_records, scenario_records) -> dict:
     if faults or torch.backends.cudnn.deterministic:
         raise AssertionError(f"checkpoint: {faults}")
     return counts
+
+
+# -- the lattice over many ranks -------------------------------------------------
+
+
+def launch(args: list, timeout: float = MESH_TIMEOUT, **env) -> str:
+    """``python -m repro_torch.launch.distributed`` with ``args`` (its ranks
+    killed after ``timeout`` seconds, the launcher a minute later) → its
+    output; a failed launch ends the phase. The ranks run without TF32, as
+    this process does (``NVIDIA_TF32_OVERRIDE=0``: torch's default lets
+    cuDNN's convolutions use it)."""
+    import os
+
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.distributed", "--timeout", str(timeout),
+         *map(str, args)],
+        capture_output=True, text=True, cwd=ROOT, timeout=timeout + 60,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "NVIDIA_TF32_OVERRIDE": "0", **env})
+    if done.returncode != 0:
+        raise AssertionError(f"launch {args} failed (rc {done.returncode}):\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    return done.stdout
+
+
+def within(rounds: list, what: str) -> float:
+    """The largest relative difference of a list of per-round
+    ``launch.distributed._rel_diff``s; decisions must be equal in every
+    round and every difference within MESH_TOL."""
+    worst = 0.0
+    for r in rounds:
+        r = dict(r)
+        if not r.pop("decisions_equal"):
+            raise AssertionError(f"mesh {what}: decisions differ: {rounds}")
+        worst = max([worst, *r.values()])
+    if worst > MESH_TOL:
+        raise AssertionError(f"mesh {what}: {worst:.3g} > {MESH_TOL}: {rounds}")
+    return worst
+
+
+def mesh_phase(dev) -> dict:
+    """Phase ``mesh``: (a) the CNN lattice on a one-rank NCCL mesh, ``mesh=1``
+    and ``(1, 1)``, bitwise ``mesh=None``; (b, c) the launcher's ``parity``
+    workload on two ranks sharing the card over gloo: its logreg lattice
+    over the whole run against this process's unsharded run, and the
+    full-width CNN lattice (8 + 7 cells, and a (1, 2) model mesh with
+    ``round_algorithm``'s model-sharded rounds) round by round from the
+    unsharded state, each rank's peak memory in its sharded calls; (d) the
+    supervised ``resilient`` workload killed at ``REPRO_FAULT_KILL=1:2``,
+    merged bitwise to a clean run of the same shards in this process, one
+    ``resilience.fault_kill``, ``supervisor.restart`` and
+    ``resilience.resume`` event; (e) cell-rounds/s of one rank against two
+    sharing the card → the launch counts of kernels 1 and 2 on the sharded
+    paths only: (a)'s mesh runs, counted from zero after the unsharded run,
+    and each rank's sharded calls, counted around them (a rank's unsharded
+    twin rounds do not count). Each count must be one launch a sharded
+    round."""
+    import collections
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import (_RECORD_FIELDS, load_records, parity_records,
+                                                resilient_shard, resilient_spec)
+    from repro_torch.sim.multihost import ensure_process_group
+    from repro_torch.sim.resilience import merge_shards
+
+    task = lattice_tasks(dev)["cnn"]
+    spec = lattice_spec("cnn", n_rounds=MESH_ROUNDS)
+    cell_rounds = spec.n_cells * spec.n_rounds
+    ensure_process_group()
+    backend = dist.get_backend()
+    torch.cuda.reset_peak_memory_stats(dev)
+    want, none_s = timed_lattice(task, spec, lattice_cfg(), mesh=None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    zero_counts()  # just before the mesh path: the unsharded run above is not on it
+    # mesh=1 first: its call also makes the NCCL communicator, so (1, 1) is the warm rate
+    got = [(m, *timed_lattice(task, spec, lattice_cfg(), mesh=m)) for m in (1, (1, 1))]
+    launches = {k: read_counts()[k] for k in ("aircomp_fused", "aircomp_fused_batch")}
+    dist.destroy_process_group()
+    unequal = [f"{m}.{f}" for m, recs, _ in got for f in _RECORD_FIELDS
+               if not np.array_equal(getattr(recs, f), getattr(want, f))] + [
+        f"{m}.eval" for m, recs, _ in got
+        if not all(np.array_equal(a, b) for a, b in zip(recs.eval, want.eval))]
+    one_rank_launches = {"aircomp_fused": 0, "aircomp_fused_batch": len(got) * spec.n_rounds}
+    if backend != "nccl" or unequal or launches != one_rank_launches:
+        raise AssertionError(f"mesh one_rank: backend {backend}, differs in {unequal}, "
+                             f"launches {launches} (expected {one_rank_launches})")
+    rate = {name: cell_rounds / sec for name, (_, _, sec) in
+            zip(("mesh_1_first", "mesh_1x1"), got)}
+    emit("mesh", run="one_rank", backend=backend, cells=spec.n_cells, rounds=spec.n_rounds,
+         bitwise=True, cell_rounds_per_s={"mesh_none": cell_rounds / none_s, **rate},
+         launches=dict(launches), max_memory_allocated_unsharded=peak)
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "parity.npz")
+        wall0, t0 = time.time(), time.perf_counter()
+        launch(["--procs", 2, "--workload", "parity", "--device", "cuda", "--n-rounds",
+                MESH_LOGREG_ROUNDS, "--cnn-rounds", MESH_ROUNDS, "--out", out])
+        parity_s = time.perf_counter() - t0
+        recs, meta = load_records(out)
+    single = parity_records(MESH_LOGREG_ROUNDS, device=dev)
+    whole = {f: float(np.abs(getattr(recs, f) - getattr(single, f)).max()
+                      / max(float(np.abs(getattr(single, f)).max()), 1e-30))
+             for f in _RECORD_FIELDS if f != "n_scheduled"}
+    if not np.array_equal(recs.n_scheduled, single.n_scheduled) or \
+            max(whole.values()) > MESH_TOL or meta["backend"] != "gloo":
+        raise AssertionError(f"mesh logreg: backend {meta['backend']}, whole run {whole}")
+    # a rank's sharded calls: one batch launch a lattice round on its block,
+    # one one-round launch a model-sharded round_algorithm round
+    per_round = {"cells": {"aircomp_fused": 0, "aircomp_fused_batch": 1},
+                 "model": {"aircomp_fused": 0, "aircomp_fused_batch": 1},
+                 "round_algorithm": {"aircomp_fused": 1, "aircomp_fused_batch": 0}}
+    ranks = meta["per_rank"]
+    for r, mine in enumerate(ranks):
+        for part, one in per_round.items():
+            expected = {k: v * MESH_ROUNDS for k, v in one.items()}
+            if mine[part]["launches"] != expected:
+                raise AssertionError(f"mesh rank {r} {part}: launches "
+                                     f"{mine[part]['launches']}, expected {expected}")
+            for k in launches:
+                launches[k] += mine[part]["launches"][k]
+    cnn = meta["cnn"]
+    for name in ("cells", "model"):
+        emit("mesh", run=f"two_ranks_{name}", backend=meta["backend"],
+             mesh=[2] if name == "cells" else [1, 2], cells=spec.n_cells, rounds=MESH_ROUNDS,
+             tolerance=MESH_TOL,
+             cnn_rounds_from_state_max=within(cnn[name]["rounds_from_state"], f"cnn {name}"),
+             cnn_rounds_from_state=cnn[name]["rounds_from_state"],
+             round_algorithm_from_state_max=within(
+                 cnn["model"]["round_algorithm_from_state"], "round_algorithm")
+             if name == "model" else None,
+             logreg_rounds_from_state_max=within(
+                 meta["rounds_from_state" if name == "cells" else "model_rounds_from_state"],
+                 f"logreg {name}"),
+             logreg_whole_run=whole if name == "cells" else None,
+             sharded_by_rank=[r[name] for r in ranks],
+             round_algorithm_sharded_by_rank=[r["round_algorithm"] for r in ranks]
+             if name == "model" else None,
+             max_memory_allocated_unsharded=peak)
+    # the sharded rounds of both ranks, which share the card, over the slower
+    # rank's time; a rank's first round is its process's first convolution
+    # (cuDNN's start-up), so the rounds after it
+    warm = spec.n_cells * (MESH_ROUNDS - 1)
+    two_ranks = warm / max(sum(r["cells"]["seconds_by_call"][1:]) for r in ranks)
+    emit("mesh", run="rates", cells=spec.n_cells, rounds=MESH_ROUNDS,
+         cell_rounds_per_s_one_rank=rate["mesh_1x1"],
+         cell_rounds_per_s_two_ranks_one_card=two_ranks, ratio=two_ranks / rate["mesh_1x1"],
+         parity_launch_seconds=parity_s,
+         rank_reached_seconds=[{k: v - wall0 for k, v in r["stamps"].items()} for r in ranks])
+
+    with tempfile.TemporaryDirectory() as d:
+        sink = os.path.join(d, "obs")
+        os.makedirs(sink)
+        wall0, t0 = time.time(), time.perf_counter()
+        launch(["--procs", 2, "--workload", "resilient", "--device", "cuda",
+                "--checkpoint-every", 2, "--n-rounds", RESILIENT_ROUNDS,
+                "--checkpoint-dir", os.path.join(d, "killed"),
+                "--out", os.path.join(d, "killed.npz")],
+               REPRO_FAULT_KILL="1:2", REPRO_OBS_DIR=sink)
+        killed_s = time.perf_counter() - t0
+        killed, _ = load_records(os.path.join(d, "killed.npz"))
+        events = [json.loads(line) for p in Path(sink).glob("*.jsonl")
+                  for line in p.read_text().splitlines()]
+        t0 = time.perf_counter()
+        clean_dir = os.path.join(d, "clean")
+        for rank in range(2):  # the same shards, clean, one after the other
+            resilient_shard(rank, 2, RESILIENT_ROUNDS, clean_dir, 2, dev)
+        clean = merge_shards(resilient_spec(RESILIENT_ROUNDS),
+                             [os.path.join(clean_dir, f"shard-r{r}.npz") for r in range(2)])
+        clean_s = time.perf_counter() - t0
+    bitwise = killed.axes == clean.axes and all(
+        np.array_equal(getattr(killed, f), getattr(clean, f))
+        for f in _RECORD_FIELDS + ("eval_rounds",))
+    names = collections.Counter(e["name"] for e in events)
+    counted = {k: names[k] for k in ("resilience.fault_kill", "supervisor.restart",
+                                     "resilience.resume")}
+    spans = collections.defaultdict(list)  # a worker's first and last event, from the launch
+    for e in events:
+        spans[e["pid"]].append(e["ts"] - wall0)
+    emit("mesh", run="resilient", bitwise=bitwise, events=counted, killed_seconds=killed_s,
+         clean_in_process_seconds=clean_s,
+         worker_event_seconds=sorted([min(v), max(v)] for v in spans.values()))
+    if not bitwise or set(counted.values()) != {1}:
+        raise AssertionError(f"mesh resilient: bitwise {bitwise}, events {counted}")
+    emit("mesh", run="launches", launches=launches)
+    return launches
 
 
 # -- the flash-attention kernel --------------------------------------------------
@@ -2310,6 +2522,17 @@ def lm_kernel_entry(name, source, replaces, launches, errs, times, cases) -> dic
     }
 
 
+PHASE_SECONDS: dict = {}  # each step of main's, its seconds, for the ``total`` line
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its seconds kept under ``name`` in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2347,33 +2570,40 @@ def main() -> int:
          # the aircomp kernel's loads in flight a thread, from its SASS
          aircomp_loads_before_ffma=sass_load_runs(built["aircomp"].path))
 
-    errs = check_aircomp(kernel, aircomp_fused_ref, dev)
-    batch_errs = check_aircomp_batch(kernel, aircomp_fused_batch_ref, aircomp_fused_ref, dev)
-    times = time_aircomp(kernel, aircomp_fused_ref, dev)
-    batch_times = time_aircomp_batch(kernel, aircomp_fused_batch_ref, dev)
-    attn_errs = check_attention(attn_kernel, flash_attention_ref, dev)
-    attn_times = time_attention(attn_kernel, flash_attention_ref, dev)
-    ssd_errs = check_ssd(ssd_kernel, ssd_chunked_ref, dev)
-    ssd_times = time_ssd(ssd_kernel, ssd_chunked_ref, dev)
-    launches = main_path(dev)
-    no_sync(dev)
-    parity(dev)
-    breakdown(dev)
-    lattice_launches, lattice_records = lattice_path(dev)
-    diverging(dev, lattice_records)
-    lattice_no_sync(dev)
-    lattice_parity(dev)
-    lattice_breakdown(dev)
-    scenario_launches, scenario_records = scenario_lattice(dev)
-    scenario_diverging(dev, scenario_records)
-    scenario_parity(dev)
-    quarantine_launches = quarantine(dev, lattice_records, scenario_records)
-    loop_launches = lattice_loops(dev, lattice_records, scenario_records)
-    obs_launches = obs_phase(dev, lattice_records)
-    checkpoint_launches = checkpoint_phase(dev, lattice_records, scenario_records)
-    serve_launches = serving(dev, SERVE_ARCH, "serve", PARITY_BATCH, PARITY_PROMPT)
-    ssm_launches = serving(dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH, SSM_PARITY_PROMPT)
-    emit("total", seconds=time.perf_counter() - t_start)
+    step = timed_phase
+    errs = step("check_aircomp", check_aircomp, kernel, aircomp_fused_ref, dev)
+    batch_errs = step("check_aircomp_batch", check_aircomp_batch, kernel,
+                      aircomp_fused_batch_ref, aircomp_fused_ref, dev)
+    times = step("time_aircomp", time_aircomp, kernel, aircomp_fused_ref, dev)
+    batch_times = step("time_aircomp_batch", time_aircomp_batch, kernel,
+                       aircomp_fused_batch_ref, dev)
+    attn_errs = step("check_attention", check_attention, attn_kernel, flash_attention_ref, dev)
+    attn_times = step("time_attention", time_attention, attn_kernel, flash_attention_ref, dev)
+    ssd_errs = step("check_ssd", check_ssd, ssd_kernel, ssd_chunked_ref, dev)
+    ssd_times = step("time_ssd", time_ssd, ssd_kernel, ssd_chunked_ref, dev)
+    launches = step("main", main_path, dev)
+    step("no_sync", no_sync, dev)
+    step("parity", parity, dev)
+    step("breakdown", breakdown, dev)
+    lattice_launches, lattice_records = step("lattice", lattice_path, dev)
+    step("diverging", diverging, dev, lattice_records)
+    step("lattice_no_sync", lattice_no_sync, dev)
+    step("lattice_parity", lattice_parity, dev)
+    step("lattice_breakdown", lattice_breakdown, dev)
+    scenario_launches, scenario_records = step("scenario_lattice", scenario_lattice, dev)
+    step("scenario_diverging", scenario_diverging, dev, scenario_records)
+    step("scenario_parity", scenario_parity, dev)
+    quarantine_launches = step("quarantine", quarantine, dev, lattice_records, scenario_records)
+    loop_launches = step("lattice_loops", lattice_loops, dev, lattice_records, scenario_records)
+    obs_launches = step("obs", obs_phase, dev, lattice_records)
+    checkpoint_launches = step("checkpoint", checkpoint_phase, dev, lattice_records,
+                               scenario_records)
+    mesh_launches = step("mesh", mesh_phase, dev)
+    serve_launches = step("serve", serving, dev, SERVE_ARCH, "serve", PARITY_BATCH,
+                          PARITY_PROMPT)
+    ssm_launches = step("ssm_serve", serving, dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH,
+                        SSM_PARITY_PROMPT)
+    emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
         kernel_entry("aircomp_fused", "src/repro/kernels/aircomp/kernel.py:132",
@@ -2382,7 +2612,8 @@ def main() -> int:
                       "quarantine": quarantine_launches["aircomp_fused"],
                       "lattice_loops": loop_launches["aircomp_fused"],
                       "obs": obs_launches["aircomp_fused"],
-                      "checkpoint": checkpoint_launches["aircomp_fused"]},
+                      "checkpoint": checkpoint_launches["aircomp_fused"],
+                      "mesh": mesh_launches["aircomp_fused"]},
                      errs, times),
         kernel_entry("aircomp_fused_batch", "src/repro/kernels/aircomp/kernel.py:82",
                      {"lattice": lattice_launches["aircomp_fused_batch"],
@@ -2390,7 +2621,8 @@ def main() -> int:
                       "quarantine": quarantine_launches["aircomp_fused_batch"],
                       "lattice_loops": loop_launches["aircomp_fused_batch"],
                       "obs": obs_launches["aircomp_fused_batch"],
-                      "checkpoint": checkpoint_launches["aircomp_fused_batch"]},
+                      "checkpoint": checkpoint_launches["aircomp_fused_batch"],
+                      "mesh": mesh_launches["aircomp_fused_batch"]},
                      batch_errs, batch_times),
         lm_kernel_entry("flash_attention",
                         "src/repro_torch/kernels/attention/csrc/flash_attention.cu",

@@ -28,7 +28,9 @@ otherwise (:func:`minibatch_indices` draws each (N, B) from a
 ``torch.Generator``), so the reference's draws can be fed in. Step 0 takes
 every device's gradient at the shared weights w0; from step 1 on the
 weights differ per device and the gradient is a ``vmap`` of ``grad`` over
-(weights, features, labels) with the unravel inside.
+(weights, features, labels) with the unravel inside. On a card every
+gradient runs under cuDNN's deterministic algorithms
+(``repro_torch.device.cudnn_deterministic``), so a run repeats bitwise.
 :func:`local_update_stage_cells` is the same for every cell of a lattice
 round at once (a leading cell axis on everything).
 """
@@ -40,6 +42,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.func import grad, vmap
 
+from repro_torch.device import cudnn_deterministic
 from repro_torch.flatten_util import ravel_batched, ravel_pytree, tree_map
 
 # The reference's append-only id table: an algorithm's id is its index here.
@@ -112,7 +115,8 @@ def draw_minibatch(data, batch_idx: torch.Tensor):
 
 def _device_gradients(loss_fn: Callable, params, feats, labels) -> torch.Tensor:
     """vmap(grad) over the device axis at shared weights → flat (N, D)."""
-    grads = vmap(grad(loss_fn), in_dims=(None, 0, 0))(params, feats, labels)
+    with cudnn_deterministic(feats.device):
+        grads = vmap(grad(loss_fn), in_dims=(None, 0, 0))(params, feats, labels)
     return ravel_batched(grads)
 
 
@@ -122,7 +126,8 @@ def _device_gradients_at(loss_fn: Callable, unravel, w_flat, feats, labels) -> t
     def flat_loss(wf, x, y):
         return loss_fn(unravel(wf), x, y)
 
-    return vmap(grad(flat_loss))(w_flat, feats, labels)
+    with cudnn_deterministic(feats.device):
+        return vmap(grad(flat_loss))(w_flat, feats, labels)
 
 
 def local_gradient_stage(loss_fn: Callable, data, cfg, params, batch_idx) -> torch.Tensor:

@@ -36,6 +36,12 @@ AlgState (a value select per cell, never a branch on the host) and is
 flagged on ``metrics.health``; the draws advance as usual. ``fault_round``
 poisons ŷ with NaN at one round, the reference's fault-injection hook.
 
+``model_shard`` (a :class:`ModelShard`, which ``SimEngine`` builds for a
+``("cells", "model")`` mesh whose model axis has more than one rank) is
+the reference's D-sharded route: each model rank aggregates its own
+columns of the flat gradients, as the reference's ``shard_map`` blocks do
+(module :class:`ModelShard`).
+
 ``backend`` selects the aggregation:
 
   * ``jnp``          — the reference arithmetic in plain PyTorch (Eq. 16, or
@@ -56,6 +62,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch.func import vmap
 from torch.profiler import record_function
 
@@ -84,6 +92,114 @@ BACKENDS = tuple(b.value for b in AggregationBackend)
 # each cell carries its policy as an id, so the policy string is
 # deliberately not a real policy.
 FUSED_POLICY = "__fused__"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """Model-dimension sharding context for the round pipeline.
+
+    Built by ``repro_torch.sim.engine.SimEngine`` when its mesh (a
+    ``torch.distributed.device_mesh.DeviceMesh``) has a ``"model"`` axis of
+    more than one rank. Threaded into :func:`round_algorithm` or
+    :func:`round_algorithm_cells` it reroutes the D-elementwise hot path
+    over the model ranks:
+
+      * the flat (…, N, D) gradients are zero-padded to a multiple of
+        ``|model| · DEFAULT_TILE_D`` and each rank keeps its own contiguous
+        block of ``D_pad / |model|`` columns (:meth:`pad_features`);
+      * the Eq. 5 statistics M_i, V_i, ||g_i|| become (…, N)-sized partial
+        sums over the block, padding columns masked, ``all_reduce``d over
+        the model ranks (:func:`_model_sharded_local_stats`);
+      * the Eq. 5→8 combine runs on the rank's own (…, N, D_local) block
+        with no collective (under ``pallas_fused`` one launch of kernel 1 or
+        2 on the block), then ŷ is gathered over the model ranks
+        (:meth:`gather`) for the update; e_var's sum over D is a partial sum
+        ``all_reduce``d the same way.
+
+    Torch has no GSPMD: the local update's gradients are not sharded. Every
+    model rank computes the whole per-device gradient (and keeps the whole
+    params, which that needs) and then keeps its columns, so the model axis
+    shards the aggregation and the noise, not the local update's work or
+    memory. Scheduling, the channel, the draws (every model rank draws the
+    same full z and keeps its columns) and e_com's closed form over the TRUE
+    dim are untouched, and ``None``, the default everywhere, leaves the
+    round as it was.
+    """
+
+    mesh: Any          # DeviceMesh with a "model" axis of more than one rank
+    axis: str = "model"
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.mesh.size(self.mesh.mesh_dim_names.index(self.axis)))
+
+    @property
+    def index(self) -> int:
+        """This rank's place on the model axis: which block it holds."""
+        return int(self.mesh.get_local_rank(self.axis))
+
+    def padded_dim(self, dim: int) -> int:
+        """D rounded up so every model shard holds a whole number of the
+        reference's kernel tiles (``DEFAULT_TILE_D``)."""
+        from repro_torch.kernels.aircomp import DEFAULT_TILE_D  # late: kernels↔core
+
+        unit = self.n_shards * DEFAULT_TILE_D
+        return -(-dim // unit) * unit
+
+    def columns(self, dim: int) -> slice:
+        """This rank's columns of the padded flat dimension."""
+        d_local = self.padded_dim(dim) // self.n_shards
+        return slice(self.index * d_local, (self.index + 1) * d_local)
+
+    def pad_features(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """Zero-pad the trailing (flat-D) axis to :meth:`padded_dim` and keep
+        this rank's block of it (a view, unit stride along D)."""
+        d_pad = self.padded_dim(dim)
+        if d_pad != dim:
+            g = F.pad(g, (0, d_pad - dim))
+        return g[..., self.columns(dim)]
+
+    def leaf_sharding(self, shape) -> tuple:
+        """The reference's placement rule for a params leaf
+        (``repro_torch.launch.sharding.param_spec``: the last dim divisible
+        by |model| over ``"model"``, tiny leaves whole). The port keeps every
+        leaf whole on every model rank, since each rank's local update needs
+        the whole model; the rule says what a sharded store would hold."""
+        from repro_torch.launch.sharding import param_spec  # late: launch↔core
+
+        return param_spec(tuple(shape), self.mesh)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model ranks, in place."""
+        dist.all_reduce(x, group=self.mesh.get_group(self.axis))
+        return x
+
+    def gather(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's (…, D_local) block → the padded (…, D_pad) whole on
+        every model rank: each rank writes its block into zeros and the
+        ranks sum them, exactly, in one ``all_reduce`` (gloo moves CUDA
+        tensors for it, as for NCCL)."""
+        full = block.new_zeros(block.shape[:-1] + (self.padded_dim(dim),))
+        full[..., self.columns(dim)] = block
+        return self.all_reduce(full)
+
+
+def _model_sharded_local_stats(ms: ModelShard, g_pad: torch.Tensor,
+                               dim: int) -> aircomp.GradStats:
+    """Step-3 statistics over this rank's (…, N, D_local) block: each rank
+    reduces its own columns and only (…, N)-sized partial sums cross the
+    model axis (Σ g and Σ g² together, then Σ (g − M)²). The zero-padding
+    columns are masked out of every sum, so the values match
+    :func:`aircomp.local_stats` up to the order of the sums."""
+    d_local = g_pad.shape[-1]
+    col0 = ms.index * d_local
+    valid = ((col0 + torch.arange(d_local, device=g_pad.device)) < dim).to(g_pad.dtype)
+    gv = g_pad * valid
+    sums = ms.all_reduce(torch.stack([gv.sum(dim=-1), (gv * gv).sum(dim=-1)]))
+    mean = sums[0] / dim
+    dev = (g_pad - mean[..., None]) * valid
+    var = ms.all_reduce((dev * dev).sum(dim=-1)) / dim
+    return aircomp.GradStats(mean=mean, var=var, norm=torch.sqrt(sums[1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,13 +398,19 @@ def fused_aggregation_inputs(
     """The scalar prelude of the fused aggregation for one cell →
     ``(coeff, m_g, v_g, a, scaled z, e_com)``: everything the kernel takes
     beside ``g``, and the Eq. 15 closed form."""
-    stats = aircomp.local_stats(g)
+    return _prelude(cfg, aircomp.local_stats(g), g.shape[-1], rho, h, mask, z, noise_power)
+
+
+def _prelude(cfg, stats, dim, rho, h, mask, z, noise_power) -> tuple:
+    """:func:`fused_aggregation_inputs` from the uploaded ``stats`` and the
+    TRUE flat ``dim`` (the model-sharded round's stats are its partial sums
+    reduced over the model ranks, and its ``z`` a block)."""
     m_g, v_g = aircomp.global_stats(stats, rho, mask)
     h_abs = h.abs()
     a = aircomp.denoise_scalar(rho, h_abs, mask, cfg.tx_power)
     coeff = mask * rho  # b_i h_i = ρ_i a exactly (Lemma-1 channel inversion)
     e_com = aircomp.distortion_closed_form(
-        v_g, rho, h_abs, mask, g.shape[-1], cfg.tx_power, noise_power
+        v_g, rho, h_abs, mask, dim, cfg.tx_power, noise_power
     )
     return coeff, m_g, v_g, a, z * aircomp.noise_std(noise_power), e_com
 
@@ -301,21 +423,38 @@ def aggregation_stage(
     mask: torch.Tensor,
     z: torch.Tensor,
     noise_power,
+    model_shard: ModelShard | None = None,
+    stats: aircomp.GradStats | None = None,
+    dim: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Step 5: transmit + AirComp aggregate per ``cfg.backend`` → (ŷ, e_com).
 
-    ``z`` is the standard-normal receiver noise draw (D,).
+    ``z`` is the standard-normal receiver noise draw (D,). ``model_shard``
+    switches to the D-sharded route: ``g`` is then this rank's padded block
+    (:meth:`ModelShard.pad_features`), ``stats`` the statistics reduced over
+    the model ranks and ``dim`` the TRUE flat dimension; ``z`` stays the
+    full (D,) draw (each rank keeps its columns) and ŷ comes back padded to
+    ``ModelShard.padded_dim`` on every model rank (slice ``[:dim]`` at the
+    caller), as the reference's does.
     """
-    return _aggregate(cfg, g, rho, h, mask, z, noise_power)[:2]
+    return _aggregate(cfg, g, rho, h, mask, z, noise_power, model_shard, stats, dim)[:2]
 
 
-def _aggregate(cfg, g, rho, h, mask, z, noise_power) -> tuple:
+def _aggregate(cfg, g, rho, h, mask, z, noise_power, model_shard=None, stats=None,
+               dim=None) -> tuple:
     """:func:`aggregation_stage` → ``(ŷ, e_com, V_g, a)``: the prelude's
     V_g and a beside ŷ, so the round's metrics and taps reuse them. The
     ``jnp`` backend gives ``aircomp.aircomp_aggregate``'s values bitwise."""
-    coeff, m_g, v_g, a, z, e_com = fused_aggregation_inputs(
-        cfg, g, rho, h, mask, z, noise_power
-    )
+    if model_shard is None:
+        coeff, m_g, v_g, a, z, e_com = fused_aggregation_inputs(
+            cfg, g, rho, h, mask, z, noise_power
+        )
+    else:
+        if stats is None or dim is None:
+            raise ValueError("model-sharded aggregation needs precomputed stats + dim")
+        coeff, m_g, v_g, a, z, e_com = _prelude(
+            cfg, stats, dim, rho, h, mask, model_shard.pad_features(z, dim), noise_power
+        )
     if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
         y_hat = aircomp.combine_given_stats(
             g, rho, h, mask, z, m_g, v_g, a, simulate_physical=cfg.simulate_physical
@@ -324,23 +463,28 @@ def _aggregate(cfg, g, rho, h, mask, z, noise_power) -> tuple:
         from repro_torch.kernels.aircomp import aircomp_aggregate_fused  # late: kernels↔core
 
         y_hat = aircomp_aggregate_fused(g, coeff, m_g, v_g, a, z)
+    if model_shard is not None:
+        y_hat = model_shard.gather(y_hat, dim)
     return y_hat, e_com, v_g, a
 
 
 def apply_update_stage(cfg: POFLConfig, params, y_hat: torch.Tensor, t: int):
-    """Step 6: w^{t+1} = w^t − η^t ŷ^t (flat update, re-raveled)."""
+    """Step 6: w^{t+1} = w^t − η^t ŷ^t (flat update, re-raveled). The
+    reference's ``model_shard`` argument re-places each updated leaf on its
+    model-sharded layout; the port keeps every leaf whole on every model
+    rank (:meth:`ModelShard.leaf_sharding`), so it has no such argument.
+    """
     flat, unravel = ravel_pytree(params)
     return unravel(flat - cfg.lr(t) * y_hat)
 
 
-def _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power, policy_id=None,
+def _schedule(cfg, data_frac, stats, dim, h, sched_draw, alpha, noise_power, policy_id=None,
               avail=None, diagnostics=False):
-    """Steps 3–4 of one cell: the uploaded statistics, then the schedule
-    → ``(rho, mask)``; with ``diagnostics`` also what the taps read there,
-    ``(rho, mask, probs, norms)``."""
-    stats = aircomp.local_stats(g)
+    """Step 4 of one cell from the uploaded ``stats`` (step 3) over the TRUE
+    flat ``dim`` → ``(rho, mask)``; with ``diagnostics`` also what the taps
+    read there, ``(rho, mask, probs, norms)``."""
     out = scheduling_stage(
-        cfg, stats, h.abs(), data_frac, g.shape[-1], alpha, noise_power, sched_draw,
+        cfg, stats, h.abs(), data_frac, dim, alpha, noise_power, sched_draw,
         avail=avail, policy_id=policy_id, return_probs=diagnostics,
     )
     return (*out, stats.norm) if diagnostics else out
@@ -424,6 +568,7 @@ def round_algorithm(
     algorithm_id: torch.Tensor | None = None,
     fault_round=None,
     diagnostics: bool = False,
+    model_shard: ModelShard | None = None,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """Steps 2–6 of Algorithm 1 for one round → ``(new_params, alg_state, metrics)``.
 
@@ -441,8 +586,10 @@ def round_algorithm(
     and sets ``metrics.health.nonfinite`` to 1; under ``"propagate"``
     ``metrics.health`` is ``None``. ``diagnostics`` fills ``metrics.diag``
     with the :class:`RoundDiagnostics` taps (``None`` when off: no extra
-    op). Nothing here reads a value back to the host, so the card runs the
-    round without waiting on Python.
+    op). ``model_shard`` (a :class:`ModelShard`) runs steps 3 and 5 on this
+    model rank's block of D; ``None`` keeps the unsharded round. Nothing
+    here reads a value back to the host, so the card runs the round without
+    waiting on Python.
     """
     _check_on_nonfinite(cfg)
     noise_power = cfg.noise_power if noise_power is None else noise_power
@@ -457,12 +604,22 @@ def round_algorithm(
             alg_state=alg_state, algorithm_id=algorithm_id,
         )  # (N, D)
 
+    dim = g.shape[-1]
+
     with record_function("pofl.scheduling"):
-        rho, mask, *taps_in = _schedule(cfg, data_frac, g, h, sched_draw, alpha, noise_power,
-                                        avail=avail, diagnostics=diagnostics)
+        if model_shard is None:
+            stats = aircomp.local_stats(g)
+        else:
+            g = model_shard.pad_features(g, dim)
+            stats = _model_sharded_local_stats(model_shard, g, dim)
+        rho, mask, *taps_in = _schedule(cfg, data_frac, stats, dim, h, sched_draw, alpha,
+                                        noise_power, avail=avail, diagnostics=diagnostics)
 
     with record_function("pofl.aggregation"):
-        y_hat, e_com, v_g, a = _aggregate(cfg, g, rho, h, mask, z, agg_noise_power)
+        y_hat, e_com, v_g, a = _aggregate(cfg, g, rho, h, mask, z, agg_noise_power,
+                                          model_shard, stats, dim)
+        if model_shard is not None:
+            y_hat = y_hat[:dim]
         if fault_round is not None:
             y_hat = _poison(y_hat, t, fault_round)
 
@@ -475,10 +632,34 @@ def round_algorithm(
 
     with record_function("pofl.metrics"):
         values = _metric_values(cfg, data_frac, g, rho, mask, y_hat, e_com, a)
+        if model_shard is not None:  # e_var: a sum over this rank's columns
+            values = (values[0], model_shard.all_reduce(values[1]), *values[2:])
         diag = RoundDiagnostics(*_diag_values(cfg, h, *taps_in, v_g, a, agg_noise_power)) \
             if diagnostics else None
         metrics = RoundMetrics(y_hat.new_zeros(()), *values, diag=diag, health=health)
     return new_params, alg_state, metrics
+
+
+def _model_sharded_combine_cells(cfg, ms: ModelShard, g_pad, stats, dim, rho, h_c, mask,
+                                 z_c, agg_noise_c) -> tuple:
+    """Step 5 of every cell on this rank's (C, N, D_local) block →
+    ``(ŷ (C, D), e_com, V_g, a)``: the prelude per cell from the reduced
+    stats, the combine on the block with no collective (under
+    ``pallas_fused`` one launch of the batch kernel, which reads the block
+    in place), then ŷ gathered over the model ranks and cut to ``dim``."""
+    coeff, m_g, v_g, a, z, e_com = vmap(
+        lambda st, r, h, m, zb, nz: _prelude(cfg, st, dim, r, h, m, zb, nz)
+    )(stats, rho, h_c, mask, ms.pad_features(z_c, dim), agg_noise_c)
+    if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
+        y_blk = vmap(functools.partial(aircomp.combine_given_stats,
+                                       simulate_physical=cfg.simulate_physical))(
+            g_pad, rho, h_c, mask, z, m_g, v_g, a)
+    else:
+        from repro_torch.kernels.aircomp import aircomp_aggregate_fused_batch  # late
+
+        y_blk = aircomp_aggregate_fused_batch(
+            g_pad, coeff.contiguous(), m_g.contiguous(), v_g.contiguous(), a.contiguous(), z)
+    return ms.gather(y_blk, dim)[..., :dim], e_com, v_g, a
 
 
 def round_algorithm_cells(
@@ -499,6 +680,7 @@ def round_algorithm_cells(
     algorithm_id_c: torch.Tensor | None = None,
     fault_round_c: torch.Tensor | None = None,
     diagnostics: bool = False,
+    model_shard: ModelShard | None = None,
 ) -> tuple[Any, AlgState | None, RoundMetrics]:
     """One round of C lattice cells at once → ``(params_c, alg_state_c, metrics)``.
 
@@ -519,7 +701,10 @@ def round_algorithm_cells(
     row is not finite keeps its params and AlgState, selected per cell
     after the aggregation, and is flagged on ``metrics.health`` (C,).
     ``diagnostics`` fills ``metrics.diag`` with each cell's taps (vmapped as
-    tensors, the :class:`RoundDiagnostics` built outside). The metrics are
+    tensors, the :class:`RoundDiagnostics` built outside). ``model_shard``
+    (a :class:`ModelShard`) runs steps 3 and 5 of every cell on this model
+    rank's block of D, one launch of the batch kernel on the (C, N, D_local)
+    block, the collectives over the cell batch at once. The metrics are
     (C,) tensors; nothing is read back to the host.
     """
     _check_on_nonfinite(cfg)
@@ -533,16 +718,29 @@ def round_algorithm_cells(
             alg_state_c=alg_state_c, algorithm_id_c=algorithm_id_c,
         )
 
+    dim = g.shape[-1]
+
     with record_function("lattice.scheduling"):
-        schedule = functools.partial(_schedule, cfg, data_frac, diagnostics=diagnostics)
-        cell_args = (g, h_c, sched_c, alpha_c, noise_power_c, policy_id_c)
+        if model_shard is None:
+            stats = vmap(aircomp.local_stats)(g)
+        else:
+            g = model_shard.pad_features(g, dim)
+            stats = _model_sharded_local_stats(model_shard, g, dim)
+
+        def schedule(stats, *args):
+            return _schedule(cfg, data_frac, stats, dim, *args, diagnostics=diagnostics)
+
+        cell_args = (stats, h_c, sched_c, alpha_c, noise_power_c, policy_id_c)
         if avail_c is None:
             rho, mask, *taps_in = vmap(schedule)(*cell_args)
         else:
             rho, mask, *taps_in = vmap(schedule)(*cell_args, avail_c)
 
     with record_function("lattice.aggregation"):
-        if AggregationBackend(cfg.backend) is AggregationBackend.JNP:
+        if model_shard is not None:
+            y_hat, e_com, v_g, a = _model_sharded_combine_cells(
+                cfg, model_shard, g, stats, dim, rho, h_c, mask, z_c, agg_noise_c)
+        elif AggregationBackend(cfg.backend) is AggregationBackend.JNP:
             y_hat, e_com, v_g, a = vmap(functools.partial(_aggregate, cfg))(
                 g, rho, h_c, mask, z_c, agg_noise_c
             )
@@ -571,6 +769,8 @@ def round_algorithm_cells(
         values = vmap(functools.partial(_metric_values, cfg, data_frac))(
             g, rho, mask, y_hat, e_com, a
         )
+        if model_shard is not None:  # e_var: a sum over this rank's columns
+            values = (values[0], model_shard.all_reduce(values[1]), *values[2:])
         diag = RoundDiagnostics(*vmap(functools.partial(_diag_values, cfg))(
             h_c, *taps_in, v_g, a, agg_noise_c)) if diagnostics else None
         metrics = RoundMetrics(y_hat.new_zeros(y_hat.shape[0]), *values, diag=diag,

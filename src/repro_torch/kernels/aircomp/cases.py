@@ -57,6 +57,7 @@ CHECK_CASES = {
     "strided_rows_bf16": (4, 1000, False, 1200, torch.bfloat16),
     "empty_schedule_bf16": (30, 258_634, True, None, torch.bfloat16),
     "n_31_bf16": (31, 7850, False, None, torch.bfloat16),
+    "cnn_model_shard": (30, 129_536, False, 259_072, torch.float32),
 }
 
 
@@ -86,8 +87,11 @@ def round_inputs(n, d, dev, seed=0, empty=False, row_stride=None, dtype=torch.fl
 # then the lattice loops' sub-lattices: the CNN lattice one policy at a time
 # (3 cells) and the CNN scenario lattice one algorithm at a time (6 cells);
 # then bf16 g and z (``*_bf16``) at both lattices' shapes, odd D, a
-# trial-strided view, an empty trial and N = 31. Every trial has its own
-# scalars.
+# trial-strided view, an empty trial and N = 31; then the sharded lattice's:
+# the CNN lattice's 8 + 7 cells over 2 cells ranks (8), and one model rank's
+# block of it over a (1, 2) mesh (D_local 129,536) as the sharded round
+# passes it: the last 129,536 columns of rows 259,072 wide (``strided`` an
+# int: the rows' width). Every trial has its own scalars.
 BATCH_CHECK_CASES = {
     "cnn_lattice": (15, 30, 258_634, None, False, torch.float32),
     "logreg_lattice": (30, 30, 7850, None, False, torch.float32),
@@ -110,21 +114,28 @@ BATCH_CHECK_CASES = {
     "trial_strided_bf16": (6, 5, 1000, None, True, torch.bfloat16),
     "empty_schedule_trial_bf16": (5, 30, 258_634, 2, False, torch.bfloat16),
     "n_31_bf16": (3, 31, 7850, None, False, torch.bfloat16),
+    "cnn_lattice_cells_rank": (8, 30, 258_634, None, False, torch.float32),
+    "cnn_lattice_model_shard": (15, 30, 129_536, None, 259_072, torch.float32),
 }
 
 
 def batch_inputs(b, n, d, dev, seed=0, empty_trial=None, strided=False,
                  dtype=torch.float32):
     """``(g, coeff, m_g, v_g, a, z)`` of ``aircomp_fused_batch``, every trial
-    with its own g, coeff, z and scalars; ``strided`` makes g and z
+    with its own g, coeff, z and scalars; ``strided`` True makes g and z
     trial-strided views of larger tensors (every other trial, rows wider
-    than D); ``empty_trial`` schedules nobody (a = inf, coeff = 0). g and z
-    are drawn in float32 and cast to ``dtype``."""
+    than D), an int W makes them the last D columns of rows W wide (a
+    model rank's block of padded rows); ``empty_trial`` schedules nobody (a
+    = inf, coeff = 0). g and z are drawn in float32 and cast to ``dtype``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    step, width = (2, d + 6) if strided else (1, d)
+    if strided is True:
+        step, width, cols = 2, d + 6, slice(0, d)
+    else:
+        step, width = 1, strided or d
+        cols = slice(width - d, width)
     g = torch.randn(b * step, n, width, generator=gen, device=dev) * 0.05 + 0.01
-    g = g.to(dtype)[::step, :, :d]
-    z = torch.randn(b * step, width, generator=gen, device=dev).to(dtype)[::step, :d]
+    g = g.to(dtype)[::step, :, cols]
+    z = torch.randn(b * step, width, generator=gen, device=dev).to(dtype)[::step, cols]
     coeff = torch.rand(b, n, generator=gen, device=dev)
     coeff = coeff * (torch.rand(b, n, generator=gen, device=dev) > 0.3)
     m_g, v_g, a = (torch.rand(b, generator=gen, device=dev) + 0.1 for _ in range(3))

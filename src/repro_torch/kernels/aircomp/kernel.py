@@ -33,6 +33,11 @@ from repro_torch.kernels.build import NVCC_FLAGS, BuildInfo, build_library, load
 
 _SOURCE = Path(__file__).parent / "csrc" / "aircomp.cu"
 
+# The TPU kernel's D tile. This kernel tiles nothing, but a model-sharded
+# round pads D to whole tiles of it on every shard, as the reference does
+# (``core.pofl.ModelShard.padded_dim``), so the shards' blocks are the same.
+DEFAULT_TILE_D = 512
+
 SMS = 132            # streaming multiprocessors of the H100
 MAX_THREADS = 256    # a block's threads at most: the kernel's kMaxThreads
 MAX_GRID_Y = 65_535  # trials beyond it loop inside a block

@@ -1,0 +1,967 @@
+"""Local multi-process launcher for the port's sharded lattice runs (port of
+``repro.launch.distributed``).
+
+Spawns N coordinated worker processes ON THIS MACHINE — a shared
+rendezvous address on localhost and a distinct rank per worker — so the
+multi-rank lattice path (``repro_torch.sim.multihost`` + ``run_lattice``
+over a ``DeviceMesh``) runs end to end on one box: over gloo on the CPU,
+and on a card machine with rank r on ``cuda:{r % torch.cuda.device_count()}``
+(NCCL when every rank has its own card; gloo when ranks share one, as two
+ranks on a one-card machine do). The port runs one rank a device, so
+``--devices-per-proc`` (the reference's fake CPU device pool) must be 1.
+
+Worker contract (written into each child's environment; a cluster launcher
+exports the same variables per rank instead):
+
+    REPRO_DIST_COORDINATOR          host:port of rank 0's rendezvous store
+    REPRO_DIST_NUM_PROCESSES        total rank count
+    REPRO_DIST_PROCESS_ID           this process's rank
+    REPRO_DIST_LOCAL_PROCESS_ID     its place among its host's ranks
+    REPRO_DIST_LOCAL_NUM_PROCESSES  the ranks on its host
+
+The last two pick a rank's card and the backend. This launcher starts
+every rank on the host it runs on, so they equal the first two; a topology
+over several hosts (unverified) must give them, or torchrun's
+``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``.
+
+Observability: the worker env copies the launcher's ``os.environ``, so a
+``REPRO_OBS_DIR`` set on the launcher is inherited by every worker, each
+writing its own ``events-p<rank>of<count>-<pid>.jsonl`` there.
+
+Usage:
+
+    # the parity workload: 2 ranks on the CPU, records → npz
+    python -m repro_torch.launch.distributed --procs 2 --workload parity \\
+        --device cpu --out /tmp/records.npz
+
+    # the same on the card, with the full-width CNN lattice held round by
+    # round over a cells mesh and a (1, 2) model mesh
+    python -m repro_torch.launch.distributed --procs 2 --workload parity \\
+        --device cuda --cnn-rounds 3 --out /tmp/records.npz
+
+    # lattice throughput over the ranks
+    python -m repro_torch.launch.distributed --procs 2 --workload bench \\
+        --out /tmp/bench.json
+
+    # the supervised, checkpointed sweep: a killed rank restarts and resumes
+    REPRO_FAULT_KILL=1:2 python -m repro_torch.launch.distributed --procs 2 \\
+        --workload resilient --checkpoint-dir /tmp/ck --out /tmp/recs.npz
+
+    # any script that calls sim.multihost.initialize_distributed() itself
+    python -m repro_torch.launch.distributed --procs 2 -- python my_script.py
+
+Every rendezvous has the process group's timeout and every child the
+launcher's ``--timeout``: a hang fails loudly and is never waited out.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.sim.engine import RoundRecord
+from repro_torch.sim.multihost import (
+    ENV_COORDINATOR,
+    ENV_LOCAL_NUM_PROCESSES,
+    ENV_LOCAL_PROCESS_ID,
+    ENV_NUM_PROCESSES,
+    ENV_PROCESS_ID,
+    find_free_port,
+)
+
+# the per-round ARRAY record fields (the engine's RoundRecord minus its
+# optional subtrees: np.savez would pickle a None subtree as an object array)
+_RECORD_FIELDS = tuple(f for f in RoundRecord._fields if f not in ("diag", "eval", "health"))
+
+
+@dataclasses.dataclass
+class WorkerResult:
+    process_id: int
+    returncode: int
+    output: str  # merged stdout+stderr
+
+
+def worker_env(
+    coordinator: str,
+    num_processes: int,
+    process_id: int,
+    devices_per_proc: int = 1,
+    base_env: dict | None = None,
+) -> dict:
+    """Environment for one spawned worker: the ``REPRO_DIST_*`` contract
+    (every rank on this host, so its local place is its rank) and import
+    roots matching the parent (``repro_torch``'s src dir + the parent
+    cwd). One rank a device, so ``devices_per_proc`` must be 1: the
+    reference's XLA device-count flag has no torch meaning."""
+    if devices_per_proc != 1:
+        raise ValueError(
+            f"devices_per_proc must be 1: the port runs one rank a device (got "
+            f"{devices_per_proc}); start more ranks with --procs instead"
+        )
+    env = dict(os.environ if base_env is None else base_env)
+    env[ENV_COORDINATOR] = coordinator
+    env[ENV_NUM_PROCESSES] = str(num_processes)
+    env[ENV_PROCESS_ID] = str(process_id)
+    # every rank runs on this host
+    env[ENV_LOCAL_NUM_PROCESSES] = str(num_processes)
+    env[ENV_LOCAL_PROCESS_ID] = str(process_id)
+    import repro_torch
+
+    src_root = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    roots = [src_root, os.getcwd()]
+    if env.get("PYTHONPATH"):
+        roots.append(env["PYTHONPATH"])
+    env["PYTHONPATH"] = os.pathsep.join(roots)
+    return env
+
+
+def _kill(proc: subprocess.Popen) -> None:
+    proc.kill()
+    proc.wait()
+
+
+def spawn_local(
+    worker_argv: list[str],
+    n_procs: int = 2,
+    devices_per_proc: int = 1,
+    timeout: float = 900.0,
+    base_env: dict | None = None,
+) -> list[WorkerResult]:
+    """Run ``worker_argv`` as ``n_procs`` coordinated local processes.
+
+    Every worker gets the same argv and the per-rank env contract; the call
+    blocks until all exit. ``timeout`` is one ABSOLUTE deadline for the
+    whole topology; stragglers past it are killed with their output kept.
+    Results come back in rank order; nothing is raised on failure (see
+    :func:`run_workers`).
+    """
+    import tempfile
+
+    coordinator = f"127.0.0.1:{find_free_port()}"
+    # every env BEFORE the first spawn: a partial spawn would leave rank 0
+    # waiting on the rendezvous for ranks that never started
+    envs = [worker_env(coordinator, n_procs, pid, devices_per_proc, base_env)
+            for pid in range(n_procs)]
+    # each worker streams into its own file, never a pipe: ranks block on
+    # each other through collectives, so output must never backpressure
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in envs]
+    procs = [subprocess.Popen(worker_argv, env=env, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for env, f in zip(envs, outs)]
+    deadline = time.monotonic() + timeout
+    deadline_killed = set()
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                _kill(proc)
+                if proc.returncode != 0:  # not a straggler that exited cleanly first
+                    deadline_killed.add(rank)
+    finally:
+        for rank, proc in enumerate(procs):
+            if proc.poll() is None:
+                _kill(proc)
+                deadline_killed.add(rank)
+    results = []
+    for rank, (proc, f) in enumerate(zip(procs, outs)):
+        f.seek(0)
+        out = f.read()
+        f.close()
+        rc = proc.returncode if proc.returncode is not None else -9
+        if rank in deadline_killed:
+            out += f"\n[launcher] killed at the {timeout}s deadline (rc={rc})"
+        results.append(WorkerResult(rank, rc, out))
+    return results
+
+
+def _raise_failed(results: list[WorkerResult], what: str) -> None:
+    failed = [r for r in results if r.returncode != 0]
+    if failed:
+        tails = "\n".join(
+            f"--- worker {r.process_id} (rc={r.returncode}) ---\n{r.output[-4000:]}"
+            for r in failed
+        )
+        raise RuntimeError(f"{len(failed)}/{len(results)} {what} failed:\n{tails}")
+
+
+def run_workers(
+    worker_argv: list[str],
+    n_procs: int = 2,
+    devices_per_proc: int = 1,
+    timeout: float = 900.0,
+    base_env: dict | None = None,
+) -> list[WorkerResult]:
+    """:func:`spawn_local` that raises ``RuntimeError`` (with output tails)
+    when any worker exits nonzero — never a success over a half-failed
+    topology."""
+    results = spawn_local(worker_argv, n_procs, devices_per_proc, timeout, base_env)
+    _raise_failed(results, "distributed workers")
+    return results
+
+
+# --------------------------------------------------------------------------
+# supervised workers: per-rank restart with capped exponential backoff
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SupervisorConfig:
+    """Per-rank supervision policy for :func:`supervise_workers`.
+
+    ``max_restarts`` bounds restarts PER RANK; restart ``i`` waits
+    ``min(backoff_base * 2**(i-1), backoff_cap)`` seconds first.
+    ``liveness_timeout`` (seconds; None disables) declares a rank dead when
+    its obs event files under the shared ``REPRO_OBS_DIR`` go that long
+    without an mtime update (the resilient workload heartbeats once a
+    checkpoint chunk), so a wedged rank is killed and restarted."""
+
+    max_restarts: int = 2
+    backoff_base: float = 0.25
+    backoff_cap: float = 8.0
+    liveness_timeout: float | None = None
+    poll_interval: float = 0.2
+
+
+def supervise_workers(
+    worker_argv: list[str],
+    n_procs: int = 2,
+    devices_per_proc: int = 1,
+    timeout: float = 900.0,
+    supervisor: SupervisorConfig | None = None,
+    base_env: dict | None = None,
+) -> list[WorkerResult]:
+    """Run ``worker_argv`` as ``n_procs`` INDEPENDENT local workers, each
+    under per-rank supervision: a rank that exits nonzero (a crash, an
+    injected ``REPRO_FAULT_KILL``) or goes heartbeat-silent is restarted
+    with capped exponential backoff, up to ``max_restarts`` times, and
+    resumes from its own checkpoints. ``timeout`` stays the absolute
+    backstop for the whole topology.
+
+    Workers here must not rely on each other (no collectives): one rank is
+    restarted alone while the others run on. ``REPRO_FAULT_*`` is stripped
+    from every RESTARTED rank's environment (an injected fault is one-shot),
+    and each restart emits one ``supervisor.restart`` event.
+
+    Raises ``RuntimeError`` with per-rank output tails when a rank's restart
+    budget is spent (or the deadline fires); returns rank-ordered
+    :class:`WorkerResult` s (the final attempt's rc, supervisor notes inline).
+    """
+    import glob
+    import tempfile
+
+    from repro_torch.obs.sink import emit, obs_dir
+    from repro_torch.sim.resilience import FAULT_ENV_VARS
+
+    sup = supervisor or SupervisorConfig()
+    coordinator = f"127.0.0.1:{find_free_port()}"
+    sink = obs_dir() if base_env is None else (base_env.get("REPRO_OBS_DIR") or None)
+
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in range(n_procs)]
+    procs: list[subprocess.Popen | None] = [None] * n_procs
+    attempts = [0] * n_procs
+    next_start = [0.0] * n_procs  # monotonic time before which a rank waits
+    started_wall = [0.0] * n_procs
+    done: list[WorkerResult | None] = [None] * n_procs
+    deadline = time.monotonic() + timeout
+
+    def note(rank: int, text: str) -> None:
+        f = outs[rank]
+        f.flush()
+        f.seek(0, os.SEEK_END)  # the child shares the file; never rewind it
+        f.write(f"[supervisor] {text}\n")
+        f.flush()
+
+    def start(rank: int) -> None:
+        env = worker_env(coordinator, n_procs, rank, devices_per_proc, base_env)
+        if attempts[rank] > 0:
+            for var in FAULT_ENV_VARS:  # injected faults are one-shot
+                env.pop(var, None)
+        note(rank, f"start rank {rank} attempt {attempts[rank]}")
+        outs[rank].seek(0, os.SEEK_END)
+        procs[rank] = subprocess.Popen(worker_argv, env=env, stdout=outs[rank],
+                                       stderr=subprocess.STDOUT, text=True)
+        started_wall[rank] = time.time()
+
+    def collect(rank: int) -> str:
+        f = outs[rank]
+        f.flush()
+        f.seek(0)
+        return f.read()
+
+    def last_signal(rank: int) -> float:
+        """Wall time of the rank's latest sign of life: its newest obs
+        event-file mtime, floored at this attempt's start."""
+        sig = started_wall[rank]
+        if sink:
+            pattern = os.path.join(sink, f"events-p{rank:03d}of{n_procs:03d}-*.jsonl")
+            for p in glob.glob(pattern):
+                try:
+                    sig = max(sig, os.path.getmtime(p))
+                except OSError:  # the file went between the glob and the stat
+                    pass
+        return sig
+
+    def on_crash(rank: int, rc: int, why: str) -> None:
+        procs[rank] = None
+        if attempts[rank] >= sup.max_restarts:
+            note(rank, f"rank {rank} {why} (rc={rc}); restart budget "
+                       f"({sup.max_restarts}) exhausted")
+            done[rank] = WorkerResult(rank, rc if rc != 0 else 1, collect(rank))
+            return
+        attempts[rank] += 1
+        delay = min(sup.backoff_base * 2 ** (attempts[rank] - 1), sup.backoff_cap)
+        next_start[rank] = time.monotonic() + delay
+        note(rank, f"rank {rank} {why} (rc={rc}); restart "
+                   f"{attempts[rank]}/{sup.max_restarts} in {delay:.2f}s")
+        emit("supervisor", "supervisor.restart", rank=rank, rc=rc, attempt=attempts[rank],
+             backoff=delay, why=why)
+
+    try:
+        while any(d is None for d in done):
+            now = time.monotonic()
+            if now > deadline:
+                for rank, proc in enumerate(procs):
+                    if proc is not None and proc.poll() is None:
+                        _kill(proc)
+                    if done[rank] is None:
+                        note(rank, f"killed at the {timeout}s deadline")
+                        done[rank] = WorkerResult(rank, -9, collect(rank))
+                break
+            for rank in range(n_procs):
+                if done[rank] is not None:
+                    continue
+                proc = procs[rank]
+                if proc is None:
+                    if now >= next_start[rank]:
+                        start(rank)
+                    continue
+                rc = proc.poll()
+                if rc is None:
+                    if (sup.liveness_timeout is not None
+                            and time.time() - last_signal(rank) > sup.liveness_timeout):
+                        _kill(proc)
+                        on_crash(rank, proc.returncode, "went silent")
+                    continue
+                if rc == 0:
+                    done[rank] = WorkerResult(rank, 0, collect(rank))
+                else:
+                    on_crash(rank, rc, "crashed")
+            if any(d is None for d in done):
+                time.sleep(sup.poll_interval)
+    finally:
+        for proc in procs:
+            if proc is not None and proc.poll() is None:
+                _kill(proc)
+        for f in outs:
+            f.close()
+
+    results = [d for d in done if d is not None]
+    _raise_failed(results, f"supervised workers (restart budget {sup.max_restarts}/rank)")
+    return results
+
+
+# --------------------------------------------------------------------------
+# LatticeRecords <-> npz (the parity harness compares across processes)
+# --------------------------------------------------------------------------
+
+
+def save_records(path: str, records, meta: dict) -> None:
+    """Persist a ``LatticeRecords`` (+ run metadata) to one ``.npz``."""
+    np.savez(
+        path,
+        __axes__=json.dumps(records.axes),
+        __meta__=json.dumps(meta),
+        eval_rounds=records.eval_rounds,
+        **{f: getattr(records, f) for f in _RECORD_FIELDS},
+    )
+
+
+def load_records(path: str):
+    """Inverse of :func:`save_records` → ``(LatticeRecords, meta)``."""
+    from repro_torch.sim.lattice import LatticeRecords
+
+    with np.load(path) as z:
+        axes = json.loads(str(z["__axes__"]))
+        meta = json.loads(str(z["__meta__"]))
+        records = LatticeRecords(axes=axes, eval_rounds=z["eval_rounds"],
+                                 **{f: z[f] for f in _RECORD_FIELDS})
+    return records, meta
+
+
+# --------------------------------------------------------------------------
+# the parity workload — ONE task definition shared by the workers and the
+# single-host run they are compared with
+# --------------------------------------------------------------------------
+
+
+def parity_spec(n_rounds: int = 4):
+    """The pinned 2-policy × 2-noise × 3-seed grid (6 cells a policy, not a
+    multiple of every topology, so the run pads the cell axis)."""
+    from repro_torch.sim.lattice import LatticeSpec
+
+    return LatticeSpec(policies=("pofl", "channel"), noise_powers=(1e-11, 1e-9),
+                       alphas=(0.1,), seeds=(0, 1000, 2000), n_rounds=n_rounds,
+                       eval_every=2)
+
+
+def _parity_task(device):
+    """The parity workload's logreg task: 640 MNIST-shaped rows on 8 devices
+    (label shards), zero weights, an eval on the first 200 rows."""
+    from repro_torch.data.partition import partition_noniid_shards
+    from repro_torch.data.synthetic import make_classification_dataset
+    from repro_torch.models.small import logreg_logits, logreg_loss
+
+    x, y = make_classification_dataset("mnist_like", 640, torch.Generator().manual_seed(0))
+    data = partition_noniid_shards(x, y, n_devices=8)
+    params0 = {"w": torch.zeros(784, 10), "b": torch.zeros(10)}
+    xe, ye = x[:200].to(device), y[:200].to(device)
+
+    def eval_fn(p):
+        return logreg_loss(p, xe, ye), (logreg_logits(p, xe).argmax(-1) == ye).float().mean()
+
+    return logreg_loss, data, params0, eval_fn
+
+
+def _cnn_parity_lattice(device, n_rounds: int):
+    """The paper's CNN at full width (D = 258,634, N = 30, 10 scheduled,
+    σ_z² = 1e-10, ``pallas_fused``) over 5 policies × 3 seeds: the CNN
+    lattice the port's card runs → ``(task, spec, cfg)``."""
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.core.scheduling import POLICIES
+    from repro_torch.sim.lattice import LatticeSpec
+    from repro_torch.sim.tasks import make_model_task
+
+    task = make_model_task("cnn", n_devices=30, n_train=3000, n_test=1000, seed=0,
+                           channel_bias=1.0, device=device)
+    spec = LatticeSpec(policies=POLICIES, noise_powers=(1e-10,), alphas=(0.1,),
+                       seeds=(0, 1, 2), n_rounds=n_rounds, eval_every=5)
+    return task, spec, POFLConfig(n_devices=30, n_scheduled=10, backend="pallas_fused")
+
+
+def _rel_diff(got: dict, want: dict) -> dict:
+    """Each float field's largest |got − want| over max|want|, and whether
+    the decisions (|S|) are equal."""
+    out = {f: float(np.abs(got[f] - want[f]).max() / max(np.abs(want[f]).max(), 1e-30))
+           for f in want if f != "n_scheduled" and want[f].size}
+    out["decisions_equal"] = bool(np.array_equal(got["n_scheduled"], want["n_scheduled"]))
+    return out
+
+
+def _record_fields(rec) -> dict:
+    return {f: np.asarray(getattr(rec, f), np.float64) for f in _RECORD_FIELDS}
+
+
+def _select_cells(state, idx):
+    """A lattice state's cells ``idx`` (a list), with the draw streams of
+    their seeds only, as a rank holding those cells starts them."""
+    from repro_torch.core.local_update import AlgState
+    from repro_torch.flatten_util import tree_map
+
+    sel = torch.as_tensor(idx, device=state.noise.device)
+    seed_of = state.seed_idx[sel].tolist()
+    used = sorted(set(seed_of))
+    return state._replace(
+        params=tree_map(lambda p: p[sel], state.params),
+        streams=[state.streams[i] for i in used],
+        seed_idx=torch.tensor([used.index(i) for i in seed_of], device=sel.device),
+        noise=state.noise[sel], alpha=state.alpha[sel], policy=state.policy[sel],
+        alg=None if state.alg is None else AlgState(
+            *(None if f is None else f[sel] for f in state.alg)),
+        algorithm=None if state.algorithm is None else state.algorithm[sel],
+    )
+
+
+class ShardedCost:
+    """What the sharded calls cost on this rank, and nothing of the
+    unsharded twin rounds run beside them: the card synchronized around
+    each call, each call's seconds, their peak device memory and the
+    kernel launches they made (the change of the aircomp kernels' counts
+    around each call). Wrap a call as ``cost(fn, *args, **kw)``."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.seconds_by_call: list[float] = []
+        self.peak = 0
+        self.launches = {"aircomp_fused": 0, "aircomp_fused_batch": 0}
+
+    def __call__(self, fn, *args, **kw):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        before = _launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.device))
+        self.seconds_by_call.append(time.perf_counter() - t0)
+        for k, v in _launches().items():
+            self.launches[k] += v - before[k]
+        return out
+
+    def report(self, cell_rounds: int) -> dict:
+        seconds = sum(self.seconds_by_call)
+        return {"seconds": seconds, "seconds_by_call": list(self.seconds_by_call),
+                "cell_rounds_per_s": cell_rounds / seconds,
+                "max_memory_allocated": self.peak if self.device.type == "cuda" else None,
+                "launches": dict(self.launches)}
+
+
+def lattice_rounds_from_state(loss_fn, data, params0, spec, cfg, eval_fn, mesh,
+                              device=None) -> tuple[list[dict], dict]:
+    """Each round of ``spec``'s fused one-algorithm lattice on ``mesh``,
+    from the unsharded run's state before it, against the unsharded round
+    → ``(one _rel_diff a round, the sharded rounds' ShardedCost report)``
+    (every rank holds the same list). Each rank runs the unsharded rounds
+    too, so its block starts from the state the unsharded run reached: a
+    difference cannot grow over rounds (the rule for a different cell
+    batch, which may sum in another order)."""
+    import dataclasses as dc
+
+    from repro_torch.core import local_update, scheduling
+    from repro_torch.core.pofl import FUSED_POLICY
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.lattice import cell_axes, eval_schedule, records_to_host
+    from repro_torch.sim.multihost import axis_size, gather_records, shard_to_global
+
+    cfg = dc.replace(cfg, policy=FUSED_POLICY, n_devices=data.n_devices,
+                     local_algorithm=spec.algorithms[0])
+    full = SimEngine(loss_fn, data, cfg, eval_fn=eval_fn, device=device)
+    shard = SimEngine(loss_fn, data, cfg, eval_fn=eval_fn, device=device, mesh=mesh)
+    axes = cell_axes(spec, [local_update.algorithm_id(spec.algorithms[0])],
+                     [scheduling.policy_id(p) for p in spec.policies])
+    axes["algorithm_b"] = None
+    n = len(axes["seed_b"])
+    pad = (-n) % axis_size(mesh, "cells")
+    mine = shard_to_global(np.minimum(np.arange(n + pad), n - 1), mesh).tolist()
+    do_eval, _ = eval_schedule(spec, eval_fn is not None)
+    state = full.lattice_start(params0, **axes)
+    cost, out = ShardedCost(device), []
+    for t in range(spec.n_rounds):
+        _, rec_blk = cost(shard.lattice_round, _select_cells(state, mine), t, bool(do_eval[t]))
+        state, rec = full.lattice_round(state, t, bool(do_eval[t]))
+        got = gather_records(records_to_host(rec_blk), mesh)
+        out.append(_rel_diff({f: v[:n] for f, v in _record_fields(got).items()},
+                             _record_fields(records_to_host(rec))))
+    return out, cost.report(n * spec.n_rounds)
+
+
+def model_sharded_rounds_from_state(task, cfg, mesh, n_rounds: int, seed: int = 0,
+                                    device=None) -> tuple[list[dict], dict]:
+    """``round_algorithm`` of one ``pofl`` run on ``mesh``'s model axis
+    against the unsharded round, each round from the unsharded run's params
+    on the same draws → ``(one _rel_diff a round (the metrics and the new
+    flat params), the model-sharded rounds' ShardedCost report)``."""
+    import dataclasses as dc
+
+    from repro_torch.core.pofl import round_algorithm
+    from repro_torch.flatten_util import ravel_pytree, tree_map
+    from repro_torch.sim.engine import SimEngine
+
+    cfg = dc.replace(cfg, policy="pofl")
+    full = SimEngine(task.loss_fn, task.data, cfg, device=device)
+    ms = SimEngine(task.loss_fn, task.data, cfg, device=device, mesh=mesh).model_shard
+    params = tree_map(lambda p: p.to(full.device), task.params0)
+    stream, cost, out = full.draw_stream(seed), ShardedCost(device), []
+
+    def fields(p, m):
+        return {"params": ravel_pytree(p)[0].double().cpu().numpy(),
+                **{f: np.asarray(float(getattr(m, f))) for f in
+                   ("e_com", "e_var", "grad_norm", "n_scheduled", "a_scalar")}}
+
+    for t in range(n_rounds):
+        stream, d = full.next_draws(stream, task.dim)
+        args = (task.loss_fn, full.data, cfg, params, d.h, d.batch_idx, d.sched, d.z, t)
+        p_ms, _, m_ms = cost(round_algorithm, *args, model_shard=ms)
+        p_full, _, m_full = round_algorithm(*args)
+        out.append(_rel_diff(fields(p_ms, m_ms), fields(p_full, m_full)))
+        params = p_full
+    return out, cost.report(n_rounds)
+
+
+def parity_records(n_rounds: int = 4, mesh=None, device=None, **kw):
+    """One ``run_lattice`` of the parity workload (its logreg task and
+    :func:`parity_spec`) over ``mesh`` → its ``LatticeRecords``."""
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.sim.lattice import run_lattice
+
+    loss_fn, data, params0, eval_fn = _parity_task(resolve_device(device))
+    return run_lattice(loss_fn, data, params0, parity_spec(n_rounds),
+                       base_cfg=POFLConfig(n_devices=8, n_scheduled=3), eval_fn=eval_fn,
+                       mesh=mesh, device=device, **kw)
+
+
+def run_parity_lattice(mesh=None, n_rounds: int = 4, device=None):
+    """Run the parity workload twice over ``mesh`` → ``(records, meta)``:
+    the second run must repeat the first bitwise (``repeat_exact``), the
+    per-policy loop (``fuse_policies=False``) is held to the fused grid
+    (``fused_vs_fallback``, bitwise in ``fused_matches_fallback``), and
+    with a mesh every round is held to the unsharded round from the
+    unsharded run's state (``rounds_from_state``)."""
+    from repro_torch.core.pofl import POFLConfig
+
+    records, repeat, fallback = (
+        parity_records(n_rounds, mesh, device, **kw)
+        for kw in ({}, {}, {"fuse_policies": False}))
+    want = _record_fields(records)
+    meta = {
+        "n_rounds": n_rounds,
+        "repeat_exact": all(np.array_equal(getattr(records, f), getattr(repeat, f))
+                            for f in _RECORD_FIELDS),
+        "fused_matches_fallback": all(np.array_equal(getattr(records, f), getattr(fallback, f))
+                                      for f in _RECORD_FIELDS),
+        "fused_vs_fallback": _rel_diff(_record_fields(fallback), want),
+    }
+    if mesh is not None:
+        loss_fn, data, params0, eval_fn = _parity_task(resolve_device(device))
+        meta["rounds_from_state"], _ = lattice_rounds_from_state(
+            loss_fn, data, params0, parity_spec(n_rounds),
+            POFLConfig(n_devices=8, n_scheduled=3), eval_fn, mesh, device)
+    return records, meta
+
+
+def _timed_run(task, spec, cfg, mesh, device) -> dict:
+    """One ``run_lattice`` over ``mesh``: its cell-rounds/s and, on a card,
+    this rank's peak device memory."""
+    from repro_torch.sim.lattice import run_lattice
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run_lattice(task.loss_fn, task.data, task.params0, spec, base_cfg=cfg, eval_fn=task.eval,
+                mesh=mesh, device=device)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "cell_rounds_per_s": spec.n_cells * spec.n_rounds / seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if cuda else None}
+
+
+def _cnn_parity(n_rounds: int, cells_mesh, model_mesh, device) -> dict:
+    """The full-width CNN lattice over the cells mesh and the model mesh,
+    each round from the unsharded state, and ``pofl`` rounds of
+    ``round_algorithm`` on the model mesh from the unsharded params → per
+    mesh its ``rounds_from_state`` and the sharded rounds' own cost
+    (``sharded``: this rank's seconds, peak memory and launches), and the
+    model mesh's ``round_algorithm_from_state`` with its own
+    (``round_algorithm_sharded``)."""
+    task, spec, cfg = _cnn_parity_lattice(resolve_device(device), n_rounds)
+    out = {}
+    for name, mesh in (("cells", cells_mesh), ("model", model_mesh)):
+        if mesh is not None:
+            rounds, cost = lattice_rounds_from_state(
+                task.loss_fn, task.data, task.params0, spec, cfg, task.eval, mesh, device)
+            out[name] = {"rounds_from_state": rounds, "sharded": cost}
+    if model_mesh is not None:
+        rounds, cost = model_sharded_rounds_from_state(task, cfg, model_mesh, n_rounds,
+                                                       device=device)
+        out["model"].update(round_algorithm_from_state=rounds, round_algorithm_sharded=cost)
+    return out
+
+
+# --------------------------------------------------------------------------
+# worker entry points
+# --------------------------------------------------------------------------
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.aircomp import kernel
+
+    return {"aircomp_fused": kernel.launches, "aircomp_fused_batch": kernel.batch_launches}
+
+
+def _worker_parity(args) -> None:
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.sim.lattice import make_cell_mesh, make_cell_model_mesh
+    from repro_torch.sim.multihost import ensure_process_group
+
+    ensure_process_group(device=args.device)
+    stamps = {"group": time.time()}  # when the rank got to each step (epoch seconds)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cells_mesh = make_cell_mesh()
+    model_mesh = make_cell_model_mesh(1, world) if world > 1 else None
+    records, meta = run_parity_lattice(mesh=cells_mesh, n_rounds=args.n_rounds,
+                                       device=args.device)
+    if model_mesh is not None:
+        loss_fn, data, params0, eval_fn = _parity_task(resolve_device(args.device))
+        meta["model_rounds_from_state"], _ = lattice_rounds_from_state(
+            loss_fn, data, params0, parity_spec(args.n_rounds),
+            POFLConfig(n_devices=8, n_scheduled=3), eval_fn, model_mesh, args.device)
+    stamps["logreg"] = time.time()
+    if args.cnn_rounds:
+        meta["cnn"] = _cnn_parity(args.cnn_rounds, cells_mesh, model_mesh, args.device)
+        stamps["cnn"] = time.time()
+    meta.update(process_count=world, process_index=rank, backend=dist.get_backend())
+    # rank-specific, so gathered: the sharded CNN calls' own costs, the stamps
+    mine = {"stamps": stamps}
+    for name, part in meta.get("cnn", {}).items():
+        mine[name] = part.pop("sharded")
+        if "round_algorithm_sharded" in part:
+            mine["round_algorithm"] = part.pop("round_algorithm_sharded")
+    per_rank: list = [None] * world
+    dist.all_gather_object(per_rank, mine)
+    meta["per_rank"] = per_rank
+    print(f"[worker {rank}] {json.dumps(meta)}", flush=True)
+    if rank == 0 and args.out:
+        save_records(args.out, records, meta)
+    dist.destroy_process_group()
+
+
+def bench_spec(n_rounds: int = 30):
+    """The throughput bench's sweep (the reference's ``BENCH_SWEEP_KW``): 5
+    policies × 3 seeds, 10 scheduled, eval every 10."""
+    from repro_torch.core.scheduling import POLICIES
+    from repro_torch.sim.lattice import LatticeSpec
+
+    return LatticeSpec(policies=POLICIES, noise_powers=(1e-11,), alphas=(0.1,),
+                       seeds=(0, 1, 2), n_rounds=n_rounds, eval_every=10)
+
+
+def _worker_bench(args) -> None:
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.sim.lattice import make_cell_mesh
+    from repro_torch.sim.multihost import ensure_process_group
+    from repro_torch.sim.tasks import make_model_task
+
+    ensure_process_group(device=args.device)
+    mesh = make_cell_mesh()
+    task = make_model_task("logreg", n_devices=20, n_train=2000, n_test=1000, seed=0,
+                           device=resolve_device(args.device))
+    spec = bench_spec(args.n_rounds)
+    cfg = POFLConfig(n_devices=20, n_scheduled=10, backend=args.backend)
+    t0 = time.time()
+    cold = _timed_run(task, spec, cfg, mesh, args.device)
+    steady = _timed_run(task, spec, cfg, mesh, args.device)
+    payload = {
+        "lattice_seconds": cold["seconds"],
+        "steady_seconds": steady["seconds"],
+        "steady_cell_rounds_per_s": steady["cell_rounds_per_s"],
+        "wall_seconds": time.time() - t0,
+        "cells": spec.n_cells,
+        "n_rounds": spec.n_rounds,
+        "n_hosts": dist.get_world_size(),
+        "mesh_devices": dist.get_world_size(),
+        "backend": args.backend,
+        "max_memory_allocated": steady["max_memory_allocated"],
+    }
+    print(f"[worker {dist.get_rank()}] bench {json.dumps(payload)}", flush=True)
+    if dist.get_rank() == 0 and args.out:
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=2)
+    dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the resilient workload — independent rank-sharded checkpointed sweep (no
+# collectives, so a crashed rank restarts alone and resumes from its own
+# checkpoints)
+# --------------------------------------------------------------------------
+
+
+def resilient_spec(n_rounds: int = 6):
+    """The pinned fault-injection grid: 2 policies × 2 seeds × 2 local
+    algorithms (fedavg and the stateful feddyn, so a resumed carry holds
+    ``AlgState``) over the churn scenario — 8 cells, split across ranks."""
+    from repro_torch.sim.lattice import LatticeSpec
+
+    return LatticeSpec(policies=("pofl", "channel"), noise_powers=(1e-11,), alphas=(0.1,),
+                       seeds=(0, 1000), n_rounds=n_rounds, eval_every=2,
+                       algorithms=("fedavg", "feddyn"))
+
+
+def _resilient_task():
+    """The resilient workers' task: 320 16-dim rows on 8 devices,
+    Dirichlet-mixed (unequal true shard sizes in ``n_samples``)."""
+    from repro_torch.data.partition import partition_dirichlet_mixed
+    from repro_torch.data.synthetic import make_classification_dataset
+    from repro_torch.models.small import logreg_loss
+
+    x, y = make_classification_dataset("mnist_like", 320, torch.Generator().manual_seed(0),
+                                       dim=16)
+    data = partition_dirichlet_mixed(x, y, n_devices=8, seed=0)
+    return logreg_loss, data, {"w": torch.zeros(16, 10), "b": torch.zeros(10)}
+
+
+def resilient_shard(rank: int, count: int, n_rounds: int, checkpoint_dir: str,
+                    checkpoint_every: int, device=None) -> tuple[int, int]:
+    """Rank ``rank`` of ``count``'s shard of the resilient sweep,
+    checkpointed every ``checkpoint_every`` rounds under ``checkpoint_dir``
+    and published as ``shard-r<rank>.npz`` there → its ``(lo, hi)`` cells.
+    What a resilient worker runs; a clean run of the sweep is every rank's
+    shard, in one process or many."""
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.sim.resilience import fault_nan, run_worker_shard
+
+    loss_fn, data, params0 = _resilient_task()
+    cfg = POFLConfig(n_devices=8, n_scheduled=3,
+                     on_nonfinite="skip" if fault_nan() is not None else "propagate")
+    return run_worker_shard(loss_fn, data, params0, resilient_spec(n_rounds),
+                            os.path.join(checkpoint_dir, f"shard-r{rank}.npz"), checkpoint_dir,
+                            checkpoint_every, rank=rank, count=count, base_cfg=cfg,
+                            scenario="churn", device=resolve_device(device))
+
+
+def _worker_resilient(args) -> None:
+    """Run THIS rank's shard of the resilient sweep (rank/count from the
+    ``REPRO_DIST_*`` env). Independent per rank: it makes no process group."""
+    from repro_torch.obs.sink import process_coords
+
+    rank, count = process_coords()
+    lo, hi = resilient_shard(rank, count, args.n_rounds, args.checkpoint_dir,
+                             args.checkpoint_every, args.device)
+    print(f"[worker {rank}] shard cells [{lo}, {hi}) -> "
+          f"{os.path.join(args.checkpoint_dir, f'shard-r{rank}.npz')}", flush=True)
+
+
+def _worker_argv(workload: str, **flags) -> list[str]:
+    argv = [sys.executable, "-m", "repro_torch.launch.distributed", "--worker",
+            "--workload", workload]
+    for name, value in flags.items():
+        if value is not None:
+            argv += [f"--{name.replace('_', '-')}", str(value)]
+    return argv
+
+
+def run_resilient(
+    n_procs: int,
+    checkpoint_dir: str,
+    out: str = "",
+    n_rounds: int = 6,
+    checkpoint_every: int = 2,
+    timeout: float = 900.0,
+    supervisor: SupervisorConfig | None = None,
+    device: str | None = None,
+):
+    """Supervise the resilient workload across ``n_procs`` independent local
+    workers, then merge their shards into one full-grid ``LatticeRecords``
+    (written to ``out`` as npz when given). Survives injected or real rank
+    crashes up to the per-rank restart budget."""
+    from repro_torch.sim.resilience import merge_shards
+
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    supervise_workers(
+        _worker_argv("resilient", n_rounds=n_rounds, checkpoint_dir=checkpoint_dir,
+                     checkpoint_every=checkpoint_every, device=device),
+        n_procs=n_procs, timeout=timeout, supervisor=supervisor,
+    )
+    records = merge_shards(resilient_spec(n_rounds),
+                           [os.path.join(checkpoint_dir, f"shard-r{r}.npz")
+                            for r in range(n_procs)])
+    if out:
+        save_records(out, records, {"n_rounds": n_rounds, "n_procs": n_procs,
+                                    "workload": "resilient"})
+    return records
+
+
+def run_bench(
+    n_procs: int,
+    devices_per_proc: int = 1,
+    backend: str = "jnp",
+    n_rounds: int = 30,
+    timeout: float = 1200.0,
+    device: str | None = None,
+) -> dict:
+    """Spawn the bench workload across ``n_procs`` local ranks and return
+    rank 0's timing payload."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench.json")
+        run_workers(_worker_argv("bench", out=out, backend=backend, n_rounds=n_rounds,
+                                 device=device),
+                    n_procs=n_procs, devices_per_proc=devices_per_proc, timeout=timeout)
+        with open(out) as f:
+            return json.load(f)
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--" in argv:
+        split = argv.index("--")
+        argv, command = argv[:split], argv[split + 1:]
+    else:
+        command = None
+
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--procs", type=int, default=2, metavar="N",
+                        help="number of coordinated local ranks")
+    parser.add_argument("--devices-per-proc", type=int, default=1, metavar="K",
+                        help="devices a rank: 1 (the port runs one rank a device)")
+    parser.add_argument("--workload", default="parity",
+                        choices=("parity", "bench", "resilient"),
+                        help="built-in workload when no `-- command` is given")
+    parser.add_argument("--out", default="",
+                        help="rank-0 output path (npz for parity and resilient, json for bench)")
+    parser.add_argument("--n-rounds", type=int, default=4)
+    parser.add_argument("--backend", default="jnp", help="bench: the aggregation backend")
+    parser.add_argument("--device", default=None,
+                        help="cpu, or cuda (each rank its card: cuda:{rank %% cards}); "
+                             "default: the rank's card")
+    parser.add_argument("--cnn-rounds", type=int, default=0,
+                        help="parity: also hold the full-width CNN lattice, this many "
+                             "rounds, round by round over the cells and model meshes")
+    parser.add_argument("--timeout", type=float, default=900.0,
+                        help="seconds before every rank still running is killed")
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="resilient workload: checkpoint/shard directory "
+                             "(default: a temp dir)")
+    parser.add_argument("--checkpoint-every", type=int, default=2,
+                        help="resilient workload: rounds per checkpoint chunk")
+    parser.add_argument("--max-restarts", type=int, default=2,
+                        help="supervisor: restart budget per rank")
+    parser.add_argument("--liveness-timeout", type=float, default=None,
+                        help="supervisor: seconds of heartbeat silence (REPRO_OBS_DIR "
+                             "mtimes) before a rank is killed and restarted")
+    parser.add_argument("--worker", action="store_true",
+                        help=argparse.SUPPRESS)  # internal: run AS a worker
+    args = parser.parse_args(argv)
+
+    if args.worker:
+        {"parity": _worker_parity, "resilient": _worker_resilient,
+         "bench": _worker_bench}[args.workload](args)
+        return
+
+    if args.procs < 1:
+        parser.error("--procs must be >= 1")
+    if args.devices_per_proc != 1:
+        parser.error("--devices-per-proc must be 1: the port runs one rank a device")
+
+    if args.workload == "resilient" and command is None:
+        import tempfile
+
+        ckpt_dir = args.checkpoint_dir or tempfile.mkdtemp(prefix="repro-ckpt-")
+        records = run_resilient(
+            n_procs=args.procs, checkpoint_dir=ckpt_dir, out=args.out,
+            n_rounds=args.n_rounds, checkpoint_every=args.checkpoint_every,
+            timeout=args.timeout, device=args.device,
+            supervisor=SupervisorConfig(max_restarts=args.max_restarts,
+                                        liveness_timeout=args.liveness_timeout),
+        )
+        print(f"[launcher] resilient sweep done: {records.e_com.shape} "
+              f"(checkpoints under {ckpt_dir})")
+        return
+
+    worker_argv = command or _worker_argv(
+        args.workload, out=args.out or None, n_rounds=args.n_rounds, backend=args.backend,
+        device=args.device, cnn_rounds=args.cnn_rounds or None)
+    results = run_workers(worker_argv, n_procs=args.procs,
+                          devices_per_proc=args.devices_per_proc, timeout=args.timeout)
+    sys.stdout.write(results[0].output)
+
+
+if __name__ == "__main__":
+    main()

@@ -77,7 +77,7 @@ from repro_torch.core.local_update import (
 )
 from repro_torch.core.metrics import RoundDiagnostics, RoundHealth
 from repro_torch.core.pofl import (
-    FUSED_POLICY, DeviceData, History, POFLConfig, round_algorithm,
+    FUSED_POLICY, DeviceData, History, ModelShard, POFLConfig, round_algorithm,
     round_algorithm_cells, sampler_draw,
 )
 from repro_torch.device import resolve_device
@@ -86,6 +86,7 @@ from repro_torch.obs.config import DEFAULT_OBS, ObsConfig
 from repro_torch.obs.profile import maybe_profile
 from repro_torch.obs.registry import counter_add
 from repro_torch.obs.spans import span
+from repro_torch.sim.multihost import axis_size
 from repro_torch.sim.scenario import make_channel_process
 from repro_torch.sim.tasks import EvalRecord, TaskEval, zero_eval_record
 
@@ -201,6 +202,14 @@ class SimEngine:
         ``diagnostics=True`` computes the taps every round and fills the
         records' ``diag``. ``run_with_history`` computes them too and, as
         in the reference, its ``History`` does not carry them.
+      mesh:    the ``DeviceMesh`` (``sim.multihost``) a sharded run spreads
+        over, or ``None``. A ``"model"`` axis of more than one rank
+        switches the rounds to the model-sharded route
+        (:class:`~repro_torch.core.pofl.ModelShard`); the cells axis is
+        ``run_lattice``'s to split, and this rank's cells draw from their
+        seeds' streams exactly as in the unsharded run. With a process group
+        the default device is this rank's card
+        (``repro_torch.device.resolve_device``).
     """
 
     def __init__(
@@ -214,9 +223,14 @@ class SimEngine:
         eval_fn: Callable | None = None,
         device=None,
         obs: ObsConfig | None = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.obs = obs or DEFAULT_OBS
+        self.mesh = mesh
+        self.model_shard = None
+        if mesh is not None and axis_size(mesh, "model") > 1:
+            self.model_shard = ModelShard(mesh=mesh)
         if cfg.local_algorithm not in ALGORITHMS + (FUSED_ALGORITHM,):
             raise ValueError(
                 f"unknown local_algorithm {cfg.local_algorithm!r}; choose from {ALGORITHMS}"
@@ -376,7 +390,7 @@ class SimEngine:
             self.loss_fn, self.data, self.cfg, state.params, d.h, d.batch_idx, d.sched,
             d.z, t, state.noise, state.alpha, state.policy, avail_c=self._avail(d),
             alg_state_c=state.alg, algorithm_id_c=state.algorithm, fault_round_c=fault_b,
-            diagnostics=self.obs.diagnostics,
+            diagnostics=self.obs.diagnostics, model_shard=self.model_shard,
         )
         loss, acc, ev = self._eval(params, state.noise.shape[0], do_eval)
         record = RoundRecord(m.e_com, m.e_var, m.grad_norm, m.n_scheduled, loss, acc,
@@ -477,7 +491,7 @@ class SimEngine:
             params, alg, m = round_algorithm(
                 self.loss_fn, self.data, self.cfg, state.params,
                 d.h, d.batch_idx, d.sched, d.z, t, avail=self._avail(d), alg_state=state.alg,
-                diagnostics=self.obs.diagnostics,
+                diagnostics=self.obs.diagnostics, model_shard=self.model_shard,
             )
             state = SimState(params=params, key=key, chan=None, alg=alg)
             e_com.append(m.e_com)

@@ -29,7 +29,19 @@ event per engine dispatch, and a run with the taps one
 do (``repro_torch.obs``; what the events' fields mean in the port:
 ``repro_torch.sim.engine``).
 
-A mesh raises ``NotImplementedError`` naming its ROADMAP item.
+``mesh`` spreads the cells over the ranks of a process group
+(``torch.distributed``, one rank a device; ``sim.multihost``): a
+``DeviceMesh`` with axes ``("cells",)`` or ``("cells", "model")``, an int
+(:func:`make_cell_mesh`) or a ``(cells, model)`` pair
+(:func:`make_cell_model_mesh`). Every rank makes the same call. The flat
+cell axis of each (sub-)lattice is padded to a multiple of the cells axis
+with repeats of its last cell, each cells rank runs its contiguous block
+(its seeds' draw streams are the unsharded run's: a seed's draws do not
+depend on which of its cells a rank holds), the records come to every
+rank in one gather (``sim.multihost.gather_records``) and the repeats are
+dropped, so every rank returns the same ``LatticeRecords``. A ``model``
+axis of more than one rank also shards each cell's aggregation over D
+(``core.pofl.ModelShard``).
 """
 from __future__ import annotations
 
@@ -49,6 +61,35 @@ from repro_torch.obs.spans import span
 from repro_torch.sim.engine import (
     FUSED_ALGORITHM, FUSED_POLICY, RECORD_SCALARS, RoundRecord, SimEngine, zip_records,
 )
+from repro_torch.sim.multihost import (
+    LAUNCHER_HINT, axis_size, cell_model_mesh_over, cells_mesh_over, gather_records,
+    mesh_spans_processes, shard_to_global,
+)
+
+_LOCAL_MESH_HINT = f"(one rank a device; {LAUNCHER_HINT})"
+
+
+def make_cell_model_mesh(cells: int | None = None, model: int = 1):
+    """A 2-D ``("cells", "model")`` mesh over the process group's first
+    ``cells × model`` ranks, cells-major (``None``: every full group of
+    ``model`` ranks).
+
+    The cells axis splits the flattened lattice grid as the 1-D mesh does;
+    a ``model`` axis of more than one rank also splits each cell's flat
+    model dimension D for the aggregation (``core.pofl.ModelShard``). A
+    single process is a one-rank group (made here if none exists); more
+    ranks come from ``python -m repro_torch.launch.distributed``, and asking
+    for more than the group holds raises ``ValueError``.
+    """
+    return cell_model_mesh_over(cells, model, hint=_LOCAL_MESH_HINT)
+
+
+def make_cell_mesh(n_devices: int | None = None):
+    """A 1-D ``("cells",)`` mesh over the process group's first
+    ``n_devices`` ranks (``None``: every rank); one rank a device, so the
+    reference's local devices are the group's ranks here (a single process
+    is a one-rank mesh, the group made here if none exists)."""
+    return cells_mesh_over(n_devices, hint=_LOCAL_MESH_HINT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,10 +158,6 @@ class LatticeRecords(NamedTuple):
         return {f: getattr(self, f)[sel] for f in RECORD_SCALARS}
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
-
-
 def cell_axes(spec: LatticeSpec, algorithm_ids, policy_ids) -> dict:
     """The flat (B,) cell axes of ``spec`` over these algorithm and policy
     ids, in the reference's fused order (algorithm, then policy-major noise
@@ -185,14 +222,24 @@ def run_lattice(
       device: where the lattice runs; the CUDA card by default (no card and
         no ``device``: it raises).
 
+      mesh: ``None``, a ``DeviceMesh`` with axes ``("cells",)`` or
+        ``("cells", "model")``, an int (:func:`make_cell_mesh`) or a
+        ``(cells, model)`` pair (:func:`make_cell_model_mesh`): every rank
+        of it makes the same call, runs its block of the cells (module
+        docstring) and returns the same records. The default ``device`` is
+        then this rank's card.
+
     Each sub-lattice draws from the same seeds' streams as the fused batch,
-    so every cell consumes the same draws. ``mesh`` is the reference's
-    option that is not ported; it raises ``NotImplementedError`` naming its
-    ROADMAP item.
+    so every cell consumes the same draws.
     """
     base_cfg = base_cfg or POFLConfig(n_devices=data.n_devices)
-    if mesh is not None:
-        raise _unported("run_lattice over a mesh (cells or cells × model)", "12")
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        mesh = make_cell_mesh(mesh)
+    elif isinstance(mesh, tuple):
+        mesh = make_cell_model_mesh(*mesh)
+    if mesh is not None and mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the lattice's mesh")
+    n_shards = 1 if mesh is None else axis_size(mesh, "cells")
     algs = tuple(spec.algorithms)
     if not algs:
         raise ValueError("spec.algorithms must name at least one algorithm")
@@ -207,19 +254,27 @@ def run_lattice(
 
     engine = SimEngine(
         loss_fn, data, cfg, channel_cfg=channel_cfg, scenario=scenario,
-        scenario_params=scenario_params, eval_fn=eval_fn, device=device, obs=obs,
+        scenario_params=scenario_params, eval_fn=eval_fn, device=device, obs=obs, mesh=mesh,
     )
+    multihost = mesh_spans_processes(mesh)
     pol_ids = [scheduling.policy_id(p) for p in spec.policies]
     alg_groups = [alg_ids] if fuse_algorithms or not traced_algs else [[a] for a in alg_ids]
     pol_groups = [pol_ids] if fuse_policies else [[p] for p in pol_ids]
     grid_tail = (len(spec.noise_powers), len(spec.alphas), len(spec.seeds), spec.n_rounds)
 
     def sub_lattice(alg_group, pol_group) -> RoundRecord:
-        """One cell batch → its records, each leaf (a, p, Nn, Na, Ns, T),
-        and its ``lattice.run`` event."""
+        """One cell batch → its records, each leaf (a, p, Nn, Na, Ns, T)
+        (on the device; on a mesh, this rank's block run and every rank's
+        gathered to the host), and its ``lattice.run`` event."""
         axes = cell_axes(spec, alg_group, pol_group)
         if not traced_algs:
             axes["algorithm_b"] = None
+        n_cells = len(axes["seed_b"])
+        if mesh is not None:  # repeats of the last cell, then this rank's block
+            pad = (-n_cells) % n_shards
+            axes = {k: None if v is None else
+                    shard_to_global(np.concatenate([v, np.repeat(v[-1:], pad)]), mesh)
+                    for k, v in axes.items()}
         warm, builds0 = metric_value("engine.lattice_runs") > 0, _nvcc_builds()
         recs = engine.run_lattice_cells(params0, t_ints.tolist(), do_eval.tolist(), **axes)
         which = {}
@@ -227,22 +282,34 @@ def run_lattice(
             which["policy"] = spec.policies[pol_ids.index(pol_group[0])]
         if len(alg_groups) > 1:
             which["algorithm"] = algs[alg_ids.index(alg_group[0])]
-        emit_run(spec, len(alg_group) * len(pol_group) * int(np.prod(grid_tail[:3])),
-                 len(alg_group), warm, _nvcc_builds() - builds0, fused=fuse_policies,
-                 **which)
+        emit_run(spec, n_cells, len(alg_group), warm, _nvcc_builds() - builds0,
+                 multihost=multihost, fused=fuse_policies, **which)
+        if mesh is not None:
+            recs = zip_records(lambda f: f[:n_cells],
+                               gather_records(records_to_host(recs), mesh))
         return zip_records(lambda f: f.reshape(len(alg_group), len(pol_group), *grid_tail),
                            recs)
 
     with span("lattice.sweep", cells=spec.n_cells, fused=fuse_policies,
-              policies=len(spec.policies), algorithms=len(algs), multihost=False):
+              policies=len(spec.policies), algorithms=len(algs), multihost=multihost):
         blocks = [[sub_lattice(ag, pg) for pg in pol_groups] for ag in alg_groups]
-        # the sub-lattices stacked on their axes, then the one device → host
-        # transfer of the run
-        by_alg = [zip_records(lambda *f: torch.cat(f, dim=1), *row) for row in blocks]
-        grid = records_to_host(zip_records(lambda *f: torch.cat(f, dim=0), *by_alg))
+        # the sub-lattices stacked on their axes; unsharded, then the one
+        # device → host transfer of the run
+        by_alg = [zip_records(lambda *f: _cat(f, 1), *row) for row in blocks]
+        grid = zip_records(lambda *f: _cat(f, 0), *by_alg)
+        if mesh is None:
+            grid = records_to_host(grid)
     if grid.diag is not None:
         emit_diagnostics(spec, grid.diag)
     return assemble_records(spec, grid, do_eval, eval_rounds)
+
+
+def _cat(parts, dim: int):
+    """Record leaves joined along ``dim``: device tensors, or the host
+    arrays of a sharded run."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=dim)
+    return np.concatenate(parts, axis=dim)
 
 
 def eval_schedule(spec: LatticeSpec, has_eval: bool) -> tuple[np.ndarray, np.ndarray]:
@@ -264,11 +331,12 @@ def _nvcc_builds() -> int:
 
 
 def emit_run(spec: LatticeSpec, cells: int, algorithms: int, warm: bool, builds: int,
-             **fields) -> None:
+             multihost: bool = False, **fields) -> None:
     """One ``lattice.run`` event, the reference's fields: the port traces
     and compiles no program (``trace_delta`` and ``engine_compiles`` 0),
-    and ``compile_delta`` is the kernels' ``nvcc`` builds during the call."""
-    emit("lattice", "lattice.run", cells=cells, n_rounds=spec.n_rounds, multihost=False,
+    and ``compile_delta`` is the kernels' ``nvcc`` builds during the call;
+    ``multihost`` says the cells were spread over more than one rank."""
+    emit("lattice", "lattice.run", cells=cells, n_rounds=spec.n_rounds, multihost=multihost,
          algorithms=algorithms, warm=warm, trace_delta=0, compile_delta=builds,
          engine_compiles=0, **fields)
 

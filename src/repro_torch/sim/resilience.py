@@ -15,15 +15,9 @@ persisted between chunks and re-entered after a crash:
     produces bit-identical records to the uninterrupted (chunked) run — the
     chunks issue the same ops on the same carries, and the npz round-trip is
     bytewise on every leaf (the generators' states included). On a CUDA
-    card the chunks run under cuDNN's deterministic algorithms
-    (:func:`cudnn_deterministic`): with its default ones two runs of one CNN
-    lattice differ from round 0 on, so no resume could repeat the run. On
-    an NVIDIA H100 80GB HBM3 (700 W) that mode costs 23% of the CNN
-    lattice's cell-rounds/s and 2.4% of the CNN scenario lattice's, and a
-    CNN lattice checkpointed every 3 rounds runs at 0.72× ``run_lattice``
-    (``chip_smoke.py`` phases ``obs`` and ``checkpoint``,
-    ``chip_repeatability.py``; ``PERF.md``). ``run_lattice`` keeps cuDNN's
-    default.
+    card the repeat rests on the local update's deterministic convolutions
+    (``repro_torch.device.cudnn_deterministic``), which every run of the
+    port uses, ``run_lattice`` as much as this one.
   * worker sharding — :func:`run_worker_shard` runs one contiguous slice of
     the fused flat cell grid (per-rank checkpoints, per-rank shard npz) and
     :func:`merge_shards` reassembles the full :class:`LatticeRecords`. A
@@ -53,12 +47,12 @@ Discovery keys on npz presence (the atomic saver publishes the sidecar
 FIRST), and the fingerprint — spec + config + cell slice — refuses to
 resume a checkpoint written by a different sweep. The records' ``diag``,
 ``eval`` and ``health`` subtrees go through the npz under the reference's
-keys. The supervisor that restarts a killed worker (the reference's
-``supervise_workers``) comes with the multi-process launcher (ROADMAP A12).
+keys. ``repro_torch.launch.distributed.supervise_workers`` restarts a
+worker that a fault or a crash took down, and :func:`run_worker_shard`
+resumes it from its own checkpoints (``--workload resilient``).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import glob
 import hashlib
@@ -146,22 +140,6 @@ def _maybe_fault_kill(t_next: int, rank: int) -> None:
         rank=rank, round=kill[1], t_next=t_next, exit_code=FAULT_EXIT_CODE,
     )
     os._exit(FAULT_EXIT_CODE)
-
-
-@contextlib.contextmanager
-def cudnn_deterministic(device):
-    """cuDNN's deterministic algorithms inside the block when ``device`` is
-    a CUDA device (the flag's old value restored on exit, also after an
-    exception); nothing changes on the CPU."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
 
 
 # -- checkpoint plumbing ---------------------------------------------------
@@ -341,7 +319,7 @@ def _run_cells_checkpointed(
         "heartbeat", "resilience.heartbeat",
         round=t_next, total=T, rank=rank, cells=int(hi - lo),
     )
-    with cudnn_deterministic(engine.device), span(
+    with span(
         "resilience.sweep", cells=int(hi - lo), n_rounds=T,
         chunk=chunk, resumed_at=t_next,
     ):
@@ -409,9 +387,7 @@ def run_lattice_checkpointed(
     records after each; ``resume=True`` re-enters from the newest checkpoint
     in the directory (fingerprint-guarded). With ``checkpoint_every=None``
     and no ``REPRO_FAULT_*`` env the whole sweep is one chunk and nothing is
-    written. ``device`` is where it runs: the CUDA card by default, where
-    the chunks run under cuDNN's deterministic algorithms (the old setting
-    restored after the call).
+    written. ``device`` is where it runs: the CUDA card by default.
 
     Returns the full-grid :class:`LatticeRecords` (same axes/ordering as
     ``run_lattice``). Bit-identity contract: interrupted-and-resumed equals

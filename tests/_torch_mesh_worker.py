@@ -1,0 +1,149 @@
+"""One rank of the port's multi-rank CPU tests (no JAX here).
+
+    python -m repro_torch.launch.distributed --procs N -- \\
+        python tests/_torch_mesh_worker.py <job> <input> <output>
+
+Each rank joins the process group from the ``REPRO_DIST_*`` env contract
+(gloo), runs ``<job>`` and rank 0 writes what the test compares to
+``<output>`` (``torch.save``); every rank checks that it got what rank 0
+got. Jobs:
+
+  shard_gather  ``shard_to_global`` and ``gather_records`` over a cells
+                mesh of every rank: the blocks tile the grid, the gather
+                gives every rank the whole grid in cell order.
+  allreduce     ``aircomp_allreduce`` of rank i's row of the input's g,
+                with its coefficient and the shared z (the input's).
+  cnn_parity    the launcher's full-width CNN parity check
+                (``launch.distributed._cnn_parity``) on a narrow CNN (4
+                devices), over a cells mesh of every rank and a (1, N) model
+                mesh: each round from the unsharded state, and whether the
+                sharded calls were timed, with their launch counts (their
+                times differ by rank, so not returned).
+  lattice       the input's lattice cases (``tests/test_torch_lattice_mesh.py``),
+                each ``run_lattice`` with its keywords on the mesh it names,
+                its draws replayed per seed from the input (the reference's,
+                drawn in the test process).
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+
+
+def replay(draws: dict) -> None:
+    """``SimEngine``'s per-seed draw streams become ``draws[seed][round]``
+    (a stream is the tensor [seed, round], as ``tests/_torch_parity.py``
+    replays them)."""
+    from repro_torch.sim import engine
+
+    def start(self, seed):
+        return engine.DrawStream(rng=torch.tensor([seed, 0]), chan=())
+
+    def advance(self, stream, dim):
+        seed, rnd = (int(x) for x in stream.rng)
+        return (engine.DrawStream(rng=torch.tensor([seed, rnd + 1]), chan=()),
+                engine.RoundDraws(*draws[seed][rnd]))
+
+    engine.SimEngine.draw_stream = start
+    engine.SimEngine.next_draws = advance
+
+
+def shard_gather(_inp) -> dict:
+    from repro_torch.core.pofl import ModelShard
+    from repro_torch.sim.engine import RoundRecord
+    from repro_torch.sim.lattice import make_cell_mesh, make_cell_model_mesh
+    from repro_torch.sim.multihost import gather_records, mesh_process_span, shard_to_global
+
+    mesh = make_cell_mesh()
+    world = dist.get_world_size()
+    grid = np.arange(4 * world * 3, dtype=np.float32).reshape(4 * world, 3)
+    block = shard_to_global(grid, mesh)
+    blocks = [None] * world
+    dist.all_gather_object(blocks, block)
+    gathered = gather_records(RoundRecord(*(block + k for k in range(6))), mesh)
+    ms = ModelShard(make_cell_model_mesh(1, world))
+    return {"blocks": blocks, "gathered": list(gathered), "span": mesh_process_span(mesh),
+            "padded_dim": ms.padded_dim(258_634), "n_shards": ms.n_shards,
+            "leaf_specs": [ms.leaf_sharding(s)
+                           for s in ((3, 3, 32, 64), (10,), (128, 10), (784, 10))]}
+
+
+def allreduce(inp) -> dict:
+    from repro_torch.core.collective import aircomp_allreduce
+
+    r = dist.get_rank()
+    out = aircomp_allreduce({"g": inp["g"][r]}, inp["coeffs"][r], inp["noise_amp"],
+                            {"g": inp["z"]})
+    return {"y": out["g"]}
+
+
+def cnn_parity(_inp) -> dict:
+    from repro_torch.core.pofl import POFLConfig
+    from repro_torch.launch import distributed
+    from repro_torch.sim.lattice import LatticeSpec, make_cell_mesh, make_cell_model_mesh
+    from repro_torch.sim.tasks import make_model_task
+
+    def narrow(device, n_rounds):
+        task = make_model_task("cnn", n_devices=4, n_train=40, n_test=8, seed=0,
+                               channel_bias=1.0, device=device)
+        spec = LatticeSpec(policies=("pofl", "channel", "deterministic"), seeds=(0,),
+                           noise_powers=(1e-10,), n_rounds=n_rounds, eval_every=1)
+        return task, spec, POFLConfig(n_devices=4, n_scheduled=2, backend="pallas_fused")
+
+    distributed._cnn_parity_lattice = narrow
+    world = dist.get_world_size()
+    out = distributed._cnn_parity(2, make_cell_mesh(), make_cell_model_mesh(1, world), "cpu")
+    costs = {name: {k: part.pop(k) for k in list(part) if k.endswith("sharded")}
+             for name, part in out.items()}
+    # a cost's seconds differ by rank: only whether it was timed, and its launches
+    return {name: part | {k: {"timed": c["seconds"] > 0, "launches": c["launches"]}
+                          for k, c in costs[name].items()}
+            for name, part in out.items()}
+
+
+def lattice(inp) -> dict:
+    from repro_torch.sim.lattice import run_lattice
+
+    out = {}
+    for name, case in inp.items():
+        replay(case["draws"])
+        out[name] = run_lattice(**case["kw"], mesh=case["mesh"], device="cpu")
+    return out
+
+
+def main() -> int:
+    job, path_in, path_out = sys.argv[1:]
+    from repro_torch.sim.multihost import initialize_distributed
+
+    if not initialize_distributed(device="cpu", timeout=60.0):
+        raise SystemExit("no REPRO_DIST_* env: start this under repro_torch.launch.distributed")
+    inp = torch.load(path_in, weights_only=False) if path_in != "-" else None
+    result = {"shard_gather": shard_gather, "allreduce": allreduce, "cnn_parity": cnn_parity,
+              "lattice": lattice}[job](inp)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, result)
+    same = all(_equal(every[0], other) for other in every[1:])
+    if dist.get_rank() == 0:
+        torch.save({"result": result, "every_rank_equal": same}, path_out)
+    dist.destroy_process_group()
+    return 0
+
+
+def _equal(a, b) -> bool:
+    """Bitwise equality of two results (nested containers of arrays)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -322,3 +322,29 @@ def reference_and_port_lattice(monkeypatch, spec_kw, cfg_kw, **case_kw):
     case = lattice_case(monkeypatch, spec_kw, cfg_kw, **case_kw)
     want = case.reference()
     return case.port(), want
+
+
+def launch_ranks(job: str, n_ranks: int, inp, tmp_path, timeout: float = 240.0):
+    """``tests/_torch_mesh_worker.py <job>`` on ``n_ranks`` gloo ranks through
+    the port's launcher (``python -m repro_torch.launch.distributed``), with
+    ``inp`` as its input → rank 0's result, after checking that every rank
+    got the same. The launcher kills the ranks after ``timeout`` seconds,
+    and the launcher itself is killed a minute later."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    path_in, path_out = tmp_path / f"{job}-in.pt", tmp_path / f"{job}-out.pt"
+    torch.save(inp, path_in)
+    cmd = [sys.executable, "-m", "repro_torch.launch.distributed", "--procs", str(n_ranks),
+           "--timeout", str(timeout), "--", sys.executable,
+           str(root / "tests" / "_torch_mesh_worker.py"), job, str(path_in), str(path_out)]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "1"}
+    done = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=root,
+                          timeout=timeout + 60)
+    assert done.returncode == 0, done.stdout[-4000:] + done.stderr[-4000:]
+    out = torch.load(path_out, weights_only=False)
+    assert out["every_rank_equal"]
+    return out["result"]

@@ -777,8 +777,8 @@ def test_diagnostics_leave_the_card_records_bitwise_unchanged(card):
     """With cuDNN's deterministic algorithms a CNN lattice with the taps
     gives bitwise the base records of one without them (the taps only
     read), and every tap is finite; one batch launch a round either way."""
+    from repro_torch.device import cudnn_deterministic
     from repro_torch.obs import ObsConfig
-    from repro_torch.sim.resilience import cudnn_deterministic
 
     task, spec, cfg = _cnn_lattice(card)
     runs = []
@@ -817,26 +817,66 @@ def test_checkpointed_resume_on_the_card_is_bitwise(card, tmp_path):
         assert (getattr(full, f) == getattr(resumed, f)).all(), f
 
 
-def test_checkpointed_run_restores_the_deterministic_flag_after_an_exception(card, tmp_path,
-                                                                             monkeypatch):
-    """The flag is on inside the chunks and back to its old value after the
-    call, also when a chunk raises."""
+def test_checkpointed_run_restores_the_deterministic_flag_after_an_exception(card, tmp_path):
+    """The flag is on inside the local update's gradients and back to its
+    old value after the call, also when a gradient raises."""
     from repro_torch.sim import resilience
 
     task, spec, cfg = _cnn_lattice(card, n_rounds=2)
     seen = []
 
-    def failing_chunk(self, *args, **kw):
+    def failing_loss(params, x, y):
         seen.append(torch.backends.cudnn.deterministic)
-        raise RuntimeError("chunk failed")
+        raise RuntimeError("gradient failed")
 
-    monkeypatch.setattr(SimEngine, "run_lattice_chunk", failing_chunk)
     for before in (False, True):
         torch.backends.cudnn.deterministic = before
-        with pytest.raises(RuntimeError, match="chunk failed"):
-            resilience.run_lattice_checkpointed(task.loss_fn, task.data, task.params0, spec,
+        with pytest.raises(RuntimeError, match="gradient failed"):
+            resilience.run_lattice_checkpointed(failing_loss, task.data, task.params0, spec,
                                                 base_cfg=cfg, checkpoint_every=1,
                                                 checkpoint_dir=str(tmp_path / str(before)))
         assert torch.backends.cudnn.deterministic is before
     torch.backends.cudnn.deterministic = False
     assert seen == [True, True]
+
+
+# -- the card's lattices repeat bitwise by default -------------------------------
+
+
+def _full_width_cnn_lattices(card):
+    """The CNN lattice (5 policies × 3 seeds, full width) and the CNN
+    scenario lattice (4 algorithms × 3 policies × 2 seeds, K = 2, dropout
+    over Gauss–Markov, Dirichlet-sized shards), 2 rounds each: ``(task,
+    spec, cfg, run_lattice keywords)`` each."""
+    base = dict(n_devices=30, n_train=3000, n_test=1000, seed=0, channel_bias=1.0, device=card)
+    cfg = pofl.POFLConfig(n_devices=30, n_scheduled=10, noise_power=1e-10,
+                          backend="pallas_fused")
+    cnn = (make_model_task("cnn", **base),
+           LatticeSpec(policies=scheduling.POLICIES, noise_powers=(1e-10,), seeds=(0, 1, 2),
+                       n_rounds=2, eval_every=1),
+           cfg, {})
+    scenario = (make_model_task("cnn", partition="dirichlet_sized", beta=0.4, **base),
+                LatticeSpec(algorithms=ALGORITHMS, policies=("pofl", "importance", "channel"),
+                            noise_powers=(1e-10,), seeds=(0, 1), n_rounds=2, eval_every=1),
+                dataclasses.replace(cfg, local_steps=2, fedprox_mu=0.1),
+                dict(scenario="dropout",
+                     scenario_params={"base": "gauss_markov", "corr": 0.9, "p_drop": 0.1}))
+    return {"cnn_lattice": cnn, "cnn_scenario_lattice": scenario}
+
+
+@pytest.mark.parametrize("lattice", ["cnn_lattice", "cnn_scenario_lattice"])
+def test_cnn_lattices_repeat_bitwise_by_default(card, lattice):
+    """Two runs of a full-width CNN lattice give bitwise the same records
+    with cuDNN's flag as the user left it (off): the local update's
+    gradients run under the deterministic algorithms (with cuDNN's default
+    ones both convolution gradients differ run to run), and the flag is
+    back off after each run."""
+    task, spec, cfg, kw = _full_width_cnn_lattices(card)[lattice]
+    torch.backends.cudnn.deterministic = False
+    a, b = (run_lattice(task.loss_fn, task.data, task.params0, spec, base_cfg=cfg,
+                        eval_fn=task.eval, **kw) for _ in range(2))
+    assert torch.backends.cudnn.deterministic is False
+    for f in ("e_com", "e_var", "grad_norm", "n_scheduled", "loss", "acc"):
+        assert (getattr(a, f) == getattr(b, f)).all(), f
+    for fa, fb in zip(a.eval, b.eval):
+        assert (fa == fb).all()

@@ -137,11 +137,14 @@ def test_batch_kernel_wrapper_refuses_cpu_tensors():
 
 # (trials, D, vec): both main shapes of each entry (one CNN or logreg round,
 # the CNN lattice's 15 cells and logreg's 30), D below one block, odd D,
-# each load width, trials past grid y, and the smallest launch
+# each load width, trials past grid y, and the smallest launch; then the
+# sharded lattice's: one model rank's block of the CNN round and lattice
+# (D_local 129,536 of 259,072) and one of two cells ranks' 8 CNN cells
 GEOMETRY_SHAPES = [
     (1, 258_634, 2), (1, 7850, 2), (15, 258_634, 2), (30, 7850, 2),
     (3, 100, 4), (1, 100, 1), (4, 1001, 1), (1, 1001, 1), (3, 8192, 4), (1, 4096, 4),
     (70_000, 1000, 2), (1, 1, 1),
+    (1, 129_536, 4), (15, 129_536, 4), (8, 258_634, 2),
 ]
 
 
@@ -175,6 +178,16 @@ def test_launch_geometry_fills_the_card_at_the_round_shapes():
     assert (threads, rows) == (64, 16) and blocks_x >= 60
     assert tkernel.launch_geometry(30, 7850, 2) == (256, 8, 16, 30)
     assert tkernel.launch_geometry(15, 258_634, 2) == (256, 8, 506, 15)
+
+
+def test_launch_geometry_fills_the_card_at_the_sharded_shapes():
+    """One model rank's block of a CNN round (D_local 129,536, 4-wide loads)
+    launches 64-thread blocks, at least two an SM; its block of the CNN
+    lattice and a cells rank's 8 CNN cells fill the grid with 256 threads."""
+    threads, rows, blocks_x, _ = tkernel.launch_geometry(1, 129_536, 4)
+    assert (threads, rows) == (64, 8) and blocks_x >= 2 * tkernel.SMS
+    assert tkernel.launch_geometry(15, 129_536, 4) == (256, 8, 127, 15)
+    assert tkernel.launch_geometry(8, 258_634, 2) == (256, 8, 506, 8)
 
 
 def test_launch_geometry_stays_within_the_kernel_launch_bounds():

@@ -44,13 +44,11 @@ from repro_torch.flatten_util import ravel_pytree
 from repro_torch.kernels.ssd import ssd_pallas
 from repro_torch.sim.engine import RoundDraws
 
-# the reference's repro.sim exports that come with the multi-host, mesh and
-# compile-cache modules (ROADMAP queue A12, A17)
-SIM_LATER = ("DistributedConfig", "cached_engine", "distributed_env", "enable_compile_cache",
-             "engine_cache_stats", "initialize_distributed", "lattice_compile_stats",
-             "lattice_memory_stats", "make_cell_mesh", "make_cell_model_mesh",
-             "make_global_cell_mesh", "make_global_cell_model_mesh", "mesh_spans_processes",
-             "persistent_cache_counters", "reset_engine_cache")
+# the reference's repro.sim exports of its engine and compile caches, which
+# the port has no counterpart of while it compiles nothing (ROADMAP A17)
+SIM_LATER = ("cached_engine", "enable_compile_cache", "engine_cache_stats",
+             "lattice_compile_stats", "lattice_memory_stats", "persistent_cache_counters",
+             "reset_engine_cache")
 
 # (reference package, port package, names the port does not have yet)
 PACKAGES = [("repro.core", "repro_torch.core", ()),

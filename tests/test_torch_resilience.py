@@ -28,6 +28,7 @@ from repro.sim import resilience as jres
 from repro_torch.core.pofl import POFLConfig
 from repro_torch.data.partition import partition_dirichlet_mixed
 from repro_torch.data.synthetic import make_classification_dataset
+from repro_torch.device import cudnn_deterministic
 from repro_torch.models import small
 from repro_torch.obs import ObsConfig
 from repro_torch.sim import resilience as res
@@ -287,21 +288,22 @@ def test_checkpointed_run_matches_reference(monkeypatch, tmp_path):
 
 def test_cudnn_deterministic_is_scoped_and_restored():
     """On a CUDA device the flag is set inside and restored on exit, also
-    after an exception; on the CPU nothing changes."""
+    after an exception; on the CPU nothing changes (the scope the local
+    update's gradients run in, ``repro_torch.device``)."""
     before = torch.backends.cudnn.deterministic
     try:
         torch.backends.cudnn.deterministic = False
-        with res.cudnn_deterministic("cpu"):
+        with cudnn_deterministic("cpu"):
             assert torch.backends.cudnn.deterministic is False
-        with res.cudnn_deterministic(torch.device("cuda")):
+        with cudnn_deterministic(torch.device("cuda")):
             assert torch.backends.cudnn.deterministic is True
         assert torch.backends.cudnn.deterministic is False
         with pytest.raises(RuntimeError, match="mid-chunk"):
-            with res.cudnn_deterministic("cuda"):
+            with cudnn_deterministic("cuda"):
                 raise RuntimeError("mid-chunk")
         assert torch.backends.cudnn.deterministic is False
         torch.backends.cudnn.deterministic = True
-        with res.cudnn_deterministic("cuda"):
+        with cudnn_deterministic("cuda"):
             pass
         assert torch.backends.cudnn.deterministic is True
     finally:
