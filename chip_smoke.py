@@ -27,7 +27,8 @@ non-zero exit and no result line:
              launch floor, its time with g warm in L2 and with L2 flushed
              clean; for the batch kernel, B launches of the one-round kernel
              it replaces; for the flash kernel its useful TFLOP/s, its time
-             over the library call's and its 3 tensor-core passes)
+             over the library call's and its 3 tensor-core passes; the flash
+             and SSD kernels also at the zamba2 and olmoe prefills' shapes)
   main       ``run_pofl`` through the user's entry points: logreg (pofl and
              channel, 30 rounds) and the full-width CNN (D=258,634, N=30
              devices, 10 scheduled), ``backend="pallas_fused"``; launch
@@ -180,6 +181,28 @@ non-zero exit and no result line:
   ssm_depth_drift  at the reference's zero dt_bias: the prefill logits' card
              vs CPU relative L2 at 1, 12 and 48 layers, through the kernel
              and through the plain version on the card (reported)
+  hybrid_serve  zamba2-2.7b at full width and depth (54 Mamba2 layers, d
+             2,560, d_state 64, 80 heads of 64; the shared attention + MLP
+             block, 32 heads of 80, MHA, d_ff 10,240, before every 6th
+             layer: 9 invocations), the same way: exactly 9 flash and 54 SSD
+             launches a prefill, none in decode; the shared block's KV cache
+             one slot a position as for qwen2
+  moe_serve  olmoe-1b-7b at full width and depth (16 layers, d 2,048, 16
+             heads of 128, 64 experts, top-8, d_ff_expert 1,024, vocab
+             50,304), the same way: exactly 16 flash launches a prefill,
+             none in decode; the experts run as plain batched products
+  hybrid_serve_no_sync, moe_serve_no_sync, hybrid_serve_breakdown,
+             moe_serve_breakdown  as for qwen2 (``lm.attention``,
+             ``lm.mlp``, ``lm.mamba``; ``lm.attention``, ``lm.moe``; each
+             kernel's share of the prefill's device time)
+  hybrid_serve_parity, moe_serve_parity  full width at a cut depth in
+             fp32 (zamba2: 12 layers, 2 invocations, batch 2, prompt 256,
+             Mamba2's dt init; olmoe: 4 layers, batch 2, prompt 512: 1,024
+             tokens, one routing group), card against CPU as for qwen2;
+             olmoe's routing besides: every layer's experts equal at tokens
+             whose top k + 1 probabilities are more than 1e-6 apart, and
+             positions and drops equal wherever no other choice touched
+             their expert
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -266,7 +289,8 @@ PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 8
 BREAKDOWN_STEPS = 8
 # (b, s, h, kv, dh) of the flash kernel's times, bf16, causal: the serving
 # prefill and the prefill_32k sequence length
-ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 14, 2, 64), "prefill_32k": (1, 32768, 14, 2, 64)}
+ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 14, 2, 64), "prefill_32k": (1, 32768, 14, 2, 64),
+                    "zamba2_prefill": (8, 2048, 32, 32, 80), "olmoe_prefill": (8, 2048, 16, 16, 128)}
 # the second serving path: mamba2-370m at full width, the same batch, prompt
 # and new tokens; its parity at two chunks
 SSM_ARCH = "mamba2-370m"
@@ -275,7 +299,17 @@ SSM_DRIFT_DEPTHS = (1, 12, 48)
 # (b, s, h, p, n, chunk) of the SSD kernel's times, bf16: one layer of the
 # serving prefill and the prefill_32k sequence length
 SSD_TIME_SHAPES = {"prefill_2k": (8, 2048, 32, 64, 128, 256),
-                   "prefill_32k": (1, 32768, 32, 64, 128, 256)}
+                   "prefill_32k": (1, 32768, 32, 64, 128, 256),
+                   "zamba2_prefill": (8, 2048, 80, 64, 64, 256)}
+# the hybrid and MoE serving paths: zamba2-2.7b and olmoe-1b-7b at full width
+# and depth, the same batch, prompt and new tokens; their parity at full width
+# and a cut depth, (layers, batch, prompt): zamba2 with 2 shared-block
+# invocations, olmoe's 1,024 tokens in one routing group (so tokens drop)
+HYBRID_ARCH, MOE_ARCH = "zamba2-2.7b", "olmoe-1b-7b"
+HYBRID_PARITY, MOE_PARITY = (12, 2, 256), (4, 2, 512)
+# router probabilities closer than this make a token's top-k ill-defined: the
+# MoE parity holds decisions exactly everywhere else
+MOE_TIE = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -2191,11 +2225,41 @@ def zero_counts() -> None:
         setattr(mod, attr, 0)
 
 
-# per serving family: the kernel its prefill launches once a layer, the
-# stages its breakdown sees (serve.* and serve.*/lm.*), and what the names of
-# its kernels hold in the profiler (one call of ssd_scan runs three in bf16)
-SERVE_KERNEL = {"dense": ("flash_attention", 4, "flash_fwd_kernel_bf16"),
-                "ssm": ("ssd_scan", 3, "ssd_fwd_")}
+# what the names of the serving kernels hold in the profiler (one call of
+# ssd_scan runs three kernels in bf16), and each family's lm.* ranges besides
+# lm.logits
+TRACED_NAMES = {"flash_attention": "flash_fwd_kernel_bf16", "ssd_scan": "ssd_fwd_"}
+LM_RANGES = {"dense": ("lm.attention", "lm.mlp"), "ssm": ("lm.mamba",),
+             "hybrid": ("lm.attention", "lm.mlp", "lm.mamba"), "moe": ("lm.attention", "lm.moe")}
+
+
+def prefill_launches(cfg) -> dict:
+    """The launches of one prefill of ``cfg``, by kernel: flash once an
+    attention layer (a hybrid: once a shared-block invocation), SSD once a
+    Mamba2 layer, no other. A decode step launches none."""
+    from repro_torch.models.cache import n_shared_invocations
+
+    n = {name: 0 for name in kernel_counters()}
+    if cfg.arch_type in ("dense", "moe"):
+        n["flash_attention"] = cfg.n_layers
+    if cfg.arch_type in ("ssm", "hybrid"):
+        n["ssd_scan"] = cfg.n_layers
+    if cfg.arch_type == "hybrid":
+        n["flash_attention"] = n_shared_invocations(cfg)
+    return n
+
+
+def cache_fields(cache, prefix: str = "") -> dict:
+    """The float tensors of a cache by field name (a hybrid's as
+    ``ssm.state``, ``attn.k``, …)."""
+    out = {}
+    for name in cache._fields:
+        value = getattr(cache, name)
+        if isinstance(value, tuple):
+            out.update(cache_fields(value, f"{prefix}{name}."))
+        elif value.is_floating_point():
+            out[prefix + name] = value
+    return out
 
 
 def serve_setup(dev, arch):
@@ -2218,21 +2282,33 @@ def serve_setup(dev, arch):
 
 
 def arch_fields(cfg) -> dict:
-    if cfg.arch_type == "ssm":
+    out = {}
+    if cfg.ssm is not None:
         s = cfg.ssm
-        return {"ssm": {"d_state": s.d_state, "heads": s.n_heads(cfg.d_model),
-                        "head_dim": s.head_dim, "conv": s.conv_kernel, "chunk": s.chunk_size}}
-    return {"heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]}
+        out["ssm"] = {"d_state": s.d_state, "heads": s.n_heads(cfg.d_model),
+                      "head_dim": s.head_dim, "conv": s.conv_kernel, "chunk": s.chunk_size}
+    if cfg.arch_type != "ssm":
+        out["heads"] = [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]
+    if cfg.hybrid is not None:
+        from repro_torch.models.cache import n_shared_invocations
+
+        out["shared_block"] = {"attn_every": cfg.hybrid.attn_every, "d_ff": cfg.d_ff,
+                               "invocations": n_shared_invocations(cfg)}
+    if cfg.moe is not None:
+        m = cfg.moe
+        out["moe"] = {"experts": m.n_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert,
+                      "shared_experts": m.n_shared_experts, "capacity_factor": m.capacity_factor}
+    return out
 
 
 def serve_path(dev, setup, phase) -> dict:
     """Prefill, pad the cache (an SSM state stays as it is), decode
-    greedily; the counts are zeroed just before and read just after."""
+    greedily; the counts are zeroed just before and read just after: the
+    prefill's launches are :func:`prefill_launches`, the decode's none."""
     from repro_torch.flatten_util import tree_leaves
-    from repro_torch.models.cache import pad_cache
+    from repro_torch.models.cache import cache_leaves, pad_cache
 
     cfg, server, params, batch = setup
-    kname = SERVE_KERNEL[cfg.arch_type][0]
     total = SERVE_PROMPT + SERVE_NEW
     first, _, cache = server.prefill(params, batch)  # warm-up: cuBLAS's choices, the allocator
     server.decode(params, first, pad_cache(cache, total), SERVE_PROMPT, 3)
@@ -2243,7 +2319,7 @@ def serve_path(dev, setup, phase) -> dict:
     first, logits, cache = server.prefill(params, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    prefill_launches = read_counts()
+    prefill_launches_read = read_counts()
     cache = pad_cache(cache, total)
     t0 = time.perf_counter()
     toks, cache = server.decode(params, first, cache, SERVE_PROMPT, SERVE_NEW)
@@ -2251,30 +2327,31 @@ def serve_path(dev, setup, phase) -> dict:
     t_decode = time.perf_counter() - t0
     launches = read_counts()  # read just after
     steps = SERVE_NEW - 1
-    expect = {name: cfg.n_layers if name == kname else 0 for name in launches}
-    ok = (prefill_launches == expect and launches == expect
+    expect = prefill_launches(cfg)
+    ok = (prefill_launches_read == expect and launches == expect
           and logits.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
           and toks.shape == (SERVE_BATCH, SERVE_NEW) and int(toks.max()) < cfg.vocab_size
-          and all(bool(torch.isfinite(c).all()) for c in cache if c.is_floating_point()))
-    if cfg.arch_type == "dense":
+          and all(bool(torch.isfinite(c).all()) for c in cache_fields(cache).values()))
+    if cfg.arch_type != "ssm":  # every slot written once, the last one empty
         pos = torch.cat([torch.arange(total - 1), torch.tensor([-1])]).to(torch.int32)
-        ok = ok and torch.equal(cache.pos.cpu(), pos)
+        kv = cache.attn if cfg.arch_type == "hybrid" else cache
+        ok = ok and torch.equal(kv.pos.cpu(), pos)
     n_params = sum(p.numel() for p in tree_leaves(params))
     emit(phase, arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers, **arch_fields(cfg),
          vocab_padded=cfg.vocab_padded, dtype="bfloat16", batch=SERVE_BATCH,
          prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
          params=n_params, param_count_of_config=cfg.param_count(),
          param_bytes=sum(p.numel() * p.element_size() for p in tree_leaves(params)),
-         cache_bytes=sum(c.numel() * c.element_size() for c in cache),
+         cache_bytes=sum(c.numel() * c.element_size() for c in cache_leaves(cache)),
          prefill_s=t_prefill, prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
          decode_s=t_decode, decode_steps=steps, decode_ms_per_step=1e3 * t_decode / steps,
          decode_tokens_per_s=SERVE_BATCH * steps / t_decode,
-         launches=launches, prefill_launches=prefill_launches,
+         launches=launches, prefill_launches=prefill_launches_read,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          tokens_row_0=toks[0].tolist())
     if not ok:
-        raise AssertionError(f"{phase}: launches {launches} (prefill {prefill_launches}, "
+        raise AssertionError(f"{phase}: launches {launches} (prefill {prefill_launches_read}, "
                              f"expected {expect}), logits {tuple(logits.shape)}, tokens "
                              f"{tuple(toks.shape)}, or a non-finite cache")
     return launches
@@ -2315,42 +2392,93 @@ def mamba2_dt_bias(params, cfg, seed=0):
     return params
 
 
-def serve_parity(dev, arch, batch_size, prompt, phase) -> None:
-    """All layers of ``arch`` in fp32 (TF32 off), card against the port's
-    CPU path on one set of weights and tokens: the prefill's last-position
-    logits and every float field of the cache (k and v, or the SSM state and
-    conv window), then PARITY_NEW decode steps, both sides fed the CPU's
-    greedy token, so a near-tie cannot send them down different paths. An
-    ssm model's dt_bias is Mamba2's (:func:`mamba2_dt_bias`): at the
-    reference's zeros the fp32 model itself drifts (``ssm_depth_drift``)."""
+def moe_decisions(cpu_routes, card_routes) -> list:
+    """Each MoE layer's prefill routing (``layers.moe_route``) on the card
+    against the CPU's: the experts equal at every token whose k + 1 largest
+    CPU probabilities are more than MOE_TIE apart; positions and drops
+    equal at every (slot, token) whose expert no token with other experts
+    chose in its group (a changed choice moves later positions in the
+    experts it touches). → per layer counts; raises on any other
+    difference."""
+    out = []
+    for c, g in zip(cpu_routes, card_routes, strict=True):
+        g = type(g)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in g))
+        n_groups, gs, k = c.gate_idx.shape
+        top = c.probs.sort(dim=-1, descending=True).values[..., :k + 1]
+        tie = ((top[..., :-1] - top[..., 1:]) <= MOE_TIE).any(-1)  # (G, gs)
+        differ = (c.gate_idx != g.gate_idx).any(-1)                # (G, gs)
+        touched = torch.zeros((n_groups, c.probs.shape[-1]), dtype=torch.bool)
+        for side in (c, g):
+            for grp in range(n_groups):
+                touched[grp, side.gate_idx[grp][differ[grp]].flatten()] = True
+        held = ~touched.gather(1, c.gate_idx.transpose(1, 2).reshape(n_groups, -1))
+        held = held.reshape(n_groups, k, gs)
+        moved = held & ((c.pos != g.pos) | (c.within != g.within))
+        out.append({"tokens": n_groups * gs, "groups": n_groups, "capacity": c.cap,
+                    "near_ties": int(tie.sum()), "experts_differ": int(differ.sum()),
+                    "experts_differ_past_a_tie": int((differ & ~tie).sum()),
+                    "held_slots": int(held.sum()), "dropped_cpu": int((~c.within).sum()),
+                    "dropped_card": int((~g.within).sum()),
+                    "held_positions_or_drops_differ": int(moved.sum())})
+    if any(r["experts_differ_past_a_tie"] or r["held_positions_or_drops_differ"] for r in out):
+        raise AssertionError(f"MoE routing: card and CPU decide differently: {out}")
+    return out
+
+
+def serve_parity(dev, arch, batch_size, prompt, phase, layers=None) -> None:
+    """``layers`` layers of ``arch`` (all by default) at full width in fp32
+    (TF32 off), card against the port's CPU path on one set of weights (drawn
+    on the card, copied to the CPU) and tokens: the prefill's last-position
+    logits and every float field of the cache (k and v; the SSM state and
+    conv window; a hybrid's both), then PARITY_NEW decode steps, both sides
+    fed the CPU's greedy token, so a near-tie cannot send them down
+    different paths. A model with Mamba2 layers takes Mamba2's dt_bias
+    (:func:`mamba2_dt_bias`): at the reference's zeros the fp32 model itself
+    drifts (``ssm_depth_drift``). A moe model's prefill routing is held by
+    :func:`moe_decisions`."""
+    from unittest import mock
+
     from repro_torch import configs
     from repro_torch.flatten_util import tree_map
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models.cache import pad_cache
     from repro_torch.models.config import InputShape
 
     cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     total = prompt + PARITY_NEW
     shape = InputShape("parity", seq_len=total, global_batch=batch_size, kind="decode")
-    params = api.model_init(cfg, seed=2, device="cpu")
-    if cfg.arch_type == "ssm":
+    params = tree_map(lambda x: x.cpu(), api.model_init(cfg, seed=2, device=dev))
+    if cfg.ssm is not None:
         params = mamba2_dt_bias(params, cfg)
     gen = torch.Generator().manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, prompt), generator=gen)}
-    out, seconds = {}, {}
+    out, seconds, routes = {}, {}, {}
+    route = lm_layers.moe_route
     for where in ("cpu", dev):
         server = Server(cfg, shape, where, dtype=torch.float32)
         p = params if where == "cpu" else tree_map(lambda x: x.to(dev), params)
+        seen = routes.setdefault(str(where), [])
+
+        def recording(*args, _seen=seen, **kw):
+            _seen.append(route(*args, **kw))
+            return _seen[-1]
+
         t0 = time.perf_counter()
-        first, logits, cache = server.prefill(p, batch)
+        with mock.patch.object(lm_layers, "moe_route", recording):
+            first, logits, cache = server.prefill(p, batch)
         out[str(where)] = (p, first.cpu(), logits.cpu(), pad_cache(cache, total))
         seconds[str(where)] = time.perf_counter() - t0
     (p_c, first_c, l_c, cache_c), (p_g, first_g, l_g, cache_g) = out["cpu"], out[str(dev)]
     vocab = cfg.vocab_size  # the pad columns (-1e30 on both sides) would swamp the norm
-    fields = [f for f in cache_c._fields if getattr(cache_c, f).is_floating_point()]
+    fields_c, fields_g = cache_fields(cache_c), cache_fields(cache_g)
     errs = {"prefill_logits": rel_l2(l_g[..., :vocab], l_c[..., :vocab]),
-            **{f"cache_{f}": rel_l2(getattr(cache_g, f), getattr(cache_c, f)) for f in fields}}
+            **{f"cache_{f}": rel_l2(fields_g[f], fields_c[f]) for f in fields_c}}
+    decisions = (moe_decisions(routes["cpu"], routes[str(dev)]) if cfg.arch_type == "moe"
+                 else None)
 
     def margin(logits):  # the CPU's top-2 margin and its threshold
         top2 = logits[:, -1, :cfg.vocab_size].double().topk(2, dim=-1).values
@@ -2371,12 +2499,14 @@ def serve_parity(dev, arch, batch_size, prompt, phase) -> None:
         steps.append({"margin": m, "tokens_equal": equal})
         checked.append(m <= threshold or equal)
     errs["decode_logits_max"] = max(step_errs)
-    for f in fields:
-        errs[f"cache_{f}_after_decode"] = rel_l2(getattr(cache_g, f), getattr(cache_c, f))
-    emit(phase, arch=arch, dtype="float32", batch=batch_size, prompt=prompt,
-         decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
+    fields_c, fields_g = cache_fields(cache_c), cache_fields(cache_g)
+    for f in fields_c:
+        errs[f"cache_{f}_after_decode"] = rel_l2(fields_g[f], fields_c[f])
+    emit(phase, arch=arch, n_layers=cfg.n_layers, dtype="float32", batch=batch_size,
+         prompt=prompt, decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
          decode_logits_rel_l2_err=step_errs, steps=steps,
-         min_margin=min(s["margin"] for s in steps), prefill_seconds=seconds)
+         min_margin=min(s["margin"] for s in steps), prefill_seconds=seconds,
+         **({} if decisions is None else {"moe_decisions": decisions, "tie": MOE_TIE}))
     if max(errs.values()) > ROUND_TOL or not all(checked):
         raise AssertionError(f"{phase}: card and CPU disagree: {errs}, steps {steps}")
 
@@ -2420,12 +2550,13 @@ def ssm_depth_drift(dev, batch_size, prompt) -> None:
 def serve_breakdown(dev, setup, phase) -> None:
     """One prefill and BREAKDOWN_STEPS decode steps at the serving shape,
     each timed without the profiler, then traced; host and device ms per
-    ``serve.*`` range and per ``lm.*`` range inside it, and the prefill
-    kernel's share of the prefill's device time."""
+    ``serve.*`` range and per ``lm.*`` range inside it, and each prefill
+    kernel's share of the prefill's device time (``kernels``; every
+    ``ssd_fwd_*`` kernel counts toward ``ssd_scan``)."""
     from repro_torch.models.cache import pad_cache
 
     cfg, server, params, batch = setup
-    kname, n_stages, traced_name = SERVE_KERNEL[cfg.arch_type]
+    n_stages = 2 + len(LM_RANGES[cfg.arch_type])  # serve.*, its lm.* ranges, lm.logits
     holder = {}
 
     def prefill():
@@ -2439,29 +2570,36 @@ def serve_breakdown(dev, setup, phase) -> None:
     out = {}
     for name, drive in (("prefill", prefill), ("decode", decode)):
         out[name] = profile_ranges(drive, 1, ("serve.", "lm."), n_stages, f"serve.{name}")
-    pre = out["prefill"]  # the kernel is a ctypes launch: listed, not linked
-    pre["kernel"] = kname
-    pre["kernel_ms_by_name"] = {k: ms for k, ms in pre["unlinked_kernels_ms"].items()
-                                if traced_name in k}
-    pre["kernel_ms"] = sum(pre["kernel_ms_by_name"].values())
+    pre = out["prefill"]  # the kernels are ctypes launches: listed, not linked
+    pre["kernels"] = {}
+    for kname, n in prefill_launches(cfg).items():
+        if not n:
+            continue
+        by_name = {k: ms for k, ms in pre["unlinked_kernels_ms"].items()
+                   if TRACED_NAMES[kname] in k}
+        ms = sum(by_name.values())
+        pre["kernels"][kname] = {"launches": n, "ms": ms, "ms_by_name": by_name,
+                                 "share_of_device_kernel_ms": ms / pre["device_kernel_ms"]}
+        if ms <= 0.0:
+            raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the prefill")
+    pre["kernel_ms"] = sum(k["ms"] for k in pre["kernels"].values())
     pre["kernel_share_of_device_kernel_ms"] = pre["kernel_ms"] / pre["device_kernel_ms"]
-    if pre["kernel_ms"] <= 0.0:
-        raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the prefill")
     emit(phase, arch=cfg.name, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
          decode_steps=BREAKDOWN_STEPS, **out)
 
 
-def serving(dev, arch, prefix, parity_batch, parity_prompt) -> dict:
+def serving(dev, arch, prefix, parity_batch, parity_prompt, parity_layers=None) -> dict:
     """The serving phases of one architecture: ``<prefix>``, ``_no_sync``,
-    ``_breakdown`` at the serving shape, then ``_parity``; → the main
-    path's launch counts."""
+    ``_breakdown`` at the serving shape, then ``_parity`` (at
+    ``parity_layers`` layers, all by default); → the main path's launch
+    counts."""
     setup = serve_setup(dev, arch)
     launches = serve_path(dev, setup, prefix)
     serve_no_sync(dev, setup, f"{prefix}_no_sync")
     serve_breakdown(dev, setup, f"{prefix}_breakdown")
     del setup
     torch.cuda.empty_cache()
-    serve_parity(dev, arch, parity_batch, parity_prompt, f"{prefix}_parity")
+    serve_parity(dev, arch, parity_batch, parity_prompt, f"{prefix}_parity", parity_layers)
     if arch == SSM_ARCH:
         ssm_depth_drift(dev, parity_batch, parity_prompt)
     return launches
@@ -2497,17 +2635,19 @@ def kernel_entry(name, replaces, launches_by_phase, errs, times) -> dict:
     }
 
 
-def lm_kernel_entry(name, source, replaces, launches, errs, times, cases) -> dict:
+def lm_kernel_entry(name, source, replaces, launches_by_phase, errs, times, cases) -> dict:
     """The ``kernels`` line's entry of a serving kernel: the times at the
-    serving prefill's shape, the prefill_32k shape's beside them; ``cases``
-    are its check cases (the dtype is the 7th field)."""
+    first serving prefill's shape, its other shapes' beside them;
+    ``launches`` sums the serving phases' counts, each read on its own;
+    ``cases`` are its check cases (the dtype is the 7th field)."""
     big = times["prefill_2k"]
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": launches,
+        "launches": sum(launches_by_phase.values()),
+        "launches_by_phase": launches_by_phase,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "max_abs_err_float32": max(e["max_abs_err"] for name, e in errs.items()
                                    if cases[name][6] == torch.float32),
@@ -2518,7 +2658,7 @@ def lm_kernel_entry(name, source, replaces, launches, errs, times, cases) -> dic
         "library_ms": big["library_ms"],
         "shape": big["shape"],
         "dtype": big["dtype"],
-        "prefill_32k": times["prefill_32k"],
+        **{shape: t for shape, t in times.items() if shape != "prefill_2k"},
     }
 
 
@@ -2603,6 +2743,12 @@ def main() -> int:
                           PARITY_PROMPT)
     ssm_launches = step("ssm_serve", serving, dev, SSM_ARCH, "ssm_serve", SSM_PARITY_BATCH,
                         SSM_PARITY_PROMPT)
+    hybrid_layers, hybrid_batch, hybrid_prompt = HYBRID_PARITY
+    hybrid_launches = step("hybrid_serve", serving, dev, HYBRID_ARCH, "hybrid_serve",
+                           hybrid_batch, hybrid_prompt, hybrid_layers)
+    moe_layers, moe_batch, moe_prompt = MOE_PARITY
+    moe_launches = step("moe_serve", serving, dev, MOE_ARCH, "moe_serve", moe_batch,
+                        moe_prompt, moe_layers)
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
@@ -2627,9 +2773,14 @@ def main() -> int:
         lm_kernel_entry("flash_attention",
                         "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:103",
-                        serve_launches["flash_attention"], attn_errs, attn_times, ATTN_CASES),
+                        {"serve": serve_launches["flash_attention"],
+                         "hybrid_serve": hybrid_launches["flash_attention"],
+                         "moe_serve": moe_launches["flash_attention"]},
+                        attn_errs, attn_times, ATTN_CASES),
         lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-                        "src/repro/kernels/ssd/kernel.py:65", ssm_launches["ssd_scan"],
+                        "src/repro/kernels/ssd/kernel.py:65",
+                        {"ssm_serve": ssm_launches["ssd_scan"],
+                         "hybrid_serve": hybrid_launches["ssd_scan"]},
                         ssd_errs, ssd_times, SSD_CASES),
     ]}), flush=True)
     print(smi, flush=True)

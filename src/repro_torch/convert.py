@@ -23,9 +23,9 @@ def params_from_jax(tree, device=None):
 
 
 def lm_params_from_jax(tree, cfg, device=None):
-    """The reference's ``model_init`` tree of a dense or ssm config (numpy
-    arrays, or anything ``np.asarray`` reads) → float32 port params on
-    ``device``.
+    """The reference's ``model_init`` tree of a dense, moe, ssm or hybrid
+    config (numpy arrays, or anything ``np.asarray`` reads) → float32 port
+    params on ``device``.
 
     The port keeps the reference's LM layout: ``embed`` (vocab_padded, d),
     every ``layers`` leaf stacked over the L layers as ``lax.scan`` reads it,
@@ -34,12 +34,22 @@ def lm_params_from_jax(tree, cfg, device=None):
     """
     params = params_from_jax(tree, device)
     d, lyr, n_l = cfg.d_model, params["layers"], cfg.n_layers
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         s = cfg.ssm
         di = s.d_inner(d)
         want = {
             "in_proj": (lyr["mamba"]["in_proj"], (n_l, d, 2 * di + 2 * s.d_state + s.n_heads(d))),
             "out_proj": (lyr["mamba"]["out_proj"], (n_l, di, d)),
+        }
+        if cfg.arch_type == "hybrid":
+            want["shared_block.attn.wq"] = (params["shared_block"]["attn"]["wq"],
+                                            (d, cfg.n_heads * cfg.head_dim))
+    elif cfg.arch_type == "moe":
+        m = cfg.moe
+        want = {
+            "wq": (lyr["attn"]["wq"], (n_l, d, cfg.n_heads * cfg.head_dim)),
+            "moe.router": (lyr["moe"]["router"], (n_l, d, m.n_experts)),
+            "moe.w_gate": (lyr["moe"]["w_gate"], (n_l, m.n_experts, d, m.d_ff_expert)),
         }
     else:
         want = {

@@ -52,6 +52,10 @@ CHECK_CASES = {
     "rows_see_no_key_bf16": (2, 200, 200, 14, 2, 64, torch.bfloat16, True, None, -50, False),
     "strided_views_bf16": (2, 300, 300, 14, 2, 64, torch.bfloat16, True, None, 0, True),
     "dh_112_bf16": (1, 150, 150, 4, 4, 112, torch.bfloat16, True, None, 0, False),
+    # the serving prefills of zamba2-2.7b's shared block (32 heads of 80,
+    # MHA) and of olmoe-1b-7b (16 heads of 128, MHA)
+    "zamba2_prefill_bf16": (8, 2048, 2048, 32, 32, 80, torch.bfloat16, True, None, 0, False),
+    "olmoe_prefill_bf16": (8, 2048, 2048, 16, 16, 128, torch.bfloat16, True, None, 0, False),
 }
 
 

@@ -26,7 +26,7 @@ DECAYS = {"ref": (0.01, 3.0), "near_0": (0.0, 0.01), "strong": (19.0, 21.0)}
 
 # name: (b, s, h, p, n, chunk, dtype, decay, strided). The mamba2-370m
 # prefill in both types (one layer's call), chunk 16, 64 and 256, one chunk
-# and many, h 1, 3 and 32, n 16 and 128, p 32 and 64 (and 48, padded), a
+# and many, h 1, 3, 32 and 80, n 16, 64 and 128, p 32 and 64 (and 48, padded), a
 # chunk that is no multiple of the 64-row tile, the three decay ranges, and
 # B and C as strided slices of one fused projection, as the model passes them.
 # The bf16 twins of the fp32 feature cases (appended, so every earlier case
@@ -52,6 +52,13 @@ CHECK_CASES = {
     "strong_decay_bf16": (2, 512, 4, 64, 128, 256, torch.bfloat16, "strong", False),
     "batch_1_16_chunks_bf16": (1, 4096, 2, 64, 128, 256, torch.bfloat16, "ref", False),
     "full_width_bf16": (1, 512, 32, 64, 128, 256, torch.bfloat16, "ref", True),
+    # zamba2-2.7b: d_state 64, 80 heads (10 groups of 8 in the bf16 outputs
+    # stage): its serving prefill's call, a small n 64 case in both types,
+    # and its fp32 parity prefill's call
+    "zamba2_serving_bf16": (8, 2048, 80, 64, 64, 256, torch.bfloat16, "ref", True),
+    "n_64": (2, 512, 5, 64, 64, 256, torch.float32, "ref", True),
+    "n_64_bf16": (2, 512, 5, 64, 64, 256, torch.bfloat16, "ref", True),
+    "zamba2_parity_fp32": (2, 256, 80, 64, 64, 256, torch.float32, "ref", True),
 }
 
 

@@ -1,9 +1,9 @@
 """Batched serving: prefill once, decode greedily.
 
-Port of ``repro.launch.serve`` for one card (dense and ssm families): the
-mesh becomes a device and the sharded, donated serve step a Python loop over
-:func:`repro_torch.models.api.model_decode`, which updates the cache (KV or
-SSM state) in place. ``load_params`` casts the fp32 parameters to the
+Port of ``repro.launch.serve`` for one card (dense, moe, ssm and hybrid
+families): the mesh becomes a device and the sharded, donated serve step a
+Python loop over :func:`repro_torch.models.api.model_decode`, which updates
+the cache (KV, SSM state, or a hybrid's pair of them) in place. ``load_params`` casts the fp32 parameters to the
 serving type once, except the leaves the reference reads in fp32
 (``FP32_LEAVES``); the reference casts the others inside every step: the
 same values.
@@ -23,6 +23,7 @@ from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models.cache import cache_to
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.layers import check_ported
 
@@ -76,7 +77,7 @@ class Server:
         The cache is updated in place once it is on the device."""
         tok = first_token.to(self.device)
         self._check_capacity(tok.shape[0], start_t + n_tokens - 2)
-        cache = type(cache)(*(c.to(self.device) for c in cache))
+        cache = cache_to(cache, self.device)
         toks = [tok]
         with record_function("serve.decode"):
             for i in range(n_tokens - 1):
@@ -93,11 +94,11 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     """End-to-end: init params → prefill → batched greedy decode.
 
     As in the reference, the decode continues from the *unpadded* prefill
-    cache, so in a dense model from the first new token on slot ``t % S``
-    overwrites the oldest prompt slot: the decode attends over a sliding
-    window of the prompt's length (``pad_cache`` first, as
-    ``examples/serve_decode.py`` does, for full attention). An SSM state
-    needs no padding. Returns (tokens (B, n_tokens) on the CPU,
+    cache, so in a dense or moe model, and in a hybrid's shared block, from
+    the first new token on slot ``t % S`` overwrites the oldest prompt slot:
+    the decode attends over a sliding window of the prompt's length
+    (``pad_cache`` first, as ``examples/serve_decode.py`` does, for full
+    attention). An SSM state needs no padding. Returns (tokens (B, n_tokens) on the CPU,
     timings in seconds).
     """
     dev = resolve_device(device)

@@ -1,10 +1,10 @@
 """Unified model API dispatching on architecture family.
 
-Port of ``repro.models.api`` for the dense and ssm families. The batch dict
-holds "tokens" (B, S) int64. ``init_cache`` gives a dense model an
-``AttnCache`` and an ssm model an ``SSMCache``. ``model_loss`` is training
-and waits for ROADMAP queue A 14.6; the other families raise naming their
-item.
+Port of ``repro.models.api`` for the dense, moe, ssm and hybrid families.
+The batch dict holds "tokens" (B, S) int64. ``init_cache`` gives a dense or
+moe model an ``AttnCache``, an ssm model an ``SSMCache`` and a hybrid a
+``HybridCache``. ``model_loss`` is training and waits for ROADMAP queue A
+14.6; the enc-dec and VLM families raise naming their item (14.5).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""Decode caches: the KV cache of attention layers (full or ring-buffer) and
-the recurrent state of SSM layers.
+"""Decode caches: the KV cache of attention layers (full or ring-buffer),
+the recurrent state of SSM layers, and the hybrid's pair of them.
 
-Port of the attention and SSM parts of ``repro.models.cache``. The hybrid
-and enc-dec caches wait for their families (``init_cache`` raises naming
-the ROADMAP item).
+Port of the attention, SSM and hybrid parts of ``repro.models.cache``. The
+enc-dec cache waits for its family (``init_cache`` raises naming the
+ROADMAP item).
 """
 from __future__ import annotations
 
@@ -25,6 +25,26 @@ class AttnCache(NamedTuple):
 class SSMCache(NamedTuple):
     state: torch.Tensor  # (L, B, H, N, P)
     conv: torch.Tensor   # (L, B, K-1, di+2n): the last K-1 inputs of the conv
+
+
+class HybridCache(NamedTuple):
+    ssm: SSMCache    # every Mamba2 layer's state and conv window
+    attn: AttnCache  # leading dim = n_shared_invocations: one KV cache an invocation
+
+
+def cache_leaves(cache) -> list[torch.Tensor]:
+    """The tensors of a cache, nested caches flattened in field order."""
+    if isinstance(cache, tuple):
+        return [leaf for c in cache for leaf in cache_leaves(c)]
+    return [cache]
+
+
+def cache_to(cache, device):
+    """The cache with every tensor on ``device`` (the same tensors if they
+    are there already), its type and nesting kept."""
+    if isinstance(cache, tuple):
+        return type(cache)(*(cache_to(c, device) for c in cache))
+    return cache.to(device)
 
 
 def cache_seq_len(cfg: ModelConfig, context_len: int) -> int:
@@ -63,12 +83,21 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     )
 
 
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    """How often a hybrid runs its shared block: ⌈L / attn_every⌉ (layers
+    0, every, 2·every, …; the last group may be partial)."""
+    return (cfg.n_layers + cfg.hybrid.attn_every - 1) // cfg.hybrid.attn_every
+
+
 def pad_cache(cache, total_len: int):
     """Grow a prefill-sized cache to decode capacity ``total_len``: an
     attention cache's sequence dim gains empty slots (zeros, pos = -1); an
-    SSM state is O(1) and comes back unchanged."""
+    SSM state is O(1) and comes back unchanged; a hybrid cache pads its
+    attention part only."""
     if isinstance(cache, SSMCache):
         return cache
+    if isinstance(cache, HybridCache):
+        return HybridCache(ssm=cache.ssm, attn=pad_cache(cache.attn, total_len))
     extra = total_len - cache.k.shape[2]
     if extra <= 0:
         return cache
@@ -82,7 +111,17 @@ def pad_cache(cache, total_len: int):
 
 def init_cache(cfg: ModelConfig, batch: int, context_len: int, dtype=torch.float32,
                device=None):
+    """An empty decode cache of ``cfg``'s family on ``device``
+    (``resolve_device``): an ``SSMCache`` (ssm), a ``HybridCache`` whose
+    attention part has one KV cache a shared-block invocation (hybrid), else
+    an ``AttnCache``."""
     check_ported(cfg)
     if cfg.arch_type == "ssm":
         return init_ssm_cache(cfg, batch, dtype=dtype, device=device)
+    if cfg.arch_type == "hybrid":
+        return HybridCache(
+            ssm=init_ssm_cache(cfg, batch, dtype=dtype, device=device),
+            attn=init_attn_cache(cfg, batch, context_len, n_layers=n_shared_invocations(cfg),
+                                 dtype=dtype, device=device),
+        )
     return init_attn_cache(cfg, batch, context_len, dtype=dtype, device=device)

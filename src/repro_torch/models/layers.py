@@ -1,7 +1,7 @@
-"""Layer primitives of the dense and SSM decoders: norms, RoPE, GQA
-attention, SwiGLU, Mamba2.
+"""Layer primitives of the decoder-only families: norms, RoPE, GQA
+attention, SwiGLU, capacity-based MoE, Mamba2.
 
-Port of the dense and Mamba2 subsets of ``repro.models.layers``. Every layer
+Port of ``repro.models.layers`` but its activation-sharding registry. Every layer
 is an (``init_<layer>``, ``<layer>_fwd``) pair of plain functions over dicts
 of tensors in the reference's layouts (``x @ w`` with ``w`` as (d_in,
 d_out)). Matmul-heavy ops take a ``dtype`` for the compute precision;
@@ -25,14 +25,18 @@ plain version). The single-token step (:func:`mamba2_decode`) stays plain
 torch, op for op: it rounds the state to ``dtype`` every step, as the
 reference does.
 
+The MoE layer (:func:`moe_fwd`) stays plain torch as it stays outside any
+Pallas kernel in the reference: its routing (:func:`moe_route`) and the
+scatter, expert products and gather of its dispatch, with static shapes and
+no device→host sync.
+
 Not ported here: the activation-sharding registry (``constrain``,
-``constrain_tree``; it has no counterpart on one card), and the MoE layer,
-which raises naming its ROADMAP item when a model function meets it.
+``constrain_tree``; it has no counterpart on one card).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +50,9 @@ from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref as ssd_chunked  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
-PORTED_ARCH = ("dense", "ssm")
+PORTED_ARCH = ("dense", "ssm", "hybrid", "moe")
 # the ROADMAP queue A slices (item 14) that port the other families
 UNPORTED_ARCH = {
-    "hybrid": "ROADMAP queue A 14.3 (Zamba2-2.7B hybrid serving)",
-    "moe": "ROADMAP queue A 14.4 (MoE serving)",
     "encdec": "ROADMAP queue A 14.5 (enc-dec and VLM)",
     "vlm": "ROADMAP queue A 14.5 (enc-dec and VLM)",
 }
@@ -229,6 +231,142 @@ def mlp_fwd(params, x, dtype=torch.float32):
     g = F.silu(x @ params["w_gate"].to(dtype))
     u = x @ params["w_in"].to(dtype)
     return (g * u) @ params["w_out"].to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (capacity-based GShard dispatch)
+# --------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), device=None):
+    """The router (d, E) at scale 0.02, the experts' SwiGLU stacked over E
+    (``w_gate``, ``w_in`` (E, d, f), ``w_out`` (E, f, d)) and, with
+    ``n_shared_experts``, an always-on shared MLP of width f · n_shared."""
+    moe = cfg.moe
+    d, f, e = cfg.d_model, moe.d_ff_expert, moe.n_experts
+    p = {
+        "router": dense_init(gen, (*lead, d, e), scale=0.02, device=device),
+        "w_gate": dense_init(gen, (*lead, e, d, f), device=device),
+        "w_in": dense_init(gen, (*lead, e, d, f), device=device),
+        "w_out": dense_init(gen, (*lead, e, f, d), device=device),
+    }
+    if moe.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, f * moe.n_shared_experts, lead, device=device)
+    return p
+
+
+def moe_capacity(n_tokens: int, moe) -> int:
+    """Slots an expert has in a group of ``n_tokens``: ⌈n·k/E·cf⌉, at least k."""
+    cap = int(math.ceil(n_tokens * moe.top_k / moe.n_experts * moe.capacity_factor))
+    return max(cap, moe.top_k)
+
+
+MOE_GROUP_SIZE = 1024  # routing-group size (GShard "G"); capacity is per group
+
+
+def _moe_group_size(n_tok: int) -> int:
+    """The largest divisor of ``n_tok`` that is at most MOE_GROUP_SIZE."""
+    gs = min(MOE_GROUP_SIZE, n_tok)
+    while n_tok % gs:
+        gs -= 1
+    return gs
+
+
+class MoERoute(NamedTuple):
+    """The routing decisions of one :func:`moe_fwd` call over G groups of gs
+    tokens: the fp32 router probabilities (G, gs, E), the top-k gates
+    renormalised (G, gs, k) and their experts (G, gs, k), each (token, slot)'s
+    position in its expert's buffer (G, k, gs; slot-major), whether that
+    position is below the capacity (G, k, gs; the others are dropped), and
+    the capacity."""
+
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    gate_idx: torch.Tensor
+    pos: torch.Tensor
+    within: torch.Tensor
+    cap: int
+
+
+def moe_route(params, xt: torch.Tensor, cfg: ModelConfig, dtype) -> MoERoute:
+    """Route the tokens of xt (G, gs, d) as the reference does
+    (``layers.py:375-405``): the router's logits in ``dtype`` then fp32, the
+    softmax, the top k (ties to the lower expert, as ``jax.lax.top_k``: a
+    stable descending sort over E), renormalised; positions by a cumulative
+    count over the k·gs (slot, token) pairs, slot outer, so every slot-0
+    choice of a group ranks before any slot-1 choice."""
+    moe = cfg.moe
+    n_groups, gs, _ = xt.shape
+    e, k = moe.n_experts, moe.top_k
+    cap = moe_capacity(gs, moe)
+    logits = (xt @ params["router"].to(dtype)).float()  # (G, gs, E)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_tok = gate_idx.transpose(1, 2).reshape(n_groups, k * gs)  # slot-major
+    onehot = (e_tok[..., None] == torch.arange(e, device=xt.device)).to(torch.int32)
+    pos = onehot.cumsum(1).gather(2, e_tok[..., None])[..., 0] - 1  # (G, k·gs), ≥ 0
+    pos = pos.reshape(n_groups, k, gs)
+    return MoERoute(probs, gate_vals, gate_idx, pos, pos < cap, cap)
+
+
+def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
+    """Capacity-limited top-k MoE with scatter/gather dispatch → (out (B, S,
+    D), aux). x: (B, S, D).
+
+    Tokens are routed in groups of :func:`_moe_group_size` (≤
+    MOE_GROUP_SIZE) with a capacity of :func:`moe_capacity` a group and
+    expert (:func:`moe_route`). Dispatch copies each kept (token, slot) into
+    its expert's row of one (E, G, cap + 1, D) buffer, slot by slot
+    (``index_copy_``: each kept row is written once, no atomic add); a
+    dropped one goes to row ``cap``, which is zeroed before the experts run,
+    so it reads back as 0, as the reference's ``mode="drop"`` scatter and
+    ``fill_value=0`` gather make it. The experts' SwiGLU is three batched
+    products over E; the output sums each token's slots in k order, each
+    weighted by its gate (0 when dropped), then adds the shared expert.
+    ``aux`` is the Switch load-balance loss, E · Σ_e (share of tokens whose
+    first choice is e) · (mean probability of e), over all tokens.
+    """
+    moe = cfg.moe
+    b, s, d = x.shape
+    n_tok = b * s
+    e, k = moe.n_experts, moe.top_k
+    gs = _moe_group_size(n_tok)
+    n_groups = n_tok // gs
+    xt = x.reshape(n_groups, gs, d)
+    r = moe_route(params, xt, cfg, dtype)
+    cap, rows = r.cap, r.cap + 1
+
+    first = (r.gate_idx[..., 0].reshape(-1, 1) == torch.arange(e, device=x.device)).float()
+    aux = e * (first.mean(0) * r.probs.reshape(-1, e).mean(0)).sum()
+
+    # flat row of each (group, slot, token) in the (E, G, cap + 1) buffer
+    group = torch.arange(n_groups, device=x.device)[:, None, None] * rows
+    row = (r.gate_idx.transpose(1, 2) * (n_groups * rows) + group
+           + torch.where(r.within, r.pos, cap))  # (G, k, gs)
+    row = row.transpose(0, 1).reshape(k, n_tok)  # a slot's rows in the tokens' order
+    src = xt.reshape(n_tok, d)
+    buf = torch.zeros((e * n_groups * rows, d), dtype=x.dtype, device=x.device)
+    for kk in range(k):
+        buf.index_copy_(0, row[kk], src)
+    buf = buf.view(e, n_groups, rows, d)
+    buf[:, :, cap].zero_()  # the dropped rows
+
+    xe = buf.view(e, n_groups * rows, d)
+    g = F.silu(torch.bmm(xe, params["w_gate"].to(dtype)))
+    u = torch.bmm(xe, params["w_in"].to(dtype))
+    ye = torch.bmm(g * u, params["w_out"].to(dtype)).view(e * n_groups * rows, d)
+
+    gv = (r.gate_vals.transpose(1, 2) * r.within).to(dtype)  # (G, k, gs)
+    gv = gv.transpose(0, 1).reshape(k, n_tok, 1)
+    out = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
+    for kk in range(k):
+        out = out + ye.index_select(0, row[kk]) * gv[kk]
+    out = out.reshape(b, s, d)
+    if moe.n_shared_experts:
+        out = out + mlp_fwd(params["shared"], x, dtype)
+    return out, aux
 
 
 # --------------------------------------------------------------------------

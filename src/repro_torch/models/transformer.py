@@ -1,14 +1,19 @@
-"""Decoder-only model stacks of the dense and SSM families.
+"""Decoder-only model stacks: the dense, moe, ssm and hybrid families.
 
-Port of the dense and ssm branches of ``repro.models.transformer``.
-Parameters keep the reference's tree: ``embed`` (vocab_padded, d),
-``layers`` with every leaf stacked over the L layers
-(``layers["attn"]["wq"]`` is (L, d, h·dh), ``layers["mamba"]["in_proj"]``
-(L, d, 2·di + 2n + nh)), ``final_norm`` and, untied, ``lm_head`` (d,
-vocab_padded). A dense layer is ``ln1``, ``attn``, ``ln2``, ``mlp``; an
-ssm layer ``ln1`` and ``mamba`` (no MLP). A Python loop over the layers
-takes the place of ``lax.scan``; layer ``i``'s parameters are views into
-the stacked leaves.
+Port of ``repro.models.transformer`` but its VLM branch. Parameters keep
+the reference's tree: ``embed`` (vocab_padded, d), ``layers`` with every
+leaf stacked over the L layers (``layers["attn"]["wq"]`` is (L, d, h·dh),
+``layers["moe"]["w_gate"]`` (L, E, d, f), ``layers["mamba"]["in_proj"]``
+(L, d, 2·di + 2n + nh)), ``final_norm``, untied ``lm_head`` (d,
+vocab_padded) and, in a hybrid, one unstacked ``shared_block``. A dense
+layer is ``ln1``, ``attn``, ``ln2``, ``mlp``; a moe layer has ``moe`` in
+place of ``mlp``; an ssm or hybrid layer is ``ln1`` and ``mamba`` (no MLP).
+The hybrid (Zamba2) runs its shared block, ``ln1``, ``attn``, ``ln2`` and
+``mlp`` with one set of weights, before every layer whose index is a
+multiple of ``hybrid.attn_every``. A Python loop over the layers takes the
+place of ``lax.scan`` (and a Python ``if`` on the index the place of the
+hybrid's ``lax.cond``); layer ``i``'s parameters are views into the
+stacked leaves.
 
 Public entry points:
   init_model(cfg, gen, device)               -> params
@@ -16,11 +21,12 @@ Public entry points:
   prefill(params, cfg, tokens, ...)          -> (logits, cache)
   decode_step(params, cfg, token, cache, t)  -> (logits, cache)
 
-Each layer's attention, MLP, Mamba2 mixer and the logits run inside
+Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
-``lm.mamba`` and ``lm.logits``. ``lm_loss`` and ``chunked_ce`` are
-training and wait for ROADMAP queue A 14.6; other families raise naming
-their item.
+``lm.moe``, ``lm.mamba`` and ``lm.logits`` (the shared block's attention
+and MLP in ``lm.attention`` and ``lm.mlp``). ``lm_loss`` and
+``chunked_ce`` are training and wait for ROADMAP queue A 14.6; the
+enc-dec and VLM families raise naming their item.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from torch.profiler import record_function
 from repro_torch.models import layers as L
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import cumsum
-from repro_torch.models.cache import AttnCache, SSMCache
+from repro_torch.models.cache import AttnCache, HybridCache, SSMCache, n_shared_invocations
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import check_ported
 
@@ -50,16 +56,11 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     lead = (cfg.n_layers,)
     d = cfg.d_model
     embed = L.dense_init(gen, (cfg.vocab_padded, d), scale=0.02, device=device)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         layers = {"ln1": L.init_rmsnorm(d, lead, device=device),
                   "mamba": L.init_mamba2(gen, cfg, lead, device=device)}
     else:
-        layers = {
-            "ln1": L.init_rmsnorm(d, lead, device=device),
-            "attn": L.init_attention(gen, cfg, lead, device=device),
-            "ln2": L.init_rmsnorm(d, lead, device=device),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, lead, device=device),
-        }
+        layers = _init_block(gen, cfg, lead, device)
     params = {
         "embed": embed,
         "layers": layers,
@@ -67,7 +68,23 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (d, cfg.vocab_padded), device=device)
+    if cfg.arch_type == "hybrid":
+        params["shared_block"] = _init_block(gen, cfg, (), device, mlp=True)
     return params
+
+
+def _init_block(gen, cfg: ModelConfig, lead: tuple, device, mlp: bool = False) -> dict:
+    """``ln1``, ``attn``, ``ln2`` and the MLP, or a moe config's MoE unless
+    ``mlp`` (the hybrid's shared block is a dense block)."""
+    d = cfg.d_model
+    block = {"ln1": L.init_rmsnorm(d, lead, device=device),
+             "attn": L.init_attention(gen, cfg, lead, device=device),
+             "ln2": L.init_rmsnorm(d, lead, device=device)}
+    if cfg.arch_type == "moe" and not mlp:
+        block["moe"] = L.init_moe(gen, cfg, lead, device=device)
+    else:
+        block["mlp"] = L.init_mlp(gen, d, cfg.d_ff, lead, device=device)
+    return block
 
 
 def layer_params(params, i: int) -> dict:
@@ -82,24 +99,42 @@ def layer_params(params, i: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False):
-    if cfg.arch_type == "ssm":
-        with record_function("lm.mamba"):
-            return x + L.mamba2_fwd(lp["mamba"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                    dtype)
+def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False):
+    """Attention then the MLP, or the MoE where ``lp`` has one: a dense or
+    moe layer, and the hybrid's shared block → (x, aux or None, (k, v) or
+    None); (k, v) are the roped keys and values when ``return_kv``."""
     with record_function("lm.attention"):
         h = L.attention_fwd(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
                             dtype=dtype, return_kv=return_kv)
+    kv = None
     if return_kv:
         h, kv = h
     x = x + h
+    h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if "moe" in lp:
+        with record_function("lm.moe"):
+            h, aux = L.moe_fwd(lp["moe"], h_in, cfg, dtype)
+        return x + h, aux, kv
     with record_function("lm.mlp"):
-        x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), dtype)
-    return (x, kv) if return_kv else x
+        return x + L.mlp_fwd(lp["mlp"], h_in, dtype), None, kv
+
+
+def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype):
+    """Layer ``i`` of the stack → (x, aux or None). A hybrid runs its shared
+    block first when ``i % attn_every == 0``."""
+    lp = layer_params(params, i)
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        x, aux, _ = _block_fwd(cfg, lp, x, dtype)
+        return x, aux
+    if cfg.arch_type == "hybrid" and i % cfg.hybrid.attn_every == 0:
+        x, _, _ = _block_fwd(cfg, params["shared_block"], x, dtype)
+    with record_function("lm.mamba"):
+        return x + L.mamba2_fwd(lp["mamba"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                                dtype), None
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype):
-    """Token embedding (the dense and ssm families take no patch embeddings)."""
+    """Token embedding (these families take no patch embeddings)."""
     check_ported(cfg)
     if embeds is not None:
         raise ValueError(f"the {cfg.arch_type} family takes tokens only")
@@ -107,10 +142,13 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype):
 
 
 def backbone(params, cfg: ModelConfig, x, dtype):
-    """The layer stack. x: (B, S, D) -> (B, S, D), aux (0 for dense and ssm)."""
-    for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, layer_params(params, i), x, dtype)
+    """The layer stack. x: (B, S, D) -> (B, S, D), aux: the MoE layers' aux
+    losses summed in layer order (fp32; 0 for the other families)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = _layer_fwd(cfg, params, i, x, dtype)
+        if a is not None:
+            aux = aux + a
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -146,23 +184,22 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32):
     """Run the full prompt, build the decode cache, return last-pos logits.
 
-    A dense cache holds every layer's roped k and v, (L, B, S, KV, dh) in
-    ``dtype``, with ``pos = arange(S)``; an ssm cache every layer's final
-    state and conv window (:func:`_ssm_prefill`).
+    A dense or moe cache holds every layer's roped k and v, (L, B, S, KV,
+    dh) in ``dtype``, with ``pos = arange(S)`` (the MoE aux is dropped); an
+    ssm cache every layer's final state and conv window
+    (:func:`_ssm_prefill`); a hybrid cache both (:func:`_hybrid_prefill`).
     """
-    b, s = tokens.shape
     x = embed_inputs(params, cfg, tokens, embeds, dtype)
     if cfg.arch_type == "ssm":
         x, cache = _ssm_prefill(params, cfg, x, dtype)
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return logits_from_hidden(params, cfg, x[:, -1:, :], dtype), cache
-    kv_dims = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.empty(kv_dims, dtype=x.dtype, device=x.device)
-    vs = torch.empty(kv_dims, dtype=x.dtype, device=x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _layer_fwd(cfg, layer_params(params, i), x, dtype, return_kv=True)
-        ks[i], vs[i] = k, v
-    cache = AttnCache(k=ks, v=vs, pos=torch.arange(s, dtype=torch.int32, device=x.device))
+    elif cfg.arch_type == "hybrid":
+        x, cache = _hybrid_prefill(params, cfg, x, dtype)
+    else:
+        ks, vs = _empty_kv(cfg, cfg.n_layers, x)
+        for i in range(cfg.n_layers):
+            x, _, (ks[i], vs[i]) = _block_fwd(cfg, layer_params(params, i), x, dtype,
+                                              return_kv=True)
+        cache = AttnCache(k=ks, v=vs, pos=_positions(x))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x[:, -1:, :], dtype), cache
 
@@ -194,9 +231,24 @@ def _mamba_layer_with_state(lp, x, cfg: ModelConfig, dtype):
     return x + L.mamba_out(mp, y, xh, z, cfg, dtype), final_state, conv_state
 
 
-def _ssm_prefill(params, cfg: ModelConfig, x, dtype):
+def _empty_kv(cfg: ModelConfig, n: int, x) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uninitialised k and v caches (n, B, S, KV, dh) in x's type; a prefill
+    writes every slot."""
+    dims = (n, x.shape[0], x.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    return (torch.empty(dims, dtype=x.dtype, device=x.device),
+            torch.empty(dims, dtype=x.dtype, device=x.device))
+
+
+def _positions(x) -> torch.Tensor:
+    """A prefill cache's slot positions: arange(S), int32."""
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def _ssm_prefill(params, cfg: ModelConfig, x, dtype, shared=None):
     """Every layer through :func:`_mamba_layer_with_state`: → (x, SSMCache)
-    with the states stacked over the layers in x's type."""
+    with the states stacked over the layers in x's type. ``shared(i, x)``,
+    if given, runs before layer ``i`` and returns the new x (the hybrid's
+    shared block)."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     nh, n, k = s_cfg.n_heads(d), s_cfg.d_state, s_cfg.conv_kernel
@@ -205,10 +257,32 @@ def _ssm_prefill(params, cfg: ModelConfig, x, dtype):
     convs = torch.empty((cfg.n_layers, b, min(k - 1, s), s_cfg.d_inner(d) + 2 * n),
                         dtype=x.dtype, device=x.device)
     for i in range(cfg.n_layers):
+        if shared is not None:
+            x = shared(i, x)
         with record_function("lm.mamba"):
             x, states[i], convs[i] = _mamba_layer_with_state(layer_params(params, i), x, cfg,
                                                              dtype)
     return x, SSMCache(state=states, conv=convs)
+
+
+def _hybrid_prefill(params, cfg: ModelConfig, x, dtype):
+    """The Mamba2 stack of :func:`_ssm_prefill` with the shared block before
+    every ``attn_every``-th layer: invocation ``i // attn_every`` writes its
+    roped k and v into its slot of an (n_shared_invocations, B, S, KV, dh)
+    cache (the reference's select of ``write · k + (1 − write) · old`` is a
+    plain write here) → (x, HybridCache)."""
+    every = cfg.hybrid.attn_every
+    ks, vs = _empty_kv(cfg, n_shared_invocations(cfg), x)
+
+    def shared(i, x):
+        if i % every:
+            return x
+        x, _, (ks[i // every], vs[i // every]) = _block_fwd(cfg, params["shared_block"], x,
+                                                            dtype, return_kv=True)
+        return x
+
+    x, ssm = _ssm_prefill(params, cfg, x, dtype, shared)
+    return x, HybridCache(ssm=ssm, attn=AttnCache(k=ks, v=vs, pos=_positions(x)))
 
 
 # --------------------------------------------------------------------------
@@ -220,28 +294,55 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
                 dtype=torch.float32):
     """One serve step: consume one token (B, 1) at absolute position ``t``,
     update ``cache`` **in place** and return (logits (B, 1, vocab_padded),
-    cache). A dense step writes the token's k, v and position into slot
-    ``t % S_max`` (the first layer writes the position every layer then
-    reads); an ssm step overwrites each layer's state and conv window."""
+    cache). A dense or moe step writes the token's k, v and position into
+    slot ``t % S_max`` of every layer's cache (each layer writes the same
+    position, which every layer then reads); an ssm step overwrites each
+    layer's state and conv window; a hybrid step does both, its shared
+    block's invocation ``i // attn_every`` on that invocation's KV cache."""
     check_ported(cfg)
     x = params["embed"].to(dtype)[token]
-    if cfg.arch_type == "ssm":
-        return _ssm_decode(params, cfg, x, cache, dtype)
     t = int(t)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        with record_function("lm.attention"):
-            h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                      cache.k[i], cache.v[i], cache.pos, t, dtype=dtype)
-        x = x + h
-        with record_function("lm.mlp"):
-            x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), dtype)
+    if cfg.arch_type == "ssm":
+        x = _ssm_decode(params, cfg, x, cache, dtype)
+    elif cfg.arch_type == "hybrid":
+        every = cfg.hybrid.attn_every
+        kv = cache.attn
+
+        def shared(i, x):
+            if i % every:
+                return x
+            return _block_decode(cfg, params["shared_block"], x, kv.k[i // every],
+                                 kv.v[i // every], kv.pos, t, dtype)
+
+        x = _ssm_decode(params, cfg, x, cache.ssm, dtype, shared)
+    else:
+        for i in range(cfg.n_layers):
+            x = _block_decode(cfg, layer_params(params, i), x, cache.k[i], cache.v[i],
+                              cache.pos, t, dtype)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x, dtype), cache
 
 
-def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype):
+def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, dtype):
+    """:func:`_block_fwd` for one token against a KV cache, written in place."""
+    with record_function("lm.attention"):
+        h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                                  cache_k, cache_v, cache_pos, t, dtype=dtype)
+    x = x + h
+    h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if "moe" in lp:
+        with record_function("lm.moe"):
+            return x + L.moe_fwd(lp["moe"], h_in, cfg, dtype)[0]
+    with record_function("lm.mlp"):
+        return x + L.mlp_fwd(lp["mlp"], h_in, dtype)
+
+
+def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype, shared=None):
+    """Every Mamba2 layer's step, its state and conv window overwritten in
+    place; ``shared(i, x)`` as in :func:`_ssm_prefill`."""
     for i in range(cfg.n_layers):
+        if shared is not None:
+            x = shared(i, x)
         lp = layer_params(params, i)
         with record_function("lm.mamba"):
             h, st, cv = L.mamba2_decode(lp["mamba"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
@@ -249,5 +350,4 @@ def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype):
             cache.state[i].copy_(st)
             cache.conv[i].copy_(cv)
         x = x + h
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(params, cfg, x, dtype), cache
+    return x

@@ -3,7 +3,7 @@ trial-batched), the flash-attention kernel and the SSD scan kernel against
 their plain versions, the round, the lattice round (also under each channel
 process with K local steps and the four algorithms, and under the non-finite
 quarantine with a poisoned cell), the lattice loops against the fused grid,
-and the dense and Mamba2 LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
+and the dense, Mamba2, hybrid and MoE LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -759,6 +759,86 @@ def test_mamba2_serve_demo_defaults_to_the_card_and_never_waits_on_the_host(card
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert toks.shape == (2, 6) and cache.state.dtype == torch.bfloat16
+
+
+# -- the hybrid (Zamba2) and MoE LMs ---------------------------------------------
+
+
+def _family_cfg(arch):
+    """reduced zamba2 with 5 layers and the shared block every 2 (3
+    invocations, the last group partial), or reduced olmoe (4 experts,
+    top-2) at capacity factor 0.5, so the prefill drops tokens."""
+    cfg = configs.reduced_config(arch)
+    if cfg.arch_type == "hybrid":
+        return dataclasses.replace(cfg, n_layers=5,
+                                   hybrid=dataclasses.replace(cfg.hybrid, attn_every=2))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+
+
+def _launches():
+    return attn_kernel.launches, ssd_kernel.launches
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "olmoe-1b-7b"])
+def test_reduced_hybrid_and_moe_prefill_and_decode_on_card_match_cpu(card, arch):
+    """fp32: the card's prefill of a 48-token prompt (zamba2: one flash
+    launch an invocation and one SSD launch a layer; olmoe: one flash launch
+    a layer; none in decode) and 5 greedy decode steps against the CPU path
+    on the same weights and tokens: logits and every cache tensor within
+    1e-4 relative L2, tokens equal."""
+    from repro_torch.models.cache import cache_leaves, n_shared_invocations
+
+    cfg = _family_cfg(arch)
+    params = lm_api.model_init(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(1))
+    shape = InputShape("serve", seq_len=60, global_batch=2, kind="decode")
+    out = {}
+    for where in ("cpu", card):
+        srv = Server(cfg, shape, where, dtype=torch.float32)
+        p = srv.load_params(params)
+        before = _launches()
+        first, logits, cache = srv.prefill(p, {"tokens": tokens})
+        prefill = [a - b for a, b in zip(_launches(), before)]
+        toks, cache = srv.decode(p, first, pad_cache(cache, 60), 48, 6)
+        out[str(where)] = (logits.cpu(), toks.cpu(), [c.cpu() for c in cache_leaves(cache)],
+                           prefill, [a - b for a, b in zip(_launches(), before)])
+    (l_cpu, t_cpu, c_cpu, *n_cpu), (l_card, t_card, c_card, *n_card) = out["cpu"], out[str(card)]
+    want = ([n_shared_invocations(cfg), cfg.n_layers] if cfg.arch_type == "hybrid"
+            else [cfg.n_layers, 0])
+    assert n_cpu == [[0, 0], [0, 0]] and n_card == [want, want]
+    for a, b in [(l_card, l_cpu), *zip(c_card, c_cpu)]:
+        if b.is_floating_point():
+            rel = (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+            assert rel <= ROUND_TOL
+        else:
+            assert torch.equal(a, b)
+    assert torch.equal(t_card, t_cpu)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "olmoe-1b-7b"])
+def test_hybrid_and_moe_serving_defaults_to_the_card_and_never_waits_on_the_host(card, arch):
+    """``serve_demo`` and ``init_cache`` run on the card by default; then a
+    bf16 prefill and decode with every device→host sync made an error (the
+    MoE's routing, dispatch and gather included)."""
+    from repro_torch.models.cache import cache_leaves
+
+    cfg = _family_cfg(arch)
+    assert all(c.device.type == "cuda" for c in cache_leaves(lm_api.init_cache(cfg, 2, 40)))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(2))
+    toks, stats = serve_demo(cfg, {"tokens": tokens}, n_tokens=4)
+    assert toks.shape == (2, 4) and int(toks.max()) < cfg.vocab_size and stats["decode_s"] > 0
+    srv = Server(cfg, InputShape("serve", seq_len=40, global_batch=2, kind="decode"), card)
+    params = srv.load_params(lm_api.model_init(cfg, device=card))
+    tokens = tokens.to(card)  # a copy from pageable host memory syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _, cache = srv.prefill(params, {"tokens": tokens})
+        toks, cache = srv.decode(params, first, pad_cache(cache, 40), 32, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 6)
 
 
 # -- the diagnostics taps and checkpointed sweeps on the card ---------------------

@@ -434,8 +434,8 @@ def test_lm_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     assert params["embed"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).arch_type not in ("dense", "ssm")])
+@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if jconfigs.get_config(a).arch_type
+                                  not in ("dense", "ssm", "hybrid", "moe")])
 def test_unported_families_raise_naming_their_roadmap_item(arch):
     cfg = tconfigs.reduced_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
@@ -444,6 +444,23 @@ def test_unported_families_raise_naming_their_roadmap_item(arch):
         tcache.init_cache(cfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
         tserve.Server(cfg, INPUT_SHAPES["decode_32k"], "cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "olmoe-1b-7b", "llama4-scout-17b-a16e"])
+def test_hybrid_and_moe_families_init_cache_and_serve(arch):
+    """The families of ROADMAP A14.3 and A14.4 (their parity with the
+    reference: ``tests/test_torch_hybrid.py``, ``tests/test_torch_moe.py``):
+    ``model_init``, ``init_cache``, ``Server`` and ``serve_demo`` on the CPU."""
+    cfg = tconfigs.reduced_config(arch)
+    params = tapi.model_init(cfg, device="cpu")
+    assert ("shared_block" in params) == (cfg.arch_type == "hybrid")
+    cache = tcache.init_cache(cfg, 1, 4, device="cpu")
+    assert isinstance(cache, tcache.HybridCache if cfg.arch_type == "hybrid"
+                      else tcache.AttnCache)
+    tserve.Server(cfg, INPUT_SHAPES["decode_32k"], "cpu")
+    tokens = torch.tensor(_tokens(cfg, 2, 16, 0), dtype=torch.int64)
+    toks, _ = tserve.serve_demo(cfg, {"tokens": tokens}, n_tokens=3, device="cpu")
+    assert toks.shape == (2, 3) and int(toks.max()) < cfg.vocab_size
 
 
 def test_training_entry_points_raise_naming_their_roadmap_item():

@@ -79,10 +79,12 @@ def emulate_bf16_kernel(xdt, la, B, C, *, chunk, split=SPLIT):
     return y.reshape(b, s, h, p).bfloat16()
 
 
-# every bf16 case but the serving prefill (8 × 2,048 × 32 heads: gigabytes
-# on the CPU); full_width_bf16 is its width at two chunks
+# every bf16 case but the serving prefills (8 × 2,048 × 32 or 80 heads:
+# gigabytes on the CPU); full_width_bf16 is mamba2's width at two chunks,
+# n_64_bf16 zamba2's d_state
+SERVING_CASES = ("serving_bf16", "zamba2_serving_bf16")
 PRECISION_CASES = [name for name, c in CHECK_CASES.items()
-                   if c[6] == torch.bfloat16 and name != "serving_bf16"]
+                   if c[6] == torch.bfloat16 and name not in SERVING_CASES]
 # where one rounding of each operand is tested: many chunks, near-0 decay
 # (the state sums a thousand tokens) and the full width
 FAIL_CASES = ["chunk_64_bf16", "near_0_bf16", "full_width_bf16"]
@@ -95,7 +97,7 @@ def _seed(name):
 def test_precision_cases_are_the_bf16_twins():
     assert {"chunk_16_bf16", "chunk_64_bf16", "p_48_chunk_100_bf16", "h_1_bf16",
             "near_0_bf16", "strong_decay_bf16", "batch_1_16_chunks_bf16",
-            "full_width_bf16", "small_bf16"} == set(PRECISION_CASES)
+            "full_width_bf16", "small_bf16", "n_64_bf16"} == set(PRECISION_CASES)
 
 
 @pytest.mark.parametrize("case", PRECISION_CASES)
