@@ -28,7 +28,10 @@ non-zero exit and no result line:
              clean; for the batch kernel, B launches of the one-round kernel
              it replaces; for the flash kernel its useful TFLOP/s, its time
              over the library call's and its 3 tensor-core passes; the flash
-             and SSD kernels also at the zamba2 and olmoe prefills' shapes)
+             and SSD kernels also at the zamba2 and olmoe prefills' shapes,
+             the flash kernel also at seamless's non-causal encoder, its
+             cross-attention from the prompt and from a decode step's one
+             query, and internvl2's prefill)
   main       ``run_pofl`` through the user's entry points: logreg (pofl and
              channel, 30 rounds) and the full-width CNN (D=258,634, N=30
              devices, 10 scheduled), ``backend="pallas_fused"``; launch
@@ -203,6 +206,29 @@ non-zero exit and no result line:
              whose top k + 1 probabilities are more than 1e-6 apart, and
              positions and drops equal wherever no other choice touched
              their expert
+  encdec_serve  seamless-m4t-large-v2 at full width and depth (24 encoder
+             and 24 decoder layers, d 1,024, 16 heads of 64, MHA, d_ff
+             8,192, vocab 256,256 padded) over 1,024 random frame embeddings
+             (the speech frontend is a stub) with a 256-token decoder
+             prompt, the same batch and new tokens: exactly 72 flash
+             launches a prefill (24 non-causal encoder, 24 causal decoder
+             and 24 cross-attention calls) and 24 a decode step (the
+             cross-attention's one query against the cached frames)
+  vlm_serve  internvl2-76b's language backbone at full width (d 8,192, 64
+             query / 8 kv heads of 128, d_ff 28,672, vocab 128,256, RoPE θ
+             5e5) cut to 8 of its 80 layers, 256 random patch embeddings
+             (the vision encoder is a stub) and 1,792 tokens (2,048
+             positions), 32 greedy tokens from t = 2,048: exactly 8 flash
+             launches a prefill, none in decode
+  encdec_serve_no_sync, vlm_serve_no_sync, encdec_serve_breakdown,
+             vlm_serve_breakdown  as for qwen2 (``lm.attention``,
+             ``lm.cross_attention``, ``lm.mlp``; ``lm.attention``,
+             ``lm.mlp``; the flash kernel's share of the prefill's and, for
+             seamless, the decode's device time)
+  encdec_serve_parity, vlm_serve_parity  full width at a cut depth in fp32
+             (seamless: 2 + 2 layers, batch 2, 256 frames, a 64-token
+             prompt; internvl2: 1 layer, batch 1, 8 patches and 56 tokens),
+             card against CPU as for qwen2 (seamless's cross k and v too)
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -287,10 +313,18 @@ SERVE_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 8
 BREAKDOWN_STEPS = 8
-# (b, s, h, kv, dh) of the flash kernel's times, bf16, causal: the serving
-# prefill and the prefill_32k sequence length
-ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 14, 2, 64), "prefill_32k": (1, 32768, 14, 2, 64),
-                    "zamba2_prefill": (8, 2048, 32, 32, 80), "olmoe_prefill": (8, 2048, 16, 16, 128)}
+# (b, sq, sk, h, kv, dh, causal) of the flash kernel's times, bf16: the
+# serving prefills (and the prefill_32k sequence length); seamless's
+# non-causal encoder, its cross-attention from the prompt and from a decode
+# step's one token
+ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 2048, 14, 2, 64, True),
+                    "prefill_32k": (1, 32768, 32768, 14, 2, 64, True),
+                    "zamba2_prefill": (8, 2048, 2048, 32, 32, 80, True),
+                    "olmoe_prefill": (8, 2048, 2048, 16, 16, 128, True),
+                    "seamless_encoder": (8, 1024, 1024, 16, 16, 64, False),
+                    "seamless_cross_prefill": (8, 256, 1024, 16, 16, 64, False),
+                    "seamless_cross_decode": (8, 1, 1024, 16, 16, 64, False),
+                    "internvl2_prefill": (8, 2048, 2048, 64, 8, 128, True)}
 # the second serving path: mamba2-370m at full width, the same batch, prompt
 # and new tokens; its parity at two chunks
 SSM_ARCH = "mamba2-370m"
@@ -310,6 +344,17 @@ HYBRID_PARITY, MOE_PARITY = (12, 2, 256), (4, 2, 512)
 # router probabilities closer than this make a token's top-k ill-defined: the
 # MoE parity holds decisions exactly everywhere else
 MOE_TIE = 1e-6
+# the enc-dec and VLM serving paths, the same batch and new tokens:
+# seamless-m4t-large-v2 at full width and depth over 1,024 frames with a
+# 256-token decoder prompt; internvl2-76b's backbone at full width cut to 8
+# of its 80 layers (the fp32 init and its bf16 copy of 80 would not fit one
+# card), 256 patches + 1,792 tokens = 2,048 positions. Their parity at full
+# width, (layers, batch, prompt tokens, frames or patches): seamless 2 + 2
+# layers, internvl2 1 layer (about 12 GB of fp32 weights on each side)
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "internvl2-76b"
+SERVE_LAYERS = {VLM_ARCH: 8}
+ENCDEC_PROMPT = 256
+ENCDEC_PARITY, VLM_PARITY = (2, 2, 64, 256), (1, 1, 56, 8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -2096,17 +2141,27 @@ def check_attention(kernel, ref, dev) -> dict:
     return errs
 
 
-def attention_flops(b, s, h, dh) -> int:
-    """The useful flops of one causal call at sq = sk = s: 4·dh for each of
-    the b·h·s(s+1)/2 visible (query, key) pairs (q·k and p·v)."""
-    return 4 * dh * b * h * s * (s + 1) // 2
+def visible_pairs(sq, sk, causal) -> int:
+    """The (query, key) pairs one head of a call at q_offset 0 sees: sq·sk
+    non-causal; causal, query i sees keys 0..min(i, sk - 1)."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)  # queries 0..full-1 see i + 1 keys, the rest all sk
+    return full * (full + 1) // 2 + (sq - full) * sk
 
 
-def attention_bound(b, s, h, kv, dh, itemsize) -> tuple[float, str]:
-    """The least time for one causal call at sq = sk = s: q, k, v read once
-    and the output written once; its useful flops at the bf16 dense rate."""
-    nbytes = itemsize * (2 * b * s * h * dh + 2 * b * s * kv * dh)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, attention_flops(b, s, h, dh) / BF16_FLOPS
+def attention_flops(b, sq, sk, h, dh, causal) -> int:
+    """The useful flops of one call: 4·dh for each of the b·h visible
+    (query, key) pairs of every head (q·k and p·v)."""
+    return 4 * dh * b * h * visible_pairs(sq, sk, causal)
+
+
+def attention_bound(b, sq, sk, h, kv, dh, causal, itemsize) -> tuple[float, str]:
+    """The least time for one call: q, k, v read once and the output written
+    once; its useful flops at the bf16 dense rate."""
+    nbytes = itemsize * (2 * b * sq * h * dh + 2 * b * sk * kv * dh)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = attention_flops(b, sq, sk, h, dh, causal) / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2122,23 +2177,24 @@ def time_attention(kernel, ref, dev) -> dict:
 
     flush = torch.empty(256 * 2**20 // 4, device=dev)  # 256 MiB > the 50 MB L2
     out = {}
-    for name, (b, s, h, kv, dh) in ATTN_TIME_SHAPES.items():
-        q, k, v = attention_inputs(b, s, s, h, kv, dh, torch.bfloat16, dev, seed=7)
+    for name, (b, sq, sk, h, kv, dh, causal) in ATTN_TIME_SHAPES.items():
+        q, k, v = attention_inputs(b, sq, sk, h, kv, dh, torch.bfloat16, dev, seed=7)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (b, heads, s, dh)
-        bound_ms, bound_by = attention_bound(b, s, h, kv, dh, 2)
+        bound_ms, bound_by = attention_bound(b, sq, sk, h, kv, dh, causal, 2)
         out[name] = {
-            "shape": [b, s, h, kv, dh], "dtype": "bfloat16", "causal": True,
-            "ms": time_ms(lambda: kernel.flash_attention(q, k, v, causal=True), flush),
-            "plain_ms": (time_ms(lambda: ref(q, k, v, causal=True), flush)
-                         if s <= 2048 else None),
+            "shape": [b, sq, sk, h, kv, dh], "dtype": "bfloat16", "causal": causal,
+            "ms": time_ms(lambda: kernel.flash_attention(q, k, v, causal=causal), flush),
+            "plain_ms": (time_ms(lambda: ref(q, k, v, causal=causal), flush)
+                         if sq <= 2048 else None),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
         out[name]["ms_over_bound"] = out[name]["ms"] / bound_ms
         out[name]["ms_over_library"] = out[name]["ms"] / out[name]["library_ms"]
-        out[name]["tflops"] = attention_flops(b, s, h, dh) / (out[name]["ms"] * 1e9)
+        out[name]["tflops"] = (attention_flops(b, sq, sk, h, dh, causal)
+                               / (out[name]["ms"] * 1e9))
     # mma_passes is the design's count, not a measurement: it stays out of
     # ``out``, which feeds the ``kernels`` line
     emit("times", kernel="flash_attention", library="scaled_dot_product_attention",
@@ -2229,24 +2285,66 @@ def zero_counts() -> None:
 # ssd_scan runs three kernels in bf16), and each family's lm.* ranges besides
 # lm.logits
 TRACED_NAMES = {"flash_attention": "flash_fwd_kernel_bf16", "ssd_scan": "ssd_fwd_"}
-LM_RANGES = {"dense": ("lm.attention", "lm.mlp"), "ssm": ("lm.mamba",),
-             "hybrid": ("lm.attention", "lm.mlp", "lm.mamba"), "moe": ("lm.attention", "lm.moe")}
+LM_RANGES = {"dense": ("lm.attention", "lm.mlp"), "vlm": ("lm.attention", "lm.mlp"),
+             "ssm": ("lm.mamba",), "hybrid": ("lm.attention", "lm.mlp", "lm.mamba"),
+             "moe": ("lm.attention", "lm.moe"),
+             "encdec": ("lm.attention", "lm.cross_attention", "lm.mlp")}
 
 
 def prefill_launches(cfg) -> dict:
     """The launches of one prefill of ``cfg``, by kernel: flash once an
-    attention layer (a hybrid: once a shared-block invocation), SSD once a
-    Mamba2 layer, no other. A decode step launches none."""
+    attention layer (a hybrid: once a shared-block invocation; an enc-dec
+    model: once an encoder layer and twice a decoder layer, its self- and
+    cross-attention), SSD once a Mamba2 layer, no other."""
     from repro_torch.models.cache import n_shared_invocations
 
     n = {name: 0 for name in kernel_counters()}
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "vlm", "moe"):
         n["flash_attention"] = cfg.n_layers
     if cfg.arch_type in ("ssm", "hybrid"):
         n["ssd_scan"] = cfg.n_layers
     if cfg.arch_type == "hybrid":
         n["flash_attention"] = n_shared_invocations(cfg)
+    if cfg.arch_type == "encdec":
+        n["flash_attention"] = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
     return n
+
+
+def decode_launches(cfg) -> dict:
+    """The launches of one decode step of ``cfg``, by kernel: an enc-dec
+    model's cross-attention once a decoder layer (one query against the
+    cached frames); no other family launches any."""
+    n = {name: 0 for name in kernel_counters()}
+    if cfg.arch_type == "encdec":
+        n["flash_attention"] = cfg.n_layers
+    return n
+
+
+def serve_prompt(cfg, batch_size: int, n_tokens: int, n_extra: int, seed: int):
+    """A seeded prompt of ``n_tokens`` tokens and, for a VLM, ``n_extra``
+    patch embeddings or, for an enc-dec model, ``n_extra`` frame
+    embeddings (standard normal, as the stub frontends give them) → (batch
+    dict on the CPU, the positions the prompt takes in the KV cache: a
+    VLM's patches and tokens, an enc-dec decoder's tokens)."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, n_tokens), generator=gen)}
+    if cfg.arch_type == "vlm":
+        batch["embeds"] = torch.randn(batch_size, n_extra, cfg.d_model, generator=gen)
+        return batch, n_extra + n_tokens
+    if cfg.arch_type == "encdec":
+        batch["frames"] = torch.randn(batch_size, n_extra, cfg.d_model, generator=gen)
+    return batch, n_tokens
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` with ``layers`` layers (an enc-dec model's encoder too); all
+    of them when ``layers`` is None."""
+    if layers is None:
+        return cfg
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
+                                                                  n_enc_layers=layers))
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def cache_fields(cache, prefix: str = "") -> dict:
@@ -2263,22 +2361,31 @@ def cache_fields(cache, prefix: str = "") -> dict:
 
 
 def serve_setup(dev, arch):
-    """``arch`` at full width: its config, a server of the serving shape on
-    the card in bf16, the port's ``init_model`` weights cast once, and a
-    seeded prompt (SERVE_BATCH × SERVE_PROMPT tokens)."""
+    """``arch`` at full width (and its depth but SERVE_LAYERS's cut): its
+    config, a server of the serving shape on the card in bf16, the port's
+    ``init_model`` weights cast once, a seeded prompt (SERVE_BATCH ×
+    SERVE_PROMPT positions: tokens, or a VLM's patches then tokens; an
+    enc-dec model's ENCDEC_PROMPT tokens and its config's frames), the
+    positions it takes and the peak memory of the fp32 init and its cast."""
     from repro_torch import configs
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
 
-    cfg = configs.get_config(arch)
-    shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_NEW, global_batch=SERVE_BATCH,
+    cfg = cut_depth(configs.get_config(arch), SERVE_LAYERS.get(arch))
+    if cfg.arch_type == "encdec":
+        batch, n_pos = serve_prompt(cfg, SERVE_BATCH, ENCDEC_PROMPT, cfg.encdec.n_enc_frames, 1)
+    elif cfg.arch_type == "vlm":
+        batch, n_pos = serve_prompt(cfg, SERVE_BATCH, SERVE_PROMPT - cfg.vlm.n_patches,
+                                    cfg.vlm.n_patches, 1)
+    else:
+        batch, n_pos = serve_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, 0, 1)
+    shape = InputShape("serve", seq_len=n_pos + SERVE_NEW, global_batch=SERVE_BATCH,
                        kind="decode")
     server = Server(cfg, shape)  # the card, bf16: the defaults a user gets
+    torch.cuda.reset_peak_memory_stats(dev)
     params = server.load_params(api.model_init(cfg, seed=0))
-    gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)
-    return cfg, server, params, {"tokens": tokens}
+    return cfg, server, params, batch, n_pos, torch.cuda.max_memory_allocated(dev)
 
 
 def arch_fields(cfg) -> dict:
@@ -2298,20 +2405,26 @@ def arch_fields(cfg) -> dict:
         m = cfg.moe
         out["moe"] = {"experts": m.n_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert,
                       "shared_experts": m.n_shared_experts, "capacity_factor": m.capacity_factor}
+    if cfg.encdec is not None:
+        out["encoder"] = {"layers": cfg.encdec.n_enc_layers, "frames": cfg.encdec.n_enc_frames}
+    if cfg.vlm is not None:
+        out["patches"] = cfg.vlm.n_patches
     return out
 
 
 def serve_path(dev, setup, phase) -> dict:
     """Prefill, pad the cache (an SSM state stays as it is), decode
-    greedily; the counts are zeroed just before and read just after: the
-    prefill's launches are :func:`prefill_launches`, the decode's none."""
+    greedily from the position after the prompt's; the counts are zeroed
+    just before and read just after the prefill and after the decode: the
+    prefill's launches are :func:`prefill_launches`, each decode step's
+    :func:`decode_launches`."""
     from repro_torch.flatten_util import tree_leaves
     from repro_torch.models.cache import cache_leaves, pad_cache
 
-    cfg, server, params, batch = setup
-    total = SERVE_PROMPT + SERVE_NEW
+    cfg, server, params, batch, n_pos, setup_peak = setup
+    total = n_pos + SERVE_NEW
     first, _, cache = server.prefill(params, batch)  # warm-up: cuBLAS's choices, the allocator
-    server.decode(params, first, pad_cache(cache, total), SERVE_PROMPT, 3)
+    server.decode(params, first, pad_cache(cache, total), n_pos, 3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()  # zeroed just before
@@ -2322,38 +2435,46 @@ def serve_path(dev, setup, phase) -> dict:
     prefill_launches_read = read_counts()
     cache = pad_cache(cache, total)
     t0 = time.perf_counter()
-    toks, cache = server.decode(params, first, cache, SERVE_PROMPT, SERVE_NEW)
+    toks, cache = server.decode(params, first, cache, n_pos, SERVE_NEW)
     toks = toks.cpu()
     t_decode = time.perf_counter() - t0
     launches = read_counts()  # read just after
     steps = SERVE_NEW - 1
     expect = prefill_launches(cfg)
-    ok = (prefill_launches_read == expect and launches == expect
+    per_step = decode_launches(cfg)
+    expect_all = {k: n + steps * per_step[k] for k, n in expect.items()}
+    ok = (prefill_launches_read == expect and launches == expect_all
           and logits.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
           and toks.shape == (SERVE_BATCH, SERVE_NEW) and int(toks.max()) < cfg.vocab_size
           and all(bool(torch.isfinite(c).all()) for c in cache_fields(cache).values()))
     if cfg.arch_type != "ssm":  # every slot written once, the last one empty
         pos = torch.cat([torch.arange(total - 1), torch.tensor([-1])]).to(torch.int32)
-        kv = cache.attn if cfg.arch_type == "hybrid" else cache
+        kv = (cache.attn if cfg.arch_type == "hybrid"
+              else cache.self_attn if cfg.arch_type == "encdec" else cache)
         ok = ok and torch.equal(kv.pos.cpu(), pos)
     n_params = sum(p.numel() for p in tree_leaves(params))
+    extra = {}
+    if "frames" in batch:
+        extra["prefill_frames_per_s"] = batch["frames"][..., 0].numel() / t_prefill
     emit(phase, arch=cfg.name, d_model=cfg.d_model, n_layers=cfg.n_layers, **arch_fields(cfg),
          vocab_padded=cfg.vocab_padded, dtype="bfloat16", batch=SERVE_BATCH,
-         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+         prompt=batch["tokens"].shape[1], prompt_positions=n_pos, new_tokens=SERVE_NEW,
          params=n_params, param_count_of_config=cfg.param_count(),
          param_bytes=sum(p.numel() * p.element_size() for p in tree_leaves(params)),
          cache_bytes=sum(c.numel() * c.element_size() for c in cache_leaves(cache)),
-         prefill_s=t_prefill, prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
+         prefill_s=t_prefill, prefill_tokens_per_s=SERVE_BATCH * n_pos / t_prefill, **extra,
          decode_s=t_decode, decode_steps=steps, decode_ms_per_step=1e3 * t_decode / steps,
          decode_tokens_per_s=SERVE_BATCH * steps / t_decode,
          launches=launches, prefill_launches=prefill_launches_read,
+         decode_launches_per_step=per_step,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-         tokens_row_0=toks[0].tolist())
+         setup_max_memory_allocated=setup_peak, tokens_row_0=toks[0].tolist())
     if not ok:
         raise AssertionError(f"{phase}: launches {launches} (prefill {prefill_launches_read}, "
-                             f"expected {expect}), logits {tuple(logits.shape)}, tokens "
-                             f"{tuple(toks.shape)}, or a non-finite cache")
+                             f"expected {expect_all}, prefill {expect}), logits "
+                             f"{tuple(logits.shape)}, tokens {tuple(toks.shape)}, a cache "
+                             f"position, or a non-finite cache")
     return launches
 
 
@@ -2362,13 +2483,13 @@ def serve_no_sync(dev, setup, phase) -> None:
     device→host sync made an error."""
     from repro_torch.models.cache import pad_cache
 
-    cfg, server, params, batch = setup
-    tokens = batch["tokens"].to(dev)
+    cfg, server, params, batch, n_pos, _ = setup
+    on_card = {k: v.to(dev) for k, v in batch.items()}  # a copy from pageable memory syncs
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        first, _, cache = server.prefill(params, {"tokens": tokens})
-        server.decode(params, first, pad_cache(cache, SERVE_PROMPT + 4), SERVE_PROMPT, 5)
+        first, _, cache = server.prefill(params, on_card)
+        server.decode(params, first, pad_cache(cache, n_pos + 4), n_pos, 5)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -2425,14 +2546,17 @@ def moe_decisions(cpu_routes, card_routes) -> list:
     return out
 
 
-def serve_parity(dev, arch, batch_size, prompt, phase, layers=None) -> None:
-    """``layers`` layers of ``arch`` (all by default) at full width in fp32
-    (TF32 off), card against the port's CPU path on one set of weights (drawn
-    on the card, copied to the CPU) and tokens: the prefill's last-position
-    logits and every float field of the cache (k and v; the SSM state and
-    conv window; a hybrid's both), then PARITY_NEW decode steps, both sides
-    fed the CPU's greedy token, so a near-tie cannot send them down
-    different paths. A model with Mamba2 layers takes Mamba2's dt_bias
+def serve_parity(dev, arch, batch_size, prompt, phase, layers=None, n_extra=0) -> None:
+    """``layers`` layers of ``arch`` (all by default; an enc-dec model's
+    encoder too) at full width in fp32 (TF32 off), card against the port's
+    CPU path on one set of weights (drawn on the card, copied to the CPU)
+    and a prompt of ``prompt`` tokens (and ``n_extra`` patches or frames,
+    :func:`serve_prompt`): the prefill's last-position logits and every
+    float field of the cache (k and v; the SSM state and conv window; a
+    hybrid's both; an enc-dec model's cross k and v), then PARITY_NEW decode
+    steps from the position after the prompt's, both sides fed the CPU's
+    greedy token, so a near-tie cannot send them down different paths. A
+    model with Mamba2 layers takes Mamba2's dt_bias
     (:func:`mamba2_dt_bias`): at the reference's zeros the fp32 model itself
     drifts (``ssm_depth_drift``). A moe model's prefill routing is held by
     :func:`moe_decisions`."""
@@ -2446,16 +2570,13 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None) -> None:
     from repro_torch.models.cache import pad_cache
     from repro_torch.models.config import InputShape
 
-    cfg = configs.get_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
-    total = prompt + PARITY_NEW
+    cfg = cut_depth(configs.get_config(arch), layers)
+    batch, n_pos = serve_prompt(cfg, batch_size, prompt, n_extra, 3)
+    total = n_pos + PARITY_NEW
     shape = InputShape("parity", seq_len=total, global_batch=batch_size, kind="decode")
     params = tree_map(lambda x: x.cpu(), api.model_init(cfg, seed=2, device=dev))
     if cfg.ssm is not None:
         params = mamba2_dt_bias(params, cfg)
-    gen = torch.Generator().manual_seed(3)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, prompt), generator=gen)}
     out, seconds, routes = {}, {}, {}
     route = lm_layers.moe_route
     for where in ("cpu", dev):
@@ -2489,8 +2610,8 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None) -> None:
     tok = first_c
     step_errs = []
     for i in range(PARITY_NEW):
-        l_c, cache_c = api.model_decode(p_c, cfg, tok, cache_c, prompt + i)
-        l_g, cache_g = api.model_decode(p_g, cfg, tok.to(dev), cache_g, prompt + i)
+        l_c, cache_c = api.model_decode(p_c, cfg, tok, cache_c, n_pos + i)
+        l_g, cache_g = api.model_decode(p_g, cfg, tok.to(dev), cache_g, n_pos + i)
         l_g = l_g.cpu()
         step_errs.append(rel_l2(l_g[..., :vocab], l_c[..., :vocab]))
         m, threshold = margin(l_c)
@@ -2502,8 +2623,10 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None) -> None:
     fields_c, fields_g = cache_fields(cache_c), cache_fields(cache_g)
     for f in fields_c:
         errs[f"cache_{f}_after_decode"] = rel_l2(fields_g[f], fields_c[f])
-    emit(phase, arch=arch, n_layers=cfg.n_layers, dtype="float32", batch=batch_size,
-         prompt=prompt, decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
+    emit(phase, arch=arch, n_layers=cfg.n_layers, **arch_fields(cfg), dtype="float32",
+         batch=batch_size, prompt=prompt, prompt_positions=n_pos,
+         **{k: tuple(v.shape) for k, v in batch.items() if k != "tokens"},
+         decode_steps=PARITY_NEW, rel_l2_err=errs, tolerance=ROUND_TOL,
          decode_logits_rel_l2_err=step_errs, steps=steps,
          min_margin=min(s["margin"] for s in steps), prefill_seconds=seconds,
          **({} if decisions is None else {"moe_decisions": decisions, "tie": MOE_TIE}))
@@ -2555,51 +2678,56 @@ def serve_breakdown(dev, setup, phase) -> None:
     ``ssd_fwd_*`` kernel counts toward ``ssd_scan``)."""
     from repro_torch.models.cache import pad_cache
 
-    cfg, server, params, batch = setup
+    cfg, server, params, batch, n_pos, _ = setup
     n_stages = 2 + len(LM_RANGES[cfg.arch_type])  # serve.*, its lm.* ranges, lm.logits
     holder = {}
 
     def prefill():
         holder["first"], _, cache = server.prefill(params, batch)
-        holder["cache"] = pad_cache(cache, SERVE_PROMPT + BREAKDOWN_STEPS)
+        holder["cache"] = pad_cache(cache, n_pos + BREAKDOWN_STEPS)
 
     def decode():  # rewrites the same slots (or the state) from the same start each time
-        server.decode(params, holder["first"], holder["cache"], SERVE_PROMPT,
-                      BREAKDOWN_STEPS + 1)
+        server.decode(params, holder["first"], holder["cache"], n_pos, BREAKDOWN_STEPS + 1)
 
     out = {}
     for name, drive in (("prefill", prefill), ("decode", decode)):
         out[name] = profile_ranges(drive, 1, ("serve.", "lm."), n_stages, f"serve.{name}")
-    pre = out["prefill"]  # the kernels are ctypes launches: listed, not linked
-    pre["kernels"] = {}
-    for kname, n in prefill_launches(cfg).items():
-        if not n:
-            continue
-        by_name = {k: ms for k, ms in pre["unlinked_kernels_ms"].items()
-                   if TRACED_NAMES[kname] in k}
-        ms = sum(by_name.values())
-        pre["kernels"][kname] = {"launches": n, "ms": ms, "ms_by_name": by_name,
-                                 "share_of_device_kernel_ms": ms / pre["device_kernel_ms"]}
-        if ms <= 0.0:
-            raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the prefill")
-    pre["kernel_ms"] = sum(k["ms"] for k in pre["kernels"].values())
-    pre["kernel_share_of_device_kernel_ms"] = pre["kernel_ms"] / pre["device_kernel_ms"]
-    emit(phase, arch=cfg.name, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-         decode_steps=BREAKDOWN_STEPS, **out)
+    # the kernels are ctypes launches: listed, not linked
+    for name, launched in (("prefill", prefill_launches(cfg)),
+                           ("decode", {k: n * BREAKDOWN_STEPS
+                                       for k, n in decode_launches(cfg).items()})):
+        part = out[name]
+        part["kernels"] = {}
+        for kname, n in launched.items():
+            if not n:
+                continue
+            by_name = {k: ms for k, ms in part["unlinked_kernels_ms"].items()
+                       if TRACED_NAMES[kname] in k}
+            ms = sum(by_name.values())
+            part["kernels"][kname] = {"launches": n, "ms": ms, "ms_by_name": by_name,
+                                      "share_of_device_kernel_ms": ms / part["device_kernel_ms"]}
+            if ms <= 0.0:
+                raise AssertionError(f"{phase}: the profiler saw no {kname} kernel in the {name}")
+        part["kernel_ms"] = sum(k["ms"] for k in part["kernels"].values())
+        part["kernel_share_of_device_kernel_ms"] = part["kernel_ms"] / part["device_kernel_ms"]
+    emit(phase, arch=cfg.name, batch=SERVE_BATCH, prompt=batch["tokens"].shape[1],
+         prompt_positions=n_pos, decode_steps=BREAKDOWN_STEPS, **out)
 
 
-def serving(dev, arch, prefix, parity_batch, parity_prompt, parity_layers=None) -> dict:
+def serving(dev, arch, prefix, parity_batch, parity_prompt, parity_layers=None,
+            parity_extra=0) -> dict:
     """The serving phases of one architecture: ``<prefix>``, ``_no_sync``,
     ``_breakdown`` at the serving shape, then ``_parity`` (at
-    ``parity_layers`` layers, all by default); → the main path's launch
-    counts."""
+    ``parity_layers`` layers, all by default, with ``parity_extra`` patches
+    or frames); → the main path's launch counts."""
     setup = serve_setup(dev, arch)
     launches = serve_path(dev, setup, prefix)
     serve_no_sync(dev, setup, f"{prefix}_no_sync")
     serve_breakdown(dev, setup, f"{prefix}_breakdown")
     del setup
     torch.cuda.empty_cache()
-    serve_parity(dev, arch, parity_batch, parity_prompt, f"{prefix}_parity", parity_layers)
+    serve_parity(dev, arch, parity_batch, parity_prompt, f"{prefix}_parity", parity_layers,
+                 parity_extra)
     if arch == SSM_ARCH:
         ssm_depth_drift(dev, parity_batch, parity_prompt)
     return launches
@@ -2749,6 +2877,10 @@ def main() -> int:
     moe_layers, moe_batch, moe_prompt = MOE_PARITY
     moe_launches = step("moe_serve", serving, dev, MOE_ARCH, "moe_serve", moe_batch,
                         moe_prompt, moe_layers)
+    encdec_launches = step("encdec_serve", serving, dev, ENCDEC_ARCH, "encdec_serve",
+                           *ENCDEC_PARITY[1:3], ENCDEC_PARITY[0], ENCDEC_PARITY[3])
+    vlm_launches = step("vlm_serve", serving, dev, VLM_ARCH, "vlm_serve", *VLM_PARITY[1:3],
+                        VLM_PARITY[0], VLM_PARITY[3])
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
@@ -2775,7 +2907,9 @@ def main() -> int:
                         "src/repro/kernels/attention/kernel.py:103",
                         {"serve": serve_launches["flash_attention"],
                          "hybrid_serve": hybrid_launches["flash_attention"],
-                         "moe_serve": moe_launches["flash_attention"]},
+                         "moe_serve": moe_launches["flash_attention"],
+                         "encdec_serve": encdec_launches["flash_attention"],
+                         "vlm_serve": vlm_launches["flash_attention"]},
                         attn_errs, attn_times, ATTN_CASES),
         lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                         "src/repro/kernels/ssd/kernel.py:65",

@@ -23,17 +23,18 @@ def params_from_jax(tree, device=None):
 
 
 def lm_params_from_jax(tree, cfg, device=None):
-    """The reference's ``model_init`` tree of a dense, moe, ssm or hybrid
-    config (numpy arrays, or anything ``np.asarray`` reads) → float32 port
-    params on ``device``.
+    """The reference's ``model_init`` tree of any LM config (numpy arrays,
+    or anything ``np.asarray`` reads) → float32 port params on ``device``.
 
     The port keeps the reference's LM layout: ``embed`` (vocab_padded, d),
-    every ``layers`` leaf stacked over the L layers as ``lax.scan`` reads it,
-    ``x @ w`` with ``w`` as (d_in, d_out). So this, too, is a copy, with the
-    family's shapes checked against ``cfg``.
+    every ``layers`` leaf (and an enc-dec model's ``enc_layers`` leaf)
+    stacked over its layers as ``lax.scan`` reads it, ``x @ w`` with ``w`` as
+    (d_in, d_out). So this, too, is a copy, with the family's shapes checked
+    against ``cfg``.
     """
     params = params_from_jax(tree, device)
     d, lyr, n_l = cfg.d_model, params["layers"], cfg.n_layers
+    q_dim, kv_dim = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     if cfg.arch_type in ("ssm", "hybrid"):
         s = cfg.ssm
         di = s.d_inner(d)
@@ -42,20 +43,33 @@ def lm_params_from_jax(tree, cfg, device=None):
             "out_proj": (lyr["mamba"]["out_proj"], (n_l, di, d)),
         }
         if cfg.arch_type == "hybrid":
-            want["shared_block.attn.wq"] = (params["shared_block"]["attn"]["wq"],
-                                            (d, cfg.n_heads * cfg.head_dim))
+            want["shared_block.attn.wq"] = (params["shared_block"]["attn"]["wq"], (d, q_dim))
     elif cfg.arch_type == "moe":
         m = cfg.moe
         want = {
-            "wq": (lyr["attn"]["wq"], (n_l, d, cfg.n_heads * cfg.head_dim)),
+            "wq": (lyr["attn"]["wq"], (n_l, d, q_dim)),
             "moe.router": (lyr["moe"]["router"], (n_l, d, m.n_experts)),
             "moe.w_gate": (lyr["moe"]["w_gate"], (n_l, m.n_experts, d, m.d_ff_expert)),
         }
+    elif cfg.arch_type == "encdec":
+        enc, n_e = params["enc_layers"], cfg.encdec.n_enc_layers
+        want = {
+            "enc_layers.attn.wq": (enc["attn"]["wq"], (n_e, d, q_dim)),
+            "enc_layers.mlp.w_out": (enc["mlp"]["w_out"], (n_e, cfg.d_ff, d)),
+            "self_attn.wq": (lyr["self_attn"]["wq"], (n_l, d, q_dim)),
+            "cross_attn.wk": (lyr["cross_attn"]["wk"], (n_l, d, kv_dim)),
+            "ln_x": (lyr["ln_x"]["scale"], (n_l, d)),
+            "w_out": (lyr["mlp"]["w_out"], (n_l, cfg.d_ff, d)),
+            "enc_norm": (params["enc_norm"]["scale"], (d,)),
+            "lm_head": (params["lm_head"], (d, cfg.vocab_padded)),
+        }
     else:
         want = {
-            "wq": (lyr["attn"]["wq"], (n_l, d, cfg.n_heads * cfg.head_dim)),
+            "wq": (lyr["attn"]["wq"], (n_l, d, q_dim)),
             "w_out": (lyr["mlp"]["w_out"], (n_l, cfg.d_ff, d)),
         }
+        if cfg.arch_type == "vlm":
+            want["vis_proj"] = (params["vis_proj"], (d, d))
     want["embed"] = (params["embed"], (cfg.vocab_padded, d))
     for name, (leaf, shape) in want.items():
         if tuple(leaf.shape) != shape:

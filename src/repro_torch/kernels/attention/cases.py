@@ -56,6 +56,20 @@ CHECK_CASES = {
     # MHA) and of olmoe-1b-7b (16 heads of 128, MHA)
     "zamba2_prefill_bf16": (8, 2048, 2048, 32, 32, 80, torch.bfloat16, True, None, 0, False),
     "olmoe_prefill_bf16": (8, 2048, 2048, 16, 16, 128, torch.bfloat16, True, None, 0, False),
+    # seamless-m4t-large-v2 (16 heads of 64, MHA): the encoder's non-causal
+    # self-attention over 1,024 frames, the decoder's cross-attention to them
+    # from a 256-token prompt and from the one token of a decode step; and
+    # internvl2-76b's causal prefill (GQA 8:1 at dh 128), each in both types
+    "seamless_encoder_bf16": (8, 1024, 1024, 16, 16, 64, torch.bfloat16, False, None, 0, False),
+    "seamless_encoder_fp32": (8, 1024, 1024, 16, 16, 64, torch.float32, False, None, 0, False),
+    "seamless_cross_prefill_bf16": (8, 256, 1024, 16, 16, 64, torch.bfloat16, False, None, 0,
+                                    False),
+    "seamless_cross_prefill_fp32": (8, 256, 1024, 16, 16, 64, torch.float32, False, None, 0,
+                                    False),
+    "seamless_cross_decode_bf16": (8, 1, 1024, 16, 16, 64, torch.bfloat16, False, None, 0, False),
+    "seamless_cross_decode_fp32": (8, 1, 1024, 16, 16, 64, torch.float32, False, None, 0, False),
+    "internvl2_prefill_bf16": (8, 2048, 2048, 64, 8, 128, torch.bfloat16, True, None, 0, False),
+    "internvl2_prefill_fp32": (8, 2048, 2048, 64, 8, 128, torch.float32, True, None, 0, False),
 }
 
 

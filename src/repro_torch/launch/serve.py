@@ -1,12 +1,15 @@
 """Batched serving: prefill once, decode greedily.
 
-Port of ``repro.launch.serve`` for one card (dense, moe, ssm and hybrid
-families): the mesh becomes a device and the sharded, donated serve step a
-Python loop over :func:`repro_torch.models.api.model_decode`, which updates
-the cache (KV, SSM state, or a hybrid's pair of them) in place. ``load_params`` casts the fp32 parameters to the
-serving type once, except the leaves the reference reads in fp32
+Port of ``repro.launch.serve`` for one card (every family): the mesh
+becomes a device and the sharded, donated serve step a Python loop over
+:func:`repro_torch.models.api.model_decode`, which updates the cache (KV,
+SSM state, a hybrid's pair of them, an enc-dec decoder's self-attention
+part) in place. ``load_params`` casts the fp32 parameters to the serving
+type once, except the leaves the reference reads in fp32
 (``FP32_LEAVES``); the reference casts the others inside every step: the
-same values.
+same values. A VLM's prompt is its patch embeddings ("embeds") then its
+tokens, an enc-dec model's its frame embeddings ("frames") and the
+decoder's tokens.
 
 The decode loop never waits on the host: each greedy token is an ``argmax``
 on the card fed to the next step, and the caller reads all of them at once
@@ -28,8 +31,8 @@ from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.layers import check_ported
 
 # leaves the reference uses in fp32 whatever the serving type: the norm
-# scales (``rmsnorm`` multiplies in fp32) and Mamba2's dt bias and A_log
-# (dt and the log decay are fp32)
+# scales (``rmsnorm`` multiplies in fp32; an enc-dec model's ``enc_norm`` and
+# ``ln_x`` too) and Mamba2's dt bias and A_log (dt and the log decay are fp32)
 FP32_LEAVES = ("scale", "dt_bias", "A_log")
 
 
@@ -61,12 +64,17 @@ class Server:
                 f"{self.shape.name} ({self.shape.global_batch} × {self.shape.seq_len})")
 
     def prefill(self, params, batch: dict):
-        """Run the prompt: → (first greedy token (B, 1), last-position
-        logits (B, 1, vocab_padded), cache)."""
-        tokens = batch["tokens"].to(self.device)
-        self._check_capacity(tokens.shape[0], tokens.shape[1] - 1)
+        """Run the prompt: "tokens", and a VLM's "embeds" or an enc-dec
+        model's "frames" → (first greedy token (B, 1), last-position logits
+        (B, 1, vocab_padded), cache). A VLM's patches take the first
+        positions of the cache, so they count against its capacity."""
+        inputs = {k: batch[k].to(self.device) for k in ("tokens", "embeds", "frames")
+                  if k in batch}
+        tokens = inputs["tokens"]
+        n_patches = inputs["embeds"].shape[1] if "embeds" in inputs else 0
+        self._check_capacity(tokens.shape[0], n_patches + tokens.shape[1] - 1)
         with record_function("serve.prefill"):
-            logits, cache = api.model_prefill(params, self.cfg, {"tokens": tokens}, self.dtype)
+            logits, cache = api.model_prefill(params, self.cfg, inputs, self.dtype)
             first = logits[:, -1].argmax(dim=-1, keepdim=True)
         return first, logits, cache
 
@@ -94,11 +102,17 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     """End-to-end: init params → prefill → batched greedy decode.
 
     As in the reference, the decode continues from the *unpadded* prefill
-    cache, so in a dense or moe model, and in a hybrid's shared block, from
-    the first new token on slot ``t % S`` overwrites the oldest prompt slot:
-    the decode attends over a sliding window of the prompt's length
-    (``pad_cache`` first, as ``examples/serve_decode.py`` does, for full
-    attention). An SSM state needs no padding. Returns (tokens (B, n_tokens) on the CPU,
+    cache, so in a dense, vlm or moe model, in a hybrid's shared block and
+    in an enc-dec decoder's self-attention, from the first new token on slot
+    ``t % S`` overwrites the oldest prompt slot: the decode attends over a
+    sliding window of the prompt's length (``pad_cache`` first, as
+    ``examples/serve_decode.py`` does, for full attention). An SSM state
+    needs no padding. Also as in the reference, the decode starts at ``t =
+    tokens.shape[1]``, which leaves a VLM's patches out: its first new token
+    takes a position inside the prompt, its slot overwrites a prompt slot
+    and ``cache_pos <= t`` hides every later prompt position from it
+    (``Server.decode`` takes ``start_t = n_patches + tokens`` for the
+    positions the prompt took). Returns (tokens (B, n_tokens) on the CPU,
     timings in seconds).
     """
     dev = resolve_device(device)

@@ -1,2 +1,2 @@
-"""Port of ``repro.models``: the paper-scale models and the dense decoder
-family of the LM stack (config, layers, cache, transformer, api)."""
+"""Port of ``repro.models``: the paper-scale models and every family of the
+LM stack (config, layers, cache, transformer, encdec, api)."""

@@ -1,17 +1,19 @@
 """Unified model API dispatching on architecture family.
 
-Port of ``repro.models.api`` for the dense, moe, ssm and hybrid families.
-The batch dict holds "tokens" (B, S) int64. ``init_cache`` gives a dense or
-moe model an ``AttnCache``, an ssm model an ``SSMCache`` and a hybrid a
-``HybridCache``. ``model_loss`` is training and waits for ROADMAP queue A
-14.6; the enc-dec and VLM families raise naming their item (14.5).
+Port of ``repro.models.api``. The batch dict holds "tokens" (B, S) int64
+always, "embeds" (B, n_patches, d) for a VLM's patch embeddings and
+"frames" (B, n_frames, d) for an enc-dec model's frame embeddings.
+``init_cache`` gives a dense, vlm or moe model an ``AttnCache``, an ssm
+model an ``SSMCache``, a hybrid a ``HybridCache`` and an enc-dec model an
+``EncDecCache``. ``model_loss`` is training and waits for ROADMAP queue A
+14.6.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import ModelConfig
 
@@ -21,6 +23,8 @@ def model_init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     ``seed``, on the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.arch_type == "encdec":
+        return encdec.init_encdec(cfg, gen, device=dev)
     return transformer.init_model(cfg, gen, device=dev)
 
 
@@ -30,10 +34,14 @@ def model_loss(params, cfg: ModelConfig, batch: dict, *args, **kwargs):
 
 
 def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32):
+    if cfg.arch_type == "encdec":
+        return encdec.prefill_encdec(params, cfg, batch["tokens"], batch["frames"], dtype)
     return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype)
 
 
 def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32):
+    if cfg.arch_type == "encdec":
+        return encdec.decode_step_encdec(params, cfg, token, cache, t, dtype)
     return transformer.decode_step(params, cfg, token, cache, t, dtype)
 
 

@@ -1,9 +1,9 @@
 """Decode caches: the KV cache of attention layers (full or ring-buffer),
-the recurrent state of SSM layers, and the hybrid's pair of them.
+the recurrent state of SSM layers, the hybrid's pair of them, and the
+enc-dec decoder's self-attention cache beside its fixed cross-attention
+keys and values.
 
-Port of the attention, SSM and hybrid parts of ``repro.models.cache``. The
-enc-dec cache waits for its family (``init_cache`` raises naming the
-ROADMAP item).
+Port of ``repro.models.cache``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,12 @@ class SSMCache(NamedTuple):
 class HybridCache(NamedTuple):
     ssm: SSMCache    # every Mamba2 layer's state and conv window
     attn: AttnCache  # leading dim = n_shared_invocations: one KV cache an invocation
+
+
+class EncDecCache(NamedTuple):
+    self_attn: AttnCache    # decoder self-attention cache
+    cross_k: torch.Tensor   # (L, B, S_enc, KV, dh): encoder keys (fixed, not roped)
+    cross_v: torch.Tensor
 
 
 def cache_leaves(cache) -> list[torch.Tensor]:
@@ -93,11 +99,14 @@ def pad_cache(cache, total_len: int):
     """Grow a prefill-sized cache to decode capacity ``total_len``: an
     attention cache's sequence dim gains empty slots (zeros, pos = -1); an
     SSM state is O(1) and comes back unchanged; a hybrid cache pads its
-    attention part only."""
+    attention part only, an enc-dec cache its self-attention part only."""
     if isinstance(cache, SSMCache):
         return cache
     if isinstance(cache, HybridCache):
         return HybridCache(ssm=cache.ssm, attn=pad_cache(cache.attn, total_len))
+    if isinstance(cache, EncDecCache):
+        return EncDecCache(self_attn=pad_cache(cache.self_attn, total_len),
+                           cross_k=cache.cross_k, cross_v=cache.cross_v)
     extra = total_len - cache.k.shape[2]
     if extra <= 0:
         return cache
@@ -113,8 +122,10 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int, dtype=torch.float
                device=None):
     """An empty decode cache of ``cfg``'s family on ``device``
     (``resolve_device``): an ``SSMCache`` (ssm), a ``HybridCache`` whose
-    attention part has one KV cache a shared-block invocation (hybrid), else
-    an ``AttnCache``."""
+    attention part has one KV cache a shared-block invocation (hybrid), an
+    ``EncDecCache`` whose cross keys and values hold ``encdec.n_enc_frames``
+    frames (encdec), else an ``AttnCache`` (dense, moe, vlm: a VLM's
+    positions count its patches)."""
     check_ported(cfg)
     if cfg.arch_type == "ssm":
         return init_ssm_cache(cfg, batch, dtype=dtype, device=device)
@@ -123,5 +134,13 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int, dtype=torch.float
             ssm=init_ssm_cache(cfg, batch, dtype=dtype, device=device),
             attn=init_attn_cache(cfg, batch, context_len, n_layers=n_shared_invocations(cfg),
                                  dtype=dtype, device=device),
+        )
+    if cfg.arch_type == "encdec":
+        dims = (cfg.n_layers, batch, cfg.encdec.n_enc_frames, cfg.n_kv_heads, cfg.head_dim)
+        dev = resolve_device(device)
+        return EncDecCache(
+            self_attn=init_attn_cache(cfg, batch, context_len, dtype=dtype, device=dev),
+            cross_k=torch.zeros(dims, dtype=dtype, device=dev),
+            cross_v=torch.zeros(dims, dtype=dtype, device=dev),
         )
     return init_attn_cache(cfg, batch, context_len, dtype=dtype, device=device)

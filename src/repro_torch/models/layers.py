@@ -1,5 +1,5 @@
-"""Layer primitives of the decoder-only families: norms, RoPE, GQA
-attention, SwiGLU, capacity-based MoE, Mamba2.
+"""Layer primitives of every family: norms, RoPE, GQA attention (self- and
+cross-attention), SwiGLU, capacity-based MoE, Mamba2.
 
 Port of ``repro.models.layers`` but its activation-sharding registry. Every layer
 is an (``init_<layer>``, ``<layer>_fwd``) pair of plain functions over dicts
@@ -7,13 +7,15 @@ of tensors in the reference's layouts (``x @ w`` with ``w`` as (d_in,
 d_out)). Matmul-heavy ops take a ``dtype`` for the compute precision;
 parameters may be fp32 and are cast at use, as in the reference.
 
-Full-sequence attention (:func:`attention_fwd`) goes through
+Full-sequence attention (:func:`attention_fwd`: causal or not, and the
+enc-dec decoder's cross-attention, at any query count down to the single
+token of a decode step) goes through
 :func:`repro_torch.kernels.attention.ops.attention`: on a CUDA tensor that
 is the hand-written flash kernel, on a CPU tensor its plain version. Where
-the reference computes prefill attention in jnp (``_attention_core``), the
-two agree on every row it produces: causal self-attention always lets a
-query see key 0 and a window always holds the diagonal, so no row is fully
-masked. The kernel keeps the probabilities in fp32 for the PV product,
+the reference computes it in jnp (``_attention_core``), the two agree on
+every row it produces: causal self-attention always lets a query see key 0,
+a window always holds the diagonal and a non-causal call sees every key, so
+no row is fully masked. The kernel keeps the probabilities in fp32 for the PV product,
 where ``_attention_core`` rounds them to ``dtype`` first. Single-token
 decode attention (:func:`attention_decode`) stays plain torch, as it stays
 outside any Pallas kernel in the reference.
@@ -50,21 +52,14 @@ from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref as ssd_chunked  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
-PORTED_ARCH = ("dense", "ssm", "hybrid", "moe")
-# the ROADMAP queue A slices (item 14) that port the other families
-UNPORTED_ARCH = {
-    "encdec": "ROADMAP queue A 14.5 (enc-dec and VLM)",
-    "vlm": "ROADMAP queue A 14.5 (enc-dec and VLM)",
-}
+PORTED_ARCH = ("dense", "ssm", "hybrid", "moe", "encdec", "vlm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of a family the
-    port does not run yet (all but ``PORTED_ARCH``)."""
+    """Raise ``ValueError`` for an ``arch_type`` no family has (every family
+    of the configs is ported: ``PORTED_ARCH``)."""
     if cfg.arch_type not in PORTED_ARCH:
-        item = UNPORTED_ARCH.get(cfg.arch_type, "ROADMAP queue A 14")
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet ({item})")
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
 
 
 # --------------------------------------------------------------------------
@@ -140,35 +135,51 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), dev
     return p
 
 
-def _qkv(params, x, cfg: ModelConfig, dtype):
-    b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"].to(dtype)
-    k = x @ params["wk"].to(dtype)
-    v = x @ params["wv"].to(dtype)
+def _project(params, x, cfg: ModelConfig, dtype, name: str, heads: int):
+    """``x @ w<name>`` (+ ``b<name>`` with ``qkv_bias``) as (B, S, heads, dh)."""
+    y = x @ params["w" + name].to(dtype)
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dtype)
-        k = k + params["bk"].to(dtype)
-        v = v + params["bv"].to(dtype)
-    return q.reshape(b, s, h, dh), k.reshape(b, s, kv, dh), v.reshape(b, s, kv, dh)
+        y = y + params["b" + name].to(dtype)
+    return y.reshape(*x.shape[:2], heads, cfg.head_dim)
 
 
-def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
-                  return_kv: bool = False, dtype=torch.float32):
-    """Full-sequence self-attention (prefill) at positions 0..S-1.
+def _qkv(params, x, cfg: ModelConfig, dtype):
+    return (_project(params, x, cfg, dtype, "q", cfg.n_heads),
+            _project(params, x, cfg, dtype, "k", cfg.n_kv_heads),
+            _project(params, x, cfg, dtype, "v", cfg.n_kv_heads))
+
+
+def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
+                  positions: Optional[torch.Tensor] = None, causal: bool = True,
+                  kv_override: Optional[tuple] = None, return_kv: bool = False,
+                  dtype=torch.float32, use_rope: bool = True):
+    """Full-sequence attention (prefill; cross-attention also in decode).
 
     The core is :func:`~repro_torch.kernels.attention.ops.attention` with
-    ``causal``, ``cfg.sliding_window`` and ``q_offset=0``. ``return_kv``
-    also returns the (roped) k and v, (B, S, KV, dh), for the cache.
+    ``q_offset=0``. ``positions`` (default 0..S-1) are the RoPE positions,
+    applied to q and k unless ``use_rope`` is false. ``kv_override`` is a
+    cross-attention's (k, v), (B, S_kv, KV, dh): the call is then non-causal
+    with no window, and k and v are taken as given (the reference also
+    projects x to k and v there and discards them; the port skips that).
+    Otherwise the call is ``causal`` with ``cfg.sliding_window``.
+    ``return_kv`` also returns the k and v the call attended to.
     """
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    q, k, v = _qkv(params, x, cfg, dtype)
-    positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, causal=causal, sliding_window=cfg.sliding_window, q_offset=0)
-    out = out.reshape(b, s, h * dh) @ params["wo"].to(dtype)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    if kv_override is None:
+        q, k, v = _qkv(params, x, cfg, dtype)
+        if use_rope:
+            k = apply_rope(k, positions, cfg.rope_theta)
+        window = cfg.sliding_window
+    else:
+        q = _project(params, x, cfg, dtype, "q", cfg.n_heads)
+        k, v = kv_override
+        causal, window = False, None
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    out = attention(q, k, v, causal=causal, sliding_window=window, q_offset=0)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"].to(dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -176,12 +187,13 @@ def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = T
 
 def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_pos: torch.Tensor, t: int, *,
-                     dtype=torch.float32):
+                     dtype=torch.float32, use_rope: bool = True):
     """Single-token decode against a (possibly ring-buffer) KV cache.
 
     x is (B, 1, D); cache_k and cache_v are (B, S_max, KV, dh); cache_pos is
     (S_max,), the absolute position stored in each slot (-1 empty); ``t`` is
-    the new token's absolute position. The new k, v and position are
+    the new token's absolute position, at which q and k are roped unless
+    ``use_rope`` is false. The new k, v and position are
     written into slot ``t % S_max`` **in place** (the reference returns
     updated copies; in place saves copying the cache each step). Returns
     ``(out, (cache_k, cache_v, cache_pos))``.
@@ -192,8 +204,9 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     s_max = cache_k.shape[1]
     q, k_new, v_new = _qkv(params, x, cfg, dtype)
     pos = torch.full((1, 1), t, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
 
     slot = t % s_max  # ring buffer (= t when S_max > t)
     cache_k[:, slot] = k_new[:, 0]

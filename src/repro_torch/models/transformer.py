@@ -1,16 +1,21 @@
-"""Decoder-only model stacks: the dense, moe, ssm and hybrid families.
+"""Decoder-only model stacks: the dense, moe, ssm, hybrid and vlm families.
 
-Port of ``repro.models.transformer`` but its VLM branch. Parameters keep
+Port of ``repro.models.transformer``. Parameters keep
 the reference's tree: ``embed`` (vocab_padded, d), ``layers`` with every
 leaf stacked over the L layers (``layers["attn"]["wq"]`` is (L, d, h·dh),
 ``layers["moe"]["w_gate"]`` (L, E, d, f), ``layers["mamba"]["in_proj"]``
 (L, d, 2·di + 2n + nh)), ``final_norm``, untied ``lm_head`` (d,
-vocab_padded) and, in a hybrid, one unstacked ``shared_block``. A dense
-layer is ``ln1``, ``attn``, ``ln2``, ``mlp``; a moe layer has ``moe`` in
+vocab_padded), in a hybrid one unstacked ``shared_block`` and in a vlm
+``vis_proj`` (d, d). A dense or vlm layer is ``ln1``, ``attn``, ``ln2``,
+``mlp``; a moe layer has ``moe`` in
 place of ``mlp``; an ssm or hybrid layer is ``ln1`` and ``mamba`` (no MLP).
 The hybrid (Zamba2) runs its shared block, ``ln1``, ``attn``, ``ln2`` and
 ``mlp`` with one set of weights, before every layer whose index is a
-multiple of ``hybrid.attn_every``. A Python loop over the layers takes the
+multiple of ``hybrid.attn_every``. A vlm is a dense stack whose sequence
+starts with the patch embeddings projected by ``vis_proj``
+(:func:`embed_inputs`): they take positions 0..n_patches-1 of the
+attention and the cache, and ``forward`` drops them from its logits. A
+Python loop over the layers takes the
 place of ``lax.scan`` (and a Python ``if`` on the index the place of the
 hybrid's ``lax.cond``); layer ``i``'s parameters are views into the
 stacked leaves.
@@ -25,8 +30,8 @@ Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
 ``lm.moe``, ``lm.mamba`` and ``lm.logits`` (the shared block's attention
 and MLP in ``lm.attention`` and ``lm.mlp``). ``lm_loss`` and
-``chunked_ce`` are training and wait for ROADMAP queue A 14.6; the
-enc-dec and VLM families raise naming their item.
+``chunked_ce`` are training and wait for ROADMAP queue A 14.6. The
+enc-dec family is ``repro_torch.models.encdec``.
 """
 from __future__ import annotations
 
@@ -70,6 +75,8 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
         params["lm_head"] = L.dense_init(gen, (d, cfg.vocab_padded), device=device)
     if cfg.arch_type == "hybrid":
         params["shared_block"] = _init_block(gen, cfg, (), device, mlp=True)
+    if cfg.arch_type == "vlm":
+        params["vis_proj"] = L.dense_init(gen, (d, d), device=device)
     return params
 
 
@@ -87,11 +94,12 @@ def _init_block(gen, cfg: ModelConfig, lead: tuple, device, mlp: bool = False) -
     return block
 
 
-def layer_params(params, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked leaves."""
+def layer_params(params, i: int, stack: str = "layers") -> dict:
+    """Layer ``i``'s parameters: views into the leaves stacked under
+    ``stack`` (an enc-dec model's encoder is ``"enc_layers"``)."""
     def pick(node):
         return {k: pick(v) for k, v in node.items()} if isinstance(node, dict) else node[i]
-    return pick(params["layers"])
+    return pick(params[stack])
 
 
 # --------------------------------------------------------------------------
@@ -134,11 +142,17 @@ def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype):
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype):
-    """Token embedding (these families take no patch embeddings)."""
+    """Token embedding; a vlm prepends its patch embeddings (B, n_patches,
+    d) projected by ``vis_proj``. The other families take tokens only."""
     check_ported(cfg)
-    if embeds is not None:
-        raise ValueError(f"the {cfg.arch_type} family takes tokens only")
-    return params["embed"].to(dtype)[tokens]
+    x = params["embed"].to(dtype)[tokens]
+    if cfg.arch_type != "vlm":
+        if embeds is not None:
+            raise ValueError(f"the {cfg.arch_type} family takes tokens only")
+        return x
+    if embeds is None:
+        raise ValueError("the vlm family needs patch embeddings")
+    return torch.cat([embeds.to(dtype) @ params["vis_proj"].to(dtype), x], dim=1)
 
 
 def backbone(params, cfg: ModelConfig, x, dtype):
@@ -164,9 +178,12 @@ def logits_from_hidden(params, cfg: ModelConfig, x, dtype):
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32):
-    """Full-sequence logits (B, S, vocab_padded) and aux."""
+    """Full-sequence logits (B, S, vocab_padded) and aux; a vlm's cover its
+    token positions only."""
     x = embed_inputs(params, cfg, tokens, embeds, dtype)
     x, aux = backbone(params, cfg, x, dtype)
+    if cfg.arch_type == "vlm":
+        x = x[:, embeds.shape[1]:, :]
     return logits_from_hidden(params, cfg, x, dtype), aux
 
 
@@ -184,8 +201,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32):
     """Run the full prompt, build the decode cache, return last-pos logits.
 
-    A dense or moe cache holds every layer's roped k and v, (L, B, S, KV,
-    dh) in ``dtype``, with ``pos = arange(S)`` (the MoE aux is dropped); an
+    A dense, vlm or moe cache holds every layer's roped k and v, (L, B, S,
+    KV, dh) in ``dtype``, with ``pos = arange(S)`` (a vlm's S counts its
+    patches first; the MoE aux is dropped); an
     ssm cache every layer's final state and conv window
     (:func:`_ssm_prefill`); a hybrid cache both (:func:`_hybrid_prefill`).
     """
@@ -294,7 +312,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
                 dtype=torch.float32):
     """One serve step: consume one token (B, 1) at absolute position ``t``,
     update ``cache`` **in place** and return (logits (B, 1, vocab_padded),
-    cache). A dense or moe step writes the token's k, v and position into
+    cache). A dense, vlm or moe step writes the token's k, v and position into
     slot ``t % S_max`` of every layer's cache (each layer writes the same
     position, which every layer then reads); an ssm step overwrites each
     layer's state and conv window; a hybrid step does both, its shared

@@ -348,3 +348,67 @@ def launch_ranks(job: str, n_ranks: int, inp, tmp_path, timeout: float = 240.0):
     out = torch.load(path_out, weights_only=False)
     assert out["every_rank_equal"]
     return out["result"]
+
+
+# -- the LM families' serving paths -----------------------------------------------
+
+
+def perturbed_lm(tree, seed):
+    """An LM parameter tree with every bias and norm scale set to seeded
+    numpy values (a fresh init has zeros and ones there, which would test
+    nothing)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        a = np.asarray(node)
+        if key in ("bq", "bk", "bv"):
+            return rng.standard_normal(a.shape).astype(np.float32) * 0.1
+        if key == "scale":
+            return (1.0 + 0.2 * rng.standard_normal(a.shape)).astype(np.float32)
+        return a
+
+    return walk(tree)
+
+
+def lm_tokens(cfg, b: int, s: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def lm_embeddings(cfg, b: int, n: int, seed: int) -> np.ndarray:
+    """(b, n, d_model) standard normal: a VLM's patches or an enc-dec
+    model's frames."""
+    return np.random.default_rng(seed).standard_normal((b, n, cfg.d_model)).astype(np.float32)
+
+
+def assert_margin(logits) -> float:
+    """The reference's top-2 logit margin exceeds the tolerance in every
+    row, so the greedy choice is well defined."""
+    top2 = np.sort(np.asarray(logits, np.float64), axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    assert margin.min() > RTOL * np.abs(top2).max(), margin.min()
+    return float(margin.min())
+
+
+def auto_mesh():
+    """A one-device mesh with Auto axes: the reference's serve step gathers
+    the embedding under it (its default mesh's Explicit axes refuse that
+    gather on this jax)."""
+    from jax.sharding import AxisType
+
+    return jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+
+
+def assert_cache_match(got, want) -> None:
+    """Every leaf of a port cache against the reference's (float leaves
+    within RTOL, positions exactly), in field order."""
+    from repro_torch.models.cache import cache_leaves
+
+    gots, wants = cache_leaves(got), jax.tree.leaves(want)
+    assert len(gots) == len(wants)
+    for g, w in zip(gots, wants):
+        if g.is_floating_point():
+            assert_close(g, w)
+        else:
+            assert np.array_equal(g.numpy(), np.asarray(w))

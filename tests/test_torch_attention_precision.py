@@ -63,9 +63,10 @@ def emulate_bf16_kernel(q, k, v, *, causal=True, sliding_window=None, q_offset=0
 
 
 # causal GQA 7:1 ragged, 1:1, dh 40 (pads to 64) and 80 (5 k-steps), a
-# q_offset tail and non-causal with sq ≠ sk
+# q_offset tail, non-causal with sq ≠ sk, and the one query of an enc-dec
+# decode step's cross-attention against 1,024 frames
 PRECISION_CASES = ["ragged_bf16", "gqa_1_1_bf16", "dh_40_bf16", "dh_80_bf16",
-                   "q_offset_tail_bf16", "non_causal_bf16"]
+                   "q_offset_tail_bf16", "non_causal_bf16", "seamless_cross_decode_bf16"]
 
 
 def _seed(name):

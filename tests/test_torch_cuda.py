@@ -3,7 +3,8 @@ trial-batched), the flash-attention kernel and the SSD scan kernel against
 their plain versions, the round, the lattice round (also under each channel
 process with K local steps and the four algorithms, and under the non-finite
 quarantine with a poisoned cell), the lattice loops against the fused grid,
-and the dense, Mamba2, hybrid and MoE LMs' prefill and decode on the card against the CPU. They need a CUDA card and no JAX:
+and the dense, Mamba2, hybrid, MoE, enc-dec and VLM LMs' prefill and
+decode on the card against the CPU. They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -835,6 +836,113 @@ def test_hybrid_and_moe_serving_defaults_to_the_card_and_never_waits_on_the_host
     try:
         first, _, cache = srv.prefill(params, {"tokens": tokens})
         toks, cache = srv.decode(params, first, pad_cache(cache, 40), 32, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 6)
+
+
+# -- the enc-dec (seamless) and VLM (internvl2) LMs ------------------------------
+
+
+def _prompt(cfg, b, s, seed):
+    """``s`` tokens and the config's frames (enc-dec) or patches (VLM),
+    drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen)}
+    if cfg.arch_type == "encdec":
+        batch["frames"] = torch.randn(b, cfg.encdec.n_enc_frames, cfg.d_model, generator=gen)
+    else:
+        batch["embeds"] = torch.randn(b, cfg.vlm.n_patches, cfg.d_model, generator=gen)
+    return batch
+
+
+def _n_patches(cfg):
+    return cfg.vlm.n_patches if cfg.arch_type == "vlm" else 0
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+def test_reduced_encdec_and_vlm_prefill_and_decode_on_card_match_cpu(card, arch):
+    """fp32, the reduced configs (seamless: 2 + 2 layers over 16 frames, one
+    flash launch an encoder layer and two a decoder layer in the prefill, one
+    a decoder layer in each decode step; internvl2: 2 layers after 8
+    patches, one flash launch a layer in the prefill, none in decode): the
+    card's prefill of a 40-token prompt and 5 greedy decode steps against
+    the CPU path on the same weights and inputs, logits and every cache
+    tensor within 1e-4 relative L2, tokens equal."""
+    from repro_torch.models.cache import cache_leaves
+
+    cfg = configs.reduced_config(arch)
+    params = lm_api.model_init(cfg, seed=0, device="cpu")
+    batch = _prompt(cfg, 2, 40, 1)
+    n_pos = _n_patches(cfg) + 40
+    shape = InputShape("serve", seq_len=n_pos + 6, global_batch=2, kind="decode")
+    out = {}
+    for where in ("cpu", card):
+        srv = Server(cfg, shape, where, dtype=torch.float32)
+        p = srv.load_params(params)
+        before = attn_kernel.launches
+        first, logits, cache = srv.prefill(p, batch)
+        prefill = attn_kernel.launches - before
+        toks, cache = srv.decode(p, first, pad_cache(cache, n_pos + 6), n_pos, 6)
+        out[str(where)] = (logits.cpu(), toks.cpu(), [c.cpu() for c in cache_leaves(cache)],
+                           prefill, attn_kernel.launches - before)
+    (l_cpu, t_cpu, c_cpu, *n_cpu), (l_card, t_card, c_card, *n_card) = out["cpu"], out[str(card)]
+    if cfg.arch_type == "encdec":
+        want = [cfg.encdec.n_enc_layers + 2 * cfg.n_layers]
+        want.append(want[0] + 5 * cfg.n_layers)
+    else:
+        want = [cfg.n_layers, cfg.n_layers]
+    assert n_cpu == [0, 0] and n_card == want
+    for a, b in [(l_card, l_cpu), *zip(c_card, c_cpu)]:
+        if b.is_floating_point():
+            rel = (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+            assert rel <= ROUND_TOL
+        else:
+            assert torch.equal(a, b)
+    assert torch.equal(t_card, t_cpu)
+
+
+def test_encdec_decode_step_launches_the_flash_kernel_once_a_decoder_layer(card):
+    """Each decode step of seamless sends every decoder layer's
+    cross-attention (one query against the cached frames) to the kernel,
+    in bf16 as served, and nothing else: its self-attention is the plain
+    decode against the KV cache."""
+    cfg = dataclasses.replace(configs.reduced_config("seamless-m4t-large-v2"), n_layers=3)
+    srv = Server(cfg, InputShape("serve", seq_len=24, global_batch=2, kind="decode"), card)
+    params = srv.load_params(lm_api.model_init(cfg, device=card))
+    first, _, cache = srv.prefill(params, _prompt(cfg, 2, 16, 2))
+    cache = pad_cache(cache, 24)
+    tok = first
+    for t in range(16, 22):
+        before = attn_kernel.launches
+        logits, cache = lm_api.model_decode(params, cfg, tok, cache, t, torch.bfloat16)
+        assert attn_kernel.launches - before == cfg.n_layers
+        assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+def test_encdec_and_vlm_serving_defaults_to_the_card_and_never_waits_on_the_host(card, arch):
+    """``serve_demo`` and ``init_cache`` run on the card by default; then a
+    bf16 prefill and decode with every device→host sync made an error."""
+    from repro_torch.models.cache import cache_leaves
+
+    cfg = configs.reduced_config(arch)
+    assert all(c.device.type == "cuda" for c in cache_leaves(lm_api.init_cache(cfg, 2, 40)))
+    batch = _prompt(cfg, 2, 24, 3)
+    toks, stats = serve_demo(cfg, batch, n_tokens=4)
+    assert toks.shape == (2, 4) and int(toks.max()) < cfg.vocab_size and stats["decode_s"] > 0
+    n_pos = _n_patches(cfg) + 24
+    srv = Server(cfg, InputShape("serve", seq_len=n_pos + 8, global_batch=2, kind="decode"),
+                 card)
+    params = srv.load_params(lm_api.model_init(cfg, device=card))
+    on_card = {k: v.to(card) for k, v in batch.items()}  # a copy from pageable memory syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _, cache = srv.prefill(params, on_card)
+        toks, cache = srv.decode(params, first, pad_cache(cache, n_pos + 8), n_pos, 6)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()

@@ -42,6 +42,7 @@ from repro_torch.kernels.attention.ref import flash_attention_ref, mha_ref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
 from repro_torch.models import cache as tcache
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.config import INPUT_SHAPES, InputShape
@@ -434,15 +435,34 @@ def test_lm_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     assert params["embed"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if jconfigs.get_config(a).arch_type
-                                  not in ("dense", "ssm", "hybrid", "moe")])
-def test_unported_families_raise_naming_their_roadmap_item(arch):
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+def test_encdec_and_vlm_families_init_cache_and_serve(arch):
+    """The families of ROADMAP A14.5 (their parity with the reference:
+    ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``):
+    ``model_init``, ``init_cache``, ``Server`` and ``serve_demo`` on the CPU,
+    with the frames or patches the family takes."""
     cfg = tconfigs.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
+    params = tapi.model_init(cfg, device="cpu")
+    assert ("enc_layers" in params) == (cfg.arch_type == "encdec")
+    assert ("vis_proj" in params) == (cfg.arch_type == "vlm")
+    cache = tcache.init_cache(cfg, 1, 4, device="cpu")
+    assert isinstance(cache, tcache.EncDecCache if cfg.arch_type == "encdec"
+                      else tcache.AttnCache)
+    tserve.Server(cfg, INPUT_SHAPES["decode_32k"], "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(_tokens(cfg, 2, 16, 0), dtype=torch.int64)}
+    n, key = ((cfg.encdec.n_enc_frames, "frames") if cfg.arch_type == "encdec"
+              else (cfg.vlm.n_patches, "embeds"))
+    batch[key] = torch.tensor(rng.standard_normal((2, n, cfg.d_model)), dtype=torch.float32)
+    toks, _ = tserve.serve_demo(cfg, batch, n_tokens=3, device="cpu")
+    assert toks.shape == (2, 3) and int(toks.max()) < cfg.vocab_size
+
+
+def test_check_ported_refuses_an_unknown_family():
+    cfg = dataclasses.replace(tconfigs.reduced_config("qwen2-0.5b"), arch_type="rnn")
+    with pytest.raises(ValueError, match="unknown arch_type"):
         tapi.model_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
-        tcache.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14"):
+    with pytest.raises(ValueError, match="unknown arch_type"):
         tserve.Server(cfg, INPUT_SHAPES["decode_32k"], "cpu")
 
 
@@ -468,6 +488,10 @@ def test_training_entry_points_raise_naming_their_roadmap_item():
         tapi.model_loss({}, tconfigs.reduced_config("qwen2-0.5b"), {})
     with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
         ttransformer.lm_loss()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
+        tapi.model_loss({}, tconfigs.reduced_config("seamless-m4t-large-v2"), {})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
+        tencdec.encdec_loss()
 
 
 def test_lm_params_from_jax_keeps_the_layout_and_checks_shapes():
