@@ -229,6 +229,29 @@ non-zero exit and no result line:
              (seamless: 2 + 2 layers, batch 2, 256 frames, a 64-token
              prompt; internvl2: 1 layer, batch 1, 8 patches and 56 tokens),
              card against CPU as for qwen2 (seamless's cross k and v too)
+  train_grads  the flash and SSD kernels' autograd Functions at qwen2-0.5b's
+             training attention (8, 2048, 14/2, 64, causal) and mamba2-370m's
+             SSD scan (8, 2048, 32, 64, n 128, chunk 256), bf16 and fp32:
+             primal, backward and jvp against autograd and
+             ``torch.func.jvp`` of the plain version (relative L2 ≤ 1e-5 in
+             fp32, 2^-7 in bf16); then one full-width, full-depth train step
+             of each (bf16, remat, 8 × 2,048 over 8 FL devices, no noise):
+             every gradient leaf fp32, finite and non-zero
+  train_parity  one ``POFLTrainer`` round (sketch mode, 2 probes, sgd) of
+             qwen2-0.5b and mamba2-370m at full width and 2 layers in fp32
+             on the card against the CPU, from one set of weights and draws:
+             stats, coeffs, noise_amp, e_com, a, loss, the gradients and the
+             update within 1e-4, n_scheduled equal
+  train      ``POFLTrainer`` on qwen2-0.5b at full width and depth (24
+             layers, d 896, vocab 151,936) in bf16: 8 × 2,048 tokens over 8
+             FL devices, 4 scheduled, pofl, sketch mode with 2 probes, σ_z²
+             1e-10, ``adamw(cosine_schedule(3e-4, 12, warmup=2))``, 12
+             rounds: tokens/s, ms a round, peak memory, e_com, |S| and the
+             weighted loss each round; exactly 120 flash launches a round
+             (24 in each of 3 JVP passes, 24 in the step's forward and 24 in
+             remat's recompute); every value finite, the unweighted loss on
+             a fixed batch lower after than before; then ``train.*`` host
+             and device ms of one more round (``torch.profiler``)
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -696,10 +719,13 @@ def profile_ranges(drive, rounds: int, prefixes: tuple, n_ranges: int,
     main thread's local-update range. ``device_kernel_ms`` sums the
     activities' durations; they can run at once on several streams (cuDNN's
     weight gradients in the local update do), so the sums can exceed the
-    busy time. The profiler links no host op to a kernel that a ctypes
-    library launches (the port's own kernels link the CUDA runtime
-    statically): such kernels are listed by name under
-    ``unlinked_kernels_ms`` and are in no range. The idle share is the
+    busy time. A kernel that a ctypes library launches (the port's own
+    kernels link the CUDA runtime statically) is linked to the op that
+    launched it only when that op is traced: the flash and SSD kernels are,
+    inside their ``autograd.Function`` s, and count in the range around
+    them; the aircomp kernels are listed by name under
+    ``unlinked_kernels_ms`` and are in no range. ``kernels_ms_by_name``
+    sums every device kernel by name, linked or not. The idle share is the
     device's busy time per round (the union of its activities) over the
     round's wall time measured without the profiler. Raises unless there
     are ``n_ranges`` stages and ``busy_stage`` launched device work.
@@ -759,10 +785,12 @@ def profile_ranges(drive, rounds: int, prefixes: tuple, n_ranges: int,
               and not getattr(e, "is_user_annotation", False)]
     busy_ms = busy_us(device) / 1e3 / rounds
     unlinked: dict = {}
+    by_name: dict = {}
     for e in device:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / rounds
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
         if e.name not in linked:
-            unlinked[e.name] = (unlinked.get(e.name, 0.0)
-                                + (e.time_range.end - e.time_range.start) / 1e3 / rounds)
+            unlinked[e.name] = unlinked.get(e.name, 0.0) + ms
     window_ms = (max(e.time_range.end for e in events)
                  - min(e.time_range.start for e in events)) / 1e3 / rounds
     busy_stage_ms = stages.get(busy_stage, {}).get("device_kernel_ms", 0.0)
@@ -774,7 +802,7 @@ def profile_ranges(drive, rounds: int, prefixes: tuple, n_ranges: int,
         "device_kernel_ms": sum((e.time_range.end - e.time_range.start) for e in device)
         / 1e3 / rounds,
         "device_kernel_ms_outside_ranges": outside, "unlinked_kernels_ms": unlinked,
-        "stages": stages,
+        "kernels_ms_by_name": by_name, "stages": stages,
     }
 
 
@@ -2692,7 +2720,6 @@ def serve_breakdown(dev, setup, phase) -> None:
     out = {}
     for name, drive in (("prefill", prefill), ("decode", decode)):
         out[name] = profile_ranges(drive, 1, ("serve.", "lm."), n_stages, f"serve.{name}")
-    # the kernels are ctypes launches: listed, not linked
     for name, launched in (("prefill", prefill_launches(cfg)),
                            ("decode", {k: n * BREAKDOWN_STEPS
                                        for k, n in decode_launches(cfg).items()})):
@@ -2701,7 +2728,7 @@ def serve_breakdown(dev, setup, phase) -> None:
         for kname, n in launched.items():
             if not n:
                 continue
-            by_name = {k: ms for k, ms in part["unlinked_kernels_ms"].items()
+            by_name = {k: ms for k, ms in part["kernels_ms_by_name"].items()
                        if TRACED_NAMES[kname] in k}
             ms = sum(by_name.values())
             part["kernels"][kname] = {"launches": n, "ms": ms, "ms_by_name": by_name,
@@ -2731,6 +2758,359 @@ def serving(dev, arch, prefix, parity_batch, parity_prompt, parity_layers=None,
     if arch == SSM_ARCH:
         ssm_depth_drift(dev, parity_batch, parity_prompt)
     return launches
+
+
+# -- the LM training path -----------------------------------------------------
+
+TRAIN_ARCH, SSM_TRAIN_ARCH = "qwen2-0.5b", "mamba2-370m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_FL, TRAIN_SCHEDULED = 8, 2048, 8, 4
+TRAIN_ROUNDS, TRAIN_PROBES, TRAIN_NOISE = 12, 2, 1e-10
+# (layers, batch, tokens, FL devices) of the card-vs-CPU round, at full width
+TRAIN_PARITY = {TRAIN_ARCH: (2, 4, 128, 4), SSM_TRAIN_ARCH: (2, 4, 256, 4)}
+# the Functions' backward and jvp against autograd and ``torch.func.jvp`` of
+# the plain version on the same inputs, and their primal against the plain
+# version: relative L2 error of each output. In bf16 the backward sums dk
+# and dv over two query chunks, each rounded to bf16 first (twice the
+# plain version's one rounding)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def function_rules(name, fn, plain, inputs, cotangent, tangents) -> dict:
+    """One Function's primal, backward and jvp against the plain version's
+    on the same inputs → relative L2 errors (each gradient, the tangent)."""
+    dtype = inputs[0].dtype
+    ins = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*ins)
+    if out.grad_fn is None:
+        raise AssertionError(f"{name}: the kernel's output has no grad_fn")
+    got = torch.autograd.grad(out, ins, cotangent)
+    ref_ins = [x.detach().clone().requires_grad_() for x in inputs]
+    ref_out = plain(*ref_ins)
+    want = torch.autograd.grad(ref_out, ref_ins, cotangent)
+    primal_t, tangent = torch.func.jvp(fn, tuple(inputs), tangents)
+    ref_primal_t, ref_tangent = torch.func.jvp(plain, tuple(inputs), tangents)
+    errs = {"primal": rel_l2(out.detach(), ref_out.detach()),
+            "primal_under_jvp": rel_l2(primal_t, ref_primal_t),
+            **{f"grad_{i}": rel_l2(g, w) for i, (g, w) in enumerate(zip(got, want))},
+            "tangent": rel_l2(tangent, ref_tangent)}
+    finite = all(bool(torch.isfinite(x).all()) for x in (*got, tangent))
+    if not finite or max(errs.values()) > GRAD_TOL[dtype]:
+        raise AssertionError(f"{name} {dtype}: rules disagree with the plain version: {errs}")
+    return errs
+
+
+def train_step_grads(dev, arch) -> dict:
+    """One full-width train step of ``arch`` (bf16, remat, batch TRAIN_BATCH
+    × TRAIN_SEQ over TRAIN_FL FL devices, no noise) through
+    ``build_train_step``, the gradients seen by the optimizer: every leaf
+    finite and non-zero, so no kernel's output cut the graph."""
+    from repro_torch import configs
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.optimizers import Optimizer, sgd
+
+    cfg = configs.get_config(arch)
+    seen, base = {}, sgd(0.0)
+
+    def update(grads, state, params):
+        seen["grads"] = grads
+        return base.update(grads, state, params)
+
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    bundle = build_train_step(cfg, shape, make_host_mesh(1, TRAIN_FL), Optimizer(base.init, update),
+                              aircomp_noise=False)
+    params = api.model_init(cfg, seed=3)
+    if cfg.ssm is not None:
+        params = mamba2_dt_bias(params, cfg)
+        params["layers"]["mamba"]["dt_bias"] = params["layers"]["mamba"]["dt_bias"].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                                     device=dev)}
+    coeffs = torch.full((TRAIN_FL,), 1.0 / TRAIN_FL, device=dev)
+    t0 = time.perf_counter()
+    _, _, loss = bundle.fn(params, base.init(params), batch, coeffs,
+                           torch.zeros((), device=dev), None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    leaves = tree_leaves(seen["grads"])
+    norms = [torch.linalg.vector_norm(g.float()).item() for g in leaves]
+    bad = [i for i, (g, n) in enumerate(zip(leaves, norms))
+           if g.dtype != torch.float32 or not math.isfinite(n) or n == 0.0]
+    if bad or not math.isfinite(loss.item()):
+        raise AssertionError(f"{arch}: {len(bad)} gradient leaves zero, non-finite or not "
+                             f"fp32 (leaf indices {bad}), loss {loss.item()}")
+    return {"leaves": len(leaves), "min_grad_norm": min(norms), "loss": loss.item(),
+            "seconds": seconds}
+
+
+def train_grads(dev) -> dict:
+    """Phase ``train_grads``: the flash and SSD kernels' autograd Functions
+    at the training shapes (qwen2-0.5b's attention, mamba2-370m's SSD scan
+    at its serving shape) in bf16 and fp32, against the plain version; then
+    one full-width train step of each model, every gradient leaf finite and
+    non-zero. Counts zeroed just before the train steps and read just after
+    (the Functions' checks are comparisons and do not count)."""
+    from repro_torch.kernels.attention.autograd import FlashAttention
+    from repro_torch.kernels.attention.cases import attention_inputs
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd.autograd import SSDScan
+    from repro_torch.kernels.ssd.cases import ssd_inputs
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    b, sq, sk, h, kv, dh, causal = ATTN_TIME_SHAPES["prefill_2k"]
+    sb, ss, sh, sp, sn, chunk = SSD_TIME_SHAPES["prefill_2k"]
+    rules = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        q, k, v = attention_inputs(b, sq, sk, h, kv, dh, dtype, dev, seed=3)
+        rules[f"flash_attention_{dtype}"] = function_rules(
+            "flash_attention", lambda q, k, v: FlashAttention.apply(q, k, v, causal, None, 0),
+            lambda q, k, v: flash_attention_ref(q, k, v, causal=causal), (q, k, v),
+            torch.randn(q.shape, generator=gen, device=dev, dtype=dtype),
+            tuple(torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
+                  for x in (q, k, v)))
+        del q, k, v
+        xdt, la, B, C = ssd_inputs(sb, ss, sh, sp, sn, dtype, dev, seed=3)
+        rules[f"ssd_scan_{dtype}"] = function_rules(
+            "ssd_scan", lambda *a: SSDScan.apply(*a, chunk),
+            lambda *a: ssd_chunked_ref(*a, chunk), (xdt, la, B, C),
+            torch.randn(xdt.shape, generator=gen, device=dev, dtype=dtype),
+            tuple(torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
+                  for x in (xdt, la, B, C)))
+        del xdt, la, B, C
+        torch.cuda.empty_cache()
+    zero_counts()
+    steps = {arch: train_step_grads(dev, arch) for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH)}
+    launched = read_counts()
+    torch.cuda.empty_cache()
+    emit("train_grads", tolerance={str(k): v for k, v in GRAD_TOL.items()},
+         attention_shape=[b, sq, sk, h, kv, dh], ssd_shape=[sb, ss, sh, sp, sn, chunk],
+         rel_l2_err=rules, full_width_step=steps, launches=launched)
+    return launched
+
+
+def train_parity(dev) -> dict:
+    """Phase ``train_parity``: one ``POFLTrainer`` round of each of
+    TRAIN_PARITY (full width, cut depth, fp32, sketch mode with 2 probes,
+    ``sgd``) on the card against the same round on the CPU, from one set of
+    weights (drawn on the card, copied to the CPU; Mamba2's dt init) and
+    one set of draws (probes, h, Gumbel vectors, noise: drawn once on the
+    CPU, handed to both): the stats, coeffs, noise_amp, e_com, a, the loss
+    and the gradients the optimizer sees within ROUND_TOL (relative; the
+    gradients and the update by relative L2), n_scheduled equal. Counts
+    zeroed just before the card's rounds and read just after."""
+    from repro_torch import configs
+    from repro_torch.core.channel import ChannelState
+    from repro_torch.flatten_util import ravel_pytree, tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import POFLTrainer, TrainerConfig, TrainerDraws
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.optimizers import Optimizer, sgd
+
+    out, launched = {}, {name: 0 for name in kernel_counters()}
+    for arch, (layers, batch_size, seq, n_fl) in TRAIN_PARITY.items():
+        cfg = cut_depth(configs.get_config(arch), layers)
+        params = tree_map(lambda x: x.cpu(), api.model_init(cfg, seed=4, device=dev))
+        if cfg.ssm is not None:
+            params = mamba2_dt_bias(params, cfg)
+        gen = torch.Generator().manual_seed(6)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, seq), generator=gen)}
+        tcfg = TrainerConfig(n_scheduled=2, noise_power=TRAIN_NOISE, n_probes=TRAIN_PROBES,
+                             dtype="float32", seed=1)
+        shape = InputShape("parity", seq, batch_size, "train")
+        cpu_draws = TrainerDraws(gen)
+        given = {"probes": cpu_draws.probes(params, TRAIN_PROBES),
+                 "gumbels": cpu_draws.gumbels(tcfg.n_scheduled, n_fl),
+                 "noise": tree_map(lambda x: torch.randn(x.shape, generator=gen), params)}
+        rounds = {}
+        for where in ("cpu", dev):
+            seen, base = {}, sgd(0.05)
+
+            def update(grads, state, p, _seen=seen, _base=base):
+                _seen["grads"] = grads
+                return _base.update(grads, state, p)
+
+            trainer = POFLTrainer(cfg, shape, make_host_mesh(1, n_fl, where), tcfg,
+                                  optimizer=Optimizer(base.init, update))
+            if where == "cpu":
+                gains, h = trainer.channel.gains, trainer.draws.channel(trainer.channel)
+            trainer.channel = ChannelState(trainer.channel.cfg, gains.to(where))
+            trainer.draws = GivenDraws({**given, "h": h}, where)
+            stats_fn, step_fn = trainer.stats_bundle.fn, trainer.train_bundle.fn
+
+            def stats(*a, _seen=seen, _fn=stats_fn):
+                _seen["stats"] = _fn(*a)
+                return _seen["stats"]
+
+            def step(*a, _seen=seen, _fn=step_fn):
+                _seen["coeffs"], _seen["noise_amp"] = a[3], a[4]
+                return _fn(*a)
+
+            trainer.stats_bundle = trainer.stats_bundle._replace(fn=stats)
+            trainer.train_bundle = trainer.train_bundle._replace(fn=step)
+            p = tree_map(lambda x: x.to(where), params)
+            if where != "cpu":
+                zero_counts()
+            t0 = time.perf_counter()
+            new_p, _, diag = trainer.train_round(p, trainer.optimizer.init(p),
+                                                 {"tokens": batch["tokens"].to(where)})
+            if where != "cpu":
+                torch.cuda.synchronize()
+                for name, n in read_counts().items():
+                    launched[name] += n
+            seconds = time.perf_counter() - t0
+            rounds[str(where)] = {
+                "seconds": seconds, "diag": {k: v.cpu() for k, v in diag.items()},
+                "stats": [x.cpu() for x in seen["stats"]],
+                "coeffs": seen["coeffs"].cpu(), "noise_amp": seen["noise_amp"].cpu(),
+                "grads": ravel_pytree(tree_map(lambda x: x.cpu(), seen["grads"]))[0],
+                "update": (ravel_pytree(tree_map(lambda x: x.cpu(), new_p))[0]
+                           - ravel_pytree(params)[0])}
+            del trainer, new_p, p
+        c, g = rounds["cpu"], rounds[str(dev)]
+
+        def rel(a, b):
+            return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+        errs = {**{f"stats_{f}": rel(x, y) for f, x, y in zip(("mean", "var", "norm"),
+                                                              g["stats"], c["stats"])},
+                "coeffs": rel(g["coeffs"], c["coeffs"]),
+                "noise_amp": rel(g["noise_amp"], c["noise_amp"]),
+                **{k: rel(g["diag"][k], c["diag"][k]) for k in ("e_com", "a", "loss")},
+                "grads_rel_l2": rel_l2(g["grads"], c["grads"]),
+                "update_rel_l2": rel_l2(g["update"], c["update"])}
+        same = float(g["diag"]["n_scheduled"]) == float(c["diag"]["n_scheduled"])
+        out[arch] = {"n_layers": layers, "batch": batch_size, "tokens": seq, "n_fl": n_fl,
+                     "rel_err": errs, "n_scheduled": float(c["diag"]["n_scheduled"]),
+                     "seconds": {k: v["seconds"] for k, v in rounds.items()}}
+        if max(errs.values()) > ROUND_TOL or not same:
+            raise AssertionError(f"train_parity {arch}: card and CPU disagree: {errs}, "
+                                 f"n_scheduled equal {same}")
+        del rounds
+        torch.cuda.empty_cache()
+    emit("train_parity", tolerance=ROUND_TOL, dtype="float32", launches=launched, **out)
+    return launched
+
+
+class GivenDraws:
+    """A trainer's draws handed in: the probes, h, the Gumbel vectors and
+    the noise leaves of ``given``, moved to ``device``."""
+
+    def __init__(self, given: dict, device):
+        from repro_torch.flatten_util import tree_map
+
+        self.given = {k: (v.to(device) if isinstance(v, torch.Tensor)
+                          else [tree_map(lambda x: x.to(device), p) for p in v]
+                          if isinstance(v, list) else tree_map(lambda x: x.to(device), v))
+                      for k, v in given.items()}
+
+    def probes(self, params, n_probes):
+        return self.given["probes"]
+
+    def channel(self, channel):
+        return self.given["h"]
+
+    def gumbels(self, n_scheduled, n):
+        return self.given["gumbels"]
+
+    def noise(self, params):
+        return self.given["noise"]
+
+
+def train_phase(dev) -> dict:
+    """Phase ``train``: ``POFLTrainer`` on qwen2-0.5b at full width and
+    depth in bf16 through the user's entry points: batch TRAIN_BATCH ×
+    TRAIN_SEQ over TRAIN_FL FL devices, TRAIN_SCHEDULED scheduled, policy
+    pofl, sketch mode with TRAIN_PROBES probes, σ_z² TRAIN_NOISE,
+    ``adamw(cosine_schedule(3e-4, TRAIN_ROUNDS, warmup=2))``, TRAIN_ROUNDS
+    rounds on ``make_token_dataset`` batches as the reference's example
+    takes them. Counts zeroed just before the rounds and read just after:
+    the flash kernel once a layer in each of the 1 + TRAIN_PROBES JVP passes
+    and twice a layer in the step (its forward, then remat's recompute).
+    Every value finite, and the unweighted loss on a fixed batch lower after
+    the rounds than before. Then ``torch.profiler`` over one more round:
+    host and device ms of ``train.stats``, ``train.schedule``,
+    ``train.step``."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import POFLTrainer, TrainerConfig
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+
+    cfg = configs.base_config(TRAIN_ARCH)
+    shape = InputShape("train_8x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainerConfig(policy="pofl", n_scheduled=TRAIN_SCHEDULED, noise_power=TRAIN_NOISE,
+                         stats_mode="sketch", n_probes=TRAIN_PROBES)
+    trainer = POFLTrainer(cfg, shape, make_host_mesh(model=1, n_devices=TRAIN_FL), tcfg,
+                          optimizer=adamw(cosine_schedule(3e-4, TRAIN_ROUNDS, warmup=2)))
+    corpus = make_token_dataset(TRAIN_BATCH * 8, TRAIN_SEQ, cfg.vocab_size,
+                                torch.Generator(device=dev).manual_seed(0))
+
+    def batch_fn(t):
+        idx = torch.arange(TRAIN_BATCH, device=dev) + (t * TRAIN_BATCH) % (TRAIN_BATCH * 7)
+        return {"tokens": corpus[idx]}
+
+    def unweighted_loss(params):
+        with torch.no_grad():
+            return api.model_loss(params, cfg, batch_fn(0), dtype=torch.bfloat16)[0].item()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt_state = trainer.init_state(1)
+    loss_before = unweighted_loss(params)
+    rounds = []
+    zero_counts()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for t in range(TRAIN_ROUNDS):
+        t0 = time.perf_counter()
+        params, opt_state, diag = trainer.train_round(params, opt_state, batch_fn(t))
+        torch.cuda.synchronize()
+        rounds.append({"ms": (time.perf_counter() - t0) * 1e3,
+                       **{k: v.item() for k, v in diag.items()}})
+    seconds = time.perf_counter() - t_all
+    launched = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss_after = unweighted_loss(params)
+    finite = (all(math.isfinite(v) for r in rounds for v in r.values())
+              and all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)))
+    per_round = cfg.n_layers * (1 + TRAIN_PROBES) + 2 * cfg.n_layers
+    want = {name: 0 for name in kernel_counters()}
+    want["flash_attention"] = TRAIN_ROUNDS * per_round
+
+    state = {"params": params, "opt": opt_state, "t": TRAIN_ROUNDS}
+
+    def drive():
+        state["params"], state["opt"], _ = trainer.train_round(state["params"], state["opt"],
+                                                                batch_fn(state["t"]))
+        state["t"] += 1
+
+    split = profile_ranges(drive, 1, ("train.",), 3, "train.step")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [r["ms"] for r in rounds[1:]]
+    emit("train", arch=TRAIN_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, params=sum(x.numel() for x in tree_leaves(params)),
+         param_count=cfg.param_count(), dtype="bfloat16", batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, fl_devices=TRAIN_FL, scheduled=TRAIN_SCHEDULED, probes=TRAIN_PROBES,
+         noise_power=TRAIN_NOISE, rounds=TRAIN_ROUNDS, seconds=seconds,
+         tokens_per_s=tokens * TRAIN_ROUNDS / seconds,
+         tokens_per_s_after_round_0=tokens * len(steady) / (sum(steady) / 1e3),
+         round_ms=[r["ms"] for r in rounds], e_com=[r["e_com"] for r in rounds],
+         n_scheduled=[r["n_scheduled"] for r in rounds],
+         weighted_loss=[r["loss"] for r in rounds],
+         unweighted_loss_fixed_batch={"before": loss_before, "after": loss_after},
+         peak_memory_bytes=peak, launches=launched, expected_launches=want,
+         breakdown_one_round=split)
+    if not finite or not loss_after < loss_before or launched != want:
+        raise AssertionError(f"train: finite {finite}, fixed-batch loss {loss_before} -> "
+                             f"{loss_after}, launches {launched} (expected {want})")
+    return launched
 
 
 def kernel_entry(name, replaces, launches_by_phase, errs, times) -> dict:
@@ -2881,6 +3261,9 @@ def main() -> int:
                            *ENCDEC_PARITY[1:3], ENCDEC_PARITY[0], ENCDEC_PARITY[3])
     vlm_launches = step("vlm_serve", serving, dev, VLM_ARCH, "vlm_serve", *VLM_PARITY[1:3],
                         VLM_PARITY[0], VLM_PARITY[3])
+    train_grads_launches = step("train_grads", train_grads, dev)
+    train_parity_launches = step("train_parity", train_parity, dev)
+    train_launches = step("train", train_phase, dev)
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
@@ -2909,12 +3292,18 @@ def main() -> int:
                          "hybrid_serve": hybrid_launches["flash_attention"],
                          "moe_serve": moe_launches["flash_attention"],
                          "encdec_serve": encdec_launches["flash_attention"],
-                         "vlm_serve": vlm_launches["flash_attention"]},
+                         "vlm_serve": vlm_launches["flash_attention"],
+                         "train_grads": train_grads_launches["flash_attention"],
+                         "train_parity": train_parity_launches["flash_attention"],
+                         "train": train_launches["flash_attention"]},
                         attn_errs, attn_times, ATTN_CASES),
         lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                         "src/repro/kernels/ssd/kernel.py:65",
                         {"ssm_serve": ssm_launches["ssd_scan"],
-                         "hybrid_serve": hybrid_launches["ssd_scan"]},
+                         "hybrid_serve": hybrid_launches["ssd_scan"],
+                         "train_grads": train_grads_launches["ssd_scan"],
+                         "train_parity": train_parity_launches["ssd_scan"],
+                         "train": train_launches["ssd_scan"]},
                         ssd_errs, ssd_times, SSD_CASES),
     ]}), flush=True)
     print(smi, flush=True)

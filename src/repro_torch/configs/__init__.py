@@ -1,8 +1,8 @@
 """Architecture registry: the 10 assigned architectures × 4 input shapes.
 
 The port's own copy of ``repro.configs`` (all ten configurations are data).
-``input_specs``, which builds JAX ``ShapeDtypeStruct`` stand-ins, has no
-counterpart here.
+``input_specs`` gives tensors on the ``meta`` device where the reference
+gives JAX ``ShapeDtypeStruct`` stand-ins: shapes and types, no storage.
 
 Public API:
   ARCH_IDS                      — the assigned architecture identifiers
@@ -10,11 +10,14 @@ Public API:
                                   swaps in the sliding-window variant)
   reduced_config(arch_id)       — CPU-smoke-sized variant of the same family
   supports_shape(arch_id, shape)— long_500k/decode applicability
+  input_specs(cfg, shape, dtype)— meta tensors of every input of a step
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
@@ -124,12 +127,51 @@ def reduced_config(arch_id: str) -> ModelConfig:
     return dataclasses.replace(cfg, **updates)
 
 
+def input_specs(cfg: ModelConfig, shape: InputShape | str, dtype=torch.bfloat16) -> dict:
+    """Meta tensors for every input of the step the shape exercises.
+
+    train/prefill → {"batch": {tokens, [embeds|frames]}}
+    decode        → {"token", "cache", "t"}  (cache sized to shape.seq_len)
+
+    Tokens are int64, the port's index type, where the reference's are
+    int32.
+    """
+    from repro_torch.models.cache import init_cache
+
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def spec(dims, dt):
+        return torch.empty(dims, dtype=dt, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {}
+        if cfg.arch_type == "vlm":
+            n_p = cfg.vlm.n_patches
+            batch["tokens"] = spec((b, s - n_p), torch.int64)
+            batch["embeds"] = spec((b, n_p, cfg.d_model), dtype)
+        elif cfg.arch_type == "encdec":
+            batch["tokens"] = spec((b, s), torch.int64)
+            batch["frames"] = spec((b, cfg.encdec.n_enc_frames, cfg.d_model), dtype)
+        else:
+            batch["tokens"] = spec((b, s), torch.int64)
+        return {"batch": batch}
+    return {
+        "token": spec((b, 1), torch.int64),
+        "cache": init_cache(cfg, b, s, dtype, device=meta),
+        "t": spec((), torch.int32),
+    }
+
+
 __all__ = [
     "ARCH_IDS",
     "LONG_CONTEXT_SKIP",
     "LONG_CONTEXT_VIA_WINDOW",
     "base_config",
     "get_config",
+    "input_specs",
     "reduced_config",
     "supports_shape",
 ]

@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layouts (dict trees; logreg ``w``
 is (dim, classes), conv kernels HWIO), so converting is a copy, leaf by
-leaf, with no transpose: both sides then compute the same function.
+leaf, with no transpose: both sides then compute the same function. An
+optimizer state crosses the same way (:func:`opt_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -75,3 +76,18 @@ def lm_params_from_jax(tree, cfg, device=None):
         if tuple(leaf.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)}, expected {shape} for {cfg.name}")
     return params
+
+
+def opt_state_from_jax(state, device=None):
+    """The reference's ``OptState`` (step, mu, nu: arrays, or anything
+    ``np.asarray`` reads; nu None for sgd) → the port's, on ``device``:
+    step int32, mu and nu float32 trees, so a round can start from a
+    shared optimizer state."""
+    from repro_torch.optim.optimizers import OptState
+
+    dev = resolve_device(device)
+    return OptState(
+        step=torch.tensor(np.asarray(state.step), dtype=torch.int32, device=dev),
+        mu=params_from_jax(state.mu, dev),
+        nu=None if state.nu is None else params_from_jax(state.nu, dev),
+    )

@@ -2,7 +2,8 @@
 
 ``mnist_like``: 784-dim, 10 classes (logistic regression). ``cifar_like``:
 32×32×3, 10 classes (CNN). Classes are Gaussian clusters around random
-prototype directions. Drawn with a ``torch.Generator``, so the samples
+prototype directions. ``make_token_dataset``: a Markov-chain token corpus
+for the LM trainer. Drawn with a ``torch.Generator``, so the samples
 differ from the reference's ``jax.random`` draws; the law is the same.
 """
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core.scheduling import gumbel
 
 
 def make_classification_dataset(
@@ -68,3 +71,35 @@ def pad_with_wrong_labels(features, labels, n_pad: int, n_classes: int = 10):
     idx = torch.arange(n_pad, device=feats.device) % feats.shape[0]
     return (torch.cat([feats, feats[idx]], dim=0),
             torch.cat([labs, (labs[idx] + 1) % n_classes], dim=0))
+
+
+def make_token_dataset(
+    n_sequences: int,
+    seq_len: int,
+    vocab_size: int,
+    generator: torch.Generator,
+    order: int = 2,
+) -> torch.Tensor:
+    """Synthetic LM corpus (n_sequences, seq_len) int64: a random Markov
+    chain over a small effective vocabulary, ``min(vocab_size, 256)``
+    tokens, so next-token prediction has learnable signal.
+
+    The transition table is Gumbel logits kept where they exceed 1 (about
+    31% of each row; the rest -1e9), the first token uniform, and each next
+    token a categorical draw from its row (``argmax(row + Gumbel)``), all
+    from ``generator``, so the samples differ from the reference's
+    ``jax.random`` draws and the law is the same. ``order`` is accepted as
+    the reference's signature has it; as there, the chain reads the current
+    token only.
+    """
+    del order
+    eff_vocab = min(vocab_size, 256)
+    dev = generator.device
+    table = gumbel((eff_vocab, eff_vocab), generator)
+    table = torch.where(table > 1.0, table, -1e9)  # keep only likely transitions
+    tok = torch.randint(0, eff_vocab, (n_sequences,), generator=generator, device=dev)
+    seq = [tok]
+    for _ in range(seq_len - 1):
+        tok = torch.argmax(table[tok] + gumbel((n_sequences, eff_vocab), generator), dim=-1)
+        seq.append(tok)
+    return torch.stack(seq, dim=1)

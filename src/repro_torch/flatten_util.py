@@ -20,6 +20,20 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A dict shaped as ``tree`` (its keys in its own order) whose leaves are
+    ``leaves`` taken in sorted-key order, the order of :func:`tree_leaves`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+
+    return build(tree)
+
+
 def tree_map(fn: Callable, tree):
     """``fn`` applied to every leaf of a nested dict (structure kept)."""
     if isinstance(tree, dict):

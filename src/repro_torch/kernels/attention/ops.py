@@ -1,9 +1,12 @@
 """Public op: attention, dispatched by the device of ``q``.
 
-A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
-to the hand-written kernel, or the call raises. The reference's
-``use_pallas="auto"`` has no counterpart: nothing can quietly choose the
-plain version on the card.
+A CPU tensor goes to the kernel's plain PyTorch version, which autograd
+and ``torch.func.jvp`` differentiate as they find it; a CUDA tensor goes to
+the hand-written kernel through
+:data:`~repro_torch.kernels.attention.autograd.FlashAttention`, whose
+backward and jvp are the plain version's, or the call raises. The
+reference's ``use_pallas="auto"`` has no counterpart: nothing can quietly
+choose the plain version on the card.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.attention.kernel import flash_attention
+from repro_torch.kernels.attention.autograd import FlashAttention
 from repro_torch.kernels.attention.ref import flash_attention_ref
 
 
@@ -22,6 +25,5 @@ def attention(q, k, v, *, causal: bool = True, sliding_window: Optional[int] = N
         return flash_attention_ref(q, k, v, causal=causal, sliding_window=sliding_window,
                                    q_offset=q_offset)
     if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=causal, sliding_window=sliding_window,
-                               q_offset=q_offset)
+        return FlashAttention.apply(q, k, v, causal, sliding_window, q_offset)
     raise ValueError(f"attention: no path for device {q.device}")

@@ -1,7 +1,10 @@
 """Public op: the chunked SSD scan, dispatched by the device of ``xdt``.
 
-A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
-to the hand-written kernel, or the call raises. The reference's
+A CPU tensor goes to the kernel's plain PyTorch version, which autograd
+and ``torch.func.jvp`` differentiate as they find it; a CUDA tensor goes to
+the hand-written kernel through
+:data:`~repro_torch.kernels.ssd.autograd.SSDScan`, whose backward and jvp
+are the plain version's, or the call raises. The reference's
 ``use_pallas="auto"`` has no counterpart: nothing can quietly choose the
 plain version on the card.
 """
@@ -9,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd.kernel import ssd_scan
+from repro_torch.kernels.ssd.autograd import SSDScan
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
 
@@ -18,11 +21,11 @@ def ssd(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, la, B, C, chunk)
     if xdt.device.type == "cuda":
-        return ssd_scan(xdt, la, B, C, chunk=chunk)
+        return SSDScan.apply(xdt, la, B, C, chunk)
     raise ValueError(f"ssd: no path for device {xdt.device}")
 
 
 def ssd_pallas(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
-    """The reference's name for the kernel entry: :func:`ssd_scan` on a
+    """The reference's name for the kernel entry: the CUDA kernel on a
     CUDA tensor, its plain version on a CPU one (as :func:`ssd`)."""
     return ssd(xdt, la, B, C, chunk=chunk)

@@ -11,7 +11,7 @@ The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (one rank a
 device). The lattice's ``("cells", "model")`` mesh has no batch axes, so
 it never shards a dim over them. The LM specs of the reference's module
 (``params_pspecs``, ``cache_pspecs``, ``activation_specs``,
-``moe_strategy``) come with the LM stack (ROADMAP queue A item 14.6).
+``moe_strategy``) come with the LM over ranks (ROADMAP queue A item 14.8).
 """
 from __future__ import annotations
 

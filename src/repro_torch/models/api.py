@@ -5,8 +5,7 @@ always, "embeds" (B, n_patches, d) for a VLM's patch embeddings and
 "frames" (B, n_frames, d) for an enc-dec model's frame embeddings.
 ``init_cache`` gives a dense, vlm or moe model an ``AttnCache``, an ssm
 model an ``SSMCache``, a hybrid a ``HybridCache`` and an enc-dec model an
-``EncDecCache``. ``model_loss`` is training and waits for ROADMAP queue A
-14.6.
+``EncDecCache``. ``model_loss`` is the training loss of every family.
 """
 from __future__ import annotations
 
@@ -28,9 +27,21 @@ def model_init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return transformer.init_model(cfg, gen, device=dev)
 
 
-def model_loss(params, cfg: ModelConfig, batch: dict, *args, **kwargs):
-    raise NotImplementedError(
-        "model_loss is training: ROADMAP queue A 14.6 (LM PO-FL training)")
+def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
+               remat: bool = False, loss_weights=None, reduce: bool = True,
+               logits_sharding=None, aux_coeff: float = 0.01):
+    """Returns (loss, aux); with ``reduce=False``, (per_example (B,), aux)."""
+    if cfg.arch_type == "encdec":
+        return encdec.encdec_loss(
+            params, cfg, batch["tokens"], batch["frames"], dtype, remat,
+            loss_weights=loss_weights, reduce=reduce,
+            logits_sharding=logits_sharding, aux_coeff=aux_coeff,
+        )
+    return transformer.lm_loss(
+        params, cfg, batch["tokens"], batch.get("embeds"), dtype, remat,
+        loss_weights=loss_weights, reduce=reduce,
+        logits_sharding=logits_sharding, aux_coeff=aux_coeff,
+    )
 
 
 def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32):

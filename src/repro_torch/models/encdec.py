@@ -26,8 +26,12 @@ dense families.
 Each layer's self-attention (the encoder's and the decoder's), its
 cross-attention, its MLP and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``,
-``lm.cross_attention``, ``lm.mlp`` and ``lm.logits``. ``encdec_loss`` is
-training and waits for ROADMAP queue A 14.6.
+``lm.cross_attention``, ``lm.mlp`` and ``lm.logits``.
+
+:func:`encdec_loss` is the decoder's next-token cross entropy through
+:func:`repro_torch.models.transformer.chunked_ce`; ``remat=True``
+recomputes each decoder layer in the backward (the encoder is not
+rematerialised, as in the reference).
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from torch.profiler import record_function
 from repro_torch.models import layers as L
 from repro_torch.models.cache import AttnCache, EncDecCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_params, logits_from_hidden
+from repro_torch.models.transformer import (chunked_ce, layer_params, logits_from_hidden,
+                                            remat_call)
 
 
 def init_encdec(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -119,24 +124,38 @@ def _decoder_layer(lp, x, enc_out, cfg: ModelConfig, dtype, return_kv: bool = Fa
     return x
 
 
-def _decoder_hidden(params, cfg: ModelConfig, tokens, frames, dtype):
+def _decoder_hidden(params, cfg: ModelConfig, tokens, frames, dtype, remat: bool):
     enc_out = encode(params, cfg, frames, dtype)
     x = params["embed"].to(dtype)[tokens]
     for i in range(cfg.n_layers):
-        x = _decoder_layer(layer_params(params, i), x, enc_out, cfg, dtype)
+        x = remat_call(remat, params, lambda x, e, i=i: _decoder_layer(
+            layer_params(params, i), x, e, cfg, dtype), x, enc_out)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def forward_encdec(params, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor,
-                   dtype=torch.float32):
+                   dtype=torch.float32, remat: bool = False):
     """Full-sequence decoder logits (B, S, vocab_padded)."""
-    x = _decoder_hidden(params, cfg, tokens, frames, dtype)
+    x = _decoder_hidden(params, cfg, tokens, frames, dtype, remat)
     return logits_from_hidden(params, cfg, x, dtype)
 
 
-def encdec_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "encdec_loss is training: ROADMAP queue A 14.6 (LM PO-FL training)")
+def encdec_loss(params, cfg: ModelConfig, tokens, frames, dtype=torch.float32,
+                remat: bool = False, loss_weights=None, aux_coeff: float = 0.0,
+                reduce: bool = True, logits_sharding=None):
+    """The decoder's next-token cross entropy → (loss, aux = 0): the mean of
+    the per-example losses (times ``loss_weights``), or with
+    ``reduce=False`` the per-example vector (B,). An enc-dec model has no
+    aux loss, so ``aux_coeff`` adds nothing."""
+    del aux_coeff
+    x = _decoder_hidden(params, cfg, tokens, frames, dtype, remat)
+    per_example = chunked_ce(params, cfg, x, tokens, dtype, logits_sharding)
+    if loss_weights is not None:
+        per_example = per_example * loss_weights
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not reduce:
+        return per_example, zero
+    return per_example.mean(), zero
 
 
 def prefill_encdec(params, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor,

@@ -331,13 +331,14 @@ def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
     Tokens are routed in groups of :func:`_moe_group_size` (≤
     MOE_GROUP_SIZE) with a capacity of :func:`moe_capacity` a group and
     expert (:func:`moe_route`). Dispatch copies each kept (token, slot) into
-    its expert's row of one (E, G, cap + 1, D) buffer, slot by slot
-    (``index_copy_``: each kept row is written once, no atomic add); a
-    dropped one goes to row ``cap``, which is zeroed before the experts run,
-    so it reads back as 0, as the reference's ``mode="drop"`` scatter and
-    ``fill_value=0`` gather make it. The experts' SwiGLU is three batched
-    products over E; the output sums each token's slots in k order, each
-    weighted by its gate (0 when dropped), then adds the shared expert.
+    its expert's row of one (E, G, cap + 1, D) buffer in one out-of-place
+    ``index_copy`` (each kept row is written once, no atomic add; out of
+    place, so ``torch.func.jvp`` takes it); a dropped one goes to row
+    ``cap`` as zeros, so that row reads back as 0, as the reference's
+    ``mode="drop"`` scatter and ``fill_value=0`` gather make it. The
+    experts' SwiGLU is three batched products over E; the output sums each
+    token's slots in k order, each weighted by its gate (0 when dropped),
+    then adds the shared expert.
     ``aux`` is the Switch load-balance loss, E · Σ_e (share of tokens whose
     first choice is e) · (mean probability of e), over all tokens.
     """
@@ -359,12 +360,12 @@ def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
     row = (r.gate_idx.transpose(1, 2) * (n_groups * rows) + group
            + torch.where(r.within, r.pos, cap))  # (G, k, gs)
     row = row.transpose(0, 1).reshape(k, n_tok)  # a slot's rows in the tokens' order
-    src = xt.reshape(n_tok, d)
+    within = r.within.transpose(0, 1).reshape(k, n_tok, 1)
+    # a dropped copy carries 0, so every write to row cap is a 0 and their
+    # order does not matter
+    src = torch.where(within, xt.reshape(1, n_tok, d), 0.0)
     buf = torch.zeros((e * n_groups * rows, d), dtype=x.dtype, device=x.device)
-    for kk in range(k):
-        buf.index_copy_(0, row[kk], src)
-    buf = buf.view(e, n_groups, rows, d)
-    buf[:, :, cap].zero_()  # the dropped rows
+    buf = buf.index_copy(0, row.reshape(k * n_tok), src.reshape(k * n_tok, d))
 
     xe = buf.view(e, n_groups * rows, d)
     g = F.silu(torch.bmm(xe, params["w_gate"].to(dtype)))

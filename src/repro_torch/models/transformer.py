@@ -22,16 +22,26 @@ stacked leaves.
 
 Public entry points:
   init_model(cfg, gen, device)               -> params
-  forward(params, cfg, tokens, ...)          -> (logits, aux)
+  forward(params, cfg, tokens, ...)          -> (logits, aux)   (train / prefill)
+  lm_loss(params, cfg, tokens, ...)          -> (loss, aux)
   prefill(params, cfg, tokens, ...)          -> (logits, cache)
   decode_step(params, cfg, token, cache, t)  -> (logits, cache)
 
 Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
 ``lm.moe``, ``lm.mamba`` and ``lm.logits`` (the shared block's attention
-and MLP in ``lm.attention`` and ``lm.mlp``). ``lm_loss`` and
-``chunked_ce`` are training and wait for ROADMAP queue A 14.6. The
-enc-dec family is ``repro_torch.models.encdec``.
+and MLP in ``lm.attention`` and ``lm.mlp``). The enc-dec family is
+``repro_torch.models.encdec``.
+
+Training (:func:`lm_loss`) differentiates through all of it with
+``torch.autograd`` (``loss.backward()`` or ``torch.autograd.grad``) and
+``torch.func.jvp``; the kernels' own ``autograd.Function`` s give the flash
+and SSD kernels their backward and tangent rules. ``remat=True`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, non-reentrant, as
+the reference's ``jax.checkpoint`` of the scan body): the values are the
+same, only the memory a backward holds differs. ``torch.func.grad`` does not
+take a checkpoint (it refuses saved-tensor hooks), so a gradient is taken
+with ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -39,7 +49,9 @@ from typing import Optional
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.flatten_util import tree_leaves
 from repro_torch.models import layers as L
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import cumsum
@@ -155,12 +167,27 @@ def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype):
     return torch.cat([embeds.to(dtype) @ params["vis_proj"].to(dtype), x], dim=1)
 
 
-def backbone(params, cfg: ModelConfig, x, dtype):
+def remat_call(remat: bool, params, fn, *args):
+    """``fn(*args)``, recomputed in the backward (a non-reentrant
+    ``torch.utils.checkpoint``) when ``remat`` and a backward can reach the
+    call: grad mode on and ``params`` or an input requiring grad. Otherwise
+    (inference, or ``torch.func.jvp``'s forward mode, whose wrapped inputs
+    some torch versions' checkpoint refuses) a plain call: the same values,
+    and nothing is saved for a backward either way."""
+    if remat and torch.is_grad_enabled() and (
+            any(a.requires_grad for a in args if isinstance(a, torch.Tensor))
+            or any(leaf.requires_grad for leaf in tree_leaves(params))):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False):
     """The layer stack. x: (B, S, D) -> (B, S, D), aux: the MoE layers' aux
-    losses summed in layer order (fp32; 0 for the other families)."""
+    losses summed in layer order (fp32; 0 for the other families).
+    ``remat`` recomputes each layer in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer_fwd(cfg, params, i, x, dtype)
+        x, a = remat_call(remat, params, lambda x, i=i: _layer_fwd(cfg, params, i, x, dtype), x)
         if a is not None:
             aux = aux + a
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -177,19 +204,83 @@ def logits_from_hidden(params, cfg: ModelConfig, x, dtype):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            embeds: Optional[torch.Tensor] = None, dtype=torch.float32):
+            embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
+            remat: bool = False):
     """Full-sequence logits (B, S, vocab_padded) and aux; a vlm's cover its
     token positions only."""
     x = embed_inputs(params, cfg, tokens, embeds, dtype)
-    x, aux = backbone(params, cfg, x, dtype)
+    x, aux = backbone(params, cfg, x, dtype, remat)
     if cfg.arch_type == "vlm":
         x = x[:, embeds.shape[1]:, :]
     return logits_from_hidden(params, cfg, x, dtype), aux
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "lm_loss is training: ROADMAP queue A 14.6 (LM PO-FL training)")
+CE_CHUNK = 1024  # sequence-chunked cross entropy: (B, CHUNK, V) logits live,
+                 # never the full (B, S, V) (at a vocab of 150k–256k the full
+                 # logits of a long batch would not fit)
+
+
+def _chunk_nll(params, cfg: ModelConfig, xc, tc, vc, dtype):
+    """One chunk's summed NLL a row: xc (B, CHUNK, D), targets tc, valid vc."""
+    logits = logits_from_hidden(params, cfg, xc, dtype)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tc[..., None])[..., 0]
+    return (nll * vc).sum(dim=-1)
+
+
+def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None):
+    """Per-example mean NLL of next-token prediction → (B,) fp32, from the
+    final hidden x (B, S, D) and tokens (B, S).
+
+    The S − 1 predicting positions are padded to a multiple of
+    ``min(CE_CHUNK, S − 1)`` and the pad masked; each (B, CHUNK, V) chunk of
+    logits goes through an fp32 ``log_softmax`` and is recomputed in the
+    backward (a checkpoint a chunk, as the reference's ``jax.checkpoint``
+    of its scan body, wherever a backward can reach it: :func:`remat_call`),
+    and the rows' sums are added chunk after chunk.
+    ``logits_sharding`` is accepted and ignored: one card holds every
+    chunk whole.
+    """
+    del logits_sharding
+    b, s, d = x.shape
+    s1 = s - 1
+    chunk = min(CE_CHUNK, s1)
+    nc = -(-s1 // chunk)
+    pad = nc * chunk - s1
+    x_in = torch.nn.functional.pad(x[:, :-1], (0, 0, 0, pad))
+    tgt = torch.nn.functional.pad(tokens[:, 1:], (0, pad))
+    valid = torch.nn.functional.pad(torch.ones((b, s1), device=x.device), (0, pad))
+    acc = torch.zeros((b,), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        acc = acc + remat_call(True, params, _chunk_nll, params, cfg, x_in[:, sl], tgt[:, sl],
+                               valid[:, sl], dtype)
+    return acc / s1
+
+
+def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
+            remat: bool = False, loss_weights: Optional[torch.Tensor] = None,
+            aux_coeff: float = 0.01, reduce: bool = True, logits_sharding=None):
+    """Next-token cross entropy (+ the MoE aux) → (loss, aux).
+
+    ``loss_weights`` (B,) weighs each example: the hook the PO-FL trainer
+    reweighs its FL devices by. The loss is ``mean(per_example ·
+    loss_weights) + aux_coeff · aux``; ``reduce=False`` returns the
+    per-example vector (B,) instead (the per-FL-device statistics passes).
+    A vlm's patch positions predict nothing: they are dropped before the
+    CE. ``logits_sharding`` is ignored on one card (:func:`chunked_ce`).
+    """
+    x = embed_inputs(params, cfg, tokens, embeds, dtype)
+    x, aux = backbone(params, cfg, x, dtype, remat)
+    if cfg.arch_type == "vlm":
+        x = x[:, embeds.shape[1]:, :]
+    per_example = chunked_ce(params, cfg, x, tokens, dtype, logits_sharding)
+    if loss_weights is not None:
+        per_example = per_example * loss_weights
+    if not reduce:
+        return per_example, aux
+    return per_example.mean() + aux_coeff * aux, aux
 
 
 # --------------------------------------------------------------------------

@@ -412,3 +412,133 @@ def assert_cache_match(got, want) -> None:
             assert_close(g, w)
         else:
             assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+# -- the LM training path ----------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b",
+               "seamless-m4t-large-v2", "internvl2-76b")
+
+
+def mamba2_dt(shape, seed) -> np.ndarray:
+    """dt_bias as Mamba2 initialises it (dt log-uniform in [1e-3, 1e-1],
+    dt_bias its inverse softplus): at the reference's zero dt_bias fp32
+    Mamba2 is ill-conditioned (ROADMAP C)."""
+    rng = np.random.default_rng(seed)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shape))
+    return (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+
+
+def train_configs(arch: str, layers: int = 2):
+    """The reference's and the port's ``reduced_config(arch)`` at ``layers``
+    layers (an enc-dec model's encoder too)."""
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    def cut(cfg):
+        if cfg.encdec is not None:
+            cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
+                                                                      n_enc_layers=layers))
+        return dataclasses.replace(cfg, n_layers=layers)
+
+    return cut(jconfigs.reduced_config(arch)), cut(tconfigs.reduced_config(arch))
+
+
+def train_case(arch: str, layers: int = 2, b: int = 2, s: int = 16, seed: int = 0):
+    """One LM training case: (reference config, port config, the
+    reference's ``model_init`` weights as numpy with biases and norm
+    scales perturbed (and Mamba2's dt_bias drawn as Mamba2 does), a batch
+    of numpy arrays: tokens (b, s) int32 and a vlm's 8 patch embeddings or
+    an enc-dec model's 16 frames)."""
+    from repro.models import api as japi
+
+    jcfg, tcfg = train_configs(arch, layers)
+    jp = perturbed_lm(japi.model_init(jcfg, jax.random.PRNGKey(seed)), seed + 100)
+    if jcfg.ssm is not None:
+        jp["layers"]["mamba"]["dt_bias"] = mamba2_dt(jp["layers"]["mamba"]["dt_bias"].shape,
+                                                     seed + 200)
+    batch = {"tokens": lm_tokens(jcfg, b, s, seed + 1)}
+    if jcfg.arch_type == "vlm":
+        batch["embeds"] = lm_embeddings(jcfg, b, jcfg.vlm.n_patches, seed + 2)
+    if jcfg.arch_type == "encdec":
+        batch["frames"] = lm_embeddings(jcfg, b, jcfg.encdec.n_enc_frames, seed + 2)
+    return jcfg, tcfg, jp, batch
+
+
+def torch_batch(batch: dict) -> dict:
+    """A numpy batch as the port takes it: tokens int64, the rest float32."""
+    return {k: t(v, torch.int64 if k == "tokens" else torch.float32) for k, v in batch.items()}
+
+
+def jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def port_value_and_grad(fn, params):
+    """(value, grads) of the scalar ``fn(params)`` by ``torch.autograd``:
+    grads a list in sorted-key leaf order."""
+    from repro_torch.flatten_util import tree_leaves, tree_map
+
+    p = tree_map(lambda x: x.detach().requires_grad_(), params)
+    value = fn(p)
+    return value.detach(), torch.autograd.grad(value, tree_leaves(p))
+
+
+def assert_grads_close(got: list, want, rtol: float = RTOL) -> None:
+    """Every gradient leaf within ``rtol`` of the reference's, relative to
+    that leaf's scale (leaves in sorted-key order on both sides)."""
+    wants = jax.tree.leaves(want)
+    assert len(got) == len(wants)
+    for g, w in zip(got, wants):
+        assert_close(g, w, rtol)
+
+
+def jax_leaf_normals(key, tree) -> list:
+    """Standard normals like every leaf of ``tree``, one key a leaf from
+    ``jax.random.split(key, n_leaves)`` in sorted-key order: the reference's
+    probe and noise draws (``core/sketch.py:59-64``, ``launch/steps.py:217-222``)."""
+    from repro_torch.flatten_util import tree_leaves
+
+    leaves = tree_leaves(tree)
+    keys = jax.random.split(key, len(leaves))
+    return [t(jax.random.normal(k, tuple(leaf.shape), jnp.float32))
+            for k, leaf in zip(keys, leaves)]
+
+
+class ReferenceTrainerDraws:
+    """The port trainer's draws, replayed from the reference trainer's key
+    discipline (``repro/launch/train.py:73-75, 98, 111, 139``): ``key =
+    PRNGKey(seed)`` split once for the channel's gains, then per round a
+    split for the probes (sketch mode), a 3-way split for the channel draw
+    and the sampler, and a split for the noise."""
+
+    def __init__(self, seed: int, channel_cfg):
+        from repro.core.channel import ChannelState as JChannelState
+
+        self.key, k_chan = jax.random.split(jax.random.PRNGKey(seed))
+        self.jchannel = JChannelState.create(channel_cfg, k_chan)
+        self._k_sched = None
+
+    def gains(self) -> torch.Tensor:
+        return t(self.jchannel.gains)
+
+    def probes(self, params, n_probes: int) -> list:
+        from repro_torch.flatten_util import tree_unflatten
+
+        self.key, k = jax.random.split(self.key)
+        return [tree_unflatten(params, jax_leaf_normals(kp, params))
+                for kp in jax.random.split(k, n_probes)]
+
+    def channel(self, channel) -> torch.Tensor:
+        self.key, k_chan, self._k_sched = jax.random.split(self.key, 3)
+        return t(self.jchannel.sample(k_chan))
+
+    def gumbels(self, n_scheduled: int, n: int) -> torch.Tensor:
+        keys = jax.random.split(self._k_sched, n_scheduled)
+        return torch.stack([t(jax.random.gumbel(k, (n,), jnp.float32)) for k in keys])
+
+    def noise(self, params):
+        from repro_torch.flatten_util import tree_unflatten
+
+        self.key, k_noise = jax.random.split(self.key)
+        return tree_unflatten(params, jax_leaf_normals(k_noise, params))

@@ -3,8 +3,10 @@ trial-batched), the flash-attention kernel and the SSD scan kernel against
 their plain versions, the round, the lattice round (also under each channel
 process with K local steps and the four algorithms, and under the non-finite
 quarantine with a poisoned cell), the lattice loops against the fused grid,
-and the dense, Mamba2, hybrid, MoE, enc-dec and VLM LMs' prefill and
-decode on the card against the CPU. They need a CUDA card and no JAX:
+the dense, Mamba2, hybrid, MoE, enc-dec and VLM LMs' prefill and decode
+on the card against the CPU, and their training: the kernels' autograd
+Functions, a train step of every family card against CPU, and the trainer.
+They need a CUDA card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -1068,3 +1070,113 @@ def test_cnn_lattices_repeat_bitwise_by_default(card, lattice):
         assert (getattr(a, f) == getattr(b, f)).all(), f
     for fa, fb in zip(a.eval, b.eval):
         assert (fa == fb).all()
+
+
+# -- the LM training path ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_functions_backward_and_jvp_match_the_plain_rules(card, dtype):
+    """The flash and SSD kernels through their autograd Functions (as
+    ``ops`` applies them on a CUDA tensor): each launches its kernel once a
+    forward, and the gradients and tangents match autograd and
+    ``torch.func.jvp`` of the plain version (relative L2 ≤ 1e-5 in fp32,
+    2^-7 in bf16: the backward rounds its query chunks' dk, dv first)."""
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    q, k, v = attention_inputs(2, 1100, 1100, 4, 2, 64, dtype, card, seed=1)
+    xdt, la, B, C = ssd_inputs(2, 512, 4, 32, 16, dtype, card, seed=2)
+    cases = [
+        (attn_kernel, lambda *a: attn_ops.attention(*a, causal=True),
+         lambda *a: flash_attention_ref(*a, causal=True), (q, k, v)),
+        (ssd_kernel, lambda *a: ssd_ops.ssd(*a, chunk=256),
+         lambda *a: ssd_chunked_ref(*a, 256), (xdt, la, B, C)),
+    ]
+    for kern, fn, plain, inputs in cases:
+        ins = [x.clone().requires_grad_() for x in inputs]
+        before = kern.launches
+        out = fn(*ins)
+        assert kern.launches == before + 1 and out.grad_fn is not None
+        dout = torch.randn(out.shape, generator=gen, device=card, dtype=dtype)
+        got = torch.autograd.grad(out, ins, dout)
+        ref_ins = [x.clone().requires_grad_() for x in inputs]
+        want = torch.autograd.grad(plain(*ref_ins), ref_ins, dout)
+        assert all(rel(g, w) <= tol for g, w in zip(got, want))
+        tangents = tuple(torch.randn(x.shape, generator=gen, device=card, dtype=x.dtype)
+                         for x in inputs)
+        _, t_got = torch.func.jvp(fn, inputs, tangents)
+        _, t_want = torch.func.jvp(plain, inputs, tangents)
+        assert rel(t_got, t_want) <= tol
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m", "zamba2-2.7b", "olmoe-1b-7b",
+                                  "seamless-m4t-large-v2", "internvl2-76b"])
+def test_reduced_train_step_on_card_matches_cpu_in_every_leaf(card, arch):
+    """One train step (fp32, remat, 2 FL devices, no noise) of each family's
+    reduced config, 2 layers: every gradient leaf on the card non-zero and
+    within 1e-4 relative L2 of the CPU's (a kernel that cut the graph would
+    leave its inputs' weights without a gradient)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.optimizers import Optimizer, sgd
+
+    cfg = dataclasses.replace(configs.reduced_config(arch), n_layers=2)
+    params = lm_api.model_init(cfg, seed=0, device="cpu")
+    if cfg.ssm is not None:  # Mamba2's own dt init (the reference's zeros are ill-conditioned)
+        dt = torch.exp(torch.empty(params["layers"]["mamba"]["dt_bias"].shape).uniform_(
+            -6.9, -2.3, generator=torch.Generator().manual_seed(1)))
+        params["layers"]["mamba"]["dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)}
+    if cfg.arch_type == "vlm":
+        batch["embeds"] = torch.randn(4, cfg.vlm.n_patches, cfg.d_model, generator=gen)
+    if cfg.arch_type == "encdec":
+        batch["frames"] = torch.randn(4, cfg.encdec.n_enc_frames, cfg.d_model, generator=gen)
+    grads = {}
+    for where in ("cpu", card):
+        seen, base = {}, sgd(0.0)
+
+        def update(g, state, p, _seen=seen):
+            _seen["g"] = g
+            return base.update(g, state, p)
+
+        bundle = build_train_step(cfg, InputShape("t", 32, 4, "train"),
+                                  make_host_mesh(1, 2, where), Optimizer(base.init, update),
+                                  dtype=torch.float32, aircomp_noise=False)
+        p = tree_map(lambda x: x.to(where), params)
+        bundle.fn(p, base.init(p), {k: v.to(where) for k, v in batch.items()},
+                  torch.tensor([0.7, 1.3], device=where), torch.zeros((), device=where), None)
+        grads[str(where)] = ravel_pytree(tree_map(lambda x: x.cpu(), seen["g"]))[0]
+        if where != "cpu":
+            from repro_torch.flatten_util import tree_leaves
+            assert all(float(torch.linalg.vector_norm(g)) > 0 for g in tree_leaves(seen["g"]))
+    c, g = grads["cpu"], grads[str(card)]
+    assert (torch.linalg.vector_norm(g - c) / torch.linalg.vector_norm(c)).item() <= ROUND_TOL
+
+
+def test_trainer_defaults_to_the_card_and_runs_two_rounds(card):
+    """``POFLTrainer`` on a card mesh (the default device), bf16, sketch
+    mode: two rounds, every value finite, the flash kernel launched once a
+    layer in each JVP pass and twice a layer in the step."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import POFLTrainer, TrainerConfig
+
+    cfg = _lm_cfg(layers=2)
+    mesh = make_host_mesh(1, 4)
+    assert mesh.device.type == "cuda"
+    trainer = POFLTrainer(cfg, InputShape("t", 64, 8, "train"), mesh,
+                          TrainerConfig(n_scheduled=2, n_probes=2, noise_power=1e-10))
+    params, opt_state = trainer.init_state(0)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), device=card,
+                           generator=torch.Generator(device=card).manual_seed(0))
+    before = attn_kernel.launches
+    for _ in range(2):
+        params, opt_state, diag = trainer.train_round(params, opt_state, {"tokens": tokens})
+        assert all(bool(torch.isfinite(v).all()) for v in diag.values())
+    assert attn_kernel.launches - before == 2 * cfg.n_layers * (3 + 2)
+    assert params["embed"].device.type == "cuda"

@@ -483,15 +483,25 @@ def test_hybrid_and_moe_families_init_cache_and_serve(arch):
     assert toks.shape == (2, 3) and int(toks.max()) < cfg.vocab_size
 
 
-def test_training_entry_points_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
-        tapi.model_loss({}, tconfigs.reduced_config("qwen2-0.5b"), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
-        ttransformer.lm_loss()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
-        tapi.model_loss({}, tconfigs.reduced_config("seamless-m4t-large-v2"), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 14.6"):
-        tencdec.encdec_loss()
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "seamless-m4t-large-v2"])
+def test_training_entry_points_run_and_match_reference(arch):
+    """``model_loss`` and the family's own loss (``lm_loss``,
+    ``encdec_loss``) on the reference's weights and tokens: one value, the
+    reference's (gradients: ``tests/test_torch_train_loss.py``)."""
+    from _torch_parity import torch_batch, train_case
+
+    jcfg, tcfg, jp, batch = train_case(arch)
+    tp = lm_params_from_jax(jp, tcfg, device="cpu")
+    tb = torch_batch(batch)
+    want, _ = japi.model_loss(jax.tree.map(jnp.asarray, jp), jcfg,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    got, aux = tapi.model_loss(tp, tcfg, tb)
+    if tcfg.arch_type == "encdec":
+        own, own_aux = tencdec.encdec_loss(tp, tcfg, tb["tokens"], tb["frames"])
+    else:
+        own, own_aux = ttransformer.lm_loss(tp, tcfg, tb["tokens"])
+    assert torch.equal(got, own) and torch.equal(aux, own_aux)
+    assert_close(got, want)
 
 
 def test_lm_params_from_jax_keeps_the_layout_and_checks_shapes():

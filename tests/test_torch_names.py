@@ -1,9 +1,9 @@
 """The port's public names held against the reference's (CPU).
 
-Every name the reference's ``repro.core``, ``repro.data`` (but
-``make_token_dataset``, ROADMAP queue A item 14.6) and
-``repro.kernels.ssd`` export, and ``SimState``, imports from the port's
-counterpart; the record and config schemas agree field for field and in
+Every name the reference's ``repro.core``, ``repro.data``, ``repro.optim``
+and ``repro.kernels.ssd`` export, the public names of its
+``repro.launch.{steps,train,mesh}``, and ``SimState``, imports from the
+port's counterpart; the forward functions take ``remat`` (ROADMAP C11); the record and config schemas agree field for field and in
 order; and the names this slice adds compute what the reference's do on the
 same inputs: ``make_round_step`` over a chain of rounds on the reference's
 key discipline, ``power_check``, ``bound_objective``,
@@ -52,7 +52,8 @@ SIM_LATER = ("cached_engine", "enable_compile_cache", "engine_cache_stats",
 
 # (reference package, port package, names the port does not have yet)
 PACKAGES = [("repro.core", "repro_torch.core", ()),
-            ("repro.data", "repro_torch.data", ("make_token_dataset",)),
+            ("repro.data", "repro_torch.data", ()),
+            ("repro.optim", "repro_torch.optim", ()),
             ("repro.kernels.ssd", "repro_torch.kernels.ssd", ()),
             ("repro.obs", "repro_torch.obs", ()),
             ("repro.checkpoint", "repro_torch.checkpoint", ()),
@@ -65,6 +66,35 @@ def test_every_reference_export_imports_from_the_port(ref, port, later):
     names = [n for n in ref_mod.__all__ if n not in later]
     missing = [n for n in names if n not in port_mod.__all__ or not hasattr(port_mod, n)]
     assert not missing, missing
+
+
+@pytest.mark.parametrize("module", ["steps", "train", "mesh"])
+def test_launch_modules_have_the_reference_public_names(module):
+    """Every function and class a ``repro.launch`` training module defines
+    (not imports) without a leading underscore, in the port's module."""
+    import inspect
+
+    ref = importlib.import_module(f"repro.launch.{module}")
+    port = importlib.import_module(f"repro_torch.launch.{module}")
+    names = [n for n, v in vars(ref).items() if not n.startswith("_")
+             and (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == ref.__name__]
+    assert names
+    assert not [n for n in names if not hasattr(port, n)]
+
+
+@pytest.mark.parametrize("fn", ["transformer.backbone", "transformer.forward",
+                                "encdec._decoder_hidden", "encdec.forward_encdec"])
+def test_forward_functions_take_remat(fn):
+    """ROADMAP C11: the reference's forward functions take ``remat``; so do
+    the port's, at the same position with the same default."""
+    import inspect
+
+    module, name = fn.split(".")
+    ref = getattr(importlib.import_module(f"repro.models.{module}"), name)
+    port = getattr(importlib.import_module(f"repro_torch.models.{module}"), name)
+    want, got = inspect.signature(ref).parameters, inspect.signature(port).parameters
+    assert list(got).index("remat") == list(want).index("remat")
+    assert got["remat"].default == want["remat"].default
 
 
 def test_the_port_exports_the_slice_names():
