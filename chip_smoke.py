@@ -252,6 +252,19 @@ non-zero exit and no result line:
              remat's recompute); every value finite, the unweighted loss on
              a fixed batch lower after than before; then ``train.*`` host
              and device ms of one more round (``torch.profiler``)
+  train_ranks  ``POFLTrainer`` over a (data, model) mesh of ranks, qwen2-0.5b
+             at full width, 8 × 2,048 tokens over 8 FL devices: (a) a (1, 1)
+             mesh of one NCCL rank (this process) against the one-card
+             trainer on phase ``train``'s setting and draws, 2 rounds at
+             full depth; (b) the (2, 1) and (c) the (1, 2) mesh of two ranks
+             sharing the card over gloo (the launcher's ``train`` workload,
+             ``sgd``, RANKS_LAYERS layers in RANKS_DTYPE, RANKS_ROUNDS
+             rounds) against this process's one-rank trainer: every round's
+             loss, e_com, a, coeffs and noise_amp, each rank's final blocks
+             (and their update) within 1e-4, decisions equal; each rank's
+             ms a round and its collectives' share, peak memory, bytes of
+             masters and optimizer state (equal to the dry run's) and flash
+             launches (L × 5 a round)
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -2291,13 +2304,9 @@ def time_ssd(kernel, ref, dev) -> dict:
 
 def kernel_counters():
     """Every kernel's launch counter: ``{name: (module, attribute)}``."""
-    from repro_torch.kernels.aircomp import kernel as aircomp
-    from repro_torch.kernels.attention import kernel as attn
-    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.launch.distributed import kernel_counters as counters
 
-    return {"aircomp_fused": (aircomp, "launches"),
-            "aircomp_fused_batch": (aircomp, "batch_launches"),
-            "flash_attention": (attn, "launches"), "ssd_scan": (ssd, "launches")}
+    return counters()
 
 
 def read_counts() -> dict:
@@ -2364,17 +2373,6 @@ def serve_prompt(cfg, batch_size: int, n_tokens: int, n_extra: int, seed: int):
     return batch, n_tokens
 
 
-def cut_depth(cfg, layers):
-    """``cfg`` with ``layers`` layers (an enc-dec model's encoder too); all
-    of them when ``layers`` is None."""
-    if layers is None:
-        return cfg
-    if cfg.encdec is not None:
-        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
-                                                                  n_enc_layers=layers))
-    return dataclasses.replace(cfg, n_layers=layers)
-
-
 def cache_fields(cache, prefix: str = "") -> dict:
     """The float tensors of a cache by field name (a hybrid's as
     ``ssm.state``, ``attn.k``, …)."""
@@ -2396,6 +2394,7 @@ def serve_setup(dev, arch):
     enc-dec model's ENCDEC_PROMPT tokens and its config's frames), the
     positions it takes and the peak memory of the fp32 init and its cast."""
     from repro_torch import configs
+    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
@@ -2592,6 +2591,7 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None, n_extra=0) -
 
     from repro_torch import configs
     from repro_torch.flatten_util import tree_map
+    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models import layers as lm_layers
@@ -2906,6 +2906,7 @@ def train_parity(dev) -> dict:
     from repro_torch.core.channel import ChannelState
     from repro_torch.flatten_util import ravel_pytree, tree_map
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.train import POFLTrainer, TrainerConfig, TrainerDraws
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
@@ -3073,7 +3074,7 @@ def train_phase(dev) -> dict:
         params, opt_state, diag = trainer.train_round(params, opt_state, batch_fn(t))
         torch.cuda.synchronize()
         rounds.append({"ms": (time.perf_counter() - t0) * 1e3,
-                       **{k: v.item() for k, v in diag.items()}})
+                       **{k: v.item() for k, v in diag.items() if v.dim() == 0}})
     seconds = time.perf_counter() - t_all
     launched = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3111,6 +3112,201 @@ def train_phase(dev) -> dict:
         raise AssertionError(f"train: finite {finite}, fixed-batch loss {loss_before} -> "
                              f"{loss_after}, launches {launched} (expected {want})")
     return launched
+
+
+# -- the LM trainer over ranks ------------------------------------------------
+
+RANKS_ONE_ROUNDS = 2  # (a): the one-rank NCCL mesh against the one-card trainer
+# (b), (c): two ranks sharing the card over gloo, against this process's
+# one-rank trainer: depth, rounds and compute dtype (full width)
+RANKS_LAYERS, RANKS_ROUNDS, RANKS_DTYPE = 4, 3, "float32"
+RANKS_TIMEOUT = 600  # seconds the launched ranks get
+RANKS_MESHES = {"b": (2, 1), "c": (1, 2)}  # (data, model)
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| / max |b| (relative to the reference's scale)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def reckoned_state(cfg, shape, sizes, optimizer) -> dict:
+    """The dry run's bytes a rank of masters and optimizer state on a
+    (data, model) mesh of ``sizes`` (``launch.dryrun.state_bytes`` of the
+    train step on the shape-only mesh)."""
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.steps import build_train_step
+
+    b = state_bytes(build_train_step(cfg, shape, ShapeMesh(("data", "model"), sizes), optimizer))
+    return {"params_bytes": b["params"], "opt_state_bytes": b["opt_state"]}
+
+
+def rank_costs(round_ms: list, collective_s: dict) -> dict:
+    total = sum(round_ms)
+    return {"round_ms": round_ms, "collective_s": collective_s,
+            "collective_share": sum(collective_s.values()) * 1e3 / total}
+
+
+def one_rank(dev) -> tuple[dict, int]:
+    """(a): ``POFLTrainer`` on a (1, 1) mesh of one NCCL rank (this
+    process) against the one-card ``HostMesh`` trainer, on phase ``train``'s
+    setting (qwen2-0.5b at full width and depth, bf16, AdamW) and the same
+    draws, RANKS_ONE_ROUNDS rounds → (the comparison, the rank run's flash
+    launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.distributed import tensor_bytes, train_rounds, train_setup
+    from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh
+    from repro_torch.launch.train import POFLTrainer
+    from repro_torch.obs.registry import reset_metrics
+    from repro_torch.obs.spans import span_totals
+
+    cfg, shape, tcfg, opt, batch_fn = train_setup(TRAIN_ARCH, 0, TRAIN_FL, TRAIN_BATCH,
+                                                  TRAIN_SEQ, "adamw", "bfloat16",
+                                                  TRAIN_ROUNDS, dev)
+    trainer = POFLTrainer(cfg, shape, make_host_mesh(1, TRAIN_FL, dev), tcfg, optimizer=opt)
+    want_p, _, want, _ = train_rounds(trainer, batch_fn, RANKS_ONE_ROUNDS)
+    del trainer
+    torch.cuda.empty_cache()
+    try:
+        mesh = make_rank_mesh(model=1, n_fl=TRAIN_FL)
+        trainer = POFLTrainer(cfg, shape, mesh, tcfg, optimizer=opt)
+        reset_metrics("span.ranks.")
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        got_p, got_s, got, round_ms = train_rounds(trainer, batch_fn, RANKS_ONE_ROUNDS)
+        launched = read_counts()
+        backend = mesh.backend
+        costs = rank_costs(round_ms, {op: span_totals(f"ranks.{op}")["seconds"]
+                                      for op in ("gather", "reduce", "broadcast")})
+    finally:
+        dist.destroy_process_group()
+    bitwise = (all(np.array_equal(got[k], want[k]) for k in want)
+               and all(torch.equal(a, b) for a, b in zip(tree_leaves(got_p), tree_leaves(want_p))))
+    errs = {**{k: rel(torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in want},
+            "params": max(rel(a, b) for a, b in zip(tree_leaves(got_p), tree_leaves(want_p)))}
+    state = {"params_bytes": tensor_bytes(got_p), "opt_state_bytes": tensor_bytes(got_s)}
+    reckoned = reckoned_state(cfg, shape, (1, 1), opt)
+    per_round = cfg.n_layers * (1 + TRAIN_PROBES) + 2 * cfg.n_layers
+    out = {"backend": backend, "n_layers": cfg.n_layers, "rounds": RANKS_ONE_ROUNDS,
+           "bitwise": bitwise, "rel_err": errs, **costs,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), **state,
+           "reckoned": reckoned, "flash_launches": launched["flash_attention"],
+           "flash_launches_a_round": launched["flash_attention"] / RANKS_ONE_ROUNDS}
+    del got_p, got_s, want_p
+    torch.cuda.empty_cache()
+    ok = (max(errs.values()) <= ROUND_TOL and state == reckoned and backend == "nccl"
+          and launched["flash_attention"] == RANKS_ONE_ROUNDS * per_round)
+    if not ok:
+        raise AssertionError(f"train_ranks (a): {out}")
+    return out, launched["flash_attention"]
+
+
+def ranks_run(model: int, sizes: tuple, ref: dict) -> tuple[dict, int]:
+    """(b) or (c): the launcher's ``train`` workload on two ranks sharing
+    the card over gloo on a (data, model) mesh of ``sizes``, held to this
+    process's one-rank run ``ref`` → (the comparison, both ranks' flash
+    launches)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import Sharding
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "train.npz")
+        launch(["--procs", 2, "--workload", "train", "--device", "cuda", "--arch", TRAIN_ARCH,
+                "--layers", RANKS_LAYERS, "--model", model, "--dtype", RANKS_DTYPE,
+                "--n-rounds", RANKS_ROUNDS, "--out", out, "--save-blocks"],
+               timeout=RANKS_TIMEOUT)
+        data = np.load(out)
+        meta = json.loads(str(data["meta"]))
+        got = {k: data[k] for k in ref["records"]}
+        blocks = [torch.load(f"{out}.rank{r}.pt") for r in range(2)]
+    errs = {k: rel(torch.as_tensor(got[k]), torch.as_tensor(ref["records"][k]))
+            for k in ("loss", "e_com", "a", "coeffs", "noise_amp")}
+    decisions = (np.array_equal(got["n_scheduled"], ref["records"]["n_scheduled"])
+                 and np.array_equal(got["coeffs"] > 0, ref["records"]["coeffs"] > 0))
+    mesh = ShapeMesh(("data", "model"), sizes)
+    ranks, worst_update, worst_params = [], 0.0, 0.0
+    for r, rank in enumerate(meta["per_rank"]):
+        coords = rank["coordinates"]
+        d_got, d_want = [], []
+        for name, spec in ref["specs"].items():
+            index = Sharding(mesh, spec).index(coords, ref["final"][name].shape)
+            want, init = ref["final"][name][index], ref["init"][name][index]
+            worst_params = max(worst_params, rel(blocks[r][name], want))
+            d_got.append((blocks[r][name] - init).reshape(-1))
+            d_want.append((want - init).reshape(-1))
+        worst_update = max(worst_update, rel_l2(torch.cat(d_got), torch.cat(d_want)))
+        ranks.append({**rank_costs(rank["round_ms"], rank["collective_s"]),
+                      "coordinates": coords, "peak_memory_bytes": rank["peak_memory_bytes"],
+                      "params_bytes": rank["params_bytes"],
+                      "opt_state_bytes": rank["opt_state_bytes"],
+                      "flash_launches_a_round": rank["launches"]["flash_attention"] / RANKS_ROUNDS})
+    errs.update(params=worst_params, update_rel_l2=worst_update)
+    reckoned = reckoned_state(ref["cfg"], ref["shape"], sizes, ref["optimizer"])
+    per_round = ref["cfg"].n_layers * (1 + TRAIN_PROBES) + 2 * ref["cfg"].n_layers
+    launched = [rank["launches"]["flash_attention"] for rank in meta["per_rank"]]
+    out = {"mesh": sizes, "backend": meta["backend"], "rel_err": errs,
+           "decisions_equal": decisions, "ranks": ranks, "reckoned": reckoned}
+    ok = (max(errs.values()) <= ROUND_TOL and decisions and meta["backend"] == "gloo"
+          and all({k: r[k] for k in reckoned} == reckoned for r in ranks)
+          and launched == [RANKS_ROUNDS * per_round] * 2)
+    if not ok:
+        raise AssertionError(f"train_ranks {sizes}: {out}")
+    return out, sum(launched)
+
+
+def train_ranks_phase(dev) -> dict:
+    """Phase ``train_ranks``: the LM trainer over a (data, model) mesh of
+    ranks. (a) one NCCL rank against the one-card trainer
+    (:func:`one_rank`); this process's one-rank trainer at RANKS_LAYERS
+    layers, ``sgd``, RANKS_ROUNDS rounds; then (b) the (2, 1) and (c) the
+    (1, 2) mesh of two ranks sharing the card over gloo, each held to it
+    (:func:`ranks_run`): every round's loss, e_com, a, coeffs and noise_amp
+    and every rank's final blocks within ROUND_TOL, decisions equal, each
+    rank's bytes of masters and optimizer state equal to the dry run's,
+    the flash kernel L × (1 + TRAIN_PROBES + 2) times a rank a round."""
+    from repro_torch.launch import distributed
+    from repro_torch.launch.distributed import flat_tree, train_rounds, train_setup
+    from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
+    from repro_torch.launch.sharding import params_pspecs
+    from repro_torch.launch.steps import params_structs
+    from repro_torch.launch.train import POFLTrainer
+    from repro_torch.models import api
+
+    one, launched = one_rank(dev)
+    # the launcher's train workload's cell (its ranks take it from there)
+    n_fl = distributed.TRAIN_FL
+    cfg, shape, tcfg, opt, batch_fn = train_setup(TRAIN_ARCH, RANKS_LAYERS, n_fl,
+                                                  distributed.TRAIN_BATCH, distributed.TRAIN_SEQ,
+                                                  "sgd", RANKS_DTYPE, RANKS_ROUNDS, dev)
+    trainer = POFLTrainer(cfg, shape, make_host_mesh(1, n_fl, dev), tcfg, optimizer=opt)
+    t0 = time.perf_counter()
+    final, _, records, round_ms = train_rounds(trainer, batch_fn, RANKS_ROUNDS)
+    ref = {"cfg": cfg, "shape": shape, "optimizer": opt, "records": records,
+           "final": {k: v.cpu() for k, v in flat_tree(final).items()},
+           "init": {k: v.cpu() for k, v in
+                    flat_tree(api.model_init(cfg, tcfg.seed + 1, device=dev)).items()},
+           "round_ms": round_ms, "seconds": time.perf_counter() - t0}
+    del trainer, final
+    torch.cuda.empty_cache()
+    out = {"a": one, "one_rank_reference": {"n_layers": cfg.n_layers, "dtype": RANKS_DTYPE,
+                                            "round_ms": round_ms, "records": {
+                                                k: v.tolist() for k, v in records.items()}}}
+    for part, sizes in RANKS_MESHES.items():
+        mesh = ShapeMesh(("data", "model"), sizes)
+        ref["specs"] = flat_tree(params_pspecs(params_structs(cfg), mesh))
+        out[part], n = ranks_run(sizes[1], sizes, ref)
+        launched += n
+    emit("train_ranks", arch=TRAIN_ARCH, tolerance=ROUND_TOL, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, fl_devices=TRAIN_FL, ranks_layers=RANKS_LAYERS,
+         ranks_rounds=RANKS_ROUNDS, card=nvidia_smi(), **out)
+    counts = {name: 0 for name in kernel_counters()}
+    counts["flash_attention"] = launched
+    return counts
 
 
 def kernel_entry(name, replaces, launches_by_phase, errs, times) -> dict:
@@ -3264,6 +3460,7 @@ def main() -> int:
     train_grads_launches = step("train_grads", train_grads, dev)
     train_parity_launches = step("train_parity", train_parity, dev)
     train_launches = step("train", train_phase, dev)
+    ranks_launches = step("train_ranks", train_ranks_phase, dev)
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
@@ -3295,7 +3492,8 @@ def main() -> int:
                          "vlm_serve": vlm_launches["flash_attention"],
                          "train_grads": train_grads_launches["flash_attention"],
                          "train_parity": train_parity_launches["flash_attention"],
-                         "train": train_launches["flash_attention"]},
+                         "train": train_launches["flash_attention"],
+                         "train_ranks": ranks_launches["flash_attention"]},
                         attn_errs, attn_times, ATTN_CASES),
         lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                         "src/repro/kernels/ssd/kernel.py:65",
@@ -3303,7 +3501,8 @@ def main() -> int:
                          "hybrid_serve": hybrid_launches["ssd_scan"],
                          "train_grads": train_grads_launches["ssd_scan"],
                          "train_parity": train_parity_launches["ssd_scan"],
-                         "train": train_launches["ssd_scan"]},
+                         "train": train_launches["ssd_scan"],
+                         "train_ranks": ranks_launches["ssd_scan"]},
                         ssd_errs, ssd_times, SSD_CASES),
     ]}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 """Public op: the chunked SSD scan, dispatched by the device of ``xdt``.
 
-A CPU tensor goes to the kernel's plain PyTorch version, which autograd
+A CPU tensor (or a meta one: shapes only, as the dry run counts FLOPs)
+goes to the kernel's plain PyTorch version, which autograd
 and ``torch.func.jvp`` differentiate as they find it; a CUDA tensor goes to
 the hand-written kernel through
 :data:`~repro_torch.kernels.ssd.autograd.SSDScan`, whose backward and jvp
@@ -18,7 +19,7 @@ from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
 def ssd(xdt, la, B, C, *, chunk: int = 256) -> torch.Tensor:
     """y = SSD(xdt, la, B, C) → (b, s, h, p) in xdt's type; ``s % chunk == 0``."""
-    if xdt.device.type == "cpu":
+    if xdt.device.type in ("cpu", "meta"):  # meta: shapes only (the dry run)
         return ssd_chunked_ref(xdt, la, B, C, chunk)
     if xdt.device.type == "cuda":
         return SSDScan.apply(xdt, la, B, C, chunk)

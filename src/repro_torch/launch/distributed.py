@@ -47,6 +47,13 @@ Usage:
     REPRO_FAULT_KILL=1:2 python -m repro_torch.launch.distributed --procs 2 \\
         --workload resilient --checkpoint-dir /tmp/ck --out /tmp/recs.npz
 
+    # the LM trainer over a (data, model) mesh of the ranks (here (2, 1)):
+    # qwen2-0.5b at full width cut to 4 layers, 8 × 2,048 tokens over 8 FL
+    # devices; each round's records → npz, each rank's final blocks → .pt
+    python -m repro_torch.launch.distributed --procs 2 --workload train \\
+        --device cuda --layers 4 --model 1 --dtype float32 --out /tmp/train.npz \\
+        --save-blocks
+
     # any script that calls sim.multihost.initialize_distributed() itself
     python -m repro_torch.launch.distributed --procs 2 -- python my_script.py
 
@@ -826,6 +833,146 @@ def _worker_resilient(args) -> None:
           f"{os.path.join(args.checkpoint_dir, f'shard-r{rank}.npz')}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# the train workload — POFLTrainer over a (data, model) mesh of ranks
+# --------------------------------------------------------------------------
+
+TRAIN_PROBES, TRAIN_NOISE, TRAIN_SGD_LR = 2, 1e-10, 0.01
+# the workload's cell: FL devices, global batch, tokens an example
+TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048
+TRAIN_ROUND_FIELDS = ("loss", "e_com", "a", "n_scheduled", "coeffs", "noise_amp")
+
+
+def train_setup(arch: str, layers: int, n_fl: int, batch: int, seq: int,
+                optimizer: str = "sgd", dtype: str = "bfloat16", n_rounds: int = 3,
+                device=None):
+    """The train workload's trainer and data, shared by its ranks and the
+    one-process run they are held to → ``(cfg, shape, TrainerConfig,
+    Optimizer, batch_fn)``: ``arch``'s full-width config cut to ``layers``
+    layers (0: its own depth), ``batch`` × ``seq`` tokens over ``n_fl`` FL
+    devices, half of them scheduled, policy pofl, sketch mode with
+    TRAIN_PROBES probes, σ_z² TRAIN_NOISE; ``sgd(TRAIN_SGD_LR)`` or
+    ``adamw(cosine_schedule(3e-4, n_rounds, warmup=2))``; round t's batch
+    taken from ``make_token_dataset`` as the reference's example takes it,
+    on ``device``."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.launch.dryrun import cut_depth
+    from repro_torch.launch.train import TrainerConfig
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.optimizers import adamw, cosine_schedule, sgd
+
+    cfg = cut_depth(configs.base_config(arch), layers or None)
+    shape = InputShape(f"train_{batch}x{seq}", seq, batch, "train")
+    tcfg = TrainerConfig(policy="pofl", n_scheduled=max(1, n_fl // 2), noise_power=TRAIN_NOISE,
+                         stats_mode="sketch", n_probes=TRAIN_PROBES, dtype=dtype)
+    opt = {"sgd": lambda: sgd(TRAIN_SGD_LR),
+           "adamw": lambda: adamw(cosine_schedule(3e-4, n_rounds, warmup=2))}[optimizer]()
+    dev = resolve_device(device)
+    corpus = make_token_dataset(batch * 8, seq, cfg.vocab_size,
+                                torch.Generator(device=dev).manual_seed(0))
+
+    def batch_fn(t):
+        idx = torch.arange(batch, device=dev) + (t * batch) % (batch * 7)
+        return {"tokens": corpus[idx]}
+
+    return cfg, shape, tcfg, opt, batch_fn
+
+
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a tree of dicts, lists and tuples."""
+    from repro_torch.launch.sharding import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def train_rounds(trainer, batch_fn, n_rounds: int):
+    """``n_rounds`` rounds from ``trainer.init_state(seed + 1)`` →
+    ``(params, opt_state, records, round_ms)``: records holds each
+    TRAIN_ROUND_FIELDS value a round (numpy, stacked over rounds), the
+    rounds timed on the host clock up to a synchronised device."""
+    params, opt_state = trainer.init_state(trainer.tcfg.seed + 1)
+    rows, round_ms = [], []
+    for t in range(n_rounds):
+        batch = batch_fn(t)
+        t0 = time.perf_counter()
+        params, opt_state, diag = trainer.train_round(params, opt_state, batch)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(diag)
+    records = {k: np.stack([np.asarray(r[k].detach().cpu()) for r in rows])
+               for k in TRAIN_ROUND_FIELDS}
+    return params, opt_state, records, round_ms
+
+
+def _worker_train(args) -> None:
+    """One rank of the train workload: ``POFLTrainer`` over a (data,
+    model) mesh of every rank, ``--model`` ranks a model group, on
+    TRAIN_BATCH × TRAIN_SEQ tokens over TRAIN_FL FL devices with ``sgd``,
+    ``--arch`` cut to ``--layers`` in ``--dtype``. Rank 0
+    writes the records and every rank's costs to ``--out`` (npz; the
+    costs as JSON under ``meta``); with ``--save-blocks`` each rank also
+    writes its final parameter blocks to ``<out>.rank<r>.pt``."""
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.train import POFLTrainer
+    from repro_torch.obs.registry import reset_metrics
+    from repro_torch.obs.spans import span_totals
+    from repro_torch.sim.multihost import ensure_process_group
+
+    ensure_process_group(device=args.device)
+    mesh = make_rank_mesh(model=args.model, n_fl=TRAIN_FL, device=args.device)
+    cfg, shape, tcfg, opt, batch_fn = train_setup(
+        args.arch, args.layers, TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ, "sgd", args.dtype,
+        args.n_rounds, args.device)
+    trainer = POFLTrainer(cfg, shape, mesh, tcfg, optimizer=opt)
+    counters = kernel_counters()
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    reset_metrics("span.ranks.")
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, args.n_rounds)
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    rank = dist.get_rank()
+    mine = {"rank": rank, "coordinates": mesh.coordinates(), "round_ms": round_ms,
+            "collective_s": {op: span_totals(f"ranks.{op}")["seconds"]
+                             for op in ("gather", "reduce", "broadcast")},
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(mesh.device)
+                                  if mesh.device.type == "cuda" else None),
+            "params_bytes": tensor_bytes(params), "opt_state_bytes": tensor_bytes(opt_state),
+            "launches": launches}
+    per_rank: list = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, mine)
+    meta = {"arch": args.arch, "n_layers": cfg.n_layers, "mesh": mesh.shape, "n_fl": TRAIN_FL,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_rounds": args.n_rounds,
+            "dtype": args.dtype, "backend": dist.get_backend(), "per_rank": per_rank}
+    print(f"[worker {rank}] train {json.dumps(mine)}", flush=True)
+    if args.out and args.save_blocks:
+        torch.save({k: v.cpu() for k, v in flat_tree(params).items()}, f"{args.out}.rank{rank}.pt")
+    if rank == 0 and args.out:
+        np.savez(args.out, meta=np.asarray(json.dumps(meta)), **records)
+    dist.destroy_process_group()
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A dict tree as ``{"a/b": leaf}``."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in flat_tree(v, f"{prefix}{k}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter: ``{name: (module, attribute)}``."""
+    from repro_torch.kernels.aircomp import kernel as aircomp
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.ssd import kernel as ssd
+
+    return {"aircomp_fused": (aircomp, "launches"),
+            "aircomp_fused_batch": (aircomp, "batch_launches"),
+            "flash_attention": (attn, "launches"), "ssd_scan": (ssd, "launches")}
+
+
 def _worker_argv(workload: str, **flags) -> list[str]:
     argv = [sys.executable, "-m", "repro_torch.launch.distributed", "--worker",
             "--workload", workload]
@@ -902,7 +1049,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--devices-per-proc", type=int, default=1, metavar="K",
                         help="devices a rank: 1 (the port runs one rank a device)")
     parser.add_argument("--workload", default="parity",
-                        choices=("parity", "bench", "resilient"),
+                        choices=("parity", "bench", "resilient", "train"),
                         help="built-in workload when no `-- command` is given")
     parser.add_argument("--out", default="",
                         help="rank-0 output path (npz for parity and resilient, json for bench)")
@@ -926,13 +1073,22 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--liveness-timeout", type=float, default=None,
                         help="supervisor: seconds of heartbeat silence (REPRO_OBS_DIR "
                              "mtimes) before a rank is killed and restarted")
+    parser.add_argument("--arch", default="qwen2-0.5b", help="train: the config's name")
+    parser.add_argument("--layers", type=int, default=0,
+                        help="train: the depth (0: the config's own)")
+    parser.add_argument("--model", type=int, default=1,
+                        help="train: ranks a model group (the rest are data ranks)")
+    parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                        help="train: the compute dtype (the masters are fp32)")
+    parser.add_argument("--save-blocks", action="store_true",
+                        help="train: every rank writes its final blocks to <out>.rank<r>.pt")
     parser.add_argument("--worker", action="store_true",
                         help=argparse.SUPPRESS)  # internal: run AS a worker
     args = parser.parse_args(argv)
 
     if args.worker:
         {"parity": _worker_parity, "resilient": _worker_resilient,
-         "bench": _worker_bench}[args.workload](args)
+         "bench": _worker_bench, "train": _worker_train}[args.workload](args)
         return
 
     if args.procs < 1:
@@ -955,9 +1111,13 @@ def main(argv: list[str] | None = None) -> None:
               f"(checkpoints under {ckpt_dir})")
         return
 
+    train = {} if args.workload != "train" else dict(
+        arch=args.arch, layers=args.layers, model=args.model, dtype=args.dtype)
     worker_argv = command or _worker_argv(
         args.workload, out=args.out or None, n_rounds=args.n_rounds, backend=args.backend,
-        device=args.device, cnn_rounds=args.cnn_rounds or None)
+        device=args.device, cnn_rounds=args.cnn_rounds or None, **train)
+    if command is None and args.save_blocks:
+        worker_argv.append("--save-blocks")
     results = run_workers(worker_argv, n_procs=args.procs,
                           devices_per_proc=args.devices_per_proc, timeout=args.timeout)
     sys.stdout.write(results[0].output)

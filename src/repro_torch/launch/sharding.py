@@ -1,32 +1,64 @@
-"""Parameter sharding rule (port of the first part of ``repro.launch.sharding``).
+"""Sharding rules: parameters (FSDP + tensor parallel), batches, caches and
+activations (port of ``repro.launch.sharding``).
 
-The reference's rule for a parameter leaf (DESIGN.md §5): the LAST dim
-divisible by |model| goes over ``"model"`` (tensor parallel), the largest
-remaining dim divisible by the batch ways over ``("pod", "data")`` (FSDP);
-leaves under ``MIN_SHARD_SIZE`` elements stay whole. A spec is a tuple with
-one entry a dim: ``None`` (whole), an axis name, or a tuple of axis names,
-as a ``jax.sharding.PartitionSpec`` lists them.
+Rules (DESIGN.md §5):
+  * params: last dim divisible by |model| → "model" (tensor parallel);
+    largest remaining dim divisible by |fsdp| → ("pod","data") (FSDP).
+    Leaves under a stacked layer axis skip their leading layer dim.
+  * activations/batches: batch dim over ("pod","data") when divisible.
+  * KV caches: batch over ("pod","data"), *sequence* over "model"
+    (flash-decoding style — uniform across archs regardless of kv_heads).
+  * SSM state: batch over ("pod","data"), heads over "model".
 
-The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (one rank a
-device). The lattice's ``("cells", "model")`` mesh has no batch axes, so
-it never shards a dim over them. The LM specs of the reference's module
-(``params_pspecs``, ``cache_pspecs``, ``activation_specs``,
-``moe_strategy``) come with the LM over ranks (ROADMAP queue A item 14.8).
+A spec is a tuple with one entry a dim: ``None`` (whole), an axis name, or
+a tuple of axis names, as a ``jax.sharding.PartitionSpec`` lists them. A
+mesh is read only through its axis names and sizes (``mesh_dim_names`` and
+``size(i)``, or ``axis_names`` and ``shape``), so the functions take the
+shape-only production mesh, a mesh of ranks and the lattice's
+``("cells", "model")`` ``DeviceMesh`` alike.
+
+:func:`to_shardings` gives each spec its :class:`Sharding`: the spec on
+its mesh, with a rank's block of a whole tensor (:meth:`Sharding.block`)
+and the whole tensor from the ranks' blocks (:meth:`Sharding.gather`).
+The port's eager layers apply no activation spec (there is no GSPMD to
+read one): :func:`activation_specs` is reported by the dry run and held by
+the tests.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
-from repro_torch.sim.multihost import axis_size
+import torch
+
+from repro_torch.models.cache import AttnCache, EncDecCache, HybridCache, SSMCache
 
 MIN_SHARD_SIZE = 4096  # leaves smaller than this stay whole
 
 _BATCH_AXES = ("pod", "data")
 
 
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis: size}`` of ``mesh``, in its axis order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return {a: int(n) for a, n in dict(mesh.shape).items()}
+    return {a: int(mesh.size(i)) for i, a in enumerate(names)}
+
+
 def _fsdp_axes(mesh) -> tuple[str, ...]:
     """The mesh axes that carry (FL-device ×) batch parallelism."""
-    return tuple(a for a in mesh.mesh_dim_names if a in _BATCH_AXES)
+    return tuple(a for a in axis_sizes(mesh) if a in _BATCH_AXES)
+
+
+def _fsdp_ways(mesh) -> int:
+    """The product of the batch axes' sizes (the reference's ``batch_ways``)."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in _fsdp_axes(mesh))
+
+
+def _model_size(mesh) -> int:
+    return axis_sizes(mesh)["model"]
 
 
 def param_spec(shape, mesh, skip_leading: int = 0) -> tuple:
@@ -37,9 +69,9 @@ def param_spec(shape, mesh, skip_leading: int = 0) -> tuple:
     if not dims or math.prod(shape[d] for d in dims) < MIN_SHARD_SIZE:
         return tuple(spec)
 
-    msize = int(mesh.size(mesh.mesh_dim_names.index("model")))
+    msize = _model_size(mesh)
     fax = _fsdp_axes(mesh)
-    fsize = math.prod(axis_size(mesh, a) for a in fax)
+    fsize = _fsdp_ways(mesh)
 
     model_dim = None
     for d in reversed(dims):
@@ -54,3 +86,333 @@ def param_spec(shape, mesh, skip_leading: int = 0) -> tuple:
         d = max(cands, key=lambda i: shape[i])
         spec[d] = fax if len(fax) > 1 else fax[0]
     return tuple(spec)
+
+
+_STACKED_KEYS = ("layers", "enc_layers")
+
+
+def _is_stacked(path) -> bool:
+    return any(k in _STACKED_KEYS for k in path)
+
+
+def _is_moe(path) -> bool:
+    return any(k == "moe" for k in path)
+
+
+def _path_leaf_name(path) -> str:
+    return str(path[-1])
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict, ``path`` its keys."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def moe_strategy(cfg, shape, mesh) -> str | None:
+    """"ep" (experts over "model") vs "dp" (groups over "model", expert
+    weights gathered): the reference's choice (its §Perf iteration 8). EP's
+    scatter/gather costs all-reduces of the full token tensor over the
+    model axis, so EP pays only when the expert weights outweigh the
+    dispatched tokens (big experts or few tokens, as in decode); training
+    keeps EP."""
+    if cfg.moe is None:
+        return None
+    msize = _model_size(mesh)
+    moe = cfg.moe
+    if moe.n_experts % msize:
+        return "dp"
+    if shape.kind == "train":
+        return "ep"
+    n_tok = shape.global_batch * (shape.seq_len if shape.kind == "prefill" else 1)
+    token_bytes = n_tok * moe.top_k * cfg.d_model * 4 * 2
+    weight_bytes = 3 * moe.n_experts * cfg.d_model * moe.d_ff_expert * 2 * 3
+    return "dp" if weight_bytes < token_bytes else "ep"
+
+
+def params_pspecs(params_shape, mesh, moe_mode: str | None = "ep"):
+    """The spec tree of a params (shape) tree.
+
+    Special cases: the embedding table shards VOCAB over "model" and d_model
+    over FSDP (and lm_head the transpose), so the output head contracts
+    into vocab-sharded logits locally. MoE expert weights (L, E, D, F)
+    follow ``moe_mode`` ("ep": E over "model"; "dp": model-replicated),
+    FSDP on the bigger of D and F either way.
+    """
+    msize = _model_size(mesh)
+    fax = _fsdp_axes(mesh)
+    fsize = _fsdp_ways(mesh)
+    f_axes = fax if len(fax) > 1 else fax[0]
+
+    def leaf_spec(path, leaf):
+        name = _path_leaf_name(path)
+        shape = tuple(leaf.shape)
+        if name == "embed" and len(shape) == 2:
+            v_ok = shape[0] % msize == 0
+            d_ok = shape[1] % fsize == 0
+            return ("model" if v_ok else None, f_axes if d_ok else None)
+        if name == "lm_head" and len(shape) == 2:
+            d_ok = shape[0] % fsize == 0
+            v_ok = shape[1] % msize == 0
+            return (f_axes if d_ok else None, "model" if v_ok else None)
+        if name in ("w_gate", "w_in", "w_out") and len(shape) == 4 and _is_moe(path):
+            e_ok = moe_mode == "ep" and shape[1] % msize == 0
+            d_dim = 2 if shape[2] >= shape[3] else 3
+            spec = [None, "model" if e_ok else None, None, None]
+            if shape[d_dim] % fsize == 0:
+                spec[d_dim] = f_axes
+            return tuple(spec)
+        return param_spec(shape, mesh, skip_leading=1 if _is_stacked(path) else 0)
+
+    return _map_with_path(leaf_spec, params_shape)
+
+
+def _batched(shape_b, mesh):
+    """Batch-dim spec entry: over ("pod","data") when divisible, else over
+    "data" alone when that divides, else whole."""
+    fax = _fsdp_axes(mesh)
+    if shape_b % _fsdp_ways(mesh) == 0:
+        return fax if len(fax) > 1 else fax[0]
+    sizes = axis_sizes(mesh)
+    if "data" in sizes and shape_b % sizes["data"] == 0:
+        return "data"
+    return None
+
+
+def batch_pspecs(batch_struct, mesh):
+    """Specs for a train/prefill batch dict {tokens, [embeds|frames]}."""
+    return {k: (_batched(v.shape[0], mesh),) + (None,) * (v.dim() - 1)
+            for k, v in batch_struct.items()}
+
+
+def _seq_spec(seq_len, mesh):
+    msize = _model_size(mesh)
+    return "model" if (seq_len % msize == 0 and seq_len >= msize) else None
+
+
+def cache_pspecs(cache_struct, mesh):
+    """Specs for decode caches (AttnCache / SSMCache / Hybrid / EncDec)."""
+    msize = _model_size(mesh)
+
+    def attn_specs(c: AttnCache):
+        _, b, s, _, _ = c.k.shape
+        kvspec = (None, _batched(b, mesh), _seq_spec(s, mesh), None, None)
+        return AttnCache(k=kvspec, v=kvspec, pos=(None,))
+
+    def ssm_specs(c: SSMCache):
+        _, b, h, _, _ = c.state.shape
+        bs = _batched(b, mesh)
+        hs = "model" if h % msize == 0 else None
+        cs = "model" if c.conv.shape[-1] % msize == 0 else None
+        return SSMCache(state=(None, bs, hs, None, None), conv=(None, bs, None, cs))
+
+    if isinstance(cache_struct, HybridCache):
+        return HybridCache(ssm=ssm_specs(cache_struct.ssm), attn=attn_specs(cache_struct.attn))
+    if isinstance(cache_struct, EncDecCache):
+        _, b, s_enc, _, _ = cache_struct.cross_k.shape
+        xs = (None, _batched(b, mesh), _seq_spec(s_enc, mesh), None, None)
+        return EncDecCache(self_attn=attn_specs(cache_struct.self_attn), cross_k=xs,
+                           cross_v=xs)
+    if isinstance(cache_struct, SSMCache):
+        return ssm_specs(cache_struct)
+    return attn_specs(cache_struct)
+
+
+def activation_specs(cfg, shape, mesh) -> dict:
+    """Shardings of the reference's named activation cut-points.
+
+    residual: attention-family archs shard the SEQUENCE over "model"
+    (sequence parallelism); SSM/hybrid archs shard d_model instead (the SSD
+    chunk scan iterates the sequence). moe_buffer: expert dim over "model"
+    ("ep") or groups over every axis ("dp"). Decode steps get only
+    moe_buffer. The port's eager layers do not apply them.
+    """
+    from repro_torch.models.layers import _moe_group_size
+
+    msize = _model_size(mesh)
+    bt = _batched(shape.global_batch, mesh)
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        dspec = "model" if cfg.d_model % msize == 0 else None
+        if cfg.arch_type in ("ssm", "hybrid"):
+            out["residual"] = (bt, None, dspec)
+        else:
+            sspec = "model" if shape.seq_len % msize == 0 else None
+            out["residual"] = (bt, sspec, None)
+        out["ce_input"] = (bt, None, dspec)
+    if cfg.moe is not None:
+        if shape.kind in ("train", "prefill"):
+            n_tok = shape.global_batch * shape.seq_len
+        else:
+            n_tok = shape.global_batch
+        n_groups = n_tok // _moe_group_size(n_tok)
+        ways = _fsdp_ways(mesh)
+        if moe_strategy(cfg, shape, mesh) == "dp":
+            full = ways * msize
+            if n_groups % full == 0 and n_groups >= full:
+                gspec = tuple(axis_sizes(mesh))
+            elif n_groups % ways == 0 and n_groups >= ways:
+                gspec = bt
+            else:
+                gspec = None
+            out["moe_buffer"] = (gspec, None, None, None)
+        else:
+            gspec = bt if (n_groups % ways == 0 and n_groups >= ways) else None
+            espec = "model" if cfg.moe.n_experts % msize == 0 else None
+            out["moe_buffer"] = (gspec, espec, None, None)
+    return {k: Sharding(mesh, v) for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# a spec on its mesh
+# --------------------------------------------------------------------------
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _is_spec(x) -> bool:
+    """A spec: a plain tuple of ``None``, axis names and tuples of them (a
+    cache's NamedTuple of specs is a container, not a spec)."""
+    return type(x) is tuple and all(
+        e is None or isinstance(e, str) or (type(e) is tuple and all(isinstance(a, str)
+                                                                     for a in e))
+        for e in x)
+
+
+def _map_specs(fn, tree):
+    """``fn(spec)`` over every spec of a tree of dicts, lists, NamedTuples
+    and ``None`` (kept as ``None``)."""
+    if tree is None:
+        return None
+    if _is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, v) for v in tree)
+    raise TypeError(f"not a spec tree: {type(tree).__name__}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on its mesh (the port's ``NamedSharding``).
+
+    A dim whose entry names axes is split evenly over the product of their
+    sizes, the first axis major, as JAX lays it out; a rank's block along
+    it is its place on those axes. On a mesh of ranks
+    (:class:`repro_torch.launch.mesh.RankMesh`) :meth:`block` cuts this
+    rank's block and :meth:`gather` rebuilds the whole tensor; on the
+    shape-only production mesh only :meth:`block_shape` applies.
+    """
+
+    mesh: object
+    spec: tuple
+
+    def _ways(self, entry) -> int:
+        sizes = axis_sizes(self.mesh)
+        return math.prod(sizes[a] for a in _entry_axes(entry))
+
+    def block_shape(self, shape) -> tuple[int, ...]:
+        """A rank's block of a whole tensor of ``shape`` (every split dim
+        must divide: the spec functions only split dims that do)."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more dims than shape {shape}")
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            ways = self._ways(entry)
+            if shape[d] % ways:
+                raise ValueError(f"dim {d} of {shape} does not split {ways} ways ({self.spec})")
+            out[d] = shape[d] // ways
+        return tuple(out)
+
+    def replicated(self) -> bool:
+        return all(self._ways(e) == 1 for e in self.spec)
+
+    def index(self, coords: dict, shape) -> tuple:
+        """The index of the block at mesh ``coords`` (``{axis: place}``) in
+        a whole tensor of ``shape``."""
+        sizes = axis_sizes(self.mesh)
+        index = []
+        for d, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            k = 0
+            for a in axes:
+                k = k * sizes[a] + coords[a]
+            n = shape[d] // self._ways(entry)
+            index.append(slice(k * n, (k + 1) * n))
+        return tuple(index)
+
+    def block(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``whole``: a contiguous copy, or ``whole``
+        itself where the spec splits nothing."""
+        self.block_shape(whole.shape)
+        if self.replicated():
+            return whole
+        return whole[self.index(self.mesh.coordinates(), whole.shape)].clone(
+            memory_format=torch.contiguous_format)
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's ``block`` (a collective over
+        the mesh's ranks; ``block`` itself where nothing is split).
+
+        NCCL, and gloo on the CPU, all-gather the blocks. gloo takes no
+        all-gather of a CUDA tensor, so there each rank writes its block
+        into a zero-filled whole (only one rank of a group that holds the
+        same block: the one at place 0 on every axis the spec does not
+        name) and the wholes are summed by an all-reduce: exact, at twice
+        the all-gather's wire bytes.
+        """
+        if self.replicated():
+            return block
+        import torch.distributed as dist
+
+        sizes = axis_sizes(self.mesh)
+        whole_shape = tuple(n * self._ways(e) for n, e in
+                            zip(block.shape, self.spec + (None,) * (block.dim() - len(self.spec))))
+        named = {a for e in self.spec for a in _entry_axes(e)}
+        with self.mesh.collective("gather"):
+            if self.mesh.backend == "nccl" or block.device.type == "cpu":
+                parts = [torch.empty_like(block) for _ in range(self.mesh.n_ranks)]
+                dist.all_gather(parts, block.contiguous())
+                whole = torch.empty(whole_shape, dtype=block.dtype, device=block.device)
+                for rank, part in enumerate(parts):
+                    whole[self.index(self.mesh.coordinates(rank), whole_shape)] = part
+            else:
+                whole = torch.zeros(whole_shape, dtype=block.dtype, device=block.device)
+                coords = self.mesh.coordinates()
+                if all(coords[a] == 0 for a in sizes if a not in named):
+                    whole[self.index(coords, whole_shape)] = block
+                dist.all_reduce(whole)
+        return whole
+
+
+def to_shardings(pspecs, mesh):
+    """Each spec of a spec tree as its :class:`Sharding` on ``mesh``."""
+    return _map_specs(lambda s: Sharding(mesh, s), pspecs)
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree of dicts (keys sorted), lists and tuples
+    (NamedTuples too), ``None`` dropped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def sharded_bytes(structs, shardings) -> int:
+    """One rank's bytes of a tree of tensors (meta or real, whole shapes)
+    laid out by the matching tree of :class:`Sharding`."""
+    return sum(math.prod(sh.block_shape(x.shape)) * x.element_size()
+               for x, sh in zip(leaves(structs), leaves(shardings), strict=True))

@@ -1,21 +1,41 @@
 """The LM's step functions: train_step / stats_step / prefill_step / serve_step.
 
-Port of ``repro.launch.steps`` for one card. Each ``build_*`` returns a
+Port of ``repro.launch.steps``. Each ``build_*`` returns a
 :class:`StepBundle` ``(fn, arg_structs, in_shardings, out_shardings)``:
-``fn`` is a plain function (eager PyTorch, nothing compiled),
+``fn`` is a plain function (eager PyTorch, nothing compiled) and
 ``arg_structs`` are meta-device tensors of its arguments (shapes and
-types, no storage: :func:`repro_torch.configs.input_specs`), and the
-shardings are ``None``: one card holds everything whole.
+types, no storage: :func:`repro_torch.configs.input_specs`). The
+shardings depend on the mesh (:mod:`repro_torch.launch.mesh`):
+
+  * one card (``HostMesh``): ``None``, everything whole;
+  * the shape-only production mesh: the reference's layout
+    (:mod:`repro_torch.launch.sharding`: ``params_pspecs``, ``opt_pspecs``,
+    ``batch_pspecs``, ``cache_pspecs`` through ``to_shardings``), which
+    the dry run reads; ``fn`` is the global step, whole tensors in and out;
+  * a mesh of ranks (``RankMesh``): the same layout, and ``fn`` takes and
+    returns THIS rank's blocks (the train and stats steps; serving over
+    ranks is not ported).
 
 PO-FL at model scale:
   * FL device = one slice of the global batch, FL-device-major: examples
     ``d · b/n_fl … (d + 1) · b/n_fl − 1`` are device d's; n_fl =
-    :func:`repro_torch.launch.mesh.batch_ways`.
+    :func:`repro_torch.launch.mesh.batch_ways`. Over ranks, data rank r
+    holds FL devices r·n_fl/R … (r + 1)·n_fl/R − 1 and their examples.
   * The AirComp weighted superposition Σ_d c_d · g_d is realised as
     per-example loss weights c_d · n_fl: the mean gradient over the batch
-    then equals the PO-FL aggregate.
+    then equals the PO-FL aggregate (over ranks: the mean over the data
+    ranks of each rank's mean gradient).
   * Receiver noise (Eq. 16): ν · z added to every gradient leaf after the
     backward, ν = √V_g / a · σ_z from the round's schedule and channel.
+
+A train step over ranks, on each rank: gather the whole fp32 masters,
+run the weighted backward on its data rank's slice of the batch, all-reduce
+the gradients (and the loss) over the data ranks and divide by their
+count, keep this rank's block, add ν·z on the block and run the optimizer
+on the blocks. Ranks along "model" store their blocks by the spec but
+compute the same gradients whole (no tensor-parallel compute). The
+collectives are plain ``torch.distributed`` calls that run on NCCL and
+gloo (:meth:`repro_torch.launch.sharding.Sharding.gather`).
 
 Gradients come from ``torch.autograd.grad`` (``torch.func.grad`` refuses
 the checkpoints of ``remat`` and the chunked CE), the statistics from
@@ -30,7 +50,10 @@ import torch
 from repro_torch import configs
 from repro_torch.core.sketch import sketch_device_stats
 from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
-from repro_torch.launch.mesh import batch_ways
+from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways
+from repro_torch.launch.sharding import (
+    Sharding, batch_pspecs, cache_pspecs, moe_strategy, params_pspecs, to_shardings,
+)
 from repro_torch.models import api, encdec, transformer
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim.optimizers import OptState, Optimizer, adamw
@@ -39,7 +62,7 @@ from repro_torch.optim.optimizers import OptState, Optimizer, adamw
 class StepBundle(NamedTuple):
     fn: object            # the step function
     arg_structs: dict     # meta tensors of its keyword arguments
-    in_shardings: object  # None on one card
+    in_shardings: object  # None on one card, else a Sharding tree an argument
     out_shardings: object
 
 
@@ -56,16 +79,69 @@ def opt_structs(optimizer: Optimizer, p_structs):
 
 
 def opt_pspecs(p_specs, o_structs):
-    """The optimizer state's specs mirror the parameters' (on one card every
-    spec is ``None``)."""
+    """The optimizer state's specs mirror the parameters' (FSDP: mu and nu
+    shard with p); the step count is replicated."""
     mu = p_specs if o_structs.mu is not None else None
     nu = p_specs if o_structs.nu is not None else None
-    return OptState(step=None, mu=mu, nu=nu)
+    return OptState(step=(), mu=mu, nu=nu)
+
+
+def _param_specs(cfg, shape, mesh):
+    return params_pspecs(params_structs(cfg), mesh, moe_strategy(cfg, shape, mesh))
+
+
+def _replicated(structs, mesh):
+    """A whole-on-every-rank Sharding for each tensor of a dict tree."""
+    return tree_map(lambda x: Sharding(mesh, (None,) * x.dim()), structs)
 
 
 def _cast(params, dtype):
     """The float32 leaves cast to ``dtype`` (the compute weights)."""
     return tree_map(lambda x: x.to(dtype) if x.dtype == torch.float32 else x, params)
+
+
+def gather_params(blocks, shardings):
+    """The whole parameters from every rank's blocks (one gather a leaf)."""
+    return tree_unflatten(blocks, [sh.gather(x) for x, sh in
+                                   zip(tree_leaves(blocks), tree_leaves(shardings))])
+
+
+def block_of(whole, shardings):
+    """This rank's blocks of a whole dict tree."""
+    return tree_unflatten(whole, [sh.block(x) for x, sh in
+                                  zip(tree_leaves(whole), tree_leaves(shardings))])
+
+
+class _RankSlice(NamedTuple):
+    """A data rank's FL devices: ``lo … lo + n_local − 1`` of ``n_fl``."""
+
+    data_ranks: int
+    lo: int
+    n_local: int
+
+
+def _rank_slice(mesh: RankMesh, cfg: ModelConfig) -> _RankSlice:
+    """This rank's FL devices. A MoE model routes its tokens in groups of
+    the batch and adds the batch's load-balance loss; over several data
+    ranks both would be each rank's, not the batch's, so it trains over
+    model ranks only."""
+    r_data = mesh.shape["data"]
+    if cfg.moe is not None and r_data > 1:
+        raise ValueError(f"{cfg.name}: a MoE model trains over model ranks only (its routing "
+                         f"groups and aux loss span the whole batch), not {r_data} data ranks")
+    n_local = mesh.n_fl // r_data
+    return _RankSlice(r_data, mesh.coordinates()["data"] * n_local, n_local)
+
+
+def _mean_over_data(x: torch.Tensor, mesh: RankMesh, r_data: int) -> torch.Tensor:
+    """The mean of ``x`` over the data ranks (in place; every rank gets it)."""
+    import torch.distributed as dist
+
+    if r_data == 1:
+        return x
+    with mesh.collective("reduce"):
+        dist.all_reduce(x, group=mesh.get_group("data"))
+    return x.div_(r_data)
 
 
 # --------------------------------------------------------------------------
@@ -96,6 +172,44 @@ def add_noise(grads, noise_amp: torch.Tensor, z):
                                   for g, zl in zip(tree_leaves(grads), tree_leaves(z))])
 
 
+def _weighted_grads(cfg, dtype, remat, n_micro):
+    """``fn(params, batch, w, n_dev) → (loss, grads list)``: the weighted
+    loss of a batch of ``n_dev`` FL devices (FL-device-major) and its
+    gradients in sorted-key leaf order. With microbatches the batch is
+    interleaved so every microbatch holds b/(m · n_dev) examples of every
+    FL device, and the grads (and the loss) are averaged over them."""
+
+    def run(params, batch, w, n_dev):
+        b = w.shape[0]
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
+        leaves = tree_leaves(p)
+
+        def loss_grads(mb, mw):
+            loss, aux = api.model_loss(_cast(p, dtype), cfg, mb, dtype=dtype, remat=remat,
+                                       loss_weights=mw)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        if n_micro == 1:
+            return loss_grads(batch, w)
+
+        def to_micro(x):
+            per = b // n_dev
+            x = x.reshape((n_dev, n_micro, per // n_micro) + tuple(x.shape[1:]))
+            return x.movedim(1, 0).reshape((n_micro, b // n_micro) + tuple(x.shape[3:]))
+
+        mbs = {k: to_micro(v) for k, v in batch.items()}
+        mws = to_micro(w)
+        grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in leaves]
+        loss = torch.zeros((), device=w.device)
+        for i in range(n_micro):
+            l_i, g_i = loss_grads({k: v[i] for k, v in mbs.items()}, mws[i])
+            grads = [acc + g for acc, g in zip(grads, g_i)]
+            loss = loss + l_i
+        return loss / n_micro, [g / n_micro for g in grads]
+
+    return run
+
+
 def build_train_step(
     cfg: ModelConfig,
     shape: InputShape,
@@ -112,9 +226,10 @@ def build_train_step(
     params, :func:`add_noise`) and the optimizer's update.
 
     The weights are fp32 masters; the differentiated function casts them
-    to ``dtype`` inside, so the grads arrive in fp32. With microbatches the
-    batch is interleaved so every microbatch holds b/(m · n_fl) examples of
-    every FL device, and the grads (and the loss) are averaged over them.
+    to ``dtype`` inside, so the grads arrive in fp32. On a mesh of ranks
+    ``params``, ``opt_state``, ``batch`` and ``noise`` are this rank's
+    blocks (``in_shardings``) and so are the new params and state; the
+    loss is the whole batch's.
     """
     n_fl = batch_ways(mesh)
     batch_struct = configs.input_specs(cfg, shape, dtype)["batch"]
@@ -125,55 +240,67 @@ def build_train_step(
     if b % (n_micro * n_fl):
         raise ValueError(f"global batch {b} does not split into {n_micro} microbatches "
                          f"of {n_fl} FL devices")
+    grads_of = _weighted_grads(cfg, dtype, remat, n_micro)
 
-    def to_micro(x):
-        per = b // n_fl
-        x = x.reshape((n_fl, n_micro, per // n_micro) + tuple(x.shape[1:]))
-        return x.movedim(1, 0).reshape((n_micro, b // n_micro) + tuple(x.shape[3:]))
+    p_structs = params_structs(cfg)
+    o_structs = opt_structs(optimizer, p_structs)
+    meta = torch.device("meta")
+    arg_structs = dict(
+        params=p_structs,
+        opt_state=o_structs,
+        batch=batch_struct,
+        coeffs=torch.empty((n_fl,), device=meta),
+        noise_amp=torch.empty((), device=meta),
+        noise=p_structs,
+    )
 
     def train_step(params, opt_state, batch, coeffs, noise_amp, noise):
         # per-example weights: examples of FL device d get c_d · n_fl, so the
         # mean gradient over the batch is Σ_d c_d · g_d (the PO-FL aggregate)
         w = torch.repeat_interleave(coeffs * n_fl, b // n_fl)
-        p = tree_map(lambda x: x.detach().requires_grad_(), params)
-        leaves = tree_leaves(p)
-
-        def loss_grads(mb, mw):
-            loss, aux = api.model_loss(_cast(p, dtype), cfg, mb, dtype=dtype, remat=remat,
-                                       loss_weights=mw)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
-
-        if n_micro == 1:
-            loss, grads = loss_grads(batch, w)
-        else:
-            mbs = {k: to_micro(v) for k, v in batch.items()}
-            mws = to_micro(w)
-            grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-                     for x in leaves]
-            loss = torch.zeros((), device=w.device)
-            for i in range(n_micro):
-                l_i, g_i = loss_grads({k: v[i] for k, v in mbs.items()}, mws[i])
-                grads = [acc + g for acc, g in zip(grads, g_i)]
-                loss = loss + l_i
-            grads = [g / n_micro for g in grads]
-            loss = loss / n_micro
+        loss, grads = grads_of(params, batch, w, n_fl)
         grads = tree_unflatten(params, grads)
         if aircomp_noise:
             grads = add_noise(grads, noise_amp, noise)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         return new_params, new_opt, loss
 
-    p_structs = params_structs(cfg)
-    meta = torch.device("meta")
-    arg_structs = dict(
-        params=p_structs,
-        opt_state=opt_structs(optimizer, p_structs),
-        batch=batch_struct,
-        coeffs=torch.empty((n_fl,), device=meta),
-        noise_amp=torch.empty((), device=meta),
-        noise=p_structs,
+    if isinstance(mesh, HostMesh):
+        return StepBundle(train_step, arg_structs, None, None)
+
+    p_specs = _param_specs(cfg, shape, mesh)
+    p_sh = to_shardings(p_specs, mesh)
+    in_sh = dict(
+        params=p_sh,
+        opt_state=to_shardings(opt_pspecs(p_specs, o_structs), mesh),
+        batch=to_shardings(batch_pspecs(batch_struct, mesh), mesh),
+        coeffs=Sharding(mesh, (None,)),
+        noise_amp=Sharding(mesh, ()),
+        noise=p_sh,
     )
-    return StepBundle(train_step, arg_structs, None, None)
+    out_sh = (in_sh["params"], in_sh["opt_state"], Sharding(mesh, ()))
+    if not isinstance(mesh, RankMesh):
+        return StepBundle(train_step, arg_structs, in_sh, out_sh)
+
+    part = _rank_slice(mesh, cfg)
+    b_local = b // part.data_ranks
+
+    def rank_train_step(params, opt_state, batch, coeffs, noise_amp, noise):
+        whole = gather_params(params, p_sh)
+        local = coeffs[part.lo:part.lo + part.n_local]
+        w = torch.repeat_interleave(local * n_fl, b_local // part.n_local)
+        loss, grads = grads_of(whole, batch, w, part.n_local)
+        del whole
+        loss = _mean_over_data(loss.clone(), mesh, part.data_ranks)
+        grads = [sh.block(_mean_over_data(g, mesh, part.data_ranks))
+                 for g, sh in zip(grads, tree_leaves(p_sh))]
+        grads = tree_unflatten(params, grads)
+        if aircomp_noise:
+            grads = add_noise(grads, noise_amp, noise)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        return new_params, new_opt, loss
+
+    return StepBundle(rank_train_step, arg_structs, in_sh, out_sh)
 
 
 # --------------------------------------------------------------------------
@@ -194,22 +321,48 @@ def build_stats_step(
     per-example losses reshaped to (n_fl, b / n_fl) and averaged. ``probes``
     is a list of ``n_probes`` param-shaped dicts. ``remat`` is passed on, but forward mode takes no
     backward, so the model runs its layers and CE chunks as plain calls
-    (``models.transformer.remat_call``): the same values either way."""
+    (``models.transformer.remat_call``): the same values either way.
+
+    On a mesh of ranks ``params`` and ``batch`` are this rank's blocks and
+    the probes whole: each data rank sketches its own FL devices on the
+    whole parameters, and the three (n_fl,) results are gathered in FL
+    order."""
     n_fl = batch_ways(mesh)
     batch_struct = configs.input_specs(cfg, shape, dtype)["batch"]
     b = batch_struct["tokens"].shape[0]
 
-    def stats_step(params, batch, probes):
+    def sketch(params, batch, probes, n_dev):
         def per_device_loss(p):
             per_ex, _ = api.model_loss(p, cfg, batch, dtype=dtype, remat=remat, reduce=False)
-            return per_ex.reshape(n_fl, b // n_fl).mean(dim=1)
+            return per_ex.reshape(n_dev, -1).mean(dim=1)
 
-        s = sketch_device_stats(per_device_loss, params, probes)
+        return sketch_device_stats(per_device_loss, params, probes)
+
+    def stats_step(params, batch, probes):
+        s = sketch(params, batch, probes, n_fl)
         return s.mean, s.var, s.norm
 
     p_structs = params_structs(cfg)
     arg_structs = dict(params=p_structs, batch=batch_struct, probes=[p_structs] * n_probes)
-    return StepBundle(stats_step, arg_structs, None, None)
+    if isinstance(mesh, HostMesh):
+        return StepBundle(stats_step, arg_structs, None, None)
+
+    p_sh = to_shardings(_param_specs(cfg, shape, mesh), mesh)
+    in_sh = dict(params=p_sh, batch=to_shardings(batch_pspecs(batch_struct, mesh), mesh),
+                 probes=[_replicated(p_structs, mesh)] * n_probes)
+    out_sh = (Sharding(mesh, (None,)),) * 3
+    if not isinstance(mesh, RankMesh):
+        return StepBundle(stats_step, arg_structs, in_sh, out_sh)
+
+    part = _rank_slice(mesh, cfg)
+    by_fl = Sharding(mesh, (None, "data"))  # (3, n_fl): the FL devices over the data ranks
+
+    def rank_stats_step(params, batch, probes):
+        s = sketch(gather_params(params, p_sh), batch, probes, part.n_local)
+        mean, var, norm = by_fl.gather(torch.stack([s.mean, s.var, s.norm]))
+        return mean, var, norm
+
+    return StepBundle(rank_stats_step, arg_structs, in_sh, out_sh)
 
 
 # --------------------------------------------------------------------------
@@ -217,25 +370,36 @@ def build_stats_step(
 # --------------------------------------------------------------------------
 
 
+def _serving_mesh(mesh) -> bool:
+    """Whether a serving step lays its arguments out by the specs (the
+    production mesh) or holds them whole (one card: a ``HostMesh``, or no
+    mesh); serving over ranks is not ported."""
+    if isinstance(mesh, RankMesh):
+        raise ValueError("serving over ranks is not ported: serve on one card (a HostMesh)")
+    return mesh is not None and not isinstance(mesh, HostMesh)
+
+
 def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
                        dtype=torch.bfloat16) -> StepBundle:
     """``fn(params, batch) → (last-position logits, cache)``, every float32
     leaf cast to ``dtype`` first."""
-    del mesh
 
     def prefill_step(params, batch):
         return api.model_prefill(_cast(params, dtype), cfg, batch, dtype)
 
     arg_structs = dict(params=params_structs(cfg),
                        batch=configs.input_specs(cfg, shape, dtype)["batch"])
-    return StepBundle(prefill_step, arg_structs, None, None)
+    if not _serving_mesh(mesh):
+        return StepBundle(prefill_step, arg_structs, None, None)
+    in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh),
+                 batch=to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh))
+    return StepBundle(prefill_step, arg_structs, in_sh, None)
 
 
 def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
                      dtype=torch.bfloat16) -> StepBundle:
     """One decode step, ``fn(params, token, cache, t) → (next greedy token
     (B, 1), cache)``, against a seq_len-deep cache updated in place."""
-    del mesh
     specs = configs.input_specs(cfg, shape, dtype)
 
     def serve_step(params, token, cache, t):
@@ -244,7 +408,13 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
 
     arg_structs = dict(params=params_structs(cfg), token=specs["token"], cache=specs["cache"],
                        t=specs["t"])
-    return StepBundle(serve_step, arg_structs, None, None)
+    if not _serving_mesh(mesh):
+        return StepBundle(serve_step, arg_structs, None, None)
+    tok = Sharding(mesh, batch_pspecs({"token": specs["token"]}, mesh)["token"])
+    cache_sh = to_shardings(cache_pspecs(specs["cache"], mesh), mesh)
+    in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh), token=tok,
+                 cache=cache_sh, t=Sharding(mesh, ()))
+    return StepBundle(serve_step, arg_structs, in_sh, (tok, cache_sh))
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, dtype=torch.bfloat16,

@@ -1,7 +1,11 @@
-"""PO-FL trainer: Algorithm 1 at model scale on one card.
+"""PO-FL trainer: Algorithm 1 at model scale, on one card or over ranks.
 
 Port of ``repro.launch.train``. Each FL device is a slice of the global
-batch (:mod:`repro_torch.launch.mesh`). A round:
+batch (:mod:`repro_torch.launch.mesh`): on one card (``HostMesh``) every
+slice is computed in one process; on a ``RankMesh`` each data rank
+computes its FL devices' slices and holds its blocks of the fp32 masters
+and the optimizer state by their specs (:mod:`repro_torch.launch.steps`).
+A round:
 
   1. per-FL-device gradient stats (M_i, V_i, ‖g_i‖), ``stats_mode``:
        "sketch": JVP-sketched (:mod:`repro_torch.core.sketch`), k + 1
@@ -17,16 +21,24 @@ batch (:mod:`repro_torch.launch.mesh`). A round:
 
 Every random value of a round comes from one draws object
 (:class:`TrainerDraws`): the sketch's probes, the channel h, the sampler's
-Gumbel vectors and the noise leaves. By default it draws them from the
-trainer's own ``torch.Generator``; a test hands in one that replays another
-stream. The round's steps run in ``torch.profiler.record_function``
-ranges ``train.stats``, ``train.schedule`` and ``train.step``.
+Gumbel vectors and the noise leaves, all whole-shaped. By default it draws
+them from the trainer's own ``torch.Generator``; a test hands in one that
+replays another stream. Over ranks every rank draws the same values from
+the same seed, and the schedule (coeffs, ν, e_com, a, |S|) is broadcast
+from rank 0, so no two ranks can take different decisions. The round's
+steps run in ``torch.profiler.record_function`` ranges ``train.stats``,
+``train.schedule`` and ``train.step``.
 
     python -m repro_torch.launch.train --rounds 30
 
 runs what the reference's ``examples/train_pofl_lm.py`` runs, with its
 flags and defaults (and ``--fl-devices``, the FL device count the
-reference takes from its host's device count, and ``--device``).
+reference takes from its host's device count, and ``--device``). Under the
+launcher's env contract (``REPRO_DIST_*``, or torchrun's) it trains over
+the process group's ranks, ``--model`` ranks a model group:
+
+    python -m repro_torch.launch.distributed --procs 2 -- \\
+        python -m repro_torch.launch.train --device cpu --rounds 4 --model 1
 """
 from __future__ import annotations
 
@@ -43,8 +55,8 @@ from torch.profiler import record_function
 from repro_torch.core import aircomp, scheduling
 from repro_torch.core.channel import ChannelConfig, ChannelState
 from repro_torch.core.sketch import draw_probes
-from repro_torch.launch.mesh import batch_ways
-from repro_torch.launch.steps import build_stats_step, build_train_step
+from repro_torch.launch.mesh import RankMesh, batch_ways
+from repro_torch.launch.steps import block_of, build_stats_step, build_train_step, params_structs
 from repro_torch.models import api
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim.optimizers import Optimizer, adamw
@@ -91,6 +103,18 @@ class TrainerDraws:
         return draw_probes(params, 1, self.generator)[0]
 
 
+def _agree(mesh: RankMesh, values: list) -> list:
+    """``values`` (tensors on the mesh's device) as rank 0 has them: one
+    float64 broadcast, each value back in its own dtype and shape."""
+    import torch.distributed as dist
+
+    flat = torch.cat([v.reshape(-1).to(torch.float64) for v in values])
+    with mesh.collective("broadcast"):
+        dist.broadcast(flat, src=0)
+    parts = torch.split(flat, [v.numel() for v in values])
+    return [p.reshape(v.shape).to(v.dtype) for p, v in zip(parts, values)]
+
+
 class POFLTrainer:
     """Stateful trainer wiring the schedule, the channel and the steps."""
 
@@ -125,20 +149,31 @@ class POFLTrainer:
             self.generator,
         )
         self.data_frac = torch.full((self.n_fl,), 1.0 / self.n_fl, device=self.device)
+        # over ranks the draws are whole-shaped (every rank the same) and
+        # the steps take this rank's blocks
+        self.ranks = isinstance(mesh, RankMesh)
+        self.whole = params_structs(cfg) if self.ranks else None
         # the reference's count, which leaves out the QKV bias and the final
         # norm (ROADMAP C): Eq. 34/35 read it
         self.dim = self.cfg.param_count()
         self._loss_stats = None  # "loss" mode's stats: never refreshed, as in the reference
 
     def init_state(self, seed: int):
-        """Fresh fp32 parameters from ``seed`` and their optimizer state."""
+        """Fresh fp32 parameters from ``seed`` and their optimizer state
+        (over ranks: this rank's blocks of both)."""
         params = api.model_init(self.cfg, seed, device=self.device)
+        if self.ranks:
+            params = block_of(params, self.train_bundle.in_shardings["params"])
         return params, self.optimizer.init(params)
+
+    def _shapes(self, params):
+        """What the draws are shaped like: the whole parameters."""
+        return self.whole if self.ranks else params
 
     def _round_stats(self, params, batch):
         t = self.tcfg
         if t.stats_mode == "sketch":
-            probes = self.draws.probes(params, t.n_probes)
+            probes = self.draws.probes(self._shapes(params), t.n_probes)
             mean, var, norm = self.stats_bundle.fn(params, batch, probes)
             return aircomp.GradStats(mean=mean, var=var, norm=norm)
         per_dev = self._loss_stats
@@ -168,18 +203,31 @@ class POFLTrainer:
         e_com = aircomp.distortion_closed_form(
             v_g, rho, h_abs, sched.mask, self.dim, t.tx_power, t.noise_power)
         coeffs = (rho * sched.mask).float()
-        return coeffs, noise_amp.float(), {"e_com": e_com, "a": a,
-                                           "n_scheduled": sched.mask.sum()}
+        out = [coeffs, noise_amp.float(), e_com, a, sched.mask.sum()]
+        if self.ranks:
+            out = _agree(self.mesh, out)
+        coeffs, noise_amp, e_com, a, n_scheduled = out
+        return coeffs, noise_amp, {"e_com": e_com, "a": a, "n_scheduled": n_scheduled}
 
     def train_round(self, params, opt_state, batch):
+        """One round on the global ``batch`` (over ranks every rank passes
+        the same batch and its own blocks of params and opt_state) →
+        ``(params, opt_state, diag)``: diag holds the schedule's ``e_com``,
+        ``a``, ``n_scheduled``, ``coeffs`` and ``noise_amp``, and the
+        weighted ``loss``."""
+        if self.ranks:
+            batch = block_of(batch, self.train_bundle.in_shardings["batch"])
         with record_function("train.stats"):
             stats = self._round_stats(params, batch)
         with record_function("train.schedule"):
             coeffs, noise_amp, diag = self.schedule_round(stats)
         with record_function("train.step"):
+            noise = self.draws.noise(self._shapes(params))
+            if self.ranks:
+                noise = block_of(noise, self.train_bundle.in_shardings["noise"])
             params, opt_state, loss = self.train_bundle.fn(
-                params, opt_state, batch, coeffs, noise_amp, self.draws.noise(params))
-        diag["loss"] = loss
+                params, opt_state, batch, coeffs, noise_amp, noise)
+        diag.update(loss=loss, coeffs=coeffs, noise_amp=noise_amp)
         return params, opt_state, diag
 
 
@@ -207,12 +255,42 @@ def run_training(
     return params, opt_state, np.asarray(losses)
 
 
+def _join_ranks(device=None) -> bool:
+    """Join the process group the env names: the launcher's
+    (``REPRO_DIST_*``, :func:`repro_torch.sim.multihost.initialize_distributed`)
+    or torchrun's (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``; its agent hosts the rendezvous store at
+    ``MASTER_ADDR:MASTER_PORT``). False when neither is set."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.sim.multihost import INIT_TIMEOUT, default_backend, initialize_distributed
+
+    if initialize_distributed(device=device):
+        return True
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if torch.cuda.is_available() and not cpu:
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(default_backend(int(os.environ.get("LOCAL_WORLD_SIZE", 1)), device),
+                            init_method="env://",
+                            timeout=datetime.timedelta(seconds=INIT_TIMEOUT))
+    return True
+
+
 def main(argv=None):
     """PO-FL training of a scaled-down LM on ``--fl-devices`` FL devices:
-    ``examples/train_pofl_lm.py`` of the reference, on the card by default."""
+    ``examples/train_pofl_lm.py`` of the reference, on the card by default;
+    over the ranks of a process group when the env names one (rank 0 logs)."""
+    import torch.distributed as dist
+
     from repro_torch import configs
     from repro_torch.data.synthetic import make_token_dataset
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh
     from repro_torch.optim.optimizers import cosine_schedule
 
     ap = argparse.ArgumentParser()
@@ -225,6 +303,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b", help="architecture family to scale down")
     ap.add_argument("--fl-devices", type=int, default=8,
                     help="FL devices (slices of the batch)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="over ranks: the ranks of a model group (the rest are data ranks)")
     ap.add_argument("--device", default=None, help="the card unless given (e.g. cpu)")
     args = ap.parse_args(argv)
 
@@ -234,13 +314,19 @@ def main(argv=None):
         n_heads=max(4, args.dmodel // 64), n_kv_heads=max(2, args.dmodel // 128),
         d_ff=args.dmodel * 4, vocab_size=4096, tie_embeddings=True,
     )
-    print(f"model: {cfg.name} family, {cfg.param_count()/1e6:.1f}M params")
+    ranks = _join_ranks(args.device)
+    if ranks:
+        mesh = make_rank_mesh(model=args.model, n_fl=args.fl_devices, device=args.device)
+    else:
+        mesh = make_host_mesh(model=1, n_devices=args.fl_devices, device=args.device)
+    lead = not ranks or dist.get_rank() == 0
+    n_fl = batch_ways(mesh)
+    if lead:
+        print(f"model: {cfg.name} family, {cfg.param_count()/1e6:.1f}M params")
+        print(f"mesh: {mesh.shape}  ({n_fl} FL devices on {mesh.device}"
+              f"{f', {mesh.n_ranks} ranks' if ranks else ''})")
 
     shape = InputShape("lm", seq_len=args.seq, global_batch=args.batch, kind="train")
-    mesh = make_host_mesh(model=1, n_devices=args.fl_devices, device=args.device)
-    n_fl = mesh.shape["data"]
-    print(f"mesh: {mesh.shape}  ({n_fl} FL devices on {mesh.device})")
-
     trainer = POFLTrainer(
         cfg, shape, mesh,
         TrainerConfig(policy=args.policy, n_scheduled=max(1, n_fl // 2),
@@ -255,8 +341,11 @@ def main(argv=None):
         idx = torch.arange(args.batch, device=mesh.device) + (t * args.batch) % (args.batch * 7)
         return {"tokens": tokens[idx]}
 
-    _, _, losses = run_training(trainer, batch_fn, args.rounds)
-    print(f"loss: {losses[0]:.3f} -> {losses[-1]:.3f}")
+    _, _, losses = run_training(trainer, batch_fn, args.rounds, log=lead)
+    if lead:
+        print(f"loss: {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if ranks:
+        dist.destroy_process_group()
     if not losses[-1] < losses[0]:
         raise SystemExit("training did not descend")
 

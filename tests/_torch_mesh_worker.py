@@ -23,6 +23,13 @@ got. Jobs:
                 each ``run_lattice`` with its keywords on the mesh it names,
                 its draws replayed per seed from the input (the reference's,
                 drawn in the test process).
+  train_ranks   the input's trainer cases (``tests/test_torch_train_ranks.py``):
+                each ``POFLTrainer`` on a (data, model) mesh of every rank
+                from the input's whole parameters, its rounds' draws
+                replayed (:class:`ReplayDraws`): every round's diag, and
+                every rank's blocks of the final parameters, of the
+                optimizer state and of the gradients that reached the
+                optimizer, gathered by rank.
 """
 from __future__ import annotations
 
@@ -51,6 +58,39 @@ def replay(draws: dict) -> None:
 
     engine.SimEngine.draw_stream = start
     engine.SimEngine.next_draws = advance
+
+
+class ReplayDraws:
+    """A trainer's draws handed in: ``rounds[t]`` holds round t's
+    ``probes``, ``h``, ``gumbels`` and ``noise``, taken in the order a round
+    asks for them (the noise last)."""
+
+    def __init__(self, rounds: list):
+        self.rounds, self.t = rounds, 0
+
+    def probes(self, params, n_probes):
+        return self.rounds[self.t]["probes"]
+
+    def channel(self, channel):
+        return self.rounds[self.t]["h"]
+
+    def gumbels(self, n_scheduled, n):
+        return self.rounds[self.t]["gumbels"]
+
+    def noise(self, params):
+        self.t += 1
+        return self.rounds[self.t - 1]["noise"]
+
+
+def recording(optimizer, seen: list):
+    """``optimizer`` whose update first appends the gradients it gets."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def update(grads, state, params):
+        seen.append(grads)
+        return optimizer.update(grads, state, params)
+
+    return Optimizer(optimizer.init, update)
 
 
 def shard_gather(_inp) -> dict:
@@ -116,6 +156,37 @@ def lattice(inp) -> dict:
     return out
 
 
+def train_ranks(inp) -> dict:
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.steps import block_of
+    from repro_torch.launch.train import POFLTrainer
+    from repro_torch.optim import optimizers
+
+    def by_rank(value):
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, value)
+        return parts
+
+    out = {}
+    for name, case in inp.items():
+        mesh = make_rank_mesh(model=case["model"], n_fl=case["n_fl"], device="cpu")
+        opt_name, lr = case["optimizer"]
+        seen: list = []
+        trainer = POFLTrainer(case["cfg"], case["shape"], mesh, case["tcfg"],
+                              optimizer=recording(getattr(optimizers, opt_name)(lr), seen),
+                              draws=ReplayDraws(case["draws"]))
+        params = block_of(case["params"], trainer.train_bundle.in_shardings["params"])
+        opt_state = trainer.optimizer.init(params)
+        rounds = []
+        for batch in case["batches"]:
+            params, opt_state, diag = trainer.train_round(params, opt_state, batch)
+            rounds.append(diag)
+        out[name] = {"rounds": rounds,
+                     "ranks": by_rank({"coordinates": mesh.coordinates(), "params": params,
+                                       "opt_state": opt_state, "grads": seen})}
+    return out
+
+
 def main() -> int:
     job, path_in, path_out = sys.argv[1:]
     from repro_torch.sim.multihost import initialize_distributed
@@ -124,7 +195,7 @@ def main() -> int:
         raise SystemExit("no REPRO_DIST_* env: start this under repro_torch.launch.distributed")
     inp = torch.load(path_in, weights_only=False) if path_in != "-" else None
     result = {"shard_gather": shard_gather, "allreduce": allreduce, "cnn_parity": cnn_parity,
-              "lattice": lattice}[job](inp)
+              "lattice": lattice, "train_ranks": train_ranks}[job](inp)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, result)
     same = all(_equal(every[0], other) for other in every[1:])

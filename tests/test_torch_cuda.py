@@ -1180,3 +1180,43 @@ def test_trainer_defaults_to_the_card_and_runs_two_rounds(card):
         assert all(bool(torch.isfinite(v).all()) for v in diag.values())
     assert attn_kernel.launches - before == 2 * cfg.n_layers * (3 + 2)
     assert params["embed"].device.type == "cuda"
+
+
+def test_one_rank_nccl_trainer_matches_the_one_card_trainer(card):
+    """``POFLTrainer`` on a (1, 1) mesh of one NCCL rank (this process)
+    against the one-card ``HostMesh`` trainer on the same draws: two bf16
+    rounds, the round's values and the parameters bitwise equal; the flash
+    kernel launched L × (3 + 2) times a round on the rank path too."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh
+    from repro_torch.launch.train import POFLTrainer, TrainerConfig
+
+    cfg = _lm_cfg(layers=2)
+    shape = InputShape("t", 64, 8, "train")
+    tcfg = TrainerConfig(n_scheduled=2, n_probes=2, noise_power=1e-10)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), device=card,
+                           generator=torch.Generator(device=card).manual_seed(0))
+
+    def rounds(mesh):
+        trainer = POFLTrainer(cfg, shape, mesh, tcfg)
+        params, opt_state = trainer.init_state(0)
+        diags = []
+        for _ in range(2):
+            params, opt_state, diag = trainer.train_round(params, opt_state, {"tokens": tokens})
+            diags.append(diag)
+        return params, diags
+
+    want_params, want = rounds(make_host_mesh(1, 4))
+    try:
+        mesh = make_rank_mesh(model=1, n_fl=4)
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        before = attn_kernel.launches
+        got_params, got = rounds(mesh)
+        assert attn_kernel.launches - before == 2 * cfg.n_layers * (3 + 2)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert torch.equal(ravel_pytree(got_params)[0], ravel_pytree(want_params)[0])

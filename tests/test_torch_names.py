@@ -2,7 +2,7 @@
 
 Every name the reference's ``repro.core``, ``repro.data``, ``repro.optim``
 and ``repro.kernels.ssd`` export, the public names of its
-``repro.launch.{steps,train,mesh}``, and ``SimState``, imports from the
+``repro.launch.{steps,train,mesh,sharding,dryrun}``, and ``SimState``, imports from the
 port's counterpart; the forward functions take ``remat`` (ROADMAP C11); the record and config schemas agree field for field and in
 order; and the names this slice adds compute what the reference's do on the
 same inputs: ``make_round_step`` over a chain of rounds on the reference's
@@ -68,7 +68,7 @@ def test_every_reference_export_imports_from_the_port(ref, port, later):
     assert not missing, missing
 
 
-@pytest.mark.parametrize("module", ["steps", "train", "mesh"])
+@pytest.mark.parametrize("module", ["steps", "train", "mesh", "sharding", "dryrun"])
 def test_launch_modules_have_the_reference_public_names(module):
     """Every function and class a ``repro.launch`` training module defines
     (not imports) without a leading underscore, in the port's module."""
