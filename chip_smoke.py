@@ -2394,12 +2394,11 @@ def serve_setup(dev, arch):
     enc-dec model's ENCDEC_PROMPT tokens and its config's frames), the
     positions it takes and the peak memory of the fp32 init and its cast."""
     from repro_torch import configs
-    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
 
-    cfg = cut_depth(configs.get_config(arch), SERVE_LAYERS.get(arch))
+    cfg = configs.cut_depth(configs.get_config(arch), SERVE_LAYERS.get(arch))
     if cfg.arch_type == "encdec":
         batch, n_pos = serve_prompt(cfg, SERVE_BATCH, ENCDEC_PROMPT, cfg.encdec.n_enc_frames, 1)
     elif cfg.arch_type == "vlm":
@@ -2591,14 +2590,13 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None, n_extra=0) -
 
     from repro_torch import configs
     from repro_torch.flatten_util import tree_map
-    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
     from repro_torch.models import layers as lm_layers
     from repro_torch.models.cache import pad_cache
     from repro_torch.models.config import InputShape
 
-    cfg = cut_depth(configs.get_config(arch), layers)
+    cfg = configs.cut_depth(configs.get_config(arch), layers)
     batch, n_pos = serve_prompt(cfg, batch_size, prompt, n_extra, 3)
     total = n_pos + PARITY_NEW
     shape = InputShape("parity", seq_len=total, global_batch=batch_size, kind="decode")
@@ -2906,7 +2904,6 @@ def train_parity(dev) -> dict:
     from repro_torch.core.channel import ChannelState
     from repro_torch.flatten_util import ravel_pytree, tree_map
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.train import POFLTrainer, TrainerConfig, TrainerDraws
     from repro_torch.models import api
     from repro_torch.models.config import InputShape
@@ -2914,7 +2911,7 @@ def train_parity(dev) -> dict:
 
     out, launched = {}, {name: 0 for name in kernel_counters()}
     for arch, (layers, batch_size, seq, n_fl) in TRAIN_PARITY.items():
-        cfg = cut_depth(configs.get_config(arch), layers)
+        cfg = configs.cut_depth(configs.get_config(arch), layers)
         params = tree_map(lambda x: x.cpu(), api.model_init(cfg, seed=4, device=dev))
         if cfg.ssm is not None:
             params = mamba2_dt_bias(params, cfg)
@@ -3118,10 +3115,20 @@ def train_phase(dev) -> dict:
 
 RANKS_ONE_ROUNDS = 2  # (a): the one-rank NCCL mesh against the one-card trainer
 # (b), (c): two ranks sharing the card over gloo, against this process's
-# one-rank trainer: depth, rounds and compute dtype (full width)
+# one-card trainer: depth, rounds and compute dtype (full width)
 RANKS_LAYERS, RANKS_ROUNDS, RANKS_DTYPE = 4, 3, "float32"
 RANKS_TIMEOUT = 600  # seconds the launched ranks get
 RANKS_MESHES = {"b": (2, 1), "c": (1, 2)}  # (data, model)
+# (b) in bf16, the trainer's setting, at the same depth, and the limit
+# (PERF.md §2: bf16 against its reference ≤ 2^-7 relative). One round
+# runs every bf16 op of the rank path once from the same parameters; after
+# an update each rank's bf16 weight gradients, rounded over half the
+# batch, put the trajectories a bf16 rounding apart, and the sketch
+# amplifies that (ROADMAP C), so the trajectory is held in fp32 above
+RANKS_BF16_ROUNDS, RANKS_BF16_TOL = 1, 2.0**-7
+# the round values held: the schedule, the loss and the sketched statistics
+RANKS_FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_var",
+                "grad_norm")
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3142,10 +3149,33 @@ def reckoned_state(cfg, shape, sizes, optimizer) -> dict:
     return {"params_bytes": b["params"], "opt_state_bytes": b["opt_state"]}
 
 
-def rank_costs(round_ms: list, collective_s: dict) -> dict:
+def reckoned_collectives(cfg, shape, sizes, optimizer, gather: str, n_fl: int,
+                         n_rounds: int) -> dict:
+    """The dry run's collectives of ``n_rounds`` trainer rounds a rank on a
+    (data, model) mesh of ``sizes`` (``launch.dryrun.rank_collectives``):
+    ``{op: {"calls", "bytes"}}``."""
+    from repro_torch.launch.dryrun import rank_collectives
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.steps import build_train_step
+
+    mesh = ShapeMesh(("data", "model"), sizes)
+    per_round = rank_collectives(cfg, build_train_step(cfg, shape, mesh, optimizer), mesh,
+                                 gather, n_fl)
+    return {op: {k: v * n_rounds for k, v in c.items()} for op, c in per_round.items()}
+
+
+def rank_costs(round_ms: list, collectives: dict) -> dict:
+    """A rank's rounds and collectives (``launch.distributed.counted_collectives``:
+    calls, wire bytes and seconds by op), and the collectives' share."""
     total = sum(round_ms)
-    return {"round_ms": round_ms, "collective_s": collective_s,
-            "collective_share": sum(collective_s.values()) * 1e3 / total}
+    seconds = sum(c["seconds"] for c in collectives.values())
+    return {"round_ms": round_ms, "collectives": collectives,
+            "collective_share": seconds * 1e3 / total}
+
+
+def calls_and_bytes(collectives: dict) -> dict:
+    """The calls and bytes of a rank's collectives (their seconds left out)."""
+    return {op: {"calls": c["calls"], "bytes": c["bytes"]} for op, c in collectives.items()}
 
 
 def one_rank(dev) -> tuple[dict, int]:
@@ -3157,11 +3187,12 @@ def one_rank(dev) -> tuple[dict, int]:
     import torch.distributed as dist
 
     from repro_torch.flatten_util import tree_leaves
-    from repro_torch.launch.distributed import tensor_bytes, train_rounds, train_setup
+    from repro_torch.launch.distributed import (
+        counted_collectives, tensor_bytes, train_rounds, train_setup,
+    )
     from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh
     from repro_torch.launch.train import POFLTrainer
     from repro_torch.obs.registry import reset_metrics
-    from repro_torch.obs.spans import span_totals
 
     cfg, shape, tcfg, opt, batch_fn = train_setup(TRAIN_ARCH, 0, TRAIN_FL, TRAIN_BATCH,
                                                   TRAIN_SEQ, "adamw", "bfloat16",
@@ -3171,16 +3202,16 @@ def one_rank(dev) -> tuple[dict, int]:
     del trainer
     torch.cuda.empty_cache()
     try:
-        mesh = make_rank_mesh(model=1, n_fl=TRAIN_FL)
+        mesh = make_rank_mesh(model=1, n_fl=TRAIN_FL, timed=True)
         trainer = POFLTrainer(cfg, shape, mesh, tcfg, optimizer=opt)
         reset_metrics("span.ranks.")
+        reset_metrics("ranks.")
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts()
         got_p, got_s, got, round_ms = train_rounds(trainer, batch_fn, RANKS_ONE_ROUNDS)
         launched = read_counts()
         backend = mesh.backend
-        costs = rank_costs(round_ms, {op: span_totals(f"ranks.{op}")["seconds"]
-                                      for op in ("gather", "reduce", "broadcast")})
+        costs = rank_costs(round_ms, counted_collectives())
     finally:
         dist.destroy_process_group()
     bitwise = (all(np.array_equal(got[k], want[k]) for k in want)
@@ -3189,86 +3220,94 @@ def one_rank(dev) -> tuple[dict, int]:
             "params": max(rel(a, b) for a, b in zip(tree_leaves(got_p), tree_leaves(want_p)))}
     state = {"params_bytes": tensor_bytes(got_p), "opt_state_bytes": tensor_bytes(got_s)}
     reckoned = reckoned_state(cfg, shape, (1, 1), opt)
+    coll = reckoned_collectives(cfg, shape, (1, 1), opt, "all-gather", TRAIN_FL,
+                                RANKS_ONE_ROUNDS)
     per_round = cfg.n_layers * (1 + TRAIN_PROBES) + 2 * cfg.n_layers
     out = {"backend": backend, "n_layers": cfg.n_layers, "rounds": RANKS_ONE_ROUNDS,
            "bitwise": bitwise, "rel_err": errs, **costs,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), **state,
-           "reckoned": reckoned, "flash_launches": launched["flash_attention"],
+           "reckoned": reckoned, "reckoned_collectives": coll,
+           "flash_launches": launched["flash_attention"],
            "flash_launches_a_round": launched["flash_attention"] / RANKS_ONE_ROUNDS}
     del got_p, got_s, want_p
     torch.cuda.empty_cache()
-    ok = (max(errs.values()) <= ROUND_TOL and state == reckoned and backend == "nccl"
-          and launched["flash_attention"] == RANKS_ONE_ROUNDS * per_round)
+    ok = (bitwise and state == reckoned and calls_and_bytes(costs["collectives"]) == coll
+          and backend == "nccl" and launched["flash_attention"] == RANKS_ONE_ROUNDS * per_round)
     if not ok:
         raise AssertionError(f"train_ranks (a): {out}")
     return out, launched["flash_attention"]
 
 
-def ranks_run(model: int, sizes: tuple, ref: dict) -> tuple[dict, int]:
+def ranks_run(sizes: tuple, ref: dict, tol: float) -> tuple[dict, int]:
     """(b) or (c): the launcher's ``train`` workload on two ranks sharing
-    the card over gloo on a (data, model) mesh of ``sizes``, held to this
-    process's one-rank run ``ref`` → (the comparison, both ranks' flash
-    launches)."""
+    the card over gloo on a (data, model) mesh of ``sizes``, in
+    ``ref["dtype"]`` for ``ref["rounds"]`` rounds, held to this process's
+    one-card run ``ref`` within ``tol`` → (the comparison, both ranks'
+    flash launches). Round 0 starts both sides from the same parameters,
+    so its gaps are the rounding of the ranks' split work alone."""
     import tempfile
 
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.sharding import Sharding
 
+    n_rounds = ref["rounds"]
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "train.npz")
         launch(["--procs", 2, "--workload", "train", "--device", "cuda", "--arch", TRAIN_ARCH,
-                "--layers", RANKS_LAYERS, "--model", model, "--dtype", RANKS_DTYPE,
-                "--n-rounds", RANKS_ROUNDS, "--out", out, "--save-blocks"],
+                "--layers", RANKS_LAYERS, "--model", sizes[1], "--dtype", ref["dtype"],
+                "--n-rounds", n_rounds, "--out", out, "--save-blocks"],
                timeout=RANKS_TIMEOUT)
         data = np.load(out)
         meta = json.loads(str(data["meta"]))
         got = {k: data[k] for k in ref["records"]}
         blocks = [torch.load(f"{out}.rank{r}.pt") for r in range(2)]
-    errs = {k: rel(torch.as_tensor(got[k]), torch.as_tensor(ref["records"][k]))
-            for k in ("loss", "e_com", "a", "coeffs", "noise_amp")}
-    decisions = (np.array_equal(got["n_scheduled"], ref["records"]["n_scheduled"])
-                 and np.array_equal(got["coeffs"] > 0, ref["records"]["coeffs"] > 0))
+    want = ref["records"]
+    errs = {k: rel(torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in RANKS_FIELDS}
+    round0 = {k: rel(torch.as_tensor(got[k][0]), torch.as_tensor(want[k][0]))
+              for k in RANKS_FIELDS}
+    decisions = (np.array_equal(got["n_scheduled"], want["n_scheduled"])
+                 and np.array_equal(got["coeffs"] > 0, want["coeffs"] > 0))
     mesh = ShapeMesh(("data", "model"), sizes)
     ranks, worst_update, worst_params = [], 0.0, 0.0
     for r, rank in enumerate(meta["per_rank"]):
         coords = rank["coordinates"]
         d_got, d_want = [], []
-        for name, spec in ref["specs"].items():
+        for name, spec in ref["specs"][sizes].items():
             index = Sharding(mesh, spec).index(coords, ref["final"][name].shape)
-            want, init = ref["final"][name][index], ref["init"][name][index]
-            worst_params = max(worst_params, rel(blocks[r][name], want))
+            final, init = ref["final"][name][index], ref["init"][name][index]
+            worst_params = max(worst_params, rel(blocks[r][name], final))
             d_got.append((blocks[r][name] - init).reshape(-1))
-            d_want.append((want - init).reshape(-1))
+            d_want.append((final - init).reshape(-1))
         worst_update = max(worst_update, rel_l2(torch.cat(d_got), torch.cat(d_want)))
-        ranks.append({**rank_costs(rank["round_ms"], rank["collective_s"]),
+        ranks.append({**rank_costs(rank["round_ms"], rank["collectives"]),
                       "coordinates": coords, "peak_memory_bytes": rank["peak_memory_bytes"],
                       "params_bytes": rank["params_bytes"],
                       "opt_state_bytes": rank["opt_state_bytes"],
-                      "flash_launches_a_round": rank["launches"]["flash_attention"] / RANKS_ROUNDS})
+                      "flash_launches_a_round": rank["launches"]["flash_attention"] / n_rounds})
     errs.update(params=worst_params, update_rel_l2=worst_update)
     reckoned = reckoned_state(ref["cfg"], ref["shape"], sizes, ref["optimizer"])
+    # gloo gathers CUDA tensors by a zero-filled all-reduce
+    coll = reckoned_collectives(ref["cfg"], ref["shape"], sizes, ref["optimizer"], "all-reduce",
+                                ref["n_fl"], n_rounds)
     per_round = ref["cfg"].n_layers * (1 + TRAIN_PROBES) + 2 * ref["cfg"].n_layers
     launched = [rank["launches"]["flash_attention"] for rank in meta["per_rank"]]
-    out = {"mesh": sizes, "backend": meta["backend"], "rel_err": errs,
-           "decisions_equal": decisions, "ranks": ranks, "reckoned": reckoned}
-    ok = (max(errs.values()) <= ROUND_TOL and decisions and meta["backend"] == "gloo"
+    out = {"mesh": sizes, "dtype": ref["dtype"], "rounds": n_rounds, "tolerance": tol,
+           "backend": meta["backend"], "rel_err": errs, "round_0_rel_err": round0,
+           "decisions_equal": decisions, "ranks": ranks, "reckoned": reckoned,
+           "reckoned_collectives": coll}
+    ok = (max(errs.values()) <= tol and decisions and meta["backend"] == "gloo"
           and all({k: r[k] for k in reckoned} == reckoned for r in ranks)
-          and launched == [RANKS_ROUNDS * per_round] * 2)
+          and all(calls_and_bytes(r["collectives"]) == coll for r in ranks)
+          and launched == [n_rounds * per_round] * 2)
     if not ok:
-        raise AssertionError(f"train_ranks {sizes}: {out}")
+        raise AssertionError(f"train_ranks {sizes} {ref['dtype']}: {out}")
     return out, sum(launched)
 
 
-def train_ranks_phase(dev) -> dict:
-    """Phase ``train_ranks``: the LM trainer over a (data, model) mesh of
-    ranks. (a) one NCCL rank against the one-card trainer
-    (:func:`one_rank`); this process's one-rank trainer at RANKS_LAYERS
-    layers, ``sgd``, RANKS_ROUNDS rounds; then (b) the (2, 1) and (c) the
-    (1, 2) mesh of two ranks sharing the card over gloo, each held to it
-    (:func:`ranks_run`): every round's loss, e_com, a, coeffs and noise_amp
-    and every rank's final blocks within ROUND_TOL, decisions equal, each
-    rank's bytes of masters and optimizer state equal to the dry run's,
-    the flash kernel L × (1 + TRAIN_PROBES + 2) times a rank a round."""
+def one_card_reference(dev, dtype: str, n_rounds: int) -> dict:
+    """This process's one-card trainer on the launcher's ``train`` workload
+    cell at RANKS_LAYERS layers in ``dtype``: its records, initial and
+    final parameters (on the host) and the specs of both rank meshes."""
     from repro_torch.launch import distributed
     from repro_torch.launch.distributed import flat_tree, train_rounds, train_setup
     from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
@@ -3277,32 +3316,52 @@ def train_ranks_phase(dev) -> dict:
     from repro_torch.launch.train import POFLTrainer
     from repro_torch.models import api
 
-    one, launched = one_rank(dev)
-    # the launcher's train workload's cell (its ranks take it from there)
     n_fl = distributed.TRAIN_FL
     cfg, shape, tcfg, opt, batch_fn = train_setup(TRAIN_ARCH, RANKS_LAYERS, n_fl,
                                                   distributed.TRAIN_BATCH, distributed.TRAIN_SEQ,
-                                                  "sgd", RANKS_DTYPE, RANKS_ROUNDS, dev)
+                                                  "sgd", dtype, n_rounds, dev)
     trainer = POFLTrainer(cfg, shape, make_host_mesh(1, n_fl, dev), tcfg, optimizer=opt)
-    t0 = time.perf_counter()
-    final, _, records, round_ms = train_rounds(trainer, batch_fn, RANKS_ROUNDS)
-    ref = {"cfg": cfg, "shape": shape, "optimizer": opt, "records": records,
+    final, _, records, round_ms = train_rounds(trainer, batch_fn, n_rounds)
+    ref = {"cfg": cfg, "shape": shape, "optimizer": opt, "records": records, "dtype": dtype,
+           "rounds": n_rounds, "n_fl": n_fl, "round_ms": round_ms,
            "final": {k: v.cpu() for k, v in flat_tree(final).items()},
            "init": {k: v.cpu() for k, v in
                     flat_tree(api.model_init(cfg, tcfg.seed + 1, device=dev)).items()},
-           "round_ms": round_ms, "seconds": time.perf_counter() - t0}
+           "specs": {sizes: flat_tree(params_pspecs(params_structs(cfg),
+                                                    ShapeMesh(("data", "model"), sizes)))
+                     for sizes in RANKS_MESHES.values()}}
     del trainer, final
     torch.cuda.empty_cache()
-    out = {"a": one, "one_rank_reference": {"n_layers": cfg.n_layers, "dtype": RANKS_DTYPE,
-                                            "round_ms": round_ms, "records": {
-                                                k: v.tolist() for k, v in records.items()}}}
+    return ref
+
+
+def train_ranks_phase(dev) -> dict:
+    """Phase ``train_ranks``: the LM trainer over a (data, model) mesh of
+    ranks. (a) one NCCL rank against the one-card trainer, bitwise
+    (:func:`one_rank`); then this process's one-card trainer at
+    RANKS_LAYERS layers, ``sgd``, and (b) the (2, 1) and (c) the (1, 2)
+    mesh of two ranks sharing the card over gloo, each held to it
+    (:func:`ranks_run`) in fp32 within ROUND_TOL, and (b) again in bf16
+    within RANKS_BF16_TOL: every round's RANKS_FIELDS and every rank's
+    final blocks and their update, decisions equal, each rank's bytes of
+    masters and optimizer state and its collectives' calls and wire bytes
+    equal to the dry run's, the flash kernel L × (1 + TRAIN_PROBES + 2)
+    times a rank a round."""
+    one, launched = one_rank(dev)
+    ref = one_card_reference(dev, RANKS_DTYPE, RANKS_ROUNDS)
+    out = {"a": one}
     for part, sizes in RANKS_MESHES.items():
-        mesh = ShapeMesh(("data", "model"), sizes)
-        ref["specs"] = flat_tree(params_pspecs(params_structs(cfg), mesh))
-        out[part], n = ranks_run(sizes[1], sizes, ref)
+        out[part], n = ranks_run(sizes, ref, ROUND_TOL)
         launched += n
-    emit("train_ranks", arch=TRAIN_ARCH, tolerance=ROUND_TOL, batch=TRAIN_BATCH,
-         seq=TRAIN_SEQ, fl_devices=TRAIN_FL, ranks_layers=RANKS_LAYERS,
+    refs = {"float32": ref, "bfloat16": one_card_reference(dev, "bfloat16", RANKS_BF16_ROUNDS)}
+    out["b_bf16"], n = ranks_run(RANKS_MESHES["b"], refs["bfloat16"], RANKS_BF16_TOL)
+    launched += n
+    out["one_card_reference"] = {
+        dtype: {"n_layers": r["cfg"].n_layers, "round_ms": r["round_ms"],
+                "records": {k: v.tolist() for k, v in r["records"].items()}}
+        for dtype, r in refs.items()}
+    emit("train_ranks", arch=TRAIN_ARCH, tolerance=ROUND_TOL, bf16_tolerance=RANKS_BF16_TOL,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, fl_devices=TRAIN_FL, ranks_layers=RANKS_LAYERS,
          ranks_rounds=RANKS_ROUNDS, card=nvidia_smi(), **out)
     counts = {name: 0 for name in kernel_counters()}
     counts["flash_attention"] = launched

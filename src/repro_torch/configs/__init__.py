@@ -10,6 +10,7 @@ Public API:
                                   swaps in the sliding-window variant)
   reduced_config(arch_id)       — CPU-smoke-sized variant of the same family
   supports_shape(arch_id, shape)— long_500k/decode applicability
+  cut_depth(cfg, layers)        — a config cut to fewer layers, full width
   input_specs(cfg, shape, dtype)— meta tensors of every input of a step
 """
 from __future__ import annotations
@@ -127,6 +128,17 @@ def reduced_config(arch_id: str) -> ModelConfig:
     return dataclasses.replace(cfg, **updates)
 
 
+def cut_depth(cfg: ModelConfig, layers: int | None) -> ModelConfig:
+    """``cfg`` cut to ``layers`` layers (an enc-dec model's encoder too);
+    ``None`` leaves it whole."""
+    if layers is None:
+        return cfg
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
+                                                                  n_enc_layers=layers))
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def input_specs(cfg: ModelConfig, shape: InputShape | str, dtype=torch.bfloat16) -> dict:
     """Meta tensors for every input of the step the shape exercises.
 
@@ -170,6 +182,7 @@ __all__ = [
     "LONG_CONTEXT_SKIP",
     "LONG_CONTEXT_VIA_WINDOW",
     "base_config",
+    "cut_depth",
     "get_config",
     "input_specs",
     "reduced_config",

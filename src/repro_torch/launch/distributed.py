@@ -840,7 +840,9 @@ def _worker_resilient(args) -> None:
 TRAIN_PROBES, TRAIN_NOISE, TRAIN_SGD_LR = 2, 1e-10, 0.01
 # the workload's cell: FL devices, global batch, tokens an example
 TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048
-TRAIN_ROUND_FIELDS = ("loss", "e_com", "a", "n_scheduled", "coeffs", "noise_amp")
+TRAIN_ROUND_FIELDS = ("loss", "e_com", "a", "n_scheduled", "coeffs", "noise_amp", "grad_mean",
+                      "grad_var", "grad_norm")
+RANK_OPS = ("gather", "reduce", "broadcast")
 
 
 def train_setup(arch: str, layers: int, n_fl: int, batch: int, seq: int,
@@ -857,12 +859,11 @@ def train_setup(arch: str, layers: int, n_fl: int, batch: int, seq: int,
     on ``device``."""
     from repro_torch import configs
     from repro_torch.data.synthetic import make_token_dataset
-    from repro_torch.launch.dryrun import cut_depth
     from repro_torch.launch.train import TrainerConfig
     from repro_torch.models.config import InputShape
     from repro_torch.optim.optimizers import adamw, cosine_schedule, sgd
 
-    cfg = cut_depth(configs.base_config(arch), layers or None)
+    cfg = configs.cut_depth(configs.base_config(arch), layers or None)
     shape = InputShape(f"train_{batch}x{seq}", seq, batch, "train")
     tcfg = TrainerConfig(policy="pofl", n_scheduled=max(1, n_fl // 2), noise_power=TRAIN_NOISE,
                          stats_mode="sketch", n_probes=TRAIN_PROBES, dtype=dtype)
@@ -906,22 +907,34 @@ def train_rounds(trainer, batch_fn, n_rounds: int):
     return params, opt_state, records, round_ms
 
 
+def counted_collectives() -> dict:
+    """This process's collectives since the ``ranks.`` and ``span.ranks.``
+    metrics were reset: each op's calls, wire bytes and (on a timed mesh)
+    seconds."""
+    from repro_torch.obs.registry import metric_value
+    from repro_torch.obs.spans import span_totals
+
+    return {op: {"calls": metric_value(f"ranks.{op}.calls"),
+                 "bytes": metric_value(f"ranks.{op}.bytes"),
+                 "seconds": span_totals(f"ranks.{op}")["seconds"]} for op in RANK_OPS}
+
+
 def _worker_train(args) -> None:
     """One rank of the train workload: ``POFLTrainer`` over a (data,
     model) mesh of every rank, ``--model`` ranks a model group, on
     TRAIN_BATCH × TRAIN_SEQ tokens over TRAIN_FL FL devices with ``sgd``,
     ``--arch`` cut to ``--layers`` in ``--dtype``. Rank 0
     writes the records and every rank's costs to ``--out`` (npz; the
-    costs as JSON under ``meta``); with ``--save-blocks`` each rank also
-    writes its final parameter blocks to ``<out>.rank<r>.pt``."""
+    costs as JSON under ``meta``: each collective's calls, wire bytes and
+    seconds, the card synchronised around it); with ``--save-blocks`` each
+    rank also writes its final parameter blocks to ``<out>.rank<r>.pt``."""
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.train import POFLTrainer
     from repro_torch.obs.registry import reset_metrics
-    from repro_torch.obs.spans import span_totals
     from repro_torch.sim.multihost import ensure_process_group
 
     ensure_process_group(device=args.device)
-    mesh = make_rank_mesh(model=args.model, n_fl=TRAIN_FL, device=args.device)
+    mesh = make_rank_mesh(model=args.model, n_fl=TRAIN_FL, device=args.device, timed=True)
     cfg, shape, tcfg, opt, batch_fn = train_setup(
         args.arch, args.layers, TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ, "sgd", args.dtype,
         args.n_rounds, args.device)
@@ -930,14 +943,14 @@ def _worker_train(args) -> None:
     if mesh.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.device)
     reset_metrics("span.ranks.")
+    reset_metrics("ranks.")
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, args.n_rounds)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     rank = dist.get_rank()
     mine = {"rank": rank, "coordinates": mesh.coordinates(), "round_ms": round_ms,
-            "collective_s": {op: span_totals(f"ranks.{op}")["seconds"]
-                             for op in ("gather", "reduce", "broadcast")},
+            "collectives": counted_collectives(),
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                                   if mesh.device.type == "cuda" else None),
             "params_bytes": tensor_bytes(params), "opt_state_bytes": tensor_bytes(opt_state),

@@ -17,19 +17,28 @@ prefill / serve_step for inference shapes) on a shape-only mesh
   * the step's global FLOPs, by ``torch.utils.flop_counter.FlopCounterMode``
     over the step's function on meta tensors (the kernels' plain versions
     run there: a meta tensor never reaches a kernel);
-  * the collective bytes a step a rank, reckoned from the specs by the
-    reference's ring rule (:func:`_wire_bytes`): the FSDP all-gather of
-    every split parameter, and for training the reduction of its gradient
-    over the batch axes (a reduce-scatter where the spec splits it over
-    them, else an all-reduce of its model block).
+  * for training, the collectives of one trainer round a rank as the
+    port's rank steps issue them on a (data, model) mesh of ranks
+    (:func:`rank_collectives`, sketch mode): a gather of every split fp32
+    master in the stats step and again in the train step, the gather of
+    the sketched statistics, the schedule's broadcast, and the all-reduce
+    of every whole gradient leaf (and the loss) over the data ranks; their
+    wire bytes by the reference's ring rule (``launch.mesh.wire_bytes``).
+    ``--gather all-reduce`` reckons gloo's gather of CUDA tensors (a
+    zero-filled all-reduce of the whole) in place of an all-gather. The
+    counts and bytes are those the rank mesh counts as it runs
+    (``ranks.<op>.calls`` and ``ranks.<op>.bytes``).
 
 What it does NOT estimate: the reference reads XLA's temporaries
 (``temp_bytes``) and so a transient peak from the compiled program; the
 port has no compiled program and does not estimate them (``temp_bytes``
-and ``peak_bytes`` are ``None``). On the one-card mesh ``1x1`` a record
-holds the card's memory (``torch.cuda.mem_get_info``) when a card is
-present, and ``fits`` compares the reckoned bytes (transients left out)
-with it; without a card both are ``None``.
+and ``peak_bytes`` are ``None``). Nor the collectives of a serving step
+(serving over ranks is not ported), of a mesh with a pod axis (the rank
+mesh is (data, model)) or of a MoE model over data ranks (its trainer
+refuses them): ``collectives`` is ``None`` there. On the one-card mesh
+``1x1`` a record holds the card's memory (``torch.cuda.mem_get_info``)
+when a card is present, and ``fits`` compares the reckoned bytes
+(transients left out) with it; without a card both are ``None``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -46,161 +55,14 @@ import argparse
 import dataclasses
 import json
 import math
-import re
 import sys
 import time
 
-_BYTES = {
-    "pred": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1,
-    "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
-    "s32": 4, "u32": 4, "f32": 4,
-    "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
-}
-
-_SHAPE_RE = re.compile(r"\b([a-z0-9]+)\[([0-9,]*)\]")
-_COLL_RE = re.compile(
-    r"=\s*(\([^)]*\)|[a-z0-9]+\[[0-9,]*\][^ ]*)\s+"
-    r"(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)"
-    r"(-start)?\("
-)
-_GROUPS_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
-_GROUPS_EXPL_RE = re.compile(r"replica_groups=\{\{([0-9,]+)\}")
-_COMP_RE = re.compile(r"^(?:ENTRY\s+)?(%[\w.\-]+)\s*\(.*\)\s*->.*\{\s*$")
-_WHILE_RE = re.compile(r"while\(.*?\),\s*condition=(%[\w.\-]+),\s*body=(%[\w.\-]+)")
-_CONST_RE = re.compile(r"=\s*s32\[\]\s*constant\((\d+)\)")
-_CALL_RE = re.compile(
-    r"(?:calls=|to_apply=|branch_computations=\{|true_computation=|"
-    r"false_computation=|computation=)(%[\w.\-]+)"
-)
-
-
-def _shape_bytes(dtype: str, dims: str) -> int:
-    n = 1
-    for d in dims.split(","):
-        if d:
-            n *= int(d)
-    return n * _BYTES.get(dtype, 4)
-
-
-def _group_size(line: str) -> int:
-    m = _GROUPS_RE.search(line)
-    if m:
-        return int(m.group(2))
-    m = _GROUPS_EXPL_RE.search(line)
-    if m:
-        return len(m.group(1).split(","))
-    return 2
-
-
-def _split_computations(hlo_text: str) -> dict:
-    """{computation_name: [lines]} from HLO long text."""
-    comps: dict = {}
-    cur = None
-    for line in hlo_text.splitlines():
-        m = _COMP_RE.match(line.strip())
-        if m:
-            cur = m.group(1)
-            comps[cur] = []
-            if line.strip().startswith("ENTRY"):
-                comps["__entry__"] = comps[cur]
-            continue
-        if cur is not None:
-            if line.strip() == "}":
-                cur = None
-            else:
-                comps[cur].append(line)
-    return comps
-
-
-def _wire_bytes(op: str, result: int, g: int) -> int:
-    """Per-rank wire bytes of a ring collective over ``g`` ranks whose
-    per-rank result is ``result`` bytes."""
-    if op == "all-gather":
-        return result * (g - 1) // g
-    if op == "reduce-scatter":
-        return result * (g - 1)
-    if op == "all-reduce":
-        return 2 * result * (g - 1) // g
-    if op == "all-to-all":
-        return result * (g - 1) // g
-    return result  # collective-permute
-
-
-def parse_collective_bytes(hlo_text: str) -> dict:
-    """Per-device wire bytes of every collective in a partitioned HLO text,
-    multiplied by the trip counts of the while-loops around it: the
-    reference's reading of its compiled program, kept for a user who has
-    one. The port's own dry run has no HLO and reckons its collectives
-    from the specs (:func:`spec_collectives`).
-
-    Returns {op: {"count": static_op_count, "bytes": trip-weighted bytes}}.
-    """
-    comps = _split_computations(hlo_text)
-    if not comps:
-        comps = {"%toplevel": hlo_text.splitlines()}
-
-    children: dict = {}
-    for name, lines in comps.items():
-        if name == "__entry__":
-            continue
-        for line in lines:
-            wm = _WHILE_RE.search(line)
-            if wm:
-                cond, body = wm.group(1), wm.group(2)
-                consts = [int(c) for c in _CONST_RE.findall("\n".join(comps.get(cond, [])))]
-                children.setdefault(name, []).append((body, max(consts) if consts else 1))
-            for cm in _CALL_RE.finditer(line):
-                children.setdefault(name, []).append((cm.group(1), 1))
-
-    entry_lines = comps.get("__entry__")
-    entry_name = next((n for n, ls in comps.items() if n != "__entry__" and ls is entry_lines),
-                      None)
-    mult = {entry_name: 1}
-    stack = [entry_name]
-    seen = set()
-    while stack:
-        cur = stack.pop()
-        if cur in seen or cur is None:
-            continue
-        seen.add(cur)
-        for child, trips in children.get(cur, []):
-            m_new = mult.get(cur, 1) * trips
-            if m_new > mult.get(child, 0):
-                mult[child] = m_new
-                stack.append(child)
-
-    out: dict = {}
-    for name, lines in comps.items():
-        if name == "__entry__":
-            continue
-        factor = mult.get(name, 1)
-        for line in lines:
-            m = _COLL_RE.search(line)
-            if not m:
-                continue
-            shape_txt, op = m.group(1), m.group(2)
-            result = sum(_shape_bytes(d, dims) for d, dims in _SHAPE_RE.findall(shape_txt))
-            rec = out.setdefault(op, {"count": 0, "bytes": 0})
-            rec["count"] += 1
-            rec["bytes"] += _wire_bytes(op, result, _group_size(line)) * factor
-    return out
-
-
-def cost_analysis_dict(cost) -> dict:
-    """A cost record as a dict: XLA's ``cost_analysis()`` is a dict on newer
-    jax and a (possibly empty) one-element list of dicts on older ones."""
-    if isinstance(cost, (list, tuple)):
-        return cost[0] if cost else {}
-    return cost or {}
-
-
-# --------------------------------------------------------------------------
-# the port's reckoning
-# --------------------------------------------------------------------------
-
 NOT_ESTIMATED = ("temp_bytes and peak_bytes: the reference reads XLA's temporaries from its "
                  "compiled program; the port compiles no program and does not estimate its "
-                 "transient peak")
+                 "transient peak. collectives: none for a serving step (serving over ranks "
+                 "is not ported), a mesh with a pod axis or a MoE model over data ranks "
+                 "(the rank trainer's mesh is (data, model) and refuses both)")
 
 
 def make_mesh(name: str):
@@ -214,16 +76,6 @@ def make_mesh(name: str):
     if names is None:
         raise ValueError(f"mesh {name!r}: give DxM or PxDxM")
     return ShapeMesh(names, sizes)
-
-
-def cut_depth(cfg, layers: int | None):
-    """``cfg`` cut to ``layers`` layers (an enc-dec model's encoder too)."""
-    if layers is None:
-        return cfg
-    if cfg.encdec is not None:
-        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
-                                                                  n_enc_layers=layers))
-    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def residual_bytes(cfg, shape, mesh) -> int:
@@ -246,36 +98,53 @@ def state_bytes(bundle) -> dict:
             for name, sh in bundle.in_shardings.items()}
 
 
-def spec_collectives(bundle, mesh, train: bool) -> dict:
-    """The collectives of one step a rank, reckoned from the parameters'
-    specs: {op: {"count", "bytes"}} by :func:`_wire_bytes`."""
+def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
+                     n_fl: int | None = None) -> dict | None:
+    """The collectives of one trainer round a rank in sketch mode, as the
+    port's rank steps issue them on a mesh of ranks shaped like ``mesh``
+    (``bundle`` the train step built on it) over ``n_fl`` FL devices (the
+    bundle's: one a data rank): ``{op: {"calls", "bytes"}}``
+    for ``gather``, ``reduce`` and ``broadcast``, the bytes a rank's wire
+    bytes by the ring rule. A gather runs over every rank, as an all-gather
+    of the blocks or (``gather="all-reduce"``) an all-reduce of a
+    zero-filled whole. ``None`` where the rank trainer does not run: a
+    mesh other than (data, model), a MoE model over data ranks."""
     from repro_torch.flatten_util import tree_leaves
-    from repro_torch.launch.sharding import _entry_axes, _fsdp_axes, axis_sizes
+    from repro_torch.launch.mesh import wire_bytes
+    from repro_torch.launch.sharding import Sharding
 
-    sizes = axis_sizes(mesh)
-    batch = set(_fsdp_axes(mesh))
-    out: dict = {}
+    if tuple(mesh.axis_names) != ("data", "model"):
+        return None
+    r_data, n = mesh.shape["data"], mesh.size()
+    if cfg.moe is not None and r_data > 1:
+        return None
+    n_fl = n_fl or bundle.arg_structs["coeffs"].shape[0]
+    out = {op: {"calls": 0, "bytes": 0} for op in ("gather", "reduce", "broadcast")}
 
-    def add(op, nbytes, g):
-        rec = out.setdefault(op, {"count": 0, "bytes": 0})
-        rec["count"] += 1
-        rec["bytes"] += _wire_bytes(op, nbytes, g)
+    def add(op, ring_op, result, g):
+        out[op]["calls"] += 1
+        out[op]["bytes"] += wire_bytes(ring_op, result, g)
 
-    structs = tree_leaves(bundle.arg_structs["params"])
-    for x, sh in zip(structs, tree_leaves(bundle.in_shardings["params"]), strict=True):
-        whole = x.numel() * x.element_size()
-        axes = [a for e in sh.spec for a in _entry_axes(e)]
-        ways = math.prod(sizes[a] for a in axes)
-        if ways > 1:
-            add("all-gather", whole, ways)
-        g = math.prod(sizes[a] for a in batch)
-        if not train or g == 1:
-            continue
-        model_block = whole // math.prod(sizes[a] for a in axes if a not in batch)
-        if batch & set(axes):
-            add("reduce-scatter", model_block // g, g)
+    def gather_of(shape, itemsize, sh):
+        if sh.replicated():
+            return
+        if gather == "all-gather":
+            add("gather", "all-gather", n * math.prod(sh.block_shape(shape)) * itemsize, n)
         else:
-            add("all-reduce", model_block, g)
+            add("gather", "all-reduce", math.prod(shape) * itemsize, n)
+
+    masters = list(zip(tree_leaves(bundle.arg_structs["params"]),
+                       tree_leaves(bundle.in_shardings["params"]), strict=True))
+    for _step in ("stats", "train"):  # each step gathers the whole masters
+        for x, sh in masters:
+            gather_of(x.shape, x.element_size(), sh)
+    # the sketched (mean, var, norm) of each FL device, split over the data ranks
+    gather_of((3, n_fl), 4, Sharding(mesh, (None, "data")))
+    if r_data > 1:
+        for x, _ in masters:  # the fp32 gradients, and the loss
+            add("reduce", "all-reduce", x.numel() * x.element_size(), r_data)
+        add("reduce", "all-reduce", 4, r_data)
+    add("broadcast", "broadcast", 8 * (n_fl + 4), n)  # coeffs, ν, e_com, a, |S| in float64
     return out
 
 
@@ -306,11 +175,13 @@ def card_memory() -> dict | None:
 
 def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool = True, *,
             mesh: str | None = None, layers: int | None = None, batch: int | None = None,
-            seq: int | None = None, flops: bool = True, flops_cache: dict | None = None):
+            seq: int | None = None, flops: bool = True, flops_cache: dict | None = None,
+            gather: str = "all-gather"):
     """The record of one (arch × shape × mesh): ``mesh`` names it (default:
     the production mesh, ``multi_pod`` picking which); ``layers``, ``batch``
     and ``seq`` cut the model's depth and the shape. ``flops_cache`` keeps
-    a FLOP count across meshes (it does not depend on the mesh)."""
+    a FLOP count across meshes (it does not depend on the mesh); ``gather``
+    how the ranks gather (:func:`rank_collectives`)."""
     from repro_torch import configs
     from repro_torch.launch.steps import build_step
     from repro_torch.models.config import INPUT_SHAPES
@@ -322,14 +193,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
                 "reason": "pure full-attention arch — no long_500k variant (DESIGN §4)"}
     shape = dataclasses.replace(shape, global_batch=batch or shape.global_batch,
                                 seq_len=seq or shape.seq_len)
-    cfg = cut_depth(configs.get_config(arch, shape), layers)
+    cfg = configs.cut_depth(configs.get_config(arch, shape), layers)
     smesh = make_mesh(mesh_name)
     t0 = time.time()
     bundle = build_step(cfg, shape, smesh)
     train = shape.kind == "train"
     args = state_bytes(bundle)
     residual = residual_bytes(cfg, shape, smesh) if train else 0
-    coll = spec_collectives(bundle, smesh, train)
+    coll = rank_collectives(cfg, bundle, smesh, gather) if train else None
     t_reckon = time.time() - t0
     key = (arch, shape, layers)
     if flops and flops_cache is not None and key in flops_cache:
@@ -361,7 +232,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
         "not_estimated": NOT_ESTIMATED,
         "cost": {"flops_global": n_flops},
         "collectives": coll,
-        "collective_bytes_per_device": int(sum(v["bytes"] for v in coll.values())),
+        "collective_bytes_per_device": (None if coll is None else
+                                        sum(v["bytes"] for v in coll.values())),
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "reckon_s": round(t_reckon, 2),
@@ -373,10 +245,12 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
         rec["fits"] = None if card is None else argument + residual <= card["memory_bytes"]
     if verbose:
         flops_txt = "n/a" if n_flops is None else f"{n_flops:.3e}"
+        coll_bytes = rec["collective_bytes_per_device"]
+        coll_txt = "n/a" if coll_bytes is None else f"{coll_bytes / 2**20:9.1f} MiB/dev"
         print(f"[dryrun] {arch:>22s} × {shape_name:<12s} mesh={mesh_name:>8s}"
               f"  reckoned={rec['memory']['reckoned_bytes'] / 2**30:9.2f} GiB/dev"
               f"  flops={flops_txt}"
-              f"  coll={rec['collective_bytes_per_device'] / 2**20:9.1f} MiB/dev"
+              f"  coll={coll_txt}"
               f"  ({rec['seconds']:.1f}s)", flush=True)
     return rec
 
@@ -395,6 +269,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None, help="the shapes' global batch")
     ap.add_argument("--seq", type=int, default=None, help="the shapes' sequence length")
     ap.add_argument("--no-flops", action="store_true", help="skip the FLOP count")
+    ap.add_argument("--gather", default="all-gather", choices=("all-gather", "all-reduce"),
+                    help="how the ranks gather: all-gather (NCCL, gloo on the CPU) or a "
+                         "zero-filled all-reduce (gloo with CUDA tensors)")
     ap.add_argument("--json", default=None, help="append JSONL records here")
     args = ap.parse_args(argv)
 
@@ -418,7 +295,7 @@ def main(argv=None) -> int:
                 try:
                     rec = run_one(arch, shape, mesh=mesh, layers=args.layers, batch=args.batch,
                                   seq=args.seq, flops=not args.no_flops,
-                                  flops_cache=flops_cache)
+                                  flops_cache=flops_cache, gather=args.gather)
                 except Exception as e:  # noqa: BLE001 — report and continue
                     rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
                            "error": f"{type(e).__name__}: {e}"}

@@ -25,6 +25,14 @@ from a mesh: ``axis_names``, ``shape[axis]`` (and ``mesh_dim_names``,
     the same FL devices' gradients whole. Its :func:`batch_ways` is the FL
     device count, as on one card; with one rank it is the one-card trainer's
     mesh.
+
+Every collective a rank mesh runs goes through :meth:`RankMesh.collective`,
+which counts it and its wire bytes a rank (:func:`wire_bytes`) under
+``ranks.<op>.calls`` and ``ranks.<op>.bytes`` in the obs registry; the dry
+run reckons the same counts from the specs
+(``launch.dryrun.rank_collectives``). A mesh made with ``timed`` also
+times each collective under the span ``ranks.<op>``, the card
+synchronised on both sides; untimed, NCCL's collectives stay asynchronous.
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ class ShapeMesh:
     def coordinates(self, rank: int | None = None) -> dict:
         raise ValueError(f"the {self.name} mesh is shape-only: it has no ranks")
 
-    def collective(self, op: str):
+    def collective(self, op: str, nbytes: int = 0):
         raise ValueError(f"the {self.name} mesh is shape-only: no collective runs on it")
 
 
@@ -90,11 +98,13 @@ class HostMesh(ShapeMesh):
 @dataclasses.dataclass(frozen=True, eq=False)
 class RankMesh(ShapeMesh):
     """(data, model) over the process group's ranks (``device_mesh``);
-    ``device`` is this rank's, ``n_fl`` the FL devices of the whole batch."""
+    ``device`` is this rank's, ``n_fl`` the FL devices of the whole batch;
+    ``timed``: whether :meth:`collective` times each collective."""
 
     device_mesh: object = None  # torch.distributed.device_mesh.DeviceMesh
     n_fl: int = 1
     device: torch.device = None
+    timed: bool = False
 
     @property
     def devices(self) -> np.ndarray:
@@ -123,17 +133,37 @@ class RankMesh(ShapeMesh):
         return self.device_mesh.get_group(axis)
 
     @contextlib.contextmanager
-    def collective(self, op: str):
-        """Time one collective under the span ``ranks.<op>``, the card
+    def collective(self, op: str, nbytes: int = 0):
+        """Count one collective ``op`` of ``nbytes`` wire bytes a rank; on a
+        ``timed`` mesh also time it under the span ``ranks.<op>``, the card
         synchronised on both sides so the span holds the collective alone."""
+        from repro_torch.obs.registry import counter_add
         from repro_torch.obs.spans import span
 
+        counter_add(f"ranks.{op}.calls", 1, emit_event=False)
+        counter_add(f"ranks.{op}.bytes", nbytes, emit_event=False)
+        if not self.timed:
+            yield
+            return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         with span(f"ranks.{op}"):
             yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+
+
+def wire_bytes(op: str, result: int, g: int) -> int:
+    """Wire bytes a rank of a ring ``all-gather`` or ``all-reduce`` over
+    ``g`` ranks whose result on a rank is ``result`` bytes (the reference
+    dry run's rule), or of a ``broadcast`` (its payload)."""
+    if op == "all-gather":
+        return result * (g - 1) // g
+    if op == "all-reduce":
+        return 2 * result * (g - 1) // g
+    if op == "broadcast":
+        return result
+    raise ValueError(f"no wire rule for {op!r}")
 
 
 def activate_mesh(mesh):
@@ -159,12 +189,14 @@ def make_host_mesh(model: int = 2, n_devices: int = 1, device=None) -> HostMesh:
     return HostMesh(("data", "model"), (n_devices // model, model), resolve_device(device))
 
 
-def make_rank_mesh(model: int = 1, n_fl: int | None = None, device=None) -> RankMesh:
+def make_rank_mesh(model: int = 1, n_fl: int | None = None, device=None,
+                   timed: bool = False) -> RankMesh:
     """(data, model) over every rank of the process group (the env
     contract's, or a one-rank group in a single process: NCCL on a card,
     gloo on the CPU), ``model`` ranks a model group, data-major. ``n_fl``
     FL devices (default: one a data rank) must split evenly over the data
-    ranks. ``device``: this rank's compute device (its card unless given)."""
+    ranks. ``device``: this rank's compute device (its card unless given).
+    ``timed``: time every collective (spans ``ranks.<op>``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -182,7 +214,7 @@ def make_rank_mesh(model: int = 1, n_fl: int | None = None, device=None) -> Rank
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = DeviceMesh(device_type, torch.arange(world).reshape(data, model),
                     mesh_dim_names=("data", "model"))
-    return RankMesh(("data", "model"), (data, model), dm, n_fl, resolve_device(device))
+    return RankMesh(("data", "model"), (data, model), dm, n_fl, resolve_device(device), timed)
 
 
 def batch_axes(mesh) -> tuple[str, ...]:

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.launch.mesh import wire_bytes
 from repro_torch.models.cache import AttnCache, EncDecCache, HybridCache, SSMCache
 
 MIN_SHARD_SIZE = 4096  # leaves smaller than this stay whole
@@ -378,9 +379,13 @@ class Sharding:
         whole_shape = tuple(n * self._ways(e) for n, e in
                             zip(block.shape, self.spec + (None,) * (block.dim() - len(self.spec))))
         named = {a for e in self.spec for a in _entry_axes(e)}
-        with self.mesh.collective("gather"):
-            if self.mesh.backend == "nccl" or block.device.type == "cpu":
-                parts = [torch.empty_like(block) for _ in range(self.mesh.n_ranks)]
+        by_gather = self.mesh.backend == "nccl" or block.device.type == "cpu"
+        n, itemsize = self.mesh.n_ranks, block.element_size()
+        nbytes = (wire_bytes("all-gather", n * block.numel() * itemsize, n) if by_gather
+                  else wire_bytes("all-reduce", math.prod(whole_shape) * itemsize, n))
+        with self.mesh.collective("gather", nbytes):
+            if by_gather:
+                parts = [torch.empty_like(block) for _ in range(n)]
                 dist.all_gather(parts, block.contiguous())
                 whole = torch.empty(whole_shape, dtype=block.dtype, device=block.device)
                 for rank, part in enumerate(parts):

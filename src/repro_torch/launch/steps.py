@@ -50,7 +50,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.sketch import sketch_device_stats
 from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
-from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways
+from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.sharding import (
     Sharding, batch_pspecs, cache_pspecs, moe_strategy, params_pspecs, to_shardings,
 )
@@ -139,7 +139,8 @@ def _mean_over_data(x: torch.Tensor, mesh: RankMesh, r_data: int) -> torch.Tenso
 
     if r_data == 1:
         return x
-    with mesh.collective("reduce"):
+    with mesh.collective("reduce", wire_bytes("all-reduce", x.numel() * x.element_size(),
+                                              r_data)):
         dist.all_reduce(x, group=mesh.get_group("data"))
     return x.div_(r_data)
 

@@ -55,7 +55,7 @@ from torch.profiler import record_function
 from repro_torch.core import aircomp, scheduling
 from repro_torch.core.channel import ChannelConfig, ChannelState
 from repro_torch.core.sketch import draw_probes
-from repro_torch.launch.mesh import RankMesh, batch_ways
+from repro_torch.launch.mesh import RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.steps import block_of, build_stats_step, build_train_step, params_structs
 from repro_torch.models import api
 from repro_torch.models.config import InputShape, ModelConfig
@@ -109,7 +109,7 @@ def _agree(mesh: RankMesh, values: list) -> list:
     import torch.distributed as dist
 
     flat = torch.cat([v.reshape(-1).to(torch.float64) for v in values])
-    with mesh.collective("broadcast"):
+    with mesh.collective("broadcast", wire_bytes("broadcast", flat.numel() * 8, mesh.n_ranks)):
         dist.broadcast(flat, src=0)
     parts = torch.split(flat, [v.numel() for v in values])
     return [p.reshape(v.shape).to(v.dtype) for p, v in zip(parts, values)]
@@ -213,8 +213,9 @@ class POFLTrainer:
         """One round on the global ``batch`` (over ranks every rank passes
         the same batch and its own blocks of params and opt_state) →
         ``(params, opt_state, diag)``: diag holds the schedule's ``e_com``,
-        ``a``, ``n_scheduled``, ``coeffs`` and ``noise_amp``, and the
-        weighted ``loss``."""
+        ``a``, ``n_scheduled``, ``coeffs`` and ``noise_amp``, the
+        statistics it was made from (``grad_mean``, ``grad_var``,
+        ``grad_norm``, each (n_fl,)), and the weighted ``loss``."""
         if self.ranks:
             batch = block_of(batch, self.train_bundle.in_shardings["batch"])
         with record_function("train.stats"):
@@ -227,7 +228,8 @@ class POFLTrainer:
                 noise = block_of(noise, self.train_bundle.in_shardings["noise"])
             params, opt_state, loss = self.train_bundle.fn(
                 params, opt_state, batch, coeffs, noise_amp, noise)
-        diag.update(loss=loss, coeffs=coeffs, noise_amp=noise_amp)
+        diag.update(loss=loss, coeffs=coeffs, noise_amp=noise_amp, grad_mean=stats.mean,
+                    grad_var=stats.var, grad_norm=stats.norm)
         return params, opt_state, diag
 
 

@@ -26,10 +26,11 @@ got. Jobs:
   train_ranks   the input's trainer cases (``tests/test_torch_train_ranks.py``):
                 each ``POFLTrainer`` on a (data, model) mesh of every rank
                 from the input's whole parameters, its rounds' draws
-                replayed (:class:`ReplayDraws`): every round's diag, and
-                every rank's blocks of the final parameters, of the
-                optimizer state and of the gradients that reached the
-                optimizer, gathered by rank.
+                replayed (:class:`ReplayDraws`) and its channel gains the
+                input's: every round's diag, and every rank's blocks of
+                the final parameters, of the optimizer state and of the
+                gradients that reached the optimizer, and its collectives
+                (calls and wire bytes), gathered by rank.
 """
 from __future__ import annotations
 
@@ -157,9 +158,12 @@ def lattice(inp) -> dict:
 
 
 def train_ranks(inp) -> dict:
+    from repro_torch.core.channel import ChannelState
+    from repro_torch.launch.distributed import counted_collectives
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.steps import block_of
     from repro_torch.launch.train import POFLTrainer
+    from repro_torch.obs.registry import reset_metrics
     from repro_torch.optim import optimizers
 
     def by_rank(value):
@@ -175,15 +179,19 @@ def train_ranks(inp) -> dict:
         trainer = POFLTrainer(case["cfg"], case["shape"], mesh, case["tcfg"],
                               optimizer=recording(getattr(optimizers, opt_name)(lr), seen),
                               draws=ReplayDraws(case["draws"]))
+        trainer.channel = ChannelState(cfg=trainer.channel.cfg, gains=case["gains"])
         params = block_of(case["params"], trainer.train_bundle.in_shardings["params"])
         opt_state = trainer.optimizer.init(params)
+        reset_metrics("ranks.")
         rounds = []
         for batch in case["batches"]:
             params, opt_state, diag = trainer.train_round(params, opt_state, batch)
             rounds.append(diag)
         out[name] = {"rounds": rounds,
                      "ranks": by_rank({"coordinates": mesh.coordinates(), "params": params,
-                                       "opt_state": opt_state, "grads": seen})}
+                                       "opt_state": opt_state, "grads": seen,
+                                       "collectives": {op: {k: c[k] for k in ("calls", "bytes")}
+                                                       for op, c in counted_collectives().items()}})}
     return out
 
 

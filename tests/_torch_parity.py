@@ -542,3 +542,61 @@ class ReferenceTrainerDraws:
 
         self.key, k_noise = jax.random.split(self.key)
         return tree_unflatten(params, jax_leaf_normals(k_noise, params))
+
+
+def reference_trainer(jcfg, tc, n_fl: int, b: int, seed: int, opt, seen: list | None = None,
+                      jit: bool = False):
+    """The reference's ``POFLTrainer`` round methods on a namespace whose
+    steps are its own functions, unjitted unless ``jit``:
+    ``sketch_device_stats`` over ``model_loss(reduce=False)`` and the train
+    step of ``repro/launch/steps.py:145-227`` (fp32, remat, no
+    microbatches), with the optimizer ``opt``; ``seen`` collects the noisy
+    gradients each update gets. Call
+    ``repro.launch.train.POFLTrainer.train_round(ns, ...)`` on it."""
+    from repro.core.sketch import sketch_device_stats
+    from repro.launch import train as jtrain
+    from repro.models import api as japi
+
+    key, k_chan = jax.random.split(jax.random.PRNGKey(seed))
+    ns = SimpleNamespace(
+        tcfg=tc, key=key, n_fl=n_fl, n_sched=min(tc.n_scheduled, n_fl),
+        channel=jtrain.ChannelState.create(JChannelConfig(
+            n_devices=n_fl, tx_power=tc.tx_power, noise_power=tc.noise_power), k_chan),
+        data_frac=jnp.full((n_fl,), 1.0 / n_fl), dim=jcfg.param_count(), _loss_stats=None)
+
+    def stats_fn(params, batch, k):
+        def per_device_loss(p):
+            pe, _ = japi.model_loss(p, jcfg, batch, dtype=jnp.float32, remat=True,
+                                    reduce=False)
+            return pe.reshape(n_fl, b // n_fl).mean(axis=1)
+        s = sketch_device_stats(per_device_loss, params, k, tc.n_probes)
+        return s.mean, s.var, s.norm
+
+    def train_grads(params, opt_state, batch, coeffs, noise_amp, k_noise):
+        w = jnp.repeat(coeffs * n_fl, b // n_fl, total_repeat_length=b)
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: japi.model_loss(p, jcfg, batch, dtype=jnp.float32, remat=True,
+                                      loss_weights=w), has_aux=True)(params)
+        leaves, treedef = jax.tree.flatten(grads)
+        keys = jax.random.split(k_noise, len(leaves))
+        grads = jax.tree.unflatten(treedef, [
+            g + noise_amp.astype(g.dtype) * jax.random.normal(k, g.shape, g.dtype)
+            for g, k in zip(leaves, keys)])
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, loss, grads
+
+    if jit:
+        stats_fn, train_grads = jax.jit(stats_fn), jax.jit(train_grads)
+
+    def train_fn(params, opt_state, batch, coeffs, noise_amp, k_noise):
+        new_params, new_opt, loss, grads = train_grads(params, opt_state, batch, coeffs,
+                                                       noise_amp, k_noise)
+        if seen is not None:
+            seen.append(grads)
+        return new_params, new_opt, loss
+
+    ns.stats_bundle = SimpleNamespace(fn=stats_fn)
+    ns.train_bundle = SimpleNamespace(fn=train_fn)
+    ns._round_stats = lambda p, bt: jtrain.POFLTrainer._round_stats(ns, p, bt)
+    ns.schedule_round = lambda st: jtrain.POFLTrainer.schedule_round(ns, st)
+    return ns

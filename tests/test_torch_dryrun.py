@@ -9,10 +9,10 @@
 - FLOPs: ``FlopCounterMode`` over a reduced step on meta tensors equals the
   count over the same step on real CPU tensors (train steps of four
   families, a decode step).
-- ``parse_collective_bytes`` and ``cost_analysis_dict``, kept from the
-  reference, give the reference's results on the same input; the CLI
-  writes one ``ok`` or ``skipped`` record per arch × shape × mesh, and the
-  one-card mesh names no card here.
+- The CLI writes one ``ok`` or ``skipped`` record per arch × shape × mesh,
+  the one-card mesh names no card here, and a train record's collectives
+  are a round of the port's rank trainer (``rank_collectives``; the rank
+  runs hold the same counts in ``tests/test_torch_train_ranks.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ import torch
 from jax.sharding import AbstractMesh
 
 from repro import configs as jconfigs
-from repro.launch import dryrun as jdryrun
 from repro.launch import sharding as jsharding
 from repro.launch import steps as jsteps
 from repro.optim.optimizers import adamw as jadamw
@@ -34,7 +33,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.flatten_util import tree_leaves, tree_map
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import build_serve_step, build_train_step
+from repro_torch.launch.steps import build_serve_step, build_train_step, params_structs
 from repro_torch.models.cache import cache_leaves
 from repro_torch.models.config import INPUT_SHAPES, InputShape
 from repro_torch.optim.optimizers import adamw
@@ -180,46 +179,13 @@ def test_meta_flops_of_a_decode_step_match_real_tensors():
     assert meta == counter.get_total_flops() > 0
 
 
-HLO = """HloModule m
-
-%add (a: f32[], b: f32[]) -> f32[] {
-  ROOT %s = f32[] add(f32[] %a, f32[] %b)
-}
-
-%cond (p: (s32[], f32[8])) -> pred[] {
-  %i = s32[] get-tuple-element((s32[], f32[8]) %p), index=0
-  %n = s32[] constant(12)
-  ROOT %lt = pred[] compare(s32[] %i, s32[] %n), direction=LT
-}
-
-%body (p: (s32[], f32[8])) -> (s32[], f32[8]) {
-  %x = f32[8]{0} get-tuple-element((s32[], f32[8]) %p), index=1
-  %ag = f32[32]{0} all-gather(f32[8]{0} %x), replica_groups=[4,4]<=[16], dimensions={0}
-  %rs = f32[2]{0} reduce-scatter(f32[8]{0} %x), replica_groups={{0,1,2,3}}, to_apply=%add
-  ROOT %t = (s32[], f32[8]) tuple(s32[] %i, f32[8]{0} %x)
-}
-
-ENTRY %main (a: f32[8]) -> f32[8] {
-  %w = (s32[], f32[8]) while((s32[], f32[8]) %t0), condition=%cond, body=%body
-  %ar = bf16[1024]{0} all-reduce(bf16[1024]{0} %a), replica_groups=[2,8]<=[16], to_apply=%add
-  ROOT %cp = f32[8]{0} collective-permute(f32[8]{0} %a), source_target_pairs={{0,1}}
-}
-"""
-
-
-def test_hlo_reading_kept_from_the_reference_matches_it():
-    got = dryrun.parse_collective_bytes(HLO)
-    assert got == jdryrun.parse_collective_bytes(HLO)
-    assert set(got) == {"all-gather", "reduce-scatter", "all-reduce", "collective-permute"}
-    assert got["all-gather"]["bytes"] == 12 * (128 * 3 // 4)  # 12 trips of the loop body
-    for cost in ({"flops": 3.0}, [{"flops": 3.0}], [], None):
-        assert dryrun.cost_analysis_dict(cost) == jdryrun.cost_analysis_dict(cost)
-
-
 def test_cli_writes_a_record_per_arch_shape_and_mesh(tmp_path, capsys):
     """One arch, every shape, both production meshes and one card: every
     record ``ok`` or ``skipped``; without a card the one-card records name
-    none; the spec collectives of a train step on 16x16."""
+    none; a train round's collectives on 16x16 (two gathers of every split
+    master, the statistics' gather, every gradient leaf and the loss
+    all-reduced, one broadcast), on one card the broadcast alone, none on
+    the pod mesh or for a serving step."""
     out = tmp_path / "dry.jsonl"
     rc = dryrun.main(["--arch", "mamba2-370m", "--shape", "all", "--both-meshes",
                       "--mesh", "1x1", "--no-flops", "--json", str(out)])
@@ -230,10 +196,22 @@ def test_cli_writes_a_record_per_arch_shape_and_mesh(tmp_path, capsys):
     one = [r for r in recs if r["mesh"] == "1x1"]
     assert all(r["card"] is None and r["fits"] is None for r in one)
     train = next(r for r in recs if r["mesh"] == "16x16" and r["shape"] == "train_4k")
-    assert set(train["collectives"]) <= {"all-gather", "reduce-scatter", "all-reduce"}
-    assert train["collective_bytes_per_device"] > 0
+    cfg = tconfigs.get_config("mamba2-370m", "train_4k")
+    structs = tree_leaves(params_structs(cfg))
+    coll = train["collectives"]
+    assert coll["reduce"]["calls"] == len(structs) + 1 and coll["broadcast"]["calls"] == 1
+    assert 0 < coll["gather"]["calls"] <= 2 * len(structs) + 1
+    assert coll["gather"]["calls"] % 2 == 1  # the statistics' gather beside two of each leaf
+    # every fp32 gradient leaf all-reduced over 16 data ranks, the loss too
+    assert coll["reduce"]["bytes"] == sum(2 * n * 15 // 16 for n in
+                                          [x.numel() * 4 for x in structs] + [4])
+    assert train["collective_bytes_per_device"] == sum(c["bytes"] for c in coll.values())
     one_train = next(r for r in one if r["shape"] == "train_4k")
-    assert one_train["collective_bytes_per_device"] == 0
+    assert one_train["collectives"] == {"gather": {"calls": 0, "bytes": 0},
+                                        "reduce": {"calls": 0, "bytes": 0},
+                                        "broadcast": {"calls": 1, "bytes": 8 * (1 + 4)}}
+    assert all(r["collectives"] is None for r in recs
+               if r["mesh"] == "2x16x16" or r["shape"] != "train_4k")
     skipped = dryrun.run_one("qwen2.5-14b", "long_500k", mesh="16x16", flops=False,
                              verbose=False)
     assert skipped["status"] == "skipped" and not tconfigs.supports_shape("qwen2.5-14b",

@@ -68,16 +68,24 @@ def test_every_reference_export_imports_from_the_port(ref, port, later):
     assert not missing, missing
 
 
+# the reference dry run's readers of a compiled XLA program (its HLO text
+# and its cost analysis), which the port has no counterpart of while it
+# compiles nothing: its dry run reckons from the specs
+DRYRUN_NO_PROGRAM = ("parse_collective_bytes", "cost_analysis_dict")
+
+
 @pytest.mark.parametrize("module", ["steps", "train", "mesh", "sharding", "dryrun"])
 def test_launch_modules_have_the_reference_public_names(module):
     """Every function and class a ``repro.launch`` training module defines
-    (not imports) without a leading underscore, in the port's module."""
+    (not imports) without a leading underscore, in the port's module (but
+    DRYRUN_NO_PROGRAM)."""
     import inspect
 
     ref = importlib.import_module(f"repro.launch.{module}")
     port = importlib.import_module(f"repro_torch.launch.{module}")
     names = [n for n, v in vars(ref).items() if not n.startswith("_")
-             and (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == ref.__name__]
+             and (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == ref.__name__
+             and n not in DRYRUN_NO_PROGRAM]
     assert names
     assert not [n for n in names if not hasattr(port, n)]
 

@@ -1,30 +1,39 @@
 """The port's ``POFLTrainer`` over a (data, model) mesh of ranks, held to
-its one-process trainer on the CPU.
+the reference's ``POFLTrainer.train_round`` on the CPU, with the port's
+one-process trainer as a second witness.
 
 Two gloo ranks run through the port's launcher
 (``_torch_parity.launch_ranks``, job ``train_ranks`` of
 ``tests/_torch_mesh_worker.py``), in ONE launch for every case: reduced
 qwen2 and reduced mamba2 at 2 layers, 4 FL devices, 8 × 16 tokens, fp32
 compute, on the (2, 1) mesh (two data ranks, two FL devices each) and the
-(1, 2) mesh (two model ranks computing the same FL devices whole). Every
-round's probes, h, Gumbel vectors and noise are the reference trainer's
-draws (``_torch_parity.ReferenceTrainerDraws``), drawn once here and
-replayed on both sides.
+(1, 2) mesh (two model ranks computing the same FL devices whole). The
+reference's round runs in this process over its own functions
+(``_torch_parity.reference_trainer``: its sketch and train step, unjitted)
+from the same converted weights and batches; the port's rounds take the
+reference trainer's draws (``_torch_parity.ReferenceTrainerDraws``: probes,
+h, Gumbel vectors, noise) and its channel gains, drawn once here and
+replayed. The reference's round does not depend on the mesh.
 
-- Three ``sgd`` rounds: loss, e_com, a, coeffs and noise_amp within 1e-5 of
-  the one-process trainer's relative to their scale, n_scheduled and the
-  schedule exactly; every rank's final blocks equal the spec's slices of
-  the one-process parameters within 1e-5, and each rank holds only its
-  spec's blocks of the masters and the optimizer state.
+- Three ``sgd`` rounds: loss, e_com, a, coeffs, noise_amp and the
+  sketched statistics within 1e-5 of the reference's relative to their
+  scale, n_scheduled and the schedule exactly; every rank's final blocks
+  equal the spec's slices of the reference's final parameters within
+  1e-5, and each rank holds only its spec's blocks of the masters and the
+  optimizer state. The one-process port trainer is held the same way.
 - One ``adamw`` round: the noisy gradients that reach the optimizer, each
-  rank's blocks against the slices of the one-process gradients (1e-5; as
+  rank's blocks against the slices of the reference's gradients (1e-5; as
   ``tests/test_torch_train_step.py`` holds them: AdamW's first step is
   ill-conditioned, ROADMAP C), and each rank's update equal to AdamW's
   update of its own gradients.
+- Each rank's collectives (calls and wire bytes, counted by the rank mesh)
+  equal the dry run's reckoning for that mesh
+  (``launch.dryrun.rank_collectives``) over the rounds.
 """
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -32,16 +41,21 @@ import pytest
 import torch
 from _torch_mesh_worker import ReplayDraws, recording
 from _torch_parity import (
-    ReferenceTrainerDraws, assert_close, launch_ranks, torch_batch, train_case,
+    ReferenceTrainerDraws, assert_close, launch_ranks, reference_trainer, torch_batch,
+    train_case,
 )
 
 from repro.core.channel import ChannelConfig as JChannelConfig
+from repro.launch import train as jtrain
+from repro.optim import optimizers as jopt
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.core.channel import ChannelState
 from repro_torch.flatten_util import tree_leaves, tree_unflatten
+from repro_torch.launch import dryrun
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
 from repro_torch.launch.sharding import Sharding, params_pspecs, to_shardings
-from repro_torch.launch.steps import params_structs
+from repro_torch.launch.steps import build_train_step, params_structs
 from repro_torch.models.config import InputShape
 from repro_torch.optim import optimizers as topt
 
@@ -49,39 +63,78 @@ N_FL, B, SEQ, LR, SEED = 4, 8, 16, 0.05, 3
 ARCHS = ("qwen2-0.5b", "mamba2-370m")
 MESHES = {"2x1": 1, "1x2": 2}  # name → ranks a model group
 ROUNDS = {"sgd": 3, "adamw": 1}
+CASES = ((ARCHS[0], "sgd"), (ARCHS[0], "adamw"), (ARCHS[1], "sgd"))  # each sgd before adamw
+FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_var", "grad_norm")
 
 
 def _case(arch: str, optimizer: str):
-    """One trainer case: the port's config, shape and TrainerConfig, the
-    reference's weights converted, the batches, and every round's draws
-    from the reference trainer's key discipline."""
+    """One trainer case → (the port's inputs: config, shape, TrainerConfig,
+    the reference's weights converted, the batches, every round's draws
+    from the reference trainer's key discipline and its channel gains;
+    the reference's side: its config, TrainerConfig, weights and batches)."""
     jcfg, tcfg, jp, _ = train_case(arch, b=B, s=SEQ, seed=9)
-    batches = [torch_batch(train_case(arch, b=B, s=SEQ, seed=20 + r)[3])
-               for r in range(ROUNDS[optimizer])]
+    jbatches = [train_case(arch, b=B, s=SEQ, seed=20 + r)[3] for r in range(ROUNDS[optimizer])]
     tc = ttrain.TrainerConfig(n_scheduled=2, noise_power=1e-10, n_probes=2, dtype="float32",
                               seed=SEED)
     params = lm_params_from_jax(jax.tree.map(jnp.asarray, jp), tcfg, device="cpu")
     ref = ReferenceTrainerDraws(SEED, JChannelConfig(n_devices=N_FL, tx_power=tc.tx_power,
                                                      noise_power=tc.noise_power))
     draws = []
-    for _ in batches:
+    for _ in jbatches:
         draws.append({"probes": ref.probes(params, tc.n_probes), "h": ref.channel(None),
                       "gumbels": ref.gumbels(tc.n_scheduled, N_FL),
                       "noise": ref.noise(params)})
-    return {"cfg": tcfg, "shape": InputShape("ranks", SEQ, B, "train"), "tcfg": tc,
-            "params": params, "batches": batches, "draws": draws, "n_fl": N_FL,
-            "optimizer": (optimizer, LR)}
+    port = {"cfg": tcfg, "shape": InputShape("ranks", SEQ, B, "train"), "tcfg": tc,
+            "params": params, "batches": [torch_batch(b) for b in jbatches], "draws": draws,
+            "gains": ref.gains(), "n_fl": N_FL, "optimizer": (optimizer, LR)}
+    reference = {"cfg": jcfg, "tcfg": jtrain.TrainerConfig(**dataclasses.asdict(tc)),
+                 "params": jp, "batches": jbatches}
+    return port, reference
+
+
+def _reference(port, reference):
+    """The reference's ``train_round`` over the case's batches → (each
+    round's values of FIELDS and n_scheduled, its final parameters and
+    the gradients each update got, both as port trees)."""
+    opt_name, lr = port["optimizer"]
+    opt, seen = getattr(jopt, opt_name)(lr), []
+    ns = reference_trainer(reference["cfg"], reference["tcfg"], N_FL, B, SEED, opt, seen,
+                           jit=True)
+    logged: list = []
+    stats_fn, train_fn = ns.stats_bundle.fn, ns.train_bundle.fn
+
+    def log_stats(params, batch, k):
+        logged.append(dict(zip(("grad_mean", "grad_var", "grad_norm"),
+                               stats_fn(params, batch, k))))
+        return tuple(logged[-1].values())
+
+    def log_train(params, opt_state, batch, coeffs, noise_amp, k_noise):
+        logged[-1].update(coeffs=coeffs, noise_amp=noise_amp)
+        return train_fn(params, opt_state, batch, coeffs, noise_amp, k_noise)
+
+    ns.stats_bundle.fn, ns.train_bundle.fn = log_stats, log_train
+    jp = jax.tree.map(jnp.asarray, reference["params"])
+    js = opt.init(jp)
+    rounds = []
+    for batch in reference["batches"]:
+        jp, js, diag = jtrain.POFLTrainer.train_round(
+            ns, jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
+        rounds.append({**logged[-1], **diag,
+                       "n_scheduled": int((jnp.asarray(logged[-1]["coeffs"]) > 0).sum())})
+    to_port = lambda tree: lm_params_from_jax(tree, port["cfg"], device="cpu")  # noqa: E731
+    return rounds, to_port(jp), [to_port(g) for g in seen]
 
 
 def _one_process(case):
-    """The one-process trainer's rounds of ``case`` → (diags, final params,
-    the gradients each round's optimizer got)."""
+    """The one-process port trainer's rounds of ``case`` → (diags, final
+    params, the gradients each round's optimizer got)."""
     seen: list = []
     opt_name, lr = case["optimizer"]
     trainer = ttrain.POFLTrainer(case["cfg"], case["shape"], make_host_mesh(1, N_FL, "cpu"),
                                  case["tcfg"],
                                  optimizer=recording(getattr(topt, opt_name)(lr), seen),
                                  draws=ReplayDraws(case["draws"]))
+    trainer.channel = ChannelState(cfg=trainer.channel.cfg, gains=case["gains"])
     params = case["params"]
     opt_state = trainer.optimizer.init(params)
     diags = []
@@ -103,71 +156,95 @@ def _block(sh: Sharding, whole, coords):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case's one-process run and its two-rank run (one launch)."""
-    cases, inp = {}, {}
-    for arch in ARCHS:
-        for opt in ("sgd", "adamw") if arch == ARCHS[0] else ("sgd",):
-            case = _case(arch, opt)
-            for mesh, model in MESHES.items():
-                name = f"{arch}-{opt}-{mesh}"
-                cases[name] = case
-                inp[name] = {**case, "model": model}
-    got = launch_ranks("train_ranks", 2, inp, tmp_path_factory.mktemp("train_ranks"))
-    want = {}
-    for name, case in cases.items():
-        key = id(case)
-        if key not in want:
-            want[key] = _one_process(case)
-    return {name: (inp[name], got[name], want[id(case)]) for name, case in cases.items()}
+    """Every case's two-rank run (one launch, while this process runs the
+    reference's rounds, jitted, and the one-process port trainer's). The
+    optimizer acts after a round's gradients, so AdamW's round 0 gets the
+    gradients and the schedule of ``sgd``'s round 0 on the same weights,
+    batch and draws: the reference's ``sgd`` run serves both."""
+    cases = {(arch, opt): _case(arch, opt) for arch, opt in CASES}
+    inp = {f"{arch}-{opt}-{mesh}": {**cases[arch, opt][0], "model": model}
+           for arch, opt in CASES for mesh, model in MESHES.items()}
+    with ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(launch_ranks, "train_ranks", 2, inp,
+                               tmp_path_factory.mktemp("train_ranks"))
+        ref, want = {}, {}
+        for (arch, opt), (port, reference) in cases.items():
+            if opt == "sgd":
+                ref[arch] = _reference(port, reference)
+            rounds, final, seen = ref[arch]
+            want[arch, opt] = ((rounds, final, seen) if opt == "sgd" else
+                               (rounds[:1], None, seen[:1]), _one_process(port))
+        got = launched.result()
+    return {f"{arch}-{opt}-{mesh}": (inp[f"{arch}-{opt}-{mesh}"], got[f"{arch}-{opt}-{mesh}"],
+                                     *want[arch, opt])
+            for arch, opt in CASES for mesh in MESHES}
 
 
 def _sgd_names():
     return [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES]
 
 
+def _assert_rounds(rounds, want):
+    assert len(rounds) == len(want)
+    for g, w in zip(rounds, want):
+        for f in FIELDS:
+            assert_close(g[f], w[f])
+        assert float(g["n_scheduled"]) == float(w["n_scheduled"])
+        assert torch.equal(g["coeffs"] > 0, torch.as_tensor(w["coeffs"]) > 0)
+
+
 @pytest.mark.parametrize("name", _sgd_names())
 def test_three_sgd_rounds_over_ranks_match_one_process(runs, name):
-    case, got, (diags, final, _) = runs[name]
-    assert len(got["rounds"]) == len(diags) == 3
-    for g, w in zip(got["rounds"], diags):
-        for f in ("loss", "e_com", "a", "coeffs", "noise_amp"):
-            assert_close(g[f], w[f])
-        assert float(g["n_scheduled"]) == float(w["n_scheduled"]) == 2
-        assert torch.equal(g["coeffs"] > 0, w["coeffs"] > 0)
+    """Every round against the reference's ``train_round``, and against the
+    one-process port trainer."""
+    case, got, (rounds, _, _), (diags, _, _) = runs[name]
+    assert len(got["rounds"]) == 3
+    _assert_rounds(got["rounds"], rounds)
+    _assert_rounds(got["rounds"], diags)
+    assert all(float(r["n_scheduled"]) == 2 for r in rounds)
 
 
 @pytest.mark.parametrize("name", _sgd_names())
 def test_each_rank_holds_its_spec_blocks_of_the_one_process_parameters(runs, name):
-    case, got, (_, final, _) = runs[name]
+    """Each rank's final blocks are the spec's slices of the reference's
+    final parameters (and of the one-process port trainer's); the masters
+    and the optimizer state are held as blocks only."""
+    case, got, (_, ref_final, _), (_, final, _) = runs[name]
     mesh, p_sh = _shardings(case["cfg"], case["shape"], case["model"])
     shardings = tree_leaves(p_sh)
     assert any(not sh.replicated() for sh in shardings)  # something is split
     for rank in got["ranks"]:
         coords = rank["coordinates"]
         blocks, state = tree_leaves(rank["params"]), rank["opt_state"]
-        for x, sh, whole in zip(blocks, shardings, tree_leaves(final)):
+        for x, sh, whole, witness in zip(blocks, shardings, tree_leaves(ref_final),
+                                         tree_leaves(final), strict=True):
             assert tuple(x.shape) == sh.block_shape(whole.shape)
             assert_close(x, _block(sh, whole, coords))
+            assert_close(x, _block(sh, witness, coords))
         for moment in (state.mu, state.nu):
             if moment is not None:
-                for x, sh, whole in zip(tree_leaves(moment), shardings, tree_leaves(final)):
+                for x, sh, whole in zip(tree_leaves(moment), shardings, tree_leaves(ref_final)):
                     assert tuple(x.shape) == sh.block_shape(whole.shape)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_adamw_round_gradients_over_ranks_match_one_process(runs, mesh):
+    """The noisy gradients that reach AdamW: each rank's blocks against the
+    slices of the reference's (and the one-process port trainer's); each
+    rank's update is AdamW's update of its own gradients."""
     name = f"{ARCHS[0]}-adamw-{mesh}"
-    case, got, (diags, _, seen) = runs[name]
+    case, got, (rounds, _, ref_seen), (_, _, seen) = runs[name]
     _, p_sh = _shardings(case["cfg"], case["shape"], case["model"])
     shardings = tree_leaves(p_sh)
-    assert_close(got["rounds"][0]["loss"], diags[0]["loss"])
-    assert float(got["rounds"][0]["n_scheduled"]) == float(diags[0]["n_scheduled"])
+    _assert_rounds(got["rounds"], rounds)
     opt = topt.adamw(LR)
     for rank in got["ranks"]:
         coords = rank["coordinates"]
         (grads,) = rank["grads"]
-        for g, sh, whole in zip(tree_leaves(grads), shardings, tree_leaves(seen[0])):
+        for g, sh, whole, witness in zip(tree_leaves(grads), shardings, tree_leaves(ref_seen[0]),
+                                         tree_leaves(seen[0]), strict=True):
             assert_close(g, _block(sh, whole, coords))
+            assert_close(g, _block(sh, witness, coords))
         blocks0 = _blocks_of(case["params"], p_sh, coords)
         want, _ = opt.update(grads, opt.init(blocks0), blocks0)
         for x, w in zip(tree_leaves(rank["params"]), tree_leaves(want)):
@@ -179,6 +256,27 @@ def _blocks_of(tree, p_sh, coords):
                                  zip(tree_leaves(tree), tree_leaves(p_sh))])
 
 
+@pytest.mark.parametrize("name", [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES]
+                         + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES])
+def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
+    """Every rank's gathers, reductions and broadcasts, counted with their
+    wire bytes by the rank mesh as it ran, equal the dry run's reckoning of
+    a round on that mesh (gloo on the CPU gathers by all-gather) times the
+    rounds."""
+    case, got, _, _ = runs[name]
+    mesh = ShapeMesh(("data", "model"), (2 // case["model"], case["model"]))
+    opt_name, lr = case["optimizer"]
+    bundle = build_train_step(case["cfg"], case["shape"], mesh, getattr(topt, opt_name)(lr),
+                              dtype=torch.float32)
+    per_round = dryrun.rank_collectives(case["cfg"], bundle, mesh, "all-gather", N_FL)
+    n_rounds = len(case["batches"])
+    want = {op: {k: v * n_rounds for k, v in c.items()} for op, c in per_round.items()}
+    assert want["gather"]["calls"] > 0 and want["broadcast"]["calls"] == n_rounds
+    assert (want["reduce"]["calls"] > 0) == (case["model"] == 1)
+    for rank in got["ranks"]:
+        assert rank["collectives"] == want
+
+
 def test_one_rank_mesh_is_the_one_card_trainer_bitwise():
     """A (1, 1) mesh of one gloo rank in this process: a round of the rank
     trainer equals the one-card trainer's bitwise; a mesh the ranks cannot
@@ -187,7 +285,7 @@ def test_one_rank_mesh_is_the_one_card_trainer_bitwise():
 
     from repro_torch.launch.mesh import batch_ways, make_production_mesh, make_rank_mesh
 
-    case = _case(ARCHS[0], "sgd")
+    case, _ = _case(ARCHS[0], "sgd")
     case["batches"], case["draws"] = case["batches"][:1], case["draws"][:1]
     diags, final, _ = _one_process(case)
     try:
@@ -197,6 +295,7 @@ def test_one_rank_mesh_is_the_one_card_trainer_bitwise():
             make_rank_mesh(model=2, n_fl=N_FL, device="cpu")
         trainer = ttrain.POFLTrainer(case["cfg"], case["shape"], mesh, case["tcfg"],
                                      optimizer=topt.sgd(LR), draws=ReplayDraws(case["draws"]))
+        trainer.channel = ChannelState(cfg=trainer.channel.cfg, gains=case["gains"])
         params, opt_state, diag = trainer.train_round(
             case["params"], trainer.optimizer.init(case["params"]), case["batches"][0])
     finally:

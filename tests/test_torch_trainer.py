@@ -33,13 +33,11 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (
-    ReferenceTrainerDraws, assert_close, auto_mesh, torch_batch, train_case,
+    ReferenceTrainerDraws, assert_close, auto_mesh, reference_trainer, torch_batch, train_case,
 )
 
 from repro.core.channel import ChannelConfig as JChannelConfig
-from repro.core.sketch import sketch_device_stats as jax_sketch
 from repro.launch import train as jtrain
-from repro.models import api as japi
 from repro.models.config import InputShape as JInputShape
 from repro.optim import optimizers as jopt
 from repro_torch.convert import lm_params_from_jax
@@ -74,44 +72,10 @@ def _recording(bundle, log):
 
 
 def _reference_in_process(jcfg, tc, n_fl, b, seed):
-    """The reference's ``POFLTrainer`` round methods on a namespace whose
-    steps are its own functions, unjitted: ``sketch_device_stats`` over
-    ``model_loss(reduce=False)`` and the train step of
-    ``launch/steps.py:145-227`` (fp32, remat, no microbatches)."""
-    key, k_chan = jax.random.split(jax.random.PRNGKey(seed))
-    ns = SimpleNamespace(
-        tcfg=tc, key=key, n_fl=n_fl, n_sched=min(tc.n_scheduled, n_fl),
-        channel=jtrain.ChannelState.create(JChannelConfig(
-            n_devices=n_fl, tx_power=tc.tx_power, noise_power=tc.noise_power), k_chan),
-        data_frac=jnp.full((n_fl,), 1.0 / n_fl), dim=jcfg.param_count(), _loss_stats=None)
+    """The reference's round methods over its own functions
+    (``_torch_parity.reference_trainer``) with ``sgd``."""
     opt = jopt.sgd(LR)
-
-    def stats_fn(params, batch, k):
-        def per_device_loss(p):
-            pe, _ = japi.model_loss(p, jcfg, batch, dtype=jnp.float32, remat=True,
-                                    reduce=False)
-            return pe.reshape(n_fl, b // n_fl).mean(axis=1)
-        s = jax_sketch(per_device_loss, params, k, tc.n_probes)
-        return s.mean, s.var, s.norm
-
-    def train_fn(params, opt_state, batch, coeffs, noise_amp, k_noise):
-        w = jnp.repeat(coeffs * n_fl, b // n_fl, total_repeat_length=b)
-        (loss, _), grads = jax.value_and_grad(
-            lambda p: japi.model_loss(p, jcfg, batch, dtype=jnp.float32, remat=True,
-                                      loss_weights=w), has_aux=True)(params)
-        leaves, treedef = jax.tree.flatten(grads)
-        keys = jax.random.split(k_noise, len(leaves))
-        grads = jax.tree.unflatten(treedef, [
-            g + noise_amp.astype(g.dtype) * jax.random.normal(k, g.shape, g.dtype)
-            for g, k in zip(leaves, keys)])
-        new_params, new_opt = opt.update(grads, opt_state, params)
-        return new_params, new_opt, loss
-
-    ns.stats_bundle = SimpleNamespace(fn=stats_fn)
-    ns.train_bundle = SimpleNamespace(fn=train_fn)
-    ns._round_stats = lambda p, bt: jtrain.POFLTrainer._round_stats(ns, p, bt)
-    ns.schedule_round = lambda s: jtrain.POFLTrainer.schedule_round(ns, s)
-    return ns, opt
+    return reference_trainer(jcfg, tc, n_fl, b, seed, opt), opt
 
 
 def _assert_round(got_diag, want_diag, got_log, want_log, got_p, want_p):
