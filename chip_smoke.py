@@ -3368,6 +3368,365 @@ def train_ranks_phase(dev) -> dict:
     return counts
 
 
+# -- serving over ranks -------------------------------------------------------
+
+# (b) and (c): two ranks sharing the card over gloo on these (data, model)
+# meshes; each launch runs serve_ranks_plan()'s runs of that mesh in one
+# process group (a launched rank is slow to reach its group)
+SERVE_RANKS_MESHES = {"b": (2, 1), "c": (1, 2)}
+SERVE_RANKS_TIMEOUT = 600  # seconds the launched ranks get
+SERVE_RANKS_STEPS = 8
+# the holds: last-position logits against one process, relative L2 (PERF.md
+# §2's bf16 limit; 1e-5 in fp32)
+SERVE_RANKS_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
+# the bf16 runs at full depth, whose decode logits are not held to
+# SERVE_RANKS_TOL against one process over the whole batch: with random
+# weights a changed rounding in an early layer grows with depth (a product
+# over half the rows rounds otherwise; PERF.md §6, serving over ranks).
+# There the tokens are held by the margin rule, a data rank's decode
+# bitwise to one process's over the same rows, and the bf16 logits within
+# SERVE_RANKS_TOL at a cut depth ("bf16_cut", "ssm_cut")
+SERVE_RANKS_DEEP = ("bf16", "ssm")
+
+
+def serve_ranks_plan():
+    """The runs (``launch.distributed.ServeRun``) of phase ``serve_ranks``:
+    (a) the serve phase's shape, its cache grown by 8 slots; qwen2-0.5b at
+    full width and depth in bf16, a prefill of SERVE_BATCH × SERVE_PROMPT
+    and 8 steps at decode_32k's capacity (128 × 32,768, filled from a
+    seed), and the same cut to 1 layer; the same at 4 layers in fp32 on a
+    128 × 4,096 cache; mamba2-370m over data ranks at the ssm_serve shape
+    (decoding from its prefill), at full depth and cut to 16 of 48 layers
+    (the cut depths: PERF.md §6, serving over ranks)."""
+    from repro_torch.launch.distributed import ServeRun
+    from repro_torch.models.config import INPUT_SHAPES
+
+    d32k = INPUT_SHAPES["decode_32k"]
+    common = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, steps=SERVE_RANKS_STEPS)
+    big = dict(cache_batch=d32k.global_batch, cache_len=d32k.seq_len, **common)
+    return {"a": ServeRun(SERVE_ARCH, 0, "bfloat16", **common),
+            "bf16": ServeRun(SERVE_ARCH, 0, "bfloat16", **big),
+            "bf16_cut": ServeRun(SERVE_ARCH, 1, "bfloat16", **big),
+            "fp32": ServeRun(SERVE_ARCH, 4, "float32", cache_batch=d32k.global_batch,
+                             cache_len=4096, **common),
+            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common),
+            "ssm_cut": ServeRun(SSM_ARCH, 16, "bfloat16", **common)}
+
+
+def step_hold(got_logits, want_logits, got_tokens, want_tokens, step) -> tuple[float, float,
+                                                                              list, list]:
+    """One step's last-position logits (rows × vocab) against one
+    process's → (relative L2, max |gap|, the rows whose greedy tokens
+    differ where the one process's top-2 margin exceeds twice that gap,
+    the rows whose tokens differ within it), each row reported with its
+    margin."""
+    g, w = got_logits.float(), want_logits.float()
+    gap = (g - w).abs().max().item()
+    top2 = w.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    bad, outside = [], []
+    for j in (got_tokens != want_tokens).nonzero().squeeze(1).tolist():
+        entry = {"row": j, "step": step, "margin": float(margin[j]), "gap": gap}
+        (bad if margin[j] > 2 * gap else outside).append(entry)
+    return rel_l2(g, w), gap, bad, outside
+
+
+def decode_hold(got: dict, want: dict, vocab: int) -> dict:
+    """A rank's decode against one process's on its rows, step by step
+    (:func:`step_hold`), each step over the rows whose tokens so far agree
+    (a first token that differs was held by the prefill's rule): a row
+    whose token differs within the margin rule leaves the later steps'
+    comparison."""
+    n_steps = want["tokens"].shape[1]
+    agree = got["tokens"][:, 0] == want["tokens"][:, 0]
+    worst, gap_max, bad, outside = 0.0, 0.0, [], []
+    for i in range(n_steps - 1):
+        rows = agree.nonzero().squeeze(1)
+        err, gap, b, o = step_hold(got["logits"][rows, i, :vocab], want["logits"][rows, i, :vocab],
+                                   got["tokens"][rows, i + 1], want["tokens"][rows, i + 1], i)
+        worst, gap_max = max(worst, err), max(gap_max, gap)
+        for entry in b + o:
+            entry["row"] = int(rows[entry["row"]])
+            agree[entry["row"]] = False
+        bad += b
+        outside += o
+    return {"logits_rel_l2": worst, "max_logit_gap": gap_max, "tokens_against_rule": bad,
+            "tokens_outside_rule": outside,
+            "first_equal": torch.equal(got["tokens"][:, 0], want["tokens"][:, 0])}
+
+
+def serve_blocks_hold(got, want_whole, mesh, coords) -> float:
+    """The worst relative L2 of a rank's cache blocks against the specs'
+    blocks of one process's whole cache; positions must be equal (else
+    ``inf``)."""
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.models.cache import cache_leaves
+
+    worst = 0.0
+    for g, w, sh in zip(cache_leaves(got), cache_leaves(want_whole),
+                        cache_leaves(cache_shardings(want_whole, mesh)), strict=True):
+        w = w[sh.index(coords, w.shape)]
+        if tuple(g.shape) != tuple(w.shape):
+            return float("inf")
+        if g.is_floating_point():
+            worst = max(worst, rel_l2(g, w))
+        elif not torch.equal(g, w):
+            return float("inf")
+    return worst
+
+
+def serve_rank_hold(run, got: dict, want: dict, sizes, coords, gather: str,
+                    deep: bool) -> tuple[dict, bool]:
+    """One rank's run against one process's: the prefill's first tokens
+    (the margin rule), last-position logits and cache blocks, the decode
+    (:func:`decode_hold`) and, from the prefill's cache, the decode's final
+    blocks, within SERVE_RANKS_TOL (the decode's logits and final blocks
+    only reported where ``deep``: SERVE_RANKS_DEEP); the positions written; each kernel's
+    launches (the prefill's :func:`prefill_launches`, none in the decode);
+    the collectives of the decode and its tokens' gather equal to the dry
+    run's (``gather``: how the ranks gather; gloo gathers CUDA tensors by
+    a zero-filled all-reduce) →
+    (the figures, whether every hold held)."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import rank_collectives
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import Sharding, _batched
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.config import InputShape
+
+    tol = SERVE_RANKS_TOL[run.dtype]
+    cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
+    mesh = ShapeMesh(("data", "model"), sizes)
+
+    def rows(x, b):
+        return x[Sharding(mesh, (_batched(b, mesh),)).index(coords, (b,))[0]]
+
+    p_got, p_want = got["prefill"], want["prefill"]
+    v = cfg.vocab_size
+    p_err, _, p_bad, p_outside = step_hold(p_got["logits"][:, :v],
+                                           rows(p_want["logits"], run.batch)[:, :v],
+                                           p_got["first"][:, 0],
+                                           rows(p_want["first"], run.batch)[:, 0], "prefill")
+    b_dec = run.cache_batch if run.cache_len else run.batch
+    d_want = {k: rows(want["decode"][k], b_dec) for k in ("tokens", "logits")}
+    decode = decode_hold(got["decode"], d_want, v)
+    out = {"prefill_logits_rel_l2": p_err, "prefill_tokens_against_rule": p_bad,
+           "prefill_tokens_outside_rule": p_outside,
+           "prefill_cache_rel_l2": serve_blocks_hold(p_got["cache"], p_want["cache"], mesh,
+                                                     coords),
+           **{f"decode_{k}": v for k, v in decode.items()},
+           "positions_written": got["decode"]["positions_written"]}
+    if got["decode"]["cache"] is not None:
+        out["decode_cache_rel_l2"] = serve_blocks_hold(got["decode"]["cache"],
+                                                       want["decode"]["cache"], mesh, coords)
+    shape = InputShape("decode", run.cache_len or run.prompt + run.steps, b_dec, "decode")
+    reckoned = rank_collectives(cfg, build_serve_step(cfg, shape, mesh, getattr(torch, run.dtype)),
+                                mesh, gather, n_tokens=run.steps + 1)
+    counted = calls_and_bytes(got["decode"]["collectives"])
+    expect = prefill_launches(cfg)
+    out.update(reckoned_collectives=reckoned, collectives=got["decode"]["collectives"],
+               launches={"prefill": got["prefill"]["launches"],
+                         "decode": got["decode"]["launches"]})
+    held = [out["prefill_logits_rel_l2"], out["prefill_cache_rel_l2"]]
+    if not deep:
+        held += [out["decode_logits_rel_l2"], out.get("decode_cache_rel_l2", 0.0)]
+    out["held_to_tolerance"] = ("prefill" if deep else "prefill and decode")
+    ok = (max(held) <= tol
+          and not p_bad and not decode["tokens_against_rule"]
+          and (decode["first_equal"] or run.cache_len == 0) and out["positions_written"]
+          and counted == reckoned
+          and got["prefill"]["launches"] == expect
+          and not any(got["decode"]["launches"].values()))
+    return out, ok
+
+
+def one_process_rows(run, dev, sizes, coords) -> dict:
+    """This process's one-card ``Server`` on the rows that the rank at
+    ``coords`` of a (data, 1) mesh of ``sizes`` holds, from the same
+    weights, prompt rows, seeded cache rows and first tokens as that rank's
+    :func:`launch.distributed.serve_run` → its decode's tokens and each
+    step's logits (and, decoding from the prefill, its final cache), on the
+    host: what the rank must equal bitwise, the same code over the same
+    rows."""
+    from repro_torch import configs
+    from repro_torch.launch.distributed import _on_host, seeded_cache, serve_inputs
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Sharding, _batched
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+
+    class Placed(ShapeMesh):  # a shape-only mesh that answers one rank's place
+        def coordinates(self, rank=None):
+            return coords
+
+    mesh = Placed(("data", "model"), sizes)
+    cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
+    dtype = getattr(torch, run.dtype)
+    tokens, first = serve_inputs(run, cfg)
+
+    def rows(x):
+        return Sharding(mesh, (_batched(x.shape[0], mesh),) + (None,) * (x.dim() - 1)).block(x)
+
+    b = (run.cache_batch if run.cache_len else run.batch) // sizes[0]
+    server = Server(cfg, InputShape("rows", run.cache_len or run.prompt + run.steps, b, "decode"),
+                    dev, dtype)
+    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    if run.cache_len:
+        start = run.cache_len - run.steps
+        cache = seeded_cache(cfg, run.cache_batch, run.cache_len, start, dtype, dev, run.seed,
+                             mesh)
+        first = rows(first)
+    else:
+        start = run.prompt
+        first, _, cache = server.prefill(params, {"tokens": rows(tokens)},
+                                         pad_to=run.prompt + run.steps)
+    toks, cache, logits = server.decode(params, first, cache, start, run.steps + 1,
+                                        keep_logits=True)
+    out = {"tokens": toks.cpu(), "logits": logits.cpu(),
+           "cache": None if run.cache_len else _on_host(cache)}
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_bitwise(got: dict, want: dict) -> bool:
+    """A rank's decode equal to :func:`one_process_rows`' bitwise."""
+    from repro_torch.models.cache import cache_leaves
+
+    pairs = [(got[k], want[k]) for k in ("tokens", "logits")]
+    if want["cache"] is not None:
+        pairs += list(zip(cache_leaves(got["cache"]), cache_leaves(want["cache"])))
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def serve_costs(got: dict) -> dict:
+    """A rank's serving figures: the prefill's ms, ms a decode step, the
+    whole batch's tokens/s, peak GB, cache GB, the combine's share of the
+    decode (its all-reduces' seconds, the card synchronised around each)."""
+    dec = got["decode"]
+    coll = dec["collectives"]
+    decode_s = dec["ms_per_step"] * SERVE_RANKS_STEPS / 1e3
+    return {"prefill_ms": got["prefill"]["ms"], "decode_ms_per_step": dec["ms_per_step"],
+            "tokens_per_s": dec["tokens_per_s"],
+            "peak_gb": (dec["peak_memory_bytes"] or 0) / 1e9,
+            "cache_gb": dec["cache_bytes"] / 1e9,
+            "combine_share": coll["reduce"]["seconds"] / decode_s,
+            "gather_s": coll["gather"]["seconds"]}
+
+
+def serve_ranks_one(dev, run, want) -> tuple[dict, int]:
+    """(a): the run on a (1, 1) mesh of one NCCL rank (this process)
+    against this process's one-card ``Server`` ``want``: every output
+    bitwise → (the figures, the rank run's flash launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import serve_run
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models.cache import cache_leaves
+
+    try:
+        mesh = make_rank_mesh(model=1, timed=True)
+        backend = mesh.backend
+        got = serve_run(run, mesh)
+    finally:
+        dist.destroy_process_group()
+    pairs = [(got["prefill"][k], want["prefill"][k]) for k in ("first", "logits")]
+    pairs += [(got["decode"][k], want["decode"][k]) for k in ("tokens", "logits")]
+    for part in ("prefill", "decode"):
+        pairs += list(zip(cache_leaves(got[part]["cache"]), cache_leaves(want[part]["cache"])))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    none = {op: {"calls": 0, "bytes": 0} for op in ("gather", "reduce", "broadcast")}
+    out = {"backend": backend, "bitwise": bitwise, **serve_costs(got),
+           "one_card": serve_costs(want), "collectives": got["decode"]["collectives"],
+           "launches": {"prefill": got["prefill"]["launches"],
+                        "decode": got["decode"]["launches"]}}
+    cfg_launches = prefill_launches_of(run)
+    ok = (bitwise and backend == ("nccl" if dev.type == "cuda" else "gloo")
+          and calls_and_bytes(got["decode"]["collectives"]) == none
+          and got["prefill"]["launches"] == cfg_launches
+          and not any(got["decode"]["launches"].values()))
+    if not ok:
+        raise AssertionError(f"serve_ranks (a): {out}")
+    return out, got["prefill"]["launches"]["flash_attention"]
+
+
+def prefill_launches_of(run) -> dict:
+    from repro_torch import configs
+
+    return prefill_launches(configs.cut_depth(configs.base_config(run.arch), run.layers or None))
+
+
+def serve_ranks_phase(dev) -> dict:
+    """Phase ``serve_ranks``: the ``Server`` over a (data, model) mesh of
+    ranks (:func:`serve_ranks_plan`). (a) one NCCL rank against the
+    one-card server, bitwise (:func:`serve_ranks_one`); then this process's
+    one-card runs of the other runs (the decode_32k one's whole cache freed
+    before the ranks start), and (b) the (2, 1) and (c) the (1, 2) mesh of
+    two ranks sharing the card over gloo, one launch each
+    (``launch.distributed``'s ``serve`` workload with a plan), every rank
+    held to them (:func:`serve_rank_hold`); mamba2-370m on (b) only. The
+    figures of the full-depth bf16 runs are the phase's performance ones."""
+    import tempfile
+
+    from repro_torch.launch.distributed import serve_run
+
+    plan = serve_ranks_plan()
+    torch.cuda.empty_cache()  # the one-process decode_32k run needs most of the card
+    a_want = serve_run(plan["a"], dev)
+    out = {"a": None}
+    out["a"], launched_flash = serve_ranks_one(dev, plan["a"], a_want)
+    del a_want
+    launched = {"flash_attention": launched_flash, "ssd_scan": 0}
+    wants = {}
+    for name in ("bf16", "bf16_cut", "fp32", "ssm", "ssm_cut"):
+        wants[name] = serve_run(plan[name], dev)
+        torch.cuda.empty_cache()
+    out["one_process"] = {name: serve_costs(w) for name, w in wants.items()}
+    failed = []
+    for part, sizes in SERVE_RANKS_MESHES.items():
+        names = ["bf16", "bf16_cut", "fp32"] + (["ssm", "ssm_cut"] if sizes[1] == 1 else [])
+        with tempfile.TemporaryDirectory() as tmp:
+            plan_file = Path(tmp) / "plan.json"
+            plan_file.write_text(json.dumps([dataclasses.asdict(plan[n]) for n in names]))
+            t0 = time.perf_counter()
+            launch(["--procs", 2, "--workload", "serve", "--device", "cuda", "--model", sizes[1],
+                    "--plan", plan_file, "--out", Path(tmp) / "serve"],
+                   timeout=SERVE_RANKS_TIMEOUT)
+            launch_s = time.perf_counter() - t0
+            ranks = [torch.load(Path(tmp) / f"serve.rank{r}.pt", weights_only=False)
+                     for r in range(2)]
+        part_out = {"mesh": sizes, "backend": ranks[0]["backend"], "launch_s": launch_s}
+        for i, name in enumerate(names):
+            run = plan[name]
+            per_rank = []
+            for rank in ranks:
+                got = rank["runs"][i]
+                held, ok = serve_rank_hold(run, got, wants[name], sizes, got["coordinates"],
+                                           "all-reduce" if dev.type == "cuda" else "all-gather",
+                                           name in SERVE_RANKS_DEEP)
+                if name in SERVE_RANKS_DEEP and sizes[1] == 1:
+                    held["decode_bitwise_one_process_rows"] = rows_bitwise(
+                        got["decode"], one_process_rows(run, dev, sizes, got["coordinates"]))
+                    ok = ok and held["decode_bitwise_one_process_rows"]
+                per_rank.append({"coordinates": got["coordinates"], **serve_costs(got), **held})
+                if not ok:
+                    failed.append((part, name, got["coordinates"]))
+                for k in launched:
+                    launched[k] += got["prefill"]["launches"][k]
+            part_out[name] = {"run": dataclasses.asdict(run),
+                              "tolerance": SERVE_RANKS_TOL[run.dtype], "ranks": per_rank}
+        out[part] = part_out
+        if part_out["backend"] != "gloo":
+            failed.append((part, "backend", part_out["backend"]))
+    emit("serve_ranks", card=nvidia_smi(), steps=SERVE_RANKS_STEPS, **out)
+    if failed:
+        raise AssertionError(f"serve_ranks: holds failed on {failed}")
+    counts = {name: 0 for name in kernel_counters()}
+    counts.update(launched)
+    return counts
+
+
 def kernel_entry(name, replaces, launches_by_phase, errs, times) -> dict:
     """One entry of the ``kernels`` line: the times at the path's larger
     shape, the other shape's beside them; ``launches`` sums the counts of
@@ -3520,6 +3879,7 @@ def main() -> int:
     train_parity_launches = step("train_parity", train_parity, dev)
     train_launches = step("train", train_phase, dev)
     ranks_launches = step("train_ranks", train_ranks_phase, dev)
+    serve_ranks_launches = step("serve_ranks", serve_ranks_phase, dev)
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=PHASE_SECONDS)
 
     print(json.dumps({"kernels": [
@@ -3552,7 +3912,8 @@ def main() -> int:
                          "train_grads": train_grads_launches["flash_attention"],
                          "train_parity": train_parity_launches["flash_attention"],
                          "train": train_launches["flash_attention"],
-                         "train_ranks": ranks_launches["flash_attention"]},
+                         "train_ranks": ranks_launches["flash_attention"],
+                         "serve_ranks": serve_ranks_launches["flash_attention"]},
                         attn_errs, attn_times, ATTN_CASES),
         lm_kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
                         "src/repro/kernels/ssd/kernel.py:65",
@@ -3561,7 +3922,8 @@ def main() -> int:
                          "train_grads": train_grads_launches["ssd_scan"],
                          "train_parity": train_parity_launches["ssd_scan"],
                          "train": train_launches["ssd_scan"],
-                         "train_ranks": ranks_launches["ssd_scan"]},
+                         "train_ranks": ranks_launches["ssd_scan"],
+                         "serve_ranks": serve_ranks_launches["ssd_scan"]},
                         ssd_errs, ssd_times, SSD_CASES),
     ]}), flush=True)
     print(smi, flush=True)

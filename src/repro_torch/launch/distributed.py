@@ -54,6 +54,15 @@ Usage:
         --device cuda --layers 4 --model 1 --dtype float32 --out /tmp/train.npz \\
         --save-blocks
 
+    # serving over a (data, model) mesh of the ranks (here (1, 2): the KV
+    # cache split by sequence): qwen2-0.5b, a prefill of 8 × 2,048 tokens,
+    # then 8 decode steps against a 128 × 32,768 cache filled from a seed;
+    # each rank's results → <out>.rank<r>.pt (torchrun's env works too:
+    # torchrun --nproc-per-node 2 -m repro_torch.launch.distributed --worker
+    # --workload serve ...)
+    python -m repro_torch.launch.distributed --procs 2 --workload serve \
+        --device cuda --model 2 --cache-len 32768 --out /tmp/serve
+
     # any script that calls sim.multihost.initialize_distributed() itself
     python -m repro_torch.launch.distributed --procs 2 -- python my_script.py
 
@@ -968,6 +977,202 @@ def _worker_train(args) -> None:
     dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------
+# the serve workload — Server over a (data, model) mesh of ranks
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeRun:
+    """One run of the serve workload: ``arch``'s full-width config cut to
+    ``layers`` layers (0: its own depth) served in ``dtype`` from
+    ``model_init(seed)``; a prefill of ``batch`` × ``prompt`` seeded tokens,
+    then ``steps`` greedy decode steps: from the prefill's cache grown by
+    ``steps`` slots (``cache_len`` 0), or from a ``cache_batch`` ×
+    ``cache_len`` cache filled from the seed (:func:`seeded_cache`) at its
+    last ``steps`` positions."""
+
+    arch: str = "qwen2-0.5b"
+    layers: int = 0
+    dtype: str = "bfloat16"
+    batch: int = 8
+    prompt: int = 2048
+    steps: int = 8
+    cache_batch: int = 128
+    cache_len: int = 0
+    seed: int = 0
+
+
+def seeded_cache(cfg, batch: int, length: int, filled: int, dtype, device, seed: int,
+                 mesh=None):
+    """A dense model's KV cache of ``batch`` × ``length`` slots whose first
+    ``filled`` slots hold positions 0 … filled − 1 and k, v drawn layer by
+    layer (standard normal in ``dtype``) from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``, the rest empty. On a ``RankMesh`` this
+    rank's blocks (``cache_pspecs``): each layer is drawn whole and cut, so
+    every mesh holds the same values; a prefill of that many tokens would
+    cost far more than the decode it feeds."""
+    from repro_torch.launch.sharding import Sharding, cache_shardings
+    from repro_torch.models.cache import AttnCache, init_attn_cache
+
+    whole = init_attn_cache(cfg, batch, length, dtype=dtype, device="meta")
+    cut = cache_shardings(whole, mesh).k if mesh is not None else None
+    dims = cut.block_shape(whole.k.shape) if cut is not None else whole.k.shape
+    k = torch.empty(dims, dtype=dtype, device=device)
+    v = torch.empty(dims, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for i in range(cfg.n_layers):
+        for dst in (k, v):
+            layer = torch.randn(whole.k.shape[1:], generator=gen, dtype=dtype, device=device)
+            layer[:, filled:] = 0
+            dst[i] = layer if cut is None else Sharding(mesh, cut.spec[1:]).block(layer)
+            del layer
+    pos = torch.full((length,), -1, dtype=torch.int32, device=device)
+    pos[:filled] = torch.arange(filled, dtype=torch.int32, device=device)
+    return AttnCache(k=k, v=v, pos=pos)
+
+
+def _on_host(cache):
+    return type(cache)(*(x.cpu() for x in cache))
+
+
+def serve_inputs(run: ServeRun, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """``run``'s seeded inputs, on the host: the prompt (batch, prompt) and
+    the first tokens (cache_batch, 1) of a decode from a seeded cache."""
+    gen = torch.Generator().manual_seed(run.seed)
+    tokens = torch.randint(0, cfg.vocab_size, (run.batch, run.prompt), generator=gen)
+    return tokens, torch.randint(0, cfg.vocab_size, (run.cache_batch, 1), generator=gen)
+
+
+def serve_run(run: ServeRun, where) -> dict:
+    """``run`` on a device or over a ``RankMesh`` (``where``) → this rank's
+    results: its rows' first tokens and last-position logits, its blocks of
+    the prefill's cache, its decoded tokens and each step's logits (all on
+    the host), the decode's final blocks when it decoded from the prefill,
+    whether each step's position reached every rank's ``pos``; the prefill's
+    ms, ms a decode step and the whole batch's tokens/s (the card
+    synchronised at both ends), the peak memory of the decode, each
+    kernel's launches in the prefill and in the decode (the counts zeroed
+    just before each), and the collectives (``counted_collectives``) of
+    the decode and of gathering its tokens."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    from repro_torch.obs.registry import reset_metrics
+
+    dtype = getattr(torch, run.dtype)
+    cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
+    mesh = where if isinstance(where, RankMesh) else None
+    dev = mesh.device if mesh is not None else resolve_device(where)
+    counters = kernel_counters()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read():
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    tokens, seeded_first = serve_inputs(run, cfg)
+    own = run.cache_len == 0  # decode from the prefill's cache
+    server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
+                    where, dtype)
+    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    sync()
+    zero()
+    t0 = time.perf_counter()
+    first, logits, cache = server.prefill(params, server.batch_block({"tokens": tokens}),
+                                          pad_to=run.prompt + run.steps if own else None)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill": {"first": first.cpu(), "logits": logits[:, -1].cpu(),
+                       "cache": _on_host(cache), "ms": prefill_ms, "launches": read()}}
+    start = run.prompt
+    if not own:
+        del cache
+        server = Server(cfg, InputShape("decode", run.cache_len, run.cache_batch, "decode"),
+                        where, dtype)
+        start = run.cache_len - run.steps
+        cache = seeded_cache(cfg, run.cache_batch, run.cache_len, start, dtype, dev, run.seed,
+                             mesh)
+        first = server.batch_block({"t": seeded_first})["t"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_metrics("span.ranks.")
+    reset_metrics("ranks.")
+    sync()
+    zero()
+    t0 = time.perf_counter()
+    toks, cache, steps = server.decode(params, first, cache, start, run.steps + 1,
+                                       keep_logits=True)
+    sync()
+    decode_s = time.perf_counter() - t0
+    launches = read()
+    whole = server.gather_tokens(toks)
+    written = torch.arange(start, start + run.steps, dtype=torch.int32)
+    if hasattr(cache, "pos"):  # an SSM state holds no positions
+        written = cache.pos[start:start + run.steps].cpu()
+    out["decode"] = {
+        "tokens": toks.cpu(), "logits": steps.cpu(), "whole_tokens": whole.cpu(),
+        "cache": _on_host(cache) if own else None, "start": start,
+        "positions_written": bool(torch.equal(written, torch.arange(
+            start, start + run.steps, dtype=torch.int32))),
+        "ms_per_step": decode_s * 1e3 / run.steps,
+        "tokens_per_s": whole.shape[0] * run.steps / decode_s,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                              else None),
+        "cache_bytes": tensor_bytes(list(cache)),
+        "launches": launches, "collectives": counted_collectives()}
+    del cache, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_plan(args) -> list[ServeRun]:
+    """The serve workload's runs: ``--plan`` (a JSON file: a list of
+    :class:`ServeRun` fields), else one run from the flags."""
+    if args.plan:
+        with open(args.plan) as f:
+            return [ServeRun(**r) for r in json.load(f)]
+    return [ServeRun(arch=args.arch, layers=args.layers, dtype=args.dtype, batch=args.batch,
+                     prompt=args.prompt, steps=args.steps, cache_batch=args.cache_batch,
+                     cache_len=args.cache_len)]
+
+
+def _worker_serve(args) -> None:
+    """One rank of the serve workload: a ``Server`` over a (data, model)
+    mesh of every rank (``--model`` ranks a model group; the launcher's env
+    or torchrun's), each run of :func:`serve_plan` through
+    :func:`serve_run`. Every rank prints its figures (one JSON line a run)
+    and, with ``--out``, writes its results to ``<out>.rank<r>.pt``."""
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.train import _join_ranks
+
+    _join_ranks(args.device)  # torchrun's env; else make_rank_mesh joins the launcher's
+    mesh = make_rank_mesh(model=args.model, device=args.device, timed=True)
+    rank = dist.get_rank()
+    results = []
+    for run in serve_plan(args):
+        out = serve_run(run, mesh)
+        out["run"] = dataclasses.asdict(run)
+        out["coordinates"] = mesh.coordinates()
+        results.append(out)
+        figures = {k: out["decode"][k] for k in ("ms_per_step", "tokens_per_s",
+                                                 "peak_memory_bytes", "collectives")}
+        print(f"[worker {rank}] serve {json.dumps({**out['run'], **figures})}", flush=True)
+    if args.out:
+        torch.save({"backend": dist.get_backend(), "mesh": mesh.shape, "runs": results},
+                   f"{args.out}.rank{rank}.pt")
+    dist.destroy_process_group()
+
+
 def flat_tree(tree, prefix: str = "") -> dict:
     """A dict tree as ``{"a/b": leaf}``."""
     if isinstance(tree, dict):
@@ -1062,7 +1267,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--devices-per-proc", type=int, default=1, metavar="K",
                         help="devices a rank: 1 (the port runs one rank a device)")
     parser.add_argument("--workload", default="parity",
-                        choices=("parity", "bench", "resilient", "train"),
+                        choices=("parity", "bench", "resilient", "train", "serve"),
                         help="built-in workload when no `-- command` is given")
     parser.add_argument("--out", default="",
                         help="rank-0 output path (npz for parity and resilient, json for bench)")
@@ -1086,13 +1291,25 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--liveness-timeout", type=float, default=None,
                         help="supervisor: seconds of heartbeat silence (REPRO_OBS_DIR "
                              "mtimes) before a rank is killed and restarted")
-    parser.add_argument("--arch", default="qwen2-0.5b", help="train: the config's name")
+    parser.add_argument("--arch", default="qwen2-0.5b", help="train, serve: the config's name")
     parser.add_argument("--layers", type=int, default=0,
-                        help="train: the depth (0: the config's own)")
+                        help="train, serve: the depth (0: the config's own)")
     parser.add_argument("--model", type=int, default=1,
-                        help="train: ranks a model group (the rest are data ranks)")
+                        help="train, serve: ranks a model group (the rest are data ranks)")
     parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
-                        help="train: the compute dtype (the masters are fp32)")
+                        help="train: the compute dtype (the masters are fp32); serve: the "
+                             "serving dtype")
+    parser.add_argument("--batch", type=int, default=8, help="serve: the prompt's rows")
+    parser.add_argument("--prompt", type=int, default=2048, help="serve: the prompt's tokens")
+    parser.add_argument("--steps", type=int, default=8, help="serve: the decode steps")
+    parser.add_argument("--cache-batch", type=int, default=128,
+                        help="serve: the seeded cache's rows")
+    parser.add_argument("--cache-len", type=int, default=0,
+                        help="serve: the seeded cache's slots, decoded at its last --steps "
+                             "positions (0: decode from the prefill)")
+    parser.add_argument("--plan", default="",
+                        help="serve: a JSON file of runs (a list of ServeRun fields) in place "
+                             "of the flags'")
     parser.add_argument("--save-blocks", action="store_true",
                         help="train: every rank writes its final blocks to <out>.rank<r>.pt")
     parser.add_argument("--worker", action="store_true",
@@ -1101,7 +1318,8 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.worker:
         {"parity": _worker_parity, "resilient": _worker_resilient,
-         "bench": _worker_bench, "train": _worker_train}[args.workload](args)
+         "bench": _worker_bench, "train": _worker_train,
+         "serve": _worker_serve}[args.workload](args)
         return
 
     if args.procs < 1:
@@ -1124,8 +1342,12 @@ def main(argv: list[str] | None = None) -> None:
               f"(checkpoints under {ckpt_dir})")
         return
 
-    train = {} if args.workload != "train" else dict(
+    train = {} if args.workload not in ("train", "serve") else dict(
         arch=args.arch, layers=args.layers, model=args.model, dtype=args.dtype)
+    if args.workload == "serve":
+        train.update(batch=args.batch, prompt=args.prompt, steps=args.steps,
+                     cache_batch=args.cache_batch, cache_len=args.cache_len,
+                     plan=args.plan or None)
     worker_argv = command or _worker_argv(
         args.workload, out=args.out or None, n_rounds=args.n_rounds, backend=args.backend,
         device=args.device, cnn_rounds=args.cnn_rounds or None, **train)

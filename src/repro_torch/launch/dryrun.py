@@ -23,7 +23,12 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     master in the stats step and again in the train step, the gather of
     the sketched statistics, the schedule's broadcast, and the all-reduce
     of every whole gradient leaf (and the loss) over the data ranks; their
-    wire bytes by the reference's ring rule (``launch.mesh.wire_bytes``).
+    wire bytes by the reference's ring rule (``launch.mesh.wire_bytes``);
+  * for serving, the collectives of ``Server`` over ranks
+    (:func:`serve_collectives`): a decode step's combine over "model"
+    (three all-reduces an attention layer where the KV cache is split by
+    sequence), the gather of the tokens over "data", and the gathers of
+    loading spec blocks as whole weights; a record reckons one step.
     ``--gather all-reduce`` reckons gloo's gather of CUDA tensors (a
     zero-filled all-reduce of the whole) in place of an all-gather. The
     counts and bytes are those the rank mesh counts as it runs
@@ -32,10 +37,10 @@ prefill / serve_step for inference shapes) on a shape-only mesh
 What it does NOT estimate: the reference reads XLA's temporaries
 (``temp_bytes``) and so a transient peak from the compiled program; the
 port has no compiled program and does not estimate them (``temp_bytes``
-and ``peak_bytes`` are ``None``). Nor the collectives of a serving step
-(serving over ranks is not ported), of a mesh with a pod axis (the rank
-mesh is (data, model)) or of a MoE model over data ranks (its trainer
-refuses them): ``collectives`` is ``None`` there. On the one-card mesh
+and ``peak_bytes`` are ``None``). Nor the collectives of a mesh with a pod
+axis (the rank mesh is (data, model)), of a MoE model over data ranks (its
+trainer refuses them) or of a serving case the rank ``Server`` refuses
+(``launch.steps.check_rank_serving``): ``collectives`` is ``None`` there. On the one-card mesh
 ``1x1`` a record holds the card's memory (``torch.cuda.mem_get_info``)
 when a card is present, and ``fits`` compares the reckoned bytes
 (transients left out) with it; without a card both are ``None``.
@@ -60,9 +65,9 @@ import time
 
 NOT_ESTIMATED = ("temp_bytes and peak_bytes: the reference reads XLA's temporaries from its "
                  "compiled program; the port compiles no program and does not estimate its "
-                 "transient peak. collectives: none for a serving step (serving over ranks "
-                 "is not ported), a mesh with a pod axis or a MoE model over data ranks "
-                 "(the rank trainer's mesh is (data, model) and refuses both)")
+                 "transient peak. collectives: none for a mesh with a pod axis, a MoE model "
+                 "training over data ranks, or a serving case the rank Server refuses "
+                 "(the rank mesh is (data, model); launch.steps.check_rank_serving)")
 
 
 def make_mesh(name: str):
@@ -98,27 +103,14 @@ def state_bytes(bundle) -> dict:
             for name, sh in bundle.in_shardings.items()}
 
 
-def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
-                     n_fl: int | None = None) -> dict | None:
-    """The collectives of one trainer round a rank in sketch mode, as the
-    port's rank steps issue them on a mesh of ranks shaped like ``mesh``
-    (``bundle`` the train step built on it) over ``n_fl`` FL devices (the
-    bundle's: one a data rank): ``{op: {"calls", "bytes"}}``
-    for ``gather``, ``reduce`` and ``broadcast``, the bytes a rank's wire
-    bytes by the ring rule. A gather runs over every rank, as an all-gather
-    of the blocks or (``gather="all-reduce"``) an all-reduce of a
-    zero-filled whole. ``None`` where the rank trainer does not run: a
-    mesh other than (data, model), a MoE model over data ranks."""
-    from repro_torch.flatten_util import tree_leaves
+def _reckoner(mesh, gather: str):
+    """→ (``{op: {"calls", "bytes"}}`` zeroed, ``add(op, ring_op, result, g)``,
+    ``gather_of(shape, itemsize, sharding)``): a gather runs over every
+    rank, as an all-gather of the blocks or (``gather="all-reduce"``) an
+    all-reduce of a zero-filled whole."""
     from repro_torch.launch.mesh import wire_bytes
-    from repro_torch.launch.sharding import Sharding
 
-    if tuple(mesh.axis_names) != ("data", "model"):
-        return None
-    r_data, n = mesh.shape["data"], mesh.size()
-    if cfg.moe is not None and r_data > 1:
-        return None
-    n_fl = n_fl or bundle.arg_structs["coeffs"].shape[0]
+    n = mesh.size()
     out = {op: {"calls": 0, "bytes": 0} for op in ("gather", "reduce", "broadcast")}
 
     def add(op, ring_op, result, g):
@@ -132,6 +124,82 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
             add("gather", "all-gather", n * math.prod(sh.block_shape(shape)) * itemsize, n)
         else:
             add("gather", "all-reduce", math.prod(shape) * itemsize, n)
+
+    return out, add, gather_of
+
+
+def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: int = 2,
+                      load_blocks: bool = False) -> dict | None:
+    """The collectives a rank of ``launch.serve.Server`` runs on a mesh of
+    ranks shaped like ``mesh`` (``bundle``: the serve step built on it, or
+    the prefill step for the load alone): ``{op: {"calls", "bytes"}}``.
+
+    * ``load_blocks``: loading this rank's blocks of the fp32 parameters
+      (``params_pspecs``) as whole weights, one gather a split leaf;
+    * decoding ``n_tokens`` tokens (``n_tokens − 1`` steps): where the
+      KV cache's sequence is split over "model", each attention layer's
+      combine a step, three all-reduces over the model group of fp32 per
+      row and head: the row max (4 B), the softmax's sum l (4 B) and the
+      output o (4 · dh B);
+    * gathering the (B, n_tokens) int64 tokens over the ranks.
+
+    Prefill runs none. ``None`` where the rank ``Server`` refuses the case
+    (``launch.steps.check_rank_serving``) or the mesh is not (data, model).
+    """
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.sharding import Sharding
+    from repro_torch.launch.steps import check_rank_serving
+
+    if tuple(mesh.axis_names) != ("data", "model"):
+        return None
+    try:
+        check_rank_serving(cfg, mesh)
+    except ValueError:
+        return None
+    out, add, gather_of = _reckoner(mesh, gather)
+    if load_blocks:
+        for x, sh in zip(tree_leaves(bundle.arg_structs["params"]),
+                         tree_leaves(bundle.in_shardings["params"]), strict=True):
+            gather_of(x.shape, x.element_size(), sh)
+    if "cache" not in bundle.arg_structs:
+        return out
+    models = mesh.shape["model"]
+    cache, cache_sh = bundle.arg_structs["cache"], bundle.in_shardings["cache"]
+    if cfg.arch_type == "dense" and not Sharding(mesh, (cache_sh.k.spec[2],)).replicated():
+        rows = cache_sh.k.block_shape(cache.k.shape)[1]
+        for _ in range((n_tokens - 1) * cfg.n_layers):
+            for width in (1, 1, cfg.head_dim):  # m, l, o
+                add("reduce", "all-reduce", rows * cfg.n_heads * width * 4, models)
+    token = bundle.arg_structs["token"]
+    gather_of((token.shape[0], n_tokens), 8, bundle.in_shardings["token"])
+    return out
+
+
+def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
+                     n_fl: int | None = None, **serving) -> dict | None:
+    """The collectives of one trainer round a rank in sketch mode, as the
+    port's rank steps issue them on a mesh of ranks shaped like ``mesh``
+    (``bundle`` the train step built on it) over ``n_fl`` FL devices (the
+    bundle's: one a data rank): ``{op: {"calls", "bytes"}}``
+    for ``gather``, ``reduce`` and ``broadcast``, the bytes a rank's wire
+    bytes by the ring rule. A gather runs over every rank, as an all-gather
+    of the blocks or (``gather="all-reduce"``) an all-reduce of a
+    zero-filled whole. ``None`` where the rank trainer does not run: a
+    mesh other than (data, model), a MoE model over data ranks. A serving
+    bundle (no ``coeffs``) is reckoned by :func:`serve_collectives`, which
+    takes ``serving``'s keywords."""
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.sharding import Sharding
+
+    if "coeffs" not in bundle.arg_structs:
+        return serve_collectives(cfg, bundle, mesh, gather, **serving)
+    if tuple(mesh.axis_names) != ("data", "model"):
+        return None
+    r_data, n = mesh.shape["data"], mesh.size()
+    if cfg.moe is not None and r_data > 1:
+        return None
+    n_fl = n_fl or bundle.arg_structs["coeffs"].shape[0]
+    out, add, gather_of = _reckoner(mesh, gather)
 
     masters = list(zip(tree_leaves(bundle.arg_structs["params"]),
                        tree_leaves(bundle.in_shardings["params"]), strict=True))
@@ -200,7 +268,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
     train = shape.kind == "train"
     args = state_bytes(bundle)
     residual = residual_bytes(cfg, shape, smesh) if train else 0
-    coll = rank_collectives(cfg, bundle, smesh, gather) if train else None
+    coll = rank_collectives(cfg, bundle, smesh, gather)
     t_reckon = time.time() - t0
     key = (arch, shape, layers)
     if flops and flops_cache is not None and key in flops_cache:

@@ -194,8 +194,9 @@ def make_rank_mesh(model: int = 1, n_fl: int | None = None, device=None,
     """(data, model) over every rank of the process group (the env
     contract's, or a one-rank group in a single process: NCCL on a card,
     gloo on the CPU), ``model`` ranks a model group, data-major. ``n_fl``
-    FL devices (default: one a data rank) must split evenly over the data
-    ranks. ``device``: this rank's compute device (its card unless given).
+    FL devices (default: one a data rank, which a serving mesh leaves as it
+    is: serving reads no FL device) must split evenly over the data ranks.
+    ``device``: this rank's compute device (its card unless given).
     ``timed``: time every collective (spans ``ranks.<op>``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh

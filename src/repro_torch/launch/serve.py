@@ -1,6 +1,6 @@
 """Batched serving: prefill once, decode greedily.
 
-Port of ``repro.launch.serve`` for one card (every family): the mesh
+Port of ``repro.launch.serve``. On one card (every family) the mesh
 becomes a device and the sharded, donated serve step a Python loop over
 :func:`repro_torch.models.api.model_decode`, which updates the cache (KV,
 SSM state, a hybrid's pair of them, an enc-dec decoder's self-attention
@@ -16,6 +16,15 @@ on the card fed to the next step, and the caller reads all of them at once
 (the reference reads every token to the host as it goes; the tokens are the
 same). The prefill runs in the ``serve.prefill`` range, the decode loop in
 ``serve.decode``.
+
+Over a (data, model) mesh of ranks (a ``RankMesh`` where one card takes a
+device; a dense model on any mesh, an SSM model over data ranks:
+``launch.steps.check_rank_serving``) each rank serves its rows of the batch
+(``batch_pspecs``) with whole weights, and holds its blocks of their cache
+(``cache_pspecs``: a dense model's KV cache split by sequence over
+"model", its positions whole); a decode step combines the attention over
+the model group (flash-decoding, ``models.layers.attention_decode``), and
+:meth:`Server.gather_tokens` gathers the whole batch's tokens over "data".
 """
 from __future__ import annotations
 
@@ -25,8 +34,14 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
+from repro_torch.flatten_util import tree_leaves, tree_map
+from repro_torch.launch.mesh import RankMesh
+from repro_torch.launch.sharding import Sharding, _batched, rows_block, to_shardings
+from repro_torch.launch.steps import (
+    _param_specs, check_rank_serving, gather_params, params_structs, row_ways, seq_group,
+)
 from repro_torch.models import api
-from repro_torch.models.cache import cache_to
+from repro_torch.models.cache import cache_to, pad_cache
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.layers import check_ported
 
@@ -37,19 +52,34 @@ FP32_LEAVES = ("scale", "dt_bias", "A_log")
 
 
 class Server:
-    """Serves ``cfg`` on one device in ``dtype``; ``shape`` is the capacity it
-    is built for (at most ``shape.global_batch`` sequences, positions below
-    ``shape.seq_len``)."""
+    """Serves ``cfg`` in ``dtype``; ``shape`` is the capacity it is built for
+    (at most ``shape.global_batch`` sequences, positions below
+    ``shape.seq_len``). ``device``: a device (the card unless the caller
+    names another), or a ``RankMesh`` to serve over its ranks, each rank
+    on its own device with its rows and cache blocks (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, shape: InputShape, device=None,
                  dtype=torch.bfloat16):
         check_ported(cfg)
         self.cfg, self.shape, self.dtype = cfg, shape, dtype
-        self.device = resolve_device(device)
+        self.mesh = device if isinstance(device, RankMesh) else None
+        if self.mesh is None:
+            self.device, self.seq, self.row_ways = resolve_device(device), None, 1
+            return
+        check_rank_serving(cfg, self.mesh)
+        self.device = self.mesh.device
+        self.seq = seq_group(self.mesh)
+        self.row_ways = row_ways(self.mesh, shape.global_batch)
+        self._rows = _batched(shape.global_batch, self.mesh)
 
     def load_params(self, params):
         """The parameters on the device, fp32 leaves cast to ``dtype`` once
-        (but ``FP32_LEAVES``)."""
+        (but ``FP32_LEAVES``). Over ranks every rank gets the whole
+        weights: given this rank's blocks by ``params_pspecs`` (as the rank
+        trainer holds its masters), they are gathered here, once."""
+        if self.mesh is not None:
+            params = self._whole(params)
+
         def load(node, key=""):
             if isinstance(node, dict):
                 return {k: load(v, k) for k, v in node.items()}
@@ -57,17 +87,44 @@ class Server:
             return node.to(self.device, self.dtype if cast else node.dtype)
         return load(params)
 
+    def _whole(self, params):
+        """``params`` whole: as given, or gathered from this rank's blocks."""
+        structs = tree_leaves(params_structs(self.cfg))
+        given = tree_leaves(params)
+        if all(x.shape == w.shape for x, w in zip(given, structs, strict=True)):
+            return params
+        shardings = to_shardings(_param_specs(self.cfg, self.shape, self.mesh), self.mesh)
+        for x, w, sh in zip(given, structs, tree_leaves(shardings)):
+            if tuple(x.shape) != sh.block_shape(w.shape):
+                raise ValueError(f"a parameter of shape {tuple(x.shape)} is neither whole "
+                                 f"{tuple(w.shape)} nor this rank's block of it")
+        return gather_params(tree_map(lambda x: x.to(self.device), params), shardings)
+
     def _check_capacity(self, batch: int, last_t: int) -> None:
+        """``batch`` rows a rank (the whole batch's are ``row_ways`` times
+        as many) up to position ``last_t``, against the global shape."""
+        batch *= self.row_ways
         if batch > self.shape.global_batch or last_t >= self.shape.seq_len:
             raise ValueError(
                 f"batch {batch} / position {last_t} beyond the server's shape "
                 f"{self.shape.name} ({self.shape.global_batch} × {self.shape.seq_len})")
 
-    def prefill(self, params, batch: dict):
+    def batch_block(self, batch: dict) -> dict:
+        """This rank's rows of a whole batch (each tensor's first dim by
+        ``batch_pspecs``); on one device the batch itself."""
+        if self.mesh is None:
+            return batch
+        return {k: Sharding(self.mesh, (self._rows,) + (None,) * (v.dim() - 1)).block(v)
+                for k, v in batch.items()}
+
+    def prefill(self, params, batch: dict, pad_to: int | None = None):
         """Run the prompt: "tokens", and a VLM's "embeds" or an enc-dec
         model's "frames" → (first greedy token (B, 1), last-position logits
         (B, 1, vocab_padded), cache). A VLM's patches take the first
-        positions of the cache, so they count against its capacity."""
+        positions of the cache, so they count against its capacity.
+        ``pad_to``: grow the cache to that many slots (``pad_cache``).
+        Over ranks ``batch`` is this rank's rows and the cache its blocks
+        (``launch.steps.build_prefill_step``)."""
         inputs = {k: batch[k].to(self.device) for k in ("tokens", "embeds", "frames")
                   if k in batch}
         tokens = inputs["tokens"]
@@ -76,24 +133,43 @@ class Server:
         with record_function("serve.prefill"):
             logits, cache = api.model_prefill(params, self.cfg, inputs, self.dtype)
             first = logits[:, -1].argmax(dim=-1, keepdim=True)
+            if pad_to is not None:
+                cache = pad_cache(cache, pad_to)
+            if self.mesh is not None:
+                cache = rows_block(cache, self.mesh)
         return first, logits, cache
 
-    def decode(self, params, first_token, cache, start_t: int, n_tokens: int):
+    def decode(self, params, first_token, cache, start_t: int, n_tokens: int,
+               keep_logits: bool = False):
         """Greedy decode ``n_tokens`` tokens from a prefilled cache → (tokens
-        (B, n_tokens) on the device, cache). The first token is
-        ``first_token``; step i feeds token i at position ``start_t + i``.
-        The cache is updated in place once it is on the device."""
+        (B, n_tokens) on the device, cache), and with ``keep_logits`` each
+        step's last-position logits (B, n_tokens − 1, vocab_padded) besides.
+        The first token is ``first_token``; step i feeds token i at position
+        ``start_t + i``. The cache is updated in place once it is on the
+        device. Over ranks: this rank's rows and cache blocks."""
         tok = first_token.to(self.device)
         self._check_capacity(tok.shape[0], start_t + n_tokens - 2)
         cache = cache_to(cache, self.device)
-        toks = [tok]
+        toks, kept = [tok], []
         with record_function("serve.decode"):
             for i in range(n_tokens - 1):
                 logits, cache = api.model_decode(params, self.cfg, tok, cache, start_t + i,
-                                                 self.dtype)
+                                                 self.dtype, seq=self.seq)
                 tok = logits[:, -1].argmax(dim=-1, keepdim=True)
                 toks.append(tok)
+                if keep_logits:
+                    kept.append(logits[:, -1])
+        if keep_logits:
+            return torch.cat(toks, dim=1), cache, torch.stack(kept, dim=1)
         return torch.cat(toks, dim=1), cache
+
+    def gather_tokens(self, toks: torch.Tensor) -> torch.Tensor:
+        """The whole batch's tokens from every rank's rows (a gather over
+        the ranks, counted as ``ranks.gather``); on one device, or where
+        every rank holds every row, ``toks`` itself."""
+        if self.mesh is None:
+            return toks
+        return Sharding(self.mesh, (self._rows, None)).gather(toks)
 
 
 def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
@@ -112,15 +188,17 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     takes a position inside the prompt, its slot overwrites a prompt slot
     and ``cache_pos <= t`` hides every later prompt position from it
     (``Server.decode`` takes ``start_t = n_patches + tokens`` for the
-    positions the prompt took). Returns (tokens (B, n_tokens) on the CPU,
-    timings in seconds).
+    positions the prompt took). ``device``: a device, or a ``RankMesh``:
+    every rank draws the same weights, serves its rows of ``batch`` (the
+    whole batch) and gets the whole batch's tokens. Returns (tokens (B,
+    n_tokens) on the CPU, timings in seconds).
     """
-    dev = resolve_device(device)
-    server = Server(cfg, INPUT_SHAPES[shape_name], dev, dtype)
+    server = Server(cfg, INPUT_SHAPES[shape_name], device, dtype)
+    dev = server.device
     params = api.model_init(cfg, seed, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    first, _, cache = server.prefill(params, batch)
+    first, _, cache = server.prefill(params, server.batch_block(batch))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -128,7 +206,7 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     t0 = time.perf_counter()
     toks, _ = server.decode(params, first, cache, start_t=batch["tokens"].shape[1],
                             n_tokens=n_tokens)
-    toks = toks.cpu()
+    toks = server.gather_tokens(toks).cpu()
     t_decode = time.perf_counter() - t0
     return toks, {"prefill_s": t_prefill, "decode_s": t_decode,
                   "tok_per_s": n_tokens * toks.shape[0] / max(t_decode, 1e-9)}

@@ -404,6 +404,45 @@ def to_shardings(pspecs, mesh):
     return _map_specs(lambda s: Sharding(mesh, s), pspecs)
 
 
+def cache_shardings(cache_struct, mesh):
+    """The :class:`Sharding` of every tensor of a decode cache (whole
+    shapes, meta or real) on ``mesh``: :func:`cache_pspecs`."""
+    return to_shardings(cache_pspecs(cache_struct, mesh), mesh)
+
+
+def _map_cache(fn, cache, shardings):
+    """``fn(tensor, sharding)`` over a cache and its matching tree of
+    Shardings, the cache's NamedTuple types and nesting kept."""
+    if isinstance(cache, tuple):
+        return type(cache)(*(_map_cache(fn, c, sh) for c, sh in zip(cache, shardings)))
+    return fn(cache, shardings)
+
+
+def cache_block(whole, mesh):
+    """This rank's blocks of a whole decode cache: batch over the batch
+    axes, an attention cache's sequence over "model" and an SSM state's
+    heads over "model" (:func:`cache_pspecs`); ``pos`` stays whole."""
+    return _map_cache(lambda x, sh: sh.block(x), whole, cache_shardings(whole, mesh))
+
+
+def cache_gather(blocks, shardings):
+    """The whole cache from every rank's ``blocks`` (``shardings``: the
+    whole cache's, :func:`cache_shardings`), one gather a split tensor."""
+    return _map_cache(lambda x, sh: sh.gather(x), blocks, shardings)
+
+
+def rows_block(cache, mesh):
+    """This rank's blocks of a cache that holds only this rank's rows
+    already, every sequence slot and head: the cut :func:`cache_block`
+    makes of the whole cache, the batch left as it is (the specs of the
+    other dims do not depend on the batch)."""
+    def cut(x, sh):
+        spec = sh.spec[:1] + (None,) + sh.spec[2:] if x.dim() > 1 else sh.spec
+        return Sharding(mesh, spec).block(x)
+
+    return _map_cache(cut, cache, cache_shardings(cache, mesh))
+
+
 def leaves(tree) -> list:
     """The leaves of a tree of dicts (keys sorted), lists and tuples
     (NamedTuples too), ``None`` dropped."""

@@ -13,8 +13,8 @@ shardings depend on the mesh (:mod:`repro_torch.launch.mesh`):
     ``batch_pspecs``, ``cache_pspecs`` through ``to_shardings``), which
     the dry run reads; ``fn`` is the global step, whole tensors in and out;
   * a mesh of ranks (``RankMesh``): the same layout, and ``fn`` takes and
-    returns THIS rank's blocks (the train and stats steps; serving over
-    ranks is not ported).
+    returns THIS rank's blocks (the serving steps take whole weights:
+    :func:`build_prefill_step`, :func:`build_serve_step`).
 
 PO-FL at model scale:
   * FL device = one slice of the global batch, FL-device-major: examples
@@ -43,6 +43,7 @@ the checkpoints of ``remat`` and the chunked CE), the statistics from
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -52,9 +53,12 @@ from repro_torch.core.sketch import sketch_device_stats
 from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.sharding import (
-    Sharding, batch_pspecs, cache_pspecs, moe_strategy, params_pspecs, to_shardings,
+    Sharding, _batched, batch_pspecs, cache_shardings, moe_strategy, params_pspecs,
+    rows_block, to_shardings,
 )
 from repro_torch.models import api, encdec, transformer
+from repro_torch.models.cache import init_attn_cache, init_ssm_cache
+from repro_torch.models.layers import SeqGroup
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim.optimizers import OptState, Optimizer, adamw
 
@@ -373,49 +377,152 @@ def build_stats_step(
 
 def _serving_mesh(mesh) -> bool:
     """Whether a serving step lays its arguments out by the specs (the
-    production mesh) or holds them whole (one card: a ``HostMesh``, or no
-    mesh); serving over ranks is not ported."""
-    if isinstance(mesh, RankMesh):
-        raise ValueError("serving over ranks is not ported: serve on one card (a HostMesh)")
+    production mesh, a mesh of ranks) or holds them whole (one card: a
+    ``HostMesh``, or no mesh)."""
     return mesh is not None and not isinstance(mesh, HostMesh)
+
+
+# what serving over ranks does not take yet, by family (ROADMAP A14.10 holds it)
+_NOT_OVER_RANKS = {
+    "moe": "a MoE model (its routing groups must span the batch)",
+    "hybrid": "a hybrid model (its attention cache and Mamba2 state together are not held "
+              "over ranks yet; over \"model\" its state splits by heads, which needs the "
+              "mixer split, A14.9)",
+    "encdec": "an enc-dec model (cache_pspecs also splits cross_k / cross_v over \"model\": "
+              "kernel 3 must return its row log-sum-exp for the combine)",
+    "vlm": "a VLM",
+}
+
+
+def check_rank_serving(cfg: ModelConfig, mesh) -> None:
+    """Serving over a (data, model) mesh of ranks takes a dense model on
+    any mesh and an SSM model over data ranks only; raise ``ValueError``
+    for any other case, naming what ROADMAP A14.10 still holds."""
+    models = mesh.shape["model"]
+    if cfg.arch_type == "dense" or (cfg.arch_type == "ssm" and models == 1):
+        return
+    why = _NOT_OVER_RANKS.get(cfg.arch_type) or (
+        f"an SSM model over {models} model ranks (cache_pspecs splits its state by heads, "
+        "which needs the mixer split, A14.9)")
+    raise ValueError(f"{cfg.name}: serving over ranks does not take {why} yet "
+                     "(ROADMAP A14.10)")
+
+
+def row_ways(mesh, global_batch: int) -> int:
+    """The ways a batch of ``global_batch`` rows splits over ``mesh``'s
+    batch axes (``sharding._batched``): a rank holds ``global_batch`` over
+    that many of them."""
+    entry = _batched(global_batch, mesh)
+    return global_batch // Sharding(mesh, (entry,)).block_shape((global_batch,))[0]
+
+
+def seq_group(mesh: RankMesh) -> SeqGroup | None:
+    """This rank's model group as the decode attention's
+    :class:`~repro_torch.models.layers.SeqGroup`: its all-reduces run over
+    "model", each counted (``ranks.reduce``) with its wire bytes by
+    :meth:`RankMesh.collective`. ``None`` with one rank a group."""
+    import torch.distributed as dist
+
+    models = mesh.shape["model"]
+    if models == 1:
+        return None
+    group = mesh.get_group("model")
+
+    def all_reduce(op):
+        def run(x: torch.Tensor) -> None:
+            with mesh.collective("reduce", wire_bytes("all-reduce",
+                                                      x.numel() * x.element_size(), models)):
+                dist.all_reduce(x, op=op, group=group)
+        return run
+
+    return SeqGroup(mesh.coordinates()["model"], all_reduce(dist.ReduceOp.MAX),
+                    all_reduce(dist.ReduceOp.SUM))
 
 
 def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
                        dtype=torch.bfloat16) -> StepBundle:
     """``fn(params, batch) → (last-position logits, cache)``, every float32
-    leaf cast to ``dtype`` first."""
+    leaf cast to ``dtype`` first.
+
+    On a mesh of ranks (:func:`check_rank_serving`) ``params`` are whole on
+    every rank, ``batch`` is this data rank's rows (``batch_pspecs``) and
+    the step runs them through the one-card ``model_prefill`` (kernel 3 in
+    a dense model, kernel 4 in an SSM model), then keeps this model rank's
+    block of their cache (``cache_pspecs``: the sequence over "model"). The
+    model ranks of one data group each compute the whole prompt of their
+    rows: splitting the products and the residual (``activation_specs``)
+    is A14.9's.
+    """
+    if isinstance(mesh, RankMesh):
+        check_rank_serving(cfg, mesh)
 
     def prefill_step(params, batch):
         return api.model_prefill(_cast(params, dtype), cfg, batch, dtype)
 
-    arg_structs = dict(params=params_structs(cfg),
+    p_structs = params_structs(cfg)
+    arg_structs = dict(params=p_structs,
                        batch=configs.input_specs(cfg, shape, dtype)["batch"])
     if not _serving_mesh(mesh):
         return StepBundle(prefill_step, arg_structs, None, None)
-    in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh),
-                 batch=to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh))
-    return StepBundle(prefill_step, arg_structs, in_sh, None)
+    b_sh = to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh)
+    if not isinstance(mesh, RankMesh):
+        in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh), batch=b_sh)
+        return StepBundle(prefill_step, arg_structs, in_sh, None)
+
+    def rank_prefill_step(params, batch):
+        logits, cache = prefill_step(params, batch)
+        return logits, rows_block(cache, mesh)
+
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    if cfg.arch_type == "ssm":
+        cache_struct = init_ssm_cache(cfg, b, dtype, meta)
+    else:  # a prefill keeps every prompt slot, window or not
+        cache_struct = init_attn_cache(dataclasses.replace(cfg, sliding_window=None), b, s,
+                                       dtype=dtype, device=meta)
+    out_sh = (Sharding(mesh, (_batched(b, mesh), None, None)), cache_shardings(cache_struct, mesh))
+    in_sh = dict(params=_replicated(p_structs, mesh), batch=b_sh)
+    return StepBundle(rank_prefill_step, arg_structs, in_sh, out_sh)
 
 
 def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
                      dtype=torch.bfloat16) -> StepBundle:
     """One decode step, ``fn(params, token, cache, t) → (next greedy token
-    (B, 1), cache)``, against a seq_len-deep cache updated in place."""
+    (B, 1), cache)``, against a seq_len-deep cache updated in place.
+
+    On a mesh of ranks ``params`` are whole on every rank and ``token`` and
+    ``cache`` this rank's rows and blocks (``batch_pspecs``,
+    ``cache_pspecs``: a dense model's KV cache split by sequence over
+    "model"); the step returns its rows' greedy token and its blocks, the
+    attention combined over the model group (:func:`seq_group`)."""
+    if isinstance(mesh, RankMesh):
+        check_rank_serving(cfg, mesh)
     specs = configs.input_specs(cfg, shape, dtype)
 
     def serve_step(params, token, cache, t):
         logits, cache = api.model_decode(_cast(params, dtype), cfg, token, cache, t, dtype)
         return logits[:, -1].argmax(dim=-1, keepdim=True), cache
 
-    arg_structs = dict(params=params_structs(cfg), token=specs["token"], cache=specs["cache"],
+    p_structs = params_structs(cfg)
+    arg_structs = dict(params=p_structs, token=specs["token"], cache=specs["cache"],
                        t=specs["t"])
     if not _serving_mesh(mesh):
         return StepBundle(serve_step, arg_structs, None, None)
     tok = Sharding(mesh, batch_pspecs({"token": specs["token"]}, mesh)["token"])
-    cache_sh = to_shardings(cache_pspecs(specs["cache"], mesh), mesh)
+    cache_sh = cache_shardings(specs["cache"], mesh)
     in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh), token=tok,
                  cache=cache_sh, t=Sharding(mesh, ()))
-    return StepBundle(serve_step, arg_structs, in_sh, (tok, cache_sh))
+    if not isinstance(mesh, RankMesh):
+        return StepBundle(serve_step, arg_structs, in_sh, (tok, cache_sh))
+    group = seq_group(mesh)
+
+    def rank_serve_step(params, token, cache, t):
+        logits, cache = api.model_decode(_cast(params, dtype), cfg, token, cache, t, dtype,
+                                         seq=group)
+        return logits[:, -1].argmax(dim=-1, keepdim=True), cache
+
+    in_sh["params"] = _replicated(p_structs, mesh)
+    return StepBundle(rank_serve_step, arg_structs, in_sh, (tok, cache_sh))
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, dtype=torch.bfloat16,

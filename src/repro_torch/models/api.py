@@ -50,10 +50,15 @@ def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32):
     return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype)
 
 
-def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32):
+def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32,
+                 seq=None):
+    """One decode step; ``seq`` (a ``layers.SeqGroup``): the ranks that split
+    a dense model's KV cache by sequence, ``None`` on one card."""
     if cfg.arch_type == "encdec":
+        if seq is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec decode step takes no sequence group")
         return encdec.decode_step_encdec(params, cfg, token, cache, t, dtype)
-    return transformer.decode_step(params, cfg, token, cache, t, dtype)
+    return transformer.decode_step(params, cfg, token, cache, t, dtype, seq)
 
 
 __all__ = ["model_init", "model_loss", "model_prefill", "model_decode", "init_cache"]

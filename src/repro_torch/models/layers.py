@@ -18,7 +18,9 @@ a window always holds the diagonal and a non-causal call sees every key, so
 no row is fully masked. The kernel keeps the probabilities in fp32 for the PV product,
 where ``_attention_core`` rounds them to ``dtype`` first. Single-token
 decode attention (:func:`attention_decode`) stays plain torch, as it stays
-outside any Pallas kernel in the reference.
+outside any Pallas kernel in the reference. Over ranks that split a KV
+cache by sequence (a :class:`SeqGroup`), each rank attends over its slots
+and the group combines the partial softmaxes (flash-decoding).
 
 The full-sequence Mamba2 scan (:func:`mamba2_fwd`) goes through
 :func:`repro_torch.kernels.ssd.ops.ssd` the same way, where the reference
@@ -38,7 +40,7 @@ Not ported here: the activation-sharding registry (``constrain``,
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -185,9 +187,22 @@ def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
+class SeqGroup(NamedTuple):
+    """The ranks that split a KV cache by sequence (flash-decoding): this
+    rank's place in the group and the group's in-place all-reduces of a
+    tensor by MAX and by SUM (each counted by the mesh that runs it). The
+    serving step over ranks builds it (``launch/steps.py``); ``None`` is
+    one card."""
+
+    rank: int
+    all_max: Callable[[torch.Tensor], None]
+    all_sum: Callable[[torch.Tensor], None]
+
+
 def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_pos: torch.Tensor, t: int, *,
-                     dtype=torch.float32, use_rope: bool = True):
+                     dtype=torch.float32, use_rope: bool = True,
+                     seq: Optional[SeqGroup] = None):
     """Single-token decode against a (possibly ring-buffer) KV cache.
 
     x is (B, 1, D); cache_k and cache_v are (B, S_max, KV, dh); cache_pos is
@@ -197,6 +212,12 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     written into slot ``t % S_max`` **in place** (the reference returns
     updated copies; in place saves copying the cache each step). Returns
     ``(out, (cache_k, cache_v, cache_pos))``.
+
+    Over a ``seq`` group whose ranks split the cache by sequence, cache_k
+    and cache_v are this rank's slots ``[r·S_max/m, (r + 1)·S_max/m)`` and
+    cache_pos is whole: see :func:`_attend_slice`. Where the cache is whole
+    on every rank (one rank a group, or a sequence the group does not
+    split), the one-card code runs.
     """
     b = x.shape[0]
     h, kv_heads, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -207,6 +228,9 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if seq is not None and s_max != cache_pos.shape[0]:
+        out = _attend_slice(q, k_new, v_new, cache_k, cache_v, cache_pos, t, cfg, seq, dtype)
+        return out.to(dtype) @ params["wo"].to(dtype), (cache_k, cache_v, cache_pos)
 
     slot = t % s_max  # ring buffer (= t when S_max > t)
     cache_k[:, slot] = k_new[:, 0]
@@ -214,9 +238,7 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     cache_pos[slot].fill_(t)  # a fill kernel: assigning a Python int would sync on a host copy
 
     # validity: slot written, causal, within window
-    valid = (cache_pos >= 0) & (cache_pos <= t)
-    if cfg.sliding_window is not None:
-        valid = valid & (cache_pos > t - cfg.sliding_window)
+    valid = _valid_slots(cache_pos, t, cfg)
 
     q = q.reshape(b, 1, kv_heads, rep, dh)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", q, cache_k) / math.sqrt(dh)
@@ -225,6 +247,63 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v).reshape(b, 1, h * dh)
     out = out @ params["wo"].to(dtype)
     return out, (cache_k, cache_v, cache_pos)
+
+
+def _valid_slots(cache_pos: torch.Tensor, t: int, cfg: ModelConfig) -> torch.Tensor:
+    """The slots a query at ``t`` attends to: written, causal, within the
+    sliding window."""
+    valid = (cache_pos >= 0) & (cache_pos <= t)
+    if cfg.sliding_window is not None:
+        valid = valid & (cache_pos > t - cfg.sliding_window)
+    return valid
+
+
+def _attend_slice(q, k_new, v_new, cache_k, cache_v, cache_pos, t: int, cfg: ModelConfig,
+                  seq: SeqGroup, dtype) -> torch.Tensor:
+    """One query's attention over a cache split by sequence over ``seq``:
+    → (B, 1, H·dh) in fp32, the same on every rank of the group.
+
+    The global slot ``t % S_max`` (the ring slot, so the ring wraps across
+    the ranks) takes the new k and v on the rank that owns it; every rank
+    writes the position into the whole ``cache_pos`` it holds, so the
+    replicas stay equal. The scores over this rank's valid slots are the
+    one-card code's; the group's MAX of their row maxima gives m, a SUM of
+    each rank's l_r = Σ exp(s − m) gives l, and each rank's probabilities
+    exp(s − m) / l, rounded to ``dtype`` as the one-card code rounds its
+    softmax, weigh its values in fp32: a SUM of those o_r gives o, cast
+    once to ``dtype`` by the caller. (Rounding none of them, one
+    all-reduce of [l_r, o_r] rescaled by exp(m_r − m), rounds every
+    probability otherwise than the one-card code, and over a full-depth
+    bf16 model that sits several times the bf16 limit from it: PERF.md §6,
+    serving over ranks.) A slice with no valid slot has its row maximum NEG_INF (finite)
+    and its numerators masked to 0, so it adds nothing and no
+    exp(−inf − (−inf)) is taken; the owner of slot ``t % S_max`` always
+    holds a valid slot, so m is finite.
+    """
+    b = q.shape[0]
+    kv_heads, dh = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // kv_heads
+    s_loc = cache_k.shape[1]
+    lo = seq.rank * s_loc
+    slot = t % cache_pos.shape[0]
+    if lo <= slot < lo + s_loc:
+        cache_k[:, slot - lo] = k_new[:, 0]
+        cache_v[:, slot - lo] = v_new[:, 0]
+    cache_pos[slot].fill_(t)
+    valid = _valid_slots(cache_pos[lo:lo + s_loc], t, cfg)
+
+    q = q.reshape(b, 1, kv_heads, rep, dh)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q, cache_k) / math.sqrt(dh)
+    scores = scores.masked_fill(~valid, NEG_INF).float()
+    m = scores.amax(dim=-1, keepdim=True)  # (B, KV, rep, 1, 1)
+    seq.all_max(m)
+    e = torch.exp(scores - m).masked_fill(~valid, 0.0)
+    l = e.sum(dim=-1, keepdim=True)
+    seq.all_sum(l)
+    probs = (e / l).to(dtype).float()
+    o = torch.einsum("bgrqk,bkgd->bgrqd", probs, cache_v.float())
+    seq.all_sum(o)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, kv_heads * rep * dh)
 
 
 # --------------------------------------------------------------------------

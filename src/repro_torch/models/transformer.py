@@ -400,14 +400,17 @@ def _hybrid_prefill(params, cfg: ModelConfig, x, dtype):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
-                dtype=torch.float32):
+                dtype=torch.float32, seq: L.SeqGroup | None = None):
     """One serve step: consume one token (B, 1) at absolute position ``t``,
     update ``cache`` **in place** and return (logits (B, 1, vocab_padded),
     cache). A dense, vlm or moe step writes the token's k, v and position into
     slot ``t % S_max`` of every layer's cache (each layer writes the same
     position, which every layer then reads); an ssm step overwrites each
     layer's state and conv window; a hybrid step does both, its shared
-    block's invocation ``i // attn_every`` on that invocation's KV cache."""
+    block's invocation ``i // attn_every`` on that invocation's KV cache.
+    ``seq``: the ranks that split a dense model's KV cache by sequence
+    (:func:`repro_torch.models.layers.attention_decode`); ``None`` on one
+    card."""
     check_ported(cfg)
     x = params["embed"].to(dtype)[token]
     t = int(t)
@@ -427,16 +430,17 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     else:
         for i in range(cfg.n_layers):
             x = _block_decode(cfg, layer_params(params, i), x, cache.k[i], cache.v[i],
-                              cache.pos, t, dtype)
+                              cache.pos, t, dtype, seq)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x, dtype), cache
 
 
-def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, dtype):
+def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, dtype,
+                  seq: L.SeqGroup | None = None):
     """:func:`_block_fwd` for one token against a KV cache, written in place."""
     with record_function("lm.attention"):
         h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                  cache_k, cache_v, cache_pos, t, dtype=dtype)
+                                  cache_k, cache_v, cache_pos, t, dtype=dtype, seq=seq)
     x = x + h
     h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:

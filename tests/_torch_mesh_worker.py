@@ -31,6 +31,18 @@ got. Jobs:
                 the final parameters, of the optimizer state and of the
                 gradients that reached the optimizer, and its collectives
                 (calls and wire bytes), gathered by rank.
+  serve_ranks   the input's serving cases (``tests/test_torch_serve_ranks.py``):
+                each a ``Server`` on a (data, model) mesh of every rank, in
+                fp32, its weights whole or this rank's blocks of them,
+                prefilling its rows of the input's prompt and decoding
+                greedily: every rank's first tokens, logits and cache
+                blocks of the prefill, its decoded tokens, each step's
+                logits and its final blocks, the whole batch's tokens
+                gathered, and its collectives (calls and wire bytes),
+                gathered by rank; besides, the serving steps' own
+                functions: the prefill step's logits and cache blocks, the
+                cache gathered whole from them and cut again, and one
+                decode step's token from the prefilled blocks.
 """
 from __future__ import annotations
 
@@ -195,6 +207,63 @@ def train_ranks(inp) -> dict:
     return out
 
 
+def serve_ranks(inp) -> dict:
+    from repro_torch.launch.distributed import counted_collectives
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import (
+        cache_block, cache_gather, params_pspecs, to_shardings,
+    )
+    from repro_torch.launch.steps import (
+        block_of, build_prefill_step, build_serve_step, params_structs,
+    )
+    from repro_torch.models.config import InputShape
+    from repro_torch.obs.registry import reset_metrics
+
+    def by_rank(value):
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, value)
+        return parts
+
+    out = {}
+    for name, case in inp.items():
+        cfg, tokens = case["cfg"], case["tokens"]
+        mesh = make_rank_mesh(model=case["model"], device="cpu")
+        server = Server(cfg, case["shape"], mesh, torch.float32)
+        params = case["params"]
+        if case["load_blocks"]:
+            params = block_of(params, to_shardings(params_pspecs(params_structs(cfg), mesh), mesh))
+        reset_metrics("ranks.")
+        weights = server.load_params(params)
+        first, logits, cache = server.prefill(weights, server.batch_block({"tokens": tokens}),
+                                              pad_to=case["pad_to"])
+        prefilled = type(cache)(*(x.clone() for x in cache))
+        toks, cache, steps = server.decode(weights, first, cache, tokens.shape[1],
+                                           case["n_tokens"], keep_logits=True)
+        whole = server.gather_tokens(toks)
+        collectives = {op: {k: c[k] for k in ("calls", "bytes")}
+                       for op, c in counted_collectives().items()}
+        rows = server.batch_block({"tokens": tokens})
+        prompt = InputShape("prompt", tokens.shape[1], tokens.shape[0], "prefill")
+        prefill = build_prefill_step(cfg, prompt, mesh, torch.float32)
+        step_logits, step_cache = prefill.fn(case["params"], rows)
+        whole_cache = cache_gather(step_cache, prefill.out_shardings[1])
+        recut = cache_block(whole_cache, mesh)
+        serve = build_serve_step(cfg, case["shape"], mesh, torch.float32)
+        step_token, _ = serve.fn(case["params"], first,
+                                 type(prefilled)(*(x.clone() for x in prefilled)),
+                                 tokens.shape[1])
+        out[name] = {"tokens": whole, "whole_cache": whole_cache,
+                     "ranks": by_rank({"coordinates": mesh.coordinates(), "first": first,
+                                       "logits": logits, "prefill_cache": prefilled,
+                                       "tokens": toks, "step_logits": steps, "cache": cache,
+                                       "collectives": collectives,
+                                       "prefill_step": (step_logits, step_cache),
+                                       "recut": recut,
+                                       "serve_step_token": step_token})}
+    return out
+
+
 def main() -> int:
     job, path_in, path_out = sys.argv[1:]
     from repro_torch.sim.multihost import initialize_distributed
@@ -203,7 +272,7 @@ def main() -> int:
         raise SystemExit("no REPRO_DIST_* env: start this under repro_torch.launch.distributed")
     inp = torch.load(path_in, weights_only=False) if path_in != "-" else None
     result = {"shard_gather": shard_gather, "allreduce": allreduce, "cnn_parity": cnn_parity,
-              "lattice": lattice, "train_ranks": train_ranks}[job](inp)
+              "lattice": lattice, "train_ranks": train_ranks, "serve_ranks": serve_ranks}[job](inp)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, result)
     same = all(_equal(every[0], other) for other in every[1:])
