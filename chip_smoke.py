@@ -265,6 +265,15 @@ non-zero exit and no result line:
              ms a round and its collectives' share, peak memory, bytes of
              masters and optimizer state (equal to the dry run's) and flash
              launches (L × 5 a round)
+  serve_ranks  ``Server`` over a (data, model) mesh of ranks
+             (``serve_ranks_plan``): (a) one NCCL rank bitwise the one-card
+             server; (b) (2, 1) and (c) (1, 2) of two ranks sharing the card
+             over gloo, one launch, qwen2-0.5b at decode_32k and
+             mamba2-370m on (b); on (c) qwen2 split tensor-parallel over
+             the two model ranks (kernel 3 on 7 of 14 heads in every prefill
+             layer); every rank against one process (on (c) at full depth
+             in bf16, both against one process's fp32 prefill of the same
+             inputs), its collectives and weight bytes against the dry run's
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -350,10 +359,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 8
 BREAKDOWN_STEPS = 8
 # (b, sq, sk, h, kv, dh, causal) of the flash kernel's times, bf16: the
-# serving prefills (and the prefill_32k sequence length); seamless's
-# non-causal encoder, its cross-attention from the prompt and from a decode
-# step's one token
+# serving prefills (and the prefill_32k sequence length), qwen2's on one of
+# two model ranks; seamless's non-causal encoder, its cross-attention from
+# the prompt and from a decode step's one token
 ATTN_TIME_SHAPES = {"prefill_2k": (8, 2048, 2048, 14, 2, 64, True),
+                    "prefill_2k_tp2": (8, 2048, 2048, 7, 1, 64, True),
                     "prefill_32k": (1, 32768, 32768, 14, 2, 64, True),
                     "zamba2_prefill": (8, 2048, 2048, 32, 32, 80, True),
                     "olmoe_prefill": (8, 2048, 2048, 16, 16, 128, True),
@@ -3371,8 +3381,8 @@ def train_ranks_phase(dev) -> dict:
 # -- serving over ranks -------------------------------------------------------
 
 # (b) and (c): two ranks sharing the card over gloo on these (data, model)
-# meshes; each launch runs serve_ranks_plan()'s runs of that mesh in one
-# process group (a launched rank is slow to reach its group)
+# meshes, one launch running serve_ranks_plan()'s runs on both in one
+# process group
 SERVE_RANKS_MESHES = {"b": (2, 1), "c": (1, 2)}
 SERVE_RANKS_TIMEOUT = 600  # seconds the launched ranks get
 SERVE_RANKS_STEPS = 8
@@ -3384,9 +3394,17 @@ SERVE_RANKS_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
 # weights a changed rounding in an early layer grows with depth (a product
 # over half the rows rounds otherwise; PERF.md §6, serving over ranks).
 # There the tokens are held by the margin rule, a data rank's decode
-# bitwise to one process's over the same rows, and the bf16 logits within
-# SERVE_RANKS_TOL at a cut depth ("bf16_cut", "ssm_cut")
+# bitwise to one process's over the same rows and its prefill within
+# SERVE_RANKS_TOL (bitwise: its rows round as one process's), and the bf16
+# logits within SERVE_RANKS_TOL at a cut depth ("bf16_cut", "ssm_cut").
+# Over model ranks the split products round otherwise than one GEMM from
+# layer 0 on, so there the full-depth bf16 prefill is held by its distance
+# from one process's prefill in fp32 on the same inputs (fp32_yardstick),
+# logits and cache layer by layer: at most SERVE_RANKS_SPLIT_RATIO times one
+# process's bf16 prefill's distance from it (ROADMAP C); the split is also
+# held at full depth in fp32 ("fp32_deep")
 SERVE_RANKS_DEEP = ("bf16", "ssm")
+SERVE_RANKS_SPLIT_RATIO = 1.5
 
 
 def serve_ranks_plan():
@@ -3395,7 +3413,8 @@ def serve_ranks_plan():
     full width and depth in bf16, a prefill of SERVE_BATCH × SERVE_PROMPT
     and 8 steps at decode_32k's capacity (128 × 32,768, filled from a
     seed), and the same cut to 1 layer; the same at 4 layers in fp32 on a
-    128 × 4,096 cache; mamba2-370m over data ranks at the ssm_serve shape
+    128 × 4,096 cache, and at full depth in fp32 on a 2 × 512 prompt,
+    2 steps from its prefill; mamba2-370m over data ranks at the ssm_serve shape
     (decoding from its prefill), at full depth and cut to 16 of 48 layers
     (the cut depths: PERF.md §6, serving over ranks)."""
     from repro_torch.launch.distributed import ServeRun
@@ -3404,13 +3423,17 @@ def serve_ranks_plan():
     d32k = INPUT_SHAPES["decode_32k"]
     common = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, steps=SERVE_RANKS_STEPS)
     big = dict(cache_batch=d32k.global_batch, cache_len=d32k.seq_len, **common)
+    # each cut run comes first, so the full-depth prefill after it finds
+    # cuBLAS, the kernels' libraries and gloo's connections warm in the
+    # launched ranks, as the one process finds them (c′)
     return {"a": ServeRun(SERVE_ARCH, 0, "bfloat16", **common),
-            "bf16": ServeRun(SERVE_ARCH, 0, "bfloat16", **big),
             "bf16_cut": ServeRun(SERVE_ARCH, 1, "bfloat16", **big),
+            "bf16": ServeRun(SERVE_ARCH, 0, "bfloat16", **big),
             "fp32": ServeRun(SERVE_ARCH, 4, "float32", cache_batch=d32k.global_batch,
                              cache_len=4096, **common),
-            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common),
-            "ssm_cut": ServeRun(SSM_ARCH, 16, "bfloat16", **common)}
+            "fp32_deep": ServeRun(SERVE_ARCH, 0, "float32", batch=2, prompt=512, steps=2),
+            "ssm_cut": ServeRun(SSM_ARCH, 16, "bfloat16", **common),
+            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common)}
 
 
 def step_hold(got_logits, want_logits, got_tokens, want_tokens, step) -> tuple[float, float,
@@ -3455,6 +3478,85 @@ def decode_hold(got: dict, want: dict, vocab: int) -> dict:
             "first_equal": torch.equal(got["tokens"][:, 0], want["tokens"][:, 0])}
 
 
+def fp32_yardstick(run, dev) -> dict:
+    """``run``'s prefill in one process in fp32 arithmetic on the same
+    inputs: its prompt, and the weights it serves (every fp32 leaf but the
+    ``FP32_LEAVES`` rounded to ``run.dtype``, as ``Server.load_params``
+    casts them) → the last-position logits and the whole cache, on the
+    host. The full-depth bf16 prefills of one process and of the split are
+    each measured against it."""
+    from repro_torch import configs
+    from repro_torch.launch.distributed import serve_inputs
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import FP32_LEAVES
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+
+    dtype = getattr(torch, run.dtype)
+    cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
+
+    def rounded(node, key=""):
+        if isinstance(node, dict):
+            return {k: rounded(v, k) for k, v in node.items()}
+        if node.dtype != torch.float32 or key in FP32_LEAVES:
+            return node
+        return node.to(dtype).float()
+
+    server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
+                    dev, torch.float32)
+    params = server.load_params(rounded(api.model_init(cfg, run.seed, dev)))
+    tokens, _ = serve_inputs(run, cfg)
+    _, logits, cache = server.prefill(params, {"tokens": tokens})
+    out = {"logits": logits[:, -1].cpu(), "cache": type(cache)(*(x.cpu() for x in cache))}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_blocks(whole, mesh, coords):
+    """The rank at ``coords``' blocks of a whole attention cache."""
+    from repro_torch.launch.sharding import cache_shardings
+
+    return type(whole)(*(x[sh.index(coords, x.shape)]
+                         for x, sh in zip(whole, cache_shardings(whole, mesh))))
+
+
+def split_against_fp32(p_got, p_want, fp32, rows, vocab, mesh, coords) -> tuple[dict, bool]:
+    """A model rank's bf16 prefill and one process's over the same rows and
+    cache block, each against the fp32 prefill of the same inputs
+    (:func:`fp32_yardstick`): relative L2 of the last-position logits and
+    of each layer's cache → (the figures, whether the split's distance is
+    at most SERVE_RANKS_SPLIT_RATIO times one process's, the logits' and
+    every layer's). A split that rounds as one GEMM keeps to one process's
+    distance; a wrong one (a head, a block or a partial sum misplaced)
+    lands far from both."""
+    ref = rows(fp32["logits"])[:, :vocab]
+    logits = {"split": rel_l2(p_got["logits"][:, :vocab], ref),
+              "one_process": rel_l2(rows(p_want["logits"])[:, :vocab], ref)}
+    layers = {"split": layer_blocks_hold(p_got["cache"], fp32["cache"], mesh, coords),
+              "one_process": layer_blocks_hold(rank_blocks(p_want["cache"], mesh, coords),
+                                               fp32["cache"], mesh, coords)}
+    ratio = [s / o for s, o in zip(layers["split"], layers["one_process"], strict=True)]
+    out = {"logits_rel_l2": logits, "logits_ratio": logits["split"] / logits["one_process"],
+           "cache_rel_l2_by_layer": layers, "cache_ratio_by_layer": ratio,
+           "ratio_limit": SERVE_RANKS_SPLIT_RATIO}
+    return out, (out["logits_ratio"] <= SERVE_RANKS_SPLIT_RATIO
+                 and max(ratio) <= SERVE_RANKS_SPLIT_RATIO)
+
+
+def layer_blocks_hold(got, want_whole, mesh, coords) -> list:
+    """An attention cache's blocks against one process's, layer by layer:
+    the worst relative L2 of k and v of each layer (a layer's cache depends
+    only on the layers before it, so this is the error's growth with
+    depth)."""
+    from repro_torch.launch.sharding import cache_shardings
+
+    sh = cache_shardings(want_whole, mesh)
+    return [max(rel_l2(g[i], w[sh.k.index(coords, w.shape)][i])
+                for g, w in ((got.k, want_whole.k), (got.v, want_whole.v)))
+            for i in range(got.k.shape[0])]
+
+
 def serve_blocks_hold(got, want_whole, mesh, coords) -> float:
     """The worst relative L2 of a rank's cache blocks against the specs'
     blocks of one process's whole cache; positions must be equal (else
@@ -3476,25 +3578,30 @@ def serve_blocks_hold(got, want_whole, mesh, coords) -> float:
 
 
 def serve_rank_hold(run, got: dict, want: dict, sizes, coords, gather: str,
-                    deep: bool) -> tuple[dict, bool]:
+                    deep: bool, fp32=None) -> tuple[dict, bool]:
     """One rank's run against one process's: the prefill's first tokens
     (the margin rule), last-position logits and cache blocks, the decode
     (:func:`decode_hold`) and, from the prefill's cache, the decode's final
     blocks, within SERVE_RANKS_TOL (the decode's logits and final blocks
-    only reported where ``deep``: SERVE_RANKS_DEEP); the positions written; each kernel's
+    only reported where ``deep``: SERVE_RANKS_DEEP; there over model ranks
+    the prefill is held against one process's by their distances from
+    ``fp32``, :func:`split_against_fp32`); the positions written; each
+    kernel's
     launches (the prefill's :func:`prefill_launches`, none in the decode);
-    the collectives of the decode and its tokens' gather equal to the dry
-    run's (``gather``: how the ranks gather; gloo gathers CUDA tensors by
-    a zero-filled all-reduce) →
-    (the figures, whether every hold held)."""
+    the bytes of the weights the rank serves (its TP blocks over model
+    ranks) and the collectives of the prefill, of the decode with the
+    gathers of its logits and tokens equal to the dry run's (``gather``:
+    how the ranks gather; gloo gathers CUDA tensors by a zero-filled
+    all-reduce) → (the figures, whether every hold held)."""
     from repro_torch import configs
     from repro_torch.launch.dryrun import rank_collectives
     from repro_torch.launch.mesh import ShapeMesh
-    from repro_torch.launch.sharding import Sharding, _batched
-    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.launch.sharding import Sharding, _batched, served_bytes
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step, params_structs
     from repro_torch.models.config import InputShape
 
     tol = SERVE_RANKS_TOL[run.dtype]
+    dtype = getattr(torch, run.dtype)
     cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
     mesh = ShapeMesh(("data", "model"), sizes)
 
@@ -3514,27 +3621,47 @@ def serve_rank_hold(run, got: dict, want: dict, sizes, coords, gather: str,
            "prefill_tokens_outside_rule": p_outside,
            "prefill_cache_rel_l2": serve_blocks_hold(p_got["cache"], p_want["cache"], mesh,
                                                      coords),
+           "prefill_cache_rel_l2_by_layer": (layer_blocks_hold(p_got["cache"], p_want["cache"],
+                                                               mesh, coords)
+                                             if hasattr(p_got["cache"], "k") else None),
            **{f"decode_{k}": v for k, v in decode.items()},
            "positions_written": got["decode"]["positions_written"]}
     if got["decode"]["cache"] is not None:
         out["decode_cache_rel_l2"] = serve_blocks_hold(got["decode"]["cache"],
                                                        want["decode"]["cache"], mesh, coords)
     shape = InputShape("decode", run.cache_len or run.prompt + run.steps, b_dec, "decode")
-    reckoned = rank_collectives(cfg, build_serve_step(cfg, shape, mesh, getattr(torch, run.dtype)),
-                                mesh, gather, n_tokens=run.steps + 1)
+    serve = build_serve_step(cfg, shape, mesh, dtype)
+    reckoned = rank_collectives(cfg, serve, mesh, gather, n_tokens=run.steps + 1, logits=True)
+    prefill = build_prefill_step(cfg, InputShape("prompt", run.prompt, run.batch, "prefill"),
+                                 mesh, dtype)
+    reckoned_prefill = rank_collectives(cfg, prefill, mesh, gather, logits=True, dtype=dtype)
+    weight_bytes = served_bytes(params_structs(cfg), serve.in_shardings["params"], dtype)
     counted = calls_and_bytes(got["decode"]["collectives"])
+    counted_prefill = calls_and_bytes(got["prefill"]["collectives"])
     expect = prefill_launches(cfg)
     out.update(reckoned_collectives=reckoned, collectives=got["decode"]["collectives"],
+               reckoned_prefill_collectives=reckoned_prefill,
+               prefill_collectives=got["prefill"]["collectives"],
+               weight_bytes=got["weight_bytes"], reckoned_weight_bytes=weight_bytes,
                launches={"prefill": got["prefill"]["launches"],
                          "decode": got["decode"]["launches"]})
-    held = [out["prefill_logits_rel_l2"], out["prefill_cache_rel_l2"]]
+    held = []
+    if not (deep and sizes[1] > 1):
+        held += [out["prefill_logits_rel_l2"], out["prefill_cache_rel_l2"]]
     if not deep:
         held += [out["decode_logits_rel_l2"], out.get("decode_cache_rel_l2", 0.0)]
-    out["held_to_tolerance"] = ("prefill" if deep else "prefill and decode")
-    ok = (max(held) <= tol
+    out["held_to_tolerance"] = ("prefill and decode" if not deep else
+                                "prefill" if held else
+                                "the prefill against fp32, the tokens by the margin rule")
+    split_ok = True
+    if deep and sizes[1] > 1:
+        out["prefill_against_fp32"], split_ok = split_against_fp32(
+            p_got, p_want, fp32, lambda x: rows(x, run.batch), v, mesh, coords)
+    ok = (max(held, default=0.0) <= tol and split_ok
           and not p_bad and not decode["tokens_against_rule"]
           and (decode["first_equal"] or run.cache_len == 0) and out["positions_written"]
-          and counted == reckoned
+          and counted == reckoned and counted_prefill == reckoned_prefill
+          and got["weight_bytes"] == weight_bytes
           and got["prefill"]["launches"] == expect
           and not any(got["decode"]["launches"].values()))
     return out, ok
@@ -3600,19 +3727,28 @@ def rows_bitwise(got: dict, want: dict) -> bool:
     return all(torch.equal(a, b) for a, b in pairs)
 
 
-def serve_costs(got: dict) -> dict:
-    """A rank's serving figures: the prefill's ms, ms a decode step, the
-    whole batch's tokens/s, peak GB, cache GB, the combine's share of the
-    decode (its all-reduces' seconds, the card synchronised around each)."""
+def serve_costs(got: dict, run) -> dict:
+    """A rank's serving figures: the prefill's ms and tokens/s, ms a decode
+    step, the whole batch's tokens/s, peak GB, cache GB, weight GB, each
+    collective span's share of the decode steps (its seconds, the card
+    synchronised around each, over the steps' seconds: ``reduce`` holds the
+    combine's and the split products' all-reduces, ``gather`` the q, k, v
+    and greedy gathers) and the seconds of the gathers after the steps
+    (the logits' and the tokens')."""
     dec = got["decode"]
-    coll = dec["collectives"]
-    decode_s = dec["ms_per_step"] * SERVE_RANKS_STEPS / 1e3
-    return {"prefill_ms": got["prefill"]["ms"], "decode_ms_per_step": dec["ms_per_step"],
+    steps, coll = dec["steps_collectives"], dec["collectives"]
+    decode_s = dec["ms_per_step"] * run.steps / 1e3
+    prefill = got["prefill"]
+    return {"prefill_ms": prefill["ms"],
+            "prefill_tokens_per_s": prefill["first"].shape[0] * run.prompt * 1e3 / prefill["ms"],
+            "decode_ms_per_step": dec["ms_per_step"],
             "tokens_per_s": dec["tokens_per_s"],
             "peak_gb": (dec["peak_memory_bytes"] or 0) / 1e9,
             "cache_gb": dec["cache_bytes"] / 1e9,
-            "combine_share": coll["reduce"]["seconds"] / decode_s,
-            "gather_s": coll["gather"]["seconds"]}
+            "weight_gb": got["weight_bytes"] / 1e9,
+            "span_share": {op: c["seconds"] / decode_s for op, c in steps.items()},
+            "prefill_span_s": {op: c["seconds"] for op, c in prefill["collectives"].items()},
+            "gather_after_steps_s": coll["gather"]["seconds"] - steps["gather"]["seconds"]}
 
 
 def serve_ranks_one(dev, run, want) -> tuple[dict, int]:
@@ -3637,8 +3773,8 @@ def serve_ranks_one(dev, run, want) -> tuple[dict, int]:
         pairs += list(zip(cache_leaves(got[part]["cache"]), cache_leaves(want[part]["cache"])))
     bitwise = all(torch.equal(a, b) for a, b in pairs)
     none = {op: {"calls": 0, "bytes": 0} for op in ("gather", "reduce", "broadcast")}
-    out = {"backend": backend, "bitwise": bitwise, **serve_costs(got),
-           "one_card": serve_costs(want), "collectives": got["decode"]["collectives"],
+    out = {"backend": backend, "bitwise": bitwise, **serve_costs(got, run),
+           "one_card": serve_costs(want, run), "collectives": got["decode"]["collectives"],
            "launches": {"prefill": got["prefill"]["launches"],
                         "decode": got["decode"]["launches"]}}
     cfg_launches = prefill_launches_of(run)
@@ -3665,8 +3801,12 @@ def serve_ranks_phase(dev) -> dict:
     before the ranks start), and (b) the (2, 1) and (c) the (1, 2) mesh of
     two ranks sharing the card over gloo, one launch each
     (``launch.distributed``'s ``serve`` workload with a plan), every rank
-    held to them (:func:`serve_rank_hold`); mamba2-370m on (b) only. The
-    figures of the full-depth bf16 runs are the phase's performance ones."""
+    held to them (:func:`serve_rank_hold`); mamba2-370m on (b) only. On (c)
+    qwen2-0.5b is split tensor-parallel over the two model ranks: each
+    holds its TP blocks, runs kernel 3 on 7 of the 14 heads in every
+    prefill layer, and each run's 8 × 2,048 prefill (c′) is timed against
+    one process's. The figures of the full-depth bf16 runs are the phase's
+    performance ones."""
     import tempfile
 
     from repro_torch.launch.distributed import serve_run
@@ -3679,46 +3819,52 @@ def serve_ranks_phase(dev) -> dict:
     del a_want
     launched = {"flash_attention": launched_flash, "ssd_scan": 0}
     wants = {}
-    for name in ("bf16", "bf16_cut", "fp32", "ssm", "ssm_cut"):
+    for name in [n for n in plan if n != "a"]:
         wants[name] = serve_run(plan[name], dev)
         torch.cuda.empty_cache()
-    out["one_process"] = {name: serve_costs(w) for name, w in wants.items()}
-    failed = []
-    for part, sizes in SERVE_RANKS_MESHES.items():
-        names = ["bf16", "bf16_cut", "fp32"] + (["ssm", "ssm_cut"] if sizes[1] == 1 else [])
-        with tempfile.TemporaryDirectory() as tmp:
-            plan_file = Path(tmp) / "plan.json"
-            plan_file.write_text(json.dumps([dataclasses.asdict(plan[n]) for n in names]))
-            t0 = time.perf_counter()
-            launch(["--procs", 2, "--workload", "serve", "--device", "cuda", "--model", sizes[1],
-                    "--plan", plan_file, "--out", Path(tmp) / "serve"],
-                   timeout=SERVE_RANKS_TIMEOUT)
-            launch_s = time.perf_counter() - t0
-            ranks = [torch.load(Path(tmp) / f"serve.rank{r}.pt", weights_only=False)
-                     for r in range(2)]
-        part_out = {"mesh": sizes, "backend": ranks[0]["backend"], "launch_s": launch_s}
-        for i, name in enumerate(names):
-            run = plan[name]
-            per_rank = []
-            for rank in ranks:
-                got = rank["runs"][i]
-                held, ok = serve_rank_hold(run, got, wants[name], sizes, got["coordinates"],
-                                           "all-reduce" if dev.type == "cuda" else "all-gather",
-                                           name in SERVE_RANKS_DEEP)
-                if name in SERVE_RANKS_DEEP and sizes[1] == 1:
-                    held["decode_bitwise_one_process_rows"] = rows_bitwise(
-                        got["decode"], one_process_rows(run, dev, sizes, got["coordinates"]))
-                    ok = ok and held["decode_bitwise_one_process_rows"]
-                per_rank.append({"coordinates": got["coordinates"], **serve_costs(got), **held})
-                if not ok:
-                    failed.append((part, name, got["coordinates"]))
-                for k in launched:
-                    launched[k] += got["prefill"]["launches"][k]
-            part_out[name] = {"run": dataclasses.asdict(run),
-                              "tolerance": SERVE_RANKS_TOL[run.dtype], "ranks": per_rank}
-        out[part] = part_out
-        if part_out["backend"] != "gloo":
-            failed.append((part, "backend", part_out["backend"]))
+    out["one_process"] = {name: serve_costs(w, plan[name]) for name, w in wants.items()}
+    fp32 = {name: fp32_yardstick(plan[name], dev) for name in SERVE_RANKS_DEEP
+            if not name.startswith("ssm")}  # the runs split over model ranks
+    # one launch runs every mesh's runs (a launched rank is slow to reach
+    # its group); mamba2 over data ranks only
+    entries = [(part, name) for part, sizes in SERVE_RANKS_MESHES.items() for name in plan
+               if name != "a" and (sizes[1] == 1 or not name.startswith("ssm"))]
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_file = Path(tmp) / "plan.json"
+        plan_file.write_text(json.dumps([
+            dataclasses.asdict(dataclasses.replace(plan[name], model=SERVE_RANKS_MESHES[part][1]))
+            for part, name in entries]))
+        t0 = time.perf_counter()
+        launch(["--procs", 2, "--workload", "serve", "--device", "cuda", "--plan", plan_file,
+                "--out", Path(tmp) / "serve"], timeout=SERVE_RANKS_TIMEOUT)
+        out["launch_s"] = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"serve.rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    failed = [("backend", ranks[0]["backend"])] if ranks[0]["backend"] != "gloo" else []
+    for i, (part, name) in enumerate(entries):
+        sizes, run = SERVE_RANKS_MESHES[part], plan[name]
+        per_rank = []
+        for rank in ranks:
+            got = rank["runs"][i]
+            held, ok = serve_rank_hold(run, got, wants[name], sizes, got["coordinates"],
+                                       "all-reduce" if dev.type == "cuda" else "all-gather",
+                                       name in SERVE_RANKS_DEEP, fp32.get(name))
+            if name in SERVE_RANKS_DEEP and sizes[1] == 1:
+                held["decode_bitwise_one_process_rows"] = rows_bitwise(
+                    got["decode"], one_process_rows(run, dev, sizes, got["coordinates"]))
+                ok = ok and held["decode_bitwise_one_process_rows"]
+            per_rank.append({"coordinates": got["coordinates"], **serve_costs(got, run),
+                             "prefill_ms_over_one_process": (got["prefill"]["ms"]
+                                                             / wants[name]["prefill"]["ms"]),
+                             **held})
+            ok = ok and got["mesh"] == dict(zip(("data", "model"), sizes))
+            if not ok:
+                failed.append((part, name, got["coordinates"]))
+            for k in launched:
+                launched[k] += got["prefill"]["launches"][k]
+        out.setdefault(part, {"mesh": sizes})[name] = {
+            "run": dataclasses.asdict(run), "tolerance": SERVE_RANKS_TOL[run.dtype],
+            "ranks": per_rank}
     emit("serve_ranks", card=nvidia_smi(), steps=SERVE_RANKS_STEPS, **out)
     if failed:
         raise AssertionError(f"serve_ranks: holds failed on {failed}")

@@ -990,7 +990,11 @@ class ServeRun:
     then ``steps`` greedy decode steps: from the prefill's cache grown by
     ``steps`` slots (``cache_len`` 0), or from a ``cache_batch`` ×
     ``cache_len`` cache filled from the seed (:func:`seeded_cache`) at its
-    last ``steps`` positions."""
+    last ``steps`` positions. ``model``: ranks a model group of the mesh it
+    runs on (0: the launcher's ``--model``), so one process group can serve
+    a plan over several layouts of the same ranks, data- and
+    tensor-parallel, without a second rendezvous (a launched rank is slow to
+    reach its group)."""
 
     arch: str = "qwen2-0.5b"
     layers: int = 0
@@ -1001,6 +1005,7 @@ class ServeRun:
     cache_batch: int = 128
     cache_len: int = 0
     seed: int = 0
+    model: int = 0
 
 
 def seeded_cache(cfg, batch: int, length: int, filled: int, dtype, device, seed: int,
@@ -1046,15 +1051,19 @@ def serve_inputs(run: ServeRun, cfg) -> tuple[torch.Tensor, torch.Tensor]:
 
 def serve_run(run: ServeRun, where) -> dict:
     """``run`` on a device or over a ``RankMesh`` (``where``) → this rank's
-    results: its rows' first tokens and last-position logits, its blocks of
-    the prefill's cache, its decoded tokens and each step's logits (all on
+    results: the bytes of the weights it serves (over model ranks its TP
+    blocks), its rows' first tokens and last-position logits, its blocks of
+    the prefill's cache, its decoded tokens and each step's logits (the
+    logits whole: ``Server.gather_logits`` after each timed part; all on
     the host), the decode's final blocks when it decoded from the prefill,
     whether each step's position reached every rank's ``pos``; the prefill's
     ms, ms a decode step and the whole batch's tokens/s (the card
     synchronised at both ends), the peak memory of the decode, each
     kernel's launches in the prefill and in the decode (the counts zeroed
-    just before each), and the collectives (``counted_collectives``) of
-    the decode and of gathering its tokens."""
+    just before each), and the collectives (``counted_collectives``) of the
+    prefill and its logits' gather, of the decode steps alone (``steps``:
+    the timed part) and of the decode with the gathers of its logits and
+    tokens."""
     from repro_torch import configs
     from repro_torch.launch.mesh import RankMesh
     from repro_torch.launch.serve import Server
@@ -1084,6 +1093,9 @@ def serve_run(run: ServeRun, where) -> dict:
     server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
                     where, dtype)
     params = server.load_params(api.model_init(cfg, run.seed, dev))
+    weight_bytes = tensor_bytes(params)
+    reset_metrics("span.ranks.")
+    reset_metrics("ranks.")
     sync()
     zero()
     t0 = time.perf_counter()
@@ -1091,8 +1103,12 @@ def serve_run(run: ServeRun, where) -> dict:
                                           pad_to=run.prompt + run.steps if own else None)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    out = {"prefill": {"first": first.cpu(), "logits": logits[:, -1].cpu(),
-                       "cache": _on_host(cache), "ms": prefill_ms, "launches": read()}}
+    launches = read()
+    logits = server.gather_logits(logits)
+    out = {"weight_bytes": weight_bytes,
+           "prefill": {"first": first.cpu(), "logits": logits[:, -1].cpu(),
+                       "cache": _on_host(cache), "ms": prefill_ms, "launches": launches,
+                       "collectives": counted_collectives()}}
     start = run.prompt
     if not own:
         del cache
@@ -1114,6 +1130,8 @@ def serve_run(run: ServeRun, where) -> dict:
     sync()
     decode_s = time.perf_counter() - t0
     launches = read()
+    step_collectives = counted_collectives()
+    steps = server.gather_logits(steps)
     whole = server.gather_tokens(toks)
     written = torch.arange(start, start + run.steps, dtype=torch.int32)
     if hasattr(cache, "pos"):  # an SSM state holds no positions
@@ -1128,7 +1146,8 @@ def serve_run(run: ServeRun, where) -> dict:
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                               else None),
         "cache_bytes": tensor_bytes(list(cache)),
-        "launches": launches, "collectives": counted_collectives()}
+        "launches": launches, "steps_collectives": step_collectives,
+        "collectives": counted_collectives()}
     del cache, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1148,28 +1167,36 @@ def serve_plan(args) -> list[ServeRun]:
 
 def _worker_serve(args) -> None:
     """One rank of the serve workload: a ``Server`` over a (data, model)
-    mesh of every rank (``--model`` ranks a model group; the launcher's env
-    or torchrun's), each run of :func:`serve_plan` through
-    :func:`serve_run`. Every rank prints its figures (one JSON line a run)
-    and, with ``--out``, writes its results to ``<out>.rank<r>.pt``."""
+    mesh of every rank (a run's ``model`` ranks a model group, else
+    ``--model``; the launcher's env or torchrun's), each run of
+    :func:`serve_plan` through :func:`serve_run`. Every rank prints its
+    figures (one JSON line a run) and, with ``--out``, writes its results
+    (each with its mesh and place) to ``<out>.rank<r>.pt``."""
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.train import _join_ranks
 
     _join_ranks(args.device)  # torchrun's env; else make_rank_mesh joins the launcher's
-    mesh = make_rank_mesh(model=args.model, device=args.device, timed=True)
-    rank = dist.get_rank()
+    meshes = {}
     results = []
     for run in serve_plan(args):
+        model = run.model or args.model
+        if model not in meshes:
+            meshes[model] = make_rank_mesh(model=model, device=args.device, timed=True)
+        mesh = meshes[model]
         out = serve_run(run, mesh)
         out["run"] = dataclasses.asdict(run)
+        out["mesh"] = mesh.shape
         out["coordinates"] = mesh.coordinates()
         results.append(out)
         figures = {k: out["decode"][k] for k in ("ms_per_step", "tokens_per_s",
                                                  "peak_memory_bytes", "collectives")}
-        print(f"[worker {rank}] serve {json.dumps({**out['run'], **figures})}", flush=True)
+        figures.update(weight_bytes=out["weight_bytes"], prefill_ms=out["prefill"]["ms"],
+                       prefill_collectives=out["prefill"]["collectives"])
+        print(f"[worker {dist.get_rank()}] serve {json.dumps({**out['run'], **figures})}",
+              flush=True)
     if args.out:
-        torch.save({"backend": dist.get_backend(), "mesh": mesh.shape, "runs": results},
-                   f"{args.out}.rank{rank}.pt")
+        torch.save({"backend": dist.get_backend(), "runs": results},
+                   f"{args.out}.rank{dist.get_rank()}.pt")
     dist.destroy_process_group()
 
 
@@ -1309,7 +1336,8 @@ def main(argv: list[str] | None = None) -> None:
                              "positions (0: decode from the prefill)")
     parser.add_argument("--plan", default="",
                         help="serve: a JSON file of runs (a list of ServeRun fields) in place "
-                             "of the flags'")
+                             "of the flags', each on the mesh its 'model' field names (0: "
+                             "--model)")
     parser.add_argument("--save-blocks", action="store_true",
                         help="train: every rank writes its final blocks to <out>.rank<r>.pt")
     parser.add_argument("--worker", action="store_true",

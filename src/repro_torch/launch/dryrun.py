@@ -25,14 +25,19 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     of every whole gradient leaf (and the loss) over the data ranks; their
     wire bytes by the reference's ring rule (``launch.mesh.wire_bytes``);
   * for serving, the collectives of ``Server`` over ranks
-    (:func:`serve_collectives`): a decode step's combine over "model"
-    (three all-reduces an attention layer where the KV cache is split by
-    sequence), the gather of the tokens over "data", and the gathers of
-    loading spec blocks as whole weights; a record reckons one step.
-    ``--gather all-reduce`` reckons gloo's gather of CUDA tensors (a
-    zero-filled all-reduce of the whole) in place of an all-gather. The
-    counts and bytes are those the rank mesh counts as it runs
-    (``ranks.<op>.calls`` and ``ranks.<op>.bytes``).
+    (:func:`serve_collectives`): over M > 1 model ranks a prefill's and a
+    decode step's tensor-parallel all-reduces and gathers over "model"
+    (the embedding, two row-split products a layer, the prefill's kv
+    re-layout, the decode's q, k, v gather and its attention combine where
+    the KV cache is split by sequence, the greedy token's combine), the
+    gather of the tokens over "data", and the gathers of loading spec
+    blocks; a prefill record reckons one prefill, a decode
+    record one step. ``--gather all-reduce`` reckons gloo's gather of CUDA
+    tensors (a zero-filled all-reduce of the whole) in place of an
+    all-gather. The counts and bytes are those the rank mesh counts as it
+    runs (``ranks.<op>.calls`` and ``ranks.<op>.bytes``). A serving record
+    also holds a rank's bytes of the weights it serves in bf16
+    (``served_weight_bytes``, ``sharding.served_bytes`` of its TP blocks).
 
 What it does NOT estimate: the reference reads XLA's temporaries
 (``temp_bytes``) and so a transient peak from the compiled program; the
@@ -40,8 +45,13 @@ port has no compiled program and does not estimate them (``temp_bytes``
 and ``peak_bytes`` are ``None``). Nor the collectives of a mesh with a pod
 axis (the rank mesh is (data, model)), of a MoE model over data ranks (its
 trainer refuses them) or of a serving case the rank ``Server`` refuses
-(``launch.steps.check_rank_serving``): ``collectives`` is ``None`` there. On the one-card mesh
-``1x1`` a record holds the card's memory (``torch.cuda.mem_get_info``)
+(``launch.steps.check_rank_serving``): ``collectives`` is ``None`` there. A
+serving case of a dense model on a mesh whose model ranks do not divide its
+heads, kv heads, MLP width or vocabulary (``sharding.NotDivisible``) is
+recorded ``skipped``, with the dimension that does not divide and a
+rank's weight bytes by the specs' blocks (``spec_params_bytes``:
+``params_pspecs``, the layout GSPMD would serve them in). On the one-card
+mesh ``1x1`` a record holds the card's memory (``torch.cuda.mem_get_info``)
 when a card is present, and ``fits`` compares the reckoned bytes
 (transients left out) with it; without a card both are ``None``.
 
@@ -129,26 +139,43 @@ def _reckoner(mesh, gather: str):
 
 
 def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: int = 2,
-                      load_blocks: bool = False) -> dict | None:
+                      load_blocks: bool = False, logits: bool = False,
+                      dtype=None) -> dict | None:
     """The collectives a rank of ``launch.serve.Server`` runs on a mesh of
     ranks shaped like ``mesh`` (``bundle``: the serve step built on it, or
-    the prefill step for the load alone): ``{op: {"calls", "bytes"}}``.
+    the prefill step): ``{op: {"calls", "bytes"}}``. Over M > 1 model ranks
+    each collective of the group runs over them, M ranks.
 
     * ``load_blocks``: loading this rank's blocks of the fp32 parameters
-      (``params_pspecs``) as whole weights, one gather a split leaf;
-    * decoding ``n_tokens`` tokens (``n_tokens − 1`` steps): where the
-      KV cache's sequence is split over "model", each attention layer's
-      combine a step, three all-reduces over the model group of fp32 per
-      row and head: the row max (4 B), the softmax's sum l (4 B) and the
-      output o (4 · dh B);
-    * gathering the (B, n_tokens) int64 tokens over the ranks.
+      (``params_pspecs``) as its TP blocks, one gather a split leaf;
+    * a prefill step's bundle: one ``Server.prefill`` of this rank's rows
+      of the bundle's batch (R rows × S tokens), over M > 1 model ranks the
+      embedding's all-reduce (R·S·d in ``dtype``), each layer's two
+      row-split products' all-reduces (R·S·d in fp32) and its kv re-layout
+      (a gather of every kv head's k and v, 2·R·S·KV·dh in ``dtype``), and
+      the greedy token's gather of every rank's (value, index) pair
+      (M·R·2 float64);
+    * a serve step's bundle: ``n_tokens − 1`` decode steps, each over M > 1
+      model ranks the embedding's all-reduce, each layer's gather of the
+      new token's q, k and v heads (R·(H + 2·KV)·dh in ``dtype``), its
+      attention combine where the KV cache's sequence is split over
+      "model" (three all-reduces of fp32 per row and head: the row max, 4
+      B, the softmax's sum l, 4 B, and the output o, 4 · dh B) and its two
+      row-split products' all-reduces, and the greedy token's gather; then
+      the gather of the (B, n_tokens) int64 tokens over the ranks;
+    * ``logits``: :meth:`Server.gather_logits` of what the call kept (the
+      prefill's (R, 1, V) logits, or the decode's (R, n_tokens − 1, V)).
 
-    Prefill runs none. ``None`` where the rank ``Server`` refuses the case
+    ``dtype`` is the serving type (the serve step's cache's by default,
+    else bf16). ``None`` where the rank ``Server`` refuses the case
     (``launch.steps.check_rank_serving``) or the mesh is not (data, model).
     """
+    import torch
+
     from repro_torch.flatten_util import tree_leaves
-    from repro_torch.launch.sharding import Sharding
+    from repro_torch.launch.sharding import Sharding, params_pspecs, to_shardings
     from repro_torch.launch.steps import check_rank_serving
+    from repro_torch.models.cache import cache_leaves
 
     if tuple(mesh.axis_names) != ("data", "model"):
         return None
@@ -157,20 +184,57 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
     except ValueError:
         return None
     out, add, gather_of = _reckoner(mesh, gather)
-    if load_blocks:
-        for x, sh in zip(tree_leaves(bundle.arg_structs["params"]),
-                         tree_leaves(bundle.in_shardings["params"]), strict=True):
-            gather_of(x.shape, x.element_size(), sh)
-    if "cache" not in bundle.arg_structs:
-        return out
     models = mesh.shape["model"]
-    cache, cache_sh = bundle.arg_structs["cache"], bundle.in_shardings["cache"]
-    if cfg.arch_type == "dense" and not Sharding(mesh, (cache_sh.k.spec[2],)).replicated():
-        rows = cache_sh.k.block_shape(cache.k.shape)[1]
-        for _ in range((n_tokens - 1) * cfg.n_layers):
-            for width in (1, 1, cfg.head_dim):  # m, l, o
-                add("reduce", "all-reduce", rows * cfg.n_heads * width * 4, models)
+    if load_blocks:  # MoE never serves over ranks: no expert strategy to choose
+        specs = to_shardings(params_pspecs(bundle.arg_structs["params"], mesh, None), mesh)
+        for x, sh in zip(tree_leaves(bundle.arg_structs["params"]), tree_leaves(specs),
+                         strict=True):
+            gather_of(x.shape, x.element_size(), sh)
+    decode = "cache" in bundle.arg_structs
+    if dtype is None:
+        dtype = cache_leaves(bundle.arg_structs["cache"])[0].dtype if decode else torch.bfloat16
+    size = dtype.itemsize
+
+    def reduce_over_model(nbytes):
+        add("reduce", "all-reduce", nbytes, models)
+
+    def gather_over_model(result):  # the whole result a rank gets
+        add("gather", "all-gather" if gather == "all-gather" else "all-reduce", result, models)
+
+    d, dh, kv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    if not decode:
+        tokens = bundle.arg_structs["batch"]["tokens"]
+        rows, s = bundle.in_shardings["batch"]["tokens"].block_shape(tokens.shape)
+        if models > 1:
+            reduce_over_model(rows * s * d * size)
+            for _ in range(cfg.n_layers):
+                gather_over_model(2 * rows * s * kv * dh * size)
+                reduce_over_model(rows * s * d * 4)
+                reduce_over_model(rows * s * d * 4)
+            gather_over_model(models * rows * 2 * 8)
+            if logits:
+                gather_over_model(rows * cfg.vocab_padded * size)
+        return out
     token = bundle.arg_structs["token"]
+    rows = bundle.in_shardings["token"].block_shape(token.shape)[0]
+    split_seq = (cfg.arch_type == "dense"
+                 and not Sharding(mesh, (bundle.in_shardings["cache"].k.spec[2],)).replicated())
+    for _ in range(n_tokens - 1):
+        if models > 1:
+            reduce_over_model(rows * d * size)
+        for _ in range(cfg.n_layers):
+            if models > 1:
+                gather_over_model(rows * (cfg.n_heads + 2 * kv) * dh * size)
+            if split_seq:
+                for width in (1, 1, dh):  # m, l, o
+                    reduce_over_model(rows * cfg.n_heads * width * 4)
+            if models > 1:
+                reduce_over_model(rows * d * 4)
+                reduce_over_model(rows * d * 4)
+        if models > 1:
+            gather_over_model(models * rows * 2 * 8)
+    if logits and models > 1:
+        gather_over_model(rows * (n_tokens - 1) * cfg.vocab_padded * size)
     gather_of((token.shape[0], n_tokens), 8, bundle.in_shardings["token"])
     return out
 
@@ -250,8 +314,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
     and ``seq`` cut the model's depth and the shape. ``flops_cache`` keeps
     a FLOP count across meshes (it does not depend on the mesh); ``gather``
     how the ranks gather (:func:`rank_collectives`)."""
+    import torch
+
     from repro_torch import configs
-    from repro_torch.launch.steps import build_step
+    from repro_torch.launch.sharding import NotDivisible, served_bytes, sharded_bytes, to_shardings
+    from repro_torch.launch.steps import _param_specs, build_step, params_structs
     from repro_torch.models.config import INPUT_SHAPES
 
     mesh_name = mesh or ("2x16x16" if multi_pod else "16x16")
@@ -264,7 +331,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
     cfg = configs.cut_depth(configs.get_config(arch, shape), layers)
     smesh = make_mesh(mesh_name)
     t0 = time.time()
-    bundle = build_step(cfg, shape, smesh)
+    try:
+        bundle = build_step(cfg, shape, smesh)
+    except NotDivisible as e:  # the model ranks cannot split this model's serving step
+        # beside the reason, a rank's weight bytes by the specs' blocks
+        # (``params_pspecs``, the layout the trainer's masters take)
+        spec_sh = to_shardings(_param_specs(cfg, shape, smesh), smesh)
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name, "status": "skipped",
+                "reason": str(e),
+                "spec_params_bytes": sharded_bytes(params_structs(cfg), spec_sh)}
     train = shape.kind == "train"
     args = state_bytes(bundle)
     residual = residual_bytes(cfg, shape, smesh) if train else 0
@@ -302,6 +377,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
         "collectives": coll,
         "collective_bytes_per_device": (None if coll is None else
                                         sum(v["bytes"] for v in coll.values())),
+        "served_weight_bytes": (None if train or coll is None else
+                                served_bytes(bundle.arg_structs["params"],
+                                             bundle.in_shardings["params"], torch.bfloat16)),
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "reckon_s": round(t_reckon, 2),

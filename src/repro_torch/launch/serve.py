@@ -20,11 +20,19 @@ same). The prefill runs in the ``serve.prefill`` range, the decode loop in
 Over a (data, model) mesh of ranks (a ``RankMesh`` where one card takes a
 device; a dense model on any mesh, an SSM model over data ranks:
 ``launch.steps.check_rank_serving``) each rank serves its rows of the batch
-(``batch_pspecs``) with whole weights, and holds its blocks of their cache
-(``cache_pspecs``: a dense model's KV cache split by sequence over
-"model", its positions whole); a decode step combines the attention over
-the model group (flash-decoding, ``models.layers.attention_decode``), and
-:meth:`Server.gather_tokens` gathers the whole batch's tokens over "data".
+(``batch_pspecs``) and holds its blocks of their cache (``cache_pspecs``: a
+dense model's KV cache split by sequence over "model", its positions
+whole). Over M > 1 model ranks a dense model is split tensor-parallel:
+each rank holds its TP blocks of the weights (``sharding.tp_pspecs``: its
+heads, its MLP columns, its vocabulary block) and computes its share of
+every product, the group summing the row-split ones; the prefill re-lays
+each layer's k and v of its heads into its cache block, a decode step
+gathers the new token's heads and combines the attention over the group
+(flash-decoding, ``models.layers.attention_decode``), and the greedy token
+combines the vocabulary blocks (``models.layers.greedy``).
+:meth:`Server.gather_logits` makes vocabulary blocks of logits whole over
+"model", :meth:`Server.gather_tokens` the whole batch's tokens over
+"data".
 """
 from __future__ import annotations
 
@@ -34,21 +42,15 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
-from repro_torch.flatten_util import tree_leaves, tree_map
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.launch.sharding import Sharding, _batched, rows_block, to_shardings
+from repro_torch.launch.sharding import FP32_LEAVES, Sharding, _batched, to_shardings
 from repro_torch.launch.steps import (
-    _param_specs, check_rank_serving, gather_params, params_structs, row_ways, seq_group,
+    _param_specs, _serving_params, check_rank_serving, model_group, params_structs, row_ways,
 )
 from repro_torch.models import api
-from repro_torch.models.cache import cache_to, pad_cache
+from repro_torch.models.cache import cache_to
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
-from repro_torch.models.layers import check_ported
-
-# leaves the reference uses in fp32 whatever the serving type: the norm
-# scales (``rmsnorm`` multiplies in fp32; an enc-dec model's ``enc_norm`` and
-# ``ln_x`` too) and Mamba2's dt bias and A_log (dt and the log decay are fp32)
-FP32_LEAVES = ("scale", "dt_bias", "A_log")
+from repro_torch.models.layers import check_ported, greedy
 
 
 class Server:
@@ -64,41 +66,46 @@ class Server:
         self.cfg, self.shape, self.dtype = cfg, shape, dtype
         self.mesh = device if isinstance(device, RankMesh) else None
         if self.mesh is None:
-            self.device, self.seq, self.row_ways = resolve_device(device), None, 1
+            self.device, self.group, self.row_ways = resolve_device(device), None, 1
             return
         check_rank_serving(cfg, self.mesh)
+        self.cuts = _serving_params(cfg, shape, self.mesh)  # raises where M does not divide
         self.device = self.mesh.device
-        self.seq = seq_group(self.mesh)
+        self.group = model_group(self.mesh)
         self.row_ways = row_ways(self.mesh, shape.global_batch)
         self._rows = _batched(shape.global_batch, self.mesh)
 
     def load_params(self, params):
         """The parameters on the device, fp32 leaves cast to ``dtype`` once
-        (but ``FP32_LEAVES``). Over ranks every rank gets the whole
-        weights: given this rank's blocks by ``params_pspecs`` (as the rank
-        trainer holds its masters), they are gathered here, once."""
-        if self.mesh is not None:
-            params = self._whole(params)
+        (but ``FP32_LEAVES``). Over ranks each rank gets its TP blocks
+        (``sharding.tp_pspecs``; with one model rank, the whole weights),
+        given the whole weights or this rank's blocks by ``params_pspecs``
+        (as the rank trainer holds its masters), one leaf at a time: a
+        leaf's blocks are gathered whole, cut and the whole copy dropped,
+        so a whole leaf exists on a rank only while it is cut."""
+        if self.mesh is None:
+            return self._load(params)
+        specs = to_shardings(_param_specs(self.cfg, self.shape, self.mesh), self.mesh)
+        return self._load(params, params_structs(self.cfg), specs, self.cuts)
 
-        def load(node, key=""):
-            if isinstance(node, dict):
-                return {k: load(v, k) for k, v in node.items()}
-            cast = node.dtype == torch.float32 and key not in FP32_LEAVES
-            return node.to(self.device, self.dtype if cast else node.dtype)
-        return load(params)
-
-    def _whole(self, params):
-        """``params`` whole: as given, or gathered from this rank's blocks."""
-        structs = tree_leaves(params_structs(self.cfg))
-        given = tree_leaves(params)
-        if all(x.shape == w.shape for x, w in zip(given, structs, strict=True)):
-            return params
-        shardings = to_shardings(_param_specs(self.cfg, self.shape, self.mesh), self.mesh)
-        for x, w, sh in zip(given, structs, tree_leaves(shardings)):
-            if tuple(x.shape) != sh.block_shape(w.shape):
-                raise ValueError(f"a parameter of shape {tuple(x.shape)} is neither whole "
-                                 f"{tuple(w.shape)} nor this rank's block of it")
-        return gather_params(tree_map(lambda x: x.to(self.device), params), shardings)
+    def _load(self, node, struct=None, specs=None, cuts=None, key=""):
+        """One leaf (or a dict of them, recursively) as :meth:`load_params`
+        loads it: its whole leaf's shape (``struct``), its spec block's
+        Sharding (``specs``) and its TP block's (``cuts``) beside it."""
+        if isinstance(node, dict):
+            def pick(tree, k):
+                return None if tree is None else tree[k]
+            return {k: self._load(node[k], pick(struct, k), pick(specs, k), pick(cuts, k), k)
+                    for k in node}
+        if cuts is not None:
+            if tuple(node.shape) != tuple(struct.shape):
+                if tuple(node.shape) != specs.block_shape(struct.shape):
+                    raise ValueError(f"a parameter of shape {tuple(node.shape)} is neither "
+                                     f"whole {tuple(struct.shape)} nor this rank's block of it")
+                node = specs.gather(node.to(self.device))
+            node = cuts.block(node)
+        cast = node.dtype == torch.float32 and key not in FP32_LEAVES
+        return node.to(self.device, self.dtype if cast else node.dtype)
 
     def _check_capacity(self, batch: int, last_t: int) -> None:
         """``batch`` rows a rank (the whole batch's are ``row_ways`` times
@@ -123,20 +130,18 @@ class Server:
         (B, 1, vocab_padded), cache). A VLM's patches take the first
         positions of the cache, so they count against its capacity.
         ``pad_to``: grow the cache to that many slots (``pad_cache``).
-        Over ranks ``batch`` is this rank's rows and the cache its blocks
-        (``launch.steps.build_prefill_step``)."""
+        Over ranks ``batch`` is this rank's rows, the cache its blocks and
+        the logits, over model ranks, its vocabulary block
+        (:meth:`gather_logits`; ``launch.steps.build_prefill_step``)."""
         inputs = {k: batch[k].to(self.device) for k in ("tokens", "embeds", "frames")
                   if k in batch}
         tokens = inputs["tokens"]
         n_patches = inputs["embeds"].shape[1] if "embeds" in inputs else 0
         self._check_capacity(tokens.shape[0], n_patches + tokens.shape[1] - 1)
         with record_function("serve.prefill"):
-            logits, cache = api.model_prefill(params, self.cfg, inputs, self.dtype)
-            first = logits[:, -1].argmax(dim=-1, keepdim=True)
-            if pad_to is not None:
-                cache = pad_cache(cache, pad_to)
-            if self.mesh is not None:
-                cache = rows_block(cache, self.mesh)
+            logits, cache = api.model_prefill(params, self.cfg, inputs, self.dtype,
+                                              group=self.group, pad_to=pad_to)
+            first = greedy(logits[:, -1], self.group)
         return first, logits, cache
 
     def decode(self, params, first_token, cache, start_t: int, n_tokens: int,
@@ -146,7 +151,8 @@ class Server:
         step's last-position logits (B, n_tokens − 1, vocab_padded) besides.
         The first token is ``first_token``; step i feeds token i at position
         ``start_t + i``. The cache is updated in place once it is on the
-        device. Over ranks: this rank's rows and cache blocks."""
+        device. Over ranks: this rank's rows and cache blocks, and over
+        model ranks the logits' vocabulary block (:meth:`gather_logits`)."""
         tok = first_token.to(self.device)
         self._check_capacity(tok.shape[0], start_t + n_tokens - 2)
         cache = cache_to(cache, self.device)
@@ -154,14 +160,21 @@ class Server:
         with record_function("serve.decode"):
             for i in range(n_tokens - 1):
                 logits, cache = api.model_decode(params, self.cfg, tok, cache, start_t + i,
-                                                 self.dtype, seq=self.seq)
-                tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+                                                 self.dtype, group=self.group)
+                tok = greedy(logits[:, -1], self.group)
                 toks.append(tok)
                 if keep_logits:
                     kept.append(logits[:, -1])
         if keep_logits:
             return torch.cat(toks, dim=1), cache, torch.stack(kept, dim=1)
         return torch.cat(toks, dim=1), cache
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Whole-vocabulary logits from this rank's vocabulary block of them
+        (last dim; a gather over the model group, counted as
+        ``ranks.gather``); on one device, or with one model rank a group,
+        ``logits`` itself."""
+        return logits if self.group is None else self.group.all_gather(logits, -1)
 
     def gather_tokens(self, toks: torch.Tensor) -> torch.Tensor:
         """The whole batch's tokens from every rank's rows (a gather over
@@ -195,14 +208,13 @@ def serve_demo(cfg: ModelConfig, batch: dict, n_tokens: int = 16,
     """
     server = Server(cfg, INPUT_SHAPES[shape_name], device, dtype)
     dev = server.device
-    params = api.model_init(cfg, seed, dev)
+    params = server.load_params(api.model_init(cfg, seed, dev))
     _sync(dev)
     t0 = time.perf_counter()
     first, _, cache = server.prefill(params, server.batch_block(batch))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    params = server.load_params(params)
     t0 = time.perf_counter()
     toks, _ = server.decode(params, first, cache, start_t=batch["tokens"].shape[1],
                             n_tokens=n_tokens)

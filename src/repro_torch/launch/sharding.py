@@ -23,6 +23,11 @@ and the whole tensor from the ranks' blocks (:meth:`Sharding.gather`).
 The port's eager layers apply no activation spec (there is no GSPMD to
 read one): :func:`activation_specs` is reported by the dry run and held by
 the tests.
+
+Serving over model ranks splits a dense model's products instead
+(tensor parallelism): :func:`tp_pspecs` gives each leaf's TP block, the
+spec a model rank's server holds (its :class:`Sharding` cuts it from the
+whole leaf, :func:`served_bytes` counts a rank's bytes of them).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import math
 import torch
 
 from repro_torch.launch.mesh import wire_bytes
-from repro_torch.models.cache import AttnCache, EncDecCache, HybridCache, SSMCache
+from repro_torch.models.cache import AttnCache, EncDecCache, HybridCache, SSMCache, seq_splits
 
 MIN_SHARD_SIZE = 4096  # leaves smaller than this stay whole
 
@@ -169,6 +174,82 @@ def params_pspecs(params_shape, mesh, moe_mode: str | None = "ep"):
     return _map_with_path(leaf_spec, params_shape)
 
 
+# --------------------------------------------------------------------------
+# tensor-parallel serving: a model rank's TP blocks
+# --------------------------------------------------------------------------
+
+# leaves a server keeps in fp32 whatever its type: the norm scales
+# (``rmsnorm`` multiplies in fp32; an enc-dec model's ``enc_norm`` and
+# ``ln_x`` too) and Mamba2's dt bias and A_log (dt and the log decay are fp32)
+FP32_LEAVES = ("scale", "dt_bias", "A_log")
+
+
+class NotDivisible(ValueError):
+    """The model ranks do not divide a dimension that tensor parallelism
+    splits."""
+
+
+# leaf name → the dim a model rank's TP block splits, counted from the end:
+# the columns of the query and kv heads (a GQA group stays on one rank), the
+# rows of the output projections, the MLP's columns and rows, the vocabulary
+_TP_DIM = {"wq": -1, "bq": -1, "wk": -1, "bk": -1, "wv": -1, "bv": -1, "wo": -2,
+           "w_gate": -1, "w_in": -1, "w_out": -2, "embed": -2, "lm_head": -1}
+
+
+def tp_pspecs(params_shape, cfg, mesh):
+    """The spec tree of a dense model's TP blocks on ``mesh``: a model rank
+    r of M holds query heads ``[r·H/M, (r+1)·H/M)`` of ``wq`` / ``bq``, the
+    same block of kv heads of ``wk``, ``wv``, ``bk``, ``bv``, the rows of
+    its query heads of ``wo``, columns ``[r·F/M, (r+1)·F/M)`` of
+    ``w_gate`` and ``w_in`` and those rows of ``w_out``, and rows (the
+    vocabulary) ``[r·V/M, (r+1)·V/M)`` of ``embed`` (columns of
+    ``lm_head``); the norms whole, and everything whole over "data". The
+    column and vocab blocks are the spec's "model" blocks
+    (:func:`params_pspecs`); ``wo`` and ``w_out`` are split by rows where
+    the spec splits their last dim. With one model rank every leaf is
+    whole, whatever the family. Raises :class:`NotDivisible` (a
+    ``ValueError``) naming each dimension that M does not divide."""
+    msize = _model_size(mesh)
+    if msize == 1:
+        return _map_with_path(lambda path, leaf: (None,) * leaf.dim(), params_shape)
+    if cfg.arch_type != "dense":
+        raise ValueError(f"{cfg.name}: tensor-parallel serving takes a dense model, "
+                         f"not {cfg.arch_type}")
+    undivided = [f"{dim} = {getattr(cfg, dim)}" for dim in
+                 ("n_heads", "n_kv_heads", "d_ff", "vocab_padded") if getattr(cfg, dim) % msize]
+    if undivided:
+        raise NotDivisible(f"{cfg.name}: {msize} model ranks do not divide "
+                           + ", ".join(undivided))
+
+    def leaf_spec(path, leaf):
+        spec = [None] * leaf.dim()
+        if _path_leaf_name(path) in _TP_DIM:
+            spec[_TP_DIM[_path_leaf_name(path)]] = "model"
+        return tuple(spec)
+
+    return _map_with_path(leaf_spec, params_shape)
+
+
+def served_bytes(params_shape, shardings, dtype) -> int:
+    """One rank's bytes of the weights a server holds: each leaf's block by
+    its :class:`Sharding` in ``shardings`` (a tree like ``params_shape``:
+    the TP blocks, :func:`tp_pspecs`) in ``dtype``, the ``FP32_LEAVES`` in
+    fp32."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+
+    def nbytes(path, leaf):
+        block = math.prod(_get_path(shardings, path).block_shape(leaf.shape))
+        return block * (4 if _path_leaf_name(path) in FP32_LEAVES else itemsize)
+
+    return sum(leaves(_map_with_path(nbytes, params_shape)))
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _batched(shape_b, mesh):
     """Batch-dim spec entry: over ("pod","data") when divisible, else over
     "data" alone when that divides, else whole."""
@@ -188,8 +269,7 @@ def batch_pspecs(batch_struct, mesh):
 
 
 def _seq_spec(seq_len, mesh):
-    msize = _model_size(mesh)
-    return "model" if (seq_len % msize == 0 and seq_len >= msize) else None
+    return "model" if seq_splits(seq_len, _model_size(mesh)) else None
 
 
 def cache_pspecs(cache_struct, mesh):
@@ -429,18 +509,6 @@ def cache_gather(blocks, shardings):
     """The whole cache from every rank's ``blocks`` (``shardings``: the
     whole cache's, :func:`cache_shardings`), one gather a split tensor."""
     return _map_cache(lambda x, sh: sh.gather(x), blocks, shardings)
-
-
-def rows_block(cache, mesh):
-    """This rank's blocks of a cache that holds only this rank's rows
-    already, every sequence slot and head: the cut :func:`cache_block`
-    makes of the whole cache, the batch left as it is (the specs of the
-    other dims do not depend on the batch)."""
-    def cut(x, sh):
-        spec = sh.spec[:1] + (None,) + sh.spec[2:] if x.dim() > 1 else sh.spec
-        return Sharding(mesh, spec).block(x)
-
-    return _map_cache(cut, cache, cache_shardings(cache, mesh))
 
 
 def leaves(tree) -> list:

@@ -13,8 +13,9 @@ shardings depend on the mesh (:mod:`repro_torch.launch.mesh`):
     ``batch_pspecs``, ``cache_pspecs`` through ``to_shardings``), which
     the dry run reads; ``fn`` is the global step, whole tensors in and out;
   * a mesh of ranks (``RankMesh``): the same layout, and ``fn`` takes and
-    returns THIS rank's blocks (the serving steps take whole weights:
-    :func:`build_prefill_step`, :func:`build_serve_step`).
+    returns THIS rank's blocks (the serving steps take a dense model's TP
+    blocks, ``sharding.tp_pspecs``: :func:`build_prefill_step`,
+    :func:`build_serve_step`).
 
 PO-FL at model scale:
   * FL device = one slice of the global batch, FL-device-major: examples
@@ -33,7 +34,8 @@ run the weighted backward on its data rank's slice of the batch, all-reduce
 the gradients (and the loss) over the data ranks and divide by their
 count, keep this rank's block, add ν·z on the block and run the optimizer
 on the blocks. Ranks along "model" store their blocks by the spec but
-compute the same gradients whole (no tensor-parallel compute). The
+compute the same gradients whole (the training step is not split yet; the
+serving steps are, tensor-parallel over "model"). The
 collectives are plain ``torch.distributed`` calls that run on NCCL and
 gloo (:meth:`repro_torch.launch.sharding.Sharding.gather`).
 
@@ -54,11 +56,11 @@ from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.sharding import (
     Sharding, _batched, batch_pspecs, cache_shardings, moe_strategy, params_pspecs,
-    rows_block, to_shardings,
+    to_shardings, tp_pspecs,
 )
 from repro_torch.models import api, encdec, transformer
 from repro_torch.models.cache import init_attn_cache, init_ssm_cache
-from repro_torch.models.layers import SeqGroup
+from repro_torch.models.layers import ModelGroup, greedy
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim.optimizers import OptState, Optimizer, adamw
 
@@ -384,26 +386,34 @@ def _serving_mesh(mesh) -> bool:
 
 # what serving over ranks does not take yet, by family (ROADMAP A14.10 holds it)
 _NOT_OVER_RANKS = {
-    "moe": "a MoE model (its routing groups must span the batch)",
+    "moe": "a MoE model (its routing groups must span the batch, and over \"model\" its "
+           "experts wait for the expert split, EP: moe_strategy)",
     "hybrid": "a hybrid model (its attention cache and Mamba2 state together are not held "
               "over ranks yet; over \"model\" its state splits by heads, which needs the "
-              "mixer split, A14.9)",
+              "mixer split)",
     "encdec": "an enc-dec model (cache_pspecs also splits cross_k / cross_v over \"model\": "
               "kernel 3 must return its row log-sum-exp for the combine)",
     "vlm": "a VLM",
 }
 
 
+def _rank_serves(cfg: ModelConfig, mesh) -> bool:
+    """Whether ranks serve ``cfg`` on ``mesh``: a dense model on any mesh
+    (its products split over "model"), an SSM model over data ranks only."""
+    return cfg.arch_type == "dense" or (cfg.arch_type == "ssm" and mesh.shape["model"] == 1)
+
+
 def check_rank_serving(cfg: ModelConfig, mesh) -> None:
     """Serving over a (data, model) mesh of ranks takes a dense model on
-    any mesh and an SSM model over data ranks only; raise ``ValueError``
-    for any other case, naming what ROADMAP A14.10 still holds."""
-    models = mesh.shape["model"]
-    if cfg.arch_type == "dense" or (cfg.arch_type == "ssm" and models == 1):
+    any mesh (its products split over "model") and an SSM model over data
+    ranks only (:func:`_rank_serves`); raise ``ValueError`` for any other
+    case, naming what ROADMAP A14.10 still holds."""
+    if _rank_serves(cfg, mesh):
         return
+    models = mesh.shape["model"]
     why = _NOT_OVER_RANKS.get(cfg.arch_type) or (
         f"an SSM model over {models} model ranks (cache_pspecs splits its state by heads, "
-        "which needs the mixer split, A14.9)")
+        "which needs the mixer split)")
     raise ValueError(f"{cfg.name}: serving over ranks does not take {why} yet "
                      "(ROADMAP A14.10)")
 
@@ -416,17 +426,22 @@ def row_ways(mesh, global_batch: int) -> int:
     return global_batch // Sharding(mesh, (entry,)).block_shape((global_batch,))[0]
 
 
-def seq_group(mesh: RankMesh) -> SeqGroup | None:
-    """This rank's model group as the decode attention's
-    :class:`~repro_torch.models.layers.SeqGroup`: its all-reduces run over
-    "model", each counted (``ranks.reduce``) with its wire bytes by
-    :meth:`RankMesh.collective`. ``None`` with one rank a group."""
+def model_group(mesh: RankMesh) -> ModelGroup | None:
+    """This rank's model group as a :class:`~repro_torch.models.layers.ModelGroup`:
+    its all-reduces and all-gathers run over "model", each counted
+    (``ranks.reduce``, ``ranks.gather``) with its wire bytes by
+    :meth:`RankMesh.collective`. gloo takes no all-gather of a CUDA tensor:
+    there each rank writes its block into a zero-filled stack of every
+    rank's and the stacks are summed by an all-reduce (exact, at twice the
+    all-gather's wire bytes), as ``Sharding.gather`` does. ``None`` with one
+    rank a group."""
     import torch.distributed as dist
 
     models = mesh.shape["model"]
     if models == 1:
         return None
     group = mesh.get_group("model")
+    rank = mesh.coordinates()["model"]
 
     def all_reduce(op):
         def run(x: torch.Tensor) -> None:
@@ -435,8 +450,36 @@ def seq_group(mesh: RankMesh) -> SeqGroup | None:
                 dist.all_reduce(x, op=op, group=group)
         return run
 
-    return SeqGroup(mesh.coordinates()["model"], all_reduce(dist.ReduceOp.MAX),
-                    all_reduce(dist.ReduceOp.SUM))
+    def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+        x = x.contiguous()
+        result = models * x.numel() * x.element_size()
+        if mesh.backend == "nccl" or x.device.type == "cpu":
+            with mesh.collective("gather", wire_bytes("all-gather", result, models)):
+                parts = [torch.empty_like(x) for _ in range(models)]
+                dist.all_gather(parts, x, group=group)
+        else:
+            with mesh.collective("gather", wire_bytes("all-reduce", result, models)):
+                stack = torch.zeros((models,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                stack[rank] = x
+                dist.all_reduce(stack, group=group)
+                parts = stack.unbind(0)
+        return torch.cat(parts, dim=dim)
+
+    return ModelGroup(rank, models, all_reduce(dist.ReduceOp.MAX),
+                      all_reduce(dist.ReduceOp.SUM), all_gather)
+
+
+def _serving_params(cfg: ModelConfig, shape: InputShape, mesh):
+    """The parameters' shardings of a serving step off one card: the TP
+    blocks a rank serves where ranks serve the model (:func:`_rank_serves`;
+    ``tp_pspecs``: a dense model's split, every leaf whole with one model
+    rank); elsewhere, on the shape-only mesh, the reference's spec blocks
+    (``params_pspecs``). Raises ``sharding.NotDivisible`` where the model
+    ranks do not divide a dimension the split needs."""
+    structs = params_structs(cfg)
+    if _rank_serves(cfg, mesh):
+        return to_shardings(tp_pspecs(structs, cfg, mesh), mesh)
+    return to_shardings(_param_specs(cfg, shape, mesh), mesh)
 
 
 def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
@@ -444,14 +487,16 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
     """``fn(params, batch) → (last-position logits, cache)``, every float32
     leaf cast to ``dtype`` first.
 
-    On a mesh of ranks (:func:`check_rank_serving`) ``params`` are whole on
-    every rank, ``batch`` is this data rank's rows (``batch_pspecs``) and
-    the step runs them through the one-card ``model_prefill`` (kernel 3 in
-    a dense model, kernel 4 in an SSM model), then keeps this model rank's
-    block of their cache (``cache_pspecs``: the sequence over "model"). The
-    model ranks of one data group each compute the whole prompt of their
-    rows: splitting the products and the residual (``activation_specs``)
-    is A14.9's.
+    On a mesh of ranks (:func:`check_rank_serving`) ``params`` are this
+    rank's TP blocks (:func:`_serving_params`), ``batch`` is this data
+    rank's rows (``batch_pspecs``), and the step runs them through
+    ``model_prefill`` over the model group (:func:`model_group`; kernel 3
+    on this rank's heads in a dense model, kernel 4 in an SSM model over
+    data ranks): → this rank's vocabulary block of the logits and its
+    blocks of the cache (``cache_pspecs``: the sequence over "model").
+    The residual stays whole on every model rank: ``activation_specs``
+    splits a prefill's sequence over "model", which the port leaves (the
+    residual of a serving prefill is small against its cache).
     """
     if isinstance(mesh, RankMesh):
         check_rank_serving(cfg, mesh)
@@ -464,14 +509,14 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
                        batch=configs.input_specs(cfg, shape, dtype)["batch"])
     if not _serving_mesh(mesh):
         return StepBundle(prefill_step, arg_structs, None, None)
-    b_sh = to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh)
+    in_sh = dict(params=_serving_params(cfg, shape, mesh),
+                 batch=to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh))
     if not isinstance(mesh, RankMesh):
-        in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh), batch=b_sh)
         return StepBundle(prefill_step, arg_structs, in_sh, None)
+    group = model_group(mesh)
 
     def rank_prefill_step(params, batch):
-        logits, cache = prefill_step(params, batch)
-        return logits, rows_block(cache, mesh)
+        return api.model_prefill(_cast(params, dtype), cfg, batch, dtype, group=group)
 
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
@@ -480,8 +525,8 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
     else:  # a prefill keeps every prompt slot, window or not
         cache_struct = init_attn_cache(dataclasses.replace(cfg, sliding_window=None), b, s,
                                        dtype=dtype, device=meta)
-    out_sh = (Sharding(mesh, (_batched(b, mesh), None, None)), cache_shardings(cache_struct, mesh))
-    in_sh = dict(params=_replicated(p_structs, mesh), batch=b_sh)
+    out_sh = (Sharding(mesh, (_batched(b, mesh), None, "model")),
+              cache_shardings(cache_struct, mesh))
     return StepBundle(rank_prefill_step, arg_structs, in_sh, out_sh)
 
 
@@ -490,11 +535,14 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
     """One decode step, ``fn(params, token, cache, t) → (next greedy token
     (B, 1), cache)``, against a seq_len-deep cache updated in place.
 
-    On a mesh of ranks ``params`` are whole on every rank and ``token`` and
-    ``cache`` this rank's rows and blocks (``batch_pspecs``,
-    ``cache_pspecs``: a dense model's KV cache split by sequence over
-    "model"); the step returns its rows' greedy token and its blocks, the
-    attention combined over the model group (:func:`seq_group`)."""
+    On a mesh of ranks ``params`` are this rank's TP blocks
+    (:func:`_serving_params`) and ``token`` and ``cache`` this rank's rows
+    and blocks (``batch_pspecs``, ``cache_pspecs``: a dense model's KV
+    cache split by sequence over "model"); the step runs over the model
+    group (:func:`model_group`: this rank's heads, MLP columns and
+    vocabulary block, the attention combined over the group) and returns
+    its rows' greedy token, combined over the vocabulary blocks
+    (``layers.greedy``), and its cache blocks."""
     if isinstance(mesh, RankMesh):
         check_rank_serving(cfg, mesh)
     specs = configs.input_specs(cfg, shape, dtype)
@@ -510,18 +558,17 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
         return StepBundle(serve_step, arg_structs, None, None)
     tok = Sharding(mesh, batch_pspecs({"token": specs["token"]}, mesh)["token"])
     cache_sh = cache_shardings(specs["cache"], mesh)
-    in_sh = dict(params=to_shardings(_param_specs(cfg, shape, mesh), mesh), token=tok,
-                 cache=cache_sh, t=Sharding(mesh, ()))
+    in_sh = dict(params=_serving_params(cfg, shape, mesh), token=tok, cache=cache_sh,
+                 t=Sharding(mesh, ()))
     if not isinstance(mesh, RankMesh):
         return StepBundle(serve_step, arg_structs, in_sh, (tok, cache_sh))
-    group = seq_group(mesh)
+    group = model_group(mesh)
 
     def rank_serve_step(params, token, cache, t):
         logits, cache = api.model_decode(_cast(params, dtype), cfg, token, cache, t, dtype,
-                                         seq=group)
-        return logits[:, -1].argmax(dim=-1, keepdim=True), cache
+                                         group=group)
+        return greedy(logits[:, -1], group), cache
 
-    in_sh["params"] = _replicated(p_structs, mesh)
     return StepBundle(rank_serve_step, arg_structs, in_sh, (tok, cache_sh))
 
 

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
-from repro_torch.models.cache import init_cache
+from repro_torch.models.cache import init_cache, pad_cache
 from repro_torch.models.config import ModelConfig
 
 
@@ -44,21 +44,33 @@ def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
     )
 
 
-def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32):
+def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32, group=None,
+                  pad_to: int | None = None):
+    """→ (last-position logits, cache); ``pad_to`` grows the cache to that
+    many slots (``cache.pad_cache``). ``group`` (a ``layers.ModelGroup``):
+    the model ranks a dense model is split over, ``params`` this rank's TP
+    blocks; the logits are then this rank's vocabulary block and the cache
+    its block (``transformer.prefill``). ``None`` on one card."""
     if cfg.arch_type == "encdec":
-        return encdec.prefill_encdec(params, cfg, batch["tokens"], batch["frames"], dtype)
-    return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype)
+        if group is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec prefill takes no model group")
+        logits, cache = encdec.prefill_encdec(params, cfg, batch["tokens"], batch["frames"],
+                                              dtype)
+        return logits, cache if pad_to is None else pad_cache(cache, pad_to)
+    return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype,
+                               group, pad_to)
 
 
 def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32,
-                 seq=None):
-    """One decode step; ``seq`` (a ``layers.SeqGroup``): the ranks that split
-    a dense model's KV cache by sequence, ``None`` on one card."""
+                 group=None):
+    """One decode step; ``group`` (a ``layers.ModelGroup``): the model ranks
+    a dense model is split over (``transformer.decode_step``), ``None`` on
+    one card."""
     if cfg.arch_type == "encdec":
-        if seq is not None:
-            raise ValueError(f"{cfg.name}: an enc-dec decode step takes no sequence group")
+        if group is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec decode step takes no model group")
         return encdec.decode_step_encdec(params, cfg, token, cache, t, dtype)
-    return transformer.decode_step(params, cfg, token, cache, t, dtype, seq)
+    return transformer.decode_step(params, cfg, token, cache, t, dtype, group)
 
 
 __all__ = ["model_init", "model_loss", "model_prefill", "model_decode", "init_cache"]

@@ -53,6 +53,23 @@ def cache_to(cache, device):
     return cache.to(device)
 
 
+def seq_splits(n_slots: int, ways: int) -> bool:
+    """Whether a cache of ``n_slots`` splits its sequence ``ways`` ways over
+    "model" (``launch.sharding.cache_pspecs``): evenly, one slot a rank at
+    least."""
+    return n_slots % ways == 0 and n_slots >= ways
+
+
+def slot_block(n_slots: int, rank: int, ways: int) -> tuple[int, int]:
+    """The slots ``[lo, hi)`` that place ``rank`` of ``ways`` model ranks
+    holds of a cache of ``n_slots``: its block where the sequence splits
+    (:func:`seq_splits`), else every slot."""
+    if not seq_splits(n_slots, ways):
+        return 0, n_slots
+    n = n_slots // ways
+    return rank * n, (rank + 1) * n
+
+
 def cache_seq_len(cfg: ModelConfig, context_len: int) -> int:
     """Ring-buffer caches only keep the window."""
     if cfg.sliding_window is not None:

@@ -18,9 +18,21 @@ a window always holds the diagonal and a non-causal call sees every key, so
 no row is fully masked. The kernel keeps the probabilities in fp32 for the PV product,
 where ``_attention_core`` rounds them to ``dtype`` first. Single-token
 decode attention (:func:`attention_decode`) stays plain torch, as it stays
-outside any Pallas kernel in the reference. Over ranks that split a KV
-cache by sequence (a :class:`SeqGroup`), each rank attends over its slots
-and the group combines the partial softmaxes (flash-decoding).
+outside any Pallas kernel in the reference.
+
+Over the model ranks of a mesh (a :class:`ModelGroup`) a dense model is
+split tensor-parallel: each rank holds its heads' columns of ``wq``,
+``wk``, ``wv`` and their rows of ``wo``, its columns of the MLP's
+``w_gate`` and ``w_in`` and those rows of ``w_out``, and its vocabulary
+block of ``embed`` (``launch/sharding.py::tp_pspecs``). :func:`attention_fwd`
+and :func:`mlp_fwd` compute this rank's heads and columns, and sum the
+row-split products over the group (:func:`row_split_matmul`);
+:func:`embed_lookup` looks up the tokens of its vocabulary block and sums
+the group's rows; :func:`greedy` combines the group's vocabulary blocks
+into the greedy token. A decode step (:func:`attention_decode`) gathers
+every rank's new q, k and v heads, and where the KV cache is split by
+sequence over the group each rank attends over its slots and the group
+combines the partial softmaxes (flash-decoding).
 
 The full-sequence Mamba2 scan (:func:`mamba2_fwd`) goes through
 :func:`repro_torch.kernels.ssd.ops.ssd` the same way, where the reference
@@ -145,16 +157,95 @@ def _project(params, x, cfg: ModelConfig, dtype, name: str, heads: int):
     return y.reshape(*x.shape[:2], heads, cfg.head_dim)
 
 
-def _qkv(params, x, cfg: ModelConfig, dtype):
-    return (_project(params, x, cfg, dtype, "q", cfg.n_heads),
-            _project(params, x, cfg, dtype, "k", cfg.n_kv_heads),
-            _project(params, x, cfg, dtype, "v", cfg.n_kv_heads))
+def _qkv(params, x, cfg: ModelConfig, dtype, ways: int = 1):
+    """q, k, v of the heads ``params`` hold: all of them, or one of
+    ``ways`` model ranks' blocks (H/ways query and KV/ways kv heads)."""
+    return (_project(params, x, cfg, dtype, "q", cfg.n_heads // ways),
+            _project(params, x, cfg, dtype, "k", cfg.n_kv_heads // ways),
+            _project(params, x, cfg, dtype, "v", cfg.n_kv_heads // ways))
+
+
+class ModelGroup(NamedTuple):
+    """The model ranks of one data group: this rank's place and their
+    count, the group's in-place all-reduces of a tensor by MAX and by SUM,
+    and ``all_gather(x, dim)``, every rank's ``x`` concatenated along
+    ``dim`` in rank order (each counted by the mesh that runs it). The
+    serving steps over ranks build it (``launch/steps.py::model_group``);
+    ``None`` is one card, or one model rank a group."""
+
+    rank: int
+    size: int
+    all_max: Callable[[torch.Tensor], None]
+    all_sum: Callable[[torch.Tensor], None]
+    all_gather: Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def _ways(group: Optional[ModelGroup]) -> int:
+    return 1 if group is None else group.size
+
+
+def row_split_matmul(a: torch.Tensor, w: torch.Tensor, dtype,
+                     group: Optional[ModelGroup]) -> torch.Tensor:
+    """``a @ w`` in ``dtype`` where ``a``'s columns and ``w``'s rows are
+    this rank's block of a product split over ``group`` (``None``: the
+    whole product). Each rank's partial sum is taken in fp32 and the
+    group's SUM of them rounded to ``dtype`` once, as one GEMM over the
+    whole inner dim rounds its fp32 accumulator once: a partial rounded to
+    bf16 before the sum would add a rounding per rank. On the card a bf16
+    product stays on the tensor cores and only its accumulator is returned,
+    in fp32 (``mm``'s ``out_dtype``); elsewhere it is taken in fp32 from the
+    same values (a product of two bf16 numbers is exact in fp32)."""
+    if group is None:
+        return a @ w.to(dtype)
+    w = w.to(dtype)
+    if a.is_cuda and dtype == torch.bfloat16:
+        part = torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*a.shape[:-1], w.shape[-1])
+    else:
+        part = a.float() @ w.float()
+    group.all_sum(part)
+    return part.to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
+                 group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """``table[tokens]`` in ``dtype``. Over ``group`` the table is this
+    rank's vocabulary block (rows ``[r·V/M, (r+1)·V/M)``): a token outside
+    it gives a row of zeros, and the group's SUM gives every rank the whole
+    lookup, exactly (each row is one rank's, the others add zeros)."""
+    table = table.to(dtype)
+    if group is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - group.rank * n
+    outside = (local < 0) | (local >= n)
+    x = table[local.clamp(0, n - 1)].masked_fill(outside[..., None], 0)
+    group.all_sum(x)
+    return x
+
+
+def greedy(logits: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The greedy token (..., 1) of last-dim logits. Over ``group`` the
+    logits are this rank's vocabulary block: each rank takes its block's
+    max and first arg-max, the group gathers the (value, global index)
+    pairs, and the largest value wins, on a tie the lowest index, as
+    ``argmax`` over the whole row does."""
+    idx = logits.argmax(dim=-1, keepdim=True)
+    if group is None:
+        return idx
+    val = logits.gather(-1, idx).double()
+    pair = torch.cat([val, (idx + group.rank * logits.shape[-1]).double()], dim=-1)
+    pairs = group.all_gather(pair[None], 0)  # (M, ..., 2), the ranks in vocabulary order
+    vals = pairs[..., 0]
+    first = (vals == vals.amax(dim=0)).int().argmax(dim=0, keepdim=True)  # the lowest rank
+    return pairs[..., 1].gather(0, first)[0, ..., None].long()
 
 
 def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: Optional[torch.Tensor] = None, causal: bool = True,
                   kv_override: Optional[tuple] = None, return_kv: bool = False,
-                  dtype=torch.float32, use_rope: bool = True):
+                  dtype=torch.float32, use_rope: bool = True,
+                  group: Optional[ModelGroup] = None):
     """Full-sequence attention (prefill; cross-attention also in decode).
 
     The core is :func:`~repro_torch.kernels.attention.ops.attention` with
@@ -165,12 +256,17 @@ def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
     projects x to k and v there and discards them; the port skips that).
     Otherwise the call is ``causal`` with ``cfg.sliding_window``.
     ``return_kv`` also returns the k and v the call attended to.
+
+    Over a model ``group`` ``params`` are this rank's TP blocks: the call
+    runs over its H/M query and KV/M kv heads, and the output projection
+    (its rows of ``wo``) is summed over the group
+    (:func:`row_split_matmul`); the k and v returned are this rank's heads.
     """
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if kv_override is None:
-        q, k, v = _qkv(params, x, cfg, dtype)
+        q, k, v = _qkv(params, x, cfg, dtype, _ways(group))
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         window = cfg.sliding_window
@@ -181,28 +277,16 @@ def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
     out = attention(q, k, v, causal=causal, sliding_window=window, q_offset=0)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"].to(dtype)
+    out = row_split_matmul(out.reshape(b, s, -1), params["wo"], dtype, group)
     if return_kv:
         return out, (k, v)
     return out
 
 
-class SeqGroup(NamedTuple):
-    """The ranks that split a KV cache by sequence (flash-decoding): this
-    rank's place in the group and the group's in-place all-reduces of a
-    tensor by MAX and by SUM (each counted by the mesh that runs it). The
-    serving step over ranks builds it (``launch/steps.py``); ``None`` is
-    one card."""
-
-    rank: int
-    all_max: Callable[[torch.Tensor], None]
-    all_sum: Callable[[torch.Tensor], None]
-
-
 def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_pos: torch.Tensor, t: int, *,
                      dtype=torch.float32, use_rope: bool = True,
-                     seq: Optional[SeqGroup] = None):
+                     group: Optional[ModelGroup] = None):
     """Single-token decode against a (possibly ring-buffer) KV cache.
 
     x is (B, 1, D); cache_k and cache_v are (B, S_max, KV, dh); cache_pos is
@@ -213,40 +297,63 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     updated copies; in place saves copying the cache each step). Returns
     ``(out, (cache_k, cache_v, cache_pos))``.
 
-    Over a ``seq`` group whose ranks split the cache by sequence, cache_k
-    and cache_v are this rank's slots ``[r·S_max/m, (r + 1)·S_max/m)`` and
-    cache_pos is whole: see :func:`_attend_slice`. Where the cache is whole
-    on every rank (one rank a group, or a sequence the group does not
-    split), the one-card code runs.
+    Over a model ``group`` ``params`` are this rank's TP blocks: the rank
+    projects its heads of the new q, k and v and ropes them, the group
+    gathers every head (:func:`_gather_heads`), the attention runs over
+    every head, and this rank's heads of its output go through its rows of
+    ``wo``, summed over the group (:func:`row_split_matmul`). Where the
+    group splits the cache by sequence, cache_k and cache_v are this rank's
+    slots ``[r·S_max/m, (r + 1)·S_max/m)`` and cache_pos is whole: see
+    :func:`_attend_slice`. Where the cache is whole on every rank (one
+    card, or a sequence the group does not split), the one-card code runs.
     """
     b = x.shape[0]
     h, kv_heads, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = h // kv_heads
     s_max = cache_k.shape[1]
-    q, k_new, v_new = _qkv(params, x, cfg, dtype)
+    q, k_new, v_new = _qkv(params, x, cfg, dtype, _ways(group))
     pos = torch.full((1, 1), t, device=x.device)
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
-    if seq is not None and s_max != cache_pos.shape[0]:
-        out = _attend_slice(q, k_new, v_new, cache_k, cache_v, cache_pos, t, cfg, seq, dtype)
-        return out.to(dtype) @ params["wo"].to(dtype), (cache_k, cache_v, cache_pos)
+    if group is not None:
+        q, k_new, v_new = _gather_heads(q, k_new, v_new, group)
+    if group is not None and s_max != cache_pos.shape[0]:
+        out = _attend_slice(q, k_new, v_new, cache_k, cache_v, cache_pos, t, cfg, group,
+                            dtype).to(dtype)
+    else:
+        slot = t % s_max  # ring buffer (= t when S_max > t)
+        cache_k[:, slot] = k_new[:, 0]
+        cache_v[:, slot] = v_new[:, 0]
+        cache_pos[slot].fill_(t)  # a fill kernel: assigning a Python int would sync on a host copy
 
-    slot = t % s_max  # ring buffer (= t when S_max > t)
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
-    cache_pos[slot].fill_(t)  # a fill kernel: assigning a Python int would sync on a host copy
+        # validity: slot written, causal, within window
+        valid = _valid_slots(cache_pos, t, cfg)
 
-    # validity: slot written, causal, within window
-    valid = _valid_slots(cache_pos, t, cfg)
+        q = q.reshape(b, 1, kv_heads, rep, dh)
+        scores = torch.einsum("bqgrd,bkgd->bgrqk", q, cache_k) / math.sqrt(dh)
+        scores = scores.masked_fill(~valid, NEG_INF)
+        probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v).reshape(b, 1, h * dh)
+    if group is not None:  # this rank's heads
+        width = h * dh // group.size
+        out = out[..., group.rank * width:(group.rank + 1) * width]
+    return row_split_matmul(out, params["wo"], dtype, group), (cache_k, cache_v, cache_pos)
 
-    q = q.reshape(b, 1, kv_heads, rep, dh)
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", q, cache_k) / math.sqrt(dh)
-    scores = scores.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v).reshape(b, 1, h * dh)
-    out = out @ params["wo"].to(dtype)
-    return out, (cache_k, cache_v, cache_pos)
+
+def _gather_heads(q, k, v, group: ModelGroup):
+    """Every rank's heads of one token's q, k and v, (B, 1, heads/M, dh)
+    each → (B, 1, heads, dh) each in head order: one gather over the group
+    of the three side by side."""
+    b, _, hq, dh = q.shape
+    hk = k.shape[2]
+    every = group.all_gather(torch.cat([q, k, v], dim=2), 2)
+    every = every.reshape(b, 1, group.size, hq + 2 * hk, dh)
+
+    def heads(lo, n):
+        return every[:, :, :, lo:lo + n].reshape(b, 1, group.size * n, dh)
+
+    return heads(0, hq), heads(hq, hk), heads(hq + hk, hk)
 
 
 def _valid_slots(cache_pos: torch.Tensor, t: int, cfg: ModelConfig) -> torch.Tensor:
@@ -259,8 +366,9 @@ def _valid_slots(cache_pos: torch.Tensor, t: int, cfg: ModelConfig) -> torch.Ten
 
 
 def _attend_slice(q, k_new, v_new, cache_k, cache_v, cache_pos, t: int, cfg: ModelConfig,
-                  seq: SeqGroup, dtype) -> torch.Tensor:
-    """One query's attention over a cache split by sequence over ``seq``:
+                  seq: ModelGroup, dtype) -> torch.Tensor:
+    """One query's attention, every head, over a cache split by sequence
+    over the model group ``seq``:
     → (B, 1, H·dh) in fp32, the same on every rank of the group.
 
     The global slot ``t % S_max`` (the ring slot, so the ring wraps across
@@ -319,10 +427,12 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, lead: tuple = (), device=N
     }
 
 
-def mlp_fwd(params, x, dtype=torch.float32):
+def mlp_fwd(params, x, dtype=torch.float32, group: Optional[ModelGroup] = None):
+    """SwiGLU; over a model ``group`` on this rank's columns of ``w_gate``
+    and ``w_in`` and those rows of ``w_out``, summed over the group."""
     g = F.silu(x @ params["w_gate"].to(dtype))
     u = x @ params["w_in"].to(dtype)
-    return (g * u) @ params["w_out"].to(dtype)
+    return row_split_matmul(g * u, params["w_out"], dtype, group)
 
 
 # --------------------------------------------------------------------------

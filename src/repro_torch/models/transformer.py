@@ -27,6 +27,12 @@ Public entry points:
   prefill(params, cfg, tokens, ...)          -> (logits, cache)
   decode_step(params, cfg, token, cache, t)  -> (logits, cache)
 
+Over the model ranks of a mesh (a ``layers.ModelGroup``) a dense model's
+prefill and decode step run tensor-parallel on the rank's TP blocks: the
+embedding looks up the rank's vocabulary block (``layers.embed_lookup``),
+each layer's attention and MLP compute the rank's heads and columns, and
+the logits are the rank's vocabulary block (:func:`logits_from_hidden`).
+
 Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
 ``lm.moe``, ``lm.mamba`` and ``lm.logits`` (the shared block's attention
@@ -55,7 +61,9 @@ from repro_torch.flatten_util import tree_leaves
 from repro_torch.models import layers as L
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import cumsum
-from repro_torch.models.cache import AttnCache, HybridCache, SSMCache, n_shared_invocations
+from repro_torch.models.cache import (
+    AttnCache, HybridCache, SSMCache, n_shared_invocations, pad_cache, slot_block,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import check_ported
 
@@ -119,13 +127,16 @@ def layer_params(params, i: int, stack: str = "layers") -> dict:
 # --------------------------------------------------------------------------
 
 
-def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False):
+def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False,
+               group: L.ModelGroup | None = None):
     """Attention then the MLP, or the MoE where ``lp`` has one: a dense or
     moe layer, and the hybrid's shared block → (x, aux or None, (k, v) or
-    None); (k, v) are the roped keys and values when ``return_kv``."""
+    None); (k, v) are the roped keys and values when ``return_kv``. Over a
+    model ``group`` (a dense layer) on this rank's TP blocks, (k, v) this
+    rank's kv heads."""
     with record_function("lm.attention"):
         h = L.attention_fwd(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                            dtype=dtype, return_kv=return_kv)
+                            dtype=dtype, return_kv=return_kv, group=group)
     kv = None
     if return_kv:
         h, kv = h
@@ -136,7 +147,7 @@ def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False):
             h, aux = L.moe_fwd(lp["moe"], h_in, cfg, dtype)
         return x + h, aux, kv
     with record_function("lm.mlp"):
-        return x + L.mlp_fwd(lp["mlp"], h_in, dtype), None, kv
+        return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group), None, kv
 
 
 def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype):
@@ -153,11 +164,14 @@ def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype):
                                 dtype), None
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype):
+def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype,
+                 group: L.ModelGroup | None = None):
     """Token embedding; a vlm prepends its patch embeddings (B, n_patches,
-    d) projected by ``vis_proj``. The other families take tokens only."""
+    d) projected by ``vis_proj``. The other families take tokens only.
+    Over a model ``group`` ``embed`` is this rank's vocabulary block
+    (``layers.embed_lookup``)."""
     check_ported(cfg)
-    x = params["embed"].to(dtype)[tokens]
+    x = L.embed_lookup(params["embed"], tokens, dtype, group)
     if cfg.arch_type != "vlm":
         if embeds is not None:
             raise ValueError(f"the {cfg.arch_type} family takes tokens only")
@@ -193,13 +207,17 @@ def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False):
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def logits_from_hidden(params, cfg: ModelConfig, x, dtype):
-    """x @ head; the tied head is ``embed.T``; pad columns are -1e30."""
+def logits_from_hidden(params, cfg: ModelConfig, x, dtype,
+                       group: L.ModelGroup | None = None):
+    """x @ head; the tied head is ``embed.T``; pad columns are -1e30. Over
+    a model ``group`` the head is this rank's vocabulary block and so are
+    the logits (the pad columns on the rank that holds them)."""
     with record_function("lm.logits"):
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = x @ head.to(dtype)
-        if cfg.vocab_padded != cfg.vocab_size:
-            logits[..., cfg.vocab_size:].fill_(L.NEG_INF)
+        first = cfg.vocab_size - (0 if group is None else group.rank * logits.shape[-1])
+        if first < logits.shape[-1]:  # this block holds pad columns
+            logits[..., max(first, 0):].fill_(L.NEG_INF)
         return logits
 
 
@@ -289,7 +307,8 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            embeds: Optional[torch.Tensor] = None, dtype=torch.float32):
+            embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
+            group: L.ModelGroup | None = None, pad_to: int | None = None):
     """Run the full prompt, build the decode cache, return last-pos logits.
 
     A dense, vlm or moe cache holds every layer's roped k and v, (L, B, S,
@@ -297,20 +316,63 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     patches first; the MoE aux is dropped); an
     ssm cache every layer's final state and conv window
     (:func:`_ssm_prefill`); a hybrid cache both (:func:`_hybrid_prefill`).
+    ``pad_to`` grows the cache to that many slots (``cache.pad_cache``).
+
+    Over a model ``group`` (a dense model on this rank's TP blocks) the
+    logits are this rank's vocabulary block, and the cache is this rank's
+    block of it by ``cache_pspecs`` (every kv head, this rank's slots of
+    the padded cache where the sequence splits, :func:`_kv_rank_block`);
+    its positions are whole.
     """
-    x = embed_inputs(params, cfg, tokens, embeds, dtype)
+    x = embed_inputs(params, cfg, tokens, embeds, dtype, group)
     if cfg.arch_type == "ssm":
         x, cache = _ssm_prefill(params, cfg, x, dtype)
     elif cfg.arch_type == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, dtype)
+    elif group is not None:
+        x, cache = _dense_prefill_over(group, params, cfg, x, dtype, max(pad_to or 0, x.shape[1]))
     else:
         ks, vs = _empty_kv(cfg, cfg.n_layers, x)
         for i in range(cfg.n_layers):
             x, _, (ks[i], vs[i]) = _block_fwd(cfg, layer_params(params, i), x, dtype,
                                               return_kv=True)
         cache = AttnCache(k=ks, v=vs, pos=_positions(x))
+    if pad_to is not None and group is None:
+        cache = pad_cache(cache, pad_to)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(params, cfg, x[:, -1:, :], dtype), cache
+    return logits_from_hidden(params, cfg, x[:, -1:, :], dtype, group), cache
+
+
+def _dense_prefill_over(group: L.ModelGroup, params, cfg: ModelConfig, x, dtype,
+                        n_slots: int):
+    """The dense layers over a model group on this rank's TP blocks → (x,
+    this rank's block of an ``n_slots`` cache): each layer's k and v of this
+    rank's kv heads for every position are laid out as ``cache_pspecs``
+    asks, every kv head for this rank's slots (:func:`_kv_rank_block`)."""
+    b, s, _ = x.shape
+    lo, hi = slot_block(n_slots, group.rank, group.size)
+    dims = (cfg.n_layers, b, hi - lo, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.zeros(dims, dtype=x.dtype, device=x.device)
+    vs = torch.zeros(dims, dtype=x.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        x, _, kv = _block_fwd(cfg, layer_params(params, i), x, dtype, return_kv=True,
+                              group=group)
+        _kv_rank_block(group, kv, lo, hi, ks[i], vs[i])
+    pos = torch.full((n_slots,), -1, dtype=torch.int32, device=x.device)
+    pos[:s] = _positions(x)
+    return x, AttnCache(k=ks, v=vs, pos=pos)
+
+
+def _kv_rank_block(group: L.ModelGroup, kv, lo: int, hi: int, k_out, v_out) -> None:
+    """Re-lay one layer's (k, v) of this rank's kv heads, (B, S, KV/M, dh)
+    each, into its cache block: the group gathers every kv head (one
+    all-gather of k and v stacked) and the rank keeps its slots ``[lo,
+    hi)`` of the positions, written into ``k_out`` and ``v_out`` (B, hi −
+    lo, KV, dh; the slots past the prompt stay empty)."""
+    every = group.all_gather(torch.stack(kv), 3)  # (2, B, S, KV, dh)
+    n = max(0, min(hi, every.shape[2]) - lo)
+    k_out[:, :n] = every[0, :, lo:lo + n]
+    v_out[:, :n] = every[1, :, lo:lo + n]
 
 
 def _mamba_layer_with_state(lp, x, cfg: ModelConfig, dtype):
@@ -400,7 +462,7 @@ def _hybrid_prefill(params, cfg: ModelConfig, x, dtype):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
-                dtype=torch.float32, seq: L.SeqGroup | None = None):
+                dtype=torch.float32, group: L.ModelGroup | None = None):
     """One serve step: consume one token (B, 1) at absolute position ``t``,
     update ``cache`` **in place** and return (logits (B, 1, vocab_padded),
     cache). A dense, vlm or moe step writes the token's k, v and position into
@@ -408,11 +470,12 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     position, which every layer then reads); an ssm step overwrites each
     layer's state and conv window; a hybrid step does both, its shared
     block's invocation ``i // attn_every`` on that invocation's KV cache.
-    ``seq``: the ranks that split a dense model's KV cache by sequence
-    (:func:`repro_torch.models.layers.attention_decode`); ``None`` on one
-    card."""
+    ``group``: the model ranks a dense model is split over, on this rank's
+    TP blocks, its KV cache split by sequence where ``cache_pspecs`` splits
+    it (:func:`repro_torch.models.layers.attention_decode`); the logits
+    are then this rank's vocabulary block. ``None`` on one card."""
     check_ported(cfg)
-    x = params["embed"].to(dtype)[token]
+    x = L.embed_lookup(params["embed"], token, dtype, group)
     t = int(t)
     if cfg.arch_type == "ssm":
         x = _ssm_decode(params, cfg, x, cache, dtype)
@@ -430,24 +493,24 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     else:
         for i in range(cfg.n_layers):
             x = _block_decode(cfg, layer_params(params, i), x, cache.k[i], cache.v[i],
-                              cache.pos, t, dtype, seq)
+                              cache.pos, t, dtype, group)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(params, cfg, x, dtype), cache
+    return logits_from_hidden(params, cfg, x, dtype, group), cache
 
 
 def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, dtype,
-                  seq: L.SeqGroup | None = None):
+                  group: L.ModelGroup | None = None):
     """:func:`_block_fwd` for one token against a KV cache, written in place."""
     with record_function("lm.attention"):
         h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                  cache_k, cache_v, cache_pos, t, dtype=dtype, seq=seq)
+                                  cache_k, cache_v, cache_pos, t, dtype=dtype, group=group)
     x = x + h
     h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         with record_function("lm.moe"):
             return x + L.moe_fwd(lp["moe"], h_in, cfg, dtype)[0]
     with record_function("lm.mlp"):
-        return x + L.mlp_fwd(lp["mlp"], h_in, dtype)
+        return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group)
 
 
 def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype, shared=None):

@@ -35,14 +35,16 @@ got. Jobs:
                 each a ``Server`` on a (data, model) mesh of every rank, in
                 fp32, its weights whole or this rank's blocks of them,
                 prefilling its rows of the input's prompt and decoding
-                greedily: every rank's first tokens, logits and cache
-                blocks of the prefill, its decoded tokens, each step's
-                logits and its final blocks, the whole batch's tokens
-                gathered, and its collectives (calls and wire bytes),
-                gathered by rank; besides, the serving steps' own
-                functions: the prefill step's logits and cache blocks, the
-                cache gathered whole from them and cut again, and one
-                decode step's token from the prefilled blocks.
+                greedily: every rank's served weights (its TP blocks),
+                first tokens, logits (gathered whole) and cache blocks of
+                the prefill, its decoded tokens, each step's logits and its
+                final blocks, the whole batch's tokens gathered, and its
+                collectives (calls and wire bytes) of loading and
+                prefilling and of decoding, gathered by rank; besides, the
+                serving steps' own functions on this rank's TP blocks: the
+                prefill step's logits (its vocabulary block) and cache
+                blocks, the cache gathered whole from them and cut again,
+                and one decode step's token from the prefilled blocks.
 """
 from __future__ import annotations
 
@@ -225,6 +227,10 @@ def serve_ranks(inp) -> dict:
         dist.all_gather_object(parts, value)
         return parts
 
+    def collectives():
+        return {op: {k: c[k] for k in ("calls", "bytes")}
+                for op, c in counted_collectives().items()}
+
     out = {}
     for name, case in inp.items():
         cfg, tokens = case["cfg"], case["tokens"]
@@ -237,27 +243,33 @@ def serve_ranks(inp) -> dict:
         weights = server.load_params(params)
         first, logits, cache = server.prefill(weights, server.batch_block({"tokens": tokens}),
                                               pad_to=case["pad_to"])
+        logits = server.gather_logits(logits)
+        prefill_collectives = collectives()
         prefilled = type(cache)(*(x.clone() for x in cache))
+        reset_metrics("ranks.")
         toks, cache, steps = server.decode(weights, first, cache, tokens.shape[1],
                                            case["n_tokens"], keep_logits=True)
+        steps = server.gather_logits(steps)
         whole = server.gather_tokens(toks)
-        collectives = {op: {k: c[k] for k in ("calls", "bytes")}
-                       for op, c in counted_collectives().items()}
+        decode_collectives = collectives()
         rows = server.batch_block({"tokens": tokens})
         prompt = InputShape("prompt", tokens.shape[1], tokens.shape[0], "prefill")
         prefill = build_prefill_step(cfg, prompt, mesh, torch.float32)
-        step_logits, step_cache = prefill.fn(case["params"], rows)
+        step_logits, step_cache = prefill.fn(block_of(case["params"],
+                                                      prefill.in_shardings["params"]), rows)
         whole_cache = cache_gather(step_cache, prefill.out_shardings[1])
         recut = cache_block(whole_cache, mesh)
         serve = build_serve_step(cfg, case["shape"], mesh, torch.float32)
-        step_token, _ = serve.fn(case["params"], first,
+        step_token, _ = serve.fn(block_of(case["params"], serve.in_shardings["params"]), first,
                                  type(prefilled)(*(x.clone() for x in prefilled)),
                                  tokens.shape[1])
         out[name] = {"tokens": whole, "whole_cache": whole_cache,
-                     "ranks": by_rank({"coordinates": mesh.coordinates(), "first": first,
-                                       "logits": logits, "prefill_cache": prefilled,
-                                       "tokens": toks, "step_logits": steps, "cache": cache,
-                                       "collectives": collectives,
+                     "ranks": by_rank({"coordinates": mesh.coordinates(), "weights": weights,
+                                       "first": first, "logits": logits,
+                                       "prefill_cache": prefilled, "tokens": toks,
+                                       "step_logits": steps, "cache": cache,
+                                       "prefill_collectives": prefill_collectives,
+                                       "collectives": decode_collectives,
                                        "prefill_step": (step_logits, step_cache),
                                        "recut": recut,
                                        "serve_step_token": step_token})}

@@ -1220,3 +1220,36 @@ def test_one_rank_nccl_trainer_matches_the_one_card_trainer(card):
         for k in w:
             assert torch.equal(g[k], w[k]), k
     assert torch.equal(ravel_pytree(got_params)[0], ravel_pytree(want_params)[0])
+
+
+# -- tensor-parallel serving --------------------------------------------------------
+
+
+def test_row_split_product_on_card_keeps_the_fp32_accumulator(card):
+    """A bf16 row-split product on the card hands the group its GEMM's fp32
+    accumulator (``mm``'s ``out_dtype``), not a rounded partial: each
+    rank's partial is the exact product to fp32 accumulation, and the sum
+    rounded once is the CPU's fp32 product of the same values rounded once
+    but for roundings the summation order tips."""
+    from repro_torch.models.layers import ModelGroup, row_split_matmul
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn(2, 64, 2 * 448, generator=gen, device=card).to(dtype)
+    w = torch.randn(2 * 448, 896, generator=gen, device=card).to(dtype)
+    parts = []
+
+    def keep(x):
+        assert x.dtype == torch.float32
+        parts.append(x.clone())
+
+    outs = [row_split_matmul(a[..., r * 448:(r + 1) * 448], w[r * 448:(r + 1) * 448], dtype,
+                             ModelGroup(r, 2, None, keep, None)) for r in range(2)]
+    for r, (part, out) in enumerate(zip(parts, outs)):
+        exact = a[..., r * 448:(r + 1) * 448].double() @ w[r * 448:(r + 1) * 448].double()
+        assert part.shape == (2, 64, 896) and out.dtype == dtype
+        assert ((part.double() - exact).norm() / exact.norm()).item() <= 1e-6
+    whole = (parts[0] + parts[1]).to(dtype)
+    cpu = (a.cpu().float() @ w.cpu().float()).to(dtype)
+    off = (whole.cpu() != cpu).float().mean().item()
+    assert off <= 1e-3, off

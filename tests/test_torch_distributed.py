@@ -12,7 +12,8 @@ within 1e-6 and over the (1, 2) model mesh within 1e-5 (so does its CNN
 check, on a CNN of 4 devices); the supervised
 ``resilient`` workload with ``REPRO_FAULT_KILL=1:2`` merges bitwise to a
 clean run's records with one ``resilience.fault_kill``, one
-``supervisor.restart`` and one ``resilience.resume`` event.
+``supervisor.restart`` and one ``resilience.resume`` event; the ``serve``
+workload's plan runs each run on the mesh its ``model`` field names.
 """
 from __future__ import annotations
 
@@ -138,3 +139,30 @@ def test_supervised_resilient_run_survives_a_kill_bitwise(tmp_path):
     assert events["resilience.fault_kill"] == 1
     assert events["supervisor.restart"] == 1
     assert events["resilience.resume"] == 1
+
+
+def test_serve_plan_runs_each_run_on_the_mesh_its_model_field_names(tmp_path):
+    """The ``serve`` workload's ``--plan`` runs its runs in one process
+    group, each over the mesh its ``model`` field names: qwen2-0.5b at full
+    width cut to 1 layer, in fp32, on (2, 1) data-parallel and on (1, 2)
+    tensor-parallel over the same two ranks; both layouts' rows decode the
+    same tokens as one process, their logits within 1e-5 of its."""
+    import torch
+
+    run = tdist.ServeRun(layers=1, dtype="float32", batch=2, prompt=8, steps=2)
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps([dataclasses.asdict(dataclasses.replace(run, model=m))
+                                for m in (1, 2)]))
+    _launch(["--procs", "2", "--workload", "serve", "--device", "cpu", "--plan", str(plan),
+             "--out", str(tmp_path / "serve")])
+    ranks = [torch.load(tmp_path / f"serve.rank{r}.pt", weights_only=False) for r in range(2)]
+    want = tdist.serve_run(run, "cpu")
+    for i, mesh in enumerate(({"data": 2, "model": 1}, {"data": 1, "model": 2})):
+        for got in (rank["runs"][i] for rank in ranks):
+            assert got["mesh"] == mesh and got["run"]["model"] == mesh["model"]
+            assert torch.equal(got["decode"]["whole_tokens"], want["decode"]["whole_tokens"])
+            rows = slice(None) if mesh["data"] == 1 else slice(got["coordinates"]["data"],
+                                                             got["coordinates"]["data"] + 1)
+            err = ((got["prefill"]["logits"] - want["prefill"]["logits"][rows]).norm()
+                   / want["prefill"]["logits"][rows].norm()).item()
+            assert err <= 1e-5, (mesh, err)

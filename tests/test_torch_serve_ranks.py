@@ -2,17 +2,21 @@
 reference's ``api.model_prefill`` / ``model_decode`` on the whole batch and
 cache on the CPU.
 
-Two gloo ranks run through the port's launcher (``_torch_parity.launch_ranks``,
-job ``serve_ranks`` of ``tests/_torch_mesh_worker.py``), in ONE launch for
-every case, while this process runs the reference (its decode step jitted
-once a cache shape; every position below 100, ROADMAP C9). Reduced qwen2
-and mamba2 at 2 layers, fp32, weights converted from the reference by
-``convert`` with biases and norm scales perturbed, a numpy prompt from a
-seed. The reference's result does not depend on the mesh. Cases:
+Gloo ranks run through the port's launcher (``_torch_parity.launch_ranks``,
+job ``serve_ranks`` of ``tests/_torch_mesh_worker.py``), in one launch of
+two ranks for the two-rank cases and one of four for the (2, 2) case,
+while this process runs the reference (its decode step jitted once a cache
+shape; every position below 100, ROADMAP C9). Reduced qwen2 (4 query heads,
+2 kv heads, d_ff 512, vocab 512) and mamba2 at 2 layers, fp32, weights
+converted from the reference by ``convert`` with biases and norm scales
+perturbed, a numpy prompt from a seed. The reference's result does not
+depend on the mesh. Over 2 model ranks qwen2 is split tensor-parallel:
+each rank holds its TP blocks (its heads, MLP columns and vocabulary
+block). Cases:
 
 - ``fill``: 4 rows, a 16-token prompt in a 24-slot cache on (2, 1) (two
-  data ranks of 2 rows) and (1, 2) (two model ranks of 12 slots: the
-  prompt fills both), 6 steps;
+  data ranks of 2 rows), (1, 2) (two model ranks of 12 slots: the prompt
+  fills both) and (2, 2) (four ranks: 2 rows and 12 slots each), 6 steps;
 - ``short``: a 4-token prompt in a 16-slot cache on (1, 2): rank 1's
   slice is empty until the steps cross the boundary at position 8;
 - ``ring``: the reference's unpadded 8-slot cache on (1, 2): slot t % 8
@@ -21,9 +25,11 @@ seed. The reference's result does not depend on the mesh. Cases:
 
 Tokens are held exactly (the reference's top-2 margins are asserted to
 exceed the tolerance), floats within 1e-5 of the reference's scale. The
-``fill`` on (2, 1), ``short`` and ``mamba2`` ranks load their blocks of the
-weights (gathered once). Each rank's collectives equal the dry run's
-reckoning (``launch.dryrun.rank_collectives`` of the serve step).
+``fill`` on (2, 1) and (2, 2), ``short`` and ``mamba2`` ranks load their
+blocks of the weights by ``params_pspecs`` (each leaf gathered over every
+rank, then cut to its TP block). Each rank's collectives equal the dry
+run's reckoning (``launch.dryrun.rank_collectives`` of the prefill and the
+serve step).
 """
 from __future__ import annotations
 
@@ -42,20 +48,25 @@ from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import RankMesh, ShapeMesh
-from repro_torch.launch.sharding import cache_shardings
-from repro_torch.launch.steps import build_prefill_step, build_serve_step, check_rank_serving
+from repro_torch.launch.sharding import (
+    Sharding, cache_shardings, served_bytes, to_shardings, tp_pspecs,
+)
+from repro_torch.launch.steps import (
+    build_prefill_step, build_serve_step, check_rank_serving, params_structs,
+)
 from repro_torch.models.cache import cache_leaves
 from repro_torch.models.config import InputShape
 
 B = 4
-# name → (arch, ranks a model group, prompt tokens, cache slots (None: the
-# prompt's, unpadded), tokens decoded, load the weights as blocks)
+# name → (arch, ranks, ranks a model group, prompt tokens, cache slots (None:
+# the prompt's, unpadded), tokens decoded, load the weights as blocks)
 CASES = {
-    "fill-2x1": ("qwen2-0.5b", 1, 16, 24, 7, True),
-    "fill-1x2": ("qwen2-0.5b", 2, 16, 24, 7, False),
-    "short-1x2": ("qwen2-0.5b", 2, 4, 16, 9, True),
-    "ring-1x2": ("qwen2-0.5b", 2, 8, None, 6, False),
-    "mamba2-2x1": ("mamba2-370m", 1, 16, None, 6, True),
+    "fill-2x1": ("qwen2-0.5b", 2, 1, 16, 24, 7, True),
+    "fill-1x2": ("qwen2-0.5b", 2, 2, 16, 24, 7, False),
+    "short-1x2": ("qwen2-0.5b", 2, 2, 4, 16, 9, True),
+    "ring-1x2": ("qwen2-0.5b", 2, 2, 8, None, 6, False),
+    "mamba2-2x1": ("mamba2-370m", 2, 1, 16, None, 6, True),
+    "fill-2x2": ("qwen2-0.5b", 4, 2, 16, 24, 7, True),
 }
 
 
@@ -90,34 +101,43 @@ def _reference(jcfg, jp, tokens, slots, n_tokens):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case's two-rank run (one launch) and the reference's, which
+    """Every case's run (one launch a rank count) and the reference's, which
     this process computes while the ranks run."""
     inp, jax_side = {}, {}
-    for name, (arch, model, prompt, slots, n_tokens, blocks) in CASES.items():
+    for name, (arch, ranks, model, prompt, slots, n_tokens, blocks) in CASES.items():
         jcfg, tcfg, jp, batch = train_case(arch, b=B, s=prompt, seed=31)
-        inp[name] = {"cfg": tcfg, "model": model, "shape": _shape(prompt, slots),
+        inp[name] = {"cfg": tcfg, "ranks": ranks, "model": model,
+                     "shape": _shape(prompt, slots),
                      "params": lm_params_from_jax(jax.tree.map(jnp.asarray, jp), tcfg,
                                                   device="cpu"),
                      "tokens": torch.as_tensor(batch["tokens"], dtype=torch.int64),
                      "pad_to": slots, "n_tokens": n_tokens, "load_blocks": blocks}
         jax_side[name] = (jcfg, jax.tree.map(jnp.asarray, jp), batch["tokens"])
-    with ThreadPoolExecutor(1) as pool:
-        launched = pool.submit(launch_ranks, "serve_ranks", 2, inp,
-                               tmp_path_factory.mktemp("serve_ranks"))
+    counts = sorted({case["ranks"] for case in inp.values()})
+    with ThreadPoolExecutor(len(counts)) as pool:
+        launched = [pool.submit(launch_ranks, "serve_ranks", n,
+                                {k: v for k, v in inp.items() if v["ranks"] == n},
+                                tmp_path_factory.mktemp(f"serve_ranks{n}")) for n in counts]
         want = {name: _reference(jcfg, jp, tokens, inp[name]["pad_to"], inp[name]["n_tokens"])
                 for name, (jcfg, jp, tokens) in jax_side.items()}
-        got = launched.result()
+        got = {k: v for job in launched for k, v in job.result().items()}
     return {name: (inp[name], got[name], want[name]) for name in CASES}
 
 
 def _mesh(case) -> ShapeMesh:
-    return ShapeMesh(("data", "model"), (2 // case["model"], case["model"]))
+    return ShapeMesh(("data", "model"), (case["ranks"] // case["model"], case["model"]))
 
 
 def _rows(x, case, coords):
     """The rank's rows of a whole (B, ...) array."""
-    n = B // (2 // case["model"])
+    n = B // (case["ranks"] // case["model"])
     return np.asarray(x)[coords["data"] * n:(coords["data"] + 1) * n]
+
+
+def _vocab_block(x, case, coords):
+    """The rank's vocabulary block of whole logits (last dim)."""
+    n = x.shape[-1] // case["model"]
+    return x[..., coords["model"] * n:(coords["model"] + 1) * n]
 
 
 def _blocks(whole, like, case, coords):
@@ -185,11 +205,12 @@ def test_decode_over_ranks_matches_reference(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_serving_steps_over_ranks_match_server_and_reference(runs, name):
-    """``build_prefill_step``'s function over ranks (whole weights, the
-    rank's rows): the ``Server``'s logits, and the blocks of the
-    reference's unpadded cache, which ``cache_gather`` makes whole again
-    and ``cache_block`` cuts back into the same blocks;
-    ``build_serve_step``'s function: the ``Server``'s first decoded token."""
+    """``build_prefill_step``'s function over ranks (the rank's TP blocks
+    of the weights and its rows): its vocabulary block of the ``Server``'s
+    logits, and the blocks of the reference's unpadded cache, which
+    ``cache_gather`` makes whole again and ``cache_block`` cuts back into
+    the same blocks; ``build_serve_step``'s function: the ``Server``'s first
+    decoded token."""
     case, got, (first, logits, _, toks, _, _, unpadded) = runs[name]
     whole = got["whole_cache"]
     assert type(whole).__name__ == type(unpadded).__name__
@@ -201,7 +222,7 @@ def test_serving_steps_over_ranks_match_server_and_reference(runs, name):
     for rank in got["ranks"]:
         coords = rank["coordinates"]
         step_logits, step_cache = rank["prefill_step"]
-        assert torch.equal(step_logits, rank["logits"])
+        assert torch.equal(step_logits, _vocab_block(rank["logits"], case, coords))
         _assert_blocks(step_cache, unpadded, case, coords)
         for a, b in zip(cache_leaves(rank["recut"]), cache_leaves(step_cache), strict=True):
             assert torch.equal(a, b)
@@ -211,21 +232,68 @@ def test_serving_steps_over_ranks_match_server_and_reference(runs, name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     """Every rank's counted gathers and all-reduces (calls and wire bytes)
-    equal ``launch.dryrun.rank_collectives`` of the serve step on the
-    mesh: the load's gathers of the weight blocks, the combine's three
-    all-reduces an attention layer a step where the sequence is split,
-    and the tokens' gather over "data"."""
+    equal ``launch.dryrun.rank_collectives`` of the prefill step and of the
+    serve step on the mesh: the load's gathers of the weight blocks; over
+    model ranks the embedding's all-reduce, two all-reduces a layer and the
+    kv re-layout's gather a layer in the prefill, the embedding's
+    all-reduce, the q, k, v gather, the combine's three all-reduces where
+    the sequence is split and two all-reduces a layer a step, the greedy
+    token's gather, the gathers of the logits' vocabulary blocks; and the
+    tokens' gather over "data"."""
     case, got, _ = runs[name]
     mesh, cfg = _mesh(case), case["cfg"]
-    bundle = build_serve_step(cfg, case["shape"], mesh, torch.float32)
-    want = dryrun.rank_collectives(cfg, bundle, mesh, "all-gather",
-                                   n_tokens=case["n_tokens"], load_blocks=case["load_blocks"])
-    steps = case["n_tokens"] - 1
-    assert want["reduce"]["calls"] == (3 * cfg.n_layers * steps if _split_slots(case) else 0)
-    gathers = case["model"] == 1 or case["load_blocks"]  # the rows split, or the weights
-    assert (want["gather"]["calls"] > 0) == gathers and want["broadcast"]["calls"] == 0
+    prompt = InputShape("prompt", case["tokens"].shape[1], B, "prefill")
+    prefill = dryrun.rank_collectives(cfg, build_prefill_step(cfg, prompt, mesh, torch.float32),
+                                      mesh, "all-gather", load_blocks=case["load_blocks"],
+                                      logits=True, dtype=torch.float32)
+    decode = dryrun.rank_collectives(cfg, build_serve_step(cfg, case["shape"], mesh,
+                                                           torch.float32),
+                                     mesh, "all-gather", n_tokens=case["n_tokens"], logits=True)
+    steps, n_layers = case["n_tokens"] - 1, cfg.n_layers
+    split = _split_slots(case)
+    assert decode["reduce"]["calls"] == (steps * (1 + 5 * n_layers) if split else 0)
+    assert prefill["reduce"]["calls"] == (1 + 2 * n_layers if split else 0)
+    assert (prefill["gather"]["calls"] > 0) == (split or case["load_blocks"])
+    assert decode["gather"]["calls"] > 0  # the model group's, or the tokens' over "data"
+    assert decode["broadcast"]["calls"] == prefill["broadcast"]["calls"] == 0
     for rank in got["ranks"]:
-        assert rank["collectives"] == want
+        assert rank["prefill_collectives"] == prefill
+        assert rank["collectives"] == decode
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_each_rank_serves_its_tp_blocks(runs, name):
+    """Each rank's loaded weights are its TP blocks of the whole weights
+    (over one model rank, the whole weights), loaded from whole weights or
+    from its spec blocks alike; its bytes are 1/M of the split leaves and
+    the whole norms (``sharding.served_bytes``)."""
+    case, got, _ = runs[name]
+    mesh, cfg = _mesh(case), case["cfg"]
+    structs = params_structs(cfg)
+    cuts = to_shardings(tp_pspecs(structs, cfg, mesh), mesh)
+    whole = case["params"]
+
+    def held(node, cut, coords):
+        if isinstance(node, dict):
+            return {k: held(node[k], cut[k], coords) for k in node}
+        return node[Sharding(mesh, cut.spec).index(coords, node.shape)]
+
+    norms = sum(x.numel() for k, x in _named_leaves(structs) if k == "scale")
+    split = sum(x.numel() for k, x in _named_leaves(structs) if k != "scale")
+    for rank in got["ranks"]:
+        want = held(whole, cuts, rank["coordinates"])
+        pairs = list(zip(_named_leaves(rank["weights"]), _named_leaves(want), strict=True))
+        assert all(torch.equal(g, w) for (_, g), (_, w) in pairs)
+        nbytes = sum(g.numel() * g.element_size() for (_, g), _ in pairs)
+        assert nbytes == served_bytes(structs, cuts, torch.float32)
+        assert nbytes == 4 * (split // case["model"] + norms)
+
+
+def _named_leaves(tree, key=""):
+    """(leaf name, leaf) of a dict tree, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], k)]
+    return [(key, tree)]
 
 
 def test_one_rank_mesh_is_the_one_card_server_bitwise():
@@ -300,11 +368,13 @@ def test_serving_over_ranks_refuses_what_a14_10_holds(arch):
 
 
 def test_dry_run_reckons_the_decode_32k_combine():
-    """qwen2-0.5b at decode_32k (128 × 32,768): on (1, 2) a step runs 24 ×
-    3 all-reduces, 7,168 B of max, 7,168 B of l and 458,752 B of o a
-    layer, and no gather (the rows are whole); on (2, 1) no combine and
-    one gather of the tokens; loading the weight blocks adds one gather a
-    split leaf."""
+    """qwen2-0.5b at decode_32k (128 × 32,768): on (1, 2), split
+    tensor-parallel, a step runs 24 × 3 combine all-reduces, 7,168 B of
+    max, 7,168 B of l and 458,752 B of o a layer, besides the split's
+    all-reduces (the embedding's, two fp32 (128, 896) a layer) and gathers
+    (the q, k, v heads a layer, the greedy pairs), and no gather over
+    "data" (the rows are whole); on (2, 1) no combine and one gather of the
+    tokens; loading the weight blocks adds one gather a split leaf."""
     from repro_torch.models.config import INPUT_SHAPES
 
     cfg = configs.base_config("qwen2-0.5b")
@@ -315,8 +385,11 @@ def test_dry_run_reckons_the_decode_32k_combine():
         return dryrun.rank_collectives(cfg, build_serve_step(cfg, shape, mesh), mesh, **kw)
 
     one_two = reckon((1, 2))
-    assert one_two["reduce"] == {"calls": 72, "bytes": 24 * (458_752 + 7_168 + 7_168)}
-    assert one_two["gather"]["calls"] == 0
+    split = 128 * 896 * 2 + 24 * 2 * 128 * 896 * 4  # the embedding's and the layers' products
+    assert one_two["reduce"] == {"calls": 72 + 1 + 48,
+                                 "bytes": 24 * (458_752 + 7_168 + 7_168) + split}
+    assert one_two["gather"] == {"calls": 24 + 1,
+                                 "bytes": (24 * 128 * 18 * 64 * 2 + 2 * 128 * 16) // 2}
     two_one = reckon((2, 1), n_tokens=9)
     assert two_one["reduce"]["calls"] == 0
     assert two_one["gather"] == {"calls": 1, "bytes": 128 * 9 * 8 // 2}
