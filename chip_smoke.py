@@ -259,12 +259,15 @@ non-zero exit and no result line:
              full depth; (b) the (2, 1) and (c) the (1, 2) mesh of two ranks
              sharing the card over gloo (the launcher's ``train`` workload,
              ``sgd``, RANKS_LAYERS layers in RANKS_DTYPE, RANKS_ROUNDS
-             rounds) against this process's one-rank trainer: every round's
-             loss, e_com, a, coeffs and noise_amp, each rank's final blocks
-             (and their update) within 1e-4, decisions equal; each rank's
-             ms a round and its collectives' share, peak memory, bytes of
-             masters and optimizer state (equal to the dry run's) and flash
-             launches (L × 5 a round)
+             rounds; on (c) qwen2 split tensor-parallel over the two model
+             ranks, kernel 3 on 7 of 14 heads) against this process's
+             one-rank trainer: every round's loss, e_com, a, coeffs and
+             noise_amp, each rank's final blocks (and their update) within
+             1e-4, decisions equal; (b) and (c) again in bf16 for one round
+             within 2^-7; each rank's ms a round and its collectives'
+             shares, peak memory, bytes of masters, optimizer state and
+             compute weights (equal to the dry run's) and flash launches
+             (L × 5 a round)
   serve_ranks  ``Server`` over a (data, model) mesh of ranks
              (``serve_ranks_plan``): (a) one NCCL rank bitwise the one-card
              server; (b) (2, 1) and (c) (1, 2) of two ranks sharing the card
@@ -3129,12 +3132,13 @@ RANKS_ONE_ROUNDS = 2  # (a): the one-rank NCCL mesh against the one-card trainer
 RANKS_LAYERS, RANKS_ROUNDS, RANKS_DTYPE = 4, 3, "float32"
 RANKS_TIMEOUT = 600  # seconds the launched ranks get
 RANKS_MESHES = {"b": (2, 1), "c": (1, 2)}  # (data, model)
-# (b) in bf16, the trainer's setting, at the same depth, and the limit
-# (PERF.md §2: bf16 against its reference ≤ 2^-7 relative). One round
+# (b) and (c) in bf16, the trainer's setting, at the same depth, and the
+# limit (PERF.md §2: bf16 against its reference ≤ 2^-7 relative). One round
 # runs every bf16 op of the rank path once from the same parameters; after
 # an update each rank's bf16 weight gradients, rounded over half the
-# batch, put the trajectories a bf16 rounding apart, and the sketch
-# amplifies that (ROADMAP C), so the trajectory is held in fp32 above
+# batch (on (c): its split products), put the trajectories a bf16 rounding
+# apart, and the sketch amplifies that (ROADMAP C), so the trajectory is
+# held in fp32 above
 RANKS_BF16_ROUNDS, RANKS_BF16_TOL = 1, 2.0**-7
 # the round values held: the schedule, the loss and the sketched statistics
 RANKS_FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_var",
@@ -3160,27 +3164,41 @@ def reckoned_state(cfg, shape, sizes, optimizer) -> dict:
 
 
 def reckoned_collectives(cfg, shape, sizes, optimizer, gather: str, n_fl: int,
-                         n_rounds: int) -> dict:
+                         n_rounds: int, dtype: str) -> dict:
     """The dry run's collectives of ``n_rounds`` trainer rounds a rank on a
-    (data, model) mesh of ``sizes`` (``launch.dryrun.rank_collectives``):
-    ``{op: {"calls", "bytes"}}``."""
+    (data, model) mesh of ``sizes`` with TRAIN_PROBES probes in ``dtype``
+    (``launch.dryrun.rank_collectives``): ``{op: {"calls", "bytes"}}``."""
     from repro_torch.launch.dryrun import rank_collectives
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import DTYPES
 
     mesh = ShapeMesh(("data", "model"), sizes)
     per_round = rank_collectives(cfg, build_train_step(cfg, shape, mesh, optimizer), mesh,
-                                 gather, n_fl)
+                                 gather, n_fl, dtype=DTYPES[dtype], n_probes=TRAIN_PROBES)
     return {op: {k: v * n_rounds for k, v in c.items()} for op, c in per_round.items()}
+
+
+def reckoned_compute_bytes(cfg, sizes) -> int:
+    """The dry run's bytes a rank of the fp32 weights its steps
+    differentiate on a (data, model) mesh of ``sizes``
+    (``launch.dryrun.compute_weight_bytes``: TP blocks where the model
+    ranks split a dense model)."""
+    from repro_torch.launch.dryrun import compute_weight_bytes
+    from repro_torch.launch.mesh import ShapeMesh
+
+    return compute_weight_bytes(cfg, ShapeMesh(("data", "model"), sizes))
 
 
 def rank_costs(round_ms: list, collectives: dict) -> dict:
     """A rank's rounds and collectives (``launch.distributed.counted_collectives``:
-    calls, wire bytes and seconds by op), and the collectives' share."""
+    calls, wire bytes and seconds by op), and the collectives' share of its
+    rounds' time, all and by op."""
     total = sum(round_ms)
     seconds = sum(c["seconds"] for c in collectives.values())
     return {"round_ms": round_ms, "collectives": collectives,
-            "collective_share": seconds * 1e3 / total}
+            "collective_share": seconds * 1e3 / total,
+            "share_by_op": {op: c["seconds"] * 1e3 / total for op, c in collectives.items()}}
 
 
 def calls_and_bytes(collectives: dict) -> dict:
@@ -3231,7 +3249,7 @@ def one_rank(dev) -> tuple[dict, int]:
     state = {"params_bytes": tensor_bytes(got_p), "opt_state_bytes": tensor_bytes(got_s)}
     reckoned = reckoned_state(cfg, shape, (1, 1), opt)
     coll = reckoned_collectives(cfg, shape, (1, 1), opt, "all-gather", TRAIN_FL,
-                                RANKS_ONE_ROUNDS)
+                                RANKS_ONE_ROUNDS, "bfloat16")
     per_round = cfg.n_layers * (1 + TRAIN_PROBES) + 2 * cfg.n_layers
     out = {"backend": backend, "n_layers": cfg.n_layers, "rounds": RANKS_ONE_ROUNDS,
            "bitwise": bitwise, "rel_err": errs, **costs,
@@ -3293,12 +3311,14 @@ def ranks_run(sizes: tuple, ref: dict, tol: float) -> tuple[dict, int]:
                       "coordinates": coords, "peak_memory_bytes": rank["peak_memory_bytes"],
                       "params_bytes": rank["params_bytes"],
                       "opt_state_bytes": rank["opt_state_bytes"],
+                      "compute_weight_bytes": rank["compute_weight_bytes"],
                       "flash_launches_a_round": rank["launches"]["flash_attention"] / n_rounds})
     errs.update(params=worst_params, update_rel_l2=worst_update)
-    reckoned = reckoned_state(ref["cfg"], ref["shape"], sizes, ref["optimizer"])
+    reckoned = {**reckoned_state(ref["cfg"], ref["shape"], sizes, ref["optimizer"]),
+                "compute_weight_bytes": reckoned_compute_bytes(ref["cfg"], sizes)}
     # gloo gathers CUDA tensors by a zero-filled all-reduce
     coll = reckoned_collectives(ref["cfg"], ref["shape"], sizes, ref["optimizer"], "all-reduce",
-                                ref["n_fl"], n_rounds)
+                                ref["n_fl"], n_rounds, ref["dtype"])
     per_round = ref["cfg"].n_layers * (1 + TRAIN_PROBES) + 2 * ref["cfg"].n_layers
     launched = [rank["launches"]["flash_attention"] for rank in meta["per_rank"]]
     out = {"mesh": sizes, "dtype": ref["dtype"], "rounds": n_rounds, "tolerance": tol,
@@ -3351,10 +3371,11 @@ def train_ranks_phase(dev) -> dict:
     (:func:`one_rank`); then this process's one-card trainer at
     RANKS_LAYERS layers, ``sgd``, and (b) the (2, 1) and (c) the (1, 2)
     mesh of two ranks sharing the card over gloo, each held to it
-    (:func:`ranks_run`) in fp32 within ROUND_TOL, and (b) again in bf16
-    within RANKS_BF16_TOL: every round's RANKS_FIELDS and every rank's
-    final blocks and their update, decisions equal, each rank's bytes of
-    masters and optimizer state and its collectives' calls and wire bytes
+    (:func:`ranks_run`) in fp32 within ROUND_TOL, and (b) and (c) again in
+    bf16 within RANKS_BF16_TOL: every round's RANKS_FIELDS and every
+    rank's final blocks and their update, decisions equal, each rank's
+    bytes of masters, optimizer state and compute weights (on (c) its
+    tensor-parallel blocks) and its collectives' calls and wire bytes
     equal to the dry run's, the flash kernel L × (1 + TRAIN_PROBES + 2)
     times a rank a round."""
     one, launched = one_rank(dev)
@@ -3364,8 +3385,9 @@ def train_ranks_phase(dev) -> dict:
         out[part], n = ranks_run(sizes, ref, ROUND_TOL)
         launched += n
     refs = {"float32": ref, "bfloat16": one_card_reference(dev, "bfloat16", RANKS_BF16_ROUNDS)}
-    out["b_bf16"], n = ranks_run(RANKS_MESHES["b"], refs["bfloat16"], RANKS_BF16_TOL)
-    launched += n
+    for part, sizes in RANKS_MESHES.items():
+        out[f"{part}_bf16"], n = ranks_run(sizes, refs["bfloat16"], RANKS_BF16_TOL)
+        launched += n
     out["one_card_reference"] = {
         dtype: {"n_layers": r["cfg"].n_layers, "round_ms": r["round_ms"],
                 "records": {k: v.tolist() for k, v in r["records"].items()}}

@@ -34,7 +34,8 @@ def draw_probes(params, n_probes: int, generator: torch.Generator) -> list:
             for _ in range(n_probes)]
 
 
-def sketch_device_stats(per_device_loss: Callable, params, probes: list) -> GradStats:
+def sketch_device_stats(per_device_loss: Callable, params, probes: list,
+                        dim: int | None = None) -> GradStats:
     """Estimate (M_i, V_i, ‖g_i‖) for every FL device.
 
     Args:
@@ -42,8 +43,11 @@ def sketch_device_stats(per_device_loss: Callable, params, probes: list) -> Grad
         FL device, each the mean loss over that device's examples).
       params: the model's parameters, a dict of tensors.
       probes: the Hutchinson probes, a list of param-shaped dicts.
+      dim: D, the whole model's parameter count, where ``params`` are a
+        model rank's blocks of it (default: their count).
     """
-    dim = sum(leaf.numel() for leaf in tree_leaves(params))
+    if dim is None:
+        dim = sum(leaf.numel() for leaf in tree_leaves(params))
 
     # the exact per-device gradient mean: one JVP along all ones
     ones = tree_map(torch.ones_like, params)

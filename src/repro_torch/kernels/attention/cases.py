@@ -71,8 +71,10 @@ CHECK_CASES = {
     "internvl2_prefill_bf16": (8, 2048, 2048, 64, 8, 128, torch.bfloat16, True, None, 0, False),
     "internvl2_prefill_fp32": (8, 2048, 2048, 64, 8, 128, torch.float32, True, None, 0, False),
     # qwen2-0.5b's prefill on one of two model ranks (tensor-parallel
-    # serving: 7 of its 14 query heads and 1 of its 2 kv heads)
+    # serving: 7 of its 14 query heads and 1 of its 2 kv heads), and the
+    # same rank's fp32 training forward (tensor-parallel training)
     "qwen2_prefill_tp2_bf16": (8, 2048, 2048, 7, 1, 64, torch.bfloat16, True, None, 0, False),
+    "qwen2_train_tp2_fp32": (8, 2048, 2048, 7, 1, 64, torch.float32, True, None, 0, False),
 }
 
 

@@ -84,6 +84,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import tensor_bytes
 from repro_torch.sim.engine import RoundRecord
 from repro_torch.sim.multihost import (
     ENV_COORDINATOR,
@@ -889,13 +890,6 @@ def train_setup(arch: str, layers: int, n_fl: int, batch: int, seq: int,
     return cfg, shape, tcfg, opt, batch_fn
 
 
-def tensor_bytes(tree) -> int:
-    """The bytes of every tensor in a tree of dicts, lists and tuples."""
-    from repro_torch.launch.sharding import leaves
-
-    return sum(x.numel() * x.element_size() for x in leaves(tree))
-
-
 def train_rounds(trainer, batch_fn, n_rounds: int):
     """``n_rounds`` rounds from ``trainer.init_state(seed + 1)`` →
     ``(params, opt_state, records, round_ms)``: records holds each
@@ -935,11 +929,13 @@ def _worker_train(args) -> None:
     ``--arch`` cut to ``--layers`` in ``--dtype``. Rank 0
     writes the records and every rank's costs to ``--out`` (npz; the
     costs as JSON under ``meta``: each collective's calls, wire bytes and
-    seconds, the card synchronised around it); with ``--save-blocks`` each
+    seconds, the card synchronised around it, and the bytes of the fp32
+    weights its steps differentiate, its TP blocks where ``--model`` > 1
+    splits a dense model); with ``--save-blocks`` each
     rank also writes its final parameter blocks to ``<out>.rank<r>.pt``."""
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.train import POFLTrainer
-    from repro_torch.obs.registry import reset_metrics
+    from repro_torch.obs.registry import metric_value, reset_metrics
     from repro_torch.sim.multihost import ensure_process_group
 
     ensure_process_group(device=args.device)
@@ -963,6 +959,7 @@ def _worker_train(args) -> None:
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                                   if mesh.device.type == "cuda" else None),
             "params_bytes": tensor_bytes(params), "opt_state_bytes": tensor_bytes(opt_state),
+            "compute_weight_bytes": metric_value("ranks.compute_weight_bytes"),
             "launches": launches}
     per_rank: list = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, mine)

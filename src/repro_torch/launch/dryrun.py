@@ -22,8 +22,20 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     (:func:`rank_collectives`, sketch mode): a gather of every split fp32
     master in the stats step and again in the train step, the gather of
     the sketched statistics, the schedule's broadcast, and the all-reduce
-    of every whole gradient leaf (and the loss) over the data ranks; their
-    wire bytes by the reference's ring rule (``launch.mesh.wire_bytes``);
+    of every gradient (a rank's compute block of it) and the loss over the
+    data ranks; over M > 1 model ranks a dense model's tensor-parallel
+    all-reduces over "model" (the forward's, the remat recompute's, the
+    backward's and each JVP pass's primal and tangent ones, the loss's
+    three a CE chunk) and the gathers of the gradients whose compute block
+    does not hold the master block; their wire bytes by the reference's
+    ring rule (``launch.mesh.wire_bytes``). A train record also holds a
+    rank's compute-weight bytes (``compute_weight_bytes``: the fp32 blocks
+    its steps differentiate, ``steps.compute_shardings``) and the layout
+    they take (``compute_layout``: "tensor-parallel" or "whole"); on a
+    mesh whose model ranks do not divide a dense model's split dimensions
+    the rank trainer refuses it (``sharding.NotDivisible``): the record
+    keeps its bytes by the specs and names the dimension there, with no
+    collectives and no compute-weight bytes;
   * for serving, the collectives of ``Server`` over ranks
     (:func:`serve_collectives`): over M > 1 model ranks a prefill's and a
     decode step's tensor-parallel all-reduces and gathers over "model"
@@ -76,8 +88,10 @@ import time
 NOT_ESTIMATED = ("temp_bytes and peak_bytes: the reference reads XLA's temporaries from its "
                  "compiled program; the port compiles no program and does not estimate its "
                  "transient peak. collectives: none for a mesh with a pod axis, a MoE model "
-                 "training over data ranks, or a serving case the rank Server refuses "
-                 "(the rank mesh is (data, model); launch.steps.check_rank_serving)")
+                 "training over data ranks, a dense model training over model ranks that "
+                 "do not divide its split dimensions (sharding.NotDivisible), or a serving "
+                 "case the rank Server refuses (the rank mesh is (data, model); "
+                 "launch.steps.check_rank_serving)")
 
 
 def make_mesh(name: str):
@@ -240,44 +254,118 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
 
 
 def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
-                     n_fl: int | None = None, **serving) -> dict | None:
+                     n_fl: int | None = None, dtype=None, n_probes: int = 4,
+                     **serving) -> dict | None:
     """The collectives of one trainer round a rank in sketch mode, as the
     port's rank steps issue them on a mesh of ranks shaped like ``mesh``
     (``bundle`` the train step built on it) over ``n_fl`` FL devices (the
-    bundle's: one a data rank): ``{op: {"calls", "bytes"}}``
-    for ``gather``, ``reduce`` and ``broadcast``, the bytes a rank's wire
-    bytes by the ring rule. A gather runs over every rank, as an all-gather
-    of the blocks or (``gather="all-reduce"``) an all-reduce of a
-    zero-filled whole. ``None`` where the rank trainer does not run: a
-    mesh other than (data, model), a MoE model over data ranks. A serving
-    bundle (no ``coeffs``) is reckoned by :func:`serve_collectives`, which
-    takes ``serving``'s keywords."""
+    bundle's: one a data rank), with ``n_probes`` probes and the compute
+    type ``dtype`` (bf16 by default, the trainer's): ``{op: {"calls",
+    "bytes"}}`` for ``gather``, ``reduce`` and ``broadcast``, the bytes a
+    rank's wire bytes by the ring rule. A gather runs over every rank, as
+    an all-gather of the blocks or (``gather="all-reduce"``) an all-reduce
+    of a zero-filled whole. ``None`` where the rank trainer does not run: a
+    mesh other than (data, model), a MoE model over data ranks; a dense
+    model over model ranks that do not divide its split dimensions raises
+    ``sharding.NotDivisible``, as the rank steps do. A serving bundle (no
+    ``coeffs``) is reckoned by :func:`serve_collectives`, which takes
+    ``dtype`` and ``serving``'s keywords.
+
+    Over M > 1 model ranks a dense model trains tensor-parallel
+    (``steps.tp_trains``), and each rank runs these all-reduces over
+    "model" (R rows of S tokens a data rank, d the width, CE chunks of C =
+    min(CE_CHUNK, S − 1) rows, n_c of them): in each of the 1 + n_probes
+    JVP passes the embedding's SUM (R·S·d in ``dtype``), each layer's two
+    row-split SUMs (R·S·d fp32) and each chunk's MAX, SUM of exponentials
+    and target SUM (R·C fp32 each), every SUM once for the primal and once
+    for the tangent; in the train step, a microbatch of R/m rows at a
+    time, the forward's (the same, primal only), the remat recompute's
+    (each layer's two SUMs and each chunk's three reductions again: the
+    step runs its checkpoints without early stop) and the backward's,
+    where each layer's two ``copy_to_group`` and each chunk's head one sum
+    their gradient (R·S·d and R·C·d in ``dtype``)."""
+    import torch
+
     from repro_torch.flatten_util import tree_leaves
     from repro_torch.launch.sharding import Sharding
+    from repro_torch.launch.steps import auto_microbatches, compute_shardings, tp_trains
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.transformer import CE_CHUNK
 
     if "coeffs" not in bundle.arg_structs:
-        return serve_collectives(cfg, bundle, mesh, gather, **serving)
+        return serve_collectives(cfg, bundle, mesh, gather, dtype=dtype, **serving)
     if tuple(mesh.axis_names) != ("data", "model"):
         return None
-    r_data, n = mesh.shape["data"], mesh.size()
+    r_data, models, n = mesh.shape["data"], mesh.shape["model"], mesh.size()
     if cfg.moe is not None and r_data > 1:
         return None
     n_fl = n_fl or bundle.arg_structs["coeffs"].shape[0]
+    size = (dtype or torch.bfloat16).itemsize
+    p_structs = bundle.arg_structs["params"]
+    structs = tree_leaves(p_structs)
+    masters = tree_leaves(bundle.in_shardings["params"])
+    computed = tree_leaves(compute_shardings(cfg, mesh, p_structs))
     out, add, gather_of = _reckoner(mesh, gather)
 
-    masters = list(zip(tree_leaves(bundle.arg_structs["params"]),
-                       tree_leaves(bundle.in_shardings["params"]), strict=True))
+    def over_model(nbytes: int) -> None:
+        add("reduce", "all-reduce", nbytes, models)
+
     for _step in ("stats", "train"):  # each step gathers the whole masters
-        for x, sh in masters:
+        for x, sh in zip(structs, masters, strict=True):
             gather_of(x.shape, x.element_size(), sh)
+    if tp_trains(cfg, mesh):
+        b, s = bundle.arg_structs["batch"]["tokens"].shape
+        rows, d = b // r_data, cfg.d_model
+        chunk = min(CE_CHUNK, s - 1)
+        n_chunks = -(-(s - 1) // chunk)
+
+        def forward(r: int, sums: int) -> None:  # sums: 2 with a tangent, else 1
+            for _ in range(sums):
+                over_model(r * s * d * size)
+            for _ in range(cfg.n_layers * 2 * sums):
+                over_model(r * s * d * 4)
+            for _ in range(n_chunks * (1 + 2 * sums)):
+                over_model(r * chunk * 4)
+
+        for _pass in range(1 + n_probes):
+            forward(rows, 2)
+        n_micro = auto_microbatches(cfg, InputShape("train", s, b, "train"), mesh)
+        r = rows // n_micro
+        for _micro in range(n_micro):
+            forward(r, 1)
+            for _ in range(cfg.n_layers * 2):  # the recompute's SUMs
+                over_model(r * s * d * 4)
+            for _ in range(n_chunks * 3):
+                over_model(r * chunk * 4)
+            for _ in range(cfg.n_layers * 2):  # the copies' gradients
+                over_model(r * s * d * size)
+            for _ in range(n_chunks):
+                over_model(r * chunk * d * size)
     # the sketched (mean, var, norm) of each FL device, split over the data ranks
     gather_of((3, n_fl), 4, Sharding(mesh, (None, "data")))
     if r_data > 1:
-        for x, _ in masters:  # the fp32 gradients, and the loss
-            add("reduce", "all-reduce", x.numel() * x.element_size(), r_data)
+        for x, tp in zip(structs, computed):  # the fp32 gradients' compute blocks, the loss
+            add("reduce", "all-reduce", math.prod(tp.block_shape(x.shape)) * 4, r_data)
         add("reduce", "all-reduce", 4, r_data)
+    for x, tp, sh in zip(structs, computed, masters):  # gradients gathered over "model"
+        if not tp.holds(sh):
+            result = models * math.prod(tp.block_shape(x.shape)) * 4
+            add("gather", "all-gather" if gather == "all-gather" else "all-reduce", result,
+                models)
     add("broadcast", "broadcast", 8 * (n_fl + 4), n)  # coeffs, ν, e_com, a, |S| in float64
     return out
+
+
+def compute_weight_bytes(cfg, mesh) -> int:
+    """A rank's bytes of the fp32 weights its training steps differentiate
+    (``steps.compute_shardings``: a dense model's TP blocks over M > 1
+    model ranks, else the whole model); raises ``sharding.NotDivisible``
+    where the model ranks do not divide a split dimension."""
+    from repro_torch.launch.sharding import sharded_bytes
+    from repro_torch.launch.steps import compute_shardings, params_structs
+
+    structs = params_structs(cfg)
+    return sharded_bytes(structs, compute_shardings(cfg, mesh, structs))
 
 
 def step_flops(bundle, seq_len: int) -> int:
@@ -318,7 +406,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
 
     from repro_torch import configs
     from repro_torch.launch.sharding import NotDivisible, served_bytes, sharded_bytes, to_shardings
-    from repro_torch.launch.steps import _param_specs, build_step, params_structs
+    from repro_torch.launch.steps import _param_specs, build_step, params_structs, tp_trains
     from repro_torch.models.config import INPUT_SHAPES
 
     mesh_name = mesh or ("2x16x16" if multi_pod else "16x16")
@@ -343,7 +431,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
     train = shape.kind == "train"
     args = state_bytes(bundle)
     residual = residual_bytes(cfg, shape, smesh) if train else 0
-    coll = rank_collectives(cfg, bundle, smesh, gather)
+    compute, layout = None, None
+    try:
+        coll = rank_collectives(cfg, bundle, smesh, gather)
+        if train:
+            compute = compute_weight_bytes(cfg, smesh)
+            layout = "tensor-parallel" if tp_trains(cfg, smesh) else "whole"
+    except NotDivisible as e:  # the rank trainer refuses it; its bytes stay the specs'
+        coll, layout = None, str(e)
     t_reckon = time.time() - t0
     key = (arch, shape, layers)
     if flops and flops_cache is not None and key in flops_cache:
@@ -380,6 +475,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool =
         "served_weight_bytes": (None if train or coll is None else
                                 served_bytes(bundle.arg_structs["params"],
                                              bundle.in_shardings["params"], torch.bfloat16)),
+        "compute_weight_bytes": compute,
+        "compute_layout": layout,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "reckon_s": round(t_reckon, 2),

@@ -440,6 +440,32 @@ class Sharding:
         return whole[self.index(self.mesh.coordinates(), whole.shape)].clone(
             memory_format=torch.contiguous_format)
 
+    def holds(self, inner: "Sharding") -> bool:
+        """Whether every rank's block by ``inner`` lies inside its block by
+        this spec: on each dim this spec is whole or splits it over the same
+        axes as ``inner`` (axes of size 1 aside), which holds for every rank
+        alike."""
+        sizes = axis_sizes(self.mesh)
+        n = max(len(self.spec), len(inner.spec))
+
+        def split(spec, d):
+            return tuple(a for a in _entry_axes(spec[d] if d < len(spec) else None)
+                         if sizes[a] > 1)
+
+        return all(not split(self.spec, d) or split(self.spec, d) == split(inner.spec, d)
+                   for d in range(n))
+
+    def cut(self, inner: "Sharding", block: torch.Tensor, shape) -> torch.Tensor:
+        """This rank's block by ``inner`` of a whole tensor of ``shape``,
+        cut from ``block``, its block by this spec (:meth:`holds` must be
+        true): a contiguous copy, or ``block`` itself where they are one."""
+        if tuple(inner.block_shape(shape)) == tuple(block.shape):
+            return block
+        coords = self.mesh.coordinates()
+        outer, want = self.index(coords, shape), inner.index(coords, shape)
+        rel = tuple(slice(w.start - o.start, w.stop - o.start) for o, w in zip(outer, want))
+        return block[rel].clone(memory_format=torch.contiguous_format)
+
     def gather(self, block: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's ``block`` (a collective over
         the mesh's ranks; ``block`` itself where nothing is split).
@@ -521,6 +547,11 @@ def leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
     return [tree]
+
+
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a tree of dicts, lists and tuples."""
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
 
 
 def sharded_bytes(structs, shardings) -> int:

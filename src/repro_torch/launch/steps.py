@@ -15,7 +15,8 @@ shardings depend on the mesh (:mod:`repro_torch.launch.mesh`):
   * a mesh of ranks (``RankMesh``): the same layout, and ``fn`` takes and
     returns THIS rank's blocks (the serving steps take a dense model's TP
     blocks, ``sharding.tp_pspecs``: :func:`build_prefill_step`,
-    :func:`build_serve_step`).
+    :func:`build_serve_step`; the training steps cut them from the
+    masters: :func:`build_train_step`, :func:`build_stats_step`).
 
 PO-FL at model scale:
   * FL device = one slice of the global batch, FL-device-major: examples
@@ -33,9 +34,18 @@ A train step over ranks, on each rank: gather the whole fp32 masters,
 run the weighted backward on its data rank's slice of the batch, all-reduce
 the gradients (and the loss) over the data ranks and divide by their
 count, keep this rank's block, add ν·z on the block and run the optimizer
-on the blocks. Ranks along "model" store their blocks by the spec but
-compute the same gradients whole (the training step is not split yet; the
-serving steps are, tensor-parallel over "model"). The
+on the blocks. Over M > 1 model ranks a dense model is split
+tensor-parallel (:func:`tp_trains`): each rank cuts its TP blocks
+(``sharding.tp_pspecs``) from the gathered masters and differentiates the
+loss on them over its model group (:func:`model_group`: the layers'
+collectives carry their backward and tangent rules), so each rank's
+gradient is its TP block's; a TP block that holds the rank's master block
+gives it directly, any other (``wo`` and ``w_out``, whose masters split
+their last dim where TP splits their rows, and leaves the spec keeps whole)
+is gathered whole over "model" first (:func:`master_grads`). The other
+families still compute the same gradients whole on every model rank (what
+ROADMAP A14.9 holds: MoE over data ranks, SSM and hybrid over model ranks,
+the mixer split). The
 collectives are plain ``torch.distributed`` calls that run on NCCL and
 gloo (:meth:`repro_torch.launch.sharding.Sharding.gather`).
 
@@ -45,10 +55,12 @@ the checkpoints of ``remat`` and the chunked CE), the statistics from
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch import configs
 from repro_torch.core.sketch import sketch_device_stats
@@ -56,12 +68,13 @@ from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.sharding import (
     Sharding, _batched, batch_pspecs, cache_shardings, moe_strategy, params_pspecs,
-    to_shardings, tp_pspecs,
+    tensor_bytes, to_shardings, tp_pspecs,
 )
 from repro_torch.models import api, encdec, transformer
 from repro_torch.models.cache import init_attn_cache, init_ssm_cache
 from repro_torch.models.layers import ModelGroup, greedy
 from repro_torch.models.config import InputShape, ModelConfig
+from repro_torch.obs.registry import gauge_set
 from repro_torch.optim.optimizers import OptState, Optimizer, adamw
 
 
@@ -151,6 +164,54 @@ def _mean_over_data(x: torch.Tensor, mesh: RankMesh, r_data: int) -> torch.Tenso
     return x.div_(r_data)
 
 
+def tp_trains(cfg: ModelConfig, mesh) -> bool:
+    """Whether the rank steps split ``cfg`` tensor-parallel over ``mesh``'s
+    model ranks: a dense model over M > 1 of them. The other families
+    compute whole on every model rank (ROADMAP A14.9 holds their split)."""
+    return cfg.arch_type == "dense" and mesh.shape["model"] > 1
+
+
+def compute_shardings(cfg: ModelConfig, mesh, p_structs):
+    """The Shardings of the weights a rank's training steps compute on: a
+    dense model's TP blocks over M > 1 model ranks (``sharding.tp_pspecs``,
+    which raises ``sharding.NotDivisible`` naming each dimension M does not
+    divide), elsewhere every leaf whole (:func:`tp_trains`)."""
+    if not tp_trains(cfg, mesh):
+        return _replicated(p_structs, mesh)
+    return to_shardings(tp_pspecs(p_structs, cfg, mesh), mesh)
+
+
+def compute_layout(cfg: ModelConfig, mesh: RankMesh, p_structs):
+    """:func:`compute_shardings` and the model group the steps compute
+    over (:func:`model_group`; ``None`` where they compute whole)."""
+    tp_sh = compute_shardings(cfg, mesh, p_structs)
+    return tp_sh, model_group(mesh) if tp_trains(cfg, mesh) else None
+
+
+def _tp_dim(sh: Sharding) -> int:
+    """The dim a TP Sharding splits over "model"."""
+    return next(d for d, e in enumerate(sh.spec) if e is not None)
+
+
+def master_grads(grads: list, p_structs, tp_sh, p_sh, group: ModelGroup | None) -> list:
+    """This rank's master blocks (``p_sh``) of the gradients it took on its
+    compute blocks (``tp_sh``; both trees like ``p_structs``, the grads in
+    their sorted-key leaf order). A compute block that holds the master
+    block (``Sharding.holds``: the vocabulary, head and MLP column blocks,
+    the whole norms) gives it by a cut; any other is gathered whole over
+    the model group first (``wo`` and ``w_out``, whose masters split the
+    last dim where TP splits the rows, and the leaves the spec keeps whole
+    but TP splits, as the q, k and v biases)."""
+    out = []
+    for g, x, tp, sh in zip(grads, tree_leaves(p_structs), tree_leaves(tp_sh),
+                            tree_leaves(p_sh), strict=True):
+        if tp.holds(sh):
+            out.append(tp.cut(sh, g, x.shape))
+        else:
+            out.append(sh.block(group.all_gather(g, _tp_dim(tp))))
+    return out
+
+
 # --------------------------------------------------------------------------
 # train
 # --------------------------------------------------------------------------
@@ -179,12 +240,16 @@ def add_noise(grads, noise_amp: torch.Tensor, z):
                                   for g, zl in zip(tree_leaves(grads), tree_leaves(z))])
 
 
-def _weighted_grads(cfg, dtype, remat, n_micro):
+def _weighted_grads(cfg, dtype, remat, n_micro, group: ModelGroup | None = None):
     """``fn(params, batch, w, n_dev) → (loss, grads list)``: the weighted
     loss of a batch of ``n_dev`` FL devices (FL-device-major) and its
     gradients in sorted-key leaf order. With microbatches the batch is
     interleaved so every microbatch holds b/(m · n_dev) examples of every
-    FL device, and the grads (and the loss) are averaged over them."""
+    FL device, and the grads (and the loss) are averaged over them.
+    ``group``: the model ranks a dense model is split over, ``params``
+    this rank's TP blocks. There the remat's recompute runs every layer
+    and CE chunk to its end (checkpoint early stop off), so it issues
+    every forward collective again, as ``launch.dryrun`` reckons it."""
 
     def run(params, batch, w, n_dev):
         b = w.shape[0]
@@ -192,8 +257,11 @@ def _weighted_grads(cfg, dtype, remat, n_micro):
         leaves = tree_leaves(p)
 
         def loss_grads(mb, mw):
-            loss, aux = api.model_loss(_cast(p, dtype), cfg, mb, dtype=dtype, remat=remat,
-                                       loss_weights=mw)
+            whole_recompute = (contextlib.nullcontext() if group is None
+                               else set_checkpoint_early_stop(False))
+            with whole_recompute:
+                loss, aux = api.model_loss(_cast(p, dtype), cfg, mb, dtype=dtype, remat=remat,
+                                           loss_weights=mw, group=group)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
         if n_micro == 1:
@@ -289,18 +357,21 @@ def build_train_step(
     if not isinstance(mesh, RankMesh):
         return StepBundle(train_step, arg_structs, in_sh, out_sh)
 
+    tp_sh, group = compute_layout(cfg, mesh, p_structs)
     part = _rank_slice(mesh, cfg)
     b_local = b // part.data_ranks
+    rank_grads_of = _weighted_grads(cfg, dtype, remat, n_micro, group)
 
     def rank_train_step(params, opt_state, batch, coeffs, noise_amp, noise):
-        whole = gather_params(params, p_sh)
+        blocks = block_of(gather_params(params, p_sh), tp_sh)
+        gauge_set("ranks.compute_weight_bytes", tensor_bytes(blocks), emit_event=False)
         local = coeffs[part.lo:part.lo + part.n_local]
         w = torch.repeat_interleave(local * n_fl, b_local // part.n_local)
-        loss, grads = grads_of(whole, batch, w, part.n_local)
-        del whole
+        loss, grads = rank_grads_of(blocks, batch, w, part.n_local)
+        del blocks
         loss = _mean_over_data(loss.clone(), mesh, part.data_ranks)
-        grads = [sh.block(_mean_over_data(g, mesh, part.data_ranks))
-                 for g, sh in zip(grads, tree_leaves(p_sh))]
+        grads = master_grads([_mean_over_data(g, mesh, part.data_ranks) for g in grads],
+                             p_structs, tp_sh, p_sh, group)
         grads = tree_unflatten(params, grads)
         if aircomp_noise:
             grads = add_noise(grads, noise_amp, noise)
@@ -331,19 +402,23 @@ def build_stats_step(
     (``models.transformer.remat_call``): the same values either way.
 
     On a mesh of ranks ``params`` and ``batch`` are this rank's blocks and
-    the probes whole: each data rank sketches its own FL devices on the
-    whole parameters, and the three (n_fl,) results are gathered in FL
-    order."""
+    the probes whole: each data rank sketches its own FL devices, and the
+    three (n_fl,) results are gathered in FL order. Over M > 1 model ranks
+    a dense model's passes run on this rank's TP blocks of the gathered
+    parameters and of each probe (the tangent of ones is ones on the
+    blocks), over its model group, D the whole model's count
+    (:func:`compute_layout`); any other model computes them whole."""
     n_fl = batch_ways(mesh)
     batch_struct = configs.input_specs(cfg, shape, dtype)["batch"]
     b = batch_struct["tokens"].shape[0]
 
-    def sketch(params, batch, probes, n_dev):
+    def sketch(params, batch, probes, n_dev, group=None, dim=None):
         def per_device_loss(p):
-            per_ex, _ = api.model_loss(p, cfg, batch, dtype=dtype, remat=remat, reduce=False)
+            per_ex, _ = api.model_loss(p, cfg, batch, dtype=dtype, remat=remat, reduce=False,
+                                       group=group)
             return per_ex.reshape(n_dev, -1).mean(dim=1)
 
-        return sketch_device_stats(per_device_loss, params, probes)
+        return sketch_device_stats(per_device_loss, params, probes, dim)
 
     def stats_step(params, batch, probes):
         s = sketch(params, batch, probes, n_fl)
@@ -361,11 +436,14 @@ def build_stats_step(
     if not isinstance(mesh, RankMesh):
         return StepBundle(stats_step, arg_structs, in_sh, out_sh)
 
+    tp_sh, group = compute_layout(cfg, mesh, p_structs)
     part = _rank_slice(mesh, cfg)
     by_fl = Sharding(mesh, (None, "data"))  # (3, n_fl): the FL devices over the data ranks
+    dim = sum(x.numel() for x in tree_leaves(p_structs))
 
     def rank_stats_step(params, batch, probes):
-        s = sketch(gather_params(params, p_sh), batch, probes, part.n_local)
+        blocks = block_of(gather_params(params, p_sh), tp_sh)
+        s = sketch(blocks, batch, [block_of(v, tp_sh) for v in probes], part.n_local, group, dim)
         mean, var, norm = by_fl.gather(torch.stack([s.mean, s.var, s.norm]))
         return mean, var, norm
 

@@ -4,7 +4,9 @@ Port of ``repro.launch.train``. Each FL device is a slice of the global
 batch (:mod:`repro_torch.launch.mesh`): on one card (``HostMesh``) every
 slice is computed in one process; on a ``RankMesh`` each data rank
 computes its FL devices' slices and holds its blocks of the fp32 masters
-and the optimizer state by their specs (:mod:`repro_torch.launch.steps`).
+and the optimizer state by their specs, and over M > 1 model ranks a dense
+model's products are split tensor-parallel (:mod:`repro_torch.launch.steps`:
+the steps decide the layout from the mesh and the family).
 A round:
 
   1. per-FL-device gradient stats (M_i, V_i, ‖g_i‖), ``stats_mode``:

@@ -29,9 +29,14 @@ def model_init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
                remat: bool = False, loss_weights=None, reduce: bool = True,
-               logits_sharding=None, aux_coeff: float = 0.01):
-    """Returns (loss, aux); with ``reduce=False``, (per_example (B,), aux)."""
+               logits_sharding=None, aux_coeff: float = 0.01, group=None):
+    """Returns (loss, aux); with ``reduce=False``, (per_example (B,), aux).
+    ``group`` (a ``layers.ModelGroup``): the model ranks a dense model is
+    split over, ``params`` this rank's TP blocks (``transformer.lm_loss``);
+    ``None`` on one card."""
     if cfg.arch_type == "encdec":
+        if group is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec loss takes no model group")
         return encdec.encdec_loss(
             params, cfg, batch["tokens"], batch["frames"], dtype, remat,
             loss_weights=loss_weights, reduce=reduce,
@@ -40,7 +45,7 @@ def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
     return transformer.lm_loss(
         params, cfg, batch["tokens"], batch.get("embeds"), dtype, remat,
         loss_weights=loss_weights, reduce=reduce,
-        logits_sharding=logits_sharding, aux_coeff=aux_coeff,
+        logits_sharding=logits_sharding, aux_coeff=aux_coeff, group=group,
     )
 
 

@@ -34,6 +34,17 @@ every rank's new q, k and v heads, and where the KV cache is split by
 sequence over the group each rank attends over its slots and the group
 combines the partial softmaxes (flash-decoding).
 
+The group's collectives on the split layers' path are
+``torch.autograd.Function`` s with a backward and a tangent rule (the
+Megatron pair), so the split layers train and ``torch.func.jvp`` goes
+through them: :func:`copy_to_group` (forward the identity, backward a SUM
+over the group) before every column-split product, :func:`sum_over_group`
+(forward a SUM, backward the identity, the tangent summed) after every
+row-split one and the vocabulary-split lookup, :func:`max_over_group`
+(a MAX that carries no derivative) and :func:`gather_from_group` (forward
+an all-gather, backward this rank's slice: every rank backpropagates its
+own copy of the same replicated loss).
+
 The full-sequence Mamba2 scan (:func:`mamba2_fwd`) goes through
 :func:`repro_torch.kernels.ssd.ops.ssd` the same way, where the reference
 calls its jnp ``ssd_chunked`` (which is :func:`ssd_chunked`, the kernel's
@@ -157,9 +168,12 @@ def _project(params, x, cfg: ModelConfig, dtype, name: str, heads: int):
     return y.reshape(*x.shape[:2], heads, cfg.head_dim)
 
 
-def _qkv(params, x, cfg: ModelConfig, dtype, ways: int = 1):
-    """q, k, v of the heads ``params`` hold: all of them, or one of
-    ``ways`` model ranks' blocks (H/ways query and KV/ways kv heads)."""
+def _qkv(params, x, cfg: ModelConfig, dtype, group: Optional[ModelGroup] = None):
+    """q, k, v of the heads ``params`` hold: all of them, or over ``group``
+    this rank's blocks (H/M query and KV/M kv heads), ``x`` entering them
+    through :func:`copy_to_group`."""
+    ways = _ways(group)
+    x = copy_to_group(x, group)
     return (_project(params, x, cfg, dtype, "q", cfg.n_heads // ways),
             _project(params, x, cfg, dtype, "k", cfg.n_kv_heads // ways),
             _project(params, x, cfg, dtype, "v", cfg.n_kv_heads // ways))
@@ -170,8 +184,9 @@ class ModelGroup(NamedTuple):
     count, the group's in-place all-reduces of a tensor by MAX and by SUM,
     and ``all_gather(x, dim)``, every rank's ``x`` concatenated along
     ``dim`` in rank order (each counted by the mesh that runs it). The
-    serving steps over ranks build it (``launch/steps.py::model_group``);
-    ``None`` is one card, or one model rank a group."""
+    rank steps build it (``launch/steps.py::model_group``); ``None`` is one
+    card, or one model rank a group. The layers call them through the
+    autograd Functions below, never on a tensor autograd saved."""
 
     rank: int
     size: int
@@ -184,27 +199,180 @@ def _ways(group: Optional[ModelGroup]) -> int:
     return 1 if group is None else group.size
 
 
+def _summed(x: torch.Tensor, group: ModelGroup) -> torch.Tensor:
+    """The group's SUM of ``x`` in a fresh contiguous tensor (``x`` left as
+    it is)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    group.all_sum(out)
+    return out
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """"f": the identity forward and tangent, the gradient summed over the
+    group (each rank's column block adds its part of it)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)  # a view: forward-mode AD then takes the tangent's view
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return tangent.view_as(tangent)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """"g": the group's SUM forward and tangent, the identity gradient
+    (every rank holds the same replicated result and its gradient)."""
+
+    @staticmethod
+    def forward(x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return _summed(tangent, ctx.group)
+
+
+class _MaxOverGroup(torch.autograd.Function):
+    """The group's MAX, with no derivative (a softmax's shift)."""
+
+    @staticmethod
+    def forward(x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        group.all_max(out)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return torch.zeros_like(tangent)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Every rank's block concatenated along ``dim``: the tangents gathered
+    the same way, the gradient this rank's slice of it (each rank
+    backpropagates its own copy of the same replicated loss, so this is
+    not a reduce-scatter)."""
+
+    @staticmethod
+    def forward(x, dim, group):
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.dim, ctx.group = inputs
+        ctx.n = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return ctx.group.all_gather(tangent, ctx.dim)
+
+
+def copy_to_group(x: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor:
+    """``x`` entering this rank's column block of a product split over
+    ``group`` (:class:`_CopyToGroup`); ``x`` itself without a group."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def sum_over_group(x: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor:
+    """The group's SUM of every rank's ``x`` (:class:`_SumOverGroup`)."""
+    return x if group is None else _SumOverGroup.apply(x, group)
+
+
+def max_over_group(x: torch.Tensor, group: ModelGroup) -> torch.Tensor:
+    """The group's MAX of every rank's ``x``, carrying no derivative."""
+    return _MaxOverGroup.apply(x.detach(), group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group: ModelGroup) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order
+    (:class:`_GatherFromGroup`)."""
+    return _GatherFromGroup.apply(x, dim, group)
+
+
+class _Fp32Accumulate(torch.autograd.Function):
+    """``a @ w`` of bf16 CUDA matrices as the GEMM's fp32 accumulator
+    (``mm``'s ``out_dtype``, which has no derivative): the gradients are
+    the two bf16 GEMMs of the backward, each accumulated in fp32 and
+    rounded once to its operand's type, and the tangent is the product
+    rule's two GEMMs summed in fp32."""
+
+    @staticmethod
+    def forward(a, w):
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        grad = grad.to(a.dtype)
+        da = torch.mm(grad, w.T, out_dtype=torch.float32).to(a.dtype)
+        dw = torch.mm(a.T, grad, out_dtype=torch.float32).to(w.dtype)
+        return da, dw
+
+    @staticmethod
+    def jvp(ctx, ta, tw):
+        a, w = ctx.saved_tensors
+        out = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+        if ta is not None:
+            out = out + torch.mm(ta, w, out_dtype=torch.float32)
+        if tw is not None:
+            out = out + torch.mm(a, tw, out_dtype=torch.float32)
+        return out
+
+
 def row_split_matmul(a: torch.Tensor, w: torch.Tensor, dtype,
                      group: Optional[ModelGroup]) -> torch.Tensor:
     """``a @ w`` in ``dtype`` where ``a``'s columns and ``w``'s rows are
     this rank's block of a product split over ``group`` (``None``: the
     whole product). Each rank's partial sum is taken in fp32 and the
-    group's SUM of them rounded to ``dtype`` once, as one GEMM over the
-    whole inner dim rounds its fp32 accumulator once: a partial rounded to
-    bf16 before the sum would add a rounding per rank. On the card a bf16
-    product stays on the tensor cores and only its accumulator is returned,
-    in fp32 (``mm``'s ``out_dtype``); elsewhere it is taken in fp32 from the
-    same values (a product of two bf16 numbers is exact in fp32)."""
+    group's SUM of them (:func:`sum_over_group`) rounded to ``dtype``
+    once, as one GEMM over the whole inner dim rounds its fp32 accumulator
+    once: a partial rounded to bf16 before the sum would add a rounding per
+    rank. On the card a bf16 product stays on the tensor cores and only
+    its accumulator is returned, in fp32 (:class:`_Fp32Accumulate`);
+    elsewhere it is taken in fp32 from the same values (a product of two
+    bf16 numbers is exact in fp32)."""
     if group is None:
         return a @ w.to(dtype)
     w = w.to(dtype)
     if a.is_cuda and dtype == torch.bfloat16:
-        part = torch.mm(a.reshape(-1, a.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*a.shape[:-1], w.shape[-1])
+        part = _Fp32Accumulate.apply(a.reshape(-1, a.shape[-1]), w).reshape(
+            *a.shape[:-1], w.shape[-1])
     else:
         part = a.float() @ w.float()
-    group.all_sum(part)
-    return part.to(dtype)
+    return sum_over_group(part, group).to(dtype)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
@@ -219,9 +387,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
     n = table.shape[0]
     local = tokens - group.rank * n
     outside = (local < 0) | (local >= n)
-    x = table[local.clamp(0, n - 1)].masked_fill(outside[..., None], 0)
-    group.all_sum(x)
-    return x
+    return sum_over_group(table[local.clamp(0, n - 1)].masked_fill(outside[..., None], 0),
+                          group)
 
 
 def greedy(logits: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
@@ -266,7 +433,7 @@ def attention_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if kv_override is None:
-        q, k, v = _qkv(params, x, cfg, dtype, _ways(group))
+        q, k, v = _qkv(params, x, cfg, dtype, group)
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         window = cfg.sliding_window
@@ -311,7 +478,7 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.T
     h, kv_heads, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = h // kv_heads
     s_max = cache_k.shape[1]
-    q, k_new, v_new = _qkv(params, x, cfg, dtype, _ways(group))
+    q, k_new, v_new = _qkv(params, x, cfg, dtype, group)
     pos = torch.full((1, 1), t, device=x.device)
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -347,7 +514,7 @@ def _gather_heads(q, k, v, group: ModelGroup):
     of the three side by side."""
     b, _, hq, dh = q.shape
     hk = k.shape[2]
-    every = group.all_gather(torch.cat([q, k, v], dim=2), 2)
+    every = gather_from_group(torch.cat([q, k, v], dim=2), 2, group)
     every = every.reshape(b, 1, group.size, hq + 2 * hk, dh)
 
     def heads(lo, n):
@@ -429,7 +596,9 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, lead: tuple = (), device=N
 
 def mlp_fwd(params, x, dtype=torch.float32, group: Optional[ModelGroup] = None):
     """SwiGLU; over a model ``group`` on this rank's columns of ``w_gate``
-    and ``w_in`` and those rows of ``w_out``, summed over the group."""
+    and ``w_in`` (``x`` entering them through :func:`copy_to_group`) and
+    those rows of ``w_out``, summed over the group."""
+    x = copy_to_group(x, group)
     g = F.silu(x @ params["w_gate"].to(dtype))
     u = x @ params["w_in"].to(dtype)
     return row_split_matmul(g * u, params["w_out"], dtype, group)

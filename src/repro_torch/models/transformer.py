@@ -28,10 +28,13 @@ Public entry points:
   decode_step(params, cfg, token, cache, t)  -> (logits, cache)
 
 Over the model ranks of a mesh (a ``layers.ModelGroup``) a dense model's
-prefill and decode step run tensor-parallel on the rank's TP blocks: the
-embedding looks up the rank's vocabulary block (``layers.embed_lookup``),
+loss, prefill and decode step run tensor-parallel on the rank's TP blocks:
+the embedding looks up the rank's vocabulary block (``layers.embed_lookup``),
 each layer's attention and MLP compute the rank's heads and columns, and
-the logits are the rank's vocabulary block (:func:`logits_from_hidden`).
+the logits are the rank's vocabulary block (:func:`logits_from_hidden`),
+which the loss keeps split (:func:`chunked_ce`). The group's collectives
+carry their backward and tangent rules (``layers.copy_to_group`` and its
+kin), so :func:`lm_loss` over a group trains and takes ``torch.func.jvp``.
 
 Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
@@ -150,12 +153,13 @@ def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False,
         return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group), None, kv
 
 
-def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype):
+def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype, group: L.ModelGroup | None = None):
     """Layer ``i`` of the stack → (x, aux or None). A hybrid runs its shared
-    block first when ``i % attn_every == 0``."""
+    block first when ``i % attn_every == 0``. ``group``: a dense layer's
+    model ranks, ``params`` this rank's TP blocks."""
     lp = layer_params(params, i)
     if cfg.arch_type not in ("ssm", "hybrid"):
-        x, aux, _ = _block_fwd(cfg, lp, x, dtype)
+        x, aux, _ = _block_fwd(cfg, lp, x, dtype, group=group)
         return x, aux
     if cfg.arch_type == "hybrid" and i % cfg.hybrid.attn_every == 0:
         x, _, _ = _block_fwd(cfg, params["shared_block"], x, dtype)
@@ -195,13 +199,16 @@ def remat_call(remat: bool, params, fn, *args):
     return fn(*args)
 
 
-def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False):
+def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False,
+             group: L.ModelGroup | None = None):
     """The layer stack. x: (B, S, D) -> (B, S, D), aux: the MoE layers' aux
     losses summed in layer order (fp32; 0 for the other families).
-    ``remat`` recomputes each layer in the backward."""
+    ``remat`` recomputes each layer in the backward (with its collectives
+    over ``group``, a dense model's model ranks)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = remat_call(remat, params, lambda x, i=i: _layer_fwd(cfg, params, i, x, dtype), x)
+        x, a = remat_call(remat, params,
+                          lambda x, i=i: _layer_fwd(cfg, params, i, x, dtype, group), x)
         if a is not None:
             aux = aux + a
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -211,10 +218,11 @@ def logits_from_hidden(params, cfg: ModelConfig, x, dtype,
                        group: L.ModelGroup | None = None):
     """x @ head; the tied head is ``embed.T``; pad columns are -1e30. Over
     a model ``group`` the head is this rank's vocabulary block and so are
-    the logits (the pad columns on the rank that holds them)."""
+    the logits (the pad columns on the rank that holds them); x enters the
+    head through ``layers.copy_to_group``."""
     with record_function("lm.logits"):
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head.to(dtype)
+        logits = L.copy_to_group(x, group) @ head.to(dtype)
         first = cfg.vocab_size - (0 if group is None else group.rank * logits.shape[-1])
         if first < logits.shape[-1]:  # this block holds pad columns
             logits[..., max(first, 0):].fill_(L.NEG_INF)
@@ -238,15 +246,34 @@ CE_CHUNK = 1024  # sequence-chunked cross entropy: (B, CHUNK, V) logits live,
                  # logits of a long batch would not fit)
 
 
-def _chunk_nll(params, cfg: ModelConfig, xc, tc, vc, dtype):
-    """One chunk's summed NLL a row: xc (B, CHUNK, D), targets tc, valid vc."""
-    logits = logits_from_hidden(params, cfg, xc, dtype)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tc[..., None])[..., 0]
+def _chunk_nll(params, cfg: ModelConfig, xc, tc, vc, dtype,
+               group: L.ModelGroup | None = None):
+    """One chunk's summed NLL a row: xc (B, CHUNK, D), targets tc, valid vc.
+
+    Over a model ``group`` the (B, CHUNK, V/M) fp32 logits stay this
+    rank's vocabulary block: the row maximum is the group's MAX
+    (``layers.max_over_group``, no derivative: the log-sum-exp does not
+    depend on its shift), the sum of exponentials and the target's logit
+    (taken on the rank whose block holds it, 0 elsewhere) the group's SUM
+    (``layers.sum_over_group``); NLL = m + log Σ exp(l − m) − l_target."""
+    logits = logits_from_hidden(params, cfg, xc, dtype, group).float()
+    if group is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tc[..., None])[..., 0]
+        return (nll * vc).sum(dim=-1)
+    n = logits.shape[-1]
+    m = L.max_over_group(logits.amax(dim=-1, keepdim=True), group)
+    sum_exp = L.sum_over_group(torch.exp(logits - m).sum(dim=-1), group)
+    local = tc - group.rank * n
+    inside = (local >= 0) & (local < n)
+    target = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    target = L.sum_over_group(target.masked_fill(~inside, 0.0), group)
+    nll = torch.log(sum_exp) + m[..., 0] - target
     return (nll * vc).sum(dim=-1)
 
 
-def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None):
+def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None,
+               group: L.ModelGroup | None = None):
     """Per-example mean NLL of next-token prediction → (B,) fp32, from the
     final hidden x (B, S, D) and tokens (B, S).
 
@@ -256,8 +283,10 @@ def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None)
     backward (a checkpoint a chunk, as the reference's ``jax.checkpoint``
     of its scan body, wherever a backward can reach it: :func:`remat_call`),
     and the rows' sums are added chunk after chunk.
-    ``logits_sharding`` is accepted and ignored: one card holds every
-    chunk whole.
+    ``logits_sharding`` is accepted and ignored: the port splits the
+    vocabulary by ``group`` instead, the model ranks a dense model is split
+    over (``params`` this rank's TP blocks), where each chunk's logits
+    stay this rank's vocabulary block (:func:`_chunk_nll`).
     """
     del logits_sharding
     b, s, d = x.shape
@@ -272,14 +301,15 @@ def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None)
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         acc = acc + remat_call(True, params, _chunk_nll, params, cfg, x_in[:, sl], tgt[:, sl],
-                               valid[:, sl], dtype)
+                               valid[:, sl], dtype, group)
     return acc / s1
 
 
 def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
             remat: bool = False, loss_weights: Optional[torch.Tensor] = None,
-            aux_coeff: float = 0.01, reduce: bool = True, logits_sharding=None):
+            aux_coeff: float = 0.01, reduce: bool = True, logits_sharding=None,
+            group: L.ModelGroup | None = None):
     """Next-token cross entropy (+ the MoE aux) → (loss, aux).
 
     ``loss_weights`` (B,) weighs each example: the hook the PO-FL trainer
@@ -287,13 +317,16 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
     loss_weights) + aux_coeff · aux``; ``reduce=False`` returns the
     per-example vector (B,) instead (the per-FL-device statistics passes).
     A vlm's patch positions predict nothing: they are dropped before the
-    CE. ``logits_sharding`` is ignored on one card (:func:`chunked_ce`).
+    CE. ``logits_sharding`` is ignored (:func:`chunked_ce`). ``group``: the
+    model ranks a dense model is split over, ``params`` this rank's TP
+    blocks (a tied ``embed``'s lookup and head add their gradients on the
+    same vocabulary block); the loss is the whole batch's on every rank.
     """
-    x = embed_inputs(params, cfg, tokens, embeds, dtype)
-    x, aux = backbone(params, cfg, x, dtype, remat)
+    x = embed_inputs(params, cfg, tokens, embeds, dtype, group)
+    x, aux = backbone(params, cfg, x, dtype, remat, group)
     if cfg.arch_type == "vlm":
         x = x[:, embeds.shape[1]:, :]
-    per_example = chunked_ce(params, cfg, x, tokens, dtype, logits_sharding)
+    per_example = chunked_ce(params, cfg, x, tokens, dtype, logits_sharding, group)
     if loss_weights is not None:
         per_example = per_example * loss_weights
     if not reduce:
@@ -369,7 +402,7 @@ def _kv_rank_block(group: L.ModelGroup, kv, lo: int, hi: int, k_out, v_out) -> N
     all-gather of k and v stacked) and the rank keeps its slots ``[lo,
     hi)`` of the positions, written into ``k_out`` and ``v_out`` (B, hi −
     lo, KV, dh; the slots past the prompt stay empty)."""
-    every = group.all_gather(torch.stack(kv), 3)  # (2, B, S, KV, dh)
+    every = L.gather_from_group(torch.stack(kv), 3, group)  # (2, B, S, KV, dh)
     n = max(0, min(hi, every.shape[2]) - lo)
     k_out[:, :n] = every[0, :, lo:lo + n]
     v_out[:, :n] = every[1, :, lo:lo + n]

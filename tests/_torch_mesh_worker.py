@@ -29,8 +29,18 @@ got. Jobs:
                 replayed (:class:`ReplayDraws`) and its channel gains the
                 input's: every round's diag, and every rank's blocks of
                 the final parameters, of the optimizer state and of the
-                gradients that reached the optimizer, and its collectives
-                (calls and wire bytes), gathered by rank.
+                gradients that reached the optimizer, the shapes of the
+                weights each ``model_loss`` call of its steps got (its
+                compute blocks: TP blocks where its model group splits a
+                dense model), its compute-weight bytes and its
+                collectives (calls and wire bytes), gathered by rank.
+  tp_route      on the card (gloo ranks sharing it): one bf16 train step of
+                the input's dense model (its weights drawn on the card from
+                the input's seed) split over a (1, 2) mesh of every rank,
+                its row-split partials by ``mm``'s fp32 accumulator (the
+                card's route) and again by fp32 copies of the same bf16
+                values (the CPU's route): each rank's gradient blocks by
+                route and how many partials took the card's.
   serve_ranks   the input's serving cases (``tests/test_torch_serve_ranks.py``):
                 each a ``Server`` on a (data, model) mesh of every rank, in
                 fp32, its weights whole or this rank's blocks of them,
@@ -49,6 +59,7 @@ got. Jobs:
 from __future__ import annotations
 
 import sys
+import types
 
 import numpy as np
 import torch
@@ -173,11 +184,13 @@ def lattice(inp) -> dict:
 
 def train_ranks(inp) -> dict:
     from repro_torch.core.channel import ChannelState
+    from repro_torch.flatten_util import tree_leaves
     from repro_torch.launch.distributed import counted_collectives
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.steps import block_of
     from repro_torch.launch.train import POFLTrainer
-    from repro_torch.obs.registry import reset_metrics
+    from repro_torch.models import api
+    from repro_torch.obs.registry import metric_value, reset_metrics
     from repro_torch.optim import optimizers
 
     def by_rank(value):
@@ -185,6 +198,14 @@ def train_ranks(inp) -> dict:
         dist.all_gather_object(parts, value)
         return parts
 
+    loss_weights: list = []  # the weight shapes of each model_loss call
+    model_loss = api.model_loss
+
+    def recorded_loss(params, *args, **kw):
+        loss_weights.append([tuple(x.shape) for x in tree_leaves(params)])
+        return model_loss(params, *args, **kw)
+
+    api.model_loss = recorded_loss
     out = {}
     for name, case in inp.items():
         mesh = make_rank_mesh(model=case["model"], n_fl=case["n_fl"], device="cpu")
@@ -197,6 +218,7 @@ def train_ranks(inp) -> dict:
         params = block_of(case["params"], trainer.train_bundle.in_shardings["params"])
         opt_state = trainer.optimizer.init(params)
         reset_metrics("ranks.")
+        loss_weights.clear()
         rounds = []
         for batch in case["batches"]:
             params, opt_state, diag = trainer.train_round(params, opt_state, batch)
@@ -204,9 +226,47 @@ def train_ranks(inp) -> dict:
         out[name] = {"rounds": rounds,
                      "ranks": by_rank({"coordinates": mesh.coordinates(), "params": params,
                                        "opt_state": opt_state, "grads": seen,
+                                       "loss_weights": list(loss_weights),
+                                       "compute_weight_bytes":
+                                           metric_value("ranks.compute_weight_bytes"),
                                        "collectives": {op: {k: c[k] for k in ("calls", "bytes")}
                                                        for op, c in counted_collectives().items()}})}
     return out
+
+
+def tp_route(inp) -> dict:
+    from repro_torch.flatten_util import tree_map
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.steps import block_of, build_train_step
+    from repro_torch.models import api, layers
+    from repro_torch.optim.optimizers import sgd
+
+    card = torch.device("cuda")
+    mesh = make_rank_mesh(model=2, n_fl=2, device=card)
+    params = api.model_init(inp["cfg"], seed=inp["seed"], device=card)
+    card_route, fp32_route = layers._Fp32Accumulate, types.SimpleNamespace()
+    partials = []
+
+    def counted(a, w):
+        partials.append(a.shape)
+        return card_route.apply(a, w)
+
+    fp32_route.apply = lambda a, w: a.float() @ w.float()
+    grads = {}
+    for route, fn in (("card", counted), ("fp32", fp32_route.apply)):
+        layers._Fp32Accumulate = types.SimpleNamespace(apply=fn)
+        seen: list = []
+        bundle = build_train_step(inp["cfg"], inp["shape"], mesh, recording(sgd(0.0), seen),
+                                  dtype=torch.bfloat16, aircomp_noise=False)
+        blocks = block_of(params, bundle.in_shardings["params"])
+        batch = block_of({"tokens": inp["tokens"].to(card)}, bundle.in_shardings["batch"])
+        bundle.fn(blocks, sgd(0.0).init(blocks), batch,
+                  torch.tensor([0.7, 1.3], device=card), torch.zeros((), device=card), None)
+        grads[route] = tree_map(lambda x: x.cpu(), seen[0])
+    layers._Fp32Accumulate = card_route
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, {"grads": grads, "card_partials": len(partials)})
+    return {"ranks": parts}
 
 
 def serve_ranks(inp) -> dict:
@@ -284,7 +344,8 @@ def main() -> int:
         raise SystemExit("no REPRO_DIST_* env: start this under repro_torch.launch.distributed")
     inp = torch.load(path_in, weights_only=False) if path_in != "-" else None
     result = {"shard_gather": shard_gather, "allreduce": allreduce, "cnn_parity": cnn_parity,
-              "lattice": lattice, "train_ranks": train_ranks, "serve_ranks": serve_ranks}[job](inp)
+              "lattice": lattice, "train_ranks": train_ranks, "tp_route": tp_route,
+              "serve_ranks": serve_ranks}[job](inp)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, result)
     same = all(_equal(every[0], other) for other in every[1:])

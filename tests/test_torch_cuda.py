@@ -1253,3 +1253,73 @@ def test_row_split_product_on_card_keeps_the_fp32_accumulator(card):
     cpu = (a.cpu().float() @ w.cpu().float()).to(dtype)
     off = (whole.cpu() != cpu).float().mean().item()
     assert off <= 1e-3, off
+
+
+# -- tensor-parallel training -------------------------------------------------------
+
+
+def test_split_bf16_train_step_gradients_on_card_match_the_fp32_route(card, tmp_path):
+    """``mm`` with ``out_dtype`` has no derivative, so a bf16 row-split
+    partial on the card is an autograd Function (``layers._Fp32Accumulate``):
+    its gradients (two bf16 GEMMs, fp32 accumulators, one rounding each)
+    and its tangent against autograd and ``torch.func.jvp`` of the same
+    product from fp32 copies of the same bf16 values, each within 2^-7
+    relative L2. Then one bf16 train step of qwen2-0.5b at full width cut
+    to 1 layer (2 × 512 tokens) split over a (1, 2) mesh of two gloo ranks
+    sharing the card, its partials by that Function, against the same step
+    with them from fp32 copies: each rank's every gradient block non-zero
+    and within 2^-7 relative L2 (5.5e-3 at most; the two accumulation
+    orders move a few bf16 roundings, which the random-weight model
+    amplifies with depth, ROADMAP C: 8.5e-3 at 2 layers, 1.2e-2 at 4, in
+    the whole raveled gradient). The ranks run through the launcher
+    (``tests/_torch_mesh_worker.py``, job ``tp_route``): two threads'
+    backwards on one card would share its autograd device thread and wait
+    on each other."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.models.layers import _Fp32Accumulate
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    a, w, dy = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+                for shape in ((512, 448), (448, 896), (512, 896)))
+    ta, tw = torch.randn_like(a), torch.randn_like(w)
+    with pytest.raises(RuntimeError, match="derivative"):
+        torch.mm(a.clone().requires_grad_(), w, out_dtype=torch.float32).backward(dy.float())
+    ins = [x.clone().requires_grad_() for x in (a, w)]
+    got = torch.autograd.grad(_Fp32Accumulate.apply(*ins), ins, dy.float())
+    ref = [x.clone().requires_grad_() for x in (a, w)]
+    want = torch.autograd.grad(ref[0].float() @ ref[1].float(), ref, dy.float())
+    assert all(g.dtype == torch.bfloat16 and rel(g, v) <= 2.0**-7 for g, v in zip(got, want))
+    _, t_got = torch.func.jvp(_Fp32Accumulate.apply, (a, w), (ta, tw))
+    _, t_want = torch.func.jvp(lambda x, y: x.float() @ y.float(), (a, w), (ta, tw))
+    assert t_got.dtype == torch.float32 and rel(t_got, t_want) <= 2.0**-7
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = configs.cut_depth(configs.base_config("qwen2-0.5b"), 1)
+    inp = {"cfg": cfg, "shape": InputShape("t", 512, 2, "train"), "seed": 0,
+           "tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                   generator=torch.Generator().manual_seed(2))}
+    path_in, path_out = tmp_path / "in.pt", tmp_path / "out.pt"
+    torch.save(inp, path_in)
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.distributed", "--procs", "2", "--timeout",
+         "240", "--", sys.executable, str(root / "tests" / "_torch_mesh_worker.py"), "tp_route",
+         str(path_in), str(path_out)],
+        capture_output=True, text=True, cwd=root, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    ranks = torch.load(path_out, weights_only=False)["result"]["ranks"]
+    for rank in ranks:
+        assert rank["card_partials"] == 2 * cfg.n_layers * 2  # forward and recompute
+        got, want = (tree_leaves(rank["grads"][route]) for route in ("card", "fp32"))
+        assert all(float(torch.linalg.vector_norm(g.float())) > 0 for g in got)
+        errs = [rel(g, v) for g, v in zip(got, want, strict=True)]
+        assert max(errs) <= 2.0**-7, errs

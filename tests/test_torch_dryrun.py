@@ -241,3 +241,63 @@ def test_cli_writes_a_record_per_arch_shape_and_mesh(tmp_path, capsys):
                              verbose=False)
     assert skipped["status"] == "skipped" and not tconfigs.supports_shape("qwen2.5-14b",
                                                                           "long_500k")
+
+
+def test_dry_run_reckons_a_tensor_parallel_train_round():
+    """qwen2-0.5b cut to 4 layers, 8 × 2,048 tokens on (1, 2), fp32, two
+    probes: the rank trainer splits it tensor-parallel, and a round's
+    all-reduces over "model" are each JVP pass's (the embedding's and each
+    layer's two row-split SUMs, primal and tangent; each of the two CE
+    chunks' MAX and its two SUMs, primal and tangent), the step's forward,
+    its remat recompute and its backward's (each layer's two and each
+    chunk's head copy summing their gradient); beside the two gathers of
+    every split master it gathers the gradients of ``wo``, ``w_out`` and
+    the q, k, v biases over "model". A rank computes on half of every
+    split leaf. On the production mesh 16 model ranks do not divide the
+    heads: the record keeps its bytes by the specs and names the
+    dimensions, with no collectives."""
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import params_pspecs, sharded_bytes, to_shardings
+    from repro_torch.models.transformer import CE_CHUNK
+
+    cfg = tconfigs.cut_depth(tconfigs.base_config("qwen2-0.5b"), 4)
+    mesh = ShapeMesh(("data", "model"), (1, 2))
+    shape = InputShape("t", 2048, 8, "train")
+    bundle = build_train_step(cfg, shape, mesh, adamw(1e-4), dtype=torch.float32)
+    coll = dryrun.rank_collectives(cfg, bundle, mesh, "all-gather", 8, dtype=torch.float32,
+                                   n_probes=2)
+    L_, rows, s, d, chunk = 4, 8, 2048, 896, CE_CHUNK
+    act, ce = rows * s * d * 4, rows * chunk * 4  # one all-reduce's bytes (= its wire bytes)
+    jvp = 2 * act + 4 * L_ * act + 2 * 5 * ce
+    step = act + 2 * L_ * act + 2 * 3 * ce  # the forward
+    step += 2 * L_ * act + 2 * 3 * ce  # the recompute
+    step += 2 * L_ * act + 2 * rows * chunk * d * 4  # the copies' gradients
+    assert coll["reduce"] == {"calls": 3 * (2 + 4 * L_ + 10) + (1 + 2 * L_ + 6)
+                              + (2 * L_ + 6) + (2 * L_ + 2), "bytes": 3 * jvp + step}
+    structs = tree_leaves(params_structs(cfg))
+    masters = tree_leaves(to_shardings(params_pspecs(params_structs(cfg), mesh), mesh))
+    split = [x for x, sh in zip(structs, masters) if not sh.replicated()]
+    per_layer = {"wo": 896 * 896, "w_out": 4864 * 896, "bq": 896, "bk": 128, "bv": 128}
+    assert coll["gather"] == {
+        "calls": 2 * len(split) + 5,
+        "bytes": sum(x.numel() * 4 // 2 for x in split) * 2
+        + sum(L_ * n * 4 // 2 for n in per_layer.values())}
+    assert coll["broadcast"] == {"calls": 1, "bytes": 8 * (8 + 4)}
+    norms = d * (2 * L_ + 1)
+    assert dryrun.compute_weight_bytes(cfg, mesh) == (
+        (sum(x.numel() for x in structs) - norms) * 4 // 2 + norms * 4)
+    rec = dryrun.run_one("qwen2-0.5b", "train_4k", mesh="1x2", flops=False, verbose=False)
+    assert rec["compute_layout"] == "tensor-parallel" and rec["collectives"]["reduce"]["calls"]
+    prod = dryrun.run_one("qwen2-0.5b", "train_4k", mesh="16x16", flops=False, verbose=False)
+    assert prod["status"] == "ok" and prod["collectives"] is None
+    assert prod["compute_weight_bytes"] is None
+    assert prod["compute_layout"].endswith(
+        "16 model ranks do not divide n_heads = 14, n_kv_heads = 2")
+    big = tconfigs.get_config("qwen2-0.5b", INPUT_SHAPES["train_4k"])
+    pmesh = ShapeMesh(("data", "model"), (16, 16))
+    assert prod["memory"]["by_argument"]["params"] == sharded_bytes(
+        params_structs(big), to_shardings(params_pspecs(params_structs(big), pmesh), pmesh))
+    whole = dryrun.run_one("mamba2-370m", "train_4k", mesh="1x2", flops=False, verbose=False)
+    ssm = params_structs(tconfigs.get_config("mamba2-370m", INPUT_SHAPES["train_4k"]))
+    assert whole["compute_layout"] == "whole"
+    assert whole["compute_weight_bytes"] == 4 * sum(x.numel() for x in tree_leaves(ssm))

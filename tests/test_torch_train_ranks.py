@@ -7,7 +7,11 @@ Two gloo ranks run through the port's launcher
 ``tests/_torch_mesh_worker.py``), in ONE launch for every case: reduced
 qwen2 and reduced mamba2 at 2 layers, 4 FL devices, 8 × 16 tokens, fp32
 compute, on the (2, 1) mesh (two data ranks, two FL devices each) and the
-(1, 2) mesh (two model ranks computing the same FL devices whole). The
+(1, 2) mesh (two model ranks: qwen2 split tensor-parallel on each rank's
+TP blocks, ``sharding.tp_pspecs``; mamba2 computing the same FL devices
+whole, as the SSM family still does over model ranks). Beside it, one
+launch of four gloo ranks runs qwen2 on the (2, 2) mesh for two ``sgd``
+rounds: two data ranks, each split over two model ranks. The
 reference's round runs in this process over its own functions
 (``_torch_parity.reference_trainer``: its sketch and train step, unjitted)
 from the same converted weights and batches; the port's rounds take the
@@ -29,6 +33,10 @@ replayed. The reference's round does not depend on the mesh.
 - Each rank's collectives (calls and wire bytes, counted by the rank mesh)
   equal the dry run's reckoning for that mesh
   (``launch.dryrun.rank_collectives``) over the rounds.
+- Every ``model_loss`` call of a rank's steps (the JVP passes and the
+  train step) gets its compute blocks: qwen2's TP blocks over two model
+  ranks, never a whole split leaf; the whole model elsewhere. Its
+  compute-weight bytes equal the dry run's.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from repro_torch.flatten_util import tree_leaves, tree_unflatten
 from repro_torch.launch import dryrun
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
-from repro_torch.launch.sharding import Sharding, params_pspecs, to_shardings
+from repro_torch.launch.sharding import Sharding, params_pspecs, to_shardings, tp_pspecs
 from repro_torch.launch.steps import build_train_step, params_structs
 from repro_torch.models.config import InputShape
 from repro_torch.optim import optimizers as topt
@@ -62,6 +70,8 @@ from repro_torch.optim import optimizers as topt
 N_FL, B, SEQ, LR, SEED = 4, 8, 16, 0.05, 3
 ARCHS = ("qwen2-0.5b", "mamba2-370m")
 MESHES = {"2x1": 1, "1x2": 2}  # name → ranks a model group
+SPLIT4 = f"{ARCHS[0]}-sgd-2x2"  # the (2, 2) case on four ranks, SPLIT4_ROUNDS rounds
+SPLIT4_ROUNDS = 2
 ROUNDS = {"sgd": 3, "adamw": 1}
 CASES = ((ARCHS[0], "sgd"), (ARCHS[0], "adamw"), (ARCHS[1], "sgd"))  # each sgd before adamw
 FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_var", "grad_norm")
@@ -94,8 +104,8 @@ def _case(arch: str, optimizer: str):
 
 def _reference(port, reference):
     """The reference's ``train_round`` over the case's batches → (each
-    round's values of FIELDS and n_scheduled, its final parameters and
-    the gradients each update got, both as port trees)."""
+    round's values of FIELDS and n_scheduled, its parameters after each
+    round and the gradients each update got, both as port trees)."""
     opt_name, lr = port["optimizer"]
     opt, seen = getattr(jopt, opt_name)(lr), []
     ns = reference_trainer(reference["cfg"], reference["tcfg"], N_FL, B, SEED, opt, seen,
@@ -115,14 +125,15 @@ def _reference(port, reference):
     ns.stats_bundle.fn, ns.train_bundle.fn = log_stats, log_train
     jp = jax.tree.map(jnp.asarray, reference["params"])
     js = opt.init(jp)
-    rounds = []
+    to_port = lambda tree: lm_params_from_jax(tree, port["cfg"], device="cpu")  # noqa: E731
+    rounds, after = [], []
     for batch in reference["batches"]:
         jp, js, diag = jtrain.POFLTrainer.train_round(
             ns, jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
         rounds.append({**logged[-1], **diag,
                        "n_scheduled": int((jnp.asarray(logged[-1]["coeffs"]) > 0).sum())})
-    to_port = lambda tree: lm_params_from_jax(tree, port["cfg"], device="cpu")  # noqa: E731
-    return rounds, to_port(jp), [to_port(g) for g in seen]
+        after.append(to_port(jp))
+    return rounds, after, [to_port(g) for g in seen]
 
 
 def _one_process(case):
@@ -144,10 +155,15 @@ def _one_process(case):
     return diags, params, seen
 
 
-def _shardings(cfg, shape, model: int):
+def _mesh(case) -> ShapeMesh:
+    """A shape-only copy of the case's rank mesh."""
+    return ShapeMesh(("data", "model"), (case.get("data", 2 // case["model"]), case["model"]))
+
+
+def _shardings(case):
     """The parameters' Shardings on a shape-only copy of the rank mesh."""
-    mesh = ShapeMesh(("data", "model"), (2 // model, model))
-    return mesh, to_shardings(params_pspecs(params_structs(cfg), mesh), mesh)
+    mesh = _mesh(case)
+    return mesh, to_shardings(params_pspecs(params_structs(case["cfg"]), mesh), mesh)
 
 
 def _block(sh: Sharding, whole, coords):
@@ -164,24 +180,35 @@ def runs(tmp_path_factory):
     cases = {(arch, opt): _case(arch, opt) for arch, opt in CASES}
     inp = {f"{arch}-{opt}-{mesh}": {**cases[arch, opt][0], "model": model}
            for arch, opt in CASES for mesh, model in MESHES.items()}
-    with ThreadPoolExecutor(1) as pool:
+    qwen = cases[ARCHS[0], "sgd"][0]
+    split4 = {SPLIT4: {**qwen, "model": 2, "data": 2, "batches": qwen["batches"][:SPLIT4_ROUNDS],
+                       "draws": qwen["draws"][:SPLIT4_ROUNDS]}}
+    with ThreadPoolExecutor(2) as pool:
         launched = pool.submit(launch_ranks, "train_ranks", 2, inp,
                                tmp_path_factory.mktemp("train_ranks"))
+        launched4 = pool.submit(launch_ranks, "train_ranks", 4, split4,
+                                tmp_path_factory.mktemp("train_ranks4"))
         ref, want = {}, {}
         for (arch, opt), (port, reference) in cases.items():
             if opt == "sgd":
                 ref[arch] = _reference(port, reference)
-            rounds, final, seen = ref[arch]
-            want[arch, opt] = ((rounds, final, seen) if opt == "sgd" else
+            rounds, after, seen = ref[arch]
+            want[arch, opt] = ((rounds, after[-1], seen) if opt == "sgd" else
                                (rounds[:1], None, seen[:1]), _one_process(port))
-        got = launched.result()
-    return {f"{arch}-{opt}-{mesh}": (inp[f"{arch}-{opt}-{mesh}"], got[f"{arch}-{opt}-{mesh}"],
-                                     *want[arch, opt])
-            for arch, opt in CASES for mesh in MESHES}
+        rounds, after, seen = ref[ARCHS[0]]
+        n = SPLIT4_ROUNDS
+        want4 = ((rounds[:n], after[n - 1], seen[:n]),
+                 _one_process({**qwen, "batches": qwen["batches"][:n], "draws": qwen["draws"][:n]}))
+        got = {**launched.result(), **launched4.result()}
+    out = {f"{arch}-{opt}-{mesh}": (inp[f"{arch}-{opt}-{mesh}"], got[f"{arch}-{opt}-{mesh}"],
+                                    *want[arch, opt])
+           for arch, opt in CASES for mesh in MESHES}
+    out[SPLIT4] = (split4[SPLIT4], got[SPLIT4], *want4)
+    return out
 
 
 def _sgd_names():
-    return [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES]
+    return [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES] + [SPLIT4]
 
 
 def _assert_rounds(rounds, want):
@@ -198,7 +225,7 @@ def test_three_sgd_rounds_over_ranks_match_one_process(runs, name):
     """Every round against the reference's ``train_round``, and against the
     one-process port trainer."""
     case, got, (rounds, _, _), (diags, _, _) = runs[name]
-    assert len(got["rounds"]) == 3
+    assert len(got["rounds"]) == len(case["batches"]) == (SPLIT4_ROUNDS if name == SPLIT4 else 3)
     _assert_rounds(got["rounds"], rounds)
     _assert_rounds(got["rounds"], diags)
     assert all(float(r["n_scheduled"]) == 2 for r in rounds)
@@ -210,7 +237,7 @@ def test_each_rank_holds_its_spec_blocks_of_the_one_process_parameters(runs, nam
     final parameters (and of the one-process port trainer's); the masters
     and the optimizer state are held as blocks only."""
     case, got, (_, ref_final, _), (_, final, _) = runs[name]
-    mesh, p_sh = _shardings(case["cfg"], case["shape"], case["model"])
+    mesh, p_sh = _shardings(case)
     shardings = tree_leaves(p_sh)
     assert any(not sh.replicated() for sh in shardings)  # something is split
     for rank in got["ranks"]:
@@ -234,7 +261,7 @@ def test_adamw_round_gradients_over_ranks_match_one_process(runs, mesh):
     rank's update is AdamW's update of its own gradients."""
     name = f"{ARCHS[0]}-adamw-{mesh}"
     case, got, (rounds, _, ref_seen), (_, _, seen) = runs[name]
-    _, p_sh = _shardings(case["cfg"], case["shape"], case["model"])
+    _, p_sh = _shardings(case)
     shardings = tree_leaves(p_sh)
     _assert_rounds(got["rounds"], rounds)
     opt = topt.adamw(LR)
@@ -256,25 +283,54 @@ def _blocks_of(tree, p_sh, coords):
                                  zip(tree_leaves(tree), tree_leaves(p_sh))])
 
 
+def _split(case) -> bool:
+    """Whether the case's model ranks split its model tensor-parallel."""
+    return case["cfg"].arch_type == "dense" and case["model"] > 1
+
+
 @pytest.mark.parametrize("name", [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES]
-                         + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES])
+                         + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES] + [SPLIT4])
 def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     """Every rank's gathers, reductions and broadcasts, counted with their
     wire bytes by the rank mesh as it ran, equal the dry run's reckoning of
-    a round on that mesh (gloo on the CPU gathers by all-gather) times the
-    rounds."""
+    a round on that mesh (gloo on the CPU gathers by all-gather; fp32
+    compute, the trainer's two probes) times the rounds: over model ranks
+    that split qwen2 the tensor-parallel all-reduces too."""
     case, got, _, _ = runs[name]
-    mesh = ShapeMesh(("data", "model"), (2 // case["model"], case["model"]))
+    mesh = _mesh(case)
     opt_name, lr = case["optimizer"]
     bundle = build_train_step(case["cfg"], case["shape"], mesh, getattr(topt, opt_name)(lr),
                               dtype=torch.float32)
-    per_round = dryrun.rank_collectives(case["cfg"], bundle, mesh, "all-gather", N_FL)
+    per_round = dryrun.rank_collectives(case["cfg"], bundle, mesh, "all-gather", N_FL,
+                                        dtype=torch.float32, n_probes=case["tcfg"].n_probes)
     n_rounds = len(case["batches"])
     want = {op: {k: v * n_rounds for k, v in c.items()} for op, c in per_round.items()}
     assert want["gather"]["calls"] > 0 and want["broadcast"]["calls"] == n_rounds
-    assert (want["reduce"]["calls"] > 0) == (case["model"] == 1)
+    assert (want["reduce"]["calls"] > 0) == (mesh.shape["data"] > 1 or _split(case))
     for rank in got["ranks"]:
         assert rank["collectives"] == want
+
+
+@pytest.mark.parametrize("name", [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES] + [SPLIT4])
+def test_each_rank_differentiates_its_compute_blocks(runs, name):
+    """Every ``model_loss`` call of a rank's steps (1 + 2 JVP passes and
+    the train step a round) gets its compute blocks: over model ranks that
+    split qwen2 each split leaf is its TP block, never the whole leaf,
+    and the norms whole; elsewhere the whole model. The rank's
+    compute-weight bytes are the dry run's."""
+    case, got, _, _ = runs[name]
+    mesh = _mesh(case)
+    structs = params_structs(case["cfg"])
+    whole = [tuple(x.shape) for x in tree_leaves(structs)]
+    want = whole
+    if _split(case):
+        tp = to_shardings(tp_pspecs(structs, case["cfg"], mesh), mesh)
+        want = [sh.block_shape(x.shape) for x, sh in zip(tree_leaves(structs), tree_leaves(tp))]
+        assert all(w != x for w, x, sh in zip(want, whole, tree_leaves(tp))
+                   if not sh.replicated())
+    for rank in got["ranks"]:
+        assert rank["loss_weights"] == [want] * (len(case["batches"]) * (1 + 2 + 1))
+        assert rank["compute_weight_bytes"] == dryrun.compute_weight_bytes(case["cfg"], mesh)
 
 
 def test_one_rank_mesh_is_the_one_card_trainer_bitwise():
