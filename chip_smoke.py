@@ -2558,8 +2558,17 @@ def moe_decisions(cpu_routes, card_routes) -> list:
     CPU probabilities are more than MOE_TIE apart; positions and drops
     equal at every (slot, token) whose expert no token with other experts
     chose in its group (a changed choice moves later positions in the
-    experts it touches). → per layer counts; raises on any other
-    difference."""
+    experts it touches). → per layer counts (:func:`moe_decision_counts`);
+    raises on any other difference."""
+    out = moe_decision_counts(cpu_routes, card_routes)
+    if any(r["experts_differ_past_a_tie"] or r["held_positions_or_drops_differ"] for r in out):
+        raise AssertionError(f"MoE routing: card and CPU decide differently: {out}")
+    return out
+
+
+def moe_decision_counts(cpu_routes, card_routes) -> list:
+    """:func:`moe_decisions`' counts a layer, ``cpu_routes`` the side whose
+    probabilities define the ties; raises on nothing."""
     out = []
     for c, g in zip(cpu_routes, card_routes, strict=True):
         g = type(g)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in g))
@@ -2580,8 +2589,6 @@ def moe_decisions(cpu_routes, card_routes) -> list:
                     "held_slots": int(held.sum()), "dropped_cpu": int((~c.within).sum()),
                     "dropped_card": int((~g.within).sum()),
                     "held_positions_or_drops_differ": int(moved.sum())})
-    if any(r["experts_differ_past_a_tie"] or r["held_positions_or_drops_differ"] for r in out):
-        raise AssertionError(f"MoE routing: card and CPU decide differently: {out}")
     return out
 
 
@@ -2597,10 +2604,8 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None, n_extra=0) -
     greedy token, so a near-tie cannot send them down different paths. A
     model with Mamba2 layers takes Mamba2's dt_bias
     (:func:`mamba2_dt_bias`): at the reference's zeros the fp32 model itself
-    drifts (``ssm_depth_drift``). A moe model's prefill routing is held by
-    :func:`moe_decisions`."""
-    from unittest import mock
-
+    drifts (``ssm_depth_drift``). A moe model's prefill routing
+    (``layers.recorded_routes``) is held by :func:`moe_decisions`."""
     from repro_torch import configs
     from repro_torch.flatten_util import tree_map
     from repro_torch.launch.serve import Server
@@ -2617,18 +2622,11 @@ def serve_parity(dev, arch, batch_size, prompt, phase, layers=None, n_extra=0) -
     if cfg.ssm is not None:
         params = mamba2_dt_bias(params, cfg)
     out, seconds, routes = {}, {}, {}
-    route = lm_layers.moe_route
     for where in ("cpu", dev):
         server = Server(cfg, shape, where, dtype=torch.float32)
         p = params if where == "cpu" else tree_map(lambda x: x.to(dev), params)
-        seen = routes.setdefault(str(where), [])
-
-        def recording(*args, _seen=seen, **kw):
-            _seen.append(route(*args, **kw))
-            return _seen[-1]
-
         t0 = time.perf_counter()
-        with mock.patch.object(lm_layers, "moe_route", recording):
+        with lm_layers.recorded_routes() as routes[str(where)]:
             first, logits, cache = server.prefill(p, batch)
         out[str(where)] = (p, first.cpu(), logits.cpu(), pad_cache(cache, total))
         seconds[str(where)] = time.perf_counter() - t0
@@ -3143,6 +3141,14 @@ RANKS_BF16_ROUNDS, RANKS_BF16_TOL = 1, 2.0**-7
 # the round values held: the schedule, the loss and the sketched statistics
 RANKS_FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_var",
                 "grad_norm")
+# (d): the MoE over the data ranks: olmoe-1b-7b at full width cut to 1 of its
+# 16 layers on the (2, 1) mesh, RANKS_ROUNDS rounds in fp32 and
+# RANKS_BF16_ROUNDS in bf16, held as (b) is. Each rank gathers the whole fp32
+# masters (2.5 GB; its two probes and the noise are as large) and three
+# processes share the card: at 2 layers an fp32 rank ran out of an H100's
+# 80 GB in its JVP pass, and there gloo moved the masters at about 0.5 GB/s
+# (PERF.md §6, the MoE over data ranks)
+RANKS_MOE_ARCH, RANKS_MOE_LAYERS, RANKS_MOE_MESH = "olmoe-1b-7b", 1, (2, 1)
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3266,29 +3272,53 @@ def one_rank(dev) -> tuple[dict, int]:
     return out, launched["flash_attention"]
 
 
-def ranks_run(sizes: tuple, ref: dict, tol: float) -> tuple[dict, int]:
-    """(b) or (c): the launcher's ``train`` workload on two ranks sharing
-    the card over gloo on a (data, model) mesh of ``sizes``, in
-    ``ref["dtype"]`` for ``ref["rounds"]`` rounds, held to this process's
-    one-card run ``ref`` within ``tol`` → (the comparison, both ranks'
-    flash launches). Round 0 starts both sides from the same parameters,
-    so its gaps are the rounding of the ranks' split work alone."""
+def ranks_run(runs: list) -> tuple[list, dict]:
+    """(b), (c) and (d): the launcher's ``train`` workload on two ranks
+    sharing the card over gloo, one launch running one run for each
+    ``(sizes, ref, tol)`` of ``runs`` (a plan: ``ref``'s model at its depth
+    on the (data, model) mesh of ``sizes``, in its dtype for its rounds,
+    each from its model's initial weights), each held to this process's
+    one-card run ``ref`` within ``tol`` (:func:`ranks_hold`) → (a list of
+    (the comparison, both ranks' flash launches), the launch's seconds: its
+    wall time, each run's own (set-up to outputs, rank 0) and the rest,
+    what the launch costs once whatever it runs)."""
     import tempfile
 
+    from repro_torch.launch.distributed import plan_out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, plan = str(Path(tmp) / "train.npz"), Path(tmp) / "plan.json"
+        plan.write_text(json.dumps([{"arch": ref["arch"], "layers": ref["layers"],
+                                     "model": sizes[1], "dtype": ref["dtype"],
+                                     "n_rounds": ref["rounds"]} for sizes, ref, _ in runs]))
+        t0 = time.perf_counter()
+        launch(["--procs", 2, "--workload", "train", "--device", "cuda", "--plan", plan,
+                "--out", out, "--save-blocks"], timeout=RANKS_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        got = []
+        for i, (_, ref, _) in enumerate(runs):
+            out_i = plan_out(out, i, len(runs))
+            data = np.load(out_i)
+            got.append((json.loads(str(data["meta"])), {k: data[k] for k in ref["records"]},
+                        [torch.load(f"{out_i}.rank{r}.pt") for r in range(2)]))
+    run_s = [meta["seconds"] for meta, _, _ in got]
+    timing = {"seconds": seconds, "runs_seconds": run_s, "fixed_seconds": seconds - sum(run_s)}
+    return [ranks_hold(sizes, ref, tol, *g) for (sizes, ref, tol), g in zip(runs, got)], timing
+
+
+def ranks_hold(sizes: tuple, ref: dict, tol: float, meta: dict, got: dict,
+               blocks: list) -> tuple[dict, int]:
+    """One run of :func:`ranks_run` (its ``meta``, records and each rank's
+    final ``blocks``) against the one-card run ``ref`` within ``tol``:
+    every round's RANKS_FIELDS and every rank's final blocks and their
+    update, decisions equal, each rank's bytes and collectives the dry
+    run's, its flash launches → (the comparison, both ranks' flash
+    launches). Round 0 starts both sides from the same parameters, so its
+    gaps are the rounding of the ranks' split work alone."""
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.sharding import Sharding
 
     n_rounds = ref["rounds"]
-    with tempfile.TemporaryDirectory() as tmp:
-        out = str(Path(tmp) / "train.npz")
-        launch(["--procs", 2, "--workload", "train", "--device", "cuda", "--arch", TRAIN_ARCH,
-                "--layers", RANKS_LAYERS, "--model", sizes[1], "--dtype", ref["dtype"],
-                "--n-rounds", n_rounds, "--out", out, "--save-blocks"],
-               timeout=RANKS_TIMEOUT)
-        data = np.load(out)
-        meta = json.loads(str(data["meta"]))
-        got = {k: data[k] for k in ref["records"]}
-        blocks = [torch.load(f"{out}.rank{r}.pt") for r in range(2)]
     want = ref["records"]
     errs = {k: rel(torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in RANKS_FIELDS}
     round0 = {k: rel(torch.as_tensor(got[k][0]), torch.as_tensor(want[k][0]))
@@ -3321,7 +3351,8 @@ def ranks_run(sizes: tuple, ref: dict, tol: float) -> tuple[dict, int]:
                                 ref["n_fl"], n_rounds, ref["dtype"])
     per_round = ref["cfg"].n_layers * (1 + TRAIN_PROBES) + 2 * ref["cfg"].n_layers
     launched = [rank["launches"]["flash_attention"] for rank in meta["per_rank"]]
-    out = {"mesh": sizes, "dtype": ref["dtype"], "rounds": n_rounds, "tolerance": tol,
+    out = {"arch": ref["arch"], "n_layers": ref["layers"], "mesh": sizes, "dtype": ref["dtype"],
+           "rounds": n_rounds, "tolerance": tol,
            "backend": meta["backend"], "rel_err": errs, "round_0_rel_err": round0,
            "decisions_equal": decisions, "ranks": ranks, "reckoned": reckoned,
            "reckoned_collectives": coll}
@@ -3334,10 +3365,13 @@ def ranks_run(sizes: tuple, ref: dict, tol: float) -> tuple[dict, int]:
     return out, sum(launched)
 
 
-def one_card_reference(dev, dtype: str, n_rounds: int) -> dict:
+def one_card_reference(dev, dtype: str, n_rounds: int, arch: str = TRAIN_ARCH,
+                       layers: int = RANKS_LAYERS,
+                       meshes: tuple = tuple(RANKS_MESHES.values())) -> dict:
     """This process's one-card trainer on the launcher's ``train`` workload
-    cell at RANKS_LAYERS layers in ``dtype``: its records, initial and
-    final parameters (on the host) and the specs of both rank meshes."""
+    cell, ``arch`` at ``layers`` layers in ``dtype``: its records, initial
+    and final parameters (on the host) and the specs of the rank meshes
+    ``meshes``."""
     from repro_torch.launch import distributed
     from repro_torch.launch.distributed import flat_tree, train_rounds, train_setup
     from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
@@ -3347,19 +3381,20 @@ def one_card_reference(dev, dtype: str, n_rounds: int) -> dict:
     from repro_torch.models import api
 
     n_fl = distributed.TRAIN_FL
-    cfg, shape, tcfg, opt, batch_fn = train_setup(TRAIN_ARCH, RANKS_LAYERS, n_fl,
-                                                  distributed.TRAIN_BATCH, distributed.TRAIN_SEQ,
-                                                  "sgd", dtype, n_rounds, dev)
+    cfg, shape, tcfg, opt, batch_fn = train_setup(arch, layers, n_fl, distributed.TRAIN_BATCH,
+                                                  distributed.TRAIN_SEQ, "sgd", dtype, n_rounds,
+                                                  dev)
     trainer = POFLTrainer(cfg, shape, make_host_mesh(1, n_fl, dev), tcfg, optimizer=opt)
     final, _, records, round_ms = train_rounds(trainer, batch_fn, n_rounds)
-    ref = {"cfg": cfg, "shape": shape, "optimizer": opt, "records": records, "dtype": dtype,
+    ref = {"arch": arch, "layers": layers, "cfg": cfg, "shape": shape, "optimizer": opt,
+           "records": records, "dtype": dtype,
            "rounds": n_rounds, "n_fl": n_fl, "round_ms": round_ms,
            "final": {k: v.cpu() for k, v in flat_tree(final).items()},
            "init": {k: v.cpu() for k, v in
                     flat_tree(api.model_init(cfg, tcfg.seed + 1, device=dev)).items()},
            "specs": {sizes: flat_tree(params_pspecs(params_structs(cfg),
                                                     ShapeMesh(("data", "model"), sizes)))
-                     for sizes in RANKS_MESHES.values()}}
+                     for sizes in meshes}}
     del trainer, final
     torch.cuda.empty_cache()
     return ref
@@ -3371,30 +3406,42 @@ def train_ranks_phase(dev) -> dict:
     (:func:`one_rank`); then this process's one-card trainer at
     RANKS_LAYERS layers, ``sgd``, and (b) the (2, 1) and (c) the (1, 2)
     mesh of two ranks sharing the card over gloo, each held to it
-    (:func:`ranks_run`) in fp32 within ROUND_TOL, and (b) and (c) again in
-    bf16 within RANKS_BF16_TOL: every round's RANKS_FIELDS and every
+    (:func:`ranks_run`) in fp32 within ROUND_TOL and
+    for a round in bf16 within RANKS_BF16_TOL: every round's RANKS_FIELDS and every
     rank's final blocks and their update, decisions equal, each rank's
     bytes of masters, optimizer state and compute weights (on (c) its
     tensor-parallel blocks) and its collectives' calls and wire bytes
     equal to the dry run's, the flash kernel L × (1 + TRAIN_PROBES + 2)
-    times a rank a round."""
+    times a rank a round; and (d): olmoe-1b-7b at RANKS_MOE_LAYERS layers
+    on the (2, 1) mesh held the same way to this process's one-card trainer
+    at that depth (its routing groups and load-balance loss over both data
+    ranks), in fp32 and in bf16. One launch runs (b), (c) and (d)."""
     one, launched = one_rank(dev)
-    ref = one_card_reference(dev, RANKS_DTYPE, RANKS_ROUNDS)
     out = {"a": one}
-    for part, sizes in RANKS_MESHES.items():
-        out[part], n = ranks_run(sizes, ref, ROUND_TOL)
-        launched += n
-    refs = {"float32": ref, "bfloat16": one_card_reference(dev, "bfloat16", RANKS_BF16_ROUNDS)}
-    for part, sizes in RANKS_MESHES.items():
-        out[f"{part}_bf16"], n = ranks_run(sizes, refs["bfloat16"], RANKS_BF16_TOL)
+    refs = {"float32": one_card_reference(dev, RANKS_DTYPE, RANKS_ROUNDS),
+            "bfloat16": one_card_reference(dev, "bfloat16", RANKS_BF16_ROUNDS)}
+    for dtype, rounds in (("float32", RANKS_ROUNDS), ("bfloat16", RANKS_BF16_ROUNDS)):
+        refs[f"moe_{dtype}"] = one_card_reference(dev, dtype, rounds, RANKS_MOE_ARCH,
+                                                  RANKS_MOE_LAYERS, (RANKS_MOE_MESH,))
+    # one launch (PERF.md §6: a launch's fixed seconds): each part's fp32
+    # run and its bf16 round
+    runs = {}
+    for part, sizes, model in ([(part, sizes, "") for part, sizes in RANKS_MESHES.items()]
+                               + [("d", RANKS_MOE_MESH, "moe_")]):
+        runs[part] = (sizes, refs[f"{model}float32"], ROUND_TOL)
+        runs[f"{part}_bf16"] = (sizes, refs[f"{model}bfloat16"], RANKS_BF16_TOL)
+    held, out["launch"] = ranks_run(list(runs.values()))
+    for key, (comparison, n) in zip(runs, held, strict=True):
+        out[key] = {**comparison, "flash_launches": n}
         launched += n
     out["one_card_reference"] = {
-        dtype: {"n_layers": r["cfg"].n_layers, "round_ms": r["round_ms"],
-                "records": {k: v.tolist() for k, v in r["records"].items()}}
-        for dtype, r in refs.items()}
+        name: {"arch": r["arch"], "n_layers": r["cfg"].n_layers, "round_ms": r["round_ms"],
+               "records": {k: v.tolist() for k, v in r["records"].items()}}
+        for name, r in refs.items()}
     emit("train_ranks", arch=TRAIN_ARCH, tolerance=ROUND_TOL, bf16_tolerance=RANKS_BF16_TOL,
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, fl_devices=TRAIN_FL, ranks_layers=RANKS_LAYERS,
-         ranks_rounds=RANKS_ROUNDS, card=nvidia_smi(), **out)
+         ranks_rounds=RANKS_ROUNDS, moe_arch=RANKS_MOE_ARCH, moe_layers=RANKS_MOE_LAYERS,
+         card=nvidia_smi(), **out)
     counts = {name: 0 for name in kernel_counters()}
     counts["flash_attention"] = launched
     return counts
@@ -3425,8 +3472,16 @@ SERVE_RANKS_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
 # logits and cache layer by layer: at most SERVE_RANKS_SPLIT_RATIO times one
 # process's bf16 prefill's distance from it (ROADMAP C); the split is also
 # held at full depth in fp32 ("fp32_deep")
-SERVE_RANKS_DEEP = ("bf16", "ssm")
+SERVE_RANKS_DEEP = ("bf16", "ssm", "moe")
 SERVE_RANKS_SPLIT_RATIO = 1.5
+# olmoe-1b-7b on (b), its rows routed in the whole batch's groups over both
+# data ranks: a fp32 run cut to SERVE_RANKS_MOE_CUT layers and a full-depth
+# bf16 run, each a prefill of SERVE_BATCH × SERVE_PROMPT (a rank's rows hold
+# whole groups of 1,024) and 8 steps of 128 rows from a seeded cache of
+# SERVE_RANKS_MOE_CACHE slots (one group of 128 tokens a layer spans both
+# ranks at a capacity of 20, so tokens drop)
+SERVE_RANKS_MOE = ("moe_cut", "moe")
+SERVE_RANKS_MOE_CUT, SERVE_RANKS_MOE_CACHE = 2, 256
 
 
 def serve_ranks_plan():
@@ -3438,7 +3493,10 @@ def serve_ranks_plan():
     128 × 4,096 cache, and at full depth in fp32 on a 2 × 512 prompt,
     2 steps from its prefill; mamba2-370m over data ranks at the ssm_serve shape
     (decoding from its prefill), at full depth and cut to 16 of 48 layers
-    (the cut depths: PERF.md §6, serving over ranks)."""
+    (the cut depths: PERF.md §6, serving over ranks); olmoe-1b-7b over data
+    ranks (SERVE_RANKS_MOE): a prefill of SERVE_BATCH × SERVE_PROMPT and 8
+    steps of 128 rows from a seeded cache, in fp32 at SERVE_RANKS_MOE_CUT
+    layers and at full depth in bf16."""
     from repro_torch.launch.distributed import ServeRun
     from repro_torch.models.config import INPUT_SHAPES
 
@@ -3455,7 +3513,11 @@ def serve_ranks_plan():
                              cache_len=4096, **common),
             "fp32_deep": ServeRun(SERVE_ARCH, 0, "float32", batch=2, prompt=512, steps=2),
             "ssm_cut": ServeRun(SSM_ARCH, 16, "bfloat16", **common),
-            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common)}
+            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common),
+            "moe_cut": ServeRun(MOE_ARCH, SERVE_RANKS_MOE_CUT, "float32", cache_batch=128,
+                                cache_len=SERVE_RANKS_MOE_CACHE, **common),
+            "moe": ServeRun(MOE_ARCH, 0, "bfloat16", cache_batch=128,
+                            cache_len=SERVE_RANKS_MOE_CACHE, **common)}
 
 
 def step_hold(got_logits, want_logits, got_tokens, want_tokens, step) -> tuple[float, float,
@@ -3749,6 +3811,110 @@ def rows_bitwise(got: dict, want: dict) -> bool:
     return all(torch.equal(a, b) for a, b in pairs)
 
 
+def moe_rows_prefill(run, dev, sizes, coords) -> dict:
+    """This process's one-card prefill of the rows the rank at ``coords`` of
+    a (data, 1) mesh of ``sizes`` holds, from the same weights and prompt
+    rows as that rank's ``launch.distributed.serve_run`` → its first
+    tokens, last-position logits, cache and each layer's routing, on the
+    host: a rank whose rows hold whole routing groups routes them as one
+    process does, so it must equal this bitwise."""
+    from repro_torch import configs
+    from repro_torch.launch.distributed import _on_host, _routes_on_host, serve_inputs
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.layers import recorded_routes
+
+    cfg = configs.cut_depth(configs.base_config(run.arch), run.layers or None)
+    tokens, _ = serve_inputs(run, cfg)
+    n = run.batch // sizes[0]
+    rows = tokens[coords["data"] * n:(coords["data"] + 1) * n]
+    server = Server(cfg, InputShape("rows", run.prompt + run.steps, n, "decode"), dev,
+                    getattr(torch, run.dtype))
+    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    with recorded_routes() as routes:
+        first, logits, cache = server.prefill(
+            params, {"tokens": rows}, pad_to=None if run.cache_len else run.prompt + run.steps)
+    out = {"first": first.cpu(), "logits": logits[:, -1].cpu(), "cache": _on_host(cache),
+           "routes": _routes_on_host(routes)}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def whole_groups(run, sizes) -> bool:
+    """Whether a data rank's rows of ``run``'s prompt on a (data, 1) mesh
+    of ``sizes`` hold whole routing groups of the batch's
+    (``layers._moe_group_size``)."""
+    from repro_torch.models.layers import _moe_group_size
+
+    tokens = run.batch // sizes[0] * run.prompt
+    return tokens % _moe_group_size(sizes[0] * tokens) == 0
+
+
+def prefill_bitwise(got: dict, want: dict) -> bool:
+    """A rank's prefill equal to :func:`moe_rows_prefill`'s bitwise, its
+    routing too."""
+    from repro_torch.models.cache import cache_leaves
+
+    pairs = [(got[k], want[k]) for k in ("first", "logits")]
+    pairs += list(zip(cache_leaves(got["cache"]), cache_leaves(want["cache"])))
+    pairs += [(a, b) for g, w in zip(got["routes"], want["routes"], strict=True)
+              for a, b in zip(g[:5], w[:5])]
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def recounted(route) -> bool:
+    """Whether a whole route's positions are the counts of its experts'
+    earlier choices in each group, slot outer (numpy, apart from the
+    port's ``layers._slot_positions``), and its drops those at or past the
+    capacity."""
+    g, gs, k = route.gate_idx.shape
+    e_tok = route.gate_idx.transpose(1, 2).reshape(g, k * gs).numpy()
+    onehot = np.eye(route.probs.shape[-1], dtype=np.int64)[e_tok]
+    pos = ((np.cumsum(onehot, 1) * onehot).sum(-1) - 1).reshape(g, k, gs)
+    return np.array_equal(route.pos.numpy(), pos) and np.array_equal(
+        route.within.numpy(), pos < route.cap)
+
+
+def moe_routes_hold(run, gots: list, want: dict, exact: bool) -> tuple[dict, bool]:
+    """A MoE run's routing over the data ranks: every layer's routes of the
+    prefill and of each decode step, the ranks' joined in the whole batch's
+    groups (``layers.whole_route``), their positions and drops recounted
+    from their experts (:func:`recounted`), against one process's over the
+    whole batch (:func:`moe_decision_counts`; held where ``exact``: the
+    fp32 run at a cut depth, where both sides' probabilities agree far
+    inside MOE_TIE; at full depth in bf16 reported, since the ranks' rows
+    round otherwise than the whole batch's from the first layer on and the
+    decode's tokens may part by the margin rule) and the decode's dropped
+    (slot, token) count, above 0 in a decode of 128 rows →
+    (the figures, whether every hold held)."""
+    from repro_torch.models.layers import whole_route
+
+    parts = {part: [whole_route([g[part]["routes"][i] for g in gots])
+                    for i in range(len(gots[0][part]["routes"]))]
+             for part in ("prefill", "decode")}
+    out = {"recounted": all(recounted(r) for rs in parts.values() for r in rs),
+           "capacity": {part: rs[0].cap for part, rs in parts.items()},
+           "group_size": {part: rs[0].gate_idx.shape[1] for part, rs in parts.items()},
+           "dropped": {part: sum(int((~r.within).sum()) for r in rs)
+                       for part, rs in parts.items()},
+           "decisions_held": exact}
+    ok = out["recounted"] and (run.cache_batch != 128 or run.cache_len == 0
+                               or out["dropped"]["decode"] > 0)
+    for part, rs in parts.items():
+        counts = moe_decision_counts(want[part]["routes"], rs)
+        out[f"{part}_decisions"] = {
+            key: sum(c[key] for c in counts)
+            for key in ("tokens", "near_ties", "experts_differ", "experts_differ_past_a_tie",
+                        "held_slots", "dropped_cpu", "dropped_card",
+                        "held_positions_or_drops_differ")}
+        if exact:
+            ok = ok and not (out[f"{part}_decisions"]["experts_differ_past_a_tie"]
+                             or out[f"{part}_decisions"]["held_positions_or_drops_differ"])
+    return out, ok
+
+
 def serve_costs(got: dict, run) -> dict:
     """A rank's serving figures: the prefill's ms and tokens/s, ms a decode
     step, the whole batch's tokens/s, peak GB, cache GB, weight GB, each
@@ -3845,12 +4011,12 @@ def serve_ranks_phase(dev) -> dict:
         wants[name] = serve_run(plan[name], dev)
         torch.cuda.empty_cache()
     out["one_process"] = {name: serve_costs(w, plan[name]) for name, w in wants.items()}
-    fp32 = {name: fp32_yardstick(plan[name], dev) for name in SERVE_RANKS_DEEP
-            if not name.startswith("ssm")}  # the runs split over model ranks
+    fp32 = {name: fp32_yardstick(run, dev) for name, run in plan.items()
+            if name in SERVE_RANKS_DEEP and run.arch == SERVE_ARCH}  # split over model ranks
     # one launch runs every mesh's runs (a launched rank is slow to reach
-    # its group); mamba2 over data ranks only
+    # its group); mamba2 and olmoe over data ranks only
     entries = [(part, name) for part, sizes in SERVE_RANKS_MESHES.items() for name in plan
-               if name != "a" and (sizes[1] == 1 or not name.startswith("ssm"))]
+               if name != "a" and (sizes[1] == 1 or plan[name].arch == SERVE_ARCH)]
     with tempfile.TemporaryDirectory() as tmp:
         plan_file = Path(tmp) / "plan.json"
         plan_file.write_text(json.dumps([
@@ -3871,7 +4037,12 @@ def serve_ranks_phase(dev) -> dict:
             held, ok = serve_rank_hold(run, got, wants[name], sizes, got["coordinates"],
                                        "all-reduce" if dev.type == "cuda" else "all-gather",
                                        name in SERVE_RANKS_DEEP, fp32.get(name))
-            if name in SERVE_RANKS_DEEP and sizes[1] == 1:
+            if name in SERVE_RANKS_MOE:
+                if whole_groups(run, sizes):  # its rows' prefill routes as one process's rows
+                    held["prefill_bitwise_one_process_rows"] = prefill_bitwise(
+                        got["prefill"], moe_rows_prefill(run, dev, sizes, got["coordinates"]))
+                    ok = ok and held["prefill_bitwise_one_process_rows"]
+            elif name in SERVE_RANKS_DEEP and sizes[1] == 1:
                 held["decode_bitwise_one_process_rows"] = rows_bitwise(
                     got["decode"], one_process_rows(run, dev, sizes, got["coordinates"]))
                 ok = ok and held["decode_bitwise_one_process_rows"]
@@ -3887,6 +4058,12 @@ def serve_ranks_phase(dev) -> dict:
         out.setdefault(part, {"mesh": sizes})[name] = {
             "run": dataclasses.asdict(run), "tolerance": SERVE_RANKS_TOL[run.dtype],
             "ranks": per_rank}
+        if name in SERVE_RANKS_MOE:
+            gots = [rank["runs"][i] for rank in ranks]
+            routing, ok = moe_routes_hold(run, gots, wants[name], name == "moe_cut")
+            out[part][name]["routing"] = routing
+            if not ok:
+                failed.append((part, name, "routing"))
     emit("serve_ranks", card=nvidia_smi(), steps=SERVE_RANKS_STEPS, **out)
     if failed:
         raise AssertionError(f"serve_ranks: holds failed on {failed}")

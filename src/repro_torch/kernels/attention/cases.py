@@ -75,6 +75,10 @@ CHECK_CASES = {
     # same rank's fp32 training forward (tensor-parallel training)
     "qwen2_prefill_tp2_bf16": (8, 2048, 2048, 7, 1, 64, torch.bfloat16, True, None, 0, False),
     "qwen2_train_tp2_fp32": (8, 2048, 2048, 7, 1, 64, torch.float32, True, None, 0, False),
+    # olmoe-1b-7b on one of two data ranks (4 of its 8 rows): the rank's
+    # prefill and its fp32 training forward
+    "olmoe_prefill_dp2_bf16": (4, 2048, 2048, 16, 16, 128, torch.bfloat16, True, None, 0, False),
+    "olmoe_train_dp2_fp32": (4, 2048, 2048, 16, 16, 128, torch.float32, True, None, 0, False),
 }
 
 

@@ -63,6 +63,16 @@ Usage:
     python -m repro_torch.launch.distributed --procs 2 --workload serve \
         --device cuda --model 2 --cache-len 32768 --out /tmp/serve
 
+    # the MoE over two data ranks: olmoe-1b-7b trained at 1 of 16 layers,
+    # served at full depth with 8 steps of 128 rows (each layer's routing
+    # group spans both ranks) after its prefill
+    python -m repro_torch.launch.distributed --procs 2 --workload train \
+        --device cuda --arch olmoe-1b-7b --layers 1 --model 1 --dtype float32 \
+        --out /tmp/train.npz
+    python -m repro_torch.launch.distributed --procs 2 --workload serve \
+        --device cuda --arch olmoe-1b-7b --model 1 --cache-batch 128 \
+        --cache-len 256 --out /tmp/serve
+
     # any script that calls sim.multihost.initialize_distributed() itself
     python -m repro_torch.launch.distributed --procs 2 -- python my_script.py
 
@@ -922,27 +932,66 @@ def counted_collectives() -> dict:
                  "seconds": span_totals(f"ranks.{op}")["seconds"]} for op in RANK_OPS}
 
 
+def train_plan(args) -> list[dict]:
+    """The train workload's runs, each ``{"arch", "layers", "model",
+    "dtype", "n_rounds"}``: ``--plan`` (a JSON file: a list of such dicts, a
+    missing key taken from its flag), else one run from the flags."""
+    flags = {"arch": args.arch, "layers": args.layers, "model": args.model,
+             "dtype": args.dtype, "n_rounds": args.n_rounds}
+    if not args.plan:
+        return [flags]
+    with open(args.plan) as f:
+        return [{**flags, **run} for run in json.load(f)]
+
+
+def plan_out(out: str, i: int, n_runs: int) -> str:
+    """Where run ``i`` of ``n_runs`` writes ``out``: ``out`` itself for one
+    run, else ``<stem>.<i><ext>``."""
+    if n_runs == 1:
+        return out
+    stem, ext = os.path.splitext(out)
+    return f"{stem}.{i}{ext}"
+
+
 def _worker_train(args) -> None:
     """One rank of the train workload: ``POFLTrainer`` over a (data,
-    model) mesh of every rank, ``--model`` ranks a model group, on
-    TRAIN_BATCH × TRAIN_SEQ tokens over TRAIN_FL FL devices with ``sgd``,
-    ``--arch`` cut to ``--layers`` in ``--dtype``. Rank 0
-    writes the records and every rank's costs to ``--out`` (npz; the
-    costs as JSON under ``meta``: each collective's calls, wire bytes and
-    seconds, the card synchronised around it, and the bytes of the fp32
-    weights its steps differentiate, its TP blocks where ``--model`` > 1
-    splits a dense model); with ``--save-blocks`` each
-    rank also writes its final parameter blocks to ``<out>.rank<r>.pt``."""
+    model) mesh of every rank on TRAIN_BATCH × TRAIN_SEQ tokens over
+    TRAIN_FL FL devices with ``sgd``, each run of :func:`train_plan` in
+    turn in one process group (a launch costs its ranks' start and their
+    group's set-up once, ``PERF.md`` §6): its ``arch`` cut to ``layers`` on
+    the mesh of ``model`` ranks a model group, in ``dtype`` for
+    ``n_rounds``, each from its model's initial weights. Rank 0 writes a run's records and every
+    rank's costs to its ``--out`` (:func:`plan_out`; npz, the costs as JSON
+    under ``meta``: each collective's calls, wire bytes and seconds, the
+    card synchronised around it, the bytes of the fp32 weights its steps
+    differentiate, its TP blocks where ``--model`` > 1 splits a dense
+    model, and the run's seconds from its set-up to its outputs); with
+    ``--save-blocks`` each rank also writes its final parameter blocks to
+    ``<out>.rank<r>.pt``."""
     from repro_torch.launch.mesh import make_rank_mesh
-    from repro_torch.launch.train import POFLTrainer
-    from repro_torch.obs.registry import metric_value, reset_metrics
     from repro_torch.sim.multihost import ensure_process_group
 
     ensure_process_group(device=args.device)
-    mesh = make_rank_mesh(model=args.model, n_fl=TRAIN_FL, device=args.device, timed=True)
+    meshes = {}
+    runs = train_plan(args)
+    for i, run in enumerate(runs):
+        if run["model"] not in meshes:
+            meshes[run["model"]] = make_rank_mesh(model=run["model"], n_fl=TRAIN_FL,
+                                                  device=args.device, timed=True)
+        _train_run(args, meshes[run["model"]], run, plan_out(args.out, i, len(runs)))
+    dist.destroy_process_group()
+
+
+def _train_run(args, mesh, run: dict, out: str) -> None:
+    """One run of :func:`_worker_train` on ``mesh``, written to ``out``."""
+    from repro_torch.launch.train import POFLTrainer
+    from repro_torch.obs.registry import metric_value, reset_metrics
+
+    t0 = time.perf_counter()
+    n_rounds = run["n_rounds"]
     cfg, shape, tcfg, opt, batch_fn = train_setup(
-        args.arch, args.layers, TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ, "sgd", args.dtype,
-        args.n_rounds, args.device)
+        run["arch"], run["layers"], TRAIN_FL, TRAIN_BATCH, TRAIN_SEQ, "sgd", run["dtype"],
+        n_rounds, args.device)
     trainer = POFLTrainer(cfg, shape, mesh, tcfg, optimizer=opt)
     counters = kernel_counters()
     if mesh.device.type == "cuda":
@@ -951,7 +1000,7 @@ def _worker_train(args) -> None:
     reset_metrics("ranks.")
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, args.n_rounds)
+    params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, n_rounds)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     rank = dist.get_rank()
     mine = {"rank": rank, "coordinates": mesh.coordinates(), "round_ms": round_ms,
@@ -963,15 +1012,18 @@ def _worker_train(args) -> None:
             "launches": launches}
     per_rank: list = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, mine)
-    meta = {"arch": args.arch, "n_layers": cfg.n_layers, "mesh": mesh.shape, "n_fl": TRAIN_FL,
-            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_rounds": args.n_rounds,
-            "dtype": args.dtype, "backend": dist.get_backend(), "per_rank": per_rank}
     print(f"[worker {rank}] train {json.dumps(mine)}", flush=True)
-    if args.out and args.save_blocks:
-        torch.save({k: v.cpu() for k, v in flat_tree(params).items()}, f"{args.out}.rank{rank}.pt")
-    if rank == 0 and args.out:
-        np.savez(args.out, meta=np.asarray(json.dumps(meta)), **records)
-    dist.destroy_process_group()
+    if out and args.save_blocks:
+        torch.save({k: v.cpu() for k, v in flat_tree(params).items()}, f"{out}.rank{rank}.pt")
+    meta = {"arch": run["arch"], "n_layers": cfg.n_layers, "mesh": mesh.shape,
+            "n_fl": TRAIN_FL, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_rounds": n_rounds,
+            "dtype": run["dtype"], "backend": dist.get_backend(), "per_rank": per_rank,
+            "seconds": time.perf_counter() - t0}
+    if rank == 0 and out:
+        np.savez(out, meta=np.asarray(json.dumps(meta)), **records)
+    del trainer, params, opt_state
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -1060,11 +1112,14 @@ def serve_run(run: ServeRun, where) -> dict:
     just before each), and the collectives (``counted_collectives``) of the
     prefill and its logits' gather, of the decode steps alone (``steps``:
     the timed part) and of the decode with the gathers of its logits and
-    tokens."""
+    tokens. A MoE model's runs also return every layer's routing
+    (``models.layers.recorded_routes``, on the host after the timed part):
+    the prefill's a layer, the decode's a step and layer (``routes``)."""
     from repro_torch import configs
     from repro_torch.launch.mesh import RankMesh
     from repro_torch.launch.serve import Server
     from repro_torch.models import api
+    from repro_torch.models.layers import recorded_routes
     from repro_torch.models.config import InputShape
     from repro_torch.obs.registry import reset_metrics
 
@@ -1089,15 +1144,16 @@ def serve_run(run: ServeRun, where) -> dict:
     own = run.cache_len == 0  # decode from the prefill's cache
     server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
                     where, dtype)
-    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    params = _in_turns(mesh, lambda: server.load_params(api.model_init(cfg, run.seed, dev)))
     weight_bytes = tensor_bytes(params)
     reset_metrics("span.ranks.")
     reset_metrics("ranks.")
     sync()
     zero()
     t0 = time.perf_counter()
-    first, logits, cache = server.prefill(params, server.batch_block({"tokens": tokens}),
-                                          pad_to=run.prompt + run.steps if own else None)
+    with recorded_routes() as prefill_routes:
+        first, logits, cache = server.prefill(params, server.batch_block({"tokens": tokens}),
+                                              pad_to=run.prompt + run.steps if own else None)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = read()
@@ -1105,7 +1161,8 @@ def serve_run(run: ServeRun, where) -> dict:
     out = {"weight_bytes": weight_bytes,
            "prefill": {"first": first.cpu(), "logits": logits[:, -1].cpu(),
                        "cache": _on_host(cache), "ms": prefill_ms, "launches": launches,
-                       "collectives": counted_collectives()}}
+                       "collectives": counted_collectives(),
+                       "routes": _routes_on_host(prefill_routes)}}
     start = run.prompt
     if not own:
         del cache
@@ -1122,8 +1179,9 @@ def serve_run(run: ServeRun, where) -> dict:
     sync()
     zero()
     t0 = time.perf_counter()
-    toks, cache, steps = server.decode(params, first, cache, start, run.steps + 1,
-                                       keep_logits=True)
+    with recorded_routes() as decode_routes:
+        toks, cache, steps = server.decode(params, first, cache, start, run.steps + 1,
+                                           keep_logits=True)
     sync()
     decode_s = time.perf_counter() - t0
     launches = read()
@@ -1144,11 +1202,33 @@ def serve_run(run: ServeRun, where) -> dict:
                               else None),
         "cache_bytes": tensor_bytes(list(cache)),
         "launches": launches, "steps_collectives": step_collectives,
-        "collectives": counted_collectives()}
+        "collectives": counted_collectives(), "routes": _routes_on_host(decode_routes)}
     del cache, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _in_turns(mesh, fn):
+    """``fn()`` on one device, or over a ``RankMesh`` on each rank in turn,
+    rank order, each waiting for the one before it: ranks that share a card
+    then hold one whole fp32 draw of the weights on it at a time (olmoe-1b-7b's
+    is 27.7 GB, beside its 13.8 GB served in bf16)."""
+    if mesh is None:
+        return fn()
+    out = None
+    for rank in range(dist.get_world_size()):
+        if rank == dist.get_rank():
+            out = fn()
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _routes_on_host(routes: list) -> list:
+    """Recorded ``MoERoute`` s with their tensors on the host."""
+    return [type(r)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in r)) for r in routes]
 
 
 def serve_plan(args) -> list[ServeRun]:
@@ -1334,7 +1414,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--plan", default="",
                         help="serve: a JSON file of runs (a list of ServeRun fields) in place "
                              "of the flags', each on the mesh its 'model' field names (0: "
-                             "--model)")
+                             "--model); train: a JSON file of runs (a list of {arch, layers, "
+                             "model, dtype, n_rounds}, a missing key its flag's), run i "
+                             "writing <stem>.<i><ext> of --out")
     parser.add_argument("--save-blocks", action="store_true",
                         help="train: every rank writes its final blocks to <out>.rank<r>.pt")
     parser.add_argument("--worker", action="store_true",
@@ -1368,11 +1450,11 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     train = {} if args.workload not in ("train", "serve") else dict(
-        arch=args.arch, layers=args.layers, model=args.model, dtype=args.dtype)
+        arch=args.arch, layers=args.layers, model=args.model, dtype=args.dtype,
+        plan=args.plan or None)
     if args.workload == "serve":
         train.update(batch=args.batch, prompt=args.prompt, steps=args.steps,
-                     cache_batch=args.cache_batch, cache_len=args.cache_len,
-                     plan=args.plan or None)
+                     cache_batch=args.cache_batch, cache_len=args.cache_len)
     worker_argv = command or _worker_argv(
         args.workload, out=args.out or None, n_rounds=args.n_rounds, backend=args.backend,
         device=args.device, cnn_rounds=args.cnn_rounds or None, **train)

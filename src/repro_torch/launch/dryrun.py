@@ -23,8 +23,12 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     master in the stats step and again in the train step, the gather of
     the sketched statistics, the schedule's broadcast, and the all-reduce
     of every gradient (a rank's compute block of it) and the loss over the
-    data ranks; over M > 1 model ranks a dense model's tensor-parallel
-    all-reduces over "model" (the forward's, the remat recompute's, the
+    data ranks; over R > 1 data ranks a MoE model's collectives over
+    "data" (:func:`moe_collectives`: the load-balance loss's SUM of the
+    first-choice counts a layer in each pass that takes it, and the gather
+    of the top-k experts a layer wherever a routing group spans ranks);
+    over M > 1 model ranks a dense model's tensor-parallel all-reduces
+    over "model" (the forward's, the remat recompute's, the
     backward's and each JVP pass's primal and tangent ones, the loss's
     three a CE chunk) and the gathers of the gradients whose compute block
     does not hold the master block; their wire bytes by the reference's
@@ -41,9 +45,10 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     decode step's tensor-parallel all-reduces and gathers over "model"
     (the embedding, two row-split products a layer, the prefill's kv
     re-layout, the decode's q, k, v gather and its attention combine where
-    the KV cache is split by sequence, the greedy token's combine), the
-    gather of the tokens over "data", and the gathers of loading spec
-    blocks; a prefill record reckons one prefill, a decode
+    the KV cache is split by sequence, the greedy token's combine), a MoE
+    model's gather of the top-k experts over "data" a layer where a routing
+    group spans ranks, the gather of the tokens over "data", and the
+    gathers of loading spec blocks; a prefill record reckons one prefill, a decode
     record one step. ``--gather all-reduce`` reckons gloo's gather of CUDA
     tensors (a zero-filled all-reduce of the whole) in place of an
     all-gather. The counts and bytes are those the rank mesh counts as it
@@ -55,9 +60,9 @@ What it does NOT estimate: the reference reads XLA's temporaries
 (``temp_bytes``) and so a transient peak from the compiled program; the
 port has no compiled program and does not estimate them (``temp_bytes``
 and ``peak_bytes`` are ``None``). Nor the collectives of a mesh with a pod
-axis (the rank mesh is (data, model)), of a MoE model over data ranks (its
-trainer refuses them) or of a serving case the rank ``Server`` refuses
-(``launch.steps.check_rank_serving``): ``collectives`` is ``None`` there. A
+axis (the rank mesh is (data, model)) or of a serving case the rank
+``Server`` refuses (``launch.steps.check_rank_serving``: a MoE model over
+model ranks among them): ``collectives`` is ``None`` there. A
 serving case of a dense model on a mesh whose model ranks do not divide its
 heads, kv heads, MLP width or vocabulary (``sharding.NotDivisible``) is
 recorded ``skipped``, with the dimension that does not divide and a
@@ -87,11 +92,11 @@ import time
 
 NOT_ESTIMATED = ("temp_bytes and peak_bytes: the reference reads XLA's temporaries from its "
                  "compiled program; the port compiles no program and does not estimate its "
-                 "transient peak. collectives: none for a mesh with a pod axis, a MoE model "
-                 "training over data ranks, a dense model training over model ranks that "
-                 "do not divide its split dimensions (sharding.NotDivisible), or a serving "
-                 "case the rank Server refuses (the rank mesh is (data, model); "
-                 "launch.steps.check_rank_serving)")
+                 "transient peak. collectives: none for a mesh with a pod axis, a dense "
+                 "model training over model ranks that do not divide its split dimensions "
+                 "(sharding.NotDivisible), or a serving case the rank Server refuses (the "
+                 "rank mesh is (data, model); launch.steps.check_rank_serving: MoE over "
+                 "model ranks among them)")
 
 
 def make_mesh(name: str):
@@ -152,6 +157,26 @@ def _reckoner(mesh, gather: str):
     return out, add, gather_of
 
 
+def moe_collectives(cfg, add, gather: str, r_data: int, tokens: int, want_aux: bool) -> None:
+    """``add`` a MoE model's collectives over R = ``r_data`` data ranks in
+    one pass of ``tokens`` tokens a rank (``layers.moe_fwd``), each layer:
+    with ``want_aux`` the SUM of the E first-choice counts (fp32), and
+    where the whole batch's routing group (``_moe_group_size(R ·
+    tokens)``) does not divide the rank's tokens the gather of every rank's
+    top-k experts ((k, tokens) int32 a rank; ``gather`` as
+    :func:`rank_collectives` takes it)."""
+    from repro_torch.models.layers import _moe_group_size
+
+    if cfg.moe is None or r_data == 1:
+        return
+    spans = tokens % _moe_group_size(r_data * tokens) != 0
+    for _ in range(cfg.n_layers):
+        if want_aux:
+            add("reduce", "all-reduce", cfg.moe.n_experts * 4, r_data)
+        if spans:
+            add("gather", gather, r_data * cfg.moe.top_k * tokens * 4, r_data)
+
+
 def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: int = 2,
                       load_blocks: bool = False, logits: bool = False,
                       dtype=None) -> dict | None:
@@ -199,7 +224,7 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
         return None
     out, add, gather_of = _reckoner(mesh, gather)
     models = mesh.shape["model"]
-    if load_blocks:  # MoE never serves over ranks: no expert strategy to choose
+    if load_blocks:  # a MoE model serves over one model rank: its expert split is moot
         specs = to_shardings(params_pspecs(bundle.arg_structs["params"], mesh, None), mesh)
         for x, sh in zip(tree_leaves(bundle.arg_structs["params"]), tree_leaves(specs),
                          strict=True):
@@ -219,6 +244,7 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
     if not decode:
         tokens = bundle.arg_structs["batch"]["tokens"]
         rows, s = bundle.in_shardings["batch"]["tokens"].block_shape(tokens.shape)
+        moe_collectives(cfg, add, gather, tokens.shape[0] // rows, rows * s, want_aux=False)
         if models > 1:
             reduce_over_model(rows * s * d * size)
             for _ in range(cfg.n_layers):
@@ -234,6 +260,7 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
     split_seq = (cfg.arch_type == "dense"
                  and not Sharding(mesh, (bundle.in_shardings["cache"].k.spec[2],)).replicated())
     for _ in range(n_tokens - 1):
+        moe_collectives(cfg, add, gather, token.shape[0] // rows, rows, want_aux=False)
         if models > 1:
             reduce_over_model(rows * d * size)
         for _ in range(cfg.n_layers):
@@ -264,10 +291,10 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
     "bytes"}}`` for ``gather``, ``reduce`` and ``broadcast``, the bytes a
     rank's wire bytes by the ring rule. A gather runs over every rank, as
     an all-gather of the blocks or (``gather="all-reduce"``) an all-reduce
-    of a zero-filled whole. ``None`` where the rank trainer does not run: a
-    mesh other than (data, model), a MoE model over data ranks; a dense
-    model over model ranks that do not divide its split dimensions raises
-    ``sharding.NotDivisible``, as the rank steps do. A serving bundle (no
+    of a zero-filled whole. ``None`` where the rank trainer does not run, a
+    mesh other than (data, model); a dense model over model ranks that do
+    not divide its split dimensions raises ``sharding.NotDivisible``, as
+    the rank steps do. A serving bundle (no
     ``coeffs``) is reckoned by :func:`serve_collectives`, which takes
     ``dtype`` and ``serving``'s keywords.
 
@@ -283,7 +310,13 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
     (each layer's two SUMs and each chunk's three reductions again: the
     step runs its checkpoints without early stop) and the backward's,
     where each layer's two ``copy_to_group`` and each chunk's head one sum
-    their gradient (R·S·d and R·C·d in ``dtype``)."""
+    their gradient (R·S·d and R·C·d in ``dtype``).
+
+    Over R > 1 data ranks a MoE model (:func:`moe_collectives`) runs each
+    layer's gather of the top-k experts (where a routing group spans ranks)
+    in each JVP pass, and in the train step, a microbatch at a time, that
+    gather and the load-balance loss's SUM in the forward and again in the
+    remat recompute."""
     import torch
 
     from repro_torch.flatten_util import tree_leaves
@@ -297,8 +330,6 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
     if tuple(mesh.axis_names) != ("data", "model"):
         return None
     r_data, models, n = mesh.shape["data"], mesh.shape["model"], mesh.size()
-    if cfg.moe is not None and r_data > 1:
-        return None
     n_fl = n_fl or bundle.arg_structs["coeffs"].shape[0]
     size = (dtype or torch.bfloat16).itemsize
     p_structs = bundle.arg_structs["params"]
@@ -341,6 +372,14 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
                 over_model(r * s * d * size)
             for _ in range(n_chunks):
                 over_model(r * chunk * d * size)
+    if cfg.moe is not None and r_data > 1:
+        b, s = bundle.arg_structs["batch"]["tokens"].shape
+        for _pass in range(1 + n_probes):
+            moe_collectives(cfg, add, gather, r_data, b // r_data * s, want_aux=False)
+        n_micro = auto_microbatches(cfg, InputShape("train", s, b, "train"), mesh)
+        for _micro in range(n_micro):
+            for _run in ("forward", "recompute"):
+                moe_collectives(cfg, add, gather, r_data, b // r_data // n_micro * s, True)
     # the sketched (mean, var, norm) of each FL device, split over the data ranks
     gather_of((3, n_fl), 4, Sharding(mesh, (None, "data")))
     if r_data > 1:

@@ -18,18 +18,21 @@ same). The prefill runs in the ``serve.prefill`` range, the decode loop in
 ``serve.decode``.
 
 Over a (data, model) mesh of ranks (a ``RankMesh`` where one card takes a
-device; a dense model on any mesh, an SSM model over data ranks:
+device; a dense model on any mesh, an SSM or MoE model over data ranks:
 ``launch.steps.check_rank_serving``) each rank serves its rows of the batch
 (``batch_pspecs``) and holds its blocks of their cache (``cache_pspecs``: a
 dense model's KV cache split by sequence over "model", its positions
-whole). Over M > 1 model ranks a dense model is split tensor-parallel:
-each rank holds its TP blocks of the weights (``sharding.tp_pspecs``: its
-heads, its MLP columns, its vocabulary block) and computes its share of
-every product, the group summing the row-split ones; the prefill re-lays
-each layer's k and v of its heads into its cache block, a decode step
-gathers the new token's heads and combines the attention over the group
-(flash-decoding, ``models.layers.attention_decode``), and the greedy token
-combines the vocabulary blocks (``models.layers.greedy``).
+whole). A MoE model routes each rank's rows in the whole batch's routing
+groups over the data ranks (``launch.steps.moe_group``,
+``models.layers.moe_fwd``), so its drops are one process's. Over M > 1
+model ranks a dense model is split tensor-parallel: each rank holds its
+TP blocks of the weights (``sharding.tp_pspecs``: its heads, its MLP
+columns, its vocabulary block) and computes its share of every product,
+the group summing the row-split ones; the prefill re-lays each layer's k
+and v of its heads into its cache block, a decode step gathers the new
+token's heads and combines the attention over the group (flash-decoding,
+``models.layers.attention_decode``), and the greedy token combines the
+vocabulary blocks (``models.layers.greedy``).
 :meth:`Server.gather_logits` makes vocabulary blocks of logits whole over
 "model", :meth:`Server.gather_tokens` the whole batch's tokens over
 "data".
@@ -45,7 +48,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.launch.sharding import FP32_LEAVES, Sharding, _batched, to_shardings
 from repro_torch.launch.steps import (
-    _param_specs, _serving_params, check_rank_serving, model_group, params_structs, row_ways,
+    _param_specs, _serving_params, check_rank_serving, model_group, moe_group, params_structs,
+    row_ways,
 )
 from repro_torch.models import api
 from repro_torch.models.cache import cache_to
@@ -66,12 +70,14 @@ class Server:
         self.cfg, self.shape, self.dtype = cfg, shape, dtype
         self.mesh = device if isinstance(device, RankMesh) else None
         if self.mesh is None:
-            self.device, self.group, self.row_ways = resolve_device(device), None, 1
+            self.device, self.group, self.data, self.row_ways = (resolve_device(device), None,
+                                                                 None, 1)
             return
         check_rank_serving(cfg, self.mesh)
         self.cuts = _serving_params(cfg, shape, self.mesh)  # raises where M does not divide
         self.device = self.mesh.device
         self.group = model_group(self.mesh)
+        self.data = moe_group(cfg, self.mesh, shape.global_batch)
         self.row_ways = row_ways(self.mesh, shape.global_batch)
         self._rows = _batched(shape.global_batch, self.mesh)
 
@@ -140,7 +146,7 @@ class Server:
         self._check_capacity(tokens.shape[0], n_patches + tokens.shape[1] - 1)
         with record_function("serve.prefill"):
             logits, cache = api.model_prefill(params, self.cfg, inputs, self.dtype,
-                                              group=self.group, pad_to=pad_to)
+                                              group=self.group, pad_to=pad_to, data=self.data)
             first = greedy(logits[:, -1], self.group)
         return first, logits, cache
 
@@ -160,7 +166,7 @@ class Server:
         with record_function("serve.decode"):
             for i in range(n_tokens - 1):
                 logits, cache = api.model_decode(params, self.cfg, tok, cache, start_t + i,
-                                                 self.dtype, group=self.group)
+                                                 self.dtype, group=self.group, data=self.data)
                 tok = greedy(logits[:, -1], self.group)
                 toks.append(tok)
                 if keep_logits:

@@ -44,8 +44,11 @@ gives it directly, any other (``wo`` and ``w_out``, whose masters split
 their last dim where TP splits their rows, and leaves the spec keeps whole)
 is gathered whole over "model" first (:func:`master_grads`). The other
 families still compute the same gradients whole on every model rank (what
-ROADMAP A14.9 holds: MoE over data ranks, SSM and hybrid over model ranks,
-the mixer split). The
+ROADMAP A14.9 holds: SSM and hybrid over model ranks, the mixer split).
+Over R > 1 data ranks a MoE model routes each rank's rows in the whole
+batch's routing groups over its data group (:func:`data_group`;
+``layers.moe_fwd``), and each rank's loss carries its share of the batch's
+load-balance loss, so the mean over the data ranks is the batch's. The
 collectives are plain ``torch.distributed`` calls that run on NCCL and
 gloo (:meth:`repro_torch.launch.sharding.Sharding.gather`).
 
@@ -72,7 +75,7 @@ from repro_torch.launch.sharding import (
 )
 from repro_torch.models import api, encdec, transformer
 from repro_torch.models.cache import init_attn_cache, init_ssm_cache
-from repro_torch.models.layers import ModelGroup, greedy
+from repro_torch.models.layers import DataGroup, ModelGroup, greedy
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.obs.registry import gauge_set
 from repro_torch.optim.optimizers import OptState, Optimizer, adamw
@@ -139,15 +142,11 @@ class _RankSlice(NamedTuple):
     n_local: int
 
 
-def _rank_slice(mesh: RankMesh, cfg: ModelConfig) -> _RankSlice:
-    """This rank's FL devices. A MoE model routes its tokens in groups of
-    the batch and adds the batch's load-balance loss; over several data
-    ranks both would be each rank's, not the batch's, so it trains over
-    model ranks only."""
+def _rank_slice(mesh: RankMesh) -> _RankSlice:
+    """This rank's FL devices, every family's (a MoE model's routing groups
+    and load-balance loss span the whole batch: its steps route over the
+    data group, :func:`data_group`)."""
     r_data = mesh.shape["data"]
-    if cfg.moe is not None and r_data > 1:
-        raise ValueError(f"{cfg.name}: a MoE model trains over model ranks only (its routing "
-                         f"groups and aux loss span the whole batch), not {r_data} data ranks")
     n_local = mesh.n_fl // r_data
     return _RankSlice(r_data, mesh.coordinates()["data"] * n_local, n_local)
 
@@ -240,16 +239,20 @@ def add_noise(grads, noise_amp: torch.Tensor, z):
                                   for g, zl in zip(tree_leaves(grads), tree_leaves(z))])
 
 
-def _weighted_grads(cfg, dtype, remat, n_micro, group: ModelGroup | None = None):
+def _weighted_grads(cfg, dtype, remat, n_micro, group: ModelGroup | None = None,
+                    data: DataGroup | None = None):
     """``fn(params, batch, w, n_dev) → (loss, grads list)``: the weighted
     loss of a batch of ``n_dev`` FL devices (FL-device-major) and its
     gradients in sorted-key leaf order. With microbatches the batch is
     interleaved so every microbatch holds b/(m · n_dev) examples of every
     FL device, and the grads (and the loss) are averaged over them.
     ``group``: the model ranks a dense model is split over, ``params``
-    this rank's TP blocks. There the remat's recompute runs every layer
-    and CE chunk to its end (checkpoint early stop off), so it issues
-    every forward collective again, as ``launch.dryrun`` reckons it."""
+    this rank's TP blocks; ``data``: the data ranks a MoE model's rows are
+    split over (each microbatch routes over them on its own, as the
+    reference's scan routes each microbatch). With either the remat's
+    recompute runs every layer and CE chunk to its end (checkpoint early
+    stop off), so it issues every forward collective again, as
+    ``launch.dryrun`` reckons it."""
 
     def run(params, batch, w, n_dev):
         b = w.shape[0]
@@ -257,11 +260,11 @@ def _weighted_grads(cfg, dtype, remat, n_micro, group: ModelGroup | None = None)
         leaves = tree_leaves(p)
 
         def loss_grads(mb, mw):
-            whole_recompute = (contextlib.nullcontext() if group is None
+            whole_recompute = (contextlib.nullcontext() if group is None and data is None
                                else set_checkpoint_early_stop(False))
             with whole_recompute:
                 loss, aux = api.model_loss(_cast(p, dtype), cfg, mb, dtype=dtype, remat=remat,
-                                           loss_weights=mw, group=group)
+                                           loss_weights=mw, group=group, data=data)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
         if n_micro == 1:
@@ -358,9 +361,9 @@ def build_train_step(
         return StepBundle(train_step, arg_structs, in_sh, out_sh)
 
     tp_sh, group = compute_layout(cfg, mesh, p_structs)
-    part = _rank_slice(mesh, cfg)
+    part = _rank_slice(mesh)
     b_local = b // part.data_ranks
-    rank_grads_of = _weighted_grads(cfg, dtype, remat, n_micro, group)
+    rank_grads_of = _weighted_grads(cfg, dtype, remat, n_micro, group, moe_group(cfg, mesh))
 
     def rank_train_step(params, opt_state, batch, coeffs, noise_amp, noise):
         blocks = block_of(gather_params(params, p_sh), tp_sh)
@@ -407,15 +410,18 @@ def build_stats_step(
     a dense model's passes run on this rank's TP blocks of the gathered
     parameters and of each probe (the tangent of ones is ones on the
     blocks), over its model group, D the whole model's count
-    (:func:`compute_layout`); any other model computes them whole."""
+    (:func:`compute_layout`); any other model computes them whole. Over
+    R > 1 data ranks a MoE model's passes route over the data group
+    (:func:`data_group`): its per-example losses depend on the batch's
+    drops, though the pass drops the aux."""
     n_fl = batch_ways(mesh)
     batch_struct = configs.input_specs(cfg, shape, dtype)["batch"]
     b = batch_struct["tokens"].shape[0]
 
-    def sketch(params, batch, probes, n_dev, group=None, dim=None):
+    def sketch(params, batch, probes, n_dev, group=None, dim=None, data=None):
         def per_device_loss(p):
             per_ex, _ = api.model_loss(p, cfg, batch, dtype=dtype, remat=remat, reduce=False,
-                                       group=group)
+                                       group=group, data=data)
             return per_ex.reshape(n_dev, -1).mean(dim=1)
 
         return sketch_device_stats(per_device_loss, params, probes, dim)
@@ -437,13 +443,15 @@ def build_stats_step(
         return StepBundle(stats_step, arg_structs, in_sh, out_sh)
 
     tp_sh, group = compute_layout(cfg, mesh, p_structs)
-    part = _rank_slice(mesh, cfg)
+    part = _rank_slice(mesh)
     by_fl = Sharding(mesh, (None, "data"))  # (3, n_fl): the FL devices over the data ranks
     dim = sum(x.numel() for x in tree_leaves(p_structs))
+    data = moe_group(cfg, mesh)
 
     def rank_stats_step(params, batch, probes):
         blocks = block_of(gather_params(params, p_sh), tp_sh)
-        s = sketch(blocks, batch, [block_of(v, tp_sh) for v in probes], part.n_local, group, dim)
+        s = sketch(blocks, batch, [block_of(v, tp_sh) for v in probes], part.n_local, group, dim,
+                   data)
         mean, var, norm = by_fl.gather(torch.stack([s.mean, s.var, s.norm]))
         return mean, var, norm
 
@@ -464,8 +472,6 @@ def _serving_mesh(mesh) -> bool:
 
 # what serving over ranks does not take yet, by family (ROADMAP A14.10 holds it)
 _NOT_OVER_RANKS = {
-    "moe": "a MoE model (its routing groups must span the batch, and over \"model\" its "
-           "experts wait for the expert split, EP: moe_strategy)",
     "hybrid": "a hybrid model (its attention cache and Mamba2 state together are not held "
               "over ranks yet; over \"model\" its state splits by heads, which needs the "
               "mixer split)",
@@ -477,21 +483,25 @@ _NOT_OVER_RANKS = {
 
 def _rank_serves(cfg: ModelConfig, mesh) -> bool:
     """Whether ranks serve ``cfg`` on ``mesh``: a dense model on any mesh
-    (its products split over "model"), an SSM model over data ranks only."""
-    return cfg.arch_type == "dense" or (cfg.arch_type == "ssm" and mesh.shape["model"] == 1)
+    (its products split over "model"), an SSM or MoE model over data ranks
+    only (a MoE model's rows routed in the whole batch's groups)."""
+    return cfg.arch_type == "dense" or (cfg.arch_type in ("ssm", "moe")
+                                        and mesh.shape["model"] == 1)
 
 
 def check_rank_serving(cfg: ModelConfig, mesh) -> None:
     """Serving over a (data, model) mesh of ranks takes a dense model on
-    any mesh (its products split over "model") and an SSM model over data
-    ranks only (:func:`_rank_serves`); raise ``ValueError`` for any other
-    case, naming what ROADMAP A14.10 still holds."""
+    any mesh (its products split over "model") and an SSM or MoE model over
+    data ranks only (:func:`_rank_serves`); raise ``ValueError`` for any
+    other case, naming what ROADMAP A14.10 still holds."""
     if _rank_serves(cfg, mesh):
         return
     models = mesh.shape["model"]
-    why = _NOT_OVER_RANKS.get(cfg.arch_type) or (
-        f"an SSM model over {models} model ranks (cache_pspecs splits its state by heads, "
-        "which needs the mixer split)")
+    why = _NOT_OVER_RANKS.get(cfg.arch_type) or {
+        "ssm": f"an SSM model over {models} model ranks (cache_pspecs splits its state by "
+               "heads, which needs the mixer split)",
+        "moe": f"a MoE model over {models} model ranks (its experts wait for the expert "
+               "split, EP: moe_strategy)"}[cfg.arch_type]
     raise ValueError(f"{cfg.name}: serving over ranks does not take {why} yet "
                      "(ROADMAP A14.10)")
 
@@ -504,47 +514,82 @@ def row_ways(mesh, global_batch: int) -> int:
     return global_batch // Sharding(mesh, (entry,)).block_shape((global_batch,))[0]
 
 
-def model_group(mesh: RankMesh) -> ModelGroup | None:
-    """This rank's model group as a :class:`~repro_torch.models.layers.ModelGroup`:
-    its all-reduces and all-gathers run over "model", each counted
-    (``ranks.reduce``, ``ranks.gather``) with its wire bytes by
-    :meth:`RankMesh.collective`. gloo takes no all-gather of a CUDA tensor:
-    there each rank writes its block into a zero-filled stack of every
-    rank's and the stacks are summed by an all-reduce (exact, at twice the
-    all-gather's wire bytes), as ``Sharding.gather`` does. ``None`` with one
-    rank a group."""
+def _axis_collectives(mesh: RankMesh, axis: str):
+    """→ (this rank's place on ``axis``, the ranks along it, ``all_reduce(op)``
+    → ``fn(x)`` in place, ``all_gather(x, dim)``): collectives over this
+    rank's group along ``axis``, each counted (``ranks.reduce``,
+    ``ranks.gather``) with its wire bytes by :meth:`RankMesh.collective`.
+    gloo takes no all-gather of a CUDA tensor: there each rank writes its
+    block into a zero-filled stack of every rank's and the stacks are
+    summed by an all-reduce (exact, at twice the all-gather's wire bytes),
+    as ``Sharding.gather`` does."""
     import torch.distributed as dist
 
-    models = mesh.shape["model"]
-    if models == 1:
-        return None
-    group = mesh.get_group("model")
-    rank = mesh.coordinates()["model"]
+    n = mesh.shape[axis]
+    group = mesh.get_group(axis)
+    rank = mesh.coordinates()[axis]
 
     def all_reduce(op):
         def run(x: torch.Tensor) -> None:
-            with mesh.collective("reduce", wire_bytes("all-reduce",
-                                                      x.numel() * x.element_size(), models)):
+            with mesh.collective("reduce", wire_bytes("all-reduce", x.numel() * x.element_size(),
+                                                      n)):
                 dist.all_reduce(x, op=op, group=group)
         return run
 
     def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
         x = x.contiguous()
-        result = models * x.numel() * x.element_size()
+        result = n * x.numel() * x.element_size()
         if mesh.backend == "nccl" or x.device.type == "cpu":
-            with mesh.collective("gather", wire_bytes("all-gather", result, models)):
-                parts = [torch.empty_like(x) for _ in range(models)]
+            with mesh.collective("gather", wire_bytes("all-gather", result, n)):
+                parts = [torch.empty_like(x) for _ in range(n)]
                 dist.all_gather(parts, x, group=group)
         else:
-            with mesh.collective("gather", wire_bytes("all-reduce", result, models)):
-                stack = torch.zeros((models,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+            with mesh.collective("gather", wire_bytes("all-reduce", result, n)):
+                stack = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
                 stack[rank] = x
                 dist.all_reduce(stack, group=group)
                 parts = stack.unbind(0)
         return torch.cat(parts, dim=dim)
 
-    return ModelGroup(rank, models, all_reduce(dist.ReduceOp.MAX),
-                      all_reduce(dist.ReduceOp.SUM), all_gather)
+    return rank, n, all_reduce, all_gather
+
+
+def model_group(mesh: RankMesh) -> ModelGroup | None:
+    """This rank's model group as a :class:`~repro_torch.models.layers.ModelGroup`:
+    its all-reduces (MAX and SUM) and all-gathers run over "model"
+    (:func:`_axis_collectives`). ``None`` with one rank a group."""
+    import torch.distributed as dist
+
+    if mesh.shape["model"] == 1:
+        return None
+    rank, n, all_reduce, all_gather = _axis_collectives(mesh, "model")
+    return ModelGroup(rank, n, all_reduce(dist.ReduceOp.MAX), all_reduce(dist.ReduceOp.SUM),
+                      all_gather)
+
+
+def data_group(mesh: RankMesh) -> DataGroup | None:
+    """This rank's data group as a :class:`~repro_torch.models.layers.DataGroup`:
+    its all-reduces by SUM and all-gathers run over "data"
+    (:func:`_axis_collectives`: the ranks of one model place, whose rows
+    make up the batch). ``None`` with one data rank."""
+    import torch.distributed as dist
+
+    if mesh.shape["data"] == 1:
+        return None
+    rank, n, all_reduce, all_gather = _axis_collectives(mesh, "data")
+    return DataGroup(rank, n, all_reduce(dist.ReduceOp.SUM), all_gather)
+
+
+def moe_group(cfg: ModelConfig, mesh: RankMesh,
+              global_batch: int | None = None) -> DataGroup | None:
+    """The data group a MoE model's steps route over (:func:`data_group`).
+    ``None`` for any other family: none issues a collective over "data"
+    inside a layer, so its checkpoints keep their early stop. ``None`` too
+    for a serving batch of ``global_batch`` rows that every data rank holds
+    whole (:func:`row_ways`)."""
+    if cfg.moe is None or (global_batch is not None and row_ways(mesh, global_batch) == 1):
+        return None
+    return data_group(mesh)
 
 
 def _serving_params(cfg: ModelConfig, shape: InputShape, mesh):
@@ -570,7 +615,8 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
     rank's rows (``batch_pspecs``), and the step runs them through
     ``model_prefill`` over the model group (:func:`model_group`; kernel 3
     on this rank's heads in a dense model, kernel 4 in an SSM model over
-    data ranks): → this rank's vocabulary block of the logits and its
+    data ranks) and a MoE model's over the data group
+    (:func:`moe_group`): → this rank's vocabulary block of the logits and its
     blocks of the cache (``cache_pspecs``: the sequence over "model").
     The residual stays whole on every model rank: ``activation_specs``
     splits a prefill's sequence over "model", which the port leaves (the
@@ -591,10 +637,10 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
                  batch=to_shardings(batch_pspecs(arg_structs["batch"], mesh), mesh))
     if not isinstance(mesh, RankMesh):
         return StepBundle(prefill_step, arg_structs, in_sh, None)
-    group = model_group(mesh)
+    group, data = model_group(mesh), moe_group(cfg, mesh, shape.global_batch)
 
     def rank_prefill_step(params, batch):
-        return api.model_prefill(_cast(params, dtype), cfg, batch, dtype, group=group)
+        return api.model_prefill(_cast(params, dtype), cfg, batch, dtype, group=group, data=data)
 
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
@@ -618,9 +664,10 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
     and blocks (``batch_pspecs``, ``cache_pspecs``: a dense model's KV
     cache split by sequence over "model"); the step runs over the model
     group (:func:`model_group`: this rank's heads, MLP columns and
-    vocabulary block, the attention combined over the group) and returns
-    its rows' greedy token, combined over the vocabulary blocks
-    (``layers.greedy``), and its cache blocks."""
+    vocabulary block, the attention combined over the group), a MoE
+    model's over the data group (:func:`moe_group`), and returns its rows'
+    greedy token, combined over the vocabulary blocks (``layers.greedy``),
+    and its cache blocks."""
     if isinstance(mesh, RankMesh):
         check_rank_serving(cfg, mesh)
     specs = configs.input_specs(cfg, shape, dtype)
@@ -640,11 +687,11 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
                  t=Sharding(mesh, ()))
     if not isinstance(mesh, RankMesh):
         return StepBundle(serve_step, arg_structs, in_sh, (tok, cache_sh))
-    group = model_group(mesh)
+    group, data = model_group(mesh), moe_group(cfg, mesh, shape.global_batch)
 
     def rank_serve_step(params, token, cache, t):
         logits, cache = api.model_decode(_cast(params, dtype), cfg, token, cache, t, dtype,
-                                         group=group)
+                                         group=group, data=data)
         return greedy(logits[:, -1], group), cache
 
     return StepBundle(rank_serve_step, arg_structs, in_sh, (tok, cache_sh))

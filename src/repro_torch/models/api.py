@@ -29,14 +29,16 @@ def model_init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
                remat: bool = False, loss_weights=None, reduce: bool = True,
-               logits_sharding=None, aux_coeff: float = 0.01, group=None):
+               logits_sharding=None, aux_coeff: float = 0.01, group=None, data=None):
     """Returns (loss, aux); with ``reduce=False``, (per_example (B,), aux).
     ``group`` (a ``layers.ModelGroup``): the model ranks a dense model is
     split over, ``params`` this rank's TP blocks (``transformer.lm_loss``);
-    ``None`` on one card."""
+    ``data`` (a ``layers.DataGroup``): the data ranks a MoE model's rows are
+    split over, the loss and aux this rank's shares; ``None`` on one card."""
     if cfg.arch_type == "encdec":
-        if group is not None:
-            raise ValueError(f"{cfg.name}: an enc-dec loss takes no model group")
+        if group is not None or data is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec loss takes no model group or "
+                             "data group")
         return encdec.encdec_loss(
             params, cfg, batch["tokens"], batch["frames"], dtype, remat,
             loss_weights=loss_weights, reduce=reduce,
@@ -45,37 +47,42 @@ def model_loss(params, cfg: ModelConfig, batch: dict, dtype=torch.float32,
     return transformer.lm_loss(
         params, cfg, batch["tokens"], batch.get("embeds"), dtype, remat,
         loss_weights=loss_weights, reduce=reduce,
-        logits_sharding=logits_sharding, aux_coeff=aux_coeff, group=group,
+        logits_sharding=logits_sharding, aux_coeff=aux_coeff, group=group, data=data,
     )
 
 
 def model_prefill(params, cfg: ModelConfig, batch: dict, dtype=torch.float32, group=None,
-                  pad_to: int | None = None):
+                  pad_to: int | None = None, data=None):
     """→ (last-position logits, cache); ``pad_to`` grows the cache to that
     many slots (``cache.pad_cache``). ``group`` (a ``layers.ModelGroup``):
     the model ranks a dense model is split over, ``params`` this rank's TP
     blocks; the logits are then this rank's vocabulary block and the cache
-    its block (``transformer.prefill``). ``None`` on one card."""
+    its block (``transformer.prefill``). ``data`` (a ``layers.DataGroup``):
+    the data ranks a MoE model's rows are split over, routed in the whole
+    batch's groups. ``None`` on one card."""
     if cfg.arch_type == "encdec":
-        if group is not None:
-            raise ValueError(f"{cfg.name}: an enc-dec prefill takes no model group")
+        if group is not None or data is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec prefill takes no model group or "
+                             "data group")
         logits, cache = encdec.prefill_encdec(params, cfg, batch["tokens"], batch["frames"],
                                               dtype)
         return logits, cache if pad_to is None else pad_cache(cache, pad_to)
     return transformer.prefill(params, cfg, batch["tokens"], batch.get("embeds"), dtype,
-                               group, pad_to)
+                               group, pad_to, data)
 
 
 def model_decode(params, cfg: ModelConfig, token, cache, t: int, dtype=torch.float32,
-                 group=None):
+                 group=None, data=None):
     """One decode step; ``group`` (a ``layers.ModelGroup``): the model ranks
-    a dense model is split over (``transformer.decode_step``), ``None`` on
-    one card."""
+    a dense model is split over (``transformer.decode_step``); ``data`` (a
+    ``layers.DataGroup``): the data ranks a MoE model's rows are split over;
+    ``None`` on one card."""
     if cfg.arch_type == "encdec":
-        if group is not None:
-            raise ValueError(f"{cfg.name}: an enc-dec decode step takes no model group")
+        if group is not None or data is not None:
+            raise ValueError(f"{cfg.name}: an enc-dec decode step takes no model group or "
+                             "data group")
         return encdec.decode_step_encdec(params, cfg, token, cache, t, dtype)
-    return transformer.decode_step(params, cfg, token, cache, t, dtype, group)
+    return transformer.decode_step(params, cfg, token, cache, t, dtype, group, data)
 
 
 __all__ = ["model_init", "model_loss", "model_prefill", "model_decode", "init_cache"]

@@ -55,14 +55,20 @@ reference does.
 The MoE layer (:func:`moe_fwd`) stays plain torch as it stays outside any
 Pallas kernel in the reference: its routing (:func:`moe_route`) and the
 scatter, expert products and gather of its dispatch, with static shapes and
-no device→host sync.
+no device→host sync. Over the data ranks of a mesh (a :class:`DataGroup`)
+each rank routes its rows in the whole batch's routing groups, as one
+process routes the batch: where a group spans ranks they gather each
+other's top-k experts, and the load-balance loss takes the batch's
+first-choice counts (one SUM a layer).
 
 Not ported here: the activation-sharding registry (``constrain``,
 ``constrain_tree``; it has no counterpart on one card).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -644,12 +650,15 @@ def _moe_group_size(n_tok: int) -> int:
 
 
 class MoERoute(NamedTuple):
-    """The routing decisions of one :func:`moe_fwd` call over G groups of gs
-    tokens: the fp32 router probabilities (G, gs, E), the top-k gates
-    renormalised (G, gs, k) and their experts (G, gs, k), each (token, slot)'s
-    position in its expert's buffer (G, k, gs; slot-major), whether that
-    position is below the capacity (G, k, gs; the others are dropped), and
-    the capacity."""
+    """The routing decisions of one :func:`moe_fwd` call over G groups of n
+    tokens: the fp32 router probabilities (G, n, E), the top-k gates
+    renormalised (G, n, k) and their experts (G, n, k), each (token, slot)'s
+    position in its expert's buffer (G, k, n; slot-major), whether that
+    position is below the capacity (G, k, n; the others are dropped), and
+    the capacity. Over data ranks a rank's route holds its own tokens: in
+    the batch's routing groups where they hold whole groups, else as one
+    row of n tokens (G = 1) at their positions in the batch's groups;
+    :func:`whole_route` joins the ranks' routes into the batch's."""
 
     probs: torch.Tensor
     gate_vals: torch.Tensor
@@ -659,30 +668,122 @@ class MoERoute(NamedTuple):
     cap: int
 
 
-def moe_route(params, xt: torch.Tensor, cfg: ModelConfig, dtype) -> MoERoute:
-    """Route the tokens of xt (G, gs, d) as the reference does
+class DataGroup(NamedTuple):
+    """The data ranks whose rows make up one batch: this rank's place and
+    their count, the group's in-place SUM of a tensor and ``all_gather(x,
+    dim)``, every rank's ``x`` concatenated along ``dim`` in rank order
+    (each counted by the mesh that runs it; ``launch/steps.py::data_group``).
+    A MoE layer routes its rank's tokens in the whole batch's groups over
+    it (:func:`moe_fwd`); ``None`` is one card, or one data rank."""
+
+    rank: int
+    size: int
+    all_sum: Callable[[torch.Tensor], None]
+    all_gather: Callable[[torch.Tensor, int], torch.Tensor]
+
+
+class _NoDerivative(torch.autograd.Function):
+    """``fn(x)`` (a collective over a group, on a fresh tensor), carrying no
+    derivative: no gradient and no tangent."""
+
+    @staticmethod
+    def forward(x, fn):
+        return fn(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return None
+
+
+def _summed_over_data(x: torch.Tensor, data: DataGroup) -> torch.Tensor:
+    """The data group's SUM of every rank's ``x``, no derivative."""
+    def run(y):
+        out = y.clone(memory_format=torch.contiguous_format)
+        data.all_sum(out)
+        return out
+    return _NoDerivative.apply(x.detach(), run)
+
+
+def _gathered_over_data(x: torch.Tensor, data: DataGroup, dim: int) -> torch.Tensor:
+    """Every data rank's ``x`` concatenated along ``dim``, no derivative."""
+    return _NoDerivative.apply(x.detach(), lambda y: data.all_gather(y, dim))
+
+
+def _slot_positions(e_tok: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (slot, token)'s place in its expert's buffer, e_tok (G, k·n) the
+    experts of a group's choices slot-major: a cumulative count a group."""
+    onehot = (e_tok[..., None] == torch.arange(n_experts, device=e_tok.device)).to(torch.int32)
+    return onehot.cumsum(1).gather(2, e_tok[..., None])[..., 0] - 1  # ≥ 0
+
+
+def moe_route(params, xt: torch.Tensor, cfg: ModelConfig, dtype,
+              data: Optional[DataGroup] = None) -> MoERoute:
+    """Route the tokens of xt (G, n, d) as the reference does
     (``layers.py:375-405``): the router's logits in ``dtype`` then fp32, the
     softmax, the top k (ties to the lower expert, as ``jax.lax.top_k``: a
     stable descending sort over E), renormalised; positions by a cumulative
-    count over the k·gs (slot, token) pairs, slot outer, so every slot-0
-    choice of a group ranks before any slot-1 choice."""
+    count over the k·gs (slot, token) pairs of a group, slot outer, so
+    every slot-0 choice of a group ranks before any slot-1 choice.
+
+    Without ``data`` xt's G rows are the groups. Over the data ranks
+    ``data`` the groups are the whole batch's, gs = ``_moe_group_size(R ·
+    G · n)`` tokens (the ranks' tokens in rank order): where n = gs xt
+    holds whole groups and routes as one process does; otherwise xt is this
+    rank's tokens as one row (G = 1), every rank's top-k experts are
+    gathered over ``data`` ((k, n) int32 a rank, no derivative), the
+    positions counted over the whole batch's groups, and this rank's kept."""
     moe = cfg.moe
-    n_groups, gs, _ = xt.shape
+    n_groups, n, _ = xt.shape
     e, k = moe.n_experts, moe.top_k
+    gs = n if data is None else _moe_group_size(data.size * n_groups * n)
     cap = moe_capacity(gs, moe)
-    logits = (xt @ params["router"].to(dtype)).float()  # (G, gs, E)
+    logits = (xt @ params["router"].to(dtype)).float()  # (G, n, E)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :k], idx[..., :k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    e_tok = gate_idx.transpose(1, 2).reshape(n_groups, k * gs)  # slot-major
-    onehot = (e_tok[..., None] == torch.arange(e, device=xt.device)).to(torch.int32)
-    pos = onehot.cumsum(1).gather(2, e_tok[..., None])[..., 0] - 1  # (G, k·gs), ≥ 0
-    pos = pos.reshape(n_groups, k, gs)
+    e_tok = gate_idx.transpose(1, 2)  # (G, k, n), slot-major
+    if n == gs:
+        pos = _slot_positions(e_tok.reshape(n_groups, k * n), e).reshape(n_groups, k, n)
+    else:
+        if n_groups != 1:
+            raise ValueError(f"{n_groups} rows of {n} tokens are not groups of {gs}")
+        every = _gathered_over_data(e_tok[0].to(torch.int32), data, 1)  # (k, R·n)
+        whole = every.reshape(k, -1, gs).transpose(0, 1)                 # (Gw, k, gs)
+        pos = _slot_positions(whole.reshape(-1, k * gs).long(), e).reshape(-1, k, gs)
+        pos = pos.transpose(0, 1).reshape(k, -1)[None, :, data.rank * n:(data.rank + 1) * n]
     return MoERoute(probs, gate_vals, gate_idx, pos, pos < cap, cap)
 
 
-def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
+def whole_route(parts: list) -> MoERoute:
+    """The whole batch's route of one MoE layer from its data ranks'
+    routes (``parts``, in rank order; :class:`MoERoute`): the tokens joined
+    in rank order and laid out in the batch's groups, as one process over
+    the whole batch routes them."""
+    def tokens(x, slot_major):  # (G, n, ·) or (G, k, n) → (G·n, ·)
+        x = x.transpose(1, 2) if slot_major else x
+        return x.reshape(-1, x.shape[-1])
+    fields = [torch.cat([tokens(getattr(p, f), f in ("pos", "within")) for p in parts])
+              for f in ("probs", "gate_vals", "gate_idx", "pos", "within")]
+    gs = _moe_group_size(fields[0].shape[0])
+
+    def groups(x, slot_major):
+        x = x.reshape(-1, gs, x.shape[-1])
+        return x.transpose(1, 2) if slot_major else x
+
+    return MoERoute(*(groups(x, i >= 3) for i, x in enumerate(fields)), parts[0].cap)
+
+
+def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32,
+            data: Optional[DataGroup] = None, want_aux: bool = True):
     """Capacity-limited top-k MoE with scatter/gather dispatch → (out (B, S,
     D), aux). x: (B, S, D).
 
@@ -699,29 +800,53 @@ def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
     then adds the shared expert.
     ``aux`` is the Switch load-balance loss, E · Σ_e (share of tokens whose
     first choice is e) · (mean probability of e), over all tokens.
+
+    Over the data ranks ``data`` x is this rank's rows of the batch, in
+    rank order (FL-device-major, as ``batch_pspecs`` lays them out): the
+    tokens route in the whole batch's groups (:func:`moe_route`), and the
+    rank's buffer holds its own tokens at their positions there, G the
+    groups they touch (a token's expert output depends on its own row
+    alone, so no token crosses ranks). The aux is this rank's share,
+    E · Σ_e (the batch's first-choice share of e: one SUM of the E counts
+    over ``data``, no derivative) · (this rank's mean probability of e):
+    with equal token counts a rank, the mean over the data ranks of it is
+    the batch's aux in value and gradient. With ``want_aux`` false (a pass
+    that drops the aux) that SUM is not taken and the aux is ``None``.
     """
     moe = cfg.moe
     b, s, d = x.shape
     n_tok = b * s
     e, k = moe.n_experts, moe.top_k
-    gs = _moe_group_size(n_tok)
-    n_groups = n_tok // gs
-    xt = x.reshape(n_groups, gs, d)
-    r = moe_route(params, xt, cfg, dtype)
+    gs = _moe_group_size(_ways(data) * n_tok)
+    lo = 0 if data is None else data.rank * n_tok  # this rank's first token in the batch
+    xt = x.reshape(n_tok // gs, gs, d) if n_tok % gs == 0 else x.reshape(1, n_tok, d)
+    r = moe_route(params, xt, cfg, dtype, data)
+    for tap in getattr(_ROUTE_TAPS, "lists", ()):
+        tap.append(r)
     cap, rows = r.cap, r.cap + 1
 
     first = (r.gate_idx[..., 0].reshape(-1, 1) == torch.arange(e, device=x.device)).float()
-    aux = e * (first.mean(0) * r.probs.reshape(-1, e).mean(0)).sum()
+    frac_probs = r.probs.reshape(-1, e).mean(0)
+    if data is None:
+        aux = e * (first.mean(0) * frac_probs).sum()
+    elif want_aux:
+        aux = e * (_summed_over_data(first.sum(0), data) / (data.size * n_tok)
+                   * frac_probs).sum()
+    else:
+        aux = None
 
-    # flat row of each (group, slot, token) in the (E, G, cap + 1) buffer
-    group = torch.arange(n_groups, device=x.device)[:, None, None] * rows
-    row = (r.gate_idx.transpose(1, 2) * (n_groups * rows) + group
-           + torch.where(r.within, r.pos, cap))  # (G, k, gs)
-    row = row.transpose(0, 1).reshape(k, n_tok)  # a slot's rows in the tokens' order
-    within = r.within.transpose(0, 1).reshape(k, n_tok, 1)
+    # flat row of each (slot, token) in the (E, G, cap + 1) buffer, G the
+    # groups this rank's tokens touch
+    n_groups = (lo + n_tok - 1) // gs - lo // gs + 1
+    group = ((torch.arange(n_tok, device=x.device) + lo) // gs - lo // gs) * rows
+    pos = r.pos.transpose(0, 1).reshape(k, n_tok)  # a slot's positions in the tokens' order
+    within = r.within.transpose(0, 1).reshape(k, n_tok)
+    row = (r.gate_idx.reshape(n_tok, k).T * (n_groups * rows) + group
+           + torch.where(within, pos, cap))  # (k, n_tok)
+    within = within[..., None]
     # a dropped copy carries 0, so every write to row cap is a 0 and their
     # order does not matter
-    src = torch.where(within, xt.reshape(1, n_tok, d), 0.0)
+    src = torch.where(within, x.reshape(1, n_tok, d), 0.0)
     buf = torch.zeros((e * n_groups * rows, d), dtype=x.dtype, device=x.device)
     buf = buf.index_copy(0, row.reshape(k * n_tok), src.reshape(k * n_tok, d))
 
@@ -730,8 +855,7 @@ def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
     u = torch.bmm(xe, params["w_in"].to(dtype))
     ye = torch.bmm(g * u, params["w_out"].to(dtype)).view(e * n_groups * rows, d)
 
-    gv = (r.gate_vals.transpose(1, 2) * r.within).to(dtype)  # (G, k, gs)
-    gv = gv.transpose(0, 1).reshape(k, n_tok, 1)
+    gv = (r.gate_vals.reshape(n_tok, k).T[..., None] * within).to(dtype)  # (k, n_tok, 1)
     out = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
     for kk in range(k):
         out = out + ye.index_select(0, row[kk]) * gv[kk]
@@ -739,6 +863,24 @@ def moe_fwd(params, x, cfg: ModelConfig, dtype=torch.float32):
     if moe.n_shared_experts:
         out = out + mlp_fwd(params["shared"], x, dtype)
     return out, aux
+
+
+_ROUTE_TAPS = threading.local()  # .lists: the lists recorded_routes fills, by thread
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """→ a list that gets every :class:`MoERoute` :func:`moe_fwd` takes in
+    this thread while the context is open, in call order (as they are, on
+    their device: no copy, no wait)."""
+    seen: list = []
+    if not hasattr(_ROUTE_TAPS, "lists"):
+        _ROUTE_TAPS.lists = []
+    _ROUTE_TAPS.lists.append(seen)
+    try:
+        yield seen
+    finally:
+        _ROUTE_TAPS.lists.remove(seen)
 
 
 # --------------------------------------------------------------------------

@@ -35,6 +35,10 @@ the logits are the rank's vocabulary block (:func:`logits_from_hidden`),
 which the loss keeps split (:func:`chunked_ce`). The group's collectives
 carry their backward and tangent rules (``layers.copy_to_group`` and its
 kin), so :func:`lm_loss` over a group trains and takes ``torch.func.jvp``.
+Over the data ranks (a ``layers.DataGroup``, the ``data`` keyword) each
+rank holds its rows of the batch, and a MoE layer routes them in the whole
+batch's routing groups with the batch's load-balance loss
+(``layers.moe_fwd``); every other layer is row-wise and ignores it.
 
 Each layer's attention, MLP, MoE, Mamba2 mixer and the logits run inside
 ``torch.profiler.record_function`` ranges ``lm.attention``, ``lm.mlp``,
@@ -131,12 +135,14 @@ def layer_params(params, i: int, stack: str = "layers") -> dict:
 
 
 def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False,
-               group: L.ModelGroup | None = None):
+               group: L.ModelGroup | None = None, data: L.DataGroup | None = None,
+               want_aux: bool = True):
     """Attention then the MLP, or the MoE where ``lp`` has one: a dense or
     moe layer, and the hybrid's shared block → (x, aux or None, (k, v) or
     None); (k, v) are the roped keys and values when ``return_kv``. Over a
     model ``group`` (a dense layer) on this rank's TP blocks, (k, v) this
-    rank's kv heads."""
+    rank's kv heads. ``data`` and ``want_aux``: the MoE's data ranks and
+    whether the caller takes its aux (``layers.moe_fwd``)."""
     with record_function("lm.attention"):
         h = L.attention_fwd(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
                             dtype=dtype, return_kv=return_kv, group=group)
@@ -147,19 +153,21 @@ def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False,
     h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         with record_function("lm.moe"):
-            h, aux = L.moe_fwd(lp["moe"], h_in, cfg, dtype)
+            h, aux = L.moe_fwd(lp["moe"], h_in, cfg, dtype, data, want_aux)
         return x + h, aux, kv
     with record_function("lm.mlp"):
         return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group), None, kv
 
 
-def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype, group: L.ModelGroup | None = None):
+def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype, group: L.ModelGroup | None = None,
+               data: L.DataGroup | None = None, want_aux: bool = True):
     """Layer ``i`` of the stack → (x, aux or None). A hybrid runs its shared
     block first when ``i % attn_every == 0``. ``group``: a dense layer's
-    model ranks, ``params`` this rank's TP blocks."""
+    model ranks, ``params`` this rank's TP blocks; ``data``, ``want_aux``:
+    a MoE layer's (:func:`_block_fwd`)."""
     lp = layer_params(params, i)
     if cfg.arch_type not in ("ssm", "hybrid"):
-        x, aux, _ = _block_fwd(cfg, lp, x, dtype, group=group)
+        x, aux, _ = _block_fwd(cfg, lp, x, dtype, group=group, data=data, want_aux=want_aux)
         return x, aux
     if cfg.arch_type == "hybrid" and i % cfg.hybrid.attn_every == 0:
         x, _, _ = _block_fwd(cfg, params["shared_block"], x, dtype)
@@ -200,15 +208,18 @@ def remat_call(remat: bool, params, fn, *args):
 
 
 def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False,
-             group: L.ModelGroup | None = None):
+             group: L.ModelGroup | None = None, data: L.DataGroup | None = None,
+             want_aux: bool = True):
     """The layer stack. x: (B, S, D) -> (B, S, D), aux: the MoE layers' aux
-    losses summed in layer order (fp32; 0 for the other families).
-    ``remat`` recomputes each layer in the backward (with its collectives
-    over ``group``, a dense model's model ranks)."""
+    losses summed in layer order (fp32; 0 for the other families, and over
+    ``data`` without ``want_aux``). ``remat`` recomputes each layer in the
+    backward (with its collectives over ``group``, a dense model's model
+    ranks, and over ``data``, a MoE model's data ranks)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = remat_call(remat, params,
-                          lambda x, i=i: _layer_fwd(cfg, params, i, x, dtype, group), x)
+                          lambda x, i=i: _layer_fwd(cfg, params, i, x, dtype, group, data,
+                                                    want_aux), x)
         if a is not None:
             aux = aux + a
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -309,7 +320,7 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
             remat: bool = False, loss_weights: Optional[torch.Tensor] = None,
             aux_coeff: float = 0.01, reduce: bool = True, logits_sharding=None,
-            group: L.ModelGroup | None = None):
+            group: L.ModelGroup | None = None, data: L.DataGroup | None = None):
     """Next-token cross entropy (+ the MoE aux) → (loss, aux).
 
     ``loss_weights`` (B,) weighs each example: the hook the PO-FL trainer
@@ -321,9 +332,13 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
     model ranks a dense model is split over, ``params`` this rank's TP
     blocks (a tied ``embed``'s lookup and head add their gradients on the
     same vocabulary block); the loss is the whole batch's on every rank.
+    ``data``: the data ranks a MoE model's rows are split over, ``tokens``
+    this rank's rows; the loss and aux are then this rank's shares, whose
+    mean over the data ranks is the batch's (``layers.moe_fwd``), and with
+    ``reduce=False`` the aux is not taken (0).
     """
     x = embed_inputs(params, cfg, tokens, embeds, dtype, group)
-    x, aux = backbone(params, cfg, x, dtype, remat, group)
+    x, aux = backbone(params, cfg, x, dtype, remat, group, data, want_aux=reduce)
     if cfg.arch_type == "vlm":
         x = x[:, embeds.shape[1]:, :]
     per_example = chunked_ce(params, cfg, x, tokens, dtype, logits_sharding, group)
@@ -341,7 +356,8 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, dtype=torch.float32,
-            group: L.ModelGroup | None = None, pad_to: int | None = None):
+            group: L.ModelGroup | None = None, pad_to: int | None = None,
+            data: L.DataGroup | None = None):
     """Run the full prompt, build the decode cache, return last-pos logits.
 
     A dense, vlm or moe cache holds every layer's roped k and v, (L, B, S,
@@ -355,7 +371,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     logits are this rank's vocabulary block, and the cache is this rank's
     block of it by ``cache_pspecs`` (every kv head, this rank's slots of
     the padded cache where the sequence splits, :func:`_kv_rank_block`);
-    its positions are whole.
+    its positions are whole. Over ``data`` (a MoE model's data ranks)
+    ``tokens`` are this rank's rows, routed in the whole batch's groups.
     """
     x = embed_inputs(params, cfg, tokens, embeds, dtype, group)
     if cfg.arch_type == "ssm":
@@ -368,7 +385,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         ks, vs = _empty_kv(cfg, cfg.n_layers, x)
         for i in range(cfg.n_layers):
             x, _, (ks[i], vs[i]) = _block_fwd(cfg, layer_params(params, i), x, dtype,
-                                              return_kv=True)
+                                              return_kv=True, data=data, want_aux=False)
         cache = AttnCache(k=ks, v=vs, pos=_positions(x))
     if pad_to is not None and group is None:
         cache = pad_cache(cache, pad_to)
@@ -495,7 +512,8 @@ def _hybrid_prefill(params, cfg: ModelConfig, x, dtype):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
-                dtype=torch.float32, group: L.ModelGroup | None = None):
+                dtype=torch.float32, group: L.ModelGroup | None = None,
+                data: L.DataGroup | None = None):
     """One serve step: consume one token (B, 1) at absolute position ``t``,
     update ``cache`` **in place** and return (logits (B, 1, vocab_padded),
     cache). A dense, vlm or moe step writes the token's k, v and position into
@@ -506,7 +524,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     ``group``: the model ranks a dense model is split over, on this rank's
     TP blocks, its KV cache split by sequence where ``cache_pspecs`` splits
     it (:func:`repro_torch.models.layers.attention_decode`); the logits
-    are then this rank's vocabulary block. ``None`` on one card."""
+    are then this rank's vocabulary block. ``None`` on one card. ``data``:
+    the data ranks a MoE model's rows are split over, its tokens routed in
+    the whole batch's groups."""
     check_ported(cfg)
     x = L.embed_lookup(params["embed"], token, dtype, group)
     t = int(t)
@@ -526,13 +546,13 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     else:
         for i in range(cfg.n_layers):
             x = _block_decode(cfg, layer_params(params, i), x, cache.k[i], cache.v[i],
-                              cache.pos, t, dtype, group)
+                              cache.pos, t, dtype, group, data)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x, dtype, group), cache
 
 
 def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, dtype,
-                  group: L.ModelGroup | None = None):
+                  group: L.ModelGroup | None = None, data: L.DataGroup | None = None):
     """:func:`_block_fwd` for one token against a KV cache, written in place."""
     with record_function("lm.attention"):
         h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
@@ -541,7 +561,7 @@ def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, 
     h_in = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         with record_function("lm.moe"):
-            return x + L.moe_fwd(lp["moe"], h_in, cfg, dtype)[0]
+            return x + L.moe_fwd(lp["moe"], h_in, cfg, dtype, data, want_aux=False)[0]
     with record_function("lm.mlp"):
         return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group)
 

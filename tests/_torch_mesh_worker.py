@@ -55,6 +55,17 @@ got. Jobs:
                 prefill step's logits (its vocabulary block) and cache
                 blocks, the cache gathered whole from them and cut again,
                 and one decode step's token from the prefilled blocks.
+  moe_ranks     the input's MoE cases (``tests/test_torch_moe.py``) over a
+                (data, 1) mesh of every rank, on the input's device (gloo
+                ranks sharing a card there): each ``layer`` case's
+                ``moe_fwd`` of this rank's rows of x over the data group
+                (its weights the input's, or drawn on the device from its
+                seed),
+                its output, aux, route and the aux's gradient (router and
+                rows); each ``micro`` case's weighted loss and gradients
+                over its microbatches (``launch.steps._weighted_grads``)
+                on this rank's FL devices' rows, and its routes; gathered
+                by rank.
 """
 from __future__ import annotations
 
@@ -336,6 +347,53 @@ def serve_ranks(inp) -> dict:
     return out
 
 
+def moe_ranks(inp) -> dict:
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.steps import _weighted_grads, data_group
+    from repro_torch.models import layers
+
+    def by_rank(value):
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, value)
+        return parts
+
+    def host(route):
+        return type(route)(*(x.detach().cpu() if isinstance(x, torch.Tensor) else x
+                             for x in route))
+
+    dev = torch.device(inp.get("device", "cpu"))
+    mesh = make_rank_mesh(model=1, n_fl=dist.get_world_size(), device=dev)
+    data = data_group(mesh)
+    ranks = data.size
+    out = {}
+    for name, case in inp["layer"].items():
+        b = case["x"].shape[0]
+        x = case["x"][data.rank * b // ranks:(data.rank + 1) * b // ranks].to(dev)
+        x.requires_grad_()
+        params = (case["params"] if "params" in case else  # else drawn on the device
+                  layers.init_moe(torch.Generator(dev).manual_seed(case["seed"]), case["cfg"],
+                                  device=dev))
+        params = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        with layers.recorded_routes() as seen:
+            y, aux = layers.moe_fwd(params, x, case["cfg"], torch.float32, data)
+        d_router, d_x = torch.autograd.grad(aux, [params["router"], x])
+        out[name] = by_rank({"out": y.detach().cpu(), "aux": aux.detach().cpu(),
+                             "route": host(seen[0]), "d_router": d_router.cpu(),
+                             "d_x": d_x.cpu()})
+    for name, case in inp.get("micro", {}).items():
+        n_dev = case["n_fl"] // ranks
+        b = case["tokens"].shape[0]
+        rows = slice(data.rank * b // ranks, (data.rank + 1) * b // ranks)
+        coeffs = case["coeffs"][data.rank * n_dev:(data.rank + 1) * n_dev]
+        w = torch.repeat_interleave(coeffs * case["n_fl"], b // case["n_fl"])
+        grads_of = _weighted_grads(case["cfg"], torch.float32, True, case["n_micro"],
+                                   data=data)
+        with layers.recorded_routes() as seen:
+            loss, grads = grads_of(case["params"], {"tokens": case["tokens"][rows]}, w, n_dev)
+        out[name] = by_rank({"loss": loss, "grads": grads, "routes": [host(r) for r in seen]})
+    return out
+
+
 def main() -> int:
     job, path_in, path_out = sys.argv[1:]
     from repro_torch.sim.multihost import initialize_distributed
@@ -345,7 +403,7 @@ def main() -> int:
     inp = torch.load(path_in, weights_only=False) if path_in != "-" else None
     result = {"shard_gather": shard_gather, "allreduce": allreduce, "cnn_parity": cnn_parity,
               "lattice": lattice, "train_ranks": train_ranks, "tp_route": tp_route,
-              "serve_ranks": serve_ranks}[job](inp)
+              "serve_ranks": serve_ranks, "moe_ranks": moe_ranks}[job](inp)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, result)
     same = all(_equal(every[0], other) for other in every[1:])

@@ -457,12 +457,17 @@ def train_case(arch: str, layers: int = 2, b: int = 2, s: int = 16, seed: int = 
     if jcfg.ssm is not None:
         jp["layers"]["mamba"]["dt_bias"] = mamba2_dt(jp["layers"]["mamba"]["dt_bias"].shape,
                                                      seed + 200)
+    return jcfg, tcfg, jp, train_batch(jcfg, b, s, seed)
+
+
+def train_batch(jcfg, b: int = 2, s: int = 16, seed: int = 0) -> dict:
+    """:func:`train_case`'s batch for ``seed``, without its weights."""
     batch = {"tokens": lm_tokens(jcfg, b, s, seed + 1)}
     if jcfg.arch_type == "vlm":
         batch["embeds"] = lm_embeddings(jcfg, b, jcfg.vlm.n_patches, seed + 2)
     if jcfg.arch_type == "encdec":
         batch["frames"] = lm_embeddings(jcfg, b, jcfg.encdec.n_enc_frames, seed + 2)
-    return jcfg, tcfg, jp, batch
+    return batch
 
 
 def torch_batch(batch: dict) -> dict:

@@ -1323,3 +1323,63 @@ def test_split_bf16_train_step_gradients_on_card_match_the_fp32_route(card, tmp_
         assert all(float(torch.linalg.vector_norm(g.float())) > 0 for g in got)
         errs = [rel(g, v) for g, v in zip(got, want, strict=True)]
         assert max(errs) <= 2.0**-7, errs
+
+
+# -- the MoE over data ranks -------------------------------------------------------
+
+
+def test_moe_decode_of_128_rows_over_two_ranks_on_card_routes_as_one_process(card, tmp_path):
+    """One olmoe-1b-7b MoE layer at full width (64 experts, top-8), fp32,
+    on a decode step's 128 rows: two gloo ranks sharing the card, 64 rows
+    each, route them in the batch's one group of 128 (capacity 20)
+    gathering each other's experts (job ``moe_ranks`` of
+    ``tests/_torch_mesh_worker.py``), against this process's ``moe_fwd`` on
+    all 128 rows: the ranks' routes joined (``layers.whole_route``) have the
+    same experts wherever the one process's k + 1 largest probabilities are
+    more than 1e-6 apart, the same positions and drops wherever no changed
+    choice touched the expert, and drop at least one (slot, token); the
+    outputs joined and the mean of the ranks' aux within 1e-5 relative L2."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.models import layers
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).double())
+                / torch.linalg.vector_norm(b.double())).item()
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = configs.base_config("olmoe-1b-7b")
+    x = torch.randn((128, 1, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    path_in, path_out = tmp_path / "in.pt", tmp_path / "out.pt"
+    torch.save({"device": "cuda", "layer": {"decode": {"cfg": cfg, "seed": 5, "x": x}}}, path_in)
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.distributed", "--procs", "2", "--timeout",
+         "240", "--", sys.executable, str(root / "tests" / "_torch_mesh_worker.py"), "moe_ranks",
+         str(path_in), str(path_out)],
+        capture_output=True, text=True, cwd=root, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    ranks = torch.load(path_out, weights_only=False)["result"]["decode"]
+    params = layers.init_moe(torch.Generator(card).manual_seed(5), cfg, device=card)
+    with layers.recorded_routes() as seen:
+        out, aux = layers.moe_fwd(params, x.to(card), cfg, torch.float32)
+    want = type(seen[0])(*(v.cpu() if isinstance(v, torch.Tensor) else v for v in seen[0]))
+    got = layers.whole_route([r["route"] for r in ranks])
+    assert got.cap == want.cap == 20 and got.gate_idx.shape == want.gate_idx.shape == (1, 128, 8)
+    k = cfg.moe.top_k
+    top = want.probs.sort(dim=-1, descending=True).values[..., :k + 1]
+    tie = ((top[..., :-1] - top[..., 1:]) <= 1e-6).any(-1)
+    differ = (got.gate_idx != want.gate_idx).any(-1)
+    assert not (differ & ~tie).any()
+    touched = torch.zeros(cfg.moe.n_experts, dtype=torch.bool)
+    for side in (got, want):
+        touched[side.gate_idx[0][differ[0]].flatten()] = True
+    held = ~touched[want.gate_idx[0].T]  # (k, 128)
+    assert torch.equal(got.pos[0][held], want.pos[0][held])
+    assert torch.equal(got.within[0][held], want.within[0][held])
+    assert int((~got.within).sum()) > 0
+    assert rel(torch.cat([r["out"] for r in ranks]), out.detach().cpu()) <= 1e-5
+    assert rel(sum(r["aux"] for r in ranks) / 2, aux.detach().cpu()) <= 1e-5

@@ -166,3 +166,25 @@ def test_serve_plan_runs_each_run_on_the_mesh_its_model_field_names(tmp_path):
             err = ((got["prefill"]["logits"] - want["prefill"]["logits"][rows]).norm()
                    / want["prefill"]["logits"][rows].norm()).item()
             assert err <= 1e-5, (mesh, err)
+
+
+def test_train_plan_runs_and_their_outputs(tmp_path):
+    """The ``train`` workload's runs: one from the flags, or a ``--plan``'s
+    list of {arch, layers, model, dtype, n_rounds} (a missing key its
+    flag's) in one process group; with several runs run i writes ``<stem>.<i><ext>``
+    of ``--out`` (and its ranks' blocks beside it)."""
+    from types import SimpleNamespace
+
+    flags = dict(arch="qwen2-0.5b", layers=4, model=1, dtype="float32", n_rounds=3)
+    assert tdist.train_plan(SimpleNamespace(plan="", **flags)) == [flags]
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps([{"dtype": "float32", "n_rounds": 3},
+                                {"arch": "olmoe-1b-7b", "layers": 1, "model": 2,
+                                 "dtype": "bfloat16", "n_rounds": 1}]))
+    args = SimpleNamespace(plan=str(plan), **{**flags, "dtype": "bfloat16", "n_rounds": 4})
+    assert tdist.train_plan(args) == [
+        flags, {"arch": "olmoe-1b-7b", "layers": 1, "model": 2, "dtype": "bfloat16",
+                "n_rounds": 1}]
+    assert tdist.plan_out("/o/train.npz", 0, 1) == "/o/train.npz"
+    assert [tdist.plan_out("/o/train.npz", i, 2) for i in range(2)] == ["/o/train.0.npz",
+                                                                       "/o/train.1.npz"]

@@ -301,3 +301,50 @@ def test_dry_run_reckons_a_tensor_parallel_train_round():
     ssm = params_structs(tconfigs.get_config("mamba2-370m", INPUT_SHAPES["train_4k"]))
     assert whole["compute_layout"] == "whole"
     assert whole["compute_weight_bytes"] == 4 * sum(x.numel() for x in tree_leaves(ssm))
+
+
+def test_dry_run_reckons_a_moe_over_data_ranks():
+    """olmoe-1b-7b at 2 layers on (2, 1), 8 × 2,048 tokens, fp32, two
+    probes: a rank's 8,192 tokens hold 8 whole groups of 1,024, so a round
+    adds only the aux's SUM of the 64 first-choice counts a layer in the
+    step's forward and its recompute (4 all-reduces of 256 B), no expert
+    gather; at 8 × 16 tokens a group of 128 spans the ranks, and each of the
+    3 JVP passes, the forward and the recompute gather the (8, 64) int32
+    experts a layer. Served on (2, 1), a decode step of 128 rows gathers
+    them a layer (16 a step at full depth); an 8 × 2,048 prefill none, an
+    8 × 64 one a layer. On (1, 2) a MoE model serves nowhere: no
+    collectives."""
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+
+    cfg = tconfigs.cut_depth(tconfigs.base_config("olmoe-1b-7b"), 2)
+    mesh = ShapeMesh(("data", "model"), (2, 1))
+    leaves = tree_leaves(params_structs(cfg))
+
+    def train(seq):
+        bundle = build_train_step(cfg, InputShape("t", seq, 8, "train"), mesh, adamw(1e-4),
+                                  dtype=torch.float32)
+        return dryrun.rank_collectives(cfg, bundle, mesh, "all-gather", 8, dtype=torch.float32,
+                                       n_probes=2)
+
+    whole, spans = train(2048), train(16)
+    grads = sum(2 * x.numel() * 4 // 2 for x in leaves) + 2 * 4 // 2  # the leaves, the loss
+    assert whole["reduce"] == {"calls": len(leaves) + 1 + 4, "bytes": grads + 4 * 256}
+    assert spans["reduce"] == whole["reduce"]
+    experts = 2 * 8 * 64 * 4 // 2  # one all-gather's wire bytes: (8, 64) int32 a rank
+    assert spans["gather"]["calls"] == whole["gather"]["calls"] + 5 * 2
+    assert spans["gather"]["bytes"] - whole["gather"]["bytes"] == 5 * 2 * experts
+    full = tconfigs.base_config("olmoe-1b-7b")
+
+    def serve(build, shape, sizes=(2, 1)):
+        m = ShapeMesh(("data", "model"), sizes)
+        return dryrun.rank_collectives(full, build(full, shape, m), m, "all-gather", n_tokens=9)
+
+    decode = serve(build_serve_step, InputShape("d", 256, 128, "decode"))
+    assert decode["gather"] == {"calls": 8 * 16 + 1,
+                                "bytes": 8 * 16 * (2 * 8 * 64 * 4 // 2) + 128 * 9 * 8 // 2}
+    assert decode["reduce"]["calls"] == 0
+    assert serve(build_prefill_step, InputShape("p", 2048, 8, "prefill"))["gather"]["calls"] == 0
+    short = serve(build_prefill_step, InputShape("p", 64, 8, "prefill"))
+    assert short["gather"] == {"calls": 16, "bytes": 16 * (2 * 8 * 256 * 4 // 2)}
+    assert serve(build_serve_step, InputShape("d", 256, 128, "decode"), (1, 2)) is None

@@ -16,6 +16,22 @@ prefill logits and KV cache, six greedy decode steps with tokens equal and
 the reference's top-2 margin above the tolerance at every step, and
 ``Server.decode``. Weights come from the reference's ``model_init``, carried
 over by ``repro_torch.convert.lm_params_from_jax``.
+
+Over two gloo data ranks (one launch, job ``moe_ranks`` of
+``tests/_torch_mesh_worker.py``) each rank routes its rows of the batch in
+the whole batch's routing groups and is held to the reference's
+``moe_fwd`` on one process over the whole batch: a group of 96 tokens
+split between the ranks, a 1,000-token group split inside a 3,000-token
+batch, and ranks holding whole groups of 550; the ranks' routes joined
+(``layers.whole_route``) equal the reference's experts, positions and
+drops exactly, with drops asserted; the outputs joined and the mean of the
+ranks' aux and of its router gradient within 1e-5 of the reference's,
+and of its row gradient within 1e-6 of the port's one process (which sits
+up to 3.4e-5 from the reference's there, relative to its scale: the softmax
+backward of a nearly cancelling gradient, ROADMAP C). A second
+case trains through ``launch.steps._weighted_grads`` with two microbatches
+(each routed over the ranks on its own), held to the reference's loss and
+gradients of the same microbatches.
 """
 from __future__ import annotations
 
@@ -26,7 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import RTOL, assert_close, t
+from _torch_parity import RTOL, assert_close, launch_ranks, t
 from jax.sharding import AxisType
 
 from repro import configs as jconfigs
@@ -342,3 +358,155 @@ def test_port_init_model_has_the_reference_shapes(arch):
         for key in path:
             node = node[key.key]
         assert tuple(node.shape) == leaf.shape and node.dtype == torch.float32, path
+
+
+# --------------------------------------------------------------------------
+# over two data ranks: routing groups and the aux span the whole batch
+# --------------------------------------------------------------------------
+
+# name → (rows, tokens a row, capacity factor); each case drops choices
+RANK_LAYERS = {
+    "spans": (4, 24, 0.5),      # one group of 96 tokens, 48 on each rank
+    "partial": (2, 1500, 0.5),  # groups of 1,000: rank 0 holds group 0 and half of group 1
+    "whole": (2, 1100, 0.5),    # groups of 550: each rank holds two whole groups
+}
+MICRO = dict(n_fl=4, b=8, s=16, n_micro=2, cf=0.5)  # each microbatch: one group of 64 tokens
+
+
+def _reference_moe_grads(jp, x, cfg):
+    """The reference's ``moe_fwd`` → (out, aux, gate_idx (G, gs, k), the
+    aux's gradient by the router and by x), its experts captured from its
+    ``jax.lax.top_k`` call, all in one ``jax.jit``."""
+    top_k = jax.lax.top_k
+
+    def run(p, y):
+        seen = []
+
+        def recording(probs, k):
+            out = top_k(probs, k)
+            seen.append(out[1])
+            return out
+
+        jax.lax.top_k = recording
+        try:
+            out, aux = jlayers.moe_fwd(p, y, cfg)
+        finally:
+            jax.lax.top_k = top_k
+        d_p, d_x = jax.grad(lambda q, z: jlayers.moe_fwd(q, z, cfg)[1], argnums=(0, 1))(p, y)
+        return out, aux, seen[0], d_p["router"], d_x
+
+    return tuple(np.asarray(v) for v in jax.jit(run)(jp, jnp.asarray(x)))
+
+
+def _to_micro(x, n_fl, n_micro):
+    """The reference train step's microbatches of a FL-device-major batch
+    (``repro.launch.steps.build_train_step``'s ``to_micro``)."""
+    per = x.shape[0] // n_fl
+    x = x.reshape((n_fl, n_micro, per // n_micro) + x.shape[1:])
+    return np.moveaxis(x, 1, 0).reshape((n_micro, x.shape[0] * per // n_micro) + x.shape[3:])
+
+
+def _reference_micro(jcfg, jp, tokens, coeffs):
+    """The reference's loss and gradients averaged over MICRO's
+    microbatches, as its train step takes them."""
+    w = np.repeat(coeffs * MICRO["n_fl"], MICRO["b"] // MICRO["n_fl"]).astype(np.float32)
+
+    def loss_fn(p, mb, mw):
+        return japi.model_loss(p, jcfg, {"tokens": mb}, jnp.float32, True, loss_weights=mw)[0]
+
+    losses, grads = [], []
+    step = jax.jit(jax.value_and_grad(loss_fn))
+    for mb, mw in zip(_to_micro(tokens, MICRO["n_fl"], MICRO["n_micro"]),
+                      _to_micro(w, MICRO["n_fl"], MICRO["n_micro"])):
+        loss, g = step(jp, jnp.asarray(mb), jnp.asarray(mw))
+        losses.append(loss)
+        grads.append(g)
+    return (sum(losses) / len(losses),
+            jax.tree.map(lambda *g: sum(g) / len(g), *grads))
+
+
+@pytest.fixture(scope="module")
+def moe_ranks(tmp_path_factory):
+    """Every case on two gloo data ranks (one launch), and the reference's
+    results, which this process computes while the ranks run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    layer_inp, layer_jax, one_process = {}, {}, {}
+    for name, (b, s, cf) in RANK_LAYERS.items():
+        cfg, tcfg = _cfg(capacity_factor=cf)
+        jp, tp = _moe_params(cfg, seed=b * s)
+        x = np.random.default_rng(s).standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        layer_inp[name] = {"cfg": tcfg, "params": tp, "x": t(x)}
+        layer_jax[name] = (jp, x, cfg)
+        rows = t(x).requires_grad_()
+        one_process[name] = torch.autograd.grad(tlayers.moe_fwd(tp, rows, tcfg)[1], [rows])[0]
+    jcfg, tcfg = _cfg(capacity_factor=MICRO["cf"])
+    jp, tp = _model(jcfg, tcfg, seed=7)
+    tokens = _tokens(jcfg, MICRO["b"], MICRO["s"], 3)
+    coeffs = np.random.default_rng(4).uniform(0.1, 0.5, MICRO["n_fl"]).astype(np.float32)
+    micro = {"micro": {"cfg": tcfg, "params": tp, "tokens": t(tokens, torch.int64),
+                       "coeffs": t(coeffs), "n_fl": MICRO["n_fl"],
+                       "n_micro": MICRO["n_micro"]}}
+    with ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(launch_ranks, "moe_ranks", 2, {"layer": layer_inp, "micro": micro},
+                               tmp_path_factory.mktemp("moe_ranks"))
+        want = {name: _reference_moe_grads(*args) for name, args in layer_jax.items()}
+        want["micro"] = _reference_micro(jcfg, jp, tokens, coeffs)
+        got = launched.result()
+    return got, want, tcfg, one_process
+
+
+@pytest.mark.parametrize("name", list(RANK_LAYERS))
+def test_moe_over_two_data_ranks_routes_as_one_process(moe_ranks, name):
+    """The ranks' routes joined are the reference's over the whole batch:
+    its experts, each (slot, token)'s position in the batch's group and the
+    drops, at least one; each rank's route holds its own tokens (the
+    capacity the batch's group's); the outputs joined, the mean of the
+    ranks' aux and of its router gradient within 1e-5, its row gradient
+    within 1e-6 of the port's one process."""
+    got, want, _, one_process = moe_ranks
+    ranks = got[name]
+    out, aux, idx, d_router, d_x = want[name]
+    b, s, cf = RANK_LAYERS[name]
+    cfg, _ = _cfg(capacity_factor=cf)
+    route = tlayers.whole_route([r["route"] for r in ranks])
+    gs = jlayers._moe_group_size(b * s)
+    pos = _positions(idx, cfg.moe.n_experts)
+    cap = jlayers.moe_capacity(gs, cfg.moe)
+    assert route.cap == cap and all(r["route"].cap == cap for r in ranks)
+    assert np.array_equal(route.gate_idx.numpy(), idx)
+    assert np.array_equal(route.pos.numpy(), pos)
+    assert np.array_equal(route.within.numpy(), pos < cap)
+    assert int((pos >= cap).sum()) > 0
+    spans = (b // 2 * s) % gs != 0
+    assert all(r["route"].gate_idx.shape[0] == (1 if spans else b // 2 * s // gs) for r in ranks)
+    assert_close(torch.cat([r["out"] for r in ranks]), out)
+    assert_close(sum(r["aux"] for r in ranks) / 2, aux)
+    assert_close(sum(r["d_router"] for r in ranks) / 2, d_router)
+    assert_close(torch.cat([r["d_x"] for r in ranks]) / 2, one_process[name], rtol=1e-6)
+    assert_close(one_process[name], d_x, rtol=4e-5)  # the port's own distance (ROADMAP C)
+
+
+def test_moe_over_two_data_ranks_trains_two_microbatches_as_one_process(moe_ranks):
+    """Two microbatches of four FL devices over two data ranks, each routed
+    over the ranks on its own: the mean of the ranks' weighted loss and of
+    every gradient equals the reference's over the same microbatches
+    (within 1e-5); each microbatch's group of 64 tokens spans the ranks and
+    drops choices, and the remat's recompute routes as the forward did."""
+    got, (loss, grads), tcfg = moe_ranks[0]["micro"], moe_ranks[1]["micro"], moe_ranks[2]
+    assert_close(sum(r["loss"] for r in got) / 2, loss)
+    want = jax.tree.leaves(lm_params_from_jax(grads, tcfg, device="cpu"))
+    for i, w in enumerate(want):
+        assert_close(sum(r["grads"][i] for r in got) / 2, w)
+    n = tcfg.n_layers
+    # a microbatch's layers forward, then the recompute's in the backward's order
+    for r in got:
+        assert len(r["routes"]) == MICRO["n_micro"] * 2 * n
+    for i in range(MICRO["n_micro"] * 2 * n):
+        route = tlayers.whole_route([r["routes"][i] for r in got])
+        assert route.gate_idx.shape == (1, MICRO["b"] * MICRO["s"] // MICRO["n_micro"], 2)
+        assert int((~route.within).sum()) > 0
+        j = i % (2 * n)
+        fwd = i - j + (j if j < n else 2 * n - 1 - j)
+        fwd = tlayers.whole_route([r["routes"][fwd] for r in got])
+        assert torch.equal(route.pos, fwd.pos) and torch.equal(route.gate_idx, fwd.gate_idx)

@@ -21,7 +21,11 @@ block). Cases:
   slice is empty until the steps cross the boundary at position 8;
 - ``ring``: the reference's unpadded 8-slot cache on (1, 2): slot t % 8
   wraps onto rank 0's slots, then crosses into rank 1's;
-- ``mamba2``: on (2, 1), the state split by rows.
+- ``mamba2``: on (2, 1), the state split by rows;
+- ``olmoe``: reduced olmoe (4 experts, top-2) on (2, 1): each rank routes
+  its rows in the whole batch's groups (the prefill's 64 tokens one group,
+  each decode step's 4 tokens one group), gathering the other rank's
+  experts a layer.
 
 Tokens are held exactly (the reference's top-2 margins are asserted to
 exceed the tolerance), floats within 1e-5 of the reference's scale. The
@@ -67,6 +71,7 @@ CASES = {
     "ring-1x2": ("qwen2-0.5b", 2, 2, 8, None, 6, False),
     "mamba2-2x1": ("mamba2-370m", 2, 1, 16, None, 6, True),
     "fill-2x2": ("qwen2-0.5b", 4, 2, 16, 24, 7, True),
+    "olmoe-2x1": ("olmoe-1b-7b", 2, 1, 16, 24, 7, True),
 }
 
 
@@ -238,8 +243,9 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     kv re-layout's gather a layer in the prefill, the embedding's
     all-reduce, the q, k, v gather, the combine's three all-reduces where
     the sequence is split and two all-reduces a layer a step, the greedy
-    token's gather, the gathers of the logits' vocabulary blocks; and the
-    tokens' gather over "data"."""
+    token's gather, the gathers of the logits' vocabulary blocks; a MoE
+    model's gather of the experts over "data" a layer in the prefill and
+    in each step; and the tokens' gather over "data"."""
     case, got, _ = runs[name]
     mesh, cfg = _mesh(case), case["cfg"]
     prompt = InputShape("prompt", case["tokens"].shape[1], B, "prefill")
@@ -256,6 +262,10 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     assert (prefill["gather"]["calls"] > 0) == (split or case["load_blocks"])
     assert decode["gather"]["calls"] > 0  # the model group's, or the tokens' over "data"
     assert decode["broadcast"]["calls"] == prefill["broadcast"]["calls"] == 0
+    if cfg.moe is not None:  # the experts' gather a layer (every group spans the ranks)
+        loads = prefill["gather"]["calls"] - n_layers
+        assert loads == sum(not sh.replicated() for sh in _load_specs(cfg, mesh))
+        assert decode["gather"]["calls"] == steps * n_layers + 1
     for rank in got["ranks"]:
         assert rank["prefill_collectives"] == prefill
         assert rank["collectives"] == decode
@@ -287,6 +297,16 @@ def test_each_rank_serves_its_tp_blocks(runs, name):
         nbytes = sum(g.numel() * g.element_size() for (_, g), _ in pairs)
         assert nbytes == served_bytes(structs, cuts, torch.float32)
         assert nbytes == 4 * (split // case["model"] + norms)
+
+
+def _load_specs(cfg, mesh):
+    """The Shardings of the weights' spec blocks a rank loads (the
+    ``params_pspecs`` the server reads them by), as a list."""
+    from repro_torch.flatten_util import tree_leaves
+    from repro_torch.launch.steps import _param_specs
+
+    return tree_leaves(to_shardings(_param_specs(cfg, InputShape("s", 24, B, "decode"), mesh),
+                                    mesh))
 
 
 def _named_leaves(tree, key=""):
@@ -335,7 +355,7 @@ def test_one_rank_mesh_is_the_one_card_server_bitwise():
 
 
 REFUSED = {  # arch → (data, model), and what the message names
-    "olmoe-1b-7b": ((1, 1), "MoE"),
+    "olmoe-1b-7b": ((1, 2), "MoE model over 2 model ranks.*expert split"),
     "zamba2-2.7b": ((2, 1), "hybrid"),
     "seamless-m4t-large-v2": ((2, 1), "cross_k"),
     "internvl2-76b": ((1, 1), "VLM"),
@@ -345,8 +365,9 @@ REFUSED = {  # arch → (data, model), and what the message names
 
 @pytest.mark.parametrize("arch", list(REFUSED))
 def test_serving_over_ranks_refuses_what_a14_10_holds(arch):
-    """MoE, hybrid, enc-dec and VLM models on any mesh of ranks and an SSM
-    model over model ranks raise ``ValueError`` naming ROADMAP A14.10, in
+    """Hybrid, enc-dec and VLM models on any mesh of ranks and an SSM or
+    MoE model over model ranks (a MoE model's waits for the expert split)
+    raise ``ValueError`` naming ROADMAP A14.10, in
     both serving steps and in ``Server``; the dry run reckons none of
     their collectives."""
     from repro_torch.launch.serve import Server
@@ -365,6 +386,10 @@ def test_serving_over_ranks_refuses_what_a14_10_holds(arch):
     assert dryrun.rank_collectives(cfg, build_serve_step(cfg, shape, shape_mesh),
                                    shape_mesh) is None
     check_rank_serving(configs.reduced_config("qwen2-0.5b"), mesh)  # dense: any mesh
+    for data in (1, 2):  # MoE and SSM: any mesh of one model rank
+        for arch in ("olmoe-1b-7b", "mamba2-370m"):
+            check_rank_serving(configs.reduced_config(arch),
+                               RankMesh(("data", "model"), (data, 1), device=torch.device("cpu")))
 
 
 def test_dry_run_reckons_the_decode_32k_combine():

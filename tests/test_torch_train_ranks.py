@@ -9,7 +9,11 @@ qwen2 and reduced mamba2 at 2 layers, 4 FL devices, 8 × 16 tokens, fp32
 compute, on the (2, 1) mesh (two data ranks, two FL devices each) and the
 (1, 2) mesh (two model ranks: qwen2 split tensor-parallel on each rank's
 TP blocks, ``sharding.tp_pspecs``; mamba2 computing the same FL devices
-whole, as the SSM family still does over model ranks). Beside it, one
+whole, as the SSM family still does over model ranks), and reduced olmoe
+(4 experts, top-2) on the (2, 1) mesh: each rank routes its 64 tokens in
+the batch's group of 128 over the data ranks, gathering the other's
+experts in every pass, and adds its share of the batch's load-balance
+loss. Beside it, one
 launch of four gloo ranks runs qwen2 on the (2, 2) mesh for two ``sgd``
 rounds: two data ranks, each split over two model ranks. The
 reference's round runs in this process over its own functions
@@ -50,7 +54,7 @@ import torch
 from _torch_mesh_worker import ReplayDraws, recording
 from _torch_parity import (
     ReferenceTrainerDraws, assert_close, launch_ranks, reference_trainer, torch_batch,
-    train_case,
+    train_batch, train_case,
 )
 
 from repro.core.channel import ChannelConfig as JChannelConfig
@@ -69,6 +73,7 @@ from repro_torch.optim import optimizers as topt
 
 N_FL, B, SEQ, LR, SEED = 4, 8, 16, 0.05, 3
 ARCHS = ("qwen2-0.5b", "mamba2-370m")
+MOE = "olmoe-1b-7b-sgd-2x1"  # reduced olmoe over two data ranks
 MESHES = {"2x1": 1, "1x2": 2}  # name → ranks a model group
 SPLIT4 = f"{ARCHS[0]}-sgd-2x2"  # the (2, 2) case on four ranks, SPLIT4_ROUNDS rounds
 SPLIT4_ROUNDS = 2
@@ -83,7 +88,7 @@ def _case(arch: str, optimizer: str):
     from the reference trainer's key discipline and its channel gains;
     the reference's side: its config, TrainerConfig, weights and batches)."""
     jcfg, tcfg, jp, _ = train_case(arch, b=B, s=SEQ, seed=9)
-    jbatches = [train_case(arch, b=B, s=SEQ, seed=20 + r)[3] for r in range(ROUNDS[optimizer])]
+    jbatches = [train_batch(jcfg, b=B, s=SEQ, seed=20 + r) for r in range(ROUNDS[optimizer])]
     tc = ttrain.TrainerConfig(n_scheduled=2, noise_power=1e-10, n_probes=2, dtype="float32",
                               seed=SEED)
     params = lm_params_from_jax(jax.tree.map(jnp.asarray, jp), tcfg, device="cpu")
@@ -180,6 +185,8 @@ def runs(tmp_path_factory):
     cases = {(arch, opt): _case(arch, opt) for arch, opt in CASES}
     inp = {f"{arch}-{opt}-{mesh}": {**cases[arch, opt][0], "model": model}
            for arch, opt in CASES for mesh, model in MESHES.items()}
+    moe_port, moe_reference = _case("olmoe-1b-7b", "sgd")
+    inp[MOE] = {**moe_port, "model": 1}
     qwen = cases[ARCHS[0], "sgd"][0]
     split4 = {SPLIT4: {**qwen, "model": 2, "data": 2, "batches": qwen["batches"][:SPLIT4_ROUNDS],
                        "draws": qwen["draws"][:SPLIT4_ROUNDS]}}
@@ -195,6 +202,8 @@ def runs(tmp_path_factory):
             rounds, after, seen = ref[arch]
             want[arch, opt] = ((rounds, after[-1], seen) if opt == "sgd" else
                                (rounds[:1], None, seen[:1]), _one_process(port))
+        rounds, after, seen = _reference(moe_port, moe_reference)
+        want_moe = ((rounds, after[-1], seen), _one_process(moe_port))
         rounds, after, seen = ref[ARCHS[0]]
         n = SPLIT4_ROUNDS
         want4 = ((rounds[:n], after[n - 1], seen[:n]),
@@ -204,11 +213,12 @@ def runs(tmp_path_factory):
                                     *want[arch, opt])
            for arch, opt in CASES for mesh in MESHES}
     out[SPLIT4] = (split4[SPLIT4], got[SPLIT4], *want4)
+    out[MOE] = (inp[MOE], got[MOE], *want_moe)
     return out
 
 
 def _sgd_names():
-    return [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES] + [SPLIT4]
+    return [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES] + [SPLIT4, MOE]
 
 
 def _assert_rounds(rounds, want):
@@ -288,14 +298,15 @@ def _split(case) -> bool:
     return case["cfg"].arch_type == "dense" and case["model"] > 1
 
 
-@pytest.mark.parametrize("name", [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES]
-                         + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES] + [SPLIT4])
+@pytest.mark.parametrize("name", _sgd_names() + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES])
 def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     """Every rank's gathers, reductions and broadcasts, counted with their
     wire bytes by the rank mesh as it ran, equal the dry run's reckoning of
     a round on that mesh (gloo on the CPU gathers by all-gather; fp32
     compute, the trainer's two probes) times the rounds: over model ranks
-    that split qwen2 the tensor-parallel all-reduces too."""
+    that split qwen2 the tensor-parallel all-reduces too, and over the data
+    ranks that route olmoe the load-balance loss's SUM and the experts'
+    gather a layer."""
     case, got, _, _ = runs[name]
     mesh = _mesh(case)
     opt_name, lr = case["optimizer"]
@@ -307,11 +318,17 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     want = {op: {k: v * n_rounds for k, v in c.items()} for op, c in per_round.items()}
     assert want["gather"]["calls"] > 0 and want["broadcast"]["calls"] == n_rounds
     assert (want["reduce"]["calls"] > 0) == (mesh.shape["data"] > 1 or _split(case))
+    if name == MOE:  # a layer gathers the experts in 3 JVP passes, the forward, the recompute
+        n_layers, masters = case["cfg"].n_layers, tree_leaves(bundle.in_shardings["params"])
+        split = sum(not sh.replicated() for sh in masters)
+        assert want["gather"]["calls"] == n_rounds * (2 * split + 1 + 5 * n_layers)
+        # every gradient leaf and the loss, and the aux's SUM a layer (forward, recompute)
+        assert want["reduce"]["calls"] == n_rounds * (len(masters) + 1 + 2 * n_layers)
     for rank in got["ranks"]:
         assert rank["collectives"] == want
 
 
-@pytest.mark.parametrize("name", [f"{a}-sgd-{m}" for a in ARCHS for m in MESHES] + [SPLIT4])
+@pytest.mark.parametrize("name", _sgd_names())
 def test_each_rank_differentiates_its_compute_blocks(runs, name):
     """Every ``model_loss`` call of a rank's steps (1 + 2 JVP passes and
     the train step a round) gets its compute blocks: over model ranks that
@@ -369,22 +386,24 @@ def test_one_rank_mesh_is_the_one_card_trainer_bitwise():
                                               "axis_sizes": (16, 16)}
 
 
-def test_moe_trains_over_model_ranks_only():
+def test_rank_slice_takes_a_moe_model_over_data_ranks():
     """A MoE model's routing groups and load-balance loss span the batch,
-    so its trainer refuses a mesh that splits the batch over data ranks
-    and takes one that keeps it whole on every rank."""
+    and its steps route over the data group: the (2, 1) mesh splits its FL
+    devices over the data ranks as any model's, and the (1, 2) mesh keeps
+    them whole on every rank."""
     from types import SimpleNamespace
 
     from repro_torch import configs
-    from repro_torch.launch.steps import _rank_slice
+    from repro_torch.launch.steps import _rank_slice, build_train_step
 
-    cfg = configs.reduced_config("olmoe-1b-7b")
-
-    def mesh(data):
+    def mesh(data, rank=0):
         return SimpleNamespace(shape={"data": data, "model": 2 // data}, n_fl=4,
-                               coordinates=lambda: {"data": 0, "model": 0})
+                               coordinates=lambda: {"data": rank, "model": 0})
 
-    with pytest.raises(ValueError, match="model ranks only"):
-        _rank_slice(mesh(2), cfg)
-    assert tuple(_rank_slice(mesh(1), cfg)) == (1, 0, 4)
-    assert tuple(_rank_slice(mesh(2), configs.reduced_config("qwen2-0.5b"))) == (2, 0, 2)
+    assert tuple(_rank_slice(mesh(2))) == (2, 0, 2)
+    assert tuple(_rank_slice(mesh(2, rank=1))) == (2, 2, 2)
+    assert tuple(_rank_slice(mesh(1))) == (1, 0, 4)
+    cfg = configs.reduced_config("olmoe-1b-7b")
+    shape_mesh = ShapeMesh(("data", "model"), (2, 1))
+    bundle = build_train_step(cfg, InputShape("t", 16, 8, "train"), shape_mesh, topt.sgd(LR))
+    assert dryrun.rank_collectives(cfg, bundle, shape_mesh, n_fl=4)["reduce"]["calls"] > 0

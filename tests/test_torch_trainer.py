@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (
-    ReferenceTrainerDraws, assert_close, auto_mesh, reference_trainer, torch_batch, train_case,
+    ReferenceTrainerDraws, assert_close, auto_mesh, reference_trainer, torch_batch, train_batch,
+    train_case,
 )
 
 from repro.core.channel import ChannelConfig as JChannelConfig
@@ -94,7 +95,7 @@ def test_three_rounds_at_four_fl_devices_match_the_reference_round():
     tc = jtrain.TrainerConfig(n_scheduled=2, noise_power=1e-10, stats_mode="sketch",
                               n_probes=2, dtype="float32", seed=seed)
     jcfg, tcfg, jp, _ = train_case("qwen2-0.5b", b=b, s=SEQ, seed=9)
-    batches = [train_case("qwen2-0.5b", b=b, s=SEQ, seed=20 + r)[3] for r in range(3)]
+    batches = [train_batch(jcfg, b=b, s=SEQ, seed=20 + r) for r in range(3)]
     trainer = _port_trainer(tcfg, n_fl, b, tc, seed)
     got_log = []
     trainer.train_bundle = _recording(trainer.train_bundle, got_log)
