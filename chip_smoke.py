@@ -267,16 +267,21 @@ non-zero exit and no result line:
              within 2^-7; each rank's ms a round and its collectives'
              shares, peak memory, bytes of masters, optimizer state and
              compute weights (equal to the dry run's) and flash launches
-             (L × 5 a round)
+             (L × 5 a round); (d) olmoe-1b-7b over (2, 1) and (e)
+             mamba2-370m split by SSM heads over (1, 2) (kernel 4 on 16 of
+             32 heads, L × 5 a round), held the same way to this process's
+             one-card trainer at their depths
   serve_ranks  ``Server`` over a (data, model) mesh of ranks
              (``serve_ranks_plan``): (a) one NCCL rank bitwise the one-card
              server; (b) (2, 1) and (c) (1, 2) of two ranks sharing the card
              over gloo, one launch, qwen2-0.5b at decode_32k and
-             mamba2-370m on (b); on (c) qwen2 split tensor-parallel over
+             mamba2-370m on both; on (c) qwen2 split tensor-parallel over
              the two model ranks (kernel 3 on 7 of 14 heads in every prefill
-             layer); every rank against one process (on (c) at full depth
-             in bf16, both against one process's fp32 prefill of the same
-             inputs), its collectives and weight bytes against the dry run's
+             layer) and mamba2 split by SSM heads (kernel 4 on 16 of 32
+             heads, at a cut depth in fp32 and at full depth in bf16); every
+             rank against one process (on (c) at full depth in bf16, both
+             against one process's fp32 prefill of the same inputs), its
+             collectives and weight bytes against the dry run's
 
 then the ``kernels`` line, the card's name and power limit, and the result
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and for cuDNN's
@@ -383,7 +388,8 @@ SSM_DRIFT_DEPTHS = (1, 12, 48)
 # serving prefill and the prefill_32k sequence length
 SSD_TIME_SHAPES = {"prefill_2k": (8, 2048, 32, 64, 128, 256),
                    "prefill_32k": (1, 32768, 32, 64, 128, 256),
-                   "zamba2_prefill": (8, 2048, 80, 64, 64, 256)}
+                   "zamba2_prefill": (8, 2048, 80, 64, 64, 256),
+                   "prefill_2k_tp2": (8, 2048, 16, 64, 128, 256)}  # a model rank's heads
 # the hybrid and MoE serving paths: zamba2-2.7b and olmoe-1b-7b at full width
 # and depth, the same batch, prompt and new tokens; their parity at full width
 # and a cut depth, (layers, batch, prompt): zamba2 with 2 shared-block
@@ -2542,14 +2548,10 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def mamba2_dt_bias(params, cfg, seed=0):
     """``params`` with every layer's dt_bias drawn as Mamba2 initialises it
-    (arXiv:2405.21060's code: dt log-uniform in [1e-3, 1e-1], dt_bias its
-    inverse softplus) in place of the reference's zeros."""
-    rng = np.random.default_rng(seed)
-    dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1),
-                            (cfg.n_layers, cfg.ssm.n_heads(cfg.d_model))))
-    params["layers"]["mamba"]["dt_bias"] = torch.tensor(dt + np.log(-np.expm1(-dt)),
-                                                        dtype=torch.float32)
-    return params
+    in place of the reference's zeros (``models.api.mamba2_dt_init``)."""
+    from repro_torch.models.api import mamba2_dt_init
+
+    return mamba2_dt_init(params, cfg, seed)
 
 
 def moe_decisions(cpu_routes, card_routes) -> list:
@@ -3149,6 +3151,12 @@ RANKS_FIELDS = ("loss", "e_com", "a", "coeffs", "noise_amp", "grad_mean", "grad_
 # 80 GB in its JVP pass, and there gloo moved the masters at about 0.5 GB/s
 # (PERF.md §6, the MoE over data ranks)
 RANKS_MOE_ARCH, RANKS_MOE_LAYERS, RANKS_MOE_MESH = "olmoe-1b-7b", 1, (2, 1)
+# (e): mamba2-370m at full width cut to RANKS_SSM_LAYERS of its 48 layers on
+# the (1, 2) mesh, split by SSM heads over the two model ranks, RANKS_SSM_ROUNDS
+# rounds in fp32 and RANKS_BF16_ROUNDS in bf16, held as (c) is (cut in depth
+# and rounds to keep the script inside its time limit: PERF.md §6); dt_bias
+# drawn as Mamba2 does, as phase train_parity draws it (ROADMAP C)
+RANKS_SSM_ARCH, RANKS_SSM_LAYERS, RANKS_SSM_MESH, RANKS_SSM_ROUNDS = SSM_ARCH, 2, (1, 2), 2
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3273,7 +3281,7 @@ def one_rank(dev) -> tuple[dict, int]:
 
 
 def ranks_run(runs: list) -> tuple[list, dict]:
-    """(b), (c) and (d): the launcher's ``train`` workload on two ranks
+    """(b) to (e): the launcher's ``train`` workload on two ranks
     sharing the card over gloo, one launch running one run for each
     ``(sizes, ref, tol)`` of ``runs`` (a plan: ``ref``'s model at its depth
     on the (data, model) mesh of ``sizes``, in its dtype for its rounds,
@@ -3290,7 +3298,8 @@ def ranks_run(runs: list) -> tuple[list, dict]:
         out, plan = str(Path(tmp) / "train.npz"), Path(tmp) / "plan.json"
         plan.write_text(json.dumps([{"arch": ref["arch"], "layers": ref["layers"],
                                      "model": sizes[1], "dtype": ref["dtype"],
-                                     "n_rounds": ref["rounds"]} for sizes, ref, _ in runs]))
+                                     "n_rounds": ref["rounds"], "dt_init": ref["dt_init"]}
+                                    for sizes, ref, _ in runs]))
         t0 = time.perf_counter()
         launch(["--procs", 2, "--workload", "train", "--device", "cuda", "--plan", plan,
                 "--out", out, "--save-blocks"], timeout=RANKS_TIMEOUT)
@@ -3312,14 +3321,17 @@ def ranks_hold(sizes: tuple, ref: dict, tol: float, meta: dict, got: dict,
     final ``blocks``) against the one-card run ``ref`` within ``tol``:
     every round's RANKS_FIELDS and every rank's final blocks and their
     update, decisions equal, each rank's bytes and collectives the dry
-    run's, its flash launches → (the comparison, both ranks' flash
-    launches). Round 0 starts both sides from the same parameters, so its
-    gaps are the rounding of the ranks' split work alone."""
+    run's, its launches of the family's kernel (flash, or SSD for an SSM
+    model: L × (1 + TRAIN_PROBES + 2) a round) → (the comparison, both
+    ranks' launches by kernel). Round 0 starts both sides from the same
+    parameters, so its gaps are the rounding of the ranks' split work
+    alone."""
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.sharding import Sharding
 
     n_rounds = ref["rounds"]
     want = ref["records"]
+    kernel = "ssd_scan" if ref["cfg"].arch_type == "ssm" else "flash_attention"
     errs = {k: rel(torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in RANKS_FIELDS}
     round0 = {k: rel(torch.as_tensor(got[k][0]), torch.as_tensor(want[k][0]))
               for k in RANKS_FIELDS}
@@ -3342,7 +3354,7 @@ def ranks_hold(sizes: tuple, ref: dict, tol: float, meta: dict, got: dict,
                       "params_bytes": rank["params_bytes"],
                       "opt_state_bytes": rank["opt_state_bytes"],
                       "compute_weight_bytes": rank["compute_weight_bytes"],
-                      "flash_launches_a_round": rank["launches"]["flash_attention"] / n_rounds})
+                      f"{kernel}_launches_a_round": rank["launches"][kernel] / n_rounds})
     errs.update(params=worst_params, update_rel_l2=worst_update)
     reckoned = {**reckoned_state(ref["cfg"], ref["shape"], sizes, ref["optimizer"]),
                 "compute_weight_bytes": reckoned_compute_bytes(ref["cfg"], sizes)}
@@ -3350,7 +3362,7 @@ def ranks_hold(sizes: tuple, ref: dict, tol: float, meta: dict, got: dict,
     coll = reckoned_collectives(ref["cfg"], ref["shape"], sizes, ref["optimizer"], "all-reduce",
                                 ref["n_fl"], n_rounds, ref["dtype"])
     per_round = ref["cfg"].n_layers * (1 + TRAIN_PROBES) + 2 * ref["cfg"].n_layers
-    launched = [rank["launches"]["flash_attention"] for rank in meta["per_rank"]]
+    launched = [rank["launches"][kernel] for rank in meta["per_rank"]]
     out = {"arch": ref["arch"], "n_layers": ref["layers"], "mesh": sizes, "dtype": ref["dtype"],
            "rounds": n_rounds, "tolerance": tol,
            "backend": meta["backend"], "rel_err": errs, "round_0_rel_err": round0,
@@ -3361,16 +3373,18 @@ def ranks_hold(sizes: tuple, ref: dict, tol: float, meta: dict, got: dict,
           and all(calls_and_bytes(r["collectives"]) == coll for r in ranks)
           and launched == [n_rounds * per_round] * 2)
     if not ok:
-        raise AssertionError(f"train_ranks {sizes} {ref['dtype']}: {out}")
-    return out, sum(launched)
+        raise AssertionError(f"train_ranks {ref['arch']} {sizes} {ref['dtype']}: {out}")
+    return out, {kernel: sum(launched)}
 
 
 def one_card_reference(dev, dtype: str, n_rounds: int, arch: str = TRAIN_ARCH,
                        layers: int = RANKS_LAYERS,
-                       meshes: tuple = tuple(RANKS_MESHES.values())) -> dict:
+                       meshes: tuple = tuple(RANKS_MESHES.values()),
+                       dt_init: str = "zeros") -> dict:
     """This process's one-card trainer on the launcher's ``train`` workload
-    cell, ``arch`` at ``layers`` layers in ``dtype``: its records, initial
-    and final parameters (on the host) and the specs of the rank meshes
+    cell, ``arch`` at ``layers`` layers in ``dtype`` from weights drawn
+    with ``dt_init`` (``models.api.model_init``): its records, initial and
+    final parameters (on the host) and the specs of the rank meshes
     ``meshes``."""
     from repro_torch.launch import distributed
     from repro_torch.launch.distributed import flat_tree, train_rounds, train_setup
@@ -3385,13 +3399,14 @@ def one_card_reference(dev, dtype: str, n_rounds: int, arch: str = TRAIN_ARCH,
                                                   distributed.TRAIN_SEQ, "sgd", dtype, n_rounds,
                                                   dev)
     trainer = POFLTrainer(cfg, shape, make_host_mesh(1, n_fl, dev), tcfg, optimizer=opt)
-    final, _, records, round_ms = train_rounds(trainer, batch_fn, n_rounds)
+    final, _, records, round_ms = train_rounds(trainer, batch_fn, n_rounds, dt_init)
     ref = {"arch": arch, "layers": layers, "cfg": cfg, "shape": shape, "optimizer": opt,
-           "records": records, "dtype": dtype,
+           "records": records, "dtype": dtype, "dt_init": dt_init,
            "rounds": n_rounds, "n_fl": n_fl, "round_ms": round_ms,
            "final": {k: v.cpu() for k, v in flat_tree(final).items()},
            "init": {k: v.cpu() for k, v in
-                    flat_tree(api.model_init(cfg, tcfg.seed + 1, device=dev)).items()},
+                    flat_tree(api.model_init(cfg, tcfg.seed + 1, device=dev,
+                                             dt_init=dt_init)).items()},
            "specs": {sizes: flat_tree(params_pspecs(params_structs(cfg),
                                                     ShapeMesh(("data", "model"), sizes)))
                      for sizes in meshes}}
@@ -3412,10 +3427,13 @@ def train_ranks_phase(dev) -> dict:
     bytes of masters, optimizer state and compute weights (on (c) its
     tensor-parallel blocks) and its collectives' calls and wire bytes
     equal to the dry run's, the flash kernel L × (1 + TRAIN_PROBES + 2)
-    times a rank a round; and (d): olmoe-1b-7b at RANKS_MOE_LAYERS layers
+    times a rank a round; (d): olmoe-1b-7b at RANKS_MOE_LAYERS layers
     on the (2, 1) mesh held the same way to this process's one-card trainer
     at that depth (its routing groups and load-balance loss over both data
-    ranks), in fp32 and in bf16. One launch runs (b), (c) and (d)."""
+    ranks), in fp32 and in bf16; and (e): mamba2-370m at RANKS_SSM_LAYERS
+    layers on the (1, 2) mesh, split by SSM heads (kernel 4 on each rank's
+    16 heads), RANKS_SSM_ROUNDS rounds in fp32 and one in bf16, held the
+    same way. One launch runs (b) to (e)."""
     one, launched = one_rank(dev)
     out = {"a": one}
     refs = {"float32": one_card_reference(dev, RANKS_DTYPE, RANKS_ROUNDS),
@@ -3423,17 +3441,24 @@ def train_ranks_phase(dev) -> dict:
     for dtype, rounds in (("float32", RANKS_ROUNDS), ("bfloat16", RANKS_BF16_ROUNDS)):
         refs[f"moe_{dtype}"] = one_card_reference(dev, dtype, rounds, RANKS_MOE_ARCH,
                                                   RANKS_MOE_LAYERS, (RANKS_MOE_MESH,))
+    for dtype, rounds in (("float32", RANKS_SSM_ROUNDS), ("bfloat16", RANKS_BF16_ROUNDS)):
+        refs[f"ssm_{dtype}"] = one_card_reference(dev, dtype, rounds, RANKS_SSM_ARCH,
+                                                  RANKS_SSM_LAYERS, (RANKS_SSM_MESH,),
+                                                  "mamba2")
     # one launch (PERF.md §6: a launch's fixed seconds): each part's fp32
     # run and its bf16 round
     runs = {}
     for part, sizes, model in ([(part, sizes, "") for part, sizes in RANKS_MESHES.items()]
-                               + [("d", RANKS_MOE_MESH, "moe_")]):
+                               + [("d", RANKS_MOE_MESH, "moe_"), ("e", RANKS_SSM_MESH, "ssm_")]):
         runs[part] = (sizes, refs[f"{model}float32"], ROUND_TOL)
         runs[f"{part}_bf16"] = (sizes, refs[f"{model}bfloat16"], RANKS_BF16_TOL)
     held, out["launch"] = ranks_run(list(runs.values()))
+    counts = {name: 0 for name in kernel_counters()}
+    counts["flash_attention"] = launched
     for key, (comparison, n) in zip(runs, held, strict=True):
-        out[key] = {**comparison, "flash_launches": n}
-        launched += n
+        out[key] = {**comparison, "launches": n}
+        for name, k in n.items():
+            counts[name] += k
     out["one_card_reference"] = {
         name: {"arch": r["arch"], "n_layers": r["cfg"].n_layers, "round_ms": r["round_ms"],
                "records": {k: v.tolist() for k, v in r["records"].items()}}
@@ -3441,9 +3466,8 @@ def train_ranks_phase(dev) -> dict:
     emit("train_ranks", arch=TRAIN_ARCH, tolerance=ROUND_TOL, bf16_tolerance=RANKS_BF16_TOL,
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, fl_devices=TRAIN_FL, ranks_layers=RANKS_LAYERS,
          ranks_rounds=RANKS_ROUNDS, moe_arch=RANKS_MOE_ARCH, moe_layers=RANKS_MOE_LAYERS,
+         ssm_arch=RANKS_SSM_ARCH, ssm_layers=RANKS_SSM_LAYERS, ssm_rounds=RANKS_SSM_ROUNDS,
          card=nvidia_smi(), **out)
-    counts = {name: 0 for name in kernel_counters()}
-    counts["flash_attention"] = launched
     return counts
 
 
@@ -3482,6 +3506,31 @@ SERVE_RANKS_SPLIT_RATIO = 1.5
 # ranks at a capacity of 20, so tokens drop)
 SERVE_RANKS_MOE = ("moe_cut", "moe")
 SERVE_RANKS_MOE_CUT, SERVE_RANKS_MOE_CACHE = 2, 256
+# mamba2-370m split by SSM heads on (c): "ssm_tp", fp32 at a cut depth of
+# SERVE_RANKS_SSM_TP_CUT layers, held to one process within 1e-5, and the
+# full-depth bf16 "ssm" run, held as qwen2's split is (on (b) "ssm_tp" does
+# not run: the data ranks' split is held by "ssm_cut" and "ssm"). Both draw
+# dt_bias as Mamba2 does (``dt_init="mamba2"``): at the reference's zeros
+# the fp32 model is ill-conditioned over 2,048 tokens (ROADMAP C). Even so
+# the fp32 state amplifies the split's changed rounding with depth: its
+# cache read 2.1e-5 from one process's at 4 layers, 8.3e-6 at 2 (the logits
+# 2.8e-6 and 1.5e-6; PERF.md §6, ROADMAP C)
+SERVE_RANKS_SSM_SPLIT = ("ssm_tp", "ssm")
+SERVE_RANKS_SSM_TP_CUT = 2
+
+
+def serve_ranks_entries(plan) -> list:
+    """The (mesh part, run name) pairs of the ranks' one launch: every run
+    on (b) but "ssm_tp"; qwen2-0.5b's and SERVE_RANKS_SSM_SPLIT's on (c)
+    (olmoe serves over data ranks only, and (c)'s bf16 mamba2 cut depth
+    would add time and no hold "ssm_tp" lacks)."""
+    def runs_on(sizes, name):
+        if sizes[1] == 1:
+            return name != "ssm_tp"
+        return plan[name].arch == SERVE_ARCH or name in SERVE_RANKS_SSM_SPLIT
+
+    return [(part, name) for part, sizes in SERVE_RANKS_MESHES.items() for name in plan
+            if name != "a" and runs_on(sizes, name)]
 
 
 def serve_ranks_plan():
@@ -3491,9 +3540,11 @@ def serve_ranks_plan():
     and 8 steps at decode_32k's capacity (128 × 32,768, filled from a
     seed), and the same cut to 1 layer; the same at 4 layers in fp32 on a
     128 × 4,096 cache, and at full depth in fp32 on a 2 × 512 prompt,
-    2 steps from its prefill; mamba2-370m over data ranks at the ssm_serve shape
-    (decoding from its prefill), at full depth and cut to 16 of 48 layers
-    (the cut depths: PERF.md §6, serving over ranks); olmoe-1b-7b over data
+    2 steps from its prefill; mamba2-370m at the ssm_serve shape (decoding
+    from its prefill), at full depth and cut to 16 of 48 layers over data
+    ranks (the cut depths: PERF.md §6, serving over ranks), and split over
+    model ranks in fp32 at SERVE_RANKS_SSM_TP_CUT layers and at full depth
+    in bf16 (:func:`serve_ranks_entries`); olmoe-1b-7b over data
     ranks (SERVE_RANKS_MOE): a prefill of SERVE_BATCH × SERVE_PROMPT and 8
     steps of 128 rows from a seeded cache, in fp32 at SERVE_RANKS_MOE_CUT
     layers and at full depth in bf16."""
@@ -3512,8 +3563,10 @@ def serve_ranks_plan():
             "fp32": ServeRun(SERVE_ARCH, 4, "float32", cache_batch=d32k.global_batch,
                              cache_len=4096, **common),
             "fp32_deep": ServeRun(SERVE_ARCH, 0, "float32", batch=2, prompt=512, steps=2),
+            "ssm_tp": ServeRun(SSM_ARCH, SERVE_RANKS_SSM_TP_CUT, "float32", dt_init="mamba2",
+                               **common),
             "ssm_cut": ServeRun(SSM_ARCH, 16, "bfloat16", **common),
-            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", **common),
+            "ssm": ServeRun(SSM_ARCH, 0, "bfloat16", dt_init="mamba2", **common),
             "moe_cut": ServeRun(MOE_ARCH, SERVE_RANKS_MOE_CUT, "float32", cache_batch=128,
                                 cache_len=SERVE_RANKS_MOE_CACHE, **common),
             "moe": ServeRun(MOE_ARCH, 0, "bfloat16", cache_batch=128,
@@ -3570,10 +3623,9 @@ def fp32_yardstick(run, dev) -> dict:
     host. The full-depth bf16 prefills of one process and of the split are
     each measured against it."""
     from repro_torch import configs
-    from repro_torch.launch.distributed import serve_inputs
+    from repro_torch.launch.distributed import serve_inputs, serve_weights
     from repro_torch.launch.serve import Server
     from repro_torch.launch.sharding import FP32_LEAVES
-    from repro_torch.models import api
     from repro_torch.models.config import InputShape
 
     dtype = getattr(torch, run.dtype)
@@ -3588,7 +3640,7 @@ def fp32_yardstick(run, dev) -> dict:
 
     server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
                     dev, torch.float32)
-    params = server.load_params(rounded(api.model_init(cfg, run.seed, dev)))
+    params = server.load_params(rounded(serve_weights(run, cfg, dev)))
     tokens, _ = serve_inputs(run, cfg)
     _, logits, cache = server.prefill(params, {"tokens": tokens})
     out = {"logits": logits[:, -1].cpu(), "cache": type(cache)(*(x.cpu() for x in cache))}
@@ -3629,16 +3681,18 @@ def split_against_fp32(p_got, p_want, fp32, rows, vocab, mesh, coords) -> tuple[
 
 
 def layer_blocks_hold(got, want_whole, mesh, coords) -> list:
-    """An attention cache's blocks against one process's, layer by layer:
-    the worst relative L2 of k and v of each layer (a layer's cache depends
-    only on the layers before it, so this is the error's growth with
-    depth)."""
+    """A cache's blocks against one process's, layer by layer: the worst
+    relative L2 of each layer's float leaves (k and v, or an SSM cache's
+    state and conv window; a layer's cache depends only on the layers
+    before it, so this is the error's growth with depth)."""
     from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.models.cache import cache_leaves
 
-    sh = cache_shardings(want_whole, mesh)
-    return [max(rel_l2(g[i], w[sh.k.index(coords, w.shape)][i])
-                for g, w in ((got.k, want_whole.k), (got.v, want_whole.v)))
-            for i in range(got.k.shape[0])]
+    pairs = [(g, w[sh.index(coords, w.shape)]) for g, w, sh in
+             zip(cache_leaves(got), cache_leaves(want_whole),
+                 cache_leaves(cache_shardings(want_whole, mesh)), strict=True)
+             if g.is_floating_point()]
+    return [max(rel_l2(g[i], w[i]) for g, w in pairs) for i in range(pairs[0][0].shape[0])]
 
 
 def serve_blocks_hold(got, want_whole, mesh, coords) -> float:
@@ -3705,9 +3759,8 @@ def serve_rank_hold(run, got: dict, want: dict, sizes, coords, gather: str,
            "prefill_tokens_outside_rule": p_outside,
            "prefill_cache_rel_l2": serve_blocks_hold(p_got["cache"], p_want["cache"], mesh,
                                                      coords),
-           "prefill_cache_rel_l2_by_layer": (layer_blocks_hold(p_got["cache"], p_want["cache"],
-                                                               mesh, coords)
-                                             if hasattr(p_got["cache"], "k") else None),
+           "prefill_cache_rel_l2_by_layer": layer_blocks_hold(p_got["cache"], p_want["cache"],
+                                                              mesh, coords),
            **{f"decode_{k}": v for k, v in decode.items()},
            "positions_written": got["decode"]["positions_written"]}
     if got["decode"]["cache"] is not None:
@@ -3760,11 +3813,12 @@ def one_process_rows(run, dev, sizes, coords) -> dict:
     host: what the rank must equal bitwise, the same code over the same
     rows."""
     from repro_torch import configs
-    from repro_torch.launch.distributed import _on_host, seeded_cache, serve_inputs
+    from repro_torch.launch.distributed import (
+        _on_host, seeded_cache, serve_inputs, serve_weights,
+    )
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.serve import Server
     from repro_torch.launch.sharding import Sharding, _batched
-    from repro_torch.models import api
     from repro_torch.models.config import InputShape
 
     class Placed(ShapeMesh):  # a shape-only mesh that answers one rank's place
@@ -3782,7 +3836,7 @@ def one_process_rows(run, dev, sizes, coords) -> dict:
     b = (run.cache_batch if run.cache_len else run.batch) // sizes[0]
     server = Server(cfg, InputShape("rows", run.cache_len or run.prompt + run.steps, b, "decode"),
                     dev, dtype)
-    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    params = server.load_params(serve_weights(run, cfg, dev))
     if run.cache_len:
         start = run.cache_len - run.steps
         cache = seeded_cache(cfg, run.cache_batch, run.cache_len, start, dtype, dev, run.seed,
@@ -3819,9 +3873,10 @@ def moe_rows_prefill(run, dev, sizes, coords) -> dict:
     host: a rank whose rows hold whole routing groups routes them as one
     process does, so it must equal this bitwise."""
     from repro_torch import configs
-    from repro_torch.launch.distributed import _on_host, _routes_on_host, serve_inputs
+    from repro_torch.launch.distributed import (
+        _on_host, _routes_on_host, serve_inputs, serve_weights,
+    )
     from repro_torch.launch.serve import Server
-    from repro_torch.models import api
     from repro_torch.models.config import InputShape
     from repro_torch.models.layers import recorded_routes
 
@@ -3831,7 +3886,7 @@ def moe_rows_prefill(run, dev, sizes, coords) -> dict:
     rows = tokens[coords["data"] * n:(coords["data"] + 1) * n]
     server = Server(cfg, InputShape("rows", run.prompt + run.steps, n, "decode"), dev,
                     getattr(torch, run.dtype))
-    params = server.load_params(api.model_init(cfg, run.seed, dev))
+    params = server.load_params(serve_weights(run, cfg, dev))
     with recorded_routes() as routes:
         first, logits, cache = server.prefill(
             params, {"tokens": rows}, pad_to=None if run.cache_len else run.prompt + run.steps)
@@ -3989,12 +4044,14 @@ def serve_ranks_phase(dev) -> dict:
     before the ranks start), and (b) the (2, 1) and (c) the (1, 2) mesh of
     two ranks sharing the card over gloo, one launch each
     (``launch.distributed``'s ``serve`` workload with a plan), every rank
-    held to them (:func:`serve_rank_hold`); mamba2-370m on (b) only. On (c)
-    qwen2-0.5b is split tensor-parallel over the two model ranks: each
-    holds its TP blocks, runs kernel 3 on 7 of the 14 heads in every
-    prefill layer, and each run's 8 × 2,048 prefill (c′) is timed against
-    one process's. The figures of the full-depth bf16 runs are the phase's
-    performance ones."""
+    held to them (:func:`serve_rank_hold`; the runs on each mesh:
+    :func:`serve_ranks_entries`). On (c) qwen2-0.5b is split
+    tensor-parallel over the two model ranks: each holds its TP blocks,
+    runs kernel 3 on 7 of the 14 heads in every prefill layer, and each
+    run's 8 × 2,048 prefill (c′) is timed against one process's; mamba2-370m
+    is split by SSM heads, kernel 4 on 16 of the 32 heads in every prefill
+    layer of both ranks. The figures of the full-depth bf16 runs are the
+    phase's performance ones."""
     import tempfile
 
     from repro_torch.launch.distributed import serve_run
@@ -4011,12 +4068,11 @@ def serve_ranks_phase(dev) -> dict:
         wants[name] = serve_run(plan[name], dev)
         torch.cuda.empty_cache()
     out["one_process"] = {name: serve_costs(w, plan[name]) for name, w in wants.items()}
-    fp32 = {name: fp32_yardstick(run, dev) for name, run in plan.items()
-            if name in SERVE_RANKS_DEEP and run.arch == SERVE_ARCH}  # split over model ranks
     # one launch runs every mesh's runs (a launched rank is slow to reach
-    # its group); mamba2 and olmoe over data ranks only
-    entries = [(part, name) for part, sizes in SERVE_RANKS_MESHES.items() for name in plan
-               if name != "a" and (sizes[1] == 1 or plan[name].arch == SERVE_ARCH)]
+    # its group)
+    entries = serve_ranks_entries(plan)
+    fp32 = {name: fp32_yardstick(plan[name], dev) for part, name in entries
+            if name in SERVE_RANKS_DEEP and SERVE_RANKS_MESHES[part][1] > 1}  # the splits
     with tempfile.TemporaryDirectory() as tmp:
         plan_file = Path(tmp) / "plan.json"
         plan_file.write_text(json.dumps([

@@ -59,6 +59,10 @@ CHECK_CASES = {
     "n_64": (2, 512, 5, 64, 64, 256, torch.float32, "ref", True),
     "n_64_bf16": (2, 512, 5, 64, 64, 256, torch.bfloat16, "ref", True),
     "zamba2_parity_fp32": (2, 256, 80, 64, 64, 256, torch.float32, "ref", True),
+    # mamba2-370m split over two model ranks: a rank's 16 of 32 heads in its
+    # serving prefill (bf16) and its fp32 run's
+    "mamba2_prefill_tp2_bf16": (8, 2048, 16, 64, 128, 256, torch.bfloat16, "ref", True),
+    "mamba2_prefill_tp2_fp32": (8, 2048, 16, 64, 128, 256, torch.float32, "ref", True),
 }
 
 

@@ -900,12 +900,12 @@ def train_setup(arch: str, layers: int, n_fl: int, batch: int, seq: int,
     return cfg, shape, tcfg, opt, batch_fn
 
 
-def train_rounds(trainer, batch_fn, n_rounds: int):
-    """``n_rounds`` rounds from ``trainer.init_state(seed + 1)`` →
+def train_rounds(trainer, batch_fn, n_rounds: int, dt_init: str = "zeros"):
+    """``n_rounds`` rounds from ``trainer.init_state(seed + 1, dt_init)`` →
     ``(params, opt_state, records, round_ms)``: records holds each
     TRAIN_ROUND_FIELDS value a round (numpy, stacked over rounds), the
     rounds timed on the host clock up to a synchronised device."""
-    params, opt_state = trainer.init_state(trainer.tcfg.seed + 1)
+    params, opt_state = trainer.init_state(trainer.tcfg.seed + 1, dt_init)
     rows, round_ms = [], []
     for t in range(n_rounds):
         batch = batch_fn(t)
@@ -935,7 +935,8 @@ def counted_collectives() -> dict:
 def train_plan(args) -> list[dict]:
     """The train workload's runs, each ``{"arch", "layers", "model",
     "dtype", "n_rounds"}``: ``--plan`` (a JSON file: a list of such dicts, a
-    missing key taken from its flag), else one run from the flags."""
+    missing key taken from its flag, and optionally ``dt_init``, the
+    weights' ``api.model_init`` option), else one run from the flags."""
     flags = {"arch": args.arch, "layers": args.layers, "model": args.model,
              "dtype": args.dtype, "n_rounds": args.n_rounds}
     if not args.plan:
@@ -964,8 +965,8 @@ def _worker_train(args) -> None:
     rank's costs to its ``--out`` (:func:`plan_out`; npz, the costs as JSON
     under ``meta``: each collective's calls, wire bytes and seconds, the
     card synchronised around it, the bytes of the fp32 weights its steps
-    differentiate, its TP blocks where ``--model`` > 1 splits a dense
-    model, and the run's seconds from its set-up to its outputs); with
+    differentiate, its TP blocks where ``--model`` > 1 splits a dense or
+    SSM model, and the run's seconds from its set-up to its outputs); with
     ``--save-blocks`` each rank also writes its final parameter blocks to
     ``<out>.rank<r>.pt``."""
     from repro_torch.launch.mesh import make_rank_mesh
@@ -1000,7 +1001,8 @@ def _train_run(args, mesh, run: dict, out: str) -> None:
     reset_metrics("ranks.")
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, n_rounds)
+    params, opt_state, records, round_ms = train_rounds(trainer, batch_fn, n_rounds,
+                                                        run.get("dt_init", "zeros"))
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     rank = dist.get_rank()
     mine = {"rank": rank, "coordinates": mesh.coordinates(), "round_ms": round_ms,
@@ -1035,7 +1037,7 @@ def _train_run(args, mesh, run: dict, out: str) -> None:
 class ServeRun:
     """One run of the serve workload: ``arch``'s full-width config cut to
     ``layers`` layers (0: its own depth) served in ``dtype`` from
-    ``model_init(seed)``; a prefill of ``batch`` × ``prompt`` seeded tokens,
+    ``model_init(seed, dt_init=dt_init)`` (:func:`serve_weights`); a prefill of ``batch`` × ``prompt`` seeded tokens,
     then ``steps`` greedy decode steps: from the prefill's cache grown by
     ``steps`` slots (``cache_len`` 0), or from a ``cache_batch`` ×
     ``cache_len`` cache filled from the seed (:func:`seeded_cache`) at its
@@ -1055,6 +1057,15 @@ class ServeRun:
     cache_len: int = 0
     seed: int = 0
     model: int = 0
+    dt_init: str = "zeros"
+
+
+def serve_weights(run: ServeRun, cfg, device) -> dict:
+    """``run``'s fp32 weights on ``device``: ``model_init`` from its seed
+    and its ``dt_init``."""
+    from repro_torch.models import api
+
+    return api.model_init(cfg, run.seed, device, dt_init=run.dt_init)
 
 
 def seeded_cache(cfg, batch: int, length: int, filled: int, dtype, device, seed: int,
@@ -1118,7 +1129,6 @@ def serve_run(run: ServeRun, where) -> dict:
     from repro_torch import configs
     from repro_torch.launch.mesh import RankMesh
     from repro_torch.launch.serve import Server
-    from repro_torch.models import api
     from repro_torch.models.layers import recorded_routes
     from repro_torch.models.config import InputShape
     from repro_torch.obs.registry import reset_metrics
@@ -1144,7 +1154,7 @@ def serve_run(run: ServeRun, where) -> dict:
     own = run.cache_len == 0  # decode from the prefill's cache
     server = Server(cfg, InputShape("prompt", run.prompt + run.steps, run.batch, "decode"),
                     where, dtype)
-    params = _in_turns(mesh, lambda: server.load_params(api.model_init(cfg, run.seed, dev)))
+    params = _in_turns(mesh, lambda: server.load_params(serve_weights(run, cfg, dev)))
     weight_bytes = tensor_bytes(params)
     reset_metrics("span.ranks.")
     reset_metrics("ranks.")

@@ -27,16 +27,17 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     "data" (:func:`moe_collectives`: the load-balance loss's SUM of the
     first-choice counts a layer in each pass that takes it, and the gather
     of the top-k experts a layer wherever a routing group spans ranks);
-    over M > 1 model ranks a dense model's tensor-parallel all-reduces
-    over "model" (the forward's, the remat recompute's, the
+    over M > 1 model ranks a dense or SSM model's tensor-parallel
+    all-reduces over "model" (the forward's, the remat recompute's, the
     backward's and each JVP pass's primal and tangent ones, the loss's
-    three a CE chunk) and the gathers of the gradients whose compute block
-    does not hold the master block; their wire bytes by the reference's
-    ring rule (``launch.mesh.wire_bytes``). A train record also holds a
-    rank's compute-weight bytes (``compute_weight_bytes``: the fp32 blocks
-    its steps differentiate, ``steps.compute_shardings``) and the layout
-    they take (``compute_layout``: "tensor-parallel" or "whole"); on a
-    mesh whose model ranks do not divide a dense model's split dimensions
+    three a CE chunk; an SSM model's B/C weight-gradient SUMs) and the
+    gathers of the gradients whose compute block does not hold the master
+    block; their wire bytes by the reference's ring rule
+    (``launch.mesh.wire_bytes``). A train record also holds a rank's
+    compute-weight bytes (``compute_weight_bytes``: the fp32 blocks its
+    steps differentiate, ``steps.compute_shardings``) and the layout they
+    take (``compute_layout``: "tensor-parallel" or "whole"); on a mesh
+    whose model ranks do not divide a model's split dimensions
     the rank trainer refuses it (``sharding.NotDivisible``): the record
     keeps its bytes by the specs and names the dimension there, with no
     collectives and no compute-weight bytes;
@@ -45,7 +46,9 @@ prefill / serve_step for inference shapes) on a shape-only mesh
     decode step's tensor-parallel all-reduces and gathers over "model"
     (the embedding, two row-split products a layer, the prefill's kv
     re-layout, the decode's q, k, v gather and its attention combine where
-    the KV cache is split by sequence, the greedy token's combine), a MoE
+    the KV cache is split by sequence; a Mamba2 layer's norm statistic, its
+    ``out_proj`` and its conv window's gather; the greedy token's
+    combine), a MoE
     model's gather of the top-k experts over "data" a layer where a routing
     group spans ranks, the gather of the tokens over "data", and the
     gathers of loading spec blocks; a prefill record reckons one prefill, a decode
@@ -93,7 +96,8 @@ import time
 NOT_ESTIMATED = ("temp_bytes and peak_bytes: the reference reads XLA's temporaries from its "
                  "compiled program; the port compiles no program and does not estimate its "
                  "transient peak. collectives: none for a mesh with a pod axis, a dense "
-                 "model training over model ranks that do not divide its split dimensions "
+                 "or SSM model training over model ranks that do not divide its split "
+                 "dimensions "
                  "(sharding.NotDivisible), or a serving case the rank Server refuses (the "
                  "rank mesh is (data, model); launch.steps.check_rank_serving: MoE over "
                  "model ranks among them)")
@@ -189,19 +193,26 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
       (``params_pspecs``) as its TP blocks, one gather a split leaf;
     * a prefill step's bundle: one ``Server.prefill`` of this rank's rows
       of the bundle's batch (R rows × S tokens), over M > 1 model ranks the
-      embedding's all-reduce (R·S·d in ``dtype``), each layer's two
+      embedding's all-reduce (R·S·d in ``dtype``), each dense layer's two
       row-split products' all-reduces (R·S·d in fp32) and its kv re-layout
-      (a gather of every kv head's k and v, 2·R·S·KV·dh in ``dtype``), and
-      the greedy token's gather of every rank's (value, index) pair
+      (a gather of every kv head's k and v, 2·R·S·KV·dh in ``dtype``), each
+      Mamba2 layer's norm statistic (R·S fp32), ``out_proj``'s all-reduce
+      (R·S·d fp32) and its conv window's gather (the last min(K − 1, S)
+      rows of every rank's x channels, R·min(K − 1, S)·di in ``dtype``),
+      and the greedy token's gather of every rank's (value, index) pair
       (M·R·2 float64);
     * a serve step's bundle: ``n_tokens − 1`` decode steps, each over M > 1
-      model ranks the embedding's all-reduce, each layer's gather of the
-      new token's q, k and v heads (R·(H + 2·KV)·dh in ``dtype``), its
+      model ranks the embedding's all-reduce, each dense layer's gather of
+      the new token's q, k and v heads (R·(H + 2·KV)·dh in ``dtype``), its
       attention combine where the KV cache's sequence is split over
       "model" (three all-reduces of fp32 per row and head: the row max, 4
       B, the softmax's sum l, 4 B, and the output o, 4 · dh B) and its two
-      row-split products' all-reduces, and the greedy token's gather; then
-      the gather of the (B, n_tokens) int64 tokens over the ranks;
+      row-split products' all-reduces, each Mamba2 layer's conv window
+      gather (every rank's cache block where its channels split, and its
+      new x channels: R·((K − 1)·(di + 2n) + di) in ``dtype``, or R·di),
+      norm statistic (R fp32) and ``out_proj``'s all-reduce, and the greedy
+      token's gather; then the gather of the (B, n_tokens) int64 tokens
+      over the ranks;
     * ``logits``: :meth:`Server.gather_logits` of what the call kept (the
       prefill's (R, 1, V) logits, or the decode's (R, n_tokens − 1, V)).
 
@@ -241,6 +252,7 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
         add("gather", "all-gather" if gather == "all-gather" else "all-reduce", result, models)
 
     d, dh, kv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    ssm = cfg.arch_type == "ssm"
     if not decode:
         tokens = bundle.arg_structs["batch"]["tokens"]
         rows, s = bundle.in_shardings["batch"]["tokens"].block_shape(tokens.shape)
@@ -248,8 +260,13 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
         if models > 1:
             reduce_over_model(rows * s * d * size)
             for _ in range(cfg.n_layers):
-                gather_over_model(2 * rows * s * kv * dh * size)
-                reduce_over_model(rows * s * d * 4)
+                if ssm:  # the conv window's x channels, the norm, out_proj
+                    window = min(cfg.ssm.conv_kernel - 1, s)
+                    gather_over_model(rows * window * cfg.ssm.d_inner(d) * size)
+                    reduce_over_model(rows * s * 4)
+                else:
+                    gather_over_model(2 * rows * s * kv * dh * size)
+                    reduce_over_model(rows * s * d * 4)
                 reduce_over_model(rows * s * d * 4)
             gather_over_model(models * rows * 2 * 8)
             if logits:
@@ -264,6 +281,11 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
         if models > 1:
             reduce_over_model(rows * d * size)
         for _ in range(cfg.n_layers):
+            if models > 1 and ssm:  # the conv window, the norm, out_proj
+                gather_over_model(rows * _window_payload(cfg, bundle) * size)
+                reduce_over_model(rows * 4)
+                reduce_over_model(rows * d * 4)
+                continue
             if models > 1:
                 gather_over_model(rows * (cfg.n_heads + 2 * kv) * dh * size)
             if split_seq:
@@ -278,6 +300,17 @@ def serve_collectives(cfg, bundle, mesh, gather: str = "all-gather", n_tokens: i
         gather_over_model(rows * (n_tokens - 1) * cfg.vocab_padded * size)
     gather_of((token.shape[0], n_tokens), 8, bundle.in_shardings["token"])
     return out
+
+
+def _window_payload(cfg, bundle) -> int:
+    """The values a decode step's conv window gather takes from a rank a
+    row (``layers._decode_window``), every rank's together: its new x
+    channels, di in all, and, where the cache splits the window's channels
+    over "model", its cache block, (K − 1)·(di + 2n) in all."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    conv = bundle.in_shardings["cache"].conv
+    return di + (0 if conv.replicated() else (s.conv_kernel - 1) * (di + 2 * s.d_state))
 
 
 def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
@@ -298,19 +331,24 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
     ``coeffs``) is reckoned by :func:`serve_collectives`, which takes
     ``dtype`` and ``serving``'s keywords.
 
-    Over M > 1 model ranks a dense model trains tensor-parallel
+    Over M > 1 model ranks a dense or SSM model trains tensor-parallel
     (``steps.tp_trains``), and each rank runs these all-reduces over
     "model" (R rows of S tokens a data rank, d the width, CE chunks of C =
     min(CE_CHUNK, S − 1) rows, n_c of them): in each of the 1 + n_probes
-    JVP passes the embedding's SUM (R·S·d in ``dtype``), each layer's two
-    row-split SUMs (R·S·d fp32) and each chunk's MAX, SUM of exponentials
-    and target SUM (R·C fp32 each), every SUM once for the primal and once
-    for the tangent; in the train step, a microbatch of R/m rows at a
-    time, the forward's (the same, primal only), the remat recompute's
-    (each layer's two SUMs and each chunk's three reductions again: the
-    step runs its checkpoints without early stop) and the backward's,
-    where each layer's two ``copy_to_group`` and each chunk's head one sum
-    their gradient (R·S·d and R·C·d in ``dtype``).
+    JVP passes the embedding's SUM (R·S·d in ``dtype``), each dense
+    layer's two row-split SUMs (R·S·d fp32), each Mamba2 layer's norm
+    statistic (R·S fp32) and ``out_proj``'s SUM (R·S·d fp32), and each
+    chunk's MAX, SUM of exponentials and target SUM (R·C fp32 each), every
+    SUM once for the primal and once for the tangent; in the train step, a
+    microbatch of R/m rows at a time, the forward's (the same, primal
+    only), the remat recompute's (each layer's SUMs and each chunk's three
+    reductions again: the step runs its checkpoints without early stop)
+    and the backward's, where each dense layer's two ``copy_to_group`` and
+    each chunk's head one sum their gradient (R·S·d and R·C·d in
+    ``dtype``), and each Mamba2 layer's input copy (R·S·d in ``dtype``),
+    its norm statistic's copy (R·S fp32) and its B and C weight slices'
+    copies (``in_proj`` d·2n, ``conv_w`` K·2n, ``conv_b`` 2n, in
+    ``dtype``).
 
     Over R > 1 data ranks a MoE model (:func:`moe_collectives`) runs each
     layer's gather of the top-k experts (where a routing group spans ranks)
@@ -349,14 +387,29 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
         rows, d = b // r_data, cfg.d_model
         chunk = min(CE_CHUNK, s - 1)
         n_chunks = -(-(s - 1) // chunk)
+        ssm = cfg.arch_type == "ssm"
+
+        def layer(r: int) -> None:  # a layer's forward SUMs, primal or tangent
+            over_model(r * s * (4 if ssm else d * 4))  # the norm statistic, or a row split
+            over_model(r * s * d * 4)
 
         def forward(r: int, sums: int) -> None:  # sums: 2 with a tangent, else 1
             for _ in range(sums):
                 over_model(r * s * d * size)
-            for _ in range(cfg.n_layers * 2 * sums):
-                over_model(r * s * d * 4)
+            for _ in range(cfg.n_layers * sums):
+                layer(r)
             for _ in range(n_chunks * (1 + 2 * sums)):
                 over_model(r * chunk * 4)
+
+        def copies(r: int) -> None:  # a layer's copy_to_group gradients
+            if not ssm:
+                for _ in range(2):
+                    over_model(r * s * d * size)
+                return
+            n, k = cfg.ssm.d_state, cfg.ssm.conv_kernel
+            for nbytes in (r * s * d * size, r * s * 4, d * 2 * n * size, k * 2 * n * size,
+                           2 * n * size):  # x, the norm, in_proj's, conv_w's, conv_b's B, C
+                over_model(nbytes)
 
         for _pass in range(1 + n_probes):
             forward(rows, 2)
@@ -364,12 +417,12 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
         r = rows // n_micro
         for _micro in range(n_micro):
             forward(r, 1)
-            for _ in range(cfg.n_layers * 2):  # the recompute's SUMs
-                over_model(r * s * d * 4)
+            for _ in range(cfg.n_layers):  # the recompute's SUMs
+                layer(r)
             for _ in range(n_chunks * 3):
                 over_model(r * chunk * 4)
-            for _ in range(cfg.n_layers * 2):  # the copies' gradients
-                over_model(r * s * d * size)
+            for _ in range(cfg.n_layers):  # the copies' gradients
+                copies(r)
             for _ in range(n_chunks):
                 over_model(r * chunk * d * size)
     if cfg.moe is not None and r_data > 1:
@@ -397,7 +450,7 @@ def rank_collectives(cfg, bundle, mesh, gather: str = "all-gather",
 
 def compute_weight_bytes(cfg, mesh) -> int:
     """A rank's bytes of the fp32 weights its training steps differentiate
-    (``steps.compute_shardings``: a dense model's TP blocks over M > 1
+    (``steps.compute_shardings``: a dense or SSM model's TP blocks over M > 1
     model ranks, else the whole model); raises ``sharding.NotDivisible``
     where the model ranks do not divide a split dimension."""
     from repro_torch.launch.sharding import sharded_bytes

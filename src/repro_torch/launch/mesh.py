@@ -22,8 +22,8 @@ from a mesh: ``axis_names``, ``shape[axis]`` (and ``mesh_dim_names``,
     devices lie in contiguous blocks over the data ranks (data rank r holds
     FL devices r·n_fl/R_data … (r + 1)·n_fl/R_data − 1); ranks along
     "model" hold their blocks of every parameter by its spec, and split a
-    dense model's products tensor-parallel (any other model they compute
-    whole: ``launch/steps.py::tp_trains``). Its :func:`batch_ways` is the FL
+    dense or SSM model's products tensor-parallel (any other model they
+    compute whole: ``launch/steps.py::tp_trains``). Its :func:`batch_ways` is the FL
     device count, as on one card; with one rank it is the one-card trainer's
     mesh.
 

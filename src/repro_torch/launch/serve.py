@@ -18,11 +18,11 @@ same). The prefill runs in the ``serve.prefill`` range, the decode loop in
 ``serve.decode``.
 
 Over a (data, model) mesh of ranks (a ``RankMesh`` where one card takes a
-device; a dense model on any mesh, an SSM or MoE model over data ranks:
+device; a dense or SSM model on any mesh, a MoE model over data ranks:
 ``launch.steps.check_rank_serving``) each rank serves its rows of the batch
 (``batch_pspecs``) and holds its blocks of their cache (``cache_pspecs``: a
 dense model's KV cache split by sequence over "model", its positions
-whole). A MoE model routes each rank's rows in the whole batch's routing
+whole; an SSM model's state by heads and its conv window by channels). A MoE model routes each rank's rows in the whole batch's routing
 groups over the data ranks (``launch.steps.moe_group``,
 ``models.layers.moe_fwd``), so its drops are one process's. Over M > 1
 model ranks a dense model is split tensor-parallel: each rank holds its
@@ -32,7 +32,12 @@ the group summing the row-split ones; the prefill re-lays each layer's k
 and v of its heads into its cache block, a decode step gathers the new
 token's heads and combines the attention over the group (flash-decoding,
 ``models.layers.attention_decode``), and the greedy token combines the
-vocabulary blocks (``models.layers.greedy``).
+vocabulary blocks (``models.layers.greedy``). An SSM model over M > 1
+model ranks is split by SSM heads the same way: each rank runs kernel 4
+on its nh/M heads, the group summing the mixer norm's statistic and
+``out_proj``'s rows, and gathering the conv window's channels in the
+prefill and in every decode step (``models.layers.mamba2_fwd``,
+``mamba2_decode``).
 :meth:`Server.gather_logits` makes vocabulary blocks of logits whole over
 "model", :meth:`Server.gather_tokens` the whole batch's tokens over
 "data".

@@ -24,10 +24,12 @@ The port's eager layers apply no activation spec (there is no GSPMD to
 read one): :func:`activation_specs` is reported by the dry run and held by
 the tests.
 
-Serving over model ranks splits a dense model's products instead
-(tensor parallelism): :func:`tp_pspecs` gives each leaf's TP block, the
-spec a model rank's server holds (its :class:`Sharding` cuts it from the
-whole leaf, :func:`served_bytes` counts a rank's bytes of them).
+Over model ranks a dense or SSM model's products split instead (tensor
+parallelism): :func:`tp_pspecs` gives each leaf's TP block, the spec a
+model rank serves and trains on (its :class:`Sharding` cuts it from the
+whole leaf, :func:`served_bytes` counts a rank's bytes of them). A Mamba2
+leaf's TP block is not one contiguous slice: its dim is a
+:class:`Segments` entry, consecutive parts each split or whole.
 """
 from __future__ import annotations
 
@@ -184,6 +186,9 @@ def params_pspecs(params_shape, mesh, moe_mode: str | None = "ep"):
 FP32_LEAVES = ("scale", "dt_bias", "A_log")
 
 
+TP_FAMILIES = ("dense", "ssm")  # the families tensor parallelism splits (tp_pspecs)
+
+
 class NotDivisible(ValueError):
     """The model ranks do not divide a dimension that tensor parallelism
     splits."""
@@ -194,37 +199,78 @@ class NotDivisible(ValueError):
 # rows of the output projections, the MLP's columns and rows, the vocabulary
 _TP_DIM = {"wq": -1, "bq": -1, "wk": -1, "bk": -1, "wv": -1, "bv": -1, "wo": -2,
            "w_gate": -1, "w_in": -1, "w_out": -2, "embed": -2, "lm_head": -1}
+# a Mamba2 leaf's (by its path under "mamba") TP dim, counted from the end:
+# its heads (A_log, dt_bias, D), their channels (the mixer norm's scale), the
+# rows of out_proj; in_proj, conv_w and conv_b are segmented (_mamba_segments)
+_MAMBA_TP_DIM = {("A_log",): -1, ("dt_bias",): -1, ("D",): -1, ("norm", "scale"): -1,
+                 ("out_proj",): -2}
+
+
+def _mamba_segments(cfg) -> dict:
+    """in_proj's last dim, [z (di), x (di), B (n), C (n), dt (nh)], and
+    conv_w's and conv_b's, [x (di), B (n), C (n)], as :class:`Segments`: a
+    rank's heads' z, x and dt over "model", B and C whole (one B/C group
+    feeds every head)."""
+    s = cfg.ssm
+    di, n, nh = s.d_inner(cfg.d_model), s.d_state, s.n_heads(cfg.d_model)
+    conv = Segments(((di, "model"), (2 * n, None)))
+    return {("in_proj",): Segments(((di, "model"), (di, "model"), (2 * n, None),
+                                    (nh, "model"))),
+            ("conv_w",): conv, ("conv_b",): conv}
+
+
+def _undivided(cfg, msize: int) -> list[str]:
+    """The dimensions tensor parallelism splits that ``msize`` model ranks
+    do not divide, each as "name = value"."""
+    dims = {"vocab_padded": cfg.vocab_padded}
+    if cfg.arch_type == "ssm":
+        dims = {"ssm.n_heads": cfg.ssm.n_heads(cfg.d_model), **dims}
+    else:
+        dims = {d: getattr(cfg, d) for d in ("n_heads", "n_kv_heads", "d_ff")} | dims
+    return [f"{name} = {value}" for name, value in dims.items() if value % msize]
 
 
 def tp_pspecs(params_shape, cfg, mesh):
-    """The spec tree of a dense model's TP blocks on ``mesh``: a model rank
-    r of M holds query heads ``[r·H/M, (r+1)·H/M)`` of ``wq`` / ``bq``, the
-    same block of kv heads of ``wk``, ``wv``, ``bk``, ``bv``, the rows of
-    its query heads of ``wo``, columns ``[r·F/M, (r+1)·F/M)`` of
-    ``w_gate`` and ``w_in`` and those rows of ``w_out``, and rows (the
+    """The spec tree of a dense or SSM model's TP blocks on ``mesh``.
+
+    A dense model's rank r of M holds query heads ``[r·H/M, (r+1)·H/M)`` of
+    ``wq`` / ``bq``, the same block of kv heads of ``wk``, ``wv``, ``bk``,
+    ``bv``, the rows of its query heads of ``wo``, columns ``[r·F/M,
+    (r+1)·F/M)`` of ``w_gate`` and ``w_in`` and those rows of ``w_out``.
+    An SSM (Mamba2) model's holds its nh/M heads: their z, x and dt columns
+    of ``in_proj`` with the B and C columns whole, their x channels of
+    ``conv_w`` and ``conv_b`` with the B and C channels whole (both
+    :class:`Segments`), their ``A_log``, ``dt_bias``, ``D``, the mixer
+    norm's channels and ``out_proj``'s rows. Either holds rows (the
     vocabulary) ``[r·V/M, (r+1)·V/M)`` of ``embed`` (columns of
-    ``lm_head``); the norms whole, and everything whole over "data". The
-    column and vocab blocks are the spec's "model" blocks
-    (:func:`params_pspecs`); ``wo`` and ``w_out`` are split by rows where
-    the spec splits their last dim. With one model rank every leaf is
-    whole, whatever the family. Raises :class:`NotDivisible` (a
-    ``ValueError``) naming each dimension that M does not divide."""
+    ``lm_head``); ``ln1``, ``ln2`` and the final norm whole, and everything
+    whole over "data". The column and vocab blocks are the spec's "model"
+    blocks (:func:`params_pspecs`); ``wo``, ``w_out`` and ``out_proj`` are
+    split by rows where the spec splits their last dim. With one model
+    rank every leaf is whole, whatever the family. Raises
+    :class:`NotDivisible` (a ``ValueError``) naming each dimension that M
+    does not divide."""
     msize = _model_size(mesh)
     if msize == 1:
         return _map_with_path(lambda path, leaf: (None,) * leaf.dim(), params_shape)
-    if cfg.arch_type != "dense":
-        raise ValueError(f"{cfg.name}: tensor-parallel serving takes a dense model, "
+    if cfg.arch_type not in TP_FAMILIES:
+        raise ValueError(f"{cfg.name}: tensor parallelism takes a dense or SSM model, "
                          f"not {cfg.arch_type}")
-    undivided = [f"{dim} = {getattr(cfg, dim)}" for dim in
-                 ("n_heads", "n_kv_heads", "d_ff", "vocab_padded") if getattr(cfg, dim) % msize]
+    undivided = _undivided(cfg, msize)
     if undivided:
         raise NotDivisible(f"{cfg.name}: {msize} model ranks do not divide "
                            + ", ".join(undivided))
+    segments = _mamba_segments(cfg) if cfg.arch_type == "ssm" else {}
 
     def leaf_spec(path, leaf):
         spec = [None] * leaf.dim()
-        if _path_leaf_name(path) in _TP_DIM:
+        within = path[path.index("mamba") + 1:] if "mamba" in path else None
+        if within is None and _path_leaf_name(path) in _TP_DIM:
             spec[_TP_DIM[_path_leaf_name(path)]] = "model"
+        elif within in _MAMBA_TP_DIM:
+            spec[_MAMBA_TP_DIM[within]] = "model"
+        elif within in segments:
+            spec[-1] = segments[within]
         return tuple(spec)
 
     return _map_with_path(leaf_spec, params_shape)
@@ -350,18 +396,35 @@ def activation_specs(cfg, shape, mesh) -> dict:
 # --------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry: a dim made of consecutive segments, ``parts`` its
+    (length, entry) pairs in order, each entry ``None`` (the segment whole
+    on every rank) or axis names (the segment split over them as a dim of
+    that length would be). A rank's block is its block of every segment,
+    concatenated in order. A spec holds at most one."""
+
+    parts: tuple
+
+    def length(self) -> int:
+        return sum(n for n, _ in self.parts)
+
+
 def _entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
+    if isinstance(entry, Segments):
+        return tuple(dict.fromkeys(a for _, e in entry.parts for a in _entry_axes(e)))
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def _is_spec(x) -> bool:
-    """A spec: a plain tuple of ``None``, axis names and tuples of them (a
-    cache's NamedTuple of specs is a container, not a spec)."""
+    """A spec: a plain tuple of ``None``, axis names, tuples of them and
+    :class:`Segments` (a cache's NamedTuple of specs is a container, not a
+    spec)."""
     return type(x) is tuple and all(
-        e is None or isinstance(e, str) or (type(e) is tuple and all(isinstance(a, str)
-                                                                     for a in e))
+        e is None or isinstance(e, (str, Segments))
+        or (type(e) is tuple and all(isinstance(a, str) for a in e))
         for e in x)
 
 
@@ -387,7 +450,9 @@ class Sharding:
 
     A dim whose entry names axes is split evenly over the product of their
     sizes, the first axis major, as JAX lays it out; a rank's block along
-    it is its place on those axes. On a mesh of ranks
+    it is its place on those axes. A :class:`Segments` dim is split so
+    segment by segment, and a rank's block along it is an index list, not a
+    slice. On a mesh of ranks
     (:class:`repro_torch.launch.mesh.RankMesh`) :meth:`block` cuts this
     rank's block and :meth:`gather` rebuilds the whole tensor; on the
     shape-only production mesh only :meth:`block_shape` applies.
@@ -400,6 +465,24 @@ class Sharding:
         sizes = axis_sizes(self.mesh)
         return math.prod(sizes[a] for a in _entry_axes(entry))
 
+    def _place(self, entry, coords: dict) -> int:
+        """The block's place along ``entry``'s axes at ``coords``."""
+        sizes = axis_sizes(self.mesh)
+        k = 0
+        for a in _entry_axes(entry):
+            k = k * sizes[a] + coords[a]
+        return k
+
+    def _block_len(self, entry, n: int, d: int, shape) -> int:
+        if isinstance(entry, Segments):
+            if entry.length() != n:
+                raise ValueError(f"dim {d} of {shape} is not {entry.length()} long ({self.spec})")
+            return sum(self._block_len(e, m, d, shape) for m, e in entry.parts)
+        if n % self._ways(entry):
+            raise ValueError(f"dim {d} of {shape} does not split {self._ways(entry)} ways "
+                             f"({self.spec})")
+        return n // self._ways(entry)
+
     def block_shape(self, shape) -> tuple[int, ...]:
         """A rank's block of a whole tensor of ``shape`` (every split dim
         must divide: the spec functions only split dims that do)."""
@@ -408,26 +491,33 @@ class Sharding:
             raise ValueError(f"spec {self.spec} has more dims than shape {shape}")
         out = list(shape)
         for d, entry in enumerate(self.spec):
-            ways = self._ways(entry)
-            if shape[d] % ways:
-                raise ValueError(f"dim {d} of {shape} does not split {ways} ways ({self.spec})")
-            out[d] = shape[d] // ways
+            out[d] = self._block_len(entry, shape[d], d, shape)
         return tuple(out)
+
+    def _whole_len(self, entry, n: int) -> int:
+        """A dim's whole length from a block's ``n`` along it."""
+        return entry.length() if isinstance(entry, Segments) else n * self._ways(entry)
 
     def replicated(self) -> bool:
         return all(self._ways(e) == 1 for e in self.spec)
 
     def index(self, coords: dict, shape) -> tuple:
         """The index of the block at mesh ``coords`` (``{axis: place}``) in
-        a whole tensor of ``shape``."""
-        sizes = axis_sizes(self.mesh)
+        a whole tensor of ``shape``: a slice a dim, an index list along a
+        :class:`Segments` dim."""
         index = []
         for d, entry in enumerate(self.spec):
-            axes = _entry_axes(entry)
-            k = 0
-            for a in axes:
-                k = k * sizes[a] + coords[a]
+            if isinstance(entry, Segments):
+                rows, lo = [], 0
+                for m, e in entry.parts:
+                    n = m // self._ways(e)
+                    k = lo + self._place(e, coords) * n
+                    rows += range(k, k + n)
+                    lo += m
+                index.append(rows)
+                continue
             n = shape[d] // self._ways(entry)
+            k = self._place(entry, coords)
             index.append(slice(k * n, (k + 1) * n))
         return tuple(index)
 
@@ -443,14 +533,15 @@ class Sharding:
     def holds(self, inner: "Sharding") -> bool:
         """Whether every rank's block by ``inner`` lies inside its block by
         this spec: on each dim this spec is whole or splits it over the same
-        axes as ``inner`` (axes of size 1 aside), which holds for every rank
-        alike."""
+        axes as ``inner`` (axes of size 1 aside; a :class:`Segments` dim
+        only as the same segments), which holds for every rank alike."""
         sizes = axis_sizes(self.mesh)
         n = max(len(self.spec), len(inner.spec))
 
         def split(spec, d):
-            return tuple(a for a in _entry_axes(spec[d] if d < len(spec) else None)
-                         if sizes[a] > 1)
+            entry = spec[d] if d < len(spec) else None
+            axes = tuple(a for a in _entry_axes(entry) if sizes[a] > 1)
+            return entry if axes and isinstance(entry, Segments) else axes
 
         return all(not split(self.spec, d) or split(self.spec, d) == split(inner.spec, d)
                    for d in range(n))
@@ -462,9 +553,15 @@ class Sharding:
         if tuple(inner.block_shape(shape)) == tuple(block.shape):
             return block
         coords = self.mesh.coordinates()
-        outer, want = self.index(coords, shape), inner.index(coords, shape)
-        rel = tuple(slice(w.start - o.start, w.stop - o.start) for o, w in zip(outer, want))
-        return block[rel].clone(memory_format=torch.contiguous_format)
+        rel = []
+        for o, w in zip(self.index(coords, shape), inner.index(coords, shape)):
+            if o == w:
+                rel.append(slice(None))
+            elif isinstance(w, list):  # a whole dim of this spec, segmented in inner
+                rel.append([i - o.start for i in w])
+            else:
+                rel.append(slice(w.start - o.start, w.stop - o.start))
+        return block[tuple(rel)].clone(memory_format=torch.contiguous_format)
 
     def gather(self, block: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's ``block`` (a collective over
@@ -474,16 +571,17 @@ class Sharding:
         all-gather of a CUDA tensor, so there each rank writes its block
         into a zero-filled whole (only one rank of a group that holds the
         same block: the one at place 0 on every axis the spec does not
-        name) and the wholes are summed by an all-reduce: exact, at twice
-        the all-gather's wire bytes.
+        name; along a :class:`Segments` dim a whole segment only by the
+        rank at place 0 on the dim's axes) and the wholes are summed by an
+        all-reduce: exact, at twice the all-gather's wire bytes.
         """
         if self.replicated():
             return block
         import torch.distributed as dist
 
         sizes = axis_sizes(self.mesh)
-        whole_shape = tuple(n * self._ways(e) for n, e in
-                            zip(block.shape, self.spec + (None,) * (block.dim() - len(self.spec))))
+        spec = self.spec + (None,) * (block.dim() - len(self.spec))
+        whole_shape = tuple(self._whole_len(e, n) for n, e in zip(block.shape, spec))
         named = {a for e in self.spec for a in _entry_axes(e)}
         by_gather = self.mesh.backend == "nccl" or block.device.type == "cpu"
         n, itemsize = self.mesh.n_ranks, block.element_size()
@@ -501,8 +599,23 @@ class Sharding:
                 coords = self.mesh.coordinates()
                 if all(coords[a] == 0 for a in sizes if a not in named):
                     whole[self.index(coords, whole_shape)] = block
+                    self._drop_copies(whole, coords)
                 dist.all_reduce(whole)
         return whole
+
+    def _drop_copies(self, whole: torch.Tensor, coords: dict) -> None:
+        """Zero the whole segments of a :class:`Segments` dim in ``whole``
+        unless this rank is at place 0 on the dim's axes (one copy of each
+        enters :meth:`gather`'s sum)."""
+        for d, entry in enumerate(self.spec):
+            if not isinstance(entry, Segments) or self._place(entry, coords) == 0:
+                continue
+            lo, rows = 0, []
+            for m, e in entry.parts:
+                if self._ways(e) == 1:
+                    rows += range(lo, lo + m)
+                lo += m
+            whole.index_fill_(d, torch.tensor(rows, device=whole.device), 0)
 
 
 def to_shardings(pspecs, mesh):

@@ -13,8 +13,8 @@ shardings depend on the mesh (:mod:`repro_torch.launch.mesh`):
     ``batch_pspecs``, ``cache_pspecs`` through ``to_shardings``), which
     the dry run reads; ``fn`` is the global step, whole tensors in and out;
   * a mesh of ranks (``RankMesh``): the same layout, and ``fn`` takes and
-    returns THIS rank's blocks (the serving steps take a dense model's TP
-    blocks, ``sharding.tp_pspecs``: :func:`build_prefill_step`,
+    returns THIS rank's blocks (the serving steps take a dense or SSM
+    model's TP blocks, ``sharding.tp_pspecs``: :func:`build_prefill_step`,
     :func:`build_serve_step`; the training steps cut them from the
     masters: :func:`build_train_step`, :func:`build_stats_step`).
 
@@ -34,17 +34,18 @@ A train step over ranks, on each rank: gather the whole fp32 masters,
 run the weighted backward on its data rank's slice of the batch, all-reduce
 the gradients (and the loss) over the data ranks and divide by their
 count, keep this rank's block, add ν·z on the block and run the optimizer
-on the blocks. Over M > 1 model ranks a dense model is split
+on the blocks. Over M > 1 model ranks a dense or SSM model is split
 tensor-parallel (:func:`tp_trains`): each rank cuts its TP blocks
 (``sharding.tp_pspecs``) from the gathered masters and differentiates the
 loss on them over its model group (:func:`model_group`: the layers'
 collectives carry their backward and tangent rules), so each rank's
 gradient is its TP block's; a TP block that holds the rank's master block
-gives it directly, any other (``wo`` and ``w_out``, whose masters split
-their last dim where TP splits their rows, and leaves the spec keeps whole)
-is gathered whole over "model" first (:func:`master_grads`). The other
-families still compute the same gradients whole on every model rank (what
-ROADMAP A14.9 holds: SSM and hybrid over model ranks, the mixer split).
+gives it directly, any other (``wo``, ``w_out`` and ``out_proj``, whose
+masters split their last dim where TP splits their rows, Mamba2's
+segmented ``in_proj``, ``conv_w`` and ``conv_b``, and leaves the spec
+keeps whole) is gathered whole over "model" first (:func:`master_grads`).
+The other families still compute the same gradients whole on every model
+rank (what ROADMAP A14.9 holds: the hybrid over model ranks).
 Over R > 1 data ranks a MoE model routes each rank's rows in the whole
 batch's routing groups over its data group (:func:`data_group`;
 ``layers.moe_fwd``), and each rank's loss carries its share of the batch's
@@ -70,8 +71,8 @@ from repro_torch.core.sketch import sketch_device_stats
 from repro_torch.flatten_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.mesh import HostMesh, RankMesh, batch_ways, wire_bytes
 from repro_torch.launch.sharding import (
-    Sharding, _batched, batch_pspecs, cache_shardings, moe_strategy, params_pspecs,
-    tensor_bytes, to_shardings, tp_pspecs,
+    TP_FAMILIES, Sharding, _batched, batch_pspecs, cache_shardings, moe_strategy,
+    params_pspecs, tensor_bytes, to_shardings, tp_pspecs,
 )
 from repro_torch.models import api, encdec, transformer
 from repro_torch.models.cache import init_attn_cache, init_ssm_cache
@@ -165,14 +166,15 @@ def _mean_over_data(x: torch.Tensor, mesh: RankMesh, r_data: int) -> torch.Tenso
 
 def tp_trains(cfg: ModelConfig, mesh) -> bool:
     """Whether the rank steps split ``cfg`` tensor-parallel over ``mesh``'s
-    model ranks: a dense model over M > 1 of them. The other families
-    compute whole on every model rank (ROADMAP A14.9 holds their split)."""
-    return cfg.arch_type == "dense" and mesh.shape["model"] > 1
+    model ranks: a dense or SSM model over M > 1 of them. The other
+    families compute whole on every model rank (ROADMAP A14.9 holds their
+    split)."""
+    return cfg.arch_type in TP_FAMILIES and mesh.shape["model"] > 1
 
 
 def compute_shardings(cfg: ModelConfig, mesh, p_structs):
     """The Shardings of the weights a rank's training steps compute on: a
-    dense model's TP blocks over M > 1 model ranks (``sharding.tp_pspecs``,
+    dense or SSM model's TP blocks over M > 1 model ranks (``sharding.tp_pspecs``,
     which raises ``sharding.NotDivisible`` naming each dimension M does not
     divide), elsewhere every leaf whole (:func:`tp_trains`)."""
     if not tp_trains(cfg, mesh):
@@ -192,22 +194,35 @@ def _tp_dim(sh: Sharding) -> int:
     return next(d for d, e in enumerate(sh.spec) if e is not None)
 
 
+def _whole_over_model(g: torch.Tensor, tp: Sharding, shape, group: ModelGroup) -> torch.Tensor:
+    """The whole tensor of ``shape`` from every model rank's TP block ``g``
+    (one all-gather along the TP dim, each rank's block then placed at its
+    index: a contiguous block or a ``Segments`` one alike)."""
+    d = _tp_dim(tp)
+    whole = g.new_empty(shape)
+    coords = tp.mesh.coordinates()
+    for r, part in enumerate(group.all_gather(g, d).chunk(group.size, d)):
+        whole[tp.index({**coords, "model": r}, shape)] = part
+    return whole
+
+
 def master_grads(grads: list, p_structs, tp_sh, p_sh, group: ModelGroup | None) -> list:
     """This rank's master blocks (``p_sh``) of the gradients it took on its
     compute blocks (``tp_sh``; both trees like ``p_structs``, the grads in
     their sorted-key leaf order). A compute block that holds the master
     block (``Sharding.holds``: the vocabulary, head and MLP column blocks,
     the whole norms) gives it by a cut; any other is gathered whole over
-    the model group first (``wo`` and ``w_out``, whose masters split the
-    last dim where TP splits the rows, and the leaves the spec keeps whole
-    but TP splits, as the q, k and v biases)."""
+    the model group first (``wo``, ``w_out`` and ``out_proj``, whose
+    masters split the last dim where TP splits the rows, the segmented
+    Mamba2 leaves, and the leaves the spec keeps whole but TP splits, as
+    the q, k and v biases and Mamba2's per-head leaves)."""
     out = []
     for g, x, tp, sh in zip(grads, tree_leaves(p_structs), tree_leaves(tp_sh),
                             tree_leaves(p_sh), strict=True):
         if tp.holds(sh):
             out.append(tp.cut(sh, g, x.shape))
         else:
-            out.append(sh.block(group.all_gather(g, _tp_dim(tp))))
+            out.append(sh.block(_whole_over_model(g, tp, x.shape, group)))
     return out
 
 
@@ -407,7 +422,7 @@ def build_stats_step(
     On a mesh of ranks ``params`` and ``batch`` are this rank's blocks and
     the probes whole: each data rank sketches its own FL devices, and the
     three (n_fl,) results are gathered in FL order. Over M > 1 model ranks
-    a dense model's passes run on this rank's TP blocks of the gathered
+    a dense or SSM model's passes run on this rank's TP blocks of the gathered
     parameters and of each probe (the tangent of ones is ones on the
     blocks), over its model group, D the whole model's count
     (:func:`compute_layout`); any other model computes them whole. Over
@@ -473,8 +488,8 @@ def _serving_mesh(mesh) -> bool:
 # what serving over ranks does not take yet, by family (ROADMAP A14.10 holds it)
 _NOT_OVER_RANKS = {
     "hybrid": "a hybrid model (its attention cache and Mamba2 state together are not held "
-              "over ranks yet; over \"model\" its state splits by heads, which needs the "
-              "mixer split)",
+              "over ranks yet: its shared block and HybridCache wait for the split of its "
+              "Mamba2 layers and its attention together)",
     "encdec": "an enc-dec model (cache_pspecs also splits cross_k / cross_v over \"model\": "
               "kernel 3 must return its row log-sum-exp for the combine)",
     "vlm": "a VLM",
@@ -482,26 +497,24 @@ _NOT_OVER_RANKS = {
 
 
 def _rank_serves(cfg: ModelConfig, mesh) -> bool:
-    """Whether ranks serve ``cfg`` on ``mesh``: a dense model on any mesh
-    (its products split over "model"), an SSM or MoE model over data ranks
-    only (a MoE model's rows routed in the whole batch's groups)."""
-    return cfg.arch_type == "dense" or (cfg.arch_type in ("ssm", "moe")
-                                        and mesh.shape["model"] == 1)
+    """Whether ranks serve ``cfg`` on ``mesh``: a dense or SSM model on any
+    mesh (its products split over "model"), a MoE model over data ranks
+    only (its rows routed in the whole batch's groups)."""
+    return cfg.arch_type in TP_FAMILIES or (cfg.arch_type == "moe"
+                                            and mesh.shape["model"] == 1)
 
 
 def check_rank_serving(cfg: ModelConfig, mesh) -> None:
-    """Serving over a (data, model) mesh of ranks takes a dense model on
-    any mesh (its products split over "model") and an SSM or MoE model over
-    data ranks only (:func:`_rank_serves`); raise ``ValueError`` for any
-    other case, naming what ROADMAP A14.10 still holds."""
+    """Serving over a (data, model) mesh of ranks takes a dense or SSM
+    model on any mesh (its products split over "model") and a MoE model
+    over data ranks only (:func:`_rank_serves`); raise ``ValueError`` for
+    any other case, naming what ROADMAP A14.10 still holds."""
     if _rank_serves(cfg, mesh):
         return
     models = mesh.shape["model"]
-    why = _NOT_OVER_RANKS.get(cfg.arch_type) or {
-        "ssm": f"an SSM model over {models} model ranks (cache_pspecs splits its state by "
-               "heads, which needs the mixer split)",
-        "moe": f"a MoE model over {models} model ranks (its experts wait for the expert "
-               "split, EP: moe_strategy)"}[cfg.arch_type]
+    why = _NOT_OVER_RANKS.get(cfg.arch_type) or (
+        f"a MoE model over {models} model ranks (its experts wait for the expert split, EP: "
+        "moe_strategy)")
     raise ValueError(f"{cfg.name}: serving over ranks does not take {why} yet "
                      "(ROADMAP A14.10)")
 
@@ -595,8 +608,8 @@ def moe_group(cfg: ModelConfig, mesh: RankMesh,
 def _serving_params(cfg: ModelConfig, shape: InputShape, mesh):
     """The parameters' shardings of a serving step off one card: the TP
     blocks a rank serves where ranks serve the model (:func:`_rank_serves`;
-    ``tp_pspecs``: a dense model's split, every leaf whole with one model
-    rank); elsewhere, on the shape-only mesh, the reference's spec blocks
+    ``tp_pspecs``: a dense or SSM model's split, every leaf whole with one
+    model rank); elsewhere, on the shape-only mesh, the reference's spec blocks
     (``params_pspecs``). Raises ``sharding.NotDivisible`` where the model
     ranks do not divide a dimension the split needs."""
     structs = params_structs(cfg)
@@ -614,10 +627,11 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh,
     rank's TP blocks (:func:`_serving_params`), ``batch`` is this data
     rank's rows (``batch_pspecs``), and the step runs them through
     ``model_prefill`` over the model group (:func:`model_group`; kernel 3
-    on this rank's heads in a dense model, kernel 4 in an SSM model over
-    data ranks) and a MoE model's over the data group
+    on this rank's heads in a dense model, kernel 4 on its SSM heads in an
+    SSM model) and a MoE model's over the data group
     (:func:`moe_group`): → this rank's vocabulary block of the logits and its
-    blocks of the cache (``cache_pspecs``: the sequence over "model").
+    blocks of the cache (``cache_pspecs``: a KV cache's sequence over
+    "model", an SSM state's heads and its conv window's channels).
     The residual stays whole on every model rank: ``activation_specs``
     splits a prefill's sequence over "model", which the port leaves (the
     residual of a serving prefill is small against its cache).
@@ -662,9 +676,10 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh,
     On a mesh of ranks ``params`` are this rank's TP blocks
     (:func:`_serving_params`) and ``token`` and ``cache`` this rank's rows
     and blocks (``batch_pspecs``, ``cache_pspecs``: a dense model's KV
-    cache split by sequence over "model"); the step runs over the model
-    group (:func:`model_group`: this rank's heads, MLP columns and
-    vocabulary block, the attention combined over the group), a MoE
+    cache split by sequence over "model", an SSM model's state by heads);
+    the step runs over the model group (:func:`model_group`: this rank's
+    heads, MLP columns and vocabulary block, the attention combined over
+    the group, the conv window gathered), a MoE
     model's over the data group (:func:`moe_group`), and returns its rows'
     greedy token, combined over the vocabulary blocks (``layers.greedy``),
     and its cache blocks."""

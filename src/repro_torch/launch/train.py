@@ -5,7 +5,7 @@ batch (:mod:`repro_torch.launch.mesh`): on one card (``HostMesh``) every
 slice is computed in one process; on a ``RankMesh`` each data rank
 computes its FL devices' slices and holds its blocks of the fp32 masters
 and the optimizer state by their specs, and over M > 1 model ranks a dense
-model's products are split tensor-parallel (:mod:`repro_torch.launch.steps`:
+or SSM model's products are split tensor-parallel (:mod:`repro_torch.launch.steps`:
 the steps decide the layout from the mesh and the family).
 A round:
 
@@ -160,10 +160,11 @@ class POFLTrainer:
         self.dim = self.cfg.param_count()
         self._loss_stats = None  # "loss" mode's stats: never refreshed, as in the reference
 
-    def init_state(self, seed: int):
-        """Fresh fp32 parameters from ``seed`` and their optimizer state
+    def init_state(self, seed: int, dt_init: str = "zeros"):
+        """Fresh fp32 parameters from ``seed`` (``dt_init``: a Mamba2
+        layer's dt_bias, ``api.model_init``) and their optimizer state
         (over ranks: this rank's blocks of both)."""
-        params = api.model_init(self.cfg, seed, device=self.device)
+        params = api.model_init(self.cfg, seed, device=self.device, dt_init=dt_init)
         if self.ranks:
             params = block_of(params, self.train_bundle.in_shardings["params"])
         return params, self.optimizer.init(params)

@@ -50,7 +50,14 @@ The full-sequence Mamba2 scan (:func:`mamba2_fwd`) goes through
 calls its jnp ``ssd_chunked`` (which is :func:`ssd_chunked`, the kernel's
 plain version). The single-token step (:func:`mamba2_decode`) stays plain
 torch, op for op: it rounds the state to ``dtype`` every step, as the
-reference does.
+reference does. Over a model group the mixer splits by SSM heads (its TP
+blocks: the heads' z, x and dt columns of ``in_proj`` and x channels of
+the conv, B and C whole on every rank): each rank scans its nh/M heads,
+the gated norm's statistic is the group's SUM of the ranks' sums of
+squares, ``out_proj``'s rows are summed (:func:`row_split_matmul`), the B
+and C weight slices enter through :func:`copy_to_group` (each rank's
+gradient of them is a part), and the conv window, cached as the spec's
+block of its channels, is gathered a step (:func:`_decode_window`).
 
 The MoE layer (:func:`moe_fwd`) stays plain torch as it stays outside any
 Pallas kernel in the reference: its routing (:func:`moe_route`) and the
@@ -910,6 +917,34 @@ def _split_mamba_proj(zxbcdt, di: int, n: int, nh: int):
     return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:]
 
 
+def _mamba_dims(cfg: ModelConfig, group: Optional[ModelGroup]) -> tuple[int, int, int]:
+    """(di, nh, n) of the heads a rank computes: every head, or over
+    ``group`` its nh/M heads and their di/M channels; n whole."""
+    s, ways = cfg.ssm, _ways(group)
+    return s.d_inner(cfg.d_model) // ways, s.n_heads(cfg.d_model) // ways, s.d_state
+
+
+def _shared_bc(w: torch.Tensor, lo: int, n: int, group: Optional[ModelGroup]) -> torch.Tensor:
+    """``w`` with its B and C columns ``[lo, lo + 2n)`` entering through
+    :func:`copy_to_group`: whole on every rank of ``group`` but feeding only
+    the rank's heads, so each rank's gradient of them is a part, summed
+    over the group (dL/dB itself is not summed: the input's
+    ``copy_to_group`` already sums what flows back through it)."""
+    if group is None:
+        return w
+    return torch.cat([w[..., :lo], copy_to_group(w[..., lo:lo + 2 * n], group),
+                      w[..., lo + 2 * n:]], dim=-1)
+
+
+def _mamba_proj(params, x, cfg: ModelConfig, dtype, group: Optional[ModelGroup] = None):
+    """``x @ in_proj`` split into z, xBC, dt of the rank's heads; over
+    ``group`` x enters through :func:`copy_to_group` and the B, C columns
+    through :func:`_shared_bc`."""
+    di, nh, n = _mamba_dims(cfg, group)
+    w = _shared_bc(params["in_proj"].to(dtype), 2 * di, n, group)
+    return _split_mamba_proj(copy_to_group(x, group) @ w, di, n, nh)
+
+
 def causal_conv1d(xbc, w, b):
     """Depthwise causal conv over the sequence dim, xbc (B, S, C), w (K, C):
     ``Σ_i pad[:, i:i+S] · w[i]`` over the left-padded input (no flip)."""
@@ -921,57 +956,137 @@ def causal_conv1d(xbc, w, b):
     return out + b
 
 
-def mamba_inputs(params, xbc, dt, cfg: ModelConfig, dtype):
+def _conv_weights(params, cfg: ModelConfig, dtype, group: Optional[ModelGroup]):
+    """``conv_w`` and ``conv_b`` in ``dtype``, their B and C channels through
+    :func:`_shared_bc` over ``group``."""
+    di, _, n = _mamba_dims(cfg, group)
+    return (_shared_bc(params["conv_w"].to(dtype), di, n, group),
+            _shared_bc(params["conv_b"].to(dtype), di, n, group))
+
+
+def mamba_inputs(params, xbc, dt, cfg: ModelConfig, dtype, group: Optional[ModelGroup] = None):
     """The scan's inputs from the conv's input xbc and the raw dt:
     ``(xh (B, S, nh, P), xdt, la (B, S, nh) fp32, B, C)``. dt is
     ``softplus(dt + dt_bias)`` in fp32, la = −exp(A_log)·dt in fp32, and
-    ``xdt = xh · dt`` in ``dtype`` (``layers.py:548-556``)."""
-    s_cfg = cfg.ssm
-    di, n = s_cfg.d_inner(cfg.d_model), s_cfg.d_state
-    xbc = F.silu(causal_conv1d(xbc, params["conv_w"].to(dtype), params["conv_b"].to(dtype)))
+    ``xdt = xh · dt`` in ``dtype`` (``layers.py:548-556``). Over ``group``
+    the rank's heads."""
+    di, nh, n = _mamba_dims(cfg, group)
+    xbc = F.silu(causal_conv1d(xbc, *_conv_weights(params, cfg, dtype, group)))
     xin, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     dt = F.softplus(dt.float() + params["dt_bias"])
     la = -torch.exp(params["A_log"])[None, None, :] * dt
-    xh = xin.reshape(*xin.shape[:-1], s_cfg.n_heads(cfg.d_model), s_cfg.head_dim)
+    xh = xin.reshape(*xin.shape[:-1], nh, cfg.ssm.head_dim)
     xdt = xh * dt[..., None].to(dtype)
     return xh, xdt, la.float(), B, C
 
 
-def mamba_out(params, y, xh, z, cfg: ModelConfig, dtype):
+def _gated_rmsnorm(scale, y, eps: float, width: int, group: Optional[ModelGroup]):
+    """rmsnorm of y over its ``width`` channels, fp32 inside. Over
+    ``group`` y holds the rank's channels: the statistic is the group's SUM
+    of each rank's sum of squares, and so is its gradient, since every
+    rank's output depends on it (``copy_to_group(sum_over_group(·))``: a
+    SUM forward and backward, the tangent summed)."""
+    if group is None:
+        return rmsnorm({"scale": scale}, y, eps)
+    y32 = y.float()
+    ss = copy_to_group(sum_over_group((y32 * y32).sum(dim=-1, keepdim=True), group), group)
+    return (y32 * torch.rsqrt(ss / width + eps) * scale).to(y.dtype)
+
+
+def mamba_out(params, y, xh, z, cfg: ModelConfig, dtype, group: Optional[ModelGroup] = None):
     """``rmsnorm(y + D·xh) · silu(z) @ out_proj``: the reference's gated norm
-    order (norm first, then the gate)."""
+    order (norm first, then the gate). Over ``group`` the rank's channels,
+    the norm's statistic over every rank's (:func:`_gated_rmsnorm`) and
+    ``out_proj``'s rows summed over the group (:func:`row_split_matmul`)."""
+    di = cfg.ssm.d_inner(cfg.d_model)
     y = y + params["D"].to(dtype)[..., :, None] * xh
-    y = y.reshape(*y.shape[:-2], cfg.ssm.d_inner(cfg.d_model))
-    y = rmsnorm(params["norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ params["out_proj"].to(dtype)
+    y = y.reshape(*y.shape[:-2], di // _ways(group))
+    y = _gated_rmsnorm(params["norm"]["scale"], y, cfg.norm_eps, di, group) * F.silu(z)
+    return row_split_matmul(y, params["out_proj"], dtype, group)
 
 
-def mamba2_fwd(params, x, cfg: ModelConfig, dtype=torch.float32, chunk: Optional[int] = None):
+def mamba2_fwd(params, x, cfg: ModelConfig, dtype=torch.float32, chunk: Optional[int] = None,
+               group: Optional[ModelGroup] = None):
     """Full-sequence Mamba2 block (prefill). x: (B, S, D); the scan runs in
     chunks of ``chunk`` (``cfg.ssm.chunk_size`` by default), which must
-    divide S."""
-    s_cfg = cfg.ssm
-    di, nh, n = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model), s_cfg.d_state
-    z, xbc, dt = _split_mamba_proj(x @ params["in_proj"].to(dtype), di, n, nh)
-    xh, xdt, la, B, C = mamba_inputs(params, xbc, dt, cfg, dtype)
-    y = ssd(xdt, la, B, C, chunk=chunk or s_cfg.chunk_size)
-    return mamba_out(params, y, xh, z, cfg, dtype)
+    divide S. Over a model ``group`` ``params`` are this rank's TP blocks
+    (``launch/sharding.py::tp_pspecs``) and the scan runs on its nh/M
+    heads."""
+    z, xbc, dt = _mamba_proj(params, x, cfg, dtype, group)
+    xh, xdt, la, B, C = mamba_inputs(params, xbc, dt, cfg, dtype, group)
+    y = ssd(xdt, la, B, C, chunk=chunk or cfg.ssm.chunk_size)
+    return mamba_out(params, y, xh, z, cfg, dtype, group)
 
 
-def mamba2_decode(params, x, cfg: ModelConfig, ssm_state, conv_state, dtype=torch.float32):
+def conv_channels(cfg: ModelConfig, group: Optional[ModelGroup]) -> int:
+    """The conv window's channels a rank caches: its block of the di + 2n
+    where the group splits them evenly (``launch/sharding.py::cache_pspecs``),
+    else all of them."""
+    c = cfg.ssm.d_inner(cfg.d_model) + 2 * cfg.ssm.d_state
+    return c // _ways(group) if c % _ways(group) == 0 else c
+
+
+def conv_block(xbc_tail, cfg: ModelConfig, group: Optional[ModelGroup]):
+    """The conv cache's block (:func:`conv_channels`) from a rank's last
+    K−1 conv inputs ``xbc_tail`` (B, K−1, di/M + 2n), its heads' x channels
+    then B and C: the group gathers every rank's x channels (one gather).
+    Without a group, ``xbc_tail`` itself."""
+    if group is None:
+        return xbc_tail
+    di, _, n = _mamba_dims(cfg, group)
+    whole = torch.cat([gather_from_group(xbc_tail[..., :di], 2, group), xbc_tail[..., di:]], -1)
+    return _channel_block(whole, cfg, group)
+
+
+def _channel_block(whole, cfg: ModelConfig, group: ModelGroup):
+    """The rank's block (:func:`conv_channels`) of a whole conv window's
+    channels (last dim)."""
+    n = conv_channels(cfg, group)
+    return whole[..., group.rank * n:(group.rank + 1) * n] if n < whole.shape[-1] else whole
+
+
+def _decode_window(conv_state, xbc, cfg: ModelConfig, group: Optional[ModelGroup]):
+    """→ (the conv's K inputs of the rank's channels, the new conv cache
+    block): the cached K−1 rows then the new token's. Over ``group`` the
+    cache holds the rank's block of the channels (:func:`conv_block`) and
+    xbc its heads' x channels and B, C: one gather of every rank's cache
+    block and new x channels side by side makes the whole window, of which
+    the rank takes its channels and its cache block."""
+    if group is None:
+        window = torch.cat([conv_state, xbc], dim=1)
+        return window, window[:, 1:]
+    di, _, n = _mamba_dims(cfg, group)
+    b, k1, c = conv_state.shape
+    whole_c = di * group.size + 2 * n
+    split = c < whole_c
+    payload = xbc[..., :di].reshape(b, 1, di)
+    if split:
+        payload = torch.cat([conv_state.reshape(b, 1, k1 * c), payload], dim=-1)
+    every = gather_from_group(payload, 1, group)  # (B, M, ·), in rank order
+    old = (every[..., :k1 * c].reshape(b, group.size, k1, c).transpose(1, 2)
+           .reshape(b, k1, whole_c) if split else conv_state)
+    x_new = every[..., -di:].reshape(b, 1, di * group.size)
+    window = torch.cat([old, torch.cat([x_new, xbc[..., di:]], dim=-1)], dim=1)
+    mine = torch.cat([window[..., group.rank * di:(group.rank + 1) * di],
+                      window[..., whole_c - 2 * n:]], dim=-1)
+    return mine, _channel_block(window[:, 1:], cfg, group)
+
+
+def mamba2_decode(params, x, cfg: ModelConfig, ssm_state, conv_state, dtype=torch.float32,
+                  group: Optional[ModelGroup] = None):
     """Single-token recurrent step. x: (B, 1, D); ssm_state (B, H, N, P);
     conv_state (B, K-1, di+2n). Returns (out, new_state, new_conv_state),
     new tensors; the state is updated in ``dtype`` (with the decay cast to
-    it first), as in the reference."""
-    s_cfg = cfg.ssm
-    di, nh, n = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model), s_cfg.d_state
-    z, xbc, dt = _split_mamba_proj(x @ params["in_proj"].to(dtype), di, n, nh)  # (B,1,·)
+    it first), as in the reference. Over a model ``group`` ``params`` are
+    this rank's TP blocks, ssm_state its heads and conv_state its block of
+    the window's channels (:func:`_decode_window`)."""
+    di, nh, n = _mamba_dims(cfg, group)
+    z, xbc, dt = _mamba_proj(params, x, cfg, dtype, group)  # (B,1,·)
 
-    window = torch.cat([conv_state, xbc], dim=1)  # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"].to(dtype)) + params[
-        "conv_b"].to(dtype)
+    window, new_conv_state = _decode_window(conv_state, xbc, cfg, group)
+    conv_w, conv_b = _conv_weights(params, cfg, dtype, group)
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w) + conv_b
     xbc1 = F.silu(conv_out)[:, None, :]
-    new_conv_state = window[:, 1:, :]
 
     xin = xbc1[..., :di]
     B = xbc1[:, 0, di:di + n]  # (B, n)
@@ -979,10 +1094,10 @@ def mamba2_decode(params, x, cfg: ModelConfig, ssm_state, conv_state, dtype=torc
 
     dt = F.softplus(dt[:, 0].float() + params["dt_bias"])  # (B, nh)
     a = torch.exp(-torch.exp(params["A_log"])[None] * dt)  # (B, nh)
-    xh = xin[:, 0].reshape(-1, nh, s_cfg.head_dim)
+    xh = xin[:, 0].reshape(-1, nh, cfg.ssm.head_dim)
     xdt = xh * dt[..., None].to(dtype)
 
     new_state = a[..., None, None].to(dtype) * ssm_state + torch.einsum("bn,bhp->bhnp", B, xdt)
     y = torch.einsum("bn,bhnp->bhp", C, new_state)
-    out = mamba_out(params, y[:, None], xh[:, None], z, cfg, dtype)
+    out = mamba_out(params, y[:, None], xh[:, None], z, cfg, dtype, group)
     return out, new_state, new_conv_state

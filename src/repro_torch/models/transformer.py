@@ -27,12 +27,13 @@ Public entry points:
   prefill(params, cfg, tokens, ...)          -> (logits, cache)
   decode_step(params, cfg, token, cache, t)  -> (logits, cache)
 
-Over the model ranks of a mesh (a ``layers.ModelGroup``) a dense model's
-loss, prefill and decode step run tensor-parallel on the rank's TP blocks:
-the embedding looks up the rank's vocabulary block (``layers.embed_lookup``),
-each layer's attention and MLP compute the rank's heads and columns, and
-the logits are the rank's vocabulary block (:func:`logits_from_hidden`),
-which the loss keeps split (:func:`chunked_ce`). The group's collectives
+Over the model ranks of a mesh (a ``layers.ModelGroup``) a dense or SSM
+model's loss, prefill and decode step run tensor-parallel on the rank's TP
+blocks: the embedding looks up the rank's vocabulary block
+(``layers.embed_lookup``), each layer's attention and MLP compute the
+rank's heads and columns, each Mamba2 mixer its SSM heads
+(``layers.mamba2_fwd``), and the logits are the rank's vocabulary block
+(:func:`logits_from_hidden`), which the loss keeps split (:func:`chunked_ce`). The group's collectives
 carry their backward and tangent rules (``layers.copy_to_group`` and its
 kin), so :func:`lm_loss` over a group trains and takes ``torch.func.jvp``.
 Over the data ranks (a ``layers.DataGroup``, the ``data`` keyword) each
@@ -162,9 +163,9 @@ def _block_fwd(cfg: ModelConfig, lp, x, dtype, return_kv: bool = False,
 def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype, group: L.ModelGroup | None = None,
                data: L.DataGroup | None = None, want_aux: bool = True):
     """Layer ``i`` of the stack → (x, aux or None). A hybrid runs its shared
-    block first when ``i % attn_every == 0``. ``group``: a dense layer's
-    model ranks, ``params`` this rank's TP blocks; ``data``, ``want_aux``:
-    a MoE layer's (:func:`_block_fwd`)."""
+    block first when ``i % attn_every == 0``. ``group``: a dense or SSM
+    layer's model ranks, ``params`` this rank's TP blocks; ``data``,
+    ``want_aux``: a MoE layer's (:func:`_block_fwd`)."""
     lp = layer_params(params, i)
     if cfg.arch_type not in ("ssm", "hybrid"):
         x, aux, _ = _block_fwd(cfg, lp, x, dtype, group=group, data=data, want_aux=want_aux)
@@ -173,7 +174,7 @@ def _layer_fwd(cfg: ModelConfig, params, i: int, x, dtype, group: L.ModelGroup |
         x, _, _ = _block_fwd(cfg, params["shared_block"], x, dtype)
     with record_function("lm.mamba"):
         return x + L.mamba2_fwd(lp["mamba"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                dtype), None
+                                dtype, group=group), None
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, embeds, dtype,
@@ -213,8 +214,8 @@ def backbone(params, cfg: ModelConfig, x, dtype, remat: bool = False,
     """The layer stack. x: (B, S, D) -> (B, S, D), aux: the MoE layers' aux
     losses summed in layer order (fp32; 0 for the other families, and over
     ``data`` without ``want_aux``). ``remat`` recomputes each layer in the
-    backward (with its collectives over ``group``, a dense model's model
-    ranks, and over ``data``, a MoE model's data ranks)."""
+    backward (with its collectives over ``group``, a dense or SSM model's
+    model ranks, and over ``data``, a MoE model's data ranks)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = remat_call(remat, params,
@@ -295,7 +296,7 @@ def chunked_ce(params, cfg: ModelConfig, x, tokens, dtype, logits_sharding=None,
     of its scan body, wherever a backward can reach it: :func:`remat_call`),
     and the rows' sums are added chunk after chunk.
     ``logits_sharding`` is accepted and ignored: the port splits the
-    vocabulary by ``group`` instead, the model ranks a dense model is split
+    vocabulary by ``group`` instead, the model ranks a dense or SSM model is split
     over (``params`` this rank's TP blocks), where each chunk's logits
     stay this rank's vocabulary block (:func:`_chunk_nll`).
     """
@@ -329,7 +330,7 @@ def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
     per-example vector (B,) instead (the per-FL-device statistics passes).
     A vlm's patch positions predict nothing: they are dropped before the
     CE. ``logits_sharding`` is ignored (:func:`chunked_ce`). ``group``: the
-    model ranks a dense model is split over, ``params`` this rank's TP
+    model ranks a dense or SSM model is split over, ``params`` this rank's TP
     blocks (a tied ``embed``'s lookup and head add their gradients on the
     same vocabulary block); the loss is the whole batch's on every rank.
     ``data``: the data ranks a MoE model's rows are split over, ``tokens``
@@ -367,16 +368,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     (:func:`_ssm_prefill`); a hybrid cache both (:func:`_hybrid_prefill`).
     ``pad_to`` grows the cache to that many slots (``cache.pad_cache``).
 
-    Over a model ``group`` (a dense model on this rank's TP blocks) the
-    logits are this rank's vocabulary block, and the cache is this rank's
-    block of it by ``cache_pspecs`` (every kv head, this rank's slots of
-    the padded cache where the sequence splits, :func:`_kv_rank_block`);
-    its positions are whole. Over ``data`` (a MoE model's data ranks)
+    Over a model ``group`` (a dense or SSM model on this rank's TP blocks)
+    the logits are this rank's vocabulary block, and the cache is this
+    rank's block of it by ``cache_pspecs``: a dense model's every kv head,
+    this rank's slots of the padded cache where the sequence splits
+    (:func:`_kv_rank_block`), its positions whole; an SSM model's state of
+    the rank's heads and its block of the conv window's channels
+    (``layers.conv_block``). Over ``data`` (a MoE model's data ranks)
     ``tokens`` are this rank's rows, routed in the whole batch's groups.
     """
     x = embed_inputs(params, cfg, tokens, embeds, dtype, group)
     if cfg.arch_type == "ssm":
-        x, cache = _ssm_prefill(params, cfg, x, dtype)
+        x, cache = _ssm_prefill(params, cfg, x, dtype, group=group)
     elif cfg.arch_type == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, dtype)
     elif group is not None:
@@ -425,9 +428,12 @@ def _kv_rank_block(group: L.ModelGroup, kv, lo: int, hi: int, k_out, v_out) -> N
     v_out[:, :n] = every[1, :, lo:lo + n]
 
 
-def _mamba_layer_with_state(lp, x, cfg: ModelConfig, dtype):
+def _mamba_layer_with_state(lp, x, cfg: ModelConfig, dtype,
+                            group: L.ModelGroup | None = None):
     """Full-sequence Mamba2 layer (residual included) that also returns
-    (ssm_state (B, H, N, P), conv_state (B, K-1, di+2n)).
+    (ssm_state (B, H, N, P), conv_state (B, K-1, di+2n)); over a model
+    ``group`` on this rank's TP blocks, the state of its heads and its
+    block of the conv window (``layers.conv_block``).
 
     The scan runs in chunks of ``min(cfg.ssm.chunk_size, S)``, as in the
     reference, which therefore needs S ≤ chunk_size or a multiple of it
@@ -437,19 +443,18 @@ def _mamba_layer_with_state(lp, x, cfg: ModelConfig, dtype):
     last K-1 inputs of the conv.
     """
     s_cfg = cfg.ssm
-    di, nh, n = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model), s_cfg.d_state
     mp = lp["mamba"]
     h_in = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    z, xbc, dt = L._split_mamba_proj(h_in @ mp["in_proj"].to(dtype), di, n, nh)
-    conv_state = xbc[:, -(s_cfg.conv_kernel - 1):, :]
-    xh, xdt, la, B, C = L.mamba_inputs(mp, xbc, dt, cfg, dtype)
+    z, xbc, dt = L._mamba_proj(mp, h_in, cfg, dtype, group)
+    conv_state = L.conv_block(xbc[:, -(s_cfg.conv_kernel - 1):, :], cfg, group)
+    xh, xdt, la, B, C = L.mamba_inputs(mp, xbc, dt, cfg, dtype, group)
 
     y = ssd(xdt, la, B, C, chunk=min(s_cfg.chunk_size, x.shape[1]))
 
     La = cumsum(la, dim=1)  # (B, S, H), in the reference's order
     seg = torch.exp(La[:, -1:, :] - La)  # decay from t to the sequence's end
     final_state = torch.einsum("bsh,bsn,bshp->bhnp", seg.to(dtype), B, xdt)
-    return x + L.mamba_out(mp, y, xh, z, cfg, dtype), final_state, conv_state
+    return x + L.mamba_out(mp, y, xh, z, cfg, dtype, group), final_state, conv_state
 
 
 def _empty_kv(cfg: ModelConfig, n: int, x) -> tuple[torch.Tensor, torch.Tensor]:
@@ -465,24 +470,27 @@ def _positions(x) -> torch.Tensor:
     return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
-def _ssm_prefill(params, cfg: ModelConfig, x, dtype, shared=None):
+def _ssm_prefill(params, cfg: ModelConfig, x, dtype, shared=None,
+                 group: L.ModelGroup | None = None):
     """Every layer through :func:`_mamba_layer_with_state`: → (x, SSMCache)
-    with the states stacked over the layers in x's type. ``shared(i, x)``,
-    if given, runs before layer ``i`` and returns the new x (the hybrid's
-    shared block)."""
+    with the states stacked over the layers in x's type (over a model
+    ``group``, this rank's blocks of them). ``shared(i, x)``, if given,
+    runs before layer ``i`` and returns the new x (the hybrid's shared
+    block)."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
-    nh, n, k = s_cfg.n_heads(d), s_cfg.d_state, s_cfg.conv_kernel
+    ways = 1 if group is None else group.size
+    nh, n, k = s_cfg.n_heads(d) // ways, s_cfg.d_state, s_cfg.conv_kernel
     states = torch.empty((cfg.n_layers, b, nh, n, s_cfg.head_dim), dtype=x.dtype,
                          device=x.device)
-    convs = torch.empty((cfg.n_layers, b, min(k - 1, s), s_cfg.d_inner(d) + 2 * n),
+    convs = torch.empty((cfg.n_layers, b, min(k - 1, s), L.conv_channels(cfg, group)),
                         dtype=x.dtype, device=x.device)
     for i in range(cfg.n_layers):
         if shared is not None:
             x = shared(i, x)
         with record_function("lm.mamba"):
             x, states[i], convs[i] = _mamba_layer_with_state(layer_params(params, i), x, cfg,
-                                                             dtype)
+                                                             dtype, group)
     return x, SSMCache(state=states, conv=convs)
 
 
@@ -521,17 +529,19 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, t: int,
     position, which every layer then reads); an ssm step overwrites each
     layer's state and conv window; a hybrid step does both, its shared
     block's invocation ``i // attn_every`` on that invocation's KV cache.
-    ``group``: the model ranks a dense model is split over, on this rank's
-    TP blocks, its KV cache split by sequence where ``cache_pspecs`` splits
-    it (:func:`repro_torch.models.layers.attention_decode`); the logits
-    are then this rank's vocabulary block. ``None`` on one card. ``data``:
+    ``group``: the model ranks a dense or SSM model is split over, on this
+    rank's TP blocks, a dense model's KV cache split by sequence where
+    ``cache_pspecs`` splits it (:func:`repro_torch.models.layers.attention_decode`),
+    an SSM model's state by heads and its conv window by channels
+    (``layers.mamba2_decode``); the logits are then this rank's vocabulary
+    block. ``None`` on one card. ``data``:
     the data ranks a MoE model's rows are split over, its tokens routed in
     the whole batch's groups."""
     check_ported(cfg)
     x = L.embed_lookup(params["embed"], token, dtype, group)
     t = int(t)
     if cfg.arch_type == "ssm":
-        x = _ssm_decode(params, cfg, x, cache, dtype)
+        x = _ssm_decode(params, cfg, x, cache, dtype, group=group)
     elif cfg.arch_type == "hybrid":
         every = cfg.hybrid.attn_every
         kv = cache.attn
@@ -566,16 +576,18 @@ def _block_decode(cfg: ModelConfig, lp, x, cache_k, cache_v, cache_pos, t: int, 
         return x + L.mlp_fwd(lp["mlp"], h_in, dtype, group)
 
 
-def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype, shared=None):
+def _ssm_decode(params, cfg: ModelConfig, x, cache: SSMCache, dtype, shared=None,
+                group: L.ModelGroup | None = None):
     """Every Mamba2 layer's step, its state and conv window overwritten in
-    place; ``shared(i, x)`` as in :func:`_ssm_prefill`."""
+    place; ``shared(i, x)`` as in :func:`_ssm_prefill`; ``group`` as in
+    :func:`decode_step`."""
     for i in range(cfg.n_layers):
         if shared is not None:
             x = shared(i, x)
         lp = layer_params(params, i)
         with record_function("lm.mamba"):
             h, st, cv = L.mamba2_decode(lp["mamba"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                        cache.state[i], cache.conv[i], dtype)
+                                        cache.state[i], cache.conv[i], dtype, group)
             cache.state[i].copy_(st)
             cache.conv[i].copy_(cv)
         x = x + h

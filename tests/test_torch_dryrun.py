@@ -5,11 +5,13 @@
   token and cache) held to the arithmetic of the REFERENCE's specs on
   ``jax.sharding.AbstractMesh`` (each leaf's block by its spec, in the
   dtype of the port's ``arg_structs``), and the residual carries to the
-  reference's ``auto_microbatches`` formula. Exact. A dense model's
-  serving steps split tensor-parallel over "model" instead
+  reference's ``auto_microbatches`` formula. Exact. A dense or SSM
+  model's serving steps split tensor-parallel over "model" instead
   (``sharding.tp_pspecs``), which 16 model ranks cannot do for any dense
   config: those records are skipped, naming the dimension, and their
-  weight bytes by the specs' blocks are still held to the reference's.
+  weight bytes by the specs' blocks are still held to the reference's;
+  mamba2-370m's 32 heads split 16 ways, so its serving records hold a
+  rank's TP blocks, held to their own arithmetic.
 - FLOPs: ``FlopCounterMode`` over a reduced step on meta tensors equals the
   count over the same step on real CPU tensors (train steps of four
   families, a decode step).
@@ -118,6 +120,17 @@ def _reference_bytes(arch: str, shape_name: str, names, sizes) -> dict:
     return out, residual
 
 
+def _ssm_tp_params_bytes(cfg, models: int) -> int:
+    """A rank's fp32 bytes of an SSM model's TP blocks over ``models``
+    model ranks: 1/M of every leaf but the B and C columns of ``in_proj``
+    and channels of ``conv_w`` and ``conv_b`` and the ``ln1`` and final
+    norms, which it holds whole."""
+    s, d, n_l = cfg.ssm, cfg.d_model, cfg.n_layers
+    whole = n_l * 2 * s.d_state * (d + s.conv_kernel + 1) + d * (n_l + 1)
+    total = sum(x.numel() for x in tree_leaves(params_structs(cfg)))
+    return 4 * ((total - whole) // models + whole)
+
+
 def _tp_undivided(arch, shape_name, models) -> bool:
     """Whether ``models`` model ranks cannot split ``arch``'s serving step
     tensor-parallel (a dense model's heads, kv heads, MLP width or
@@ -146,6 +159,9 @@ def test_per_rank_bytes_match_the_reference_specs(arch):
                 continue
             assert rec["status"] == "ok" and rec["n_devices"] == math.prod(sizes)
             want, residual = _reference_bytes(arch, shape_name, names, sizes)
+            cfg = tconfigs.get_config(arch, INPUT_SHAPES[shape_name])
+            if cfg.arch_type == "ssm" and INPUT_SHAPES[shape_name].kind != "train":
+                want["params"] = _ssm_tp_params_bytes(cfg, sizes[-1])  # served split
             mem = rec["memory"]
             by_argument = {k: v for k, v in mem["by_argument"].items()
                            if k not in ("coeffs", "noise_amp", "noise")}
@@ -202,26 +218,29 @@ def test_meta_flops_of_a_decode_step_match_real_tensors():
 
 
 def test_cli_writes_a_record_per_arch_shape_and_mesh(tmp_path, capsys):
-    """One arch, every shape, both production meshes and one card: every
-    record ``ok`` or ``skipped``; without a card the one-card records name
-    none; a train round's collectives on 16x16 (two gathers of every split
-    master, the statistics' gather, every gradient leaf and the loss
-    all-reduced, one broadcast), on one card the broadcast alone, none on
-    the pod mesh or for a serving step the rank ``Server`` refuses (an SSM
-    model over 16 model ranks), and a serving step on one card none."""
+    """One arch, every shape, both production meshes, 16 data ranks and one
+    card: every record ``ok`` or ``skipped``; without a card the one-card
+    records name none; a train round's collectives on 16x1, where the SSM
+    model computes whole (two gathers of every split master, the
+    statistics' gather, every gradient leaf and the loss all-reduced, one
+    broadcast), on 16x16 split tensor-parallel over 16 model ranks (32
+    heads: every serving record's collectives reckoned too), on one card the
+    broadcast alone, none on the pod mesh, and a serving step on one card
+    none."""
     out = tmp_path / "dry.jsonl"
     rc = dryrun.main(["--arch", "mamba2-370m", "--shape", "all", "--both-meshes",
-                      "--mesh", "1x1", "--no-flops", "--json", str(out)])
+                      "--mesh", "16x1", "--mesh", "1x1", "--no-flops", "--json", str(out)])
     assert rc == 0
     recs = [json.loads(line) for line in out.read_text().splitlines()]
-    assert len(recs) == 4 * 3 and {r["status"] for r in recs} == {"ok"}
-    assert "12 ok, 0 skipped, 0 failed" in capsys.readouterr().out
+    assert len(recs) == 4 * 4 and {r["status"] for r in recs} == {"ok"}
+    assert "16 ok, 0 skipped, 0 failed" in capsys.readouterr().out
     one = [r for r in recs if r["mesh"] == "1x1"]
     assert all(r["card"] is None and r["fits"] is None for r in one)
-    train = next(r for r in recs if r["mesh"] == "16x16" and r["shape"] == "train_4k")
+    train = next(r for r in recs if r["mesh"] == "16x1" and r["shape"] == "train_4k")
     cfg = tconfigs.get_config("mamba2-370m", "train_4k")
     structs = tree_leaves(params_structs(cfg))
     coll = train["collectives"]
+    assert train["compute_layout"] == "whole"
     assert coll["reduce"]["calls"] == len(structs) + 1 and coll["broadcast"]["calls"] == 1
     assert 0 < coll["gather"]["calls"] <= 2 * len(structs) + 1
     assert coll["gather"]["calls"] % 2 == 1  # the statistics' gather beside two of each leaf
@@ -233,8 +252,11 @@ def test_cli_writes_a_record_per_arch_shape_and_mesh(tmp_path, capsys):
     assert one_train["collectives"] == {"gather": {"calls": 0, "bytes": 0},
                                         "reduce": {"calls": 0, "bytes": 0},
                                         "broadcast": {"calls": 1, "bytes": 8 * (1 + 4)}}
-    assert all(r["collectives"] is None for r in recs
-               if r["mesh"] == "2x16x16" or (r["mesh"] == "16x16" and r["shape"] != "train_4k"))
+    assert all(r["collectives"] is None for r in recs if r["mesh"] == "2x16x16")
+    split = [r for r in recs if r["mesh"] == "16x16"]
+    assert all(r["collectives"]["reduce"]["calls"] > 0 for r in split)
+    assert {r["compute_layout"] for r in split} == {"tensor-parallel", None}
+    assert all(r["served_weight_bytes"] is not None for r in split if r["shape"] != "train_4k")
     none = {op: {"calls": 0, "bytes": 0} for op in ("gather", "reduce", "broadcast")}
     assert all(r["collectives"] == none for r in one if r["shape"] != "train_4k")
     skipped = dryrun.run_one("qwen2.5-14b", "long_500k", mesh="16x16", flops=False,
@@ -255,7 +277,8 @@ def test_dry_run_reckons_a_tensor_parallel_train_round():
     the q, k, v biases over "model". A rank computes on half of every
     split leaf. On the production mesh 16 model ranks do not divide the
     heads: the record keeps its bytes by the specs and names the
-    dimensions, with no collectives."""
+    dimensions, with no collectives. mamba2-370m on (1, 2) trains split
+    too (its reckoning: :func:`test_dry_run_reckons_tensor_parallel_mamba2`)."""
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.sharding import params_pspecs, sharded_bytes, to_shardings
     from repro_torch.models.transformer import CE_CHUNK
@@ -297,10 +320,10 @@ def test_dry_run_reckons_a_tensor_parallel_train_round():
     pmesh = ShapeMesh(("data", "model"), (16, 16))
     assert prod["memory"]["by_argument"]["params"] == sharded_bytes(
         params_structs(big), to_shardings(params_pspecs(params_structs(big), pmesh), pmesh))
-    whole = dryrun.run_one("mamba2-370m", "train_4k", mesh="1x2", flops=False, verbose=False)
-    ssm = params_structs(tconfigs.get_config("mamba2-370m", INPUT_SHAPES["train_4k"]))
-    assert whole["compute_layout"] == "whole"
-    assert whole["compute_weight_bytes"] == 4 * sum(x.numel() for x in tree_leaves(ssm))
+    ssm_rec = dryrun.run_one("mamba2-370m", "train_4k", mesh="1x2", flops=False, verbose=False)
+    ssm = tconfigs.get_config("mamba2-370m", INPUT_SHAPES["train_4k"])
+    assert ssm_rec["compute_layout"] == "tensor-parallel"
+    assert ssm_rec["compute_weight_bytes"] == _ssm_tp_params_bytes(ssm, 2) == 4 * 216_415_488
 
 
 def test_dry_run_reckons_a_moe_over_data_ranks():
@@ -348,3 +371,70 @@ def test_dry_run_reckons_a_moe_over_data_ranks():
     short = serve(build_prefill_step, InputShape("p", 64, 8, "prefill"))
     assert short["gather"] == {"calls": 16, "bytes": 16 * (2 * 8 * 256 * 4 // 2)}
     assert serve(build_serve_step, InputShape("d", 256, 128, "decode"), (1, 2)) is None
+
+
+def test_dry_run_reckons_tensor_parallel_mamba2():
+    """mamba2-370m on (1, 2), bf16: an 8 × 2,048 prefill runs the
+    embedding's all-reduce, a layer its norm statistic's (fp32, a value a
+    token) and out_proj's fp32 all-reduce and the gather of the conv
+    window's last 3 rows of every rank's x channels, and the greedy
+    token's gather; a decode_32k step (128 rows) the embedding's
+    all-reduce, a layer the gather of every rank's conv cache block and new
+    x channels (3 × 2,304 + 2,048 values a row) and the same two
+    all-reduces, and the greedy gather. A rank serves 433,032,704 bytes. A
+    train round at 2 layers (8 × 2,048, fp32, two probes) adds to the
+    dense reckoning's pattern each layer's norm statistic and, in the
+    backward, the input's, the statistic's and the B/C weight slices'
+    copies; it gathers every Mamba2 gradient leaf over "model". On the
+    production mesh the 16 model ranks split the 32 heads: the records are
+    reckoned, not skipped."""
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import params_pspecs, to_shardings
+    from repro_torch.models.transformer import CE_CHUNK
+
+    L_, rows, s, d, di, n = 48, 8, 2048, 1024, 2048, 128
+    prefill = dryrun.run_one("mamba2-370m", "prefill_32k", mesh="1x2", batch=rows, seq=s,
+                             flops=False, verbose=False)
+    coll = prefill["collectives"]
+    assert coll["reduce"] == {"calls": 1 + 2 * L_,
+                              "bytes": rows * s * d * 2 + L_ * (rows * s * 4 + rows * s * d * 4)}
+    assert coll["gather"] == {"calls": L_ + 1,
+                              "bytes": L_ * rows * 3 * di * 2 // 2 + 2 * rows * 16 // 2}
+    decode = dryrun.run_one("mamba2-370m", "decode_32k", mesh="1x2", flops=False,
+                            verbose=False)
+    coll, rows = decode["collectives"], 128
+    assert coll["reduce"] == {"calls": 1 + 2 * L_,
+                              "bytes": rows * d * 2 + L_ * (rows * 4 + rows * d * 4)}
+    assert coll["gather"] == {"calls": L_ + 1, "bytes": L_ * rows * (3 * (di + 2 * n) + di) * 2
+                              // 2 + 2 * rows * 16 // 2}
+    assert decode["served_weight_bytes"] == prefill["served_weight_bytes"] == 433_032_704
+
+    cfg = tconfigs.cut_depth(tconfigs.base_config("mamba2-370m"), 2)
+    mesh = ShapeMesh(("data", "model"), (1, 2))
+    bundle = build_train_step(cfg, InputShape("t", 2048, 8, "train"), mesh, adamw(1e-4),
+                              dtype=torch.float32)
+    coll = dryrun.rank_collectives(cfg, bundle, mesh, "all-gather", 8, dtype=torch.float32,
+                                   n_probes=2)
+    L_, rows = 2, 8
+    act, stat, ce = rows * s * d * 4, rows * s * 4, rows * CE_CHUNK * 4
+    layer = stat + act  # the norm statistic and out_proj
+    jvp = 2 * act + 2 * L_ * layer + 2 * 5 * ce
+    copies = act + stat + (d * 2 * n + 4 * 2 * n + 2 * n) * 4
+    step = (act + L_ * layer + 2 * 3 * ce) + (L_ * layer + 2 * 3 * ce) + (
+        L_ * copies + 2 * rows * CE_CHUNK * d * 4)
+    assert coll["reduce"] == {"calls": 3 * (2 + 4 * L_ + 10) + (1 + 2 * L_ + 6) + (2 * L_ + 6)
+                              + (5 * L_ + 2), "bytes": 3 * jvp + step}
+    structs = params_structs(cfg)
+    masters = tree_leaves(to_shardings(params_pspecs(structs, mesh), mesh))
+    split = [x for x, sh in zip(tree_leaves(structs), masters) if not sh.replicated()]
+    assert len(split) == 5  # embed, lm_head, in_proj, conv_w, out_proj
+    per_head, w = 16, di // 2  # a rank's heads, its x channels
+    blocks = {"in_proj": d * (2 * w + 2 * n + per_head), "conv_w": 4 * (w + 2 * n),
+              "conv_b": w + 2 * n, "A_log": per_head, "dt_bias": per_head, "D": per_head,
+              "norm": w, "out_proj": w * d}
+    assert coll["gather"] == {"calls": 2 * len(split) + len(blocks),
+                              "bytes": sum(x.numel() * 4 // 2 for x in split) * 2
+                              + sum(L_ * b * 4 for b in blocks.values())}
+    for shape in ("prefill_32k", "decode_32k", "train_4k"):
+        rec = dryrun.run_one("mamba2-370m", shape, mesh="16x16", flops=False, verbose=False)
+        assert rec["status"] == "ok" and rec["collectives"]["reduce"]["calls"] > 0

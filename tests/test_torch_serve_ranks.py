@@ -10,9 +10,9 @@ shape; every position below 100, ROADMAP C9). Reduced qwen2 (4 query heads,
 2 kv heads, d_ff 512, vocab 512) and mamba2 at 2 layers, fp32, weights
 converted from the reference by ``convert`` with biases and norm scales
 perturbed, a numpy prompt from a seed. The reference's result does not
-depend on the mesh. Over 2 model ranks qwen2 is split tensor-parallel:
-each rank holds its TP blocks (its heads, MLP columns and vocabulary
-block). Cases:
+depend on the mesh. Over 2 model ranks qwen2 and mamba2 are split
+tensor-parallel: each rank holds its TP blocks (its heads, MLP columns
+and vocabulary block; mamba2's SSM heads with B and C whole). Cases:
 
 - ``fill``: 4 rows, a 16-token prompt in a 24-slot cache on (2, 1) (two
   data ranks of 2 rows), (1, 2) (two model ranks of 12 slots: the prompt
@@ -21,7 +21,8 @@ block). Cases:
   slice is empty until the steps cross the boundary at position 8;
 - ``ring``: the reference's unpadded 8-slot cache on (1, 2): slot t % 8
   wraps onto rank 0's slots, then crosses into rank 1's;
-- ``mamba2``: on (2, 1), the state split by rows;
+- ``mamba2``: on (2, 1), the state split by rows; on (1, 2), the mixer
+  split by SSM heads, the state by heads and the conv window by channels;
 - ``olmoe``: reduced olmoe (4 experts, top-2) on (2, 1): each rank routes
   its rows in the whole batch's groups (the prefill's 64 tokens one group,
   each decode step's 4 tokens one group), gathering the other rank's
@@ -50,6 +51,7 @@ from repro.models import api as japi
 from repro.models import cache as jcache
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.flatten_util import tree_leaves
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import RankMesh, ShapeMesh
 from repro_torch.launch.sharding import (
@@ -70,6 +72,7 @@ CASES = {
     "short-1x2": ("qwen2-0.5b", 2, 2, 4, 16, 9, True),
     "ring-1x2": ("qwen2-0.5b", 2, 2, 8, None, 6, False),
     "mamba2-2x1": ("mamba2-370m", 2, 1, 16, None, 6, True),
+    "mamba2-1x2": ("mamba2-370m", 2, 2, 16, None, 6, True),
     "fill-2x2": ("qwen2-0.5b", 4, 2, 16, 24, 7, True),
     "olmoe-2x1": ("olmoe-1b-7b", 2, 1, 16, 24, 7, True),
 }
@@ -170,6 +173,11 @@ def _split_slots(case) -> bool:
     return case["cfg"].arch_type == "dense" and case["model"] == 2
 
 
+def _split(case) -> bool:
+    """Whether the case's model ranks split its model tensor-parallel."""
+    return case["model"] == 2
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_prefill_over_ranks_matches_reference(runs, name):
     """Each rank's first tokens and logits are the reference's for its
@@ -182,7 +190,7 @@ def test_prefill_over_ranks_matches_reference(runs, name):
         assert_close(rank["logits"], _rows(logits, case, coords))
         _assert_blocks(rank["prefill_cache"], cache, case, coords)
     block, whole = cache_leaves(got["ranks"][0]["prefill_cache"])[0], cache_leaves(cache)[0]
-    dim = 2 if _split_slots(case) else 1  # the slots over "model", else the rows over "data"
+    dim = 2 if _split(case) else 1  # the slots or SSM heads over "model", else the rows
     assert 2 * block.shape[dim] == whole.shape[dim]
     if name.startswith("short"):  # rank 1's slots hold no position yet
         pos = got["ranks"][1]["prefill_cache"].pos
@@ -245,7 +253,9 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     the sequence is split and two all-reduces a layer a step, the greedy
     token's gather, the gathers of the logits' vocabulary blocks; a MoE
     model's gather of the experts over "data" a layer in the prefill and
-    in each step; and the tokens' gather over "data"."""
+    in each step; and the tokens' gather over "data". Over model ranks a
+    Mamba2 layer runs its norm's and out_proj's all-reduces and its conv
+    window's gather in the prefill and in each step."""
     case, got, _ = runs[name]
     mesh, cfg = _mesh(case), case["cfg"]
     prompt = InputShape("prompt", case["tokens"].shape[1], B, "prefill")
@@ -256,8 +266,9 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
                                                            torch.float32),
                                      mesh, "all-gather", n_tokens=case["n_tokens"], logits=True)
     steps, n_layers = case["n_tokens"] - 1, cfg.n_layers
-    split = _split_slots(case)
-    assert decode["reduce"]["calls"] == (steps * (1 + 5 * n_layers) if split else 0)
+    split = _split(case)
+    per_layer = 5 if _split_slots(case) else 2  # the attention's combine, or neither
+    assert decode["reduce"]["calls"] == (steps * (1 + per_layer * n_layers) if split else 0)
     assert prefill["reduce"]["calls"] == (1 + 2 * n_layers if split else 0)
     assert (prefill["gather"]["calls"] > 0) == (split or case["load_blocks"])
     assert decode["gather"]["calls"] > 0  # the model group's, or the tokens' over "data"
@@ -276,7 +287,8 @@ def test_each_rank_serves_its_tp_blocks(runs, name):
     """Each rank's loaded weights are its TP blocks of the whole weights
     (over one model rank, the whole weights), loaded from whole weights or
     from its spec blocks alike; its bytes are 1/M of the split leaves and
-    the whole norms (``sharding.served_bytes``)."""
+    the whole norms, and mamba2's B and C columns and channels whole
+    (``sharding.served_bytes``)."""
     case, got, _ = runs[name]
     mesh, cfg = _mesh(case), case["cfg"]
     structs = params_structs(cfg)
@@ -288,21 +300,24 @@ def test_each_rank_serves_its_tp_blocks(runs, name):
             return {k: held(node[k], cut[k], coords) for k in node}
         return node[Sharding(mesh, cut.spec).index(coords, node.shape)]
 
-    norms = sum(x.numel() for k, x in _named_leaves(structs) if k == "scale")
-    split = sum(x.numel() for k, x in _named_leaves(structs) if k != "scale")
+    whole_leaves = sum(x.numel() for k, x in _named_leaves(structs) if k == "scale")
+    if case["model"] > 1 and cfg.arch_type == "ssm":  # the mixer's norm split, B and C whole
+        s, n_l = cfg.ssm, cfg.n_layers
+        whole_leaves += n_l * (2 * s.d_state * (cfg.d_model + s.conv_kernel + 1)
+                               - s.d_inner(cfg.d_model))
+    split = sum(x.numel() for x in tree_leaves(structs)) - whole_leaves
     for rank in got["ranks"]:
         want = held(whole, cuts, rank["coordinates"])
         pairs = list(zip(_named_leaves(rank["weights"]), _named_leaves(want), strict=True))
         assert all(torch.equal(g, w) for (_, g), (_, w) in pairs)
         nbytes = sum(g.numel() * g.element_size() for (_, g), _ in pairs)
         assert nbytes == served_bytes(structs, cuts, torch.float32)
-        assert nbytes == 4 * (split // case["model"] + norms)
+        assert nbytes == 4 * (split // case["model"] + whole_leaves)
 
 
 def _load_specs(cfg, mesh):
     """The Shardings of the weights' spec blocks a rank loads (the
     ``params_pspecs`` the server reads them by), as a list."""
-    from repro_torch.flatten_util import tree_leaves
     from repro_torch.launch.steps import _param_specs
 
     return tree_leaves(to_shardings(_param_specs(cfg, InputShape("s", 24, B, "decode"), mesh),
@@ -359,17 +374,16 @@ REFUSED = {  # arch → (data, model), and what the message names
     "zamba2-2.7b": ((2, 1), "hybrid"),
     "seamless-m4t-large-v2": ((2, 1), "cross_k"),
     "internvl2-76b": ((1, 1), "VLM"),
-    "mamba2-370m": ((1, 2), "SSM model over 2 model ranks"),
 }
 
 
 @pytest.mark.parametrize("arch", list(REFUSED))
 def test_serving_over_ranks_refuses_what_a14_10_holds(arch):
-    """Hybrid, enc-dec and VLM models on any mesh of ranks and an SSM or
-    MoE model over model ranks (a MoE model's waits for the expert split)
-    raise ``ValueError`` naming ROADMAP A14.10, in
-    both serving steps and in ``Server``; the dry run reckons none of
-    their collectives."""
+    """Hybrid, enc-dec and VLM models on any mesh of ranks and a MoE model
+    over model ranks (it waits for the expert split) raise ``ValueError``
+    naming ROADMAP A14.10, in both serving steps and in ``Server``; the dry
+    run reckons none of their collectives. A dense and an SSM model serve
+    on any mesh (``mamba2-1x2`` above runs the SSM split)."""
     from repro_torch.launch.serve import Server
 
     sizes, what = REFUSED[arch]
@@ -385,7 +399,10 @@ def test_serving_over_ranks_refuses_what_a14_10_holds(arch):
     shape_mesh = ShapeMesh(("data", "model"), sizes)
     assert dryrun.rank_collectives(cfg, build_serve_step(cfg, shape, shape_mesh),
                                    shape_mesh) is None
-    check_rank_serving(configs.reduced_config("qwen2-0.5b"), mesh)  # dense: any mesh
+    for arch in ("qwen2-0.5b", "mamba2-370m"):  # dense and SSM: any mesh
+        for sizes in ((1, 2), (2, 1), (2, 2)):
+            check_rank_serving(configs.reduced_config(arch),
+                               RankMesh(("data", "model"), sizes, device=torch.device("cpu")))
     for data in (1, 2):  # MoE and SSM: any mesh of one model rank
         for arch in ("olmoe-1b-7b", "mamba2-370m"):
             check_rank_serving(configs.reduced_config(arch),

@@ -79,10 +79,10 @@ def emulate_bf16_kernel(xdt, la, B, C, *, chunk, split=SPLIT):
     return y.reshape(b, s, h, p).bfloat16()
 
 
-# every bf16 case but the serving prefills (8 × 2,048 × 32 or 80 heads:
-# gigabytes on the CPU); full_width_bf16 is mamba2's width at two chunks,
-# n_64_bf16 zamba2's d_state
-SERVING_CASES = ("serving_bf16", "zamba2_serving_bf16")
+# every bf16 case but the serving prefills (8 × 2,048 × 32, 80 or a model
+# rank's 16 heads: gigabytes on the CPU); full_width_bf16 is mamba2's width
+# at two chunks, n_64_bf16 zamba2's d_state
+SERVING_CASES = ("serving_bf16", "zamba2_serving_bf16", "mamba2_prefill_tp2_bf16")
 PRECISION_CASES = [name for name, c in CHECK_CASES.items()
                    if c[6] == torch.bfloat16 and name not in SERVING_CASES]
 # where one rounding of each operand is tested: many chunks, near-0 decay

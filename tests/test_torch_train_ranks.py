@@ -8,8 +8,8 @@ Two gloo ranks run through the port's launcher
 qwen2 and reduced mamba2 at 2 layers, 4 FL devices, 8 × 16 tokens, fp32
 compute, on the (2, 1) mesh (two data ranks, two FL devices each) and the
 (1, 2) mesh (two model ranks: qwen2 split tensor-parallel on each rank's
-TP blocks, ``sharding.tp_pspecs``; mamba2 computing the same FL devices
-whole, as the SSM family still does over model ranks), and reduced olmoe
+TP blocks, ``sharding.tp_pspecs``, and mamba2's mixer split by SSM heads,
+B and C whole on every rank), and reduced olmoe
 (4 experts, top-2) on the (2, 1) mesh: each rank routes its 64 tokens in
 the batch's group of 128 over the data ranks, gathering the other's
 experts in every pass, and adds its share of the batch's load-balance
@@ -38,9 +38,9 @@ replayed. The reference's round does not depend on the mesh.
   equal the dry run's reckoning for that mesh
   (``launch.dryrun.rank_collectives``) over the rounds.
 - Every ``model_loss`` call of a rank's steps (the JVP passes and the
-  train step) gets its compute blocks: qwen2's TP blocks over two model
-  ranks, never a whole split leaf; the whole model elsewhere. Its
-  compute-weight bytes equal the dry run's.
+  train step) gets its compute blocks: qwen2's and mamba2's TP blocks over
+  two model ranks, never a whole split leaf; the whole model elsewhere.
+  Its compute-weight bytes equal the dry run's.
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
 from repro_torch.launch.sharding import Sharding, params_pspecs, to_shardings, tp_pspecs
-from repro_torch.launch.steps import build_train_step, params_structs
+from repro_torch.launch.steps import build_train_step, params_structs, tp_trains
 from repro_torch.models.config import InputShape
 from repro_torch.optim import optimizers as topt
 
@@ -295,7 +295,7 @@ def _blocks_of(tree, p_sh, coords):
 
 def _split(case) -> bool:
     """Whether the case's model ranks split its model tensor-parallel."""
-    return case["cfg"].arch_type == "dense" and case["model"] > 1
+    return tp_trains(case["cfg"], _mesh(case))
 
 
 @pytest.mark.parametrize("name", _sgd_names() + [f"{ARCHS[0]}-adamw-{m}" for m in MESHES])
@@ -304,9 +304,9 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
     wire bytes by the rank mesh as it ran, equal the dry run's reckoning of
     a round on that mesh (gloo on the CPU gathers by all-gather; fp32
     compute, the trainer's two probes) times the rounds: over model ranks
-    that split qwen2 the tensor-parallel all-reduces too, and over the data
-    ranks that route olmoe the load-balance loss's SUM and the experts'
-    gather a layer."""
+    that split qwen2 or mamba2 the tensor-parallel all-reduces too, and
+    over the data ranks that route olmoe the load-balance loss's SUM and
+    the experts' gather a layer."""
     case, got, _, _ = runs[name]
     mesh = _mesh(case)
     opt_name, lr = case["optimizer"]
@@ -332,8 +332,8 @@ def test_each_rank_runs_the_collectives_the_dry_run_reckons(runs, name):
 def test_each_rank_differentiates_its_compute_blocks(runs, name):
     """Every ``model_loss`` call of a rank's steps (1 + 2 JVP passes and
     the train step a round) gets its compute blocks: over model ranks that
-    split qwen2 each split leaf is its TP block, never the whole leaf,
-    and the norms whole; elsewhere the whole model. The rank's
+    split qwen2 or mamba2 each split leaf is its TP block, never the whole
+    leaf, and the norms whole; elsewhere the whole model. The rank's
     compute-weight bytes are the dry run's."""
     case, got, _, _ = runs[name]
     mesh = _mesh(case)

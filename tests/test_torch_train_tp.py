@@ -19,8 +19,10 @@ chunks cut to 16 rows on both sides so three chunks run.
 Besides: which master blocks a rank cuts from its compute blocks and which
 it gathers over "model" (``launch/steps.py::master_grads``), the training
 steps' refusal of model ranks that do not divide a split dimension, and
-the layout a rank trains in. The rank runs themselves (gloo, against the
-reference's ``train_round``) are ``tests/test_torch_train_ranks.py``.
+the layout a rank trains in (dense and SSM models split). The Mamba2
+mixer's split alone is ``tests/test_torch_ssm_tp.py``; the rank runs
+themselves (gloo, against the reference's ``train_round``) are
+``tests/test_torch_train_ranks.py``.
 """
 from __future__ import annotations
 
@@ -363,13 +365,17 @@ def test_training_steps_refuse_model_ranks_that_do_not_divide():
                          n_microbatches=1)
 
 
-def test_only_a_dense_model_over_model_ranks_trains_split():
-    """The rank steps split a dense model over M > 1 model ranks; over one
-    model rank, and every other family over any, they compute whole."""
+def test_dense_and_ssm_models_over_model_ranks_train_split():
+    """The rank steps split a dense and an SSM model over M > 1 model
+    ranks; over one model rank, and every other family over any, they
+    compute whole."""
     for arch in configs.ARCH_IDS:
         cfg = configs.reduced_config(arch)
         for sizes in ((2, 1), (1, 2), (2, 2)):
             mesh = ShapeMesh(("data", "model"), sizes)
-            assert tp_trains(cfg, mesh) == (cfg.arch_type == "dense" and sizes[1] > 1)
+            split = cfg.arch_type in ("dense", "ssm") and sizes[1] > 1
+            assert tp_trains(cfg, mesh) == split, (arch, sizes)
             sh = tree_leaves(compute_shardings(cfg, mesh, params_structs(cfg)))
-            assert all(s.replicated() for s in sh) == (not tp_trains(cfg, mesh))
+            assert all(s.replicated() for s in sh) == (not split)
+    for arch in ("qwen2-0.5b", "mamba2-370m"):
+        assert tp_trains(configs.base_config(arch), ShapeMesh(("data", "model"), (1, 2)))
